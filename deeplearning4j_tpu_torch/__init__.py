@@ -7,8 +7,9 @@ the JAX package. Every TPU kernel on a ported path has a hand-written
 Hopper kernel under ``csrc/`` with a plain PyTorch version beside it;
 the plain version runs only for tensors on the CPU.
 
-This slice serves the causal transformer LM through
-``GenerationEngine``'s slot backend. What is still to port is listed
+The causal transformer LM is served through ``GenerationEngine``'s
+slot backend and its paged backend (block pool, prefix sharing,
+sessions). What is still to port is listed
 in ``ROADMAP.md``.
 """
 from .device import resolve_device  # noqa: F401  (also pins TF32 off)

@@ -1,9 +1,10 @@
-"""KV-cache storage helpers: the f32/bf16 subset the slot cache uses.
+"""KV-cache storage helpers: the f32/bf16 subset the slot cache and
+the paged pool use.
 
 Counterpart of ``deeplearning4j_tpu/kernels/kv_quant.py``. The JAX
 helpers return updated arrays (the executables donate the caches);
-here :func:`kv_set` and :func:`kv_update_slice` write into the cache
-tensor in place and return it.
+here :func:`kv_set`, :func:`kv_update_slice` and :func:`kv_copy_row`
+write into the cache tensor in place and return it.
 
 The int8 cache (``QuantArray`` values with f32 scale sidecars) and the
 int8 weight-only matmul (``QuantWeight``, ``mm``) come with the int8
@@ -62,6 +63,17 @@ def kv_set(cache, idx, values):
     index tuple ``idx``, in place."""
     cache[idx] = values.to(cache.dtype)
     return cache
+
+
+def kv_copy_row(pool, src: int, dst: int):
+    """Copy leading-axis row ``src`` of ``pool`` into row ``dst`` in
+    place (a copy-on-write block duplicate) and return the pool. The
+    int8 leg, which must copy the scale row too, comes with ROADMAP.md
+    queue A, item 4."""
+    if pool.dtype not in _STORAGE.values():
+        raise NotImplementedError(_INT8_TODO)
+    pool[int(dst)].copy_(pool[int(src)])
+    return pool
 
 
 def kv_update_slice(cache, slab, start: Sequence[int]):

@@ -6,15 +6,15 @@ the JAX package's functional surface: each method takes an explicit
 params dict with weights shaped ``[in, out]`` and applied as
 ``x @ W``, so JAX weights carry over as a plain copy. The modules hold
 configuration, not weights. There is no dropout here (serving only);
-training, the paged cache, verify spans and chunked prefill come with
-later slices (ROADMAP.md queue A).
+training and verify spans come with later slices (ROADMAP.md queue A).
 
-The decode path writes each step's K/V into the cache tensors in
-place; the JAX code returned updated caches that the executables
-donated.
+The decode and paged-prefill paths write K/V into the cache or pool
+tensors in place; the JAX code returned updated caches that the
+executables donated.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -23,10 +23,48 @@ from torch import nn
 
 from ...kernels.decode_attention import decode_attention
 from ...kernels.flash_attention import flash_attention
-from ...kernels.kv_quant import kv_set
+from ...kernels.kv_quant import _INT8_TODO, kv_set
+from ...kernels.paged_attention import paged_attention
 from ...parallel.longseq import dot_product_attention
 from ...weightinit import init_weights
 from ..functional import layer_norm
+
+
+def _gather_span(pool, block_table, H, Dh):
+    """Gather a sequence's block-table span out of a paged pool into
+    one [H, T, Dh] panel (T = n_blocks * Bs)."""
+    return pool[block_table.long()].transpose(0, 1).reshape(H, -1, Dh)
+
+
+def _span_attend(q, kk, vv, gpos, p0c, out_dtype):
+    """Causal span attention over one gathered K/V panel, the math of
+    :meth:`SelfAttentionLayer.apply_prefill_paged` (counterpart of the
+    JAX ``_span_attend``, plain PyTorch as it was plain jnp there).
+
+    q: [C, H, Dh] span queries; kk/vv: [H, T, Dh] f32 or bf16 panels;
+    gpos: [C] global positions (row c sees keys j <= gpos[c]); p0c: the
+    first position NOT written by this sequence (p0 + C): V beyond it
+    is a previous occupant's stale leavings and may be non-finite, so
+    it is zeroed (0 * NaN = NaN). bf16 panels run bf16-operand products
+    with f32 accumulation."""
+    if kk.dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(_INT8_TODO)
+    H, T, Dh = kk.shape
+    scale = 1.0 / math.sqrt(Dh)
+    ar = torch.arange(T, device=kk.device)
+    valid = ar[None, None, :] <= gpos[None, :, None]
+    written = (ar < p0c)[None, :, None]
+    # bf16 products are exact in f32: an f32 einsum over bf16-rounded
+    # operands is the bf16 dot with f32 accumulation
+    bf16 = kk.dtype == torch.bfloat16
+    q = q.to(torch.bfloat16).float() if bf16 else q.float()
+    s = torch.einsum("chd,htd->hct", q, kk.float()) * scale
+    s = torch.where(valid, s, -1e30)
+    p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
+    if bf16:
+        p = p.to(torch.bfloat16).float()
+    vv = torch.where(written, vv.float(), 0.0)
+    return torch.einsum("hct,htd->chd", p, vv).to(out_dtype)
 
 
 class SelfAttentionLayer(nn.Module):
@@ -130,6 +168,66 @@ class SelfAttentionLayer(nn.Module):
         out = att.reshape(B, self.n_out) @ params["Wo"] + params["b"]
         return out, k_cache, v_cache
 
+    def apply_decode_paged(self, params, x, k_pool, v_pool, block_tables,
+                           pos):
+        """One cached decode step against the paged pool: write the
+        current token's K/V at ``pool[table[pos // Bs], :, pos % Bs]``
+        IN PLACE, attend over the prefix through the block table.
+        x: [B, C]; k_pool/v_pool: [N, H, Bs, Dh]; block_tables:
+        [B, n_blocks] int32 (NULL_BLOCK-padded); pos: [B]. Inactive
+        rows carry NULL_BLOCK tables, so their writes land in the null
+        block (several rows may write the same place there; which one
+        wins is undefined and nothing reads it). Returns (out
+        [B, n_out], k_pool, v_pool), the pools being the same
+        tensors."""
+        B = x.shape[0]
+        H = self.n_heads
+        Bs = k_pool.shape[2]
+        q, k_t, v_t = self._project(params, x, (B, H, self.n_out // H))
+        pos = pos.long()
+        blk = block_tables.long().gather(1, (pos // Bs)[:, None])
+        heads = torch.arange(H, device=x.device)[None, :]
+        idx = (blk, heads, (pos % Bs)[:, None])
+        kv_set(k_pool, idx, k_t)
+        kv_set(v_pool, idx, v_t)
+        att = paged_attention(q, k_pool, v_pool,
+                              block_tables.to(torch.int32),
+                              (pos + 1).to(torch.int32))
+        out = att.reshape(B, self.n_out) @ params["Wo"] + params["b"]
+        return out, k_pool, v_pool
+
+    def apply_prefill_paged(self, params, x, k_pool, v_pool, block_table,
+                            p0, chunk_len):
+        """One prefill CHUNK against the paged pool: project the chunk,
+        write its K/V into the owning blocks IN PLACE, and attend each
+        chunk query causally over the gathered prefix (earlier chunks +
+        this one). x: [1, C, Cin] (C is the chunk bucket); block_table:
+        [n_blocks] covering at least ``p0 + C`` positions (an index past
+        it raises: an undersized table is the one fatal case, because
+        the padded rows would alias another sequence's blocks); p0: the
+        chunk's first global position; chunk_len: its valid rows.
+        Padded rows write junk past the live length or into the null
+        block, where every reader's mask keeps it dark. Returns (out
+        [1, C, n_out], k_pool, v_pool)."""
+        if not self.causal:
+            raise ValueError("cached decode needs causal=True attention")
+        C = x.shape[1]
+        H = self.n_heads
+        Dh = self.n_out // H
+        Bs = k_pool.shape[2]
+        q, k_t, v_t = self._project(params, x[0], (C, H, Dh))
+        gpos = int(p0) + torch.arange(C, device=x.device)
+        blk = block_table.long()[gpos // Bs]
+        heads = torch.arange(H, device=x.device)[None, :]
+        idx = (blk[:, None], heads, (gpos % Bs)[:, None])
+        kv_set(k_pool, idx, k_t)
+        kv_set(v_pool, idx, v_t)
+        kk = _gather_span(k_pool, block_table, H, Dh)
+        vv = _gather_span(v_pool, block_table, H, Dh)
+        att = _span_attend(q, kk, vv, gpos, int(p0) + C, x.dtype)
+        out = att.reshape(C, self.n_out) @ params["Wo"] + params["b"]
+        return out[None], k_pool, v_pool
+
 
 class TransformerEncoderLayer(nn.Module):
     """Pre-LN transformer block: x + MHA(LN(x)); x + MLP(LN(x))."""
@@ -218,3 +316,23 @@ class TransformerEncoderLayer(nn.Module):
         att, k_cache, v_cache = self.attn.apply_decode(
             self._attn_params(params), h, k_cache, v_cache, pos)
         return self._mlp(params, x + att), k_cache, v_cache
+
+    def apply_decode_paged(self, params, x, k_pool, v_pool, block_tables,
+                           pos):
+        """One cached decode step through the block against the paged
+        pool (see :meth:`SelfAttentionLayer.apply_decode_paged`)."""
+        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+        att, k_pool, v_pool = self.attn.apply_decode_paged(
+            self._attn_params(params), h, k_pool, v_pool, block_tables,
+            pos)
+        return self._mlp(params, x + att), k_pool, v_pool
+
+    def apply_prefill_paged(self, params, x, k_pool, v_pool, block_table,
+                            p0, chunk_len):
+        """One prefill chunk through the block against the paged pool
+        (see :meth:`SelfAttentionLayer.apply_prefill_paged`)."""
+        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+        att, k_pool, v_pool = self.attn.apply_prefill_paged(
+            self._attn_params(params), h, k_pool, v_pool, block_table, p0,
+            chunk_len)
+        return self._mlp(params, x + att), k_pool, v_pool

@@ -1,15 +1,22 @@
-"""Continuous-batching autoregressive generation on the slot KV cache
-(counterpart of ``deeplearning4j_tpu/serving/generation.py``, slot
-backend, synchronous decode loop).
+"""Continuous-batching autoregressive generation (counterpart of
+``deeplearning4j_tpu/serving/generation.py``: the slot and paged
+backends, synchronous decode loop).
 
 Iteration-level scheduling (Orca, OSDI '22): every loop iteration the
 scheduler
 
-1. admits queued requests into free cache slots, one prefill each at
-   the request's power-of-two prompt bucket (the flash kernel on the
-   card),
-2. decodes ONE token for every active slot in a single batched step
-   (the decode-attention kernel on the card),
+1. admits queued requests. On the slot backend (``cache="slots"``)
+   each gets a cache slot and one prefill at its power-of-two prompt
+   bucket (the flash kernel on the card). On the paged backend
+   (``cache="paged"``) each claims a slot and its worst-case count of
+   pool blocks, all or nothing, after matching its prompt against the
+   prefix index and its session (matched blocks are shared by
+   refcount, a mid-block match tail is copied on write); one prefill
+   CHUNK of one admitted request then runs per iteration (Sarathi-
+   Serve), in plain PyTorch,
+2. decodes ONE token for every decode-ready slot in a single batched
+   step (the decode-attention kernel over slots, the paged-attention
+   kernel over the block pool),
 3. samples per slot (greedy / temperature / top-k, one uniform per
    request and step from ``fold_in(PRNGKey(seed), step)``, bit-identical
    to ``jax.random``, so results do not depend on slot or schedule),
@@ -26,8 +33,9 @@ Unlike the JAX loop, this one does not turn every exception into
 recompute-recovery: a failed device call (a kernel or launch error)
 fails the in-flight requests with that same error, so the caller sees
 it. The recovery ladder comes with the fault-tolerance slice
-(ROADMAP.md queue A, item 6.4). Prefill and decode write the KV cache
-in place; the JAX executables donated it.
+(ROADMAP.md queue A, item 6.4); on the paged backend the failed
+requests' blocks go back to the pool. Prefill, decode and copy-on-write
+write the KV cache in place; the JAX executables donated it.
 """
 from __future__ import annotations
 
@@ -35,20 +43,25 @@ import collections
 import queue
 import threading
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
+from typing import (Any, Callable, Dict, Iterator, List, Optional,
+                    Sequence, Tuple)
 
 import numpy as np
 import torch
 
 from .. import random as jrandom
 from ..faults import PoisonRequestError, poll_until_idle
-from ..kernels.kv_quant import canonical_kv_dtype, kv_update_slice
+from ..kernels.kv_quant import (canonical_kv_dtype, kv_copy_row,
+                                kv_update_slice)
 from ..profiler import OpProfiler
 from .batcher import (PRIORITIES, DeadlineExceededError, DrainingError,
                       QueueFullError)
 from .engine import ClientError, ServingError
 from .kvcache import KVCache, SlotTable
 from .metrics import GenerationMetrics
+from .paging import (NULL_BLOCK, BlockAllocator, BlockTable, PagedKVCache,
+                     PrefixIndex, SessionStore, blocks_for, chain_hashes,
+                     pow2_bucket)
 
 _NEG_INF = -1e30
 
@@ -97,17 +110,29 @@ def _uniforms(seeds: np.ndarray, steps: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # request
 # ---------------------------------------------------------------------------
+def _recovery_seq(req: "_GenRequest") -> np.ndarray:
+    """The K/V-valid prefix of a request: the prompt plus the emitted
+    tokens minus the last one, whose K/V the next decode step would
+    write. A finished session turn pins exactly this."""
+    if req.tokens:
+        return np.concatenate(
+            [req.prompt, np.asarray(req.tokens[:-1], req.prompt.dtype)])
+    return req.prompt
+
+
 class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
-                 "eos_id", "deadline", "priority", "event", "tokens",
-                 "error", "finish_reason", "stream_q", "t_submit",
+                 "eos_id", "deadline", "priority", "session_id", "event",
+                 "tokens", "error", "finish_reason", "stream_q", "t_submit",
                  "t_first", "t_last", "abandoned", "_lock",
                  "_timeout_counted")
 
     def __init__(self, prompt, max_tokens, temperature, top_k, seed,
                  eos_id, deadline, stream: bool,
-                 priority: str = "interactive"):
+                 priority: str = "interactive",
+                 session_id: Optional[str] = None):
         self.prompt = prompt
+        self.session_id = session_id
         self.max_tokens = max_tokens
         self.temperature = temperature
         self.top_k = top_k
@@ -198,20 +223,62 @@ class _TokenStream:
             pass
 
 
+class _ChunkState:
+    """One request mid-prefill on the paged backend: its slot, block
+    table, table bucket and chunk plan with a cursor. ``start`` is the
+    prefix-cache match length: positions below it already hold valid
+    K/V, so the plan begins there and ``done_tokens`` counts them as
+    live from admission on."""
+
+    __slots__ = ("req", "slot", "table", "tbl_bucket", "plan", "idx",
+                 "start")
+
+    def __init__(self, req: _GenRequest, slot: int, table: BlockTable,
+                 tbl_bucket: int, plan: List[Tuple[int, int, int]],
+                 start: int = 0):
+        self.req = req
+        self.slot = slot
+        self.table = table
+        self.tbl_bucket = tbl_bucket
+        self.plan = plan                  # [(p0, chunk bucket, len)]
+        self.idx = 0
+        self.start = start
+
+    @property
+    def done_tokens(self) -> int:
+        return self.plan[self.idx - 1][0] + self.plan[self.idx - 1][2] \
+            if self.idx else self.start
+
+
 # ---------------------------------------------------------------------------
 # engine
 # ---------------------------------------------------------------------------
 class GenerationEngine:
-    """Slot-based continuous-batching decode engine over a
+    """Continuous-batching decode engine over a
     :class:`~deeplearning4j_tpu_torch.zoo.transformer_lm.CausalTransformerLM`
     (or any model with its ``forward_prefill`` / ``forward_decode`` /
+    ``forward_prefill_chunk`` / ``forward_decode_paged`` /
     ``cache_shapes`` surface), on the model's device.
 
     ``num_slots`` bounds concurrent sequences (the batch of every
-    decode step); ``max_seq_len`` bounds prompt + generated tokens and
-    sizes the ``[num_slots, H, max_seq_len, Dh]`` cache. Arguments of
-    the JAX engine whose features are not ported yet raise
-    ``NotImplementedError`` naming their ROADMAP.md item.
+    decode step); ``max_seq_len`` bounds prompt + generated tokens.
+
+    - ``cache="slots"`` (default): dense per-slot panels
+      ``[num_slots, H, max_seq_len, Dh]``.
+    - ``cache="paged"``: a shared block pool ``[num_blocks, H,
+      block_size, Dh]`` (``serving/paging.py``). A request claims
+      ``ceil((prompt + max_tokens) / block_size)`` blocks at admission,
+      all or nothing, and waits at the queue head when they run out.
+      Prefill runs in chunks of at most ``prefill_chunk_tokens``
+      interleaved with decode steps. With ``enable_prefix_sharing``
+      (default on) admission matches the prompt against an LRU index of
+      chained-hashed full prompt blocks and against ``session_id``-
+      pinned turns; matched blocks join the request's table by
+      refcount and a mid-block match tail is copied on write. Tokens
+      are identical to the slot backend's.
+
+    Arguments of the JAX engine whose features are not ported yet
+    raise ``NotImplementedError`` naming their ROADMAP.md item.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -221,6 +288,12 @@ class GenerationEngine:
                  max_queue: int = 256,
                  default_timeout_ms: float = 60_000.0,
                  cache: str = "slots",
+                 block_size: int = 16,
+                 num_blocks: Optional[int] = None,
+                 prefill_chunk_tokens: Optional[int] = None,
+                 enable_prefix_sharing: bool = True,
+                 prefix_index_capacity: int = 1024,
+                 session_capacity: int = 64,
                  metrics: Optional[GenerationMetrics] = None,
                  fault_injector=None,
                  batch_queue_fraction: float = 0.5,
@@ -229,11 +302,10 @@ class GenerationEngine:
                  decode_pipeline: bool = False,
                  kv_dtype: str = "f32",
                  offload_host_bytes: int = 0):
-        if cache == "paged":
-            raise _todo("cache='paged'", "6.2")
-        if cache != "slots":
+        if cache not in ("slots", "paged"):
             raise ValueError(f"cache must be 'slots' or 'paged', "
                              f"got {cache!r}")
+        self.cache_backend = cache
         self.kv_dtype = canonical_kv_dtype(kv_dtype)
         if self.kv_dtype == "int8":
             raise _todo("kv_dtype='int8'", "4")
@@ -277,12 +349,17 @@ class GenerationEngine:
                 self.prompt_buckets[-1] > self.max_seq_len:
             raise ValueError(f"prompt_buckets {self.prompt_buckets} "
                              f"outside [1, max_seq_len]")
+        self.enable_prefix_sharing = False
+        self.prefill_chunk_tokens = None
+        if cache == "paged":
+            self._init_paged(block_size, num_blocks, prefill_chunk_tokens,
+                             enable_prefix_sharing, prefix_index_capacity,
+                             session_capacity)
         self.metrics = metrics or GenerationMetrics()
         self.metrics.queue_max = int(max_queue)
         self.metrics.num_slots = self.num_slots
-        self._cache = KVCache(model.cache_shapes(self.max_seq_len),
-                              self.num_slots, kv_dtype=self.kv_dtype,
-                              device=self.device)
+        self.metrics.cache_backend = self.cache_backend
+        self._cache = self._fresh_cache()
         self.metrics.cache_bytes = self._cache.nbytes()
         self.metrics.kv_dtype = self.kv_dtype
         self.metrics.kv_bits = {"f32": 32, "bf16": 16}[self.kv_dtype]
@@ -290,6 +367,11 @@ class GenerationEngine:
         self._kcs = self._cache.ks
         self._vcs = self._cache.vs
         self._slots = SlotTable(self.num_slots)
+        if cache == "paged":
+            self.metrics.block_size = self.block_size
+            self.metrics.blocks_total = self._allocator.capacity
+            self.metrics.prefix_sharing = self.enable_prefix_sharing
+            self._update_block_gauges()
         self._profiler = OpProfiler.get_instance()
         # cost-aware admission: EWMAs of measured prefill ms per padded
         # prompt token and decode ms per step (0.0 until measured, so
@@ -316,6 +398,102 @@ class GenerationEngine:
                                         name="generation-scheduler")
         self._thread.start()
 
+    def _init_paged(self, block_size, num_blocks, prefill_chunk_tokens,
+                    enable_prefix_sharing, prefix_index_capacity,
+                    session_capacity):
+        """Paged-backend configuration and host bookkeeping."""
+        self.block_size = int(block_size)
+        if not 1 <= self.block_size <= self.max_seq_len:
+            raise ValueError(f"block_size {block_size} outside "
+                             f"[1, max_seq_len]")
+        # dense decode-table width: every position < max_seq_len has an
+        # entry, so one table shape serves every decode step
+        self._blocks_per_seq = blocks_for(self.max_seq_len,
+                                          self.block_size)
+        if num_blocks is None:
+            # dense-equivalent capacity (+1 for the null block)
+            num_blocks = self.num_slots * self._blocks_per_seq + 1
+        self.num_blocks = int(num_blocks)
+        # chunk ladder: the prompt buckets capped at the chunk size;
+        # prefill_chunk_tokens=None means one chunk per prompt
+        cap = self.prompt_buckets[-1]
+        if prefill_chunk_tokens is not None:
+            if int(prefill_chunk_tokens) < 1:
+                raise ValueError("prefill_chunk_tokens must be >= 1")
+            cap = min(pow2_bucket(int(prefill_chunk_tokens)), cap)
+            self.prefill_chunk_tokens = cap
+        self._chunk_cap = cap
+        self.chunk_buckets = sorted(
+            set(b for b in self.prompt_buckets if b < cap) | {cap})
+        # largest per-request table bucket: the last chunk's bucket can
+        # overshoot the allocation by < chunk_cap, and the overshoot
+        # must stay inside the table. Indexing past a table raises (JAX
+        # clamped to the last entry, a real block), so an undersized
+        # table fails loudly instead of aliasing live data
+        self._tbl_top = pow2_bucket(blocks_for(self.max_seq_len + cap,
+                                               self.block_size))
+        self._allocator = BlockAllocator(self.num_blocks)
+        self._tables = np.full((self.num_slots, self._blocks_per_seq),
+                               NULL_BLOCK, np.int32)
+        self._slot_blocks: List[Optional[BlockTable]] = \
+            [None] * self.num_slots
+        self._prefilling: "collections.deque[_ChunkState]" = \
+            collections.deque()
+        self._held: Optional[_GenRequest] = None
+        # prefix sharing: chained-hash index over full prompt blocks
+        # and session pins, both scheduler-thread state
+        self.enable_prefix_sharing = bool(enable_prefix_sharing)
+        self._prefix_index = PrefixIndex(int(prefix_index_capacity))
+        self._sessions = SessionStore(int(session_capacity))
+
+    def _fresh_cache(self):
+        """The slot cache sized to the engine's max_seq_len, or the
+        block pool with ``model.cache_shapes(block_size)`` per block."""
+        if self.cache_backend == "paged":
+            return PagedKVCache(self.model.cache_shapes(self.block_size),
+                                self.num_blocks, kv_dtype=self.kv_dtype,
+                                device=self.device)
+        return KVCache(self.model.cache_shapes(self.max_seq_len),
+                       self.num_slots, kv_dtype=self.kv_dtype,
+                       device=self.device)
+
+    def _update_block_gauges(self):
+        """Push allocator and liveness gauges into the metrics.
+        ``kv_tokens_live`` counts each unique block once at its largest
+        valid fill across owners, so a shared prefix is not counted
+        twice."""
+        a = self._allocator
+        self.metrics.blocks_free = a.free_count
+        self.metrics.blocks_peak_used = a.peak_used
+        bs = self.block_size
+        fill: Dict[int, int] = {}
+
+        def cover(blocks, n_tokens):
+            for i, b in enumerate(blocks):
+                f = min(bs, int(n_tokens) - i * bs)
+                if f <= 0:
+                    break
+                if f > fill.get(b, 0):
+                    fill[b] = f
+
+        st = self._slots
+        for s in range(self.num_slots):
+            if st.requests[s] is not None and st.step[s] > 0:
+                t = self._slot_blocks[s]
+                if t is not None:
+                    cover(t.blocks, int(st.pos[s]) + 1)
+        for c in self._prefilling:
+            cover(c.table.blocks, c.done_tokens)
+        for blocks, n in self._sessions.iter_pins():
+            cover(blocks, n)
+        for b in self._prefix_index.blocks():
+            fill[b] = bs  # indexed blocks are full prompt blocks
+        self.metrics.kv_tokens_live = sum(fill.values())
+        self.metrics.kv_tokens_allocated = a.used_count * bs
+        self.metrics.shared_blocks = a.shared_count
+        self.metrics.prefix_blocks = len(self._prefix_index)
+        self.metrics.sessions_live = len(self._sessions)
+
     # -- device calls ----------------------------------------------------
     def _prefill_call(self, tokens: np.ndarray, length: int, slot: int,
                       req: _GenRequest):
@@ -338,16 +516,45 @@ class GenerationEngine:
             kv_update_slice(kc, k, (slot, 0, 0, 0))
         for vc, v in zip(self._vcs, vs):
             kv_update_slice(vc, v, (slot, 0, 0, 0))
+        return self._sample_first(logits[0, length - 1], ok, req)
+
+    def _chunk_call(self, tokens: np.ndarray, p0: int, clen: int,
+                    table: np.ndarray, req: _GenRequest):
+        """One prefill chunk on the paged pool: K/V written into the
+        request's blocks in place, and the row ``clen - 1`` sampled at
+        the step-0 fold (used only on the final chunk). Returns (that
+        token, the valid rows' logits all finite)."""
+        dev = self.device
+        logits, _, _ = self.model.forward_prefill_chunk(
+            self.model._params, torch.from_numpy(tokens).to(dev), p0, clen,
+            self._kcs, self._vcs, torch.from_numpy(table).to(dev))
+        # guard only rows < clen: padded rows attend positions past the
+        # live length, stale junk that may be anything
+        ok = torch.isfinite(logits[:clen]).all()
+        return self._sample_first(logits[clen - 1], ok, req)
+
+    def _sample_first(self, row, ok, req: _GenRequest):
+        """Sample generation token #1 from the prompt's last logits row
+        at the step-0 fold. Returns (token, ok) after one device sync."""
+        dev = self.device
         u = (_uniforms(np.array([req.seed], np.uint32),
                        np.zeros(1, np.int32))
              if req.temperature > 0 else torch.zeros(1))
         first = _sample_from_logits(
-            logits[0, length - 1][None],
+            row[None],
             torch.tensor([req.temperature], dtype=torch.float32,
                          device=dev),
             torch.tensor([req.top_k], device=dev), u.to(dev))[0]
         out = torch.stack([first, ok.to(torch.int64)]).cpu()  # device sync
         return int(out[0]), bool(out[1])
+
+    def _cow(self, src: int, dst: int):
+        """Copy pool block ``src`` into ``dst`` (every layer, K and V)
+        so the admitted request writes into its private copy while
+        every other reader of ``src`` sees it bit-unchanged."""
+        with self._profiler.record("generation.cow"):
+            for pool in self._kcs + self._vcs:
+                kv_copy_row(pool, src, dst)
 
     def _decode_call(self):
         """One decode step over the full slot batch. Returns host arrays
@@ -358,8 +565,13 @@ class GenerationEngine:
             [st.token, st.pos, st.top_k, st.eos, st.step,
              st.max_steps]).astype(np.int64)).to(dev)
         tok, pos, top_ks, eos, steps, max_steps = ints
-        logits, _, _ = self.model.forward_decode(
-            self.model._params, tok, pos, self._kcs, self._vcs)
+        if self.cache_backend == "paged":
+            logits, _, _ = self.model.forward_decode_paged(
+                self.model._params, tok, pos, self._kcs, self._vcs,
+                torch.from_numpy(self._tables).to(dev))
+        else:
+            logits, _, _ = self.model.forward_decode(
+                self.model._params, tok, pos, self._kcs, self._vcs)
         ok = torch.isfinite(logits).all(dim=-1)  # per lane
         # greedy lanes ignore their uniform: skip the draws when no
         # lane samples
@@ -373,16 +585,45 @@ class GenerationEngine:
         return out[0], out[1].astype(bool), out[2].astype(bool)
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> List[int]:
-        """Run every prefill bucket and one decode step once, on the
-        scheduler thread and on scratch tensors, so the first requests
-        pay no one-time costs (kernel build and load, library handles).
-        Returns the warmed bucket list."""
-        buckets = sorted(set(int(x) for x in (buckets
-                                              or self.prompt_buckets)))
+        """Run every prefill bucket (paged: every chunk bucket) and one
+        decode step once, on the scheduler thread and on scratch
+        tensors, so the first requests pay no one-time costs (kernel
+        build and load, library handles). Returns the warmed bucket
+        list."""
+        paged = self.cache_backend == "paged"
+        ladder = self.chunk_buckets if paged else self.prompt_buckets
+        buckets = sorted(set(int(x) for x in (buckets or ladder)))
         for b in buckets:
-            if b not in self.prompt_buckets:
-                raise ValueError(f"bucket {b} not in prompt_buckets "
-                                 f"{self.prompt_buckets}")
+            if b not in ladder:
+                raise ValueError(
+                    f"bucket {b} not in "
+                    f"{'chunk_buckets' if paged else 'prompt_buckets'} "
+                    f"{ladder}")
+
+        def paged_job():
+            dev, model = self.device, self.model
+            params = model._params
+            bs = self.block_size
+            # null block + one block: every scratch table entry is NULL
+            scratch = PagedKVCache(model.cache_shapes(bs), 2,
+                                   kv_dtype=self.kv_dtype, device=dev)
+            for c in buckets:
+                tbl = torch.full((pow2_bucket(blocks_for(c, bs)),),
+                                 NULL_BLOCK, dtype=torch.int32, device=dev)
+                model.forward_prefill_chunk(
+                    params, torch.zeros((1, c), dtype=torch.int64,
+                                        device=dev), 0, c, scratch.ks,
+                    scratch.vs, tbl)
+                self._hot_buckets.add(c)
+            S = self.num_slots
+            z = torch.zeros(S, dtype=torch.int64, device=dev)
+            model.forward_decode_paged(
+                params, z, z, scratch.ks, scratch.vs,
+                torch.full((S, self._blocks_per_seq), NULL_BLOCK,
+                           dtype=torch.int32, device=dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            self._decode_hot = True
 
         def job():
             dev, model = self.device, self.model
@@ -401,7 +642,7 @@ class GenerationEngine:
                 torch.cuda.synchronize(dev)
             self._decode_hot = True
 
-        self._run_on_scheduler(job)
+        self._run_on_scheduler(paged_job if paged else job)
         self.metrics.warmed_buckets = sorted(
             set(self.metrics.warmed_buckets) | set(buckets))
         return buckets
@@ -436,8 +677,18 @@ class GenerationEngine:
             raise ClientError(f"unknown priority {priority!r}; expected "
                               f"one of {PRIORITIES}")
         if session_id is not None:
-            raise ClientError("session_id requires the paged cache "
-                              "backend (cache='paged')")
+            if not isinstance(session_id, str) or not session_id:
+                raise ClientError("session_id must be a non-empty "
+                                  "string")
+            if len(session_id) > 256:
+                raise ClientError("session_id must be <= 256 chars")
+            if self.cache_backend != "paged":
+                raise ClientError("session_id requires the paged cache "
+                                  "backend (cache='paged')")
+            if not self.enable_prefix_sharing:
+                raise ClientError(
+                    "session_id requires prefix sharing "
+                    "(enable_prefix_sharing=True)")
         if self._draining:
             self.metrics.inc("shed")
             raise DrainingError("generation engine is draining; retry "
@@ -483,6 +734,15 @@ class GenerationEngine:
                 "unfiltered sampling")
         # the cache slot is the hard budget: prompt + generation fit it
         max_tokens = min(max_tokens, self.max_seq_len - len(prompt))
+        if self.cache_backend == "paged":
+            need = blocks_for(len(prompt) + max_tokens, self.block_size)
+            if need > self._allocator.capacity:
+                # no pool state could ever admit it: reject up front
+                # rather than hold it at the queue head forever
+                raise ClientError(
+                    f"request needs {need} KV blocks but the pool has "
+                    f"{self._allocator.capacity}; lower max_tokens or "
+                    "grow num_blocks")
         if eos_id is None:
             eos_id = getattr(self.model, "eos_id", None)
         timeout = (self.default_timeout_ms if timeout_ms is None
@@ -500,15 +760,23 @@ class GenerationEngine:
         return _GenRequest(prompt, max_tokens, temperature, top_k,
                            int(seed) & 0xFFFFFFFF, eos_id,
                            time.perf_counter() + timeout, stream,
-                           priority=priority)
+                           priority=priority, session_id=session_id)
 
     def _bucket(self, prompt_len: int) -> int:
         return next(b for b in self.prompt_buckets if b >= prompt_len)
 
+    def _padded_prefill_len(self, prompt_len: int) -> int:
+        """Prompt positions the device computes over: the sum of the
+        chunk plan's buckets (paged) or the prompt bucket (slots)."""
+        if self.cache_backend == "paged":
+            return sum(b for _, b, _ in self._chunk_plan(prompt_len))
+        return self._bucket(prompt_len)
+
     def _est_cost_ms(self, prompt_len: int, max_tokens: int) -> float:
         """Worst-case service estimate from measured rates: prefill of
         the padded prompt plus ``max_tokens`` decode steps."""
-        return (self._bucket(prompt_len) * self._prefill_ms_per_tok
+        return (self._padded_prefill_len(prompt_len)
+                * self._prefill_ms_per_tok
                 + max_tokens * self._decode_ewma_ms)
 
     def _deadline_blown(self, req: _GenRequest,
@@ -516,7 +784,7 @@ class GenerationEngine:
         """True when the time left cannot cover even a first token
         (prefill plus one decode step at measured rates)."""
         now = time.perf_counter() if now is None else now
-        min_work_ms = (self._bucket(len(req.prompt))
+        min_work_ms = (self._padded_prefill_len(len(req.prompt))
                        * self._prefill_ms_per_tok + self._decode_ewma_ms)
         return now > req.deadline - min_work_ms / 1e3
 
@@ -628,13 +896,26 @@ class GenerationEngine:
             req.stream_q.put(("token", token))
 
     def _release_slot(self, slot: int):
-        """Free a slot; no zeroing (see serving/kvcache.py)."""
+        """Free a slot and (paged) its blocks and decode-table row. No
+        zeroing either way (see serving/kvcache.py, serving/paging.py)."""
         self._slots.free(slot)
+        if self.cache_backend == "paged":
+            table = self._slot_blocks[slot]
+            if table is not None:
+                self._allocator.free(table.blocks)
+                self._slot_blocks[slot] = None
+            self._tables[slot] = NULL_BLOCK
+            self._update_block_gauges()
         self.metrics.active_slots = self._slots.active_count
 
     def _finish(self, slot: int, req: _GenRequest, reason: str):
         req.finish_reason = reason
-        self._release_slot(slot)
+        if req.session_id is not None and self.enable_prefix_sharing:
+            # a clean finish with a session pins its blocks for the next
+            # turn; failure paths release through _release_slot
+            self._pin_session(slot, req)
+        else:
+            self._release_slot(slot)
         if req.stream_q is not None:
             req.stream_q.put(("done", reason))
         req.event.set()
@@ -702,6 +983,8 @@ class GenerationEngine:
     def _admit(self):
         """Fill free slots from the queue. An exception from a prefill
         device call propagates to :meth:`_loop`."""
+        if self.cache_backend == "paged":
+            return self._admit_paged()
         while self._running and self._slots.free_count and not self._jobs:
             req = self._next_queued(busy=bool(self._slots.active_count))
             if req is None:
@@ -736,12 +1019,7 @@ class GenerationEngine:
             self._fail(req, e)
             raise
         dt_ms = (time.perf_counter() - t0) * 1e3
-        self.metrics.prefill_ms.record(dt_ms)
-        if bucket in self._hot_buckets:
-            self._prefill_ms_per_tok = dt_ms / bucket \
-                if not self._prefill_ms_per_tok else \
-                0.8 * self._prefill_ms_per_tok + 0.2 * dt_ms / bucket
-        self._hot_buckets.add(bucket)
+        self._note_prefill_cost(dt_ms, bucket)
         self.metrics.inc("prefills")
         self.metrics.prompt_bucket_hist.record(bucket)
         if not ok:
@@ -754,23 +1032,309 @@ class GenerationEngine:
                 "request produced non-finite logits during prefill; "
                 "quarantined"))
             return
+        self._start_decode(slot, req, first)
+
+    def _start_decode(self, slot: int, req: _GenRequest, first: int):
+        """Make a prefilled request a decode lane and deliver its first
+        token (prefill's token is generated token #1)."""
         st = self._slots
         st.token[slot] = first
-        st.pos[slot] = L          # where the next token's K/V goes
-        st.step[slot] = 1         # the PRNG fold of the next sample
+        st.pos[slot] = len(req.prompt)  # where the next token's K/V goes
+        st.step[slot] = 1               # the PRNG fold of the next sample
         st.seed[slot] = req.seed
         st.temp[slot] = req.temperature
         st.top_k[slot] = req.top_k
         st.eos[slot] = -1 if req.eos_id is None else req.eos_id
         st.max_steps[slot] = req.max_tokens
         self.metrics.active_slots = st.active_count
-        self.metrics.tokens.record(1)  # prefill's token is token #1
+        if self.cache_backend == "paged":
+            self._update_block_gauges()
+        self.metrics.tokens.record(1)
         self._emit(req, first, time.perf_counter())
         self._check_done(slot, req, first)
 
+    def _note_prefill_cost(self, dt_ms: float, bucket: int):
+        """Record one prefill (or chunk) call and feed the per-token
+        EWMA, except from a bucket's first call, which pays one-time
+        costs."""
+        self.metrics.prefill_ms.record(dt_ms)
+        if bucket in self._hot_buckets:
+            self._prefill_ms_per_tok = dt_ms / bucket \
+                if not self._prefill_ms_per_tok else \
+                0.8 * self._prefill_ms_per_tok + 0.2 * dt_ms / bucket
+        self._hot_buckets.add(bucket)
+
+    # -- paged backend ---------------------------------------------------
+    def _chunk_plan(self, prompt_len: int,
+                    start: int = 0) -> List[Tuple[int, int, int]]:
+        """Split a prompt into (start, chunk bucket, valid length)
+        pieces: full ``_chunk_cap`` chunks, then the remainder in the
+        smallest chunk bucket that holds it. ``start`` > 0 (a prefix
+        match) skips the matched tokens."""
+        plan = []
+        p0 = int(start)
+        while p0 < prompt_len:
+            rem = prompt_len - p0
+            if rem >= self._chunk_cap:
+                bucket = clen = self._chunk_cap
+            else:
+                bucket = next(c for c in self.chunk_buckets if c >= rem)
+                clen = rem
+            plan.append((p0, bucket, clen))
+            p0 += clen
+        return plan
+
+    def _match_prefix(self, req: _GenRequest
+                      ) -> Tuple[int, List[int], Optional[int]]:
+        """Longest cached prefix of the prompt -> ``(match_len,
+        shared_blocks, cow_src)``. The session store is consulted first
+        (token-granular), then the prefix index (block-granular).
+        ``shared_blocks`` are matched full blocks the request reads
+        through its table; ``cow_src`` holds the matched tail when the
+        match ends mid-block, and admission copies it into a private
+        block because the request writes there from ``match_len`` on.
+        ``match_len`` is capped at len(prompt) - 1: the last prompt
+        position is computed to sample the first token."""
+        if not self.enable_prefix_sharing:
+            return 0, [], None
+        bs = self.block_size
+        prompt = req.prompt
+        L = len(prompt)
+        if req.session_id is not None:
+            sess = self._sessions.get(req.session_id)
+            if sess is not None:
+                stored = sess.tokens
+                n = min(len(stored), L - 1)
+                neq = stored[:n] != prompt[:n]
+                m = int(np.argmax(neq)) if neq.any() else n
+                if m > 0:
+                    self.metrics.inc("session_hits")
+                    self.metrics.inc("prefix_hits")
+                    self.metrics.inc("prefix_tokens_matched", m)
+                    cow = sess.blocks[m // bs] if m % bs else None
+                    return m, list(sess.blocks[:m // bs]), cow
+            self.metrics.inc("session_misses")
+        matched = self._prefix_index.match(chain_hashes(prompt, bs))
+        if not matched:
+            return 0, [], None
+        m = len(matched) * bs
+        cow = None
+        if m >= L:
+            # a block-aligned prompt matched whole: keep its last block
+            # as a COW source so only the final position re-prefills
+            m = L - 1
+            matched, cow = matched[:m // bs], matched[m // bs]
+        self.metrics.inc("prefix_hits")
+        self.metrics.inc("prefix_tokens_matched", m)
+        return m, list(matched), cow
+
+    def _evict_one_pin(self) -> bool:
+        """Release ONE cache pin under block pressure: the LRU prefix
+        index entry first, then the LRU session. False when nothing is
+        evictable."""
+        b = self._prefix_index.evict_lru()
+        if b is not None:
+            self._allocator.free([b])
+            self.metrics.inc("prefix_evictions")
+            return True
+        sess = self._sessions.evict_lru()
+        if sess is not None:
+            self._allocator.free(sess.blocks)
+            self.metrics.inc("session_evictions")
+            return True
+        return False
+
+    def _alloc_with_eviction(self, n: int) -> Optional[List[int]]:
+        """All-or-nothing alloc that reclaims cache pins under pressure
+        (in-flight requests outrank caching). None only when even an
+        evicted pool cannot cover ``n``."""
+        while True:
+            blocks = self._allocator.alloc(n)
+            if blocks is not None:
+                return blocks
+            if not self._evict_one_pin():
+                return None
+
+    def _admit_paged(self):
+        """Paged admission: claim a slot AND the request's worst-case
+        block count, all or nothing. When blocks run out the request is
+        HELD at the queue head (FIFO) until retirements free blocks.
+        Admission only starts the prefill; chunks run one per loop
+        iteration. A failed copy-on-write propagates to :meth:`_loop`
+        after returning this request's blocks."""
+        while self._running and self._slots.free_count and not self._jobs:
+            if self._held is not None:
+                req, self._held = self._held, None
+            else:
+                req = self._next_queued(
+                    busy=bool(self._slots.active_count
+                              or self._prefilling))
+                if req is None:
+                    return
+                self.metrics.queue_depth = self._queue.qsize()
+            if req.abandoned:
+                continue
+            if self._deadline_blown(req):
+                self.metrics.inc("shed_deadline")
+                self._fail(req, DeadlineExceededError(
+                    "deadline budget exhausted in the generation queue"))
+                continue
+            L = len(req.prompt)
+            need = blocks_for(L + req.max_tokens, self.block_size)
+            match_len, shared, cow_src = self._match_prefix(req)
+            pinned = shared + ([cow_src] if cow_src is not None else [])
+            if pinned:
+                # pin the matched blocks BEFORE allocating: the alloc
+                # may evict the index or session entries that own them,
+                # and an evicted match must not come back as someone's
+                # fresh block while this request still reads it
+                self._allocator.share(pinned)
+            fresh = self._alloc_with_eviction(need - len(shared))
+            if fresh is None:
+                if pinned:
+                    self._allocator.free(pinned)
+                self._held = req
+                return
+            if cow_src is not None:
+                # the match ends mid-block: the request writes positions
+                # >= match_len there, so it gets a private copy (its
+                # first fresh block) and drops its pin on the original
+                try:
+                    self._cow(cow_src, fresh[0])
+                except Exception as e:
+                    self._allocator.free(pinned + fresh)
+                    self._fail(req, e)
+                    raise
+                self._allocator.free([cow_src])
+                self.metrics.inc("cow_copies")
+            table = BlockTable(shared + fresh, self.block_size)
+            plan = self._chunk_plan(L, start=match_len)
+            # the table bucket also covers the last chunk's padded tail:
+            # rows inside the allocation land past the live length,
+            # rows past it on NULL entries, never on another request's
+            # blocks
+            span = max(L + req.max_tokens, plan[-1][0] + plan[-1][1])
+            tbl_bucket = pow2_bucket(blocks_for(span, self.block_size),
+                                     cap=self._tbl_top)
+            slot = self._slots.alloc(req)
+            self._slot_blocks[slot] = table
+            self._prefilling.append(_ChunkState(
+                req, slot, table, tbl_bucket, plan, start=match_len))
+            self.metrics.active_slots = self._slots.active_count
+            self._update_block_gauges()
+
+    def _prefill_chunk_step(self):
+        """Run ONE prefill chunk of the oldest mid-prefill request. A
+        failed device call fails that request, returns its blocks and
+        propagates to :meth:`_loop`."""
+        st = self._prefilling[0]
+        req = st.req
+        if req.abandoned:
+            self._prefilling.popleft()
+            self._release_slot(st.slot)
+            return
+        if time.perf_counter() > req.deadline:
+            self._prefilling.popleft()
+            self._release_slot(st.slot)
+            self._fail(req, DeadlineExceededError(
+                "deadline exceeded during chunked prefill "
+                f"({st.done_tokens}/{len(req.prompt)} prompt tokens)"))
+            return
+        p0, bucket, clen = st.plan[st.idx]
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :clen] = req.prompt[p0:p0 + clen]
+        t0 = time.perf_counter()
+        try:
+            with self._profiler.record("generation.prefill"):
+                first, ok = self._chunk_call(
+                    tokens, p0, clen, st.table.padded(st.tbl_bucket), req)
+        except Exception as e:
+            self._prefilling.popleft()
+            self._release_slot(st.slot)
+            self._fail(req, e)
+            raise
+        self._note_prefill_cost((time.perf_counter() - t0) * 1e3, bucket)
+        self.metrics.inc("prefill_chunks")
+        self.metrics.inc("prefill_tokens", clen)
+        self.metrics.prompt_bucket_hist.record(bucket)
+        if not ok:
+            # poison quarantine: this request's own tokens drove its
+            # logits non-finite; fail it alone and free its blocks
+            self._prefilling.popleft()
+            self._release_slot(st.slot)
+            self.metrics.inc("quarantined")
+            self._fail(req, PoisonRequestError(
+                "request produced non-finite logits during prefill; "
+                "quarantined"))
+            return
+        st.idx += 1
+        if st.idx < len(st.plan):
+            return
+        # final chunk: the request becomes a decode lane
+        self._prefilling.popleft()
+        self.metrics.inc("prefills")
+        if len(st.plan) > 1:
+            self.metrics.inc("chunked_prefills")
+        self._tables[st.slot] = st.table.padded(self._blocks_per_seq)
+        if self.enable_prefix_sharing:
+            # the prompt's full blocks now hold finished, immutable K/V
+            # (decode writes land at pos >= prompt length): publish them
+            self._register_prefix(req, st.table)
+        self._start_decode(st.slot, req, first)
+
+    def _register_prefix(self, req: _GenRequest, table: BlockTable):
+        """Publish a prefilled prompt's FULL blocks into the prefix
+        index. A newly registered block gains one reference owned by
+        the index; a digest already present keeps its block."""
+        n_full = len(req.prompt) // self.block_size
+        if not n_full:
+            return
+        hashes = chain_hashes(req.prompt, self.block_size)
+        for h, b in zip(hashes, table.blocks[:n_full]):
+            if self._prefix_index.register(h, b):
+                self._allocator.share([b])
+        evicted = self._prefix_index.evict_over_capacity()
+        if evicted:
+            self._allocator.free(evicted)
+            self.metrics.inc("prefix_evictions", len(evicted))
+
+    def _pin_session(self, slot: int, req: _GenRequest):
+        """Hand a cleanly finished request's K/V-valid blocks to the
+        session store instead of freeing them: the store inherits the
+        request's reference. Blocks past the K/V-valid prefix (prompt +
+        emitted tokens minus the last, whose K/V was never written) are
+        freed now. Mirrors :meth:`_release_slot`'s slot bookkeeping."""
+        table = self._slot_blocks[slot]
+        seq = _recovery_seq(req)
+        keep = blocks_for(len(seq), self.block_size)
+        kept, trailing = table.blocks[:keep], table.blocks[keep:]
+        if trailing:
+            self._allocator.free(trailing)
+        evictions = 0
+        for sess in self._sessions.put(req.session_id, seq, kept):
+            self._allocator.free(sess.blocks)
+            # the same session's superseded pin is not an eviction
+            evictions += sess.session_id != req.session_id
+        if evictions:
+            self.metrics.inc("session_evictions", evictions)
+        self._slots.free(slot)
+        self._slot_blocks[slot] = None
+        self._tables[slot] = NULL_BLOCK
+        self._update_block_gauges()
+        self.metrics.active_slots = self._slots.active_count
+
+    def _ready_slots(self) -> List[int]:
+        """Slots in the decode phase (step > 0). A paged slot is claimed
+        at admission but decodes only after its final chunk; until then
+        it rides the batch with a NULL table and its output is never
+        read."""
+        st = self._slots
+        return [s for s in range(self.num_slots)
+                if st.requests[s] is not None and st.step[s] > 0]
+
     def _decode_step(self):
         st = self._slots
-        active = st.active_slots()
+        active = self._ready_slots()
         if not active:
             return
         t0 = time.perf_counter()
@@ -810,30 +1374,49 @@ class GenerationEngine:
             self.metrics.tokens.record(emitted)
         if itl:
             self.metrics.itl_ms.record_many(itl)
+        if self.cache_backend == "paged":
+            self._update_block_gauges()
 
     def _fail_in_flight(self, exc: BaseException):
-        """A device call raised: every in-flight request fails with
-        that error. The cache is kept: whatever the failed call wrote
-        lies in the slots just freed, past any later occupant's
-        length."""
+        """A device call raised: every in-flight request (decoding or
+        mid-prefill) and the request held for blocks fail with that
+        error, and their slots and blocks are released. The cache is
+        kept: whatever the failed call wrote lies in slots or blocks
+        just freed, past any later occupant's length, or in the null
+        block; cached prefixes and sessions were never written."""
         self.metrics.inc("device_failures")
+        self._fail_all(exc)
+
+    def _fail_all(self, exc: BaseException, count: bool = True):
+        """Fail the request held for blocks and every slot's request
+        (decoding or mid-prefill) with ``exc``, releasing their slots
+        and blocks."""
+        if self.cache_backend == "paged":
+            self._prefilling.clear()  # their slots are released below
+            if self._held is not None:
+                self._fail(self._held, exc, count=count)
+                self._held = None
         for slot in self._slots.active_slots():
             req = self._slots.requests[slot]
-            self._slots.free(slot)
+            self._release_slot(slot)
             if req.error is None:
-                self._fail(req, exc)
+                self._fail(req, exc, count=count)
         self.metrics.active_slots = 0
 
     def _loop(self):
-        """The scheduler: run queued jobs (warmup), admit, decode one
-        step. The loop survives a failed device call; the requests in
-        flight fail with its error."""
+        """The scheduler: run queued jobs (warmup, admin), admit, run
+        one prefill chunk (paged), decode one step. The loop survives a
+        failed device call; the requests in flight fail with its
+        error."""
+        paged = self.cache_backend == "paged"
         with torch.inference_mode():
             while self._running:
                 try:
                     while self._jobs:
                         self._jobs.popleft()()
                     self._admit()
+                    if paged and self._prefilling:
+                        self._prefill_chunk_step()
                     self._decode_step()
                 except Exception as e:  # noqa: BLE001 — reported to callers
                     self._fail_in_flight(e)
@@ -848,19 +1431,59 @@ class GenerationEngine:
                 break
             self._fail(req, ServingError("generation engine stopped"),
                        count=False)
-        for slot in self._slots.active_slots():
-            req = self._slots.requests[slot]
-            self._slots.free(slot)
-            self._fail(req, ServingError("generation engine stopped"),
+        self._fail_all(ServingError("generation engine stopped"),
                        count=False)
-        self.metrics.active_slots = 0
 
     # -- admin -----------------------------------------------------------
     def stats(self) -> Dict:
         return self.metrics.snapshot()
 
+    def _on_scheduler(self, fn: Callable[[], int]) -> int:
+        """Run an admin change of scheduler-thread state on that thread
+        while it runs (so it never races a step), directly once it has
+        stopped."""
+        if not (self._running and self._thread.is_alive()):
+            return fn()
+        out: List[int] = []
+        self._run_on_scheduler(lambda: out.append(fn()))
+        return out[0]
+
+    def evict_sessions(self) -> int:
+        """Release every session pin; returns how many sessions were
+        evicted (0 on the slot backend)."""
+        if self.cache_backend != "paged":
+            return 0
+
+        def job() -> int:
+            sessions = self._sessions.clear()
+            for sess in sessions:
+                self._allocator.free(sess.blocks)
+            if sessions:
+                self.metrics.inc("session_evictions", len(sessions))
+            self._update_block_gauges()
+            return len(sessions)
+        return self._on_scheduler(job)
+
+    def clear_prefix_cache(self) -> int:
+        """Release every prefix-index pin; returns how many blocks were
+        unpinned (0 on the slot backend)."""
+        if self.cache_backend != "paged":
+            return 0
+
+        def job() -> int:
+            blocks = self._prefix_index.clear()
+            if blocks:
+                self._allocator.free(blocks)
+                self.metrics.inc("prefix_evictions", len(blocks))
+            self._update_block_gauges()
+            return len(blocks)
+        return self._on_scheduler(job)
+
     def _idle(self) -> bool:
-        return self._queue.empty() and self._slots.active_count == 0
+        empty = self._queue.empty() and self._slots.active_count == 0
+        if self.cache_backend == "paged":
+            empty = empty and not self._prefilling and self._held is None
+        return empty
 
     def drain(self, timeout_s: float = 30.0) -> bool:
         """Graceful shutdown: new submissions get 503

@@ -1,7 +1,8 @@
 """Generation-engine counters (counterpart of
 ``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
-counters the slot backend moves; the paged, speculative and offload
-blocks come with their slices)."""
+counters the slot and paged backends move; the speculative and offload
+blocks come with their slices, and the Prometheus exposition with the
+serving shell, ROADMAP.md queue A, item 9)."""
 from __future__ import annotations
 
 import threading
@@ -48,6 +49,30 @@ class GenerationMetrics:
         self.kv_dtype = "f32"
         self.kv_bits = 32
         self.kv_bytes_per_token = 0
+        # paged-cache gauges and counters (serving/paging.py; all zero
+        # on the slot backend)
+        self.cache_backend = "slots"
+        self.block_size = 0
+        self.blocks_total = 0          # allocatable blocks (excl. null)
+        self.blocks_free = 0           # gauge
+        self.blocks_peak_used = 0      # high-water mark
+        self.prefill_chunks = 0        # chunk device calls
+        self.chunked_prefills = 0      # prompts that spanned >1 chunk
+        self.kv_tokens_live = 0        # written positions, live seqs
+        self.kv_tokens_allocated = 0   # blocks_used * block_size
+        # prefix sharing and sessions (paged backend only)
+        self.prefix_sharing = False    # config flag
+        self.prefix_hits = 0           # admissions that matched a prefix
+        self.session_hits = 0          # ...matched via the session store
+        self.session_misses = 0        # session_id sent, nothing pinned
+        self.prefix_tokens_matched = 0  # prompt tokens served from cache
+        self.prefill_tokens = 0        # prompt tokens actually computed
+        self.cow_copies = 0            # copy-on-write block duplications
+        self.prefix_evictions = 0      # index entries evicted
+        self.session_evictions = 0     # sessions evicted (LRU/pressure)
+        self.shared_blocks = 0         # gauge: blocks with refcount > 1
+        self.prefix_blocks = 0         # gauge: blocks the index pins
+        self.sessions_live = 0         # gauge
         self.warmed_buckets: List[int] = []
 
     def inc(self, field: str, n: int = 1):
@@ -62,8 +87,45 @@ class GenerationMetrics:
         def res(r):
             return {k: round(v, 3) for k, v in r.snapshot().items()}
 
+        paged = None
+        if self.cache_backend == "paged":
+            used = self.blocks_total - self.blocks_free
+            alloc = self.kv_tokens_allocated
+            paged = {
+                "block_size": self.block_size,
+                "blocks_total": self.blocks_total,
+                "blocks_free": self.blocks_free,
+                "blocks_used": used,
+                "blocks_peak_used": self.blocks_peak_used,
+                "utilization": round(used / self.blocks_total, 4)
+                if self.blocks_total else 0.0,
+                # internal fragmentation: the share of allocated token
+                # capacity not (yet) holding live K/V
+                "fragmentation": round(
+                    1.0 - self.kv_tokens_live / alloc, 4)
+                if alloc else 0.0,
+                "kv_tokens_live": self.kv_tokens_live,
+                "kv_tokens_allocated": alloc,
+                "prefill_chunks": self.prefill_chunks,
+                "chunked_prefills": self.chunked_prefills,
+                "prefix_cache": {
+                    "enabled": self.prefix_sharing,
+                    "prefix_hits": self.prefix_hits,
+                    "session_hits": self.session_hits,
+                    "session_misses": self.session_misses,
+                    "prefix_tokens_matched": self.prefix_tokens_matched,
+                    "prefill_tokens": self.prefill_tokens,
+                    "cow_copies": self.cow_copies,
+                    "prefix_evictions": self.prefix_evictions,
+                    "session_evictions": self.session_evictions,
+                    "shared_blocks": self.shared_blocks,
+                    "prefix_blocks": self.prefix_blocks,
+                    "sessions_live": self.sessions_live,
+                },
+            }
         return {
-            "cache_backend": "slots",
+            "cache_backend": self.cache_backend,
+            "paged": paged,
             "requests": self.requests,
             "responses": self.responses,
             "server_errors": self.server_errors,

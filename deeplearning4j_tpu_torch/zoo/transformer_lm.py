@@ -92,7 +92,8 @@ class CausalTransformerLM(nn.Module):
                      ) -> List[Tuple[int, int, int]]:
         """Per-layer per-sequence K (== V) cache shape [n_heads,
         max_seq_len, head_dim]; ``max_seq_len`` may be below the
-        position table's."""
+        position table's. ``cache_shapes(block_size)`` gives the paged
+        pool's per-block shapes."""
         n = self.max_seq_len if max_seq_len is None else int(max_seq_len)
         if n > self.max_seq_len:
             raise ValueError(f"cache length {n} exceeds the position "
@@ -128,6 +129,52 @@ class CausalTransformerLM(nn.Module):
             x, _, _ = blk.apply_decode(bp, x, kc, vc, pos)
         x = layer_norm(x, params["lnf_g"], params["lnf_b"])
         return x @ params["head"], k_caches, v_caches
+
+    def forward_decode_paged(self, params, tokens, pos, k_pools, v_pools,
+                             block_tables):
+        """One cached decode step against the paged pools: the contract
+        of :meth:`forward_decode` with per-layer pools [num_blocks, H,
+        block_size, Dh], written IN PLACE, addressed through
+        ``block_tables`` [S, n_blocks] int32 (NULL_BLOCK-padded;
+        inactive rows are all-NULL so their writes land in the null
+        block)."""
+        x = params["tok"][tokens] + params["pos"][pos]
+        for blk, bp, kc, vc in zip(self.blocks, params["blocks"],
+                                   k_pools, v_pools):
+            x, _, _ = blk.apply_decode_paged(bp, x, kc, vc, block_tables,
+                                             pos)
+        x = layer_norm(x, params["lnf_g"], params["lnf_b"])
+        return x @ params["head"], k_pools, v_pools
+
+    def forward_prefill_chunk(self, params, tokens, p0, chunk_len,
+                              k_pools, v_pools, block_table):
+        """One prefill CHUNK against the paged pools: embed the chunk at
+        its global positions, run every block's ``apply_prefill_paged``
+        (K/V written into the owning blocks in place, causal attention
+        over the gathered prefix) and return the chunk's logits. The
+        caller feeds a prompt's chunks in order and samples the last
+        one's row ``chunk_len - 1``.
+
+        tokens: [1, C] (C = chunk bucket); p0: chunk start; chunk_len:
+        valid tokens in the chunk; block_table: [n_blocks] covering at
+        least ``p0 + C`` positions. Returns (logits [C, V], k_pools,
+        v_pools)."""
+        C = tokens.shape[1]
+        dev = tokens.device
+        gpos = int(p0) + torch.arange(C, device=dev)
+        # padded tail rows can run past the position table: clamp the
+        # lookup. Their embeddings are zeroed below and their K/V lands
+        # beyond the live length, where the mask keeps it dark
+        x = (params["tok"][tokens[0]]
+             + params["pos"][gpos.clamp(0, self.max_seq_len - 1)])
+        row_mask = (torch.arange(C, device=dev) < int(chunk_len)).to(x.dtype)
+        x = (x * row_mask[:, None])[None]
+        for blk, bp, kc, vc in zip(self.blocks, params["blocks"],
+                                   k_pools, v_pools):
+            x, _, _ = blk.apply_prefill_paged(bp, x, kc, vc, block_table,
+                                              p0, chunk_len)
+        x = layer_norm(x[0], params["lnf_g"], params["lnf_b"])
+        return x @ params["head"], k_pools, v_pools
 
     def logits(self, tokens) -> torch.Tensor:
         """Uncached full-sequence logits (tests; the serving path never

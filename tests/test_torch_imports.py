@@ -36,7 +36,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "deeplearning4j_tpu_torch.serving.generation" in res["imported"]
+    for mod in ("serving.generation", "serving.paging",
+                "kernels.paged_attention", "kernels.kv_quant",
+                "nn.layers.attention", "zoo.transformer_lm"):
+        assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 
 
@@ -48,6 +51,21 @@ def test_no_jax_import_in_port_sources():
     assert len(files) > 10
     for f in files:
         assert not pat.search(f.read_text()), f
+
+
+def test_every_cuda_source_has_a_wrapper_module():
+    """Each csrc/*.cu is launched by kernels/<name>.py, which keeps a
+    launch counter and a plain version beside it."""
+    import importlib
+    srcs = sorted(p.stem for p in
+                  (REPO / "deeplearning4j_tpu_torch" / "csrc").glob("*.cu"))
+    assert srcs == ["decode_attention", "flash_attention",
+                    "paged_attention"]
+    for name in srcs:
+        mod = importlib.import_module(f"deeplearning4j_tpu_torch.kernels."
+                                      f"{name}")
+        assert isinstance(mod.launches, int)
+        assert callable(getattr(mod, f"{name}_torch"))
 
 
 def test_entry_points_default_to_the_card():

@@ -15,6 +15,7 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import decode_attention as da
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.gpu
 
@@ -75,6 +76,56 @@ def test_flash_kernel_matches_plain(D, T):
     assert (lse - lref).abs().max().item() <= TOL_F32
 
 
+def _paged_case(rs, dtype, dev, S=6, H=2, Bs=16, D=64, N=64, B=8):
+    """Pools with NaN in the null block and in every sequence's stale
+    tail; each table is a random set of distinct blocks, NULL-padded
+    past the length."""
+    q = _randn(rs, S, H, D, dev=dev)
+    k = _randn(rs, N, H, Bs, D, dev=dev).to(dtype)
+    v = _randn(rs, N, H, Bs, D, dev=dev).to(dtype)
+    lens = np.array([0, 1, 15, 16, 17, B * Bs], np.int32)[:S]
+    perm = rs.permutation(np.arange(1, N))
+    tbl = np.zeros((S, B), np.int32)
+    used = 0
+    for s, n in enumerate(lens):
+        nb = -(-int(n) // Bs)
+        tbl[s, :nb] = perm[used:used + nb]
+        used += nb
+        if n % Bs:   # the stale tail of the last live block
+            k[tbl[s, nb - 1], :, n % Bs:] = float("nan")
+            v[tbl[s, nb - 1], :, n % Bs:] = float("nan")
+    k[0] = float("nan")
+    v[0] = float("nan")
+    return (q, k, v, torch.from_numpy(tbl).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL_F32),
+                                       (torch.bfloat16, TOL_BF16)])
+def test_paged_kernel_matches_plain(dtype, tol):
+    dev = _device()
+    q, k, v, tbl, lens = _paged_case(np.random.RandomState(6), dtype, dev)
+    n0 = pa.launches
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    want = pa.paged_attention_torch(q, k, v, tbl, lens)
+    torch.cuda.synchronize()
+    assert pa.launches == n0 + 1
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+    assert got[0].abs().max().item() == 0.0
+
+
+def test_paged_kernel_matches_slot_kernel_on_gathered_panel():
+    dev = _device()
+    q, k, v, tbl, lens = _paged_case(np.random.RandomState(7),
+                                     torch.float32, dev)
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    dense = da.decode_attention(q, pa.gather_blocks(k, tbl).contiguous(),
+                                pa.gather_blocks(v, tbl).contiguous(), lens)
+    torch.cuda.synchronize()
+    assert (got - dense).abs().max().item() <= TOL_F32
+
+
 def test_cuda_tensor_the_kernel_does_not_take_raises():
     dev = _device()
     q = torch.zeros((2, 2, 8), device=dev)
@@ -88,3 +139,10 @@ def test_cuda_tensor_the_kernel_does_not_take_raises():
     x = torch.zeros((1, 8, 2, 8), dtype=torch.float64, device=dev)
     with pytest.raises(TypeError):
         fa.flash_attention(x, x, x)
+    pool = torch.zeros((4, 2, 16, 8), device=dev)
+    tbl = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    lens32 = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, pool, pool, tbl.long(), lens32)
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, pool, pool, tbl.t(), lens32)
