@@ -27,7 +27,23 @@ Phases, each of which fails the run when it fails:
    that prompt) and 8 two-turn sessions. The paged kernel must launch
    once per layer and decode step, prefixes and sessions must hit,
    copy-on-write must run, the teacher-forced check must hold, and
-   every block must come back to the pool.
+   every block must come back to the pool;
+6. int8 on the slot backend: phase 4's 32 requests served by
+   GenerationEngine(num_slots=32, kv_dtype="int8"); the int8 decode
+   kernel must launch once per layer and decode step, the flash kernel
+   must run the prefills, and a teacher-forced check against the port's
+   own int8 path on a CPU copy holds each greedy token;
+7. int8 on the paged backend: phase 5's configuration and traffic with
+   kv_dtype="int8", on a model copy whose MLP weights went through
+   quantize_mlp_weights; the int8 paged kernel must launch once per
+   layer and decode step, prefixes, sessions and copy-on-write must
+   run, the int8 teacher-forced check must hold, and every block must
+   come back.
+
+Phase 3 also checks the two int8 kernels (decode and paged) against
+their plain versions at the served shapes, with NaN in the scale rows
+of the null block and of every stale tail, a length-0 lane, and K/V of
+mixed quantisation refused.
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -52,6 +68,20 @@ DECODE_TOL_BF16 = 5e-3  # p rounded to bf16 before (kernel, as the
 FLASH_TOL = 1e-4        # f32, sums over up to 1024 keys in another order
 TEACHER_TOL = 1e-3      # logit gap allowed between a served greedy token
 #                         and the CPU maximum at that position
+INT8_TOL = 2e-2         # int8 kernels: the kernel rounds the unnormalised
+#                         p * vscale to bf16 (as the Pallas kernel), the
+#                         plain version the normalised one; each within
+#                         2^-8 of its term, so an output may move by up to
+#                         2^-7 of the largest |dequantised v| it averages.
+#                         The JAX package's own Pallas-vs-xla int8
+#                         tolerance; 1.0e-2 measured on an H100 here
+INT8_TEACHER_TOL = 1e-2  # int8 teacher-forced gap: card and CPU both run
+#                         int8, but sums in another order can move a K/V
+#                         value across an int8 rounding boundary (one step
+#                         is ~1% of its row's max) and the kernels round p
+#                         before normalising; the whole int8-vs-f32 logit
+#                         error is 6.4e-3 at this width (CPU), a wrong
+#                         scale or a leaked tail moves logits by ~0.1 and up
 
 #: the served model (docs/generation.md), random weights from seed 0;
 #: eos_id=None so every request runs its full length
@@ -74,12 +104,24 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device time per call of ``fn``. The timed calls queue up behind
+    a device-side sleep that outlasts their enqueue, so the host's time
+    between launches (Python, the wrappers' checks, ctypes) is not
+    counted: a kernel shorter than its wrapper would otherwise be timed
+    at the host's launch rate."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    once_s = time.perf_counter() - t0  # bounds one call's enqueue
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # cycles at 2 GHz, above the H100's top SM clock: the sleep lasts
+    # at least twice the whole loop's enqueue
+    torch.cuda._sleep(int(2e9 * 2 * iters * once_s))
     start.record()
     for _ in range(iters):
         fn()
@@ -297,101 +339,346 @@ def check_paged(dev):
     return results
 
 
+def _int8_bound(nbytes, flops):
+    b, f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return max(b, f) * 1e3, "bytes" if b >= f else "operations"
+
+
+def _refuses_mixed(fn, quant, plain):
+    """Mixed quantisation must raise, either way round."""
+    for a, b in ((quant, plain), (plain, quant)):
+        try:
+            fn(a, b)
+        except ValueError:
+            continue
+        raise AssertionError("K/V of mixed quantisation was not refused")
+
+
+def check_decode_int8(dev):
+    """The int8 decode kernel against its plain version at the slot
+    phase's shapes (32 slots, 8 heads, T=1024, D=64), NaN in every stale
+    tail's scales, then timed with every slot full."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    from deeplearning4j_tpu_torch.kernels import kv_quant as kvq
+    S, H, T, D = 32, 8, 1024, 64
+    g = torch.Generator(device="cpu").manual_seed(5)
+    q = torch.randn((S, H, D), generator=g).to(dev)
+    k = kvq.quantize_rows(torch.randn((S, H, T, D), generator=g).to(dev))
+    v = kvq.quantize_rows(torch.randn((S, H, T, D), generator=g).to(dev))
+    lens = torch.randint(1, T + 1, (S,), generator=g)
+    lens[0], lens[1], lens[2] = 0, T, 1
+    clean_k, clean_v = k.scale.clone(), v.scale.clone()
+    for s in range(S):  # a stale tail's scale may be NaN
+        k.scale[s, :, int(lens[s]):] = float("nan")
+        v.scale[s, :, int(lens[s]):] = float("nan")
+    lens = lens.to(dev, torch.int32)
+    got = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    zero_row = got[0].abs().max().item()
+    print(f"decode_attention int8: max_abs_err {err:.3e} (tol {INT8_TOL:g}),"
+          f" finite {finite}, len-0 row max {zero_row}")
+    if not (finite and err <= INT8_TOL and zero_row == 0.0):
+        raise AssertionError("decode_attention int8 disagrees with its "
+                             "plain version")
+    _refuses_mixed(lambda a, b: da.decode_attention(q, a, b, lens), k,
+                   kvq.dequantize(v))
+    k.scale.copy_(clean_k)
+    v.scale.copy_(clean_v)
+    full = torch.full((S,), T, dtype=torch.int32, device=dev)
+    ms = time_ms(lambda: da.decode_attention(q, k, v, full))
+    plain_ms = time_ms(lambda: da.decode_attention_torch(q, k, v, full))
+    kd, vd = kvq.dequantize(k), kvq.dequantize(v)  # not timed
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kd, vd))
+    nbytes = 2 * S * H * T * D + 2 * S * H * T * 4 + 2 * S * H * D * 4 \
+        + S * 4
+    bound_ms, bound_by = _int8_bound(nbytes, 4 * D * H * S * T)
+    print(f"decode_attention int8 S={S} H={H} T={T} D={D}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on the "
+          f"dequantised f32 panel, dequantisation not timed) {lib_ms:.4f} "
+          f"ms, bound {bound_ms:.4f} ms")
+    return dict(max_abs_err=err, tol=INT8_TOL, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+
+
+def check_paged_int8(dev):
+    """The int8 paged kernel against its plain version at the paged
+    phase's shapes (64 slots, 8 heads, blocks of 16, D=64, 64-entry
+    tables, a 4096-block pool) over non-contiguous blocks, NaN in the
+    null block's and every stale tail's scale rows, then timed with
+    every slot at length 1024."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    from deeplearning4j_tpu_torch.kernels import kv_quant as kvq
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    S, H, Bs, D, B, N = 64, 8, 16, 64, 64, 4096
+    T = B * Bs
+    rs = np.random.RandomState(6)
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q = torch.randn((S, H, D), generator=g).to(dev)
+    k = kvq.quantize_rows(torch.randn((N, H, Bs, D), generator=g).to(dev))
+    v = kvq.quantize_rows(torch.randn((N, H, Bs, D), generator=g).to(dev))
+    clean_k, clean_v = k.scale.clone(), v.scale.clone()
+    lens = rs.randint(1, T + 1, S)
+    lens[:6] = [0, 1, 15, 16, 17, T]
+    perm = rs.permutation(np.arange(1, N))
+    tbl = np.zeros((S, B), np.int32)
+    used = 0
+    for s, n in enumerate(lens):
+        nb = -(-int(n) // Bs)
+        tbl[s, :nb] = perm[used:used + nb]
+        used += nb
+        if n % Bs:  # the stale tail of the last live block
+            k.scale[int(tbl[s, nb - 1]), :, int(n % Bs):] = float("nan")
+            v.scale[int(tbl[s, nb - 1]), :, int(n % Bs):] = float("nan")
+    k.scale[0] = float("nan")  # the null block, where padded lanes write
+    v.scale[0] = float("nan")
+    tbl_d = torch.from_numpy(tbl).to(dev)
+    lens_d = torch.from_numpy(lens.astype(np.int32)).to(dev)
+    got = pa.paged_attention(q, k, v, tbl_d, lens_d)
+    want = pa.paged_attention_torch(q, k, v, tbl_d, lens_d)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    zero_row = got[0].abs().max().item()
+    print(f"paged_attention int8: max_abs_err {err:.3e} (tol {INT8_TOL:g}), "
+          f"finite {finite}, len-0 row max {zero_row}, {used} live blocks")
+    if not (finite and err <= INT8_TOL and zero_row == 0.0):
+        raise AssertionError("paged_attention int8 disagrees with its plain "
+                             "version")
+    _refuses_mixed(lambda a, b: pa.paged_attention(q, a, b, tbl_d, lens_d),
+                   k, kvq.dequantize(v))
+    k.scale.copy_(clean_k)
+    v.scale.copy_(clean_v)
+    full_tbl = torch.from_numpy(np.resize(
+        rs.permutation(np.arange(1, N)), S * B).reshape(S, B)
+        .astype(np.int32)).to(dev)
+    full = torch.full((S,), T, dtype=torch.int32, device=dev)
+    gk, gv = pa.gather_blocks(k, full_tbl), pa.gather_blocks(v, full_tbl)
+    kd = kvq.QuantArray(gk.q.contiguous(), gk.scale.contiguous())
+    vd = kvq.QuantArray(gv.q.contiguous(), gv.scale.contiguous())
+    got = pa.paged_attention(q, k, v, full_tbl, full)
+    dense = da.decode_attention(q, kd, vd, full)
+    torch.cuda.synchronize()
+    slot_err = (got - dense).abs().max().item()
+    if not slot_err <= DECODE_TOL_F32:
+        raise AssertionError(f"paged_attention int8 disagrees with the int8 "
+                             f"slot kernel on the gathered panel: "
+                             f"{slot_err:.3e}")
+    ms = time_ms(lambda: pa.paged_attention(q, k, v, full_tbl, full))
+    plain_ms = time_ms(lambda: pa.paged_attention_torch(
+        q, k, v, full_tbl, full))
+    slot_ms = time_ms(lambda: da.decode_attention(q, kd, vd, full))
+    kf, vf = kvq.dequantize(kd), kvq.dequantize(vd)  # not timed
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], kf, vf))
+    nbytes = 2 * S * H * T * D + 2 * S * H * T * 4 + 2 * S * H * D * 4 \
+        + S * B * 4 + S * 4
+    bound_ms, bound_by = _int8_bound(nbytes, 4 * D * H * S * T)
+    print(f"paged_attention int8 S={S} H={H} Bs={Bs} D={D} B={B} N={N}, "
+          f"every length {T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"int8 slot kernel on the gathered panel {slot_ms:.4f} ms, "
+          f"library (SDPA on the gathered dequantised f32 panel, gather and "
+          f"dequantisation not timed) {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms")
+    return dict(max_abs_err=err, tol=INT8_TOL, slot_kernel_err=slot_err,
+                live_blocks=used, ms=ms, plain_ms=plain_ms,
+                slot_kernel_dense_ms=slot_ms, library_ms=lib_ms,
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def cpu_copy(lm, cfg):
-    """The same model with its weights copied to the CPU: the plain
-    reference of the teacher-forced check."""
+    """The same model with its weights (int8 MLP weights included)
+    copied to the CPU: the plain reference of the teacher-forced
+    checks."""
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
         CausalTransformerLM
     cpu = CausalTransformerLM(**cfg, device="cpu")
-    cpu._params = {k: (v.cpu() if k != "blocks" else
-                       [{n: w.cpu() for n, w in bp.items()} for bp in v])
+    cpu._params = {k: (v.to("cpu") if k != "blocks" else
+                       [{n: w.to("cpu") for n, w in bp.items()} for bp in v])
                    for k, v in lm._params.items()}
     return cpu
 
 
-def teacher_check(cpu, cases):
-    """Every served greedy token must have a plain-CPU logit within
-    TEACHER_TOL of the CPU maximum at its position. ``cases`` are
-    (prompt, served tokens); returns (checked, exact, worst gap)."""
+def f32_rows(cpu, prompt, tokens):
+    """Plain f32 logits rows predicting each served token."""
+    import torch
+    with torch.inference_mode():
+        logits = cpu.logits(np.asarray(list(prompt) + list(tokens))[None])[0]
+    return logits[len(prompt) - 1:len(prompt) - 1 + len(tokens)]
+
+
+def int8_slot_rows(cpu, prompt, tokens):
+    """The port's own int8 slot path on the CPU: the prompt attends its
+    own f32 K/V, which go into an int8 cache; each later token is a
+    decode step over that cache, fed the served tokens."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels.kv_quant import kv_update_slice
+    from deeplearning4j_tpu_torch.serving import KVCache
+    cache = KVCache(cpu.cache_shapes(), 1, kv_dtype="int8", device="cpu")
+    params = cpu._params
+    with torch.inference_mode():
+        logits, ks, vs = cpu.forward_prefill(params,
+                                             torch.tensor([list(prompt)]))
+        for pool, slab in zip(cache.ks + cache.vs, ks + vs):
+            kv_update_slice(pool, slab, (0, 0, 0, 0))
+        rows = [logits[0, -1]]
+        for j, t in enumerate(tokens[:-1]):
+            lg, _, _ = cpu.forward_decode(
+                params, torch.tensor([t]), torch.tensor([len(prompt) + j]),
+                cache.ks, cache.vs)
+            rows.append(lg[0])
+    return torch.stack(rows)
+
+
+def int8_paged_rows(cpu, prompt, tokens):
+    """The port's own int8 paged path on the CPU: every query attends
+    over the quantised pool, so one chunk over the whole served sequence
+    gives every position's logits, whatever the chunking was."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import PagedKVCache
+    from deeplearning4j_tpu_torch.serving.paging import blocks_for
+    bs = PAGED_ENGINE["block_size"]
+    seq = list(prompt) + list(tokens[:-1])
+    nb = blocks_for(len(seq), bs)
+    pool = PagedKVCache(cpu.cache_shapes(bs), nb + 1, kv_dtype="int8",
+                        device="cpu")
+    with torch.inference_mode():
+        logits, _, _ = cpu.forward_prefill_chunk(
+            cpu._params, torch.tensor([seq]), 0, len(seq), pool.ks, pool.vs,
+            torch.arange(1, nb + 1, dtype=torch.int32))
+    return logits[len(prompt) - 1:]
+
+
+def teacher_check(rows_fn, cpu, cases, tol=TEACHER_TOL, label=""):
+    """Every served greedy token must have a reference logit within
+    ``tol`` of the reference maximum at its position; ``rows_fn(cpu,
+    prompt, tokens)`` gives the reference rows. ``cases`` are (prompt,
+    served tokens); returns (checked, exact, worst gap)."""
     checked = exact = 0
     worst_gap = 0.0
     for prompt, tokens in cases:
-        logits = cpu.logits(np.asarray(list(prompt) + list(tokens))[None])[0]
-        for j, t in enumerate(tokens):
-            row = logits[len(prompt) - 1 + j]
+        rows = rows_fn(cpu, prompt, tokens)
+        for t, row in zip(tokens, rows):
             gap = float(row.max() - row[t])
             worst_gap = max(worst_gap, gap)
             exact += int(int(row.argmax()) == t)
             checked += 1
-    if worst_gap > TEACHER_TOL:
-        raise AssertionError(f"teacher-forced check: a served token is "
-                             f"{worst_gap:.3e} below the CPU maximum")
+    if worst_gap > tol:
+        raise AssertionError(f"teacher-forced check{label}: a served token "
+                             f"is {worst_gap:.3e} below the reference "
+                             f"maximum (tol {tol:g})")
     return checked, exact, worst_gap
 
 
-def serve(card: str):
+def int8_vs_f32(f32_cpu, int8_cpu, cases, rows_fn):
+    """Max |int8 - f32| logit over the cases' positions, relative to the
+    largest f32 logit: what the int8 setup costs at this width
+    (informative)."""
+    diff = peak = 0.0
+    for prompt, tokens in cases:
+        a = f32_rows(f32_cpu, prompt, tokens)
+        b = rows_fn(int8_cpu, prompt, tokens)
+        diff = max(diff, float((a - b).abs().max()))
+        peak = max(peak, float(a.abs().max()))
+    return diff / peak
+
+
+def slot_traffic():
+    """Phase 4's (and phase 6's) 32 requests, from a fixed seed."""
+    rs = np.random.RandomState(0)
+    reqs = []
+    for i in range(32):
+        plen = int(rs.randint(8, 601))
+        sampled = i % 8 == 7
+        reqs.append(dict(prompt=rs.randint(0, 32000, plen).tolist(),
+                         max_tokens=int(rs.randint(32, 65)),
+                         temperature=0.8 if sampled else 0.0,
+                         top_k=40 if sampled else 0, seed=i))
+    return reqs
+
+
+def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
+    """Phase 4 (f32) or 6 (int8): the slot backend end to end."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.serving import GenerationEngine
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
         CausalTransformerLM
-    cfg = SERVE_CFG
-    lm = CausalTransformerLM(**cfg).init()
-    eng = GenerationEngine(lm, num_slots=32)
+    int8 = kv_dtype == "int8"
+    lm = CausalTransformerLM(**cfg, device=device).init()
+    eng = GenerationEngine(lm, num_slots=32, kv_dtype=kv_dtype)
     try:
         t0 = time.perf_counter()
         eng.warmup()
         warm_s = time.perf_counter() - t0
-        rs = np.random.RandomState(0)
-        reqs = []
-        for i in range(32):
-            plen = int(rs.randint(8, 601))
-            sampled = i % 8 == 7
-            reqs.append(dict(prompt=rs.randint(0, 32000, plen).tolist(),
-                             max_tokens=int(rs.randint(32, 65)),
-                             temperature=0.8 if sampled else 0.0,
-                             top_k=40 if sampled else 0, seed=i))
+        reqs = slot_traffic()
+        st0 = eng.stats()
         reset_launches()
         results, wall = run_requests(eng, reqs)
         launches = {"decode_attention": da.launches,
+                    "decode_attention_int8": da.launches_int8,
                     "flash_attention": fa.launches}
-        check_lengths(results, reqs)
-        if not all(launches.values()):
-            raise AssertionError(f"a kernel of the path never launched: "
-                                 f"{launches}")
         st = eng.stats()
+        check_lengths(results, reqs)
+        steps = st["decode_steps"] - st0["decode_steps"]
+        decode = "decode_attention_int8" if int8 else "decode_attention"
+        other = "decode_attention" if int8 else "decode_attention_int8"
+        if launches[decode] != cfg["n_layers"] * steps or not steps \
+                or launches[other] or not launches["flash_attention"]:
+            raise AssertionError(f"launches {launches} over {steps} decode "
+                                 f"steps: {decode} must run "
+                                 f"{cfg['n_layers']} x steps, flash must run")
         n_tok = sum(len(r["tokens"]) for r in results)
         prof = profile_window(eng)
     finally:
         eng.stop()
 
     # teacher-forced check: every greedy token the card emitted has a
-    # plain-CPU logit within TEACHER_TOL of the CPU maximum there
+    # CPU logit within the tolerance of the CPU maximum there; at int8
+    # the CPU reference is the port's own int8 path
     greedy = [i for i, q in enumerate(reqs) if q["temperature"] == 0.0][:4]
-    checked, exact, worst_gap = teacher_check(
-        cpu_copy(lm, cfg),
-        [(reqs[i]["prompt"], results[i]["tokens"]) for i in greedy])
-    e2e = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
-               tokens_per_s=n_tok / wall,
+    cases = [(reqs[i]["prompt"], results[i]["tokens"]) for i in greedy]
+    cpu = cpu_copy(lm, cfg)
+    rows_fn, tol = ((int8_slot_rows, INT8_TEACHER_TOL) if int8
+                    else (f32_rows, TEACHER_TOL))
+    checked, exact, worst_gap = teacher_check(rows_fn, cpu, cases, tol)
+    rel = int8_vs_f32(cpu, cpu, cases[:2], int8_slot_rows) if int8 else None
+    e2e = dict(kv_dtype=kv_dtype, requests=len(reqs), tokens=n_tok,
+               wall_s=wall, tokens_per_s=n_tok / wall,
                ttft_p50_ms=st["ttft_ms"]["p50"],
                ttft_p99_ms=st["ttft_ms"]["p99"],
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
                prefill_p50_ms=st["prefill_ms"]["p50"],
-               decode_steps=st["decode_steps"], prefills=st["prefills"],
+               decode_steps=steps, prefills=st["prefills"],
                mean_occupancy=st["slots"]["mean_occupancy"],
-               warmup_s=warm_s, launches=launches,
+               kv_cache_bytes=st["kv_cache_bytes"],
+               kv_bytes_per_token=st["kv_bytes_per_token"],
+               quant=st["quant"], warmup_s=warm_s, launches=launches,
                teacher_checked=checked, teacher_exact=exact,
                teacher_exact_rate=exact / max(checked, 1),
-               teacher_worst_gap=worst_gap, profile=prof)
-    print(f"e2e [{card}]: {n_tok} tokens from {len(reqs)} requests in "
+               teacher_worst_gap=worst_gap, teacher_tol=tol,
+               int8_vs_f32_logit_rel_err=rel, profile=prof)
+    tag = " int8" if int8 else ""
+    print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{e2e['ttft_p50_ms']:.1f} ms, decode step p50 "
-          f"{e2e['decode_step_p50_ms']:.2f} ms, launches {launches}")
-    print(f"teacher-forced: {checked} greedy tokens checked, exact-match "
-          f"rate {e2e['teacher_exact_rate']:.4f}, worst gap "
-          f"{worst_gap:.3e} (tol {TEACHER_TOL:g})")
-    print_profile("profile window", card, prof)
+          f"{e2e['decode_step_p50_ms']:.2f} ms, launches {launches} over "
+          f"{steps} decode steps, cache {st['kv_cache_bytes']} bytes, "
+          f"{st['kv_bytes_per_token']} bytes per token")
+    print(f"teacher-forced{tag}: {checked} greedy tokens checked, "
+          f"exact-match rate {e2e['teacher_exact_rate']:.4f}, worst gap "
+          f"{worst_gap:.3e} (tol {tol:g})"
+          + (f"; int8-vs-f32 max logit rel err {rel:.4e} (informative)"
+             if int8 else ""))
+    print_profile(f"profile window{tag}", card, prof)
     return e2e
 
 
@@ -400,7 +687,8 @@ def reset_launches():
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    da.launches = fa.launches = pa.launches = 0
+    da.launches = da.launches_int8 = fa.launches = 0
+    pa.launches = pa.launches_int8 = 0
 
 
 def paged_traffic(vocab: int):
@@ -438,15 +726,19 @@ def paged_traffic(vocab: int):
     return primer, burst, turn1, tails
 
 
-def serve_paged(card: str, cfg=SERVE_CFG, device=None):
-    """Phase 5: the paged backend end to end (see the module doc)."""
+def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
+    """Phase 5 (f32) or 7 (int8, int8 MLP weights): the paged backend
+    end to end (see the module doc)."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     from deeplearning4j_tpu_torch.serving import GenerationEngine
-    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
-        CausalTransformerLM
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import (
+        CausalTransformerLM, quantize_mlp_weights)
+    int8 = kv_dtype == "int8"
     lm = CausalTransformerLM(**cfg, device=device).init()
+    if int8:
+        quantize_mlp_weights(lm)
     primer, burst, turn1, tails = paged_traffic(cfg["vocab_size"])
     bs = PAGED_ENGINE["block_size"]
     # a session's turn 2 matches the pinned prompt + tokens[:-1]
@@ -455,7 +747,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None):
     if not mid_block:
         raise AssertionError("no session match ends mid-block: the "
                              "copy-on-write path would not run")
-    eng = GenerationEngine(lm, **PAGED_ENGINE)
+    eng = GenerationEngine(lm, **PAGED_ENGINE, kv_dtype=kv_dtype)
     try:
         t0 = time.perf_counter()
         eng.warmup()
@@ -470,15 +762,19 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None):
                  for t, r, x in zip(turn1, res1, tails)]
         res2, _ = run_requests(eng, turn2)
         launches = {"decode_attention": da.launches,
+                    "decode_attention_int8": da.launches_int8,
                     "flash_attention": fa.launches,
-                    "paged_attention": pa.launches}
+                    "paged_attention": pa.launches,
+                    "paged_attention_int8": pa.launches_int8}
         st = eng.stats()
         check_lengths(results + res1 + res2, burst + turn1 + turn2)
         steps = st["decode_steps"] - st0["decode_steps"]
-        if not launches["paged_attention"] or \
-                launches["paged_attention"] != cfg["n_layers"] * steps:
-            raise AssertionError(f"paged kernel launches {launches} != "
-                                 f"{cfg['n_layers']} x {steps} decode steps")
+        paged = "paged_attention_int8" if int8 else "paged_attention"
+        if not steps or launches[paged] != cfg["n_layers"] * steps \
+                or sum(launches.values()) != launches[paged]:
+            raise AssertionError(f"launches {launches}: {paged} must run "
+                                 f"{cfg['n_layers']} x {steps} decode steps "
+                                 f"and nothing else")
         pc = st["paged"]["prefix_cache"]
         if not (pc["prefix_hits"] >= 32 and pc["session_hits"] == 8
                 and pc["cow_copies"] >= 1):
@@ -494,34 +790,45 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None):
     finally:
         eng.stop()
 
-    # the same burst on the slot engine: informative only, the two
-    # kernels sum in different orders
-    slot_eng = GenerationEngine(lm, num_slots=PAGED_ENGINE["num_slots"])
-    try:
-        slot_eng.warmup()
-        slot_results, _ = run_requests(slot_eng, burst)
-    finally:
-        slot_eng.stop()
     greedy = [i for i, q in enumerate(burst) if q["temperature"] == 0.0]
-    same = sum(slot_results[i]["tokens"] == results[i]["tokens"]
-               for i in greedy)
+    same = None
+    if not int8:
+        # the same burst on the slot engine: informative only, the two
+        # kernels sum in different orders
+        slot_eng = GenerationEngine(lm, num_slots=PAGED_ENGINE["num_slots"])
+        try:
+            slot_eng.warmup()
+            slot_results, _ = run_requests(slot_eng, burst)
+        finally:
+            slot_eng.stop()
+        same = sum(slot_results[i]["tokens"] == results[i]["tokens"]
+                   for i in greedy)
 
     shared = [i for i in greedy if burst[i]["prompt"][:320]
               == primer["prompt"][:320]][:4]
     resumed = [j for j, t in enumerate(turn2) if t["temperature"] == 0.0][:2]
-    checked, exact, worst_gap = teacher_check(
-        cpu_copy(lm, cfg),
-        [(burst[i]["prompt"], results[i]["tokens"]) for i in shared]
-        + [(turn2[j]["prompt"], res2[j]["tokens"]) for j in resumed])
+    cases = ([(burst[i]["prompt"], results[i]["tokens"]) for i in shared]
+             + [(turn2[j]["prompt"], res2[j]["tokens"]) for j in resumed])
+    cpu = cpu_copy(lm, cfg)
+    rows_fn, tol = ((int8_paged_rows, INT8_TEACHER_TOL) if int8
+                    else (f32_rows, TEACHER_TOL))
+    checked, exact, worst_gap = teacher_check(rows_fn, cpu, cases, tol,
+                                              " (paged)")
+    rel = None
+    if int8:  # the whole int8 setup (KV and MLP) against the f32 model
+        rel = int8_vs_f32(CausalTransformerLM(**cfg, device="cpu").init(),
+                          cpu, cases[:2], int8_paged_rows)
     n_tok = sum(len(r["tokens"]) for r in results)
-    e2e = dict(requests=len(burst), tokens=n_tok, wall_s=wall,
+    e2e = dict(kv_dtype=kv_dtype, requests=len(burst), tokens=n_tok,
+               wall_s=wall,
                tokens_per_s=n_tok / wall,
                ttft_p50_ms=st["ttft_ms"]["p50"],
                ttft_p99_ms=st["ttft_ms"]["p99"],
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
                prefill_chunk_p50_ms=st["prefill_ms"]["p50"],
-               decode_steps=steps, prefill_chunks=st["paged"]["prefill_chunks"],
+               decode_steps=steps,
+               prefill_chunks=st["paged"]["prefill_chunks"],
                prefix_hits=pc["prefix_hits"],
                session_hits=pc["session_hits"],
                cow_copies=pc["cow_copies"],
@@ -533,10 +840,16 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None):
                warmup_s=warm_s, launches=launches,
                teacher_checked=checked, teacher_exact=exact,
                teacher_exact_rate=exact / max(checked, 1),
-               teacher_worst_gap=worst_gap,
-               slot_engine_greedy_identical=f"{same}/{len(greedy)}",
+               teacher_worst_gap=worst_gap, teacher_tol=tol,
+               kv_cache_bytes=st["kv_cache_bytes"],
+               kv_bytes_per_token=st["kv_bytes_per_token"],
+               quant=st["quant"], int8_vs_f32_logit_rel_err=rel,
+               slot_engine_greedy_identical=None if same is None
+               else f"{same}/{len(greedy)}",
                profile=prof)
-    print(f"e2e paged [{card}]: {n_tok} tokens from {len(burst)} requests "
+    tag = " int8" if int8 else ""
+    print(f"e2e paged{tag} [{card}]: {n_tok} tokens from {len(burst)} "
+          f"requests "
           f"in {wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s; phase "
           f"TTFT p50/p99 {e2e['ttft_p50_ms']:.1f}/{e2e['ttft_p99_ms']:.1f} "
           f"ms, decode step p50/p99 {e2e['decode_step_p50_ms']:.2f}/"
@@ -546,13 +859,18 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None):
           f"{pc['prefix_tokens_matched']} prompt tokens matched, "
           f"{pc['cow_copies']} COW copies, peak {e2e['blocks_peak_used']} "
           f"of {e2e['blocks_total']} blocks, launches {launches} over "
-          f"{steps} decode steps")
-    print(f"teacher-forced (paged): {checked} greedy tokens of "
+          f"{steps} decode steps; pool {st['kv_cache_bytes']} bytes "
+          f"({st['kv_cache_bytes'] / 2**30:.3f} GiB), "
+          f"{st['kv_bytes_per_token']} bytes per token, quant {st['quant']}")
+    print(f"teacher-forced (paged{tag}): {checked} greedy tokens of "
           f"{len(shared)} shared-prefix and {len(resumed)} turn-2 requests, "
           f"exact-match rate {e2e['teacher_exact_rate']:.4f}, worst gap "
-          f"{worst_gap:.3e} (tol {TEACHER_TOL:g}); slot engine on the same "
-          f"burst: {same} of {len(greedy)} greedy requests identical")
-    print_profile("profile window paged", card, prof)
+          f"{worst_gap:.3e} (tol {tol:g}); "
+          + (f"int8 (KV and MLP) vs f32 max logit rel err {rel:.4e} "
+             f"(informative)" if int8 else
+             f"slot engine on the same burst: {same} of {len(greedy)} "
+             f"greedy requests identical"))
+    print_profile(f"profile window paged{tag}", card, prof)
     return e2e
 
 
@@ -654,35 +972,42 @@ def main() -> int:
     decode = check_decode(dev)
     flash = check_flash(dev)
     paged = check_paged(dev)
+    decode8 = check_decode_int8(dev)
+    paged8 = check_paged_int8(dev)
     e2e = serve(card)
     e2e_paged = serve_paged(card)
+    e2e_int8 = serve(card, kv_dtype="int8")
+    e2e_paged_int8 = serve_paged(card, kv_dtype="int8")
+
+    def row(name, src, replaces, launches, res):
+        return dict(name=name, route="cuda",
+                    source=f"deeplearning4j_tpu_torch/csrc/{src}",
+                    replaces=f"deeplearning4j_tpu/kernels/{replaces}",
+                    launches=launches,
+                    **{k: res[k] for k in ("max_abs_err", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms")})
 
     kernels = [
-        dict(name="decode_attention", route="cuda",
-             source="deeplearning4j_tpu_torch/csrc/decode_attention.cu",
-             replaces="deeplearning4j_tpu/kernels/decode_attention.py:100",
-             launches=e2e["launches"]["decode_attention"],
-             **{k: decode["float32"][k] for k in
-                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=decode["float32"]["library_ms"]),
-        dict(name="flash_attention", route="cuda",
-             source="deeplearning4j_tpu_torch/csrc/flash_attention.cu",
-             replaces="deeplearning4j_tpu/kernels/flash_attention.py:65",
-             launches=e2e["launches"]["flash_attention"],
-             **{k: flash[k] for k in
-                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=flash["library_ms"]),
-        dict(name="paged_attention", route="cuda",
-             source="deeplearning4j_tpu_torch/csrc/paged_attention.cu",
-             replaces="deeplearning4j_tpu/kernels/paged_attention.py:80",
-             launches=e2e_paged["launches"]["paged_attention"],
-             **{k: paged["float32"][k] for k in
-                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
-             library_ms=paged["float32"]["library_ms"]),
+        row("decode_attention", "decode_attention.cu",
+            "decode_attention.py:100",
+            e2e["launches"]["decode_attention"], decode["float32"]),
+        row("flash_attention", "flash_attention.cu", "flash_attention.py:65",
+            e2e["launches"]["flash_attention"], flash),
+        row("paged_attention", "paged_attention.cu", "paged_attention.py:80",
+            e2e_paged["launches"]["paged_attention"], paged["float32"]),
+        row("decode_attention_int8", "decode_attention.cu",
+            "decode_attention.py:143",
+            e2e_int8["launches"]["decode_attention_int8"], decode8),
+        row("paged_attention_int8", "paged_attention.cu",
+            "paged_attention.py:130",
+            e2e_paged_int8["launches"]["paged_attention_int8"], paged8),
     ]
     print("details: " + json.dumps(
-        dict(card=card, decode=decode, flash=flash, paged=paged, e2e=e2e,
-             e2e_paged=e2e_paged,
+        dict(card=card, decode=decode, flash=flash, paged=paged,
+             decode_int8=decode8, paged_int8=paged8, e2e=e2e,
+             e2e_paged=e2e_paged, e2e_int8=e2e_int8,
+             e2e_paged_int8=e2e_paged_int8,
              build={n: l["seconds"] for n, l in logs.items()}),
         default=str))
     print(json.dumps({"kernels": kernels}))

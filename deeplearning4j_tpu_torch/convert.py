@@ -4,25 +4,39 @@
 pytree with numpy leaves (``jax.tree.map(np.asarray, lm._params)``)
 and returns the same dict layout holding torch tensors on ``device``.
 It is a plain copy: both packages store weights ``[in, out]`` and
-apply them as ``x @ W``. This module imports neither JAX nor the JAX
-package; the caller converts the leaves to numpy.
+apply them as ``x @ W``. A JAX ``QuantWeight`` leaf (the int8 MLP of
+``quantize_mlp_weights``, which ``jax.tree.map`` leaves holding numpy
+``q`` and ``scale``) becomes the port's
+:class:`~.kernels.kv_quant.QuantWeight`. This module imports neither
+JAX nor the JAX package; the caller converts the leaves to numpy.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-_QUANT_TODO = ("QuantWeight leaves (int8 weight-only MLP) are not ported "
-               "yet (ROADMAP.md queue A, item 4)")
+from .kernels.kv_quant import QuantWeight
 
 
-def _leaf(x, device, where: str) -> torch.Tensor:
-    if type(x).__name__ == "QuantWeight":
-        raise NotImplementedError(f"{where}: {_QUANT_TODO}")
+def _tensor(x, device, where: str) -> torch.Tensor:
     if not isinstance(x, np.ndarray):
         raise TypeError(f"{where}: expected a numpy array, got "
                         f"{type(x).__name__}")
     return torch.from_numpy(np.array(x, copy=True)).to(device)
+
+
+def _leaf(x, device, where: str):
+    if type(x).__name__ == "QuantWeight":
+        q = _tensor(x.q, device, f"{where}.q")
+        scale = _tensor(x.scale, device, f"{where}.scale")
+        if q.dtype != torch.int8 or scale.dtype != torch.float32 \
+                or tuple(scale.shape) != tuple(q.shape[1:]):
+            raise TypeError(f"{where}: a QuantWeight holds int8 q [in, out] "
+                            f"and f32 scale [out], got {q.dtype} "
+                            f"{tuple(q.shape)} and {scale.dtype} "
+                            f"{tuple(scale.shape)}")
+        return QuantWeight(q, scale)
+    return _tensor(x, device, where)
 
 
 def params_from_jax(tree, device="cpu"):

@@ -1,8 +1,11 @@
 // Decode attention over the slot KV cache: one query row per
 // (slot, head) attends over that slot's cached K/V prefix.
 //
-// Replaces deeplearning4j_tpu/kernels/decode_attention.py::_decode_kernel
-// (the Pallas kernel behind decode_attention_pallas).
+// decode_attention_f32/_bf16 replace
+// deeplearning4j_tpu/kernels/decode_attention.py::_decode_kernel (the
+// Pallas kernel behind decode_attention_pallas); decode_attention_int8
+// replaces ::_decode_kernel_quant (behind _decode_pallas_quant), see the
+// end of this file and int8_attention.cuh.
 //
 // Layout: q [S, H, D] f32; k, v [S, H, T, D] f32 or bf16 (T contiguous
 // per head); lengths [S] int32; out [S, H, D] f32.
@@ -33,6 +36,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "int8_attention.cuh"
 
 namespace {
 
@@ -181,4 +186,62 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                      int D, float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k, v, lengths, out, S, H, T_cap, D, scale,
                                stream);
+}
+
+// int8 caches: k, v [S, H, T, D] int8 with scales ks, vs [S, H, T] f32;
+// the numeric contract and the lane layout are in int8_attention.cuh.
+// One block per (slot, head), 8 warps; warp w takes the tiles of keys
+// starting at w * kTile, then every 8th tile, and stops at the slot's
+// length.
+namespace {
+
+template <int G>
+__global__ void __launch_bounds__(int8_attention::kThreads)
+decode_attention_int8_kernel(const float* __restrict__ q,
+                             const int8_t* __restrict__ k,
+                             const int8_t* __restrict__ v,
+                             const float* __restrict__ ks,
+                             const float* __restrict__ vs,
+                             const int* __restrict__ lengths,
+                             float* __restrict__ out, int H, int T_cap, int D,
+                             float scale) {
+  using Lane = int8_attention::Lane<G>;
+  const int sh = blockIdx.x;  // slot * H + head
+  const int warp = threadIdx.x / 32;
+  int len = lengths[sh / H];
+  len = len < 0 ? 0 : (len > T_cap ? T_cap : len);
+  Lane ln(q + (size_t)sh * D, D);
+  const size_t row0 = (size_t)sh * T_cap;
+  for (int t0 = warp * Lane::kTile; t0 < len;
+       t0 += int8_attention::kWarps * Lane::kTile) {
+    const int n = min(Lane::kTile, len - t0);
+    ln.tile(k + (row0 + t0) * D, v + (row0 + t0) * D, ks + row0 + t0,
+            vs + row0 + t0, n, D, scale);
+  }
+  ln.merge_store(out + (size_t)sh * D, D, nullptr);
+}
+
+}  // namespace
+
+extern "C" int decode_attention_int8(const void* q, const void* k,
+                                     const void* v, const void* ks,
+                                     const void* vs, const void* lengths,
+                                     void* out, int S, int H, int T_cap,
+                                     int D, float scale, void* stream) {
+  decltype(&decode_attention_int8_kernel<1>) kernel;
+  switch (int8_attention::group_width(D)) {
+    case 1: kernel = decode_attention_int8_kernel<1>; break;
+    case 2: kernel = decode_attention_int8_kernel<2>; break;
+    case 4: kernel = decode_attention_int8_kernel<4>; break;
+    case 8: kernel = decode_attention_int8_kernel<8>; break;
+    case 16: kernel = decode_attention_int8_kernel<16>; break;
+    case 32: kernel = decode_attention_int8_kernel<32>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (S * H == 0) return (int)cudaErrorInvalidValue;
+  kernel<<<S * H, int8_attention::kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
+      (const float*)vs, (const int*)lengths, (float*)out, H, T_cap, D,
+      scale);
+  return (int)cudaGetLastError();
 }

@@ -2,8 +2,11 @@
 // (sequence, head) attends over that sequence's cached K/V prefix, which
 // lives in pool blocks addressed by the sequence's block-table row.
 //
-// Replaces deeplearning4j_tpu/kernels/paged_attention.py::_paged_kernel
-// (the Pallas kernel behind paged_attention_pallas).
+// paged_attention_f32/_bf16 replace
+// deeplearning4j_tpu/kernels/paged_attention.py::_paged_kernel (the
+// Pallas kernel behind paged_attention_pallas); paged_attention_int8
+// replaces ::_paged_kernel_quant (behind _paged_pallas_quant), see the
+// end of this file and int8_attention.cuh.
 //
 // Layout: q [S, H, D] f32; k_pool, v_pool [N, H, Bs, D] f32 or bf16
 // (positions contiguous per head inside a block); tables [S, B] int32
@@ -46,6 +49,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "int8_attention.cuh"
 
 namespace {
 
@@ -223,4 +228,86 @@ extern "C" int paged_attention_bf16(const void* q, const void* k_pool,
                                     float scale, void* stream) {
   return launch<__nv_bfloat16>(q, k_pool, v_pool, tables, lengths, out, S, H,
                                N, Bs, D, B, scale, stream);
+}
+
+// int8 pools: k_pool, v_pool [N, H, Bs, D] int8 with scale rows ks, vs
+// [N, H, Bs] f32; the numeric contract and the lane layout are in
+// int8_attention.cuh. The block layout is the f32 kernel's above: one
+// block per (sequence, head), the live table entries staged in shared
+// memory, warps splitting the live pool blocks. Each live block's value
+// panel and its scale row are read through the same table entry, with
+// no gather pass; the null block and stale tails are never read.
+namespace {
+
+template <int G>
+__global__ void __launch_bounds__(int8_attention::kThreads)
+paged_attention_int8_kernel(const float* __restrict__ q,
+                            const int8_t* __restrict__ k_pool,
+                            const int8_t* __restrict__ v_pool,
+                            const float* __restrict__ ks_pool,
+                            const float* __restrict__ vs_pool,
+                            const int* __restrict__ tables,
+                            const int* __restrict__ lengths,
+                            float* __restrict__ out, int H, int N, int Bs,
+                            int D, int B, float scale) {
+  using Lane = int8_attention::Lane<G>;
+  extern __shared__ int s_tbl[];  // this sequence's live table entries
+  __shared__ int sm_bad;
+  const int sh = blockIdx.x;  // sequence * H + head
+  const int s = sh / H;
+  const int h = sh - s * H;
+  const int warp = threadIdx.x / 32;
+  int len = lengths[s];
+  const int cap = B * Bs;
+  len = len < 0 ? 0 : (len > cap ? cap : len);
+  const int nblk = (len + Bs - 1) / Bs;
+  if (threadIdx.x == 0) sm_bad = 0;
+  for (int i = threadIdx.x; i < nblk; i += int8_attention::kThreads)
+    s_tbl[i] = tables[(size_t)s * B + i];
+  __syncthreads();
+
+  Lane ln(q + (size_t)sh * D, D);
+  for (int bi = warp; bi < nblk; bi += int8_attention::kWarps) {
+    const int blk = s_tbl[bi];
+    if (blk < 0 || blk >= N) {
+      sm_bad = 1;
+      continue;
+    }
+    const size_t row0 = ((size_t)blk * H + h) * Bs;
+    const int nkeys = min(Bs, len - bi * Bs);  // live keys in this block
+    for (int t0 = 0; t0 < nkeys; t0 += Lane::kTile) {
+      const int n = min(Lane::kTile, nkeys - t0);
+      ln.tile(k_pool + (row0 + t0) * D, v_pool + (row0 + t0) * D,
+              ks_pool + row0 + t0, vs_pool + row0 + t0, n, D, scale);
+    }
+  }
+  ln.merge_store(out + (size_t)sh * D, D, &sm_bad);
+}
+
+}  // namespace
+
+extern "C" int paged_attention_int8(const void* q, const void* k_pool,
+                                    const void* v_pool, const void* ks_pool,
+                                    const void* vs_pool, const void* tables,
+                                    const void* lengths, void* out, int S,
+                                    int H, int N, int Bs, int D, int B,
+                                    float scale, void* stream) {
+  decltype(&paged_attention_int8_kernel<1>) kernel;
+  switch (int8_attention::group_width(D)) {
+    case 1: kernel = paged_attention_int8_kernel<1>; break;
+    case 2: kernel = paged_attention_int8_kernel<2>; break;
+    case 4: kernel = paged_attention_int8_kernel<4>; break;
+    case 8: kernel = paged_attention_int8_kernel<8>; break;
+    case 16: kernel = paged_attention_int8_kernel<16>; break;
+    case 32: kernel = paged_attention_int8_kernel<32>; break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  if (B < 1 || B > kMaxTable || Bs < 1 || N < 1 || S * H == 0)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)B * sizeof(int);
+  kernel<<<S * H, int8_attention::kThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)q, (const int8_t*)k_pool, (const int8_t*)v_pool,
+      (const float*)ks_pool, (const float*)vs_pool, (const int*)tables,
+      (const int*)lengths, (float*)out, H, N, Bs, D, B, scale);
+  return (int)cudaGetLastError();
 }

@@ -1,4 +1,4 @@
-"""Paged KV-cache decode attention: the Hopper kernel and its plain
+"""Paged KV-cache decode attention: the Hopper kernels and their plain
 PyTorch version.
 
 Counterpart of ``deeplearning4j_tpu/kernels/paged_attention.py``. One
@@ -8,14 +8,16 @@ blocks addressed through a per-sequence block table. Layout: q
 (NULL_BLOCK-padded); lengths [S]. Key position ``j`` of sequence ``s``
 lives at ``pool[block_tables[s, j // Bs], :, j % Bs]``; positions
 >= lengths[s] are masked, and a sequence of length 0 gives exactly 0.
+An int8 pool is a :class:`~.kv_quant.QuantArray` whose [N, H, Bs]
+scale rows ride the same table entries as the values.
 
 :func:`paged_attention` launches ``csrc/paged_attention.cu`` for CUDA
-tensors (f32 or bf16 pools) and runs :func:`paged_attention_torch` for
-CPU tensors. Nothing falls back: a CUDA tensor the kernel does not take
-raises. The plain version gathers the blocks into the slot-cache
+tensors (f32, bf16 or int8 pools) and runs :func:`paged_attention_torch`
+for CPU tensors. Nothing falls back: a CUDA tensor the kernels do not
+take raises. The plain version gathers the blocks into the slot-cache
 layout and reuses the slot math, as ``paged_attention_xla`` does, so
 it is bit-identical to :func:`~.decode_attention.decode_attention_torch`
-on the gathered panel. The kernel's design and what bounds it are
+on the gathered panel. The kernels' design and what bounds them are
 written at the top of the CUDA source.
 """
 from __future__ import annotations
@@ -26,27 +28,41 @@ import math
 import torch
 
 from . import _build
-from .decode_attention import decode_attention_torch
+from .decode_attention import (check_int8_operands, check_operands,
+                               decode_attention_torch)
+from .kv_quant import QuantArray, is_quantized
 
-#: kernel launches since the last reset (the paged engine's decode
-#: steps move it; chip_smoke.py reads it to show the served path used
-#: the kernel)
+#: launches of the f32/bf16 kernel and of the int8 kernel since the
+#: last reset (the paged engine's decode steps move them; chip_smoke.py
+#: reads them to show the served path used the kernels)
 launches = 0
+launches_int8 = 0
 
-#: the kernel stages a sequence's live table entries in shared memory
+#: the kernels stage a sequence's live table entries in shared memory
 MAX_TABLE_BLOCKS = 8192
 
 _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                      ctypes.c_void_p]
-_SIGNATURES = {"paged_attention_f32": _SIG, "paged_attention_bf16": _SIG}
+_SIG_INT8 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
+                                                          ctypes.c_void_p]
+_SIGNATURES = {"paged_attention_f32": _SIG, "paged_attention_bf16": _SIG,
+               "paged_attention_int8": _SIG_INT8}
 
 
 def gather_blocks(pool, block_tables):
     """[N, H, Bs, D] pool + [S, B] tables -> [S, H, B*Bs, D] dense
-    per-sequence panels (the slot-cache layout)."""
+    per-sequence panels (the slot-cache layout). An int8 pool gathers
+    its scale rows through the same table: the panel is a QuantArray
+    with [S, H, B*Bs] scales."""
     S, B = block_tables.shape
+    idx = block_tables.reshape(-1).long()
+    if is_quantized(pool):
+        N, H, Bs = pool.scale.shape
+        gs = pool.scale[idx].reshape(S, B, H, Bs).permute(0, 2, 1, 3)
+        return QuantArray(gather_blocks(pool.q, block_tables),
+                          gs.reshape(S, H, B * Bs))
     N, H, Bs, D = pool.shape
-    g = pool[block_tables.reshape(-1).long()]            # [S*B,H,Bs,D]
+    g = pool[idx]                                         # [S*B,H,Bs,D]
     g = g.reshape(S, B, H, Bs, D).permute(0, 2, 1, 3, 4)
     return g.reshape(S, H, B * Bs, D)
 
@@ -60,37 +76,31 @@ def paged_attention_torch(q, k_pool, v_pool, block_tables, lengths):
                                   lengths)
 
 
+def _check_table(block_tables) -> None:
+    if block_tables.dtype != torch.int32:
+        raise TypeError(f"block_tables must be int32, got "
+                        f"{block_tables.dtype}")
+    if not 1 <= block_tables.shape[1] <= MAX_TABLE_BLOCKS:
+        raise ValueError(f"table width {block_tables.shape[1]} outside the "
+                         f"kernel's 1..{MAX_TABLE_BLOCKS}")
+
+
 def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     global launches
     N, H, Bs, D = k_pool.shape
     S, B = block_tables.shape
-    if q.dtype != torch.float32:
-        raise TypeError(f"paged attention kernel takes f32 queries, "
-                        f"got {q.dtype}")
     if k_pool.dtype not in (torch.float32, torch.bfloat16) \
             or v_pool.dtype != k_pool.dtype:
         raise TypeError(f"paged attention kernel takes f32 or bf16 pools "
                         f"of one type, got {k_pool.dtype}/{v_pool.dtype}")
-    if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32:
-        raise TypeError(f"block_tables and lengths must be int32, got "
-                        f"{block_tables.dtype}/{lengths.dtype}")
-    if tuple(q.shape) != (S, H, D) or tuple(v_pool.shape) != (N, H, Bs, D) \
-            or tuple(lengths.shape) != (S,):
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pools "
-                         f"{tuple(k_pool.shape)}/{tuple(v_pool.shape)}, "
-                         f"tables {tuple(block_tables.shape)}, lengths "
-                         f"{tuple(lengths.shape)}")
+    _check_table(block_tables)
+    check_operands("paged attention", q,
+                   (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("lengths", lengths)),
+                   ((S, H, D), (N, H, Bs, D), (N, H, Bs, D), (S, B), (S,)),
+                   lengths)
     if not 1 <= D <= 128:
         raise ValueError(f"head dim {D} outside the kernel's 1..128")
-    if not 1 <= B <= MAX_TABLE_BLOCKS:
-        raise ValueError(f"table width {B} outside the kernel's "
-                         f"1..{MAX_TABLE_BLOCKS}")
-    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
-                    ("block_tables", block_tables), ("lengths", lengths)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     lib = _build.load("paged_attention", _SIGNATURES)
     fn = (lib.paged_attention_f32 if k_pool.dtype == torch.float32
           else lib.paged_attention_bf16)
@@ -105,14 +115,46 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
     return out
 
 
+def _paged_attention_int8_cuda(q, k_pool, v_pool, block_tables, lengths):
+    global launches_int8
+    N, H, Bs, D = k_pool.shape
+    S, B = block_tables.shape
+    _check_table(block_tables)
+    check_operands("int8 paged attention", q,
+                   (("q", q), ("k_pool", k_pool.q), ("v_pool", v_pool.q),
+                    ("k scales", k_pool.scale), ("v scales", v_pool.scale),
+                    ("block_tables", block_tables), ("lengths", lengths)),
+                   ((S, H, D), (N, H, Bs, D), (N, H, Bs, D), (N, H, Bs),
+                    (N, H, Bs), (S, B), (S,)), lengths)
+    check_int8_operands("paged attention", k_pool, v_pool, D)
+    lib = _build.load("paged_attention", _SIGNATURES)
+    out = torch.empty((S, H, D), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.paged_attention_int8(
+            q.data_ptr(), k_pool.q.data_ptr(), v_pool.q.data_ptr(),
+            k_pool.scale.data_ptr(), v_pool.scale.data_ptr(),
+            block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+            S, H, N, Bs, D, B, 1.0 / math.sqrt(D), stream)
+    _build.check(rc, "paged_attention_int8")
+    launches_int8 += 1
+    return out
+
+
 def paged_attention(q, k_pool, v_pool, block_tables, lengths,
                     impl: str = "auto"):
     """Paged decode attention. ``impl="auto"`` (the only choice)
-    launches the Hopper kernel for CUDA tensors and runs the plain
-    version for CPU tensors."""
+    launches a Hopper kernel for CUDA tensors (int8 pools take the int8
+    kernel) and runs the plain version for CPU tensors. K and V pools
+    must be quantized together."""
     if impl != "auto":
         raise ValueError(f"unknown paged attention impl {impl!r}")
+    if is_quantized(k_pool) != is_quantized(v_pool):
+        raise ValueError("K and V pools must be quantized together")
     if q.is_cuda:
+        if is_quantized(k_pool):
+            return _paged_attention_int8_cuda(q, k_pool, v_pool,
+                                              block_tables, lengths)
         return _paged_attention_cuda(q, k_pool, v_pool, block_tables,
                                      lengths)
     return paged_attention_torch(q, k_pool, v_pool, block_tables, lengths)

@@ -23,7 +23,7 @@ from torch import nn
 
 from ...kernels.decode_attention import decode_attention
 from ...kernels.flash_attention import flash_attention
-from ...kernels.kv_quant import _INT8_TODO, kv_set
+from ...kernels.kv_quant import QuantArray, is_quantized, kv_set, mm
 from ...kernels.paged_attention import paged_attention
 from ...parallel.longseq import dot_product_attention
 from ...weightinit import init_weights
@@ -32,8 +32,13 @@ from ..functional import layer_norm
 
 def _gather_span(pool, block_table, H, Dh):
     """Gather a sequence's block-table span out of a paged pool into
-    one [H, T, Dh] panel (T = n_blocks * Bs)."""
-    return pool[block_table.long()].transpose(0, 1).reshape(H, -1, Dh)
+    one [H, T, Dh] panel (T = n_blocks * Bs). An int8 pool gathers its
+    values and its [H, T] scales through the same table."""
+    idx = block_table.long()
+    if is_quantized(pool):
+        return QuantArray(pool.q[idx].transpose(0, 1).reshape(H, -1, Dh),
+                          pool.scale[idx].transpose(0, 1).reshape(H, -1))
+    return pool[idx].transpose(0, 1).reshape(H, -1, Dh)
 
 
 def _span_attend(q, kk, vv, gpos, p0c, out_dtype):
@@ -41,28 +46,45 @@ def _span_attend(q, kk, vv, gpos, p0c, out_dtype):
     :meth:`SelfAttentionLayer.apply_prefill_paged` (counterpart of the
     JAX ``_span_attend``, plain PyTorch as it was plain jnp there).
 
-    q: [C, H, Dh] span queries; kk/vv: [H, T, Dh] f32 or bf16 panels;
-    gpos: [C] global positions (row c sees keys j <= gpos[c]); p0c: the
-    first position NOT written by this sequence (p0 + C): V beyond it
-    is a previous occupant's stale leavings and may be non-finite, so
-    it is zeroed (0 * NaN = NaN). bf16 panels run bf16-operand products
-    with f32 accumulation."""
-    if kk.dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(_INT8_TODO)
+    q: [C, H, Dh] span queries; kk/vv: [H, T, Dh] f32 or bf16 panels,
+    or int8 QuantArrays with [H, T] scales; gpos: [C] global positions
+    (row c sees keys j <= gpos[c]); p0c: the first position NOT written
+    by this sequence (p0 + C): V beyond it is a previous occupant's
+    stale leavings and may be non-finite, so it is zeroed
+    (0 * NaN = NaN). bf16 and int8 panels run bf16-operand products
+    with f32 accumulation; int8 scales apply after the QK product for K
+    and fold into p for V, where-guarded, as in the decode kernels."""
+    for x in (kk, vv):
+        if not is_quantized(x) and x.dtype not in (torch.float32,
+                                                   torch.bfloat16):
+            raise TypeError(f"a {x.dtype} panel: int8 panels are "
+                            f"QuantArrays that carry their scales")
     H, T, Dh = kk.shape
     scale = 1.0 / math.sqrt(Dh)
-    ar = torch.arange(T, device=kk.device)
+    ar = torch.arange(T, device=q.device)
     valid = ar[None, None, :] <= gpos[None, :, None]
     written = (ar < p0c)[None, :, None]
-    # bf16 products are exact in f32: an f32 einsum over bf16-rounded
-    # operands is the bf16 dot with f32 accumulation
-    bf16 = kk.dtype == torch.bfloat16
-    q = q.to(torch.bfloat16).float() if bf16 else q.float()
-    s = torch.einsum("chd,htd->hct", q, kk.float()) * scale
+    if is_quantized(kk) or kk.dtype == torch.bfloat16:
+        kb = kk.q if is_quantized(kk) else kk
+        vb = vv.q if is_quantized(vv) else vv
+        # bf16 and int8 products are exact in f32: an f32 einsum over
+        # bf16-rounded operands is the bf16 dot with f32 accumulation
+        s = torch.einsum("chd,htd->hct", q.to(torch.bfloat16).float(),
+                         kb.to(torch.bfloat16).float()) * scale
+        if is_quantized(kk):
+            s = s * kk.scale[:, None, :]
+        s = torch.where(valid, s, -1e30)
+        p = torch.softmax(s, dim=-1)
+        if is_quantized(vv):
+            p = torch.where(valid, p * vv.scale[:, None, :], 0.0)
+        else:
+            p = torch.where(valid, p, 0.0)
+        vb = torch.where(written, vb.to(torch.bfloat16).float(), 0.0)
+        att = torch.einsum("hct,htd->chd", p.to(torch.bfloat16).float(), vb)
+        return att.to(out_dtype)
+    s = torch.einsum("chd,htd->hct", q.float(), kk.float()) * scale
     s = torch.where(valid, s, -1e30)
     p = torch.where(valid, torch.softmax(s, dim=-1), 0.0)
-    if bf16:
-        p = p.to(torch.bfloat16).float()
     vv = torch.where(written, vv.float(), 0.0)
     return torch.einsum("hct,htd->chd", p, vv).to(out_dtype)
 
@@ -283,10 +305,11 @@ class TransformerEncoderLayer(nn.Module):
 
     def _mlp(self, params, x):
         # jax.nn.gelu defaults to the tanh approximation; torch's
-        # default is the exact erf form
+        # default is the exact erf form. ``mm`` takes int8 weight-only
+        # QuantWeights (quantize_mlp_weights) as well as plain weights
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
-        h = F.gelu(h @ params["W1"] + params["b1"], approximate="tanh")
-        return x + (h @ params["W2"] + params["b2"])
+        h = F.gelu(mm(h, params["W1"]) + params["b1"], approximate="tanh")
+        return x + (mm(h, params["W2"]) + params["b2"])
 
     def apply_seq(self, params, x, mask=None):
         """Inference forward of the block over x [B, T, C]."""

@@ -276,6 +276,11 @@ class GenerationEngine:
       pinned turns; matched blocks join the request's table by
       refcount and a mid-block match tail is copied on write. Tokens
       are identical to the slot backend's.
+    - ``kv_dtype``: ``"f32"`` (default), ``"bf16"`` or ``"int8"`` for
+      either backend. An int8 cache stores int8 values with one f32
+      scale per (head, position), quantized on every write and
+      dequantized inside the int8 attention kernels; copy-on-write
+      copies the scale rows with the values.
 
     Arguments of the JAX engine whose features are not ported yet
     raise ``NotImplementedError`` naming their ROADMAP.md item.
@@ -307,8 +312,6 @@ class GenerationEngine:
                              f"got {cache!r}")
         self.cache_backend = cache
         self.kv_dtype = canonical_kv_dtype(kv_dtype)
-        if self.kv_dtype == "int8":
-            raise _todo("kv_dtype='int8'", "4")
         if int(speculation_k) or draft_model is not None:
             raise _todo("speculative decoding (speculation_k > 0)", "7")
         if int(offload_host_bytes):
@@ -362,8 +365,10 @@ class GenerationEngine:
         self._cache = self._fresh_cache()
         self.metrics.cache_bytes = self._cache.nbytes()
         self.metrics.kv_dtype = self.kv_dtype
-        self.metrics.kv_bits = {"f32": 32, "bf16": 16}[self.kv_dtype]
+        self.metrics.kv_bits = {"f32": 32, "bf16": 16, "int8": 8}[
+            self.kv_dtype]
         self.metrics.kv_bytes_per_token = self._cache.bytes_per_token()
+        self.metrics.quant_scale_bytes = self._cache.scale_nbytes()
         self._kcs = self._cache.ks
         self._vcs = self._cache.vs
         self._slots = SlotTable(self.num_slots)
@@ -490,6 +495,9 @@ class GenerationEngine:
             fill[b] = bs  # indexed blocks are full prompt blocks
         self.metrics.kv_tokens_live = sum(fill.values())
         self.metrics.kv_tokens_allocated = a.used_count * bs
+        if self.kv_dtype == "int8":
+            # every allocated block holds quantize-on-write content
+            self.metrics.quant_blocks_quantized = a.used_count
         self.metrics.shared_blocks = a.shared_count
         self.metrics.prefix_blocks = len(self._prefix_index)
         self.metrics.sessions_live = len(self._sessions)

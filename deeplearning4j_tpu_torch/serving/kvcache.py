@@ -7,7 +7,8 @@ never change. No zeroing between occupants: the next prefill
 overwrites the prefix it will unmask and the per-slot length masks the
 rest (the no-zeroing invariant, which is why the decode kernel never
 reads past a slot's length). Prefill and decode write into these
-tensors in place.
+tensors in place. An int8 cache holds int8 values and one f32 scale
+per (slot, head, position).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_bytes_per_token,
-                                kv_nbytes, kv_zeros)
+                                kv_nbytes, kv_scale_nbytes, kv_zeros)
 
 
 class KVCache:
@@ -33,8 +34,14 @@ class KVCache:
                                   device) for s in self.layer_shapes]
 
     def nbytes(self) -> int:
-        """Device bytes the cache pins."""
+        """Device bytes the cache pins (int8 scales included)."""
         return int(sum(2 * kv_nbytes((self.num_slots,) + s, self.kv_dtype)
+                       for s in self.layer_shapes))
+
+    def scale_nbytes(self) -> int:
+        """Bytes of the f32 scales alone (0 unless int8)."""
+        return int(sum(2 * kv_scale_nbytes((self.num_slots,) + s,
+                                           self.kv_dtype)
                        for s in self.layer_shapes))
 
     def bytes_per_token(self) -> int:

@@ -1,8 +1,9 @@
 """Generation-engine counters (counterpart of
 ``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
-counters the slot and paged backends move; the speculative and offload
-blocks come with their slices, and the Prometheus exposition with the
-serving shell, ROADMAP.md queue A, item 9)."""
+counters the slot and paged backends and the int8 KV cache move; the
+speculative and offload blocks come with their slices, and the
+Prometheus exposition with the serving shell, ROADMAP.md queue A, item
+9)."""
 from __future__ import annotations
 
 import threading
@@ -48,7 +49,10 @@ class GenerationMetrics:
         self.cache_bytes = 0
         self.kv_dtype = "f32"
         self.kv_bits = 32
-        self.kv_bytes_per_token = 0
+        self.kv_bytes_per_token = 0    # K+V bytes per position, all
+        #                                layers, int8 scales included
+        self.quant_blocks_quantized = 0  # gauge: allocated int8 blocks
+        self.quant_scale_bytes = 0       # f32 scale bytes (0 unless int8)
         # paged-cache gauges and counters (serving/paging.py; all zero
         # on the slot backend)
         self.cache_backend = "slots"
@@ -159,5 +163,9 @@ class GenerationMetrics:
             "kv_dtype": self.kv_dtype,
             "kv_bits": self.kv_bits,
             "kv_bytes_per_token": self.kv_bytes_per_token,
+            "quant": {
+                "blocks_quantized": self.quant_blocks_quantized,
+                "scale_bytes": self.quant_scale_bytes,
+            },
             "warmed_buckets": list(self.warmed_buckets),
         }

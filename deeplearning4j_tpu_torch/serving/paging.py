@@ -43,7 +43,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_bytes_per_token,
-                                kv_nbytes, kv_zeros)
+                                kv_nbytes, kv_scale_nbytes, kv_zeros)
 
 #: Block index reserved as the write target of padded table entries.
 #: Never handed out by the allocator.
@@ -191,8 +191,8 @@ class PagedKVCache:
     """Per-layer pooled K/V blocks on one device, the paged sibling of
     :class:`~.kvcache.KVCache`. ``layer_shapes`` are per-layer
     ``(n_heads, block_size, head_dim)``, i.e.
-    ``model.cache_shapes(block_size)``. f32 and bf16 pools; the int8
-    pool comes with ROADMAP.md queue A, item 4."""
+    ``model.cache_shapes(block_size)``. f32, bf16 or int8 pools; an
+    int8 pool has one f32 scale per (block, head, position)."""
 
     def __init__(self, layer_shapes: Sequence[Tuple[int, int, int]],
                  num_blocks: int, kv_dtype: str = "f32", device=None):
@@ -206,14 +206,22 @@ class PagedKVCache:
                                   device) for s in self.layer_shapes]
 
     def nbytes(self) -> int:
-        """Device bytes the pool pins (K+V, every layer)."""
+        """Device bytes the pool pins (K+V, every layer, int8 scales
+        included)."""
         return int(sum(2 * kv_nbytes((self.num_blocks,) + s,
                                      self.kv_dtype)
                        for s in self.layer_shapes))
 
     def block_nbytes(self) -> int:
-        """Bytes one block pins across all layers (K+V)."""
+        """Bytes one block pins across all layers (K+V, scales
+        included)."""
         return self.nbytes() // self.num_blocks
+
+    def scale_nbytes(self) -> int:
+        """Bytes of the f32 scales alone (0 unless int8)."""
+        return int(sum(2 * kv_scale_nbytes((self.num_blocks,) + s,
+                                           self.kv_dtype)
+                       for s in self.layer_shapes))
 
     def bytes_per_token(self) -> int:
         """K+V bytes one token position costs across all layers."""

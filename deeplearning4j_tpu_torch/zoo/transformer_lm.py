@@ -190,7 +190,26 @@ class CausalTransformerLM(nn.Module):
         return self.logits(tokens)
 
 
+def quantize_mlp_weights(model: CausalTransformerLM) -> CausalTransformerLM:
+    """Convert every block's MLP weights (W1, W2) to int8 weight-only
+    :class:`~deeplearning4j_tpu_torch.kernels.kv_quant.QuantWeight`
+    matrices in place (per-output-channel scales; biases, attention
+    projections and norms stay f32). ``TransformerEncoderLayer._mlp``
+    takes either. Idempotent; returns the model (counterpart of the JAX
+    ``quantize_mlp_weights``)."""
+    from ..kernels.kv_quant import QuantWeight, quantize_weight
+    if model._params is None:
+        model.init()
+    for bp in model._params["blocks"]:
+        for name in ("W1", "W2"):
+            if not isinstance(bp[name], QuantWeight):
+                bp[name] = quantize_weight(bp[name])
+    return model
+
+
 def _to_device(params, device):
+    """Move a params tree (tensors and QuantWeight leaves) to
+    ``device``."""
     out = {k: v.to(device) for k, v in params.items() if k != "blocks"}
     out["blocks"] = [{k: v.to(device) for k, v in bp.items()}
                      for bp in params["blocks"]]

@@ -271,8 +271,8 @@ def test_device_error_fails_in_flight_requests_with_it(jlm):
     eng.stop()
 
 
-@pytest.mark.parametrize("kw", [dict(kv_dtype="int8"),
-                                dict(kv_dtype="int8", cache="paged"),
+@pytest.mark.parametrize("kw", [dict(speculation_k=2, cache="paged"),
+                                dict(decode_pipeline=True, cache="paged"),
                                 dict(speculation_k=2),
                                 dict(offload_host_bytes=1 << 20),
                                 dict(fault_injector=object()),

@@ -1,4 +1,5 @@
-"""The Hopper kernels against their plain PyTorch versions on the card.
+"""The Hopper kernels against their plain PyTorch versions on the card
+(f32, bf16 and int8 caches).
 
 Every test here carries the ``gpu`` marker and skips itself without a
 CUDA device. The file imports neither JAX nor the JAX package, so it
@@ -15,6 +16,7 @@ import torch
 
 from deeplearning4j_tpu_torch.kernels import decode_attention as da
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from deeplearning4j_tpu_torch.kernels import kv_quant as kvq
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 
 pytestmark = pytest.mark.gpu
@@ -25,6 +27,14 @@ TOL_F32 = 1e-4
 # or after (plain, as decode_attention_xla) normalisation, ~2^-9 of
 # each term; chip_smoke.py measures 1.9e-3 at S=32, T=1024
 TOL_BF16 = 5e-3
+# int8 caches: the kernel rounds the unnormalised p * vscale to bf16
+# (as the Pallas kernel), the plain version the normalised one (as the
+# xla path); each rounding is within 2^-8 of its term, so an output may
+# move by up to 2^-7 of the largest |dequantised v| it averages, most
+# where one key dominates. The JAX package holds its own int8 Pallas
+# kernel to its xla path at 2e-2 (tests/test_kv_quant.py); 1.0e-2
+# measured on an H100 at S=32 H=8 T=1024 D=64
+TOL_INT8 = 2e-2
 
 
 def _device():
@@ -146,3 +156,119 @@ def test_cuda_tensor_the_kernel_does_not_take_raises():
         pa.paged_attention(q, pool, pool, tbl.long(), lens32)
     with pytest.raises(ValueError):
         pa.paged_attention(q, pool, pool, tbl.t(), lens32)
+
+
+def _quantized(rs, *shape, dev):
+    return kvq.quantize_rows(_randn(rs, *shape, dev=dev))
+
+
+@pytest.mark.parametrize("S,H,T,D", [(4, 2, 100, 64), (4, 2, 100, 128),
+                                     (4, 3, 57, 12), (4, 2, 40, 8),
+                                     (32, 8, 1024, 64)])
+def test_int8_decode_kernel_matches_plain(S, H, T, D):
+    """Ragged lengths (0, 1, 37 and T among them), NaN in the scales of
+    every stale tail, head dims whose lane groups are partly idle."""
+    dev = _device()
+    rs = np.random.RandomState(S + T + D)
+    q = _randn(rs, S, H, D, dev=dev)
+    k = _quantized(rs, S, H, T, D, dev=dev)
+    v = _quantized(rs, S, H, T, D, dev=dev)
+    lens = rs.randint(1, T + 1, S).astype(np.int32)
+    lens[:4] = [0, 1, min(37, T), T]
+    for s, n in enumerate(lens):
+        k.scale[s, :, n:] = float("nan")
+        v.scale[s, :, n:] = float("nan")
+    lens = torch.from_numpy(lens).to(dev)
+    n0, f0 = da.launches_int8, da.launches
+    got = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert (da.launches_int8, da.launches) == (n0 + 1, f0)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_INT8
+    assert got[0].abs().max().item() == 0.0
+
+
+def _int8_paged_case(rs, dev, S=6, H=2, Bs=16, D=64, N=64, B=8):
+    """int8 pools with NaN in the null block's scales and in every
+    sequence's stale tail's scales; each table a random set of distinct
+    blocks (non-contiguous, in no order), NULL-padded past the
+    length."""
+    q = _randn(rs, S, H, D, dev=dev)
+    k = _quantized(rs, N, H, Bs, D, dev=dev)
+    v = _quantized(rs, N, H, Bs, D, dev=dev)
+    lens = rs.randint(1, B * Bs + 1, S).astype(np.int32)
+    lens[:6] = [0, 1, 15, 16, 17, B * Bs]
+    perm = rs.permutation(np.arange(1, N))
+    tbl = np.zeros((S, B), np.int32)
+    used = 0
+    for s, n in enumerate(lens):
+        nb = -(-int(n) // Bs)
+        tbl[s, :nb] = perm[used:used + nb]
+        used += nb
+        if n % Bs:
+            k.scale[tbl[s, nb - 1], :, n % Bs:] = float("nan")
+            v.scale[tbl[s, nb - 1], :, n % Bs:] = float("nan")
+    k.scale[0] = float("nan")
+    v.scale[0] = float("nan")
+    return (q, k, v, torch.from_numpy(tbl).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+@pytest.mark.parametrize("shape", [dict(), dict(Bs=8, D=32),
+                                   dict(H=3, Bs=5, D=12),
+                                   dict(S=64, H=8, N=4096, B=64)])
+def test_int8_paged_kernel_matches_plain(shape):
+    dev = _device()
+    q, k, v, tbl, lens = _int8_paged_case(np.random.RandomState(8), dev,
+                                          **shape)
+    n0, f0 = pa.launches_int8, pa.launches
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    want = pa.paged_attention_torch(q, k, v, tbl, lens)
+    torch.cuda.synchronize()
+    assert (pa.launches_int8, pa.launches) == (n0 + 1, f0)
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_INT8
+    assert got[0].abs().max().item() == 0.0
+
+
+def test_int8_paged_kernel_matches_int8_slot_kernel_on_gathered_panel():
+    """Blocks of 16 at D=64 are the slot kernel's tiles, so both fold
+    the same keys in the same order: only the table indirection
+    differs."""
+    dev = _device()
+    q, k, v, tbl, lens = _int8_paged_case(np.random.RandomState(9), dev)
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    gk, gv = pa.gather_blocks(k, tbl), pa.gather_blocks(v, tbl)
+    dense = da.decode_attention(
+        q, kvq.QuantArray(gk.q.contiguous(), gk.scale.contiguous()),
+        kvq.QuantArray(gv.q.contiguous(), gv.scale.contiguous()), lens)
+    torch.cuda.synchronize()
+    assert (got - dense).abs().max().item() <= TOL_F32
+
+
+def test_int8_tensors_the_kernels_do_not_take_raise():
+    dev = _device()
+    rs = np.random.RandomState(10)
+    q = _randn(rs, 2, 2, 8, dev=dev)
+    k = _quantized(rs, 2, 2, 16, 8, dev=dev)
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="quantized together"):
+        da.decode_attention(q, k, kvq.dequantize(k), lens)
+    with pytest.raises(TypeError):   # values without their scales
+        da.decode_attention(q, k.q, k.q, lens)
+    bad = kvq.QuantArray(k.q, k.scale.double())
+    with pytest.raises(TypeError):
+        da.decode_attention(q, bad, bad, lens)
+    odd = _quantized(rs, 2, 2, 16, 6, dev=dev)
+    with pytest.raises(ValueError, match="multiples of 4"):
+        da.decode_attention(_randn(rs, 2, 2, 6, dev=dev), odd, odd, lens)
+    pool = _quantized(rs, 4, 2, 16, 8, dev=dev)
+    tbl = torch.zeros((2, 3), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="quantized together"):
+        pa.paged_attention(q, pool, kvq.dequantize(pool), tbl, lens)
+    with pytest.raises(TypeError):
+        pa.paged_attention(q, pool, pool, tbl.long(), lens)
+    strided = kvq.QuantArray(pool.q, pool.scale.transpose(1, 2))
+    with pytest.raises(ValueError):
+        pa.paged_attention(q, strided, strided, tbl, lens)

@@ -154,5 +154,8 @@ def test_kv_copy_row_matches_jax(kv_dtype):
 
 
 def test_kv_copy_row_int8_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A bare int8 pool (values without their scales) is refused: int8
+    pools are QuantArrays, whose copy carries the scale row
+    (tests/test_torch_kv_quant.py)."""
+    with pytest.raises(TypeError, match="QuantArray"):
         tkv.kv_copy_row(torch.zeros((3, 2), dtype=torch.int8), 0, 1)

@@ -160,8 +160,10 @@ def test_span_attend_matches_jax(dtype):
 
 
 def test_span_attend_int8_pool_is_not_ported():
+    """A bare int8 panel (values without their scales) is refused: int8
+    pools are QuantArrays (tests/test_torch_int8_attention.py)."""
     kk = torch.zeros((2, 8, 4), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(TypeError, match="QuantArray"):
         tatt._span_attend(torch.zeros((1, 2, 4)), kk, kk,
                           torch.zeros(1, dtype=torch.long), 1,
                           torch.float32)

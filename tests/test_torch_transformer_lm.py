@@ -140,6 +140,13 @@ def test_load_params_checks_shapes(pair):
 
 
 def test_quantized_weights_not_ported_yet():
+    """QuantWeight leaves, once refused, now arrive as the port's
+    QuantWeight; a leaf of any other kind is still refused."""
     jlm = quantize_mlp_weights(JaxLM(**CFG, seed=0).init())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        params_from_jax(jax.tree.map(np.asarray, jlm._params))
+    tree = jax.tree.map(np.asarray, jlm._params)
+    params = params_from_jax(tree)
+    w1 = params["blocks"][0]["W1"]
+    assert type(w1).__name__ == "QuantWeight" and w1.q.dtype == torch.int8
+    tree["blocks"][0]["W1"] = [1.0, 2.0]
+    with pytest.raises(TypeError, match="numpy"):
+        params_from_jax(tree)
