@@ -75,6 +75,17 @@ INT8_TOL = 2e-2         # int8 kernels: the kernel rounds the unnormalised
 #                         2^-7 of the largest |dequantised v| it averages.
 #                         The JAX package's own Pallas-vs-xla int8
 #                         tolerance; 1.0e-2 measured on an H100 here
+FLASH_BWD_TOL = 1e-4    # relative to the largest gradient (at least
+#                         1): f32, sums over up to 1024 keys in another
+#                         order; dp = dO.V over D=64 has std 8 here, so
+#                         gradients reach ~10
+TRAIN_LOSS_RTOL = 1e-4  # card vs CPU loss of one step: f32 on both, a
+#                         mean over 1024 tokens summed in another order
+TRAIN_GRAD_TOL = 1e-3   # card vs CPU, each gradient leaf's max error over
+#                         its max |value|: f32 on both, but GEMMs over
+#                         512-2048 terms and attention over 1024 keys sum
+#                         in another order, and a leaf's small entries
+#                         (embedding rows, biases) carry that error
 INT8_TEACHER_TOL = 1e-2  # int8 teacher-forced gap: card and CPU both run
 #                         int8, but sums in another order can move a K/V
 #                         value across an int8 rounding boundary (one step
@@ -90,6 +101,12 @@ SERVE_CFG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
 #: the paged configuration of docs/generation.md
 PAGED_ENGINE = dict(num_slots=64, cache="paged", block_size=16,
                     num_blocks=4096, prefill_chunk_tokens=512)
+
+#: the training phase: SERVE_CFG's width in the layer DSL, batches of 4
+#: sequences of 1024 tokens
+TRAIN_CFG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
+                 d_ff=2048, batch=4, seq_len=1024, lr=1e-3, seed=0)
+TRAIN_STEPS = 5  # timed steps, after one warmup step
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores
@@ -339,7 +356,9 @@ def check_paged(dev):
     return results
 
 
-def _int8_bound(nbytes, flops):
+def _bound(nbytes, flops):
+    """The least time on the card (ms) for ``nbytes`` moved and
+    ``flops`` done at the f32 rate, and which of the two sets it."""
     b, f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
     return max(b, f) * 1e3, "bytes" if b >= f else "operations"
 
@@ -397,7 +416,7 @@ def check_decode_int8(dev):
         q[:, :, None], kd, vd))
     nbytes = 2 * S * H * T * D + 2 * S * H * T * 4 + 2 * S * H * D * 4 \
         + S * 4
-    bound_ms, bound_by = _int8_bound(nbytes, 4 * D * H * S * T)
+    bound_ms, bound_by = _bound(nbytes, 4 * D * H * S * T)
     print(f"decode_attention int8 S={S} H={H} T={T} D={D}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on the "
           f"dequantised f32 panel, dequantisation not timed) {lib_ms:.4f} "
@@ -480,7 +499,7 @@ def check_paged_int8(dev):
         q[:, :, None], kf, vf))
     nbytes = 2 * S * H * T * D + 2 * S * H * T * 4 + 2 * S * H * D * 4 \
         + S * B * 4 + S * 4
-    bound_ms, bound_by = _int8_bound(nbytes, 4 * D * H * S * T)
+    bound_ms, bound_by = _bound(nbytes, 4 * D * H * S * T)
     print(f"paged_attention int8 S={S} H={H} Bs={Bs} D={D} B={B} N={N}, "
           f"every length {T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
           f"int8 slot kernel on the gathered panel {slot_ms:.4f} ms, "
@@ -682,12 +701,323 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
     return e2e
 
 
+def check_flash_bwd(dev):
+    """Phase 8: the dQ and dK/dV kernels against their plain versions
+    across the prefill buckets, then timed at the training shapes."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    B, H, D = 4, 8, 64
+    g = torch.Generator(device="cpu").manual_seed(8)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    per_bucket = {}
+    T = 8
+    while T <= 1024:
+        q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(dev)
+                       for _ in range(4))
+        # rows of length T, ~3T/4, ~T/3 and 0 (every key masked)
+        lens = torch.tensor([T, (3 * T) // 4 + 1, T // 3 + 1, 0])
+        km = (torch.arange(T)[None] < lens[:, None]).to(torch.float32)
+        km = km.to(dev)
+        out, lse = fa.flash_attention(q, k, v, True, km)
+        delta = fa.backward_delta(do, out)
+        dq = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
+                                            True)
+        want_dq = fa.flash_attention_bwd_dq_torch(q, k, v, km, do, lse,
+                                                  delta, True)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_torch(
+            q, k, v, km, do, lse, delta, True)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, pairs in (("dq", ((dq, want_dq),)),
+                            ("dkv", ((dk, want_dk), (dv, want_dv)))):
+            err = max((a - b).abs().max().item() for a, b in pairs)
+            scale = max(max(b.abs().max().item() for _, b in pairs), 1.0)
+            finite = all(bool(torch.isfinite(a).all()) for a, _ in pairs)
+            masked_row = max(a[3].abs().max().item() for a, _ in pairs)
+            if not (finite and err <= FLASH_BWD_TOL * scale
+                    and masked_row == 0.0):
+                raise AssertionError(
+                    f"flash backward {name} T={T} disagrees with its plain "
+                    f"version: {err:.3e} (scale {scale:.2f}), finite "
+                    f"{finite}, fully masked row max {masked_row}")
+            errs[name] = err
+            worst[name] = max(worst[name], err)
+        per_bucket[T] = errs
+        T *= 2
+    print(f"flash backward buckets 8..1024, B={B} H={H} D={D} causal, "
+          f"ragged key mask, a fully masked row: max_abs_err dq "
+          f"{worst['dq']:.3e}, dk/dv {worst['dkv']:.3e} (tol "
+          f"{FLASH_BWD_TOL:g} x max(1, largest gradient)); per bucket "
+          f"{per_bucket}")
+
+    # timed at the training shapes: T=1024, causal, every key live
+    T = 1024
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(dev)
+                   for _ in range(4))
+    km = torch.ones((B, T), device=dev)
+    out, lse = fa.flash_attention(q, k, v, True, km)
+    delta = fa.backward_delta(do, out)
+    pairs = T * (T + 1) // 2
+    tensor = B * T * H * D * 4
+    rows = B * H * T * 4
+    res = {}
+    for name, fn, plain, flops, nbytes in (
+            ("dq",
+             lambda: fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta,
+                                               True),
+             lambda: fa.flash_attention_bwd_dq_torch(q, k, v, km, do, lse,
+                                                     delta, True),
+             6 * D * B * H * pairs, 5 * tensor + 2 * rows + B * T * 4),
+            ("dkv",
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
+                                                True),
+             lambda: fa.flash_attention_bwd_dkv_torch(q, k, v, km, do, lse,
+                                                      delta, True),
+             8 * D * B * H * pairs, 6 * tensor + 2 * rows + B * T * 4)):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        res[name] = dict(max_abs_err=worst[name], tol=FLASH_BWD_TOL,
+                         per_bucket={t: e[name]
+                                     for t, e in per_bucket.items()},
+                         ms=time_ms(fn), plain_ms=time_ms(plain),
+                         bound_ms=bound_ms, bound_by=bound_by,
+                         gflop=flops / 1e9)
+    # the library yardstick: SDPA's backward (dq, dk and dv in one) on
+    # the same f32 inputs and mask, timed on a retained graph
+    mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None,
+                                                                   None]
+    mask = mask & (km > 0)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    dot = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_ms = time_ms(lib_bwd)
+    backend = _top_kernel(lib_bwd)
+    for name in res:
+        res[name]["library_ms"] = lib_ms
+        res[name]["library_backend"] = backend
+    # the forward (B3) at these shapes, beside its B=1 row of phase 3
+    fwd_bound, fwd_by = _bound(4 * tensor + B * T * 4 + rows,
+                               4 * D * B * H * pairs)
+    fwd = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, True, km)),
+               plain_ms=time_ms(lambda: fa.flash_attention_torch(
+                   q, k, v, True, km)),
+               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                   qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)),
+               bound_ms=fwd_bound, bound_by=fwd_by)
+    res["fwd_b4"] = fwd
+    for name, label in (("dq", "dQ (B6)"), ("dkv", "dK/dV (B7)")):
+        r = res[name]
+        print(f"flash backward {label} B={B} H={H} T={T} D={D} causal: "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library (SDPA backward, dq+dk+dv, {backend}) "
+              f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['gflop']:.2f} GFLOP)")
+    print(f"flash forward (B3) B={B} H={H} T={T} D={D} causal: kernel "
+          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, library "
+          f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms")
+    return res
+
+
+def _top_kernel(fn) -> str:
+    """Name of the longest device kernel of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        fn()
+        torch.cuda.synchronize()
+    best, best_us = "not traced", -1.0
+    for e in p.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        if us > best_us:
+            best, best_us = e.key, us
+    return best[:100]
+
+
+def train_conf(cfg):
+    """The training phase's network in the layer DSL."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        TransformerEncoderLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        EmbeddingSequenceLayer, RnnOutputLayer)
+    b = (NeuralNetConfiguration.builder().seed(cfg["seed"])
+         .updater(Adam(cfg["lr"])).weight_init("xavier").list()
+         .layer(EmbeddingSequenceLayer(n_in=cfg["vocab_size"],
+                                       n_out=cfg["d_model"])))
+    for _ in range(cfg["n_layers"]):
+        b = b.layer(TransformerEncoderLayer(n_heads=cfg["n_heads"],
+                                            d_ff=cfg["d_ff"], causal=True))
+    return (b.layer(RnnOutputLayer(n_out=cfg["vocab_size"], loss="mcxent",
+                                   activation="softmax"))
+            .input_type_recurrent(1, timesteps=cfg["seq_len"]).build())
+
+
+def recurrence_batch(cfg, batch, seed, device):
+    """Token rows of t[i+1] = (a t[i] + b) mod vocab from seeded starts:
+    the next token is a function of the current one, so the loss can
+    fall. Returns tokens [batch, T] and one-hot labels [batch, T, vocab]
+    made on ``device``."""
+    import torch
+    V, T = cfg["vocab_size"], cfg["seq_len"]
+    rs = np.random.RandomState(seed)
+    seq = np.empty((batch, T + 1), np.int64)
+    seq[:, 0] = rs.randint(0, V, batch)
+    for i in range(T):
+        seq[:, i + 1] = (7919 * seq[:, i] + 12345) % V
+    seq = torch.from_numpy(seq).to(device)
+    y = torch.zeros((batch, T, V), device=device)
+    y.scatter_(2, seq[:, 1:, None], 1.0)
+    return seq[:, :T], y
+
+
+def train(card: str, cfg=TRAIN_CFG, device=None, steps=TRAIN_STEPS):
+    """Phase 9: the training path end to end (see the module doc)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    net = MultiLayerNetwork(train_conf(cfg), device=device)
+    t0 = time.perf_counter()
+    net.init()
+    init_s = time.perf_counter() - t0
+    dev = net.device
+    x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(1 + steps):   # one warmup step, then the timed ones
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        if on_card:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_)
+    launches = {"flash_attention": fa.launches,
+                "flash_attention_bwd_dq": fa.launches_dq,
+                "flash_attention_bwd_dkv": fa.launches_dkv}
+    want = cfg["n_layers"] * (1 + steps)
+    if any(n != want for n in launches.values()):
+        raise AssertionError(f"launches {launches}: each flash kernel must "
+                             f"run {cfg['n_layers']} layers x {1 + steps} "
+                             f"steps = {want} times")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    timed = sorted(step_ms[1:])
+    p50 = timed[len(timed) // 2]
+    tokens = cfg["batch"] * cfg["seq_len"]
+    prof = profile_train_step(net, x, y) if on_card else None
+    grad = grad_check(cfg, device)
+    res = dict(cfg=cfg, steps=steps, losses=losses, step_ms=step_ms,
+               step_p50_ms=p50, tokens_per_step=tokens,
+               tokens_per_s=tokens / (p50 / 1e3), peak_bytes=peak,
+               params=net.num_params(), init_s=init_s, launches=launches,
+               grad_check=grad, profile=prof)
+    print(f"train [{card}]: {net.num_params()} params, {steps} timed Adam "
+          f"steps of {tokens} tokens after one warmup: step p50 "
+          f"{p50:.2f} ms (all {[round(t, 2) for t in step_ms]}), "
+          f"{res['tokens_per_s']:.1f} tokens/s, loss "
+          f"{[round(v, 4) for v in losses]}, peak "
+          f"{'not measured' if peak is None else f'{peak / 2**30:.3f} GiB'}"
+          f", launches {launches}")
+    print(f"train gradient check (2 blocks, B=1, card vs CPU): loss rel err "
+          f"{grad['loss_rel_err']:.3e} (tol {TRAIN_LOSS_RTOL:g}), worst "
+          f"leaf {grad['worst_leaf']} at {grad['worst_rel_err']:.3e} of its "
+          f"max (tol {TRAIN_GRAD_TOL:g}), {grad['leaves']} leaves")
+    if prof is not None:
+        print(f"train profile [{card}] (one step, profiler on): device busy "
+              f"{prof['busy_share']:.3f} of {prof['wall_ms']:.1f} ms, "
+              f"{prof['device_kernels']} device kernels; by kind (ms) "
+              f"{ {k: round(v, 3) for k, v in prof['by_kind'].items()} }; "
+              f"top kernels (ms): "
+              + ", ".join(f"{n[:60]} {t:.3f}" for n, t in prof["top"]))
+    return res
+
+
+def profile_train_step(net, x, y):
+    """Kernel time by name and the device's busy share over one train
+    step, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = {}
+    n_kernels = 0
+    for e in p.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = e.self_cuda_time_total
+        kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+        n_kernels += e.count
+    busy_ms = sum(kernels.values())
+    # device time by kind: the flash kernels, GEMMs, everything else
+    # (elementwise, reductions, copies, the loss and Adam)
+    by_kind = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, ms in kernels.items():
+        kind = "flash" if "flash_" in name else \
+            "gemm" if "gemm" in name.lower() else "other"
+        by_kind[kind] += ms
+    return dict(wall_ms=wall * 1e3, busy_ms=busy_ms,
+                busy_share=busy_ms / (wall * 1e3), device_kernels=n_kernels,
+                by_kind=by_kind,
+                top=sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+
+
+def grad_check(cfg, device=None):
+    """One step's loss and gradients of a reduced copy (2 blocks, the
+    full width, B=1, T=1024) on the network's device (the flash
+    kernels) against the same params on the CPU (plain attention)."""
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    small = dict(cfg, n_layers=2)
+    net = MultiLayerNetwork(train_conf(small), device=device).init()
+    cpu = MultiLayerNetwork(train_conf(small), device="cpu").init()
+    cpu.set_params({k: {n: t.cpu() for n, t in p.items()}
+                    for k, p in net.params().items()})
+    x, y = recurrence_batch(small, 1, cfg["seed"] + 1, net.device)
+    loss, grads = net.loss_and_gradients(x, y)
+    ref_loss, ref = cpu.loss_and_gradients(x.cpu(), y.cpu())
+    loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+    worst, worst_leaf = 0.0, None
+    for key, p in ref.items():
+        for name, t in p.items():
+            err = float((grads[key][name].cpu() - t).abs().max()) / max(
+                float(t.abs().max()), 1e-30)
+            if err >= worst:
+                worst, worst_leaf = err, f"{key}.{name}"
+    n = sum(len(p) for p in ref.values())
+    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+        raise AssertionError(f"card vs CPU: loss rel err {loss_rel:.3e}, "
+                             f"{worst_leaf} off by {worst:.3e} of its max")
+    return dict(loss=float(loss), cpu_loss=float(ref_loss),
+                loss_rel_err=loss_rel, worst_rel_err=worst,
+                worst_leaf=worst_leaf, leaves=n)
+
+
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
     da.launches = da.launches_int8 = fa.launches = 0
+    fa.launches_dq = fa.launches_dkv = 0
     pa.launches = pa.launches_int8 = 0
 
 
@@ -978,6 +1308,8 @@ def main() -> int:
     e2e_paged = serve_paged(card)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8")
+    bwd = check_flash_bwd(dev)
+    trained = train(card)
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -1002,12 +1334,18 @@ def main() -> int:
         row("paged_attention_int8", "paged_attention.cu",
             "paged_attention.py:130",
             e2e_paged_int8["launches"]["paged_attention_int8"], paged8),
+        row("flash_attention_bwd_dq", "flash_attention.cu",
+            "flash_attention.py:169",
+            trained["launches"]["flash_attention_bwd_dq"], bwd["dq"]),
+        row("flash_attention_bwd_dkv", "flash_attention.cu",
+            "flash_attention.py:214",
+            trained["launches"]["flash_attention_bwd_dkv"], bwd["dkv"]),
     ]
     print("details: " + json.dumps(
         dict(card=card, decode=decode, flash=flash, paged=paged,
              decode_int8=decode8, paged_int8=paged8, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
-             e2e_paged_int8=e2e_paged_int8,
+             e2e_paged_int8=e2e_paged_int8, flash_bwd=bwd, train=trained,
              build={n: l["seconds"] for n, l in logs.items()}),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Carry JAX weights into the port.
+"""Carry JAX weights (and Adam state) into the port.
 
 ``params_from_jax`` takes the JAX ``CausalTransformerLM._params``
 pytree with numpy leaves (``jax.tree.map(np.asarray, lm._params)``)
@@ -9,6 +9,12 @@ apply them as ``x @ W``. A JAX ``QuantWeight`` leaf (the int8 MLP of
 ``q`` and ``scale``) becomes the port's
 :class:`~.kernels.kv_quant.QuantWeight`. This module imports neither
 JAX nor the JAX package; the caller converts the leaves to numpy.
+
+``network_params_from_jax`` does the same for a JAX
+``MultiLayerNetwork``'s params (``{"layer_i": {name: leaf}}``) and
+``updater_state_from_jax`` for its Adam state (``{"layer_i": {"m":
+{...}, "v": {...}}}``), in the layouts ``MultiLayerNetwork.set_params``
+and ``set_updater_state`` take.
 """
 from __future__ import annotations
 
@@ -46,4 +52,29 @@ def params_from_jax(tree, device="cpu"):
     out["blocks"] = [{k: _leaf(v, device, f"blocks[{i}].{k}")
                       for k, v in bp.items()}
                      for i, bp in enumerate(tree["blocks"])]
+    return out
+
+
+def network_params_from_jax(tree, device="cpu"):
+    """Copy a JAX ``MultiLayerNetwork.params()`` tree (numpy leaves) to
+    ``{layer_key: {name: tensor}}`` on ``device``."""
+    return {key: {n: _tensor(v, device, f"{key}.{n}") for n, v in p.items()}
+            for key, p in tree.items()}
+
+
+def updater_state_from_jax(tree, device="cpu"):
+    """Copy a JAX ``get_updater_state()`` tree of Adam (``m``/``v``) or
+    stateless (Sgd: ``()``) per-layer states, numpy leaves, to the
+    port's layout on ``device``."""
+    out = {}
+    for key, st in tree.items():
+        if isinstance(st, dict):
+            out[key] = {part: {n: _tensor(v, device, f"{key}.{part}.{n}")
+                               for n, v in leaves.items()}
+                        for part, leaves in st.items()}
+        elif st in ((), None):
+            out[key] = {}
+        else:
+            raise TypeError(f"{key}: unsupported updater state "
+                            f"{type(st).__name__}")
     return out

@@ -1,17 +1,21 @@
-"""FlashAttention forward: the Hopper kernel and its plain PyTorch
-version.
+"""FlashAttention forward and backward: the Hopper kernels and their
+plain PyTorch versions.
 
-Counterpart of the forward half of
-``deeplearning4j_tpu/kernels/flash_attention.py`` (``_fwd_kernel``).
-Same ``[B, T, H, D]`` layout as the JAX ``flash_attention``; the
-optional ``key_mask`` [B, T] (1 = attend, 0 = padding) is shared by all
-heads of a batch element. Returns the output and the per-row
-log-sum-exp ``[B, H, T]`` that the TPU kernel also writes, which the
-backward (not ported yet) reads.
+Counterpart of ``deeplearning4j_tpu/kernels/flash_attention.py``
+(``_fwd_kernel``, ``_bwd_dq_kernel``, ``_bwd_dkv_kernel`` and the
+``custom_vjp`` that ties them together). Same ``[B, T, H, D]`` layout
+as the JAX ``flash_attention``; the optional ``key_mask`` [B, T]
+(1 = attend, 0 = padding) is shared by all heads of a batch element.
+The forward returns the output and the per-row log-sum-exp
+``[B, H, T]``; the backward recomputes the probabilities from it.
 
-:func:`flash_attention` launches ``csrc/flash_attention.cu`` for CUDA
-tensors and runs :func:`flash_attention_torch` for CPU tensors. Nothing
-falls back: a CUDA tensor the kernel does not take raises.
+:func:`flash_attention` (B3), :func:`flash_attention_bwd_dq` (B6) and
+:func:`flash_attention_bwd_dkv` (B7) launch ``csrc/flash_attention.cu``
+for CUDA tensors and run their ``*_torch`` plain versions for CPU
+tensors; :func:`flash_attention_bwd` runs both backward kernels.
+:func:`flash_attention_autograd` is the differentiable form the
+training path calls. Nothing falls back: a CUDA tensor the
+kernels do not take raises.
 """
 from __future__ import annotations
 
@@ -24,12 +28,36 @@ from . import _build
 
 _NEG_INF = -1e30
 
-#: kernel launches since the last reset (every prefill layer moves it)
+#: forward kernel launches since the last reset (every prefill layer
+#: and every training forward of an attention layer moves it)
 launches = 0
+#: dQ (``launches_dq``) and dK/dV (``launches_dkv``) kernel launches
+#: since the last reset: one each per attention layer and backward pass
+launches_dq = 0
+launches_dkv = 0
 
-_SIGNATURES = {"flash_attention_fwd_f32":
-               [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-               + [ctypes.c_float, ctypes.c_void_p]}
+_SIGNATURES = {
+    "flash_attention_fwd_f32":
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bwd_dq_f32":
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bwd_dkv_f32":
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+}
+
+
+def _mask(B, T, causal, key_mask, device):
+    """[B, 1, T, T] True where query row q may attend key k."""
+    mask = torch.ones((B, 1, T, T), dtype=torch.bool, device=device)
+    if key_mask is not None:
+        mask = mask & (key_mask > 0)[:, None, None, :]
+    if causal:
+        mask = mask & torch.ones((T, T), dtype=torch.bool,
+                                 device=device).tril()
+    return mask
 
 
 def flash_attention_torch(q, k, v, causal: bool = False, key_mask=None):
@@ -40,12 +68,7 @@ def flash_attention_torch(q, k, v, causal: bool = False, key_mask=None):
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = torch.ones((B, 1, T, T), dtype=torch.bool, device=q.device)
-    if key_mask is not None:
-        mask = mask & (key_mask > 0)[:, None, None, :]
-    if causal:
-        mask = mask & torch.ones((T, T), dtype=torch.bool,
-                                 device=q.device).tril()
+    mask = _mask(B, T, causal, key_mask, q.device)
     s = torch.where(mask, s, _NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(mask, torch.exp(s - m), 0.0)
@@ -56,10 +79,63 @@ def flash_attention_torch(q, k, v, causal: bool = False, key_mask=None):
     return out.to(q.dtype), lse
 
 
-def _flash_attention_cuda(q, k, v, causal, key_mask):
-    global launches
+def _bwd_probs(q, k, v, key_mask, lse, g, delta, causal):
+    """f32 q, k, v, g and the recomputed p and ds [B, H, T, T] of the
+    backward: p from the saved ``lse`` [B, H, T], where-guarded (a
+    fully masked row's lse is -1e30, so ``exp(s - lse)`` alone would be
+    1 there), ``ds = p * (g V^T - delta)``."""
     B, T, H, D = q.shape
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    scale = 1.0 / math.sqrt(D)
+    q, k, v, g = (x.float() for x in (q, k, v, g))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    mask = _mask(B, T, causal, key_mask, q.device)
+    s = torch.where(mask, s, _NEG_INF)
+    p = torch.where(mask, torch.exp(s - lse[..., None]), 0.0)
+    dp = torch.einsum("bqhd,bkhd->bhqk", g, v)
+    return q, k, g, p, p * (dp - delta[..., None]), scale
+
+
+def backward_delta(g, out):
+    """rowsum(dO * O) as [B, H, T]: O(T), outside the kernels as in JAX."""
+    return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
+                                 causal: bool = False):
+    """Plain version of the dQ kernel: ``dq = ds K * scale``."""
+    _, k, _, _, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
+                                       causal)
+    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+
+
+def flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse, delta,
+                                  causal: bool = False):
+    """Plain version of the dK/dV kernel: ``dk = ds^T Q * scale``,
+    ``dv = p^T dO``."""
+    q, _, g, p, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
+                                       causal)
+    return (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", p, g))
+
+
+def flash_attention_bwd_torch(q, k, v, key_mask, out, lse, g,
+                              causal: bool = False):
+    """Plain version of the flash backward, in f32: (dq, dk, dv), each
+    [B, T, H, D], of the forward's ``out`` given its gradient ``g`` and
+    the forward's ``lse``."""
+    delta = backward_delta(g, out)
+    return (flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
+                                         causal),
+            *flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse, delta,
+                                           causal))
+
+
+def _check_operands(named, q, key_mask):
+    """Every named tensor f32, contiguous, on q's device and shaped like
+    q; D within the kernels' 1..128; key_mask [B, T] or None. Returns
+    the mask as a contiguous f32 tensor (or None)."""
+    B, T, H, D = q.shape
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"flash kernel takes f32, {name} is {t.dtype}")
         if tuple(t.shape) != (B, T, H, D):
@@ -69,26 +145,95 @@ def _flash_attention_cuda(q, k, v, causal, key_mask):
             raise ValueError(f"{name} must be contiguous on {q.device}")
     if not 1 <= D <= 128:
         raise ValueError(f"head dim {D} outside the kernel's 1..128")
-    km_ptr = None
-    if key_mask is not None:
-        if tuple(key_mask.shape) != (B, T) or key_mask.device != q.device:
-            raise ValueError(f"key_mask must be [B, T] = {(B, T)} on "
-                             f"{q.device}, got {tuple(key_mask.shape)} on "
-                             f"{key_mask.device}")
-        key_mask = key_mask.to(torch.float32).contiguous()
-        km_ptr = key_mask.data_ptr()
+    if key_mask is None:
+        return None
+    if tuple(key_mask.shape) != (B, T) or key_mask.device != q.device:
+        raise ValueError(f"key_mask must be [B, T] = {(B, T)} on "
+                         f"{q.device}, got {tuple(key_mask.shape)} on "
+                         f"{key_mask.device}")
+    return key_mask.to(torch.float32).contiguous()
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _flash_attention_cuda(q, k, v, causal, key_mask):
+    global launches
+    B, T, H, D = q.shape
+    key_mask = _check_operands((("q", q), ("k", k), ("v", v)), q, key_mask)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flash_attention_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), km_ptr,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
             out.data_ptr(), lse.data_ptr(), B, T, H, D, int(bool(causal)),
             1.0 / math.sqrt(D), stream)
     _build.check(rc, "flash_attention")
     launches += 1
     return out, lse
+
+
+def _check_bwd_operands(q, k, v, key_mask, g, lse, delta):
+    """The backward kernels' operands; returns the mask as for the
+    forward."""
+    B, T, H, _ = q.shape
+    key_mask = _check_operands((("q", q), ("k", k), ("v", v), ("g", g)),
+                               q, key_mask)
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (B, H, T) \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous f32 [B, H, T] = "
+                             f"{(B, H, T)} on {q.device}")
+    return key_mask
+
+
+def flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta,
+                           causal: bool = False):
+    """dQ kernel (B6) on CUDA tensors, its plain version on CPU ones.
+    ``delta = rowsum(g * out)`` [B, H, T]."""
+    global launches_dq
+    if not q.is_cuda:
+        return flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
+                                            causal)
+    B, T, H, D = q.shape
+    key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dq_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            B, T, H, D, int(bool(causal)), 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention_bwd_dq")
+    launches_dq += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
+                            causal: bool = False):
+    """dK/dV kernel (B7) on CUDA tensors, its plain version on CPU
+    ones. Returns (dk, dv)."""
+    global launches_dkv
+    if not q.is_cuda:
+        return flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse,
+                                             delta, causal)
+    B, T, H, D = q.shape
+    key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
+    lib = _build.load("flash_attention", _SIGNATURES)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd_dkv_f32(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), B, T, H, D, int(bool(causal)),
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, "flash_attention_bwd_dkv")
+    launches_dkv += 1
+    return dk, dv
 
 
 def flash_attention(q, k, v, causal: bool = False, key_mask=None):
@@ -97,3 +242,44 @@ def flash_attention(q, k, v, causal: bool = False, key_mask=None):
     if q.is_cuda:
         return _flash_attention_cuda(q, k, v, causal, key_mask)
     return flash_attention_torch(q, k, v, causal, key_mask)
+
+
+def flash_attention_bwd(q, k, v, key_mask, out, lse, g,
+                        causal: bool = False):
+    """Flash backward: (dq, dk, dv) of the forward's output ``out``
+    given its gradient ``g`` and the forward's ``lse``: the dQ and
+    dK/dV kernels for CUDA tensors, their plain versions for CPU
+    ones."""
+    if q.is_cuda and (out.shape != q.shape or out.dtype != torch.float32):
+        raise ValueError(f"out must be f32 {tuple(q.shape)}")
+    delta = backward_delta(g, out)
+    return (flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta, causal),
+            *flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
+                                     causal))
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The ``jax.custom_vjp`` of the JAX module: the forward kernel
+    (B3) saves q, k, v, the mask, the output and the LSE; the backward
+    runs the dQ and dK/dV kernels. The mask gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, key_mask, causal):
+        out, lse = flash_attention(q, k, v, causal, key_mask)
+        ctx.save_for_backward(q, k, v, key_mask, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, key_mask, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, key_mask, out, lse,
+                                         g.contiguous(), ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_autograd(q, k, v, causal: bool = False, key_mask=None):
+    """Differentiable flash attention over q/k/v ``[B, T, H, D]``:
+    returns the output; gradients flow to q, k and v through the
+    backward kernels (their plain versions for CPU tensors)."""
+    return FlashAttentionFunction.apply(q, k, v, key_mask, bool(causal))

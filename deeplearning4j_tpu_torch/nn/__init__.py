@@ -1,2 +1,8 @@
-"""Neural-network layers and functions of the port (inference subset:
-the attention blocks of the served causal LM)."""
+"""Neural-network layers, configuration and the sequential network of
+the port (the attention blocks of the served causal LM, and the
+training core that fits a transformer stack)."""
+from .conf import MultiLayerConfiguration, NeuralNetConfiguration  # noqa: F401
+from .multilayer import MultiLayerNetwork  # noqa: F401
+
+__all__ = ["MultiLayerConfiguration", "MultiLayerNetwork",
+           "NeuralNetConfiguration"]

@@ -1,16 +1,20 @@
-"""Attention layers of the served causal LM (counterpart of
-``deeplearning4j_tpu/nn/layers/attention.py``, inference only).
+"""Attention layers (counterpart of
+``deeplearning4j_tpu/nn/layers/attention.py``).
 
-:class:`SelfAttentionLayer` and :class:`TransformerEncoderLayer` keep
-the JAX package's functional surface: each method takes an explicit
+:class:`SelfAttentionLayer` and :class:`TransformerEncoderLayer` are
+layers of the port's layer DSL: ``apply_seq`` is the training forward
+``MultiLayerNetwork`` drives (autograd gives the backward), and the
+serving methods (prefill, decode, paged decode and chunked prefill)
+are what ``CausalTransformerLM`` calls. Each method takes an explicit
 params dict with weights shaped ``[in, out]`` and applied as
-``x @ W``, so JAX weights carry over as a plain copy. The modules hold
-configuration, not weights. There is no dropout here (serving only);
-training and verify spans come with later slices (ROADMAP.md queue A).
+``x @ W``, so JAX weights carry over as a plain copy.
 
-The decode and paged-prefill paths write K/V into the cache or pool
-tensors in place; the JAX code returned updated caches that the
-executables donated.
+Attention over a whole sequence goes through the flash kernels on the
+card (forward B3, backward B6/B7 through
+:func:`~..kernels.flash_attention.flash_attention_autograd`), so
+gradients reach Wq, Wk and Wv. The decode and paged-prefill paths
+write K/V into the cache or pool tensors in place; the JAX code
+returned updated caches that the executables donated.
 """
 from __future__ import annotations
 
@@ -19,15 +23,15 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
-from torch import nn
 
 from ...kernels.decode_attention import decode_attention
-from ...kernels.flash_attention import flash_attention
+from ...kernels.flash_attention import flash_attention_autograd
 from ...kernels.kv_quant import QuantArray, is_quantized, kv_set, mm
 from ...kernels.paged_attention import paged_attention
 from ...parallel.longseq import dot_product_attention
 from ...weightinit import init_weights
 from ..functional import layer_norm
+from . import Layer, register
 
 
 def _gather_span(pool, block_table, H, Dh):
@@ -89,18 +93,36 @@ def _span_attend(q, kk, vv, gpos, p0c, out_dtype):
     return torch.einsum("hct,htd->chd", p, vv).to(out_dtype)
 
 
-class SelfAttentionLayer(nn.Module):
-    """Multi-head self-attention over [B, T, C] input."""
+@register
+class SelfAttentionLayer(Layer):
+    """Multi-head self-attention over [B, T, C] input.
+
+    ``implementation``: ``"auto"`` takes the flash kernels on the card
+    and plain attention on the CPU; ``"flash"`` takes the flash path
+    (the kernels, or their plain versions for CPU tensors) everywhere;
+    ``"plain"`` takes plain attention everywhere."""
+
+    kind = "selfattention"
+    is_rnn = True
 
     def __init__(self, n_heads: int = 4, n_out: Optional[int] = None,
-                 causal: bool = False):
-        super().__init__()
+                 causal: bool = False, implementation: str = "auto", **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
         self.n_heads = int(n_heads)
         self.n_out = n_out
         self.causal = bool(causal)
+        if implementation == "blockwise":
+            raise NotImplementedError(
+                "blockwise attention is not ported yet (ROADMAP.md queue "
+                "A, item 14)")
+        if implementation not in ("auto", "plain", "flash"):
+            raise ValueError(f"unknown implementation {implementation!r}")
+        self.implementation = implementation
         self.n_in: Optional[int] = None
 
-    def build(self, input_shape):
+    def build(self, input_shape, defaults=None):
+        super().build(input_shape, defaults)
         self.n_in = int(input_shape[-1])
         if self.n_out is None:
             self.n_out = self.n_in
@@ -116,19 +138,21 @@ class SelfAttentionLayer(nn.Module):
     def init_params(self, generator: torch.Generator,
                     dtype=torch.float32):
         d, o = self.n_in, self.n_out
-        p = {n: init_weights(generator, (din, o), din, o, dtype=dtype)
+        p = {n: init_weights(generator, (din, o), din, o, self.weight_init,
+                             dtype)
              for n, din in (("Wq", d), ("Wk", d), ("Wv", d), ("Wo", o))}
         p["b"] = torch.zeros((o,), dtype=dtype)
         return p
 
     def _attend(self, q, k, v, mask):
-        # chosen by device alone: on the card the flash kernel takes
-        # every prefill length, since the JAX threshold
-        # (flags.flash_min_seq = 1024) was tuned on a TPU and the card's
-        # own crossover is not measured yet
-        if q.is_cuda:
-            return flash_attention(q, k, v, causal=self.causal,
-                                   key_mask=mask)[0]
+        # on the card "auto" is flash at every length: the JAX threshold
+        # (flags.flash_min_seq = 1024) was tuned on a TPU, and the
+        # card's own crossover is not measured yet
+        flash = self.implementation == "flash" or (
+            self.implementation == "auto" and q.is_cuda)
+        if flash:
+            return flash_attention_autograd(q, k, v, causal=self.causal,
+                                            key_mask=mask)
         return dot_product_attention(
             q, k, v, mask=None if mask is None else mask[:, None, None, :] > 0,
             causal=self.causal)
@@ -138,17 +162,22 @@ class SelfAttentionLayer(nn.Module):
                 (x @ params["Wk"]).reshape(shape),
                 (x @ params["Wv"]).reshape(shape))
 
-    def apply_seq(self, params, x, mask=None):
-        """Inference forward over x [B, T, C]; ``mask`` is an optional
-        [B, T] validity that also zeroes padded output rows."""
+    def apply_seq(self, params, x, state, train, rng, carry, mask):
+        """Forward over x [B, T, C]; ``mask`` is an optional [B, T]
+        validity that also zeroes padded output rows. Returns (out,
+        state, carry)."""
         B, T, _ = x.shape
         H = self.n_heads
+        x = self._maybe_dropout(x, train, rng)
         q, k, v = self._project(params, x, (B, T, H, self.n_out // H))
         att = self._attend(q, k, v, mask)
         out = att.reshape(B, T, self.n_out) @ params["Wo"] + params["b"]
         if mask is not None:
             out = out * mask[..., None]
-        return out
+        return self.activation(out), state, carry
+
+    def output_shape(self, input_shape):
+        return (input_shape[0], self.n_out)
 
     def cache_shape(self, max_seq_len: int):
         """Per-sequence K (== V) cache shape [n_heads, max_seq_len,
@@ -251,25 +280,36 @@ class SelfAttentionLayer(nn.Module):
         return out[None], k_pool, v_pool
 
 
-class TransformerEncoderLayer(nn.Module):
-    """Pre-LN transformer block: x + MHA(LN(x)); x + MLP(LN(x))."""
+@register
+class TransformerEncoderLayer(Layer):
+    """Pre-LN transformer block: x + MHA(LN(x)); x + MLP(LN(x)), the
+    MLP's GELU in tanh form (as ``jax.nn.gelu``)."""
+
+    kind = "transformerencoder"
+    is_rnn = True
 
     def __init__(self, n_heads: int = 4, d_ff: Optional[int] = None,
-                 causal: bool = False):
-        super().__init__()
+                 causal: bool = False, implementation: str = "auto", **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
         self.n_heads = int(n_heads)
         self.d_ff = d_ff
         self.causal = causal
+        self.implementation = implementation
         self.attn: Optional[SelfAttentionLayer] = None
         self.d_model: Optional[int] = None
 
-    def build(self, input_shape):
+    def build(self, input_shape, defaults=None):
+        super().build(input_shape, defaults)
         self.d_model = int(input_shape[-1])
         if self.d_ff is None:
             self.d_ff = 4 * self.d_model
-        self.attn = SelfAttentionLayer(n_heads=self.n_heads,
-                                       causal=self.causal)
-        self.attn.build(input_shape)
+        # the block's dropout and init settings reach its attention
+        self.attn = SelfAttentionLayer(
+            n_heads=self.n_heads, causal=self.causal,
+            implementation=self.implementation, dropout=self.dropout,
+            weight_init=self.weight_init)
+        self.attn.build(input_shape, defaults)
 
     def param_shapes(self):
         d, f = self.d_model, self.d_ff
@@ -289,11 +329,28 @@ class TransformerEncoderLayer(nn.Module):
             "ln1_b": torch.zeros((d,), dtype=dtype),
             "ln2_g": torch.ones((d,), dtype=dtype),
             "ln2_b": torch.zeros((d,), dtype=dtype),
-            "W1": init_weights(generator, (d, f), d, f, dtype=dtype),
+            "W1": init_weights(generator, (d, f), d, f, self.weight_init,
+                               dtype),
             "b1": torch.zeros((f,), dtype=dtype),
-            "W2": init_weights(generator, (f, d), f, d, dtype=dtype),
+            "W2": init_weights(generator, (f, d), f, d, self.weight_init,
+                               dtype),
             "b2": torch.zeros((d,), dtype=dtype)})
         return p
+
+    def apply_seq(self, params, x, state, train, rng, carry, mask):
+        """Training (and plain inference) forward of the block over
+        x [B, T, C]. Returns (out, state, carry)."""
+        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+        att, _, _ = self.attn.apply_seq(self._attn_params(params), h, None,
+                                        train, rng, (), mask)
+        x = x + att
+        h = layer_norm(x, params["ln2_g"], params["ln2_b"])
+        h = F.gelu(h @ params["W1"] + params["b1"], approximate="tanh")
+        h = self._maybe_dropout(h, train, rng)
+        x = x + (h @ params["W2"] + params["b2"])
+        if mask is not None:
+            x = x * mask[..., None]
+        return x, state, carry
 
     def cache_shape(self, max_seq_len: int):
         return self.attn.cache_shape(max_seq_len)
@@ -310,16 +367,6 @@ class TransformerEncoderLayer(nn.Module):
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         h = F.gelu(mm(h, params["W1"]) + params["b1"], approximate="tanh")
         return x + (mm(h, params["W2"]) + params["b2"])
-
-    def apply_seq(self, params, x, mask=None):
-        """Inference forward of the block over x [B, T, C]."""
-        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
-        x = self._mlp(params,
-                      x + self.attn.apply_seq(self._attn_params(params), h,
-                                              mask))
-        if mask is not None:
-            x = x * mask[..., None]
-        return x
 
     def apply_prefill(self, params, x, key_mask=None):
         """Block prefill, also returning this block's K/V for the

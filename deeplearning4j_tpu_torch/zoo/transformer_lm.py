@@ -40,7 +40,7 @@ class CausalTransformerLM(nn.Module):
         self.max_seq_len = int(max_seq_len)
         self.eos_id = eos_id
         self.seed = int(seed)
-        self.blocks = nn.ModuleList()
+        self.blocks: List[TransformerEncoderLayer] = []
         for _ in range(self.n_layers):
             blk = TransformerEncoderLayer(n_heads=n_heads, d_ff=d_ff,
                                           causal=True)

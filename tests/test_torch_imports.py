@@ -38,7 +38,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("serving.generation", "serving.paging",
                 "kernels.paged_attention", "kernels.kv_quant",
-                "nn.layers.attention", "zoo.transformer_lm"):
+                "nn.layers.attention", "zoo.transformer_lm",
+                "nn.multilayer", "nn.conf", "nn.layers.recurrent",
+                "nn.precision", "activations", "losses", "learning",
+                "datasets", "convert"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

@@ -272,3 +272,112 @@ def test_int8_tensors_the_kernels_do_not_take_raise():
     strided = kvq.QuantArray(pool.q, pool.scale.transpose(1, 2))
     with pytest.raises(ValueError):
         pa.paged_attention(q, strided, strided, tbl, lens)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [8, 100, 257])
+def test_flash_backward_kernels_match_plain(T, D, causal):
+    """dQ (B6) and dK/dV (B7) against the plain backward, with a ragged
+    key mask and a batch row whose keys are all masked."""
+    dev = _device()
+    rs = np.random.RandomState(3 * T + D + causal)
+    q, k, v, g = (_randn(rs, 3, T, 2, D, dev=dev) for _ in range(4))
+    km = torch.ones((3, T), device=dev)
+    km[1, 2 * T // 3:] = 0.0
+    km[2] = 0.0
+    out, lse = fa.flash_attention(q, k, v, causal=causal, key_mask=km)
+    n = (fa.launches_dq, fa.launches_dkv)
+    got = fa.flash_attention_bwd(q, k, v, km, out, lse, g, causal)
+    want = fa.flash_attention_bwd_torch(q, k, v, km, out, lse, g, causal)
+    torch.cuda.synchronize()
+    assert (fa.launches_dq, fa.launches_dkv) == (n[0] + 1, n[1] + 1)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL_F32
+        assert a[2].abs().max().item() == 0.0   # the fully masked row
+
+
+def test_flash_autograd_function_on_the_card():
+    """Gradients of the Function on the card equal those of the same
+    Function on a CPU copy (plain versions), and each kernel ran once."""
+    dev = _device()
+    rs = np.random.RandomState(11)
+    host = [torch.from_numpy(rs.randn(2, 130, 4, 64).astype(np.float32))
+            for _ in range(4)]
+    km = torch.ones((2, 130))
+    km[0, 90:] = 0.0
+    grads = {}
+    for where in ("cpu", dev):
+        q, k, v = (x.detach().to(where).requires_grad_(True)
+                   for x in host[:3])
+        n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+        out = fa.flash_attention_autograd(q, k, v, True, km.to(where))
+        out.backward(host[3].to(where).transpose(1, 2).contiguous()
+                     .transpose(1, 2))   # a strided cotangent
+        ran = tuple(a - b for a, b in zip(
+            (fa.launches, fa.launches_dq, fa.launches_dkv), n))
+        assert ran == ((0, 0, 0) if where == "cpu" else (1, 1, 1))
+        grads[str(where)] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads["cpu"], grads[str(dev)]):
+        assert (a - b).abs().max().item() <= TOL_F32
+
+
+def test_flash_backward_refuses_what_it_does_not_take():
+    dev = _device()
+    x = torch.zeros((1, 8, 2, 8), device=dev)
+    lse = torch.zeros((1, 2, 8), device=dev)
+    with pytest.raises(TypeError):
+        fa.flash_attention_bwd(x, x, x, None, x, lse, x.bfloat16())
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(x, x, x, None, x, lse,
+                               x.transpose(1, 2).contiguous().transpose(1, 2))
+    with pytest.raises(ValueError):
+        fa.flash_attention_bwd(x, x, x, None, x, lse.transpose(1, 2), x)
+    wide = torch.zeros((1, 8, 1, 160), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(wide, wide, wide, None, wide,
+                               torch.zeros((1, 1, 8), device=dev), wide)
+
+
+def test_network_step_on_the_card_matches_the_cpu():
+    """One loss and gradient of a small causal LM through
+    MultiLayerNetwork on the card (flash kernels) against a CPU copy
+    (plain attention): loss within 1e-4 relative, each gradient leaf
+    within 1e-3 of its max-norm."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        TransformerEncoderLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+        EmbeddingSequenceLayer, RnnOutputLayer)
+    dev = _device()
+
+    def conf():
+        return (NeuralNetConfiguration.builder().seed(0).updater(Adam(1e-3))
+                .list().layer(EmbeddingSequenceLayer(n_in=50, n_out=64))
+                .layer(TransformerEncoderLayer(n_heads=2, causal=True))
+                .layer(TransformerEncoderLayer(n_heads=2, causal=True))
+                .layer(RnnOutputLayer(n_out=50))
+                .input_type_recurrent(1, timesteps=96).build())
+    card = MultiLayerNetwork(conf()).init()
+    cpu = MultiLayerNetwork(conf(), device="cpu").init()
+    cpu.set_params({k: {n: t.cpu() for n, t in p.items()}
+                    for k, p in card.params().items()})
+    rs = np.random.RandomState(2)
+    x = rs.randint(0, 50, (3, 96))
+    y = np.eye(50, dtype=np.float32)[(3 * x + 1) % 50]
+    m = np.ones((3, 96), np.float32)
+    m[1, 60:] = 0.0
+    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    loss, grads = card.loss_and_gradients(x, y, m)
+    assert (fa.launches - n[0], fa.launches_dq - n[1],
+            fa.launches_dkv - n[2]) == (2, 2, 2)
+    ref_loss, ref = cpu.loss_and_gradients(x, y, m)
+    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    for key, p in ref.items():
+        for name, t in p.items():
+            err = (grads[key][name].cpu() - t).abs().max().item()
+            assert err <= 1e-3 * max(t.abs().max().item(), 1e-12), \
+                f"{key}.{name}"

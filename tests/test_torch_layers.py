@@ -108,7 +108,8 @@ def test_apply_seq_matches(kind):
     jl, tl, jp, tp = _pair(kind)
     x, km = _x(5, (B, T, C)), _mask()
     jo = jl.apply_seq(jp, x, None, False, None, (), km)[0]
-    _close(tl.apply_seq(tp, torch.from_numpy(x), torch.from_numpy(km)), jo)
+    _close(tl.apply_seq(tp, torch.from_numpy(x), None, False, None, (),
+                        torch.from_numpy(km))[0], jo)
 
 
 def test_flash_matches_plain_attention_on_cpu():
@@ -145,7 +146,7 @@ def test_attend_takes_plain_attention_on_cpu(monkeypatch):
     def no_flash(*a, **kw):
         raise AssertionError("flash_attention called on CPU tensors")
 
-    monkeypatch.setattr(att, "flash_attention", no_flash)
+    monkeypatch.setattr(att, "flash_attention_autograd", no_flash)
     jl, tl, jp, tp = _pair("attention")
     x, km = _x(7, (B, T, C)), _mask()
     jo = jl.apply_prefill(jp, x, km)[0]
