@@ -38,7 +38,17 @@ Phases, each of which fails the run when it fails:
    quantize_mlp_weights; the int8 paged kernel must launch once per
    layer and decode step, prefixes, sessions and copy-on-write must
    run, the int8 teacher-forced check must hold, and every block must
-   come back.
+   come back;
+8. flash backward: the dQ and dK/dV kernels against their plain
+   versions over the prefill buckets (B=4, a ragged key mask and a
+   fully masked row, which must give exactly 0), two calls of each
+   bit-identical, then timed at the training shapes beside SDPA's
+   backward, with their share of the 3xTF32-rate and f32-rate bounds;
+9. training: the served width in the layer DSL fitted through
+   MultiLayerNetwork.fit (one warmup and five timed Adam steps of
+   4 x 1024 tokens); each flash kernel must launch once per layer and
+   step, the loss must fall, and a 2-block copy's loss and gradients on
+   the card must match a CPU copy.
 
 Phase 3 also checks the two int8 kernels (decode and paged) against
 their plain versions at the served shapes, with NaN in the scale rows
@@ -110,6 +120,7 @@ TRAIN_STEPS = 5  # timed steps, after one warmup step
 
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12    # TF32 tensor cores, dense
 
 
 def card_line() -> str:
@@ -356,10 +367,11 @@ def check_paged(dev):
     return results
 
 
-def _bound(nbytes, flops):
+def _bound(nbytes, flops, rate=H100_F32_FLOPS):
     """The least time on the card (ms) for ``nbytes`` moved and
-    ``flops`` done at the f32 rate, and which of the two sets it."""
-    b, f = nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    ``flops`` done at ``rate`` (default the f32 rate), and which of the
+    two sets it."""
+    b, f = nbytes / H100_BYTES_PER_S, flops / rate
     return max(b, f) * 1e3, "bytes" if b >= f else "operations"
 
 
@@ -724,6 +736,7 @@ def check_flash_bwd(dev):
         dq = fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta, True)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
                                             True)
+        _same_bits((dq, dk, dv), (q, k, v, km, do, lse, delta), f"T={T}")
         want_dq = fa.flash_attention_bwd_dq_torch(q, k, v, km, do, lse,
                                                   delta, True)
         want_dk, want_dv = fa.flash_attention_bwd_dkv_torch(
@@ -759,6 +772,9 @@ def check_flash_bwd(dev):
     km = torch.ones((B, T), device=dev)
     out, lse = fa.flash_attention(q, k, v, True, km)
     delta = fa.backward_delta(do, out)
+    args = (q, k, v, km, do, lse, delta)
+    _same_bits((fa.flash_attention_bwd_dq(*args, True),
+                *fa.flash_attention_bwd_dkv(*args, True)), args, f"T={T}")
     pairs = T * (T + 1) // 2
     tensor = B * T * H * D * 4
     rows = B * H * T * 4
@@ -776,12 +792,18 @@ def check_flash_bwd(dev):
              lambda: fa.flash_attention_bwd_dkv_torch(q, k, v, km, do, lse,
                                                       delta, True),
              8 * D * B * H * pairs, 6 * tensor + 2 * rows + B * T * 4)):
-        bound_ms, bound_by = _bound(nbytes, flops)
+        # the kernels run three TF32 products per f32 product (3xTF32)
+        bound_ms, bound_by = _bound(nbytes, 3 * flops, H100_TF32_FLOPS)
+        bound_f32_ms, _ = _bound(nbytes, flops)
+        ms = time_ms(fn)
         res[name] = dict(max_abs_err=worst[name], tol=FLASH_BWD_TOL,
                          per_bucket={t: e[name]
                                      for t, e in per_bucket.items()},
-                         ms=time_ms(fn), plain_ms=time_ms(plain),
+                         ms=ms, plain_ms=time_ms(plain),
                          bound_ms=bound_ms, bound_by=bound_by,
+                         bound_f32_ms=bound_f32_ms,
+                         share_of_bound=bound_ms / ms,
+                         share_of_f32_bound=bound_f32_ms / ms,
                          gflop=flops / 1e9)
     # the library yardstick: SDPA's backward (dq, dk and dv in one) on
     # the same f32 inputs and mask, timed on a retained graph
@@ -811,17 +833,41 @@ def check_flash_bwd(dev):
                    qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)),
                bound_ms=fwd_bound, bound_by=fwd_by)
     res["fwd_b4"] = fwd
+    pair_ms = res["dq"]["ms"] + res["dkv"]["ms"]
+    res["pair"] = dict(ms=pair_ms, library_ms=lib_ms,
+                       ratio_to_library=pair_ms / lib_ms)
+    res["occupancy"] = {d: fa.bwd_kernel_info(d) for d in (32, 64, 128)}
     for name, label in (("dq", "dQ (B6)"), ("dkv", "dK/dV (B7)")):
         r = res[name]
         print(f"flash backward {label} B={B} H={H} T={T} D={D} causal: "
               f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
               f"library (SDPA backward, dq+dk+dv, {backend}) "
-              f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"{lib_ms:.4f} ms, bound {r['bound_ms']:.4f} ms at 3xTF32 "
+              f"(share {r['share_of_bound']:.3f}), {r['bound_f32_ms']:.4f} "
+              f"ms at f32 (share {r['share_of_f32_bound']:.3f}) "
               f"({r['gflop']:.2f} GFLOP)")
+    print(f"flash backward B6 + B7: {pair_ms:.4f} ms against SDPA's backward "
+          f"{lib_ms:.4f} ms (ratio {pair_ms / lib_ms:.3f}); two calls of each "
+          f"kernel bit-identical in every bucket; shared bytes and blocks "
+          f"per SM by head dim {res['occupancy']}")
     print(f"flash forward (B3) B={B} H={H} T={T} D={D} causal: kernel "
           f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, library "
           f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms")
     return res
+
+
+def _same_bits(got, args, where):
+    """A second call of the dQ and dK/dV kernels on ``args`` (q, k, v,
+    key mask, dO, lse, delta; causal) must give the bits of ``got`` (one
+    owner per gradient row, no atomics)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    again = (fa.flash_attention_bwd_dq(*args, True),
+             *fa.flash_attention_bwd_dkv(*args, True))
+    for name, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            raise AssertionError(f"flash backward {name} {where}: two calls "
+                                 f"on the same inputs differ")
 
 
 def _top_kernel(fn) -> str:

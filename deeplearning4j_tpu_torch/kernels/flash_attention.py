@@ -46,6 +46,7 @@ _SIGNATURES = {
     "flash_attention_bwd_dkv_f32":
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bwd_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
 }
 
 
@@ -234,6 +235,17 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
     _build.check(rc, "flash_attention_bwd_dkv")
     launches_dkv += 1
     return dk, dv
+
+
+def bwd_kernel_info(D: int) -> dict:
+    """Dynamic shared memory (bytes) and resident blocks per SM of the
+    dQ and dK/dV kernels at head dim ``D``, as the card reports them."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.flash_attention_bwd_info(D, out),
+                 "flash_attention_bwd_info")
+    return {"dq": {"smem_bytes": out[0], "blocks_per_sm": out[1]},
+            "dkv": {"smem_bytes": out[2], "blocks_per_sm": out[3]}}
 
 
 def flash_attention(q, k, v, causal: bool = False, key_mask=None):

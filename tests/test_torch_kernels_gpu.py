@@ -298,6 +298,55 @@ def test_flash_backward_kernels_match_plain(T, D, causal):
         assert a[2].abs().max().item() == 0.0   # the fully masked row
 
 
+def _bwd_inputs(rs, B, T, H, D, dev, causal, km):
+    q, k, v, g = (_randn(rs, B, T, H, D, dev=dev) for _ in range(4))
+    out, lse = fa.flash_attention(q, k, v, causal=causal, key_mask=km)
+    return q, k, v, km, g, lse, fa.backward_delta(g, out)
+
+
+def _bwd_kernels(q, k, v, km, g, lse, delta, causal):
+    return (fa.flash_attention_bwd_dq(q, k, v, km, g, lse, delta, causal),
+            *fa.flash_attention_bwd_dkv(q, k, v, km, g, lse, delta, causal))
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_flash_backward_kernels_are_deterministic(D):
+    """Every dQ, dK and dV row has one owner block that sums in a fixed
+    order (no atomics): two calls on the same inputs agree bit for
+    bit."""
+    dev = _device()
+    km = torch.ones((3, 257), device=dev)
+    km[1, 100:] = 0.0
+    args = _bwd_inputs(np.random.RandomState(D), 3, 257, 2, D, dev, True, km)
+    first = _bwd_kernels(*args, True)
+    second = _bwd_kernels(*args, True)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_flash_backward_kernels_at_the_training_shape():
+    """B=4, H=8, T=1024, D=64, causal, every key live: the shape the
+    training path (chip_smoke.py phase 9) gives the kernels. Tolerance:
+    1e-4 of the largest gradient (at least 1), chip_smoke.py's
+    FLASH_BWD_TOL: f32-accurate products over up to 1024 keys summed in
+    another order, and dp = dO.V over D=64 has std 8, so gradients reach
+    ~10 here."""
+    dev = _device()
+    km = torch.ones((4, 1024), device=dev)
+    q, k, v, km, g, lse, delta = _bwd_inputs(np.random.RandomState(1024), 4,
+                                             1024, 8, 64, dev, True, km)
+    got = _bwd_kernels(q, k, v, km, g, lse, delta, True)
+    want = (fa.flash_attention_bwd_dq_torch(q, k, v, km, g, lse, delta, True),
+            *fa.flash_attention_bwd_dkv_torch(q, k, v, km, g, lse, delta,
+                                              True))
+    torch.cuda.synchronize()
+    scale = max(max(w.abs().max().item() for w in want), 1.0)
+    for a, b in zip(got, want):
+        assert torch.isfinite(a).all()
+        assert (a - b).abs().max().item() <= TOL_F32 * scale
+
+
 def test_flash_autograd_function_on_the_card():
     """Gradients of the Function on the card equal those of the same
     Function on a CPU copy (plain versions), and each kernel ran once."""
