@@ -53,15 +53,37 @@ Phases, each of which fails the run when it fails:
 Phase 3 also checks the two int8 kernels (decode and paged) against
 their plain versions at the served shapes, with NaN in the scale rows
 of the null block and of every stale tail, a length-0 lane, and K/V of
-mixed quantisation refused.
+mixed quantisation refused. The flash forward (3xTF32 on the tensor
+cores) is also checked on a fully masked row (O 0, LSE -1e30) and
+timed at B=1 and B=4 beside both its bounds; each key-group count (one
+and two groups of warps a block) is held against the plain version
+there and timed over a sweep of batch and length (the measurement
+behind the rule that picks it); the flash forward and the int8 paged
+kernel must give the same bits on two calls, and report registers,
+spills and blocks per SM.
+Phase 2 counts HMMA in the flash forward and I2F in the int8 paged
+kernel from ``cuobjdump -sass`` where the toolkit has it (the forward
+must use the tensor cores, the int8 kernel must convert without I2F).
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --ab PARENT_CHECKOUT
+
+compares the code of another checkout with this one on the card
+instead: each checkout's own code in turns (parent, this, this,
+parent), each turn a process of its own, timing the flash forward at
+B=1 and B=4 and its backward kernels at B=4, the decode and paged
+kernels, f32 and int8 (their phase-3 checks), phase 9 and phase 7's
+profile window; an "A/B runs:" line carries every turn as JSON.
 """
 from __future__ import annotations
 
 import json
+import os
+import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -121,6 +143,10 @@ TRAIN_STEPS = 5  # timed steps, after one warmup step
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12    # TF32 tensor cores, dense
+
+#: the device-side names of the port's kernels (csrc/*.cu)
+PORT_KERNEL = re.compile(r"(decode_attention|paged_attention|flash_fwd|"
+                         r"flash_bwd_dq|flash_bwd_dkv)\w*_kernel")
 
 
 def card_line() -> str:
@@ -215,6 +241,12 @@ def check_decode(dev):
 
 
 def check_flash(dev):
+    """Phase 3's flash forward (B3): against its plain version over the
+    prefill buckets (B=1, causal, a padded prompt), a fully masked row
+    (O exactly 0, LSE exactly -1e30), two calls bit-identical, then
+    timed at T=1024 with B=1 (a served prefill) and B=4 (a training
+    batch) beside SDPA, with its share of the 3xTF32-rate and f32-rate
+    bounds and either key-group count."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -241,31 +273,130 @@ def check_flash(dev):
         T *= 2
     print(f"flash_attention buckets 8..1024: max_abs_err {worst:.3e} "
           f"(tol {FLASH_TOL:g}) per bucket {per_bucket}")
+    # a batch row whose keys are all masked, non-causal and causal
+    q, k, v = (torch.randn((2, 257, H, D), generator=g).to(dev)
+               for _ in range(3))
+    km = torch.ones((2, 257), device=dev)
+    km[1] = 0.0
+    for causal in (False, True):
+        ref = fa.flash_attention_torch(q, k, v, causal, km)
+        # the chosen version, then each key-group count forced
+        for kg in (None, 1, 2):
+            o, lse = fa._flash_attention_cuda(q, k, v, causal, km, kg)
+            err = _max_err((o, lse), ref)
+            if not (err <= FLASH_TOL and o[1].abs().max().item() == 0.0
+                    and bool((lse[1] == -1e30).all())):
+                raise AssertionError(
+                    f"flash_attention causal={causal} key groups {kg}: a "
+                    f"fully masked row must give O = 0 and LSE = -1e30 "
+                    f"(err {err:.3e})")
+    print("flash_attention fully masked row (T=257, causal and not, one and "
+          "two key groups): O 0, LSE -1e30")
     # timed at the largest prefill bucket, causal, every key live
     T = 1024
-    q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev)
-               for _ in range(3))
-    km = torch.ones((B, T), device=dev)
-    ms = time_ms(lambda: fa.flash_attention(q, k, v, True, km))
-    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, True, km))
-    mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None,
-                                                                    None]
-    mask = mask & (km > 0)[:, None, None, :]
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask))
-    pairs = T * (T + 1) // 2
-    flops = 4 * D * H * B * pairs
-    nbytes = 4 * B * T * H * D * 4 + B * T * 4 + B * H * T * 4
-    bound_ms = max(nbytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS) * 1e3
-    print(f"flash_attention B={B} H={H} T={T} D={D} causal: kernel "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
-          f"bound {bound_ms:.4f} ms")
+    rows = {}
+    for B in (1, 4):
+        q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev)
+                   for _ in range(3))
+        km = torch.ones((B, T), device=dev)
+        first = fa.flash_attention(q, k, v, True, km)
+        again = fa.flash_attention(q, k, v, True, km)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again)):
+            raise AssertionError(f"flash_attention B={B}: two calls on the "
+                                 f"same inputs differ")
+        # the chosen version and each forced key-group count against plain
+        ref = fa.flash_attention_torch(q, k, v, True, km)
+        errs = {kg: _max_err(fa._flash_attention_cuda(q, k, v, True, km, kg),
+                             ref) for kg in (1, 2)}
+        errs["chosen"] = _max_err(first, ref)
+        if not max(errs.values()) <= FLASH_TOL:
+            raise AssertionError(f"flash_attention B={B} T={T} disagrees "
+                                 f"with its plain version by key groups: "
+                                 f"{errs}")
+        worst = max(worst, errs["chosen"])
+        ms = time_ms(lambda: fa.flash_attention(q, k, v, True, km))
+        groups_ms = {kg: time_ms(lambda kg=kg: fa._flash_attention_cuda(
+            q, k, v, True, km, kg)) for kg in (1, 2)}
+        plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, True,
+                                                            km))
+        mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[
+            None, None] & (km > 0)[:, None, None, :]
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask))
+        flops = 4 * D * H * B * (T * (T + 1) // 2)
+        nbytes = 4 * B * T * H * D * 4 + B * T * 4 + B * H * T * 4
+        # three TF32 products per f32 product (3xTF32)
+        bound_ms, bound_by = _bound(nbytes, 3 * flops, H100_TF32_FLOPS)
+        bound_f32_ms, _ = _bound(nbytes, flops)
+        rows[B] = dict(ms=ms, key_groups_ms=groups_ms, err=errs,
+                       plain_ms=plain_ms,
+                       library_ms=lib_ms, bound_ms=bound_ms,
+                       bound_by=bound_by, bound_f32_ms=bound_f32_ms,
+                       share_of_bound=bound_ms / ms,
+                       share_of_f32_bound=bound_f32_ms / ms,
+                       gflop=flops / 1e9)
+        print(f"flash_attention B={B} H={H} T={T} D={D} causal: kernel "
+              f"{ms:.4f} ms (key groups 1: {groups_ms[1]:.4f}, 2: "
+              f"{groups_ms[2]:.4f}), plain {plain_ms:.4f} ms, library "
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms at 3xTF32 (share "
+              f"{bound_ms / ms:.3f}), {bound_f32_ms:.4f} ms at f32 (share "
+              f"{bound_f32_ms / ms:.3f}); two calls bit-identical; "
+              f"max_abs_err by key groups {errs} (tol {FLASH_TOL:g})")
+    info = {d: {kg: fa.fwd_kernel_info(d, kg) for kg in (1, 2)}
+            for d in (32, 64, 128)}
+    print(f"flash_attention registers, spills, shared bytes, blocks per SM "
+          f"by head dim and key groups: {info}")
     return dict(max_abs_err=worst, tol=FLASH_TOL, per_bucket=per_bucket,
-                ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms,
-                bound_by="bytes" if nbytes / H100_BYTES_PER_S
-                >= flops / H100_F32_FLOPS else "operations")
+                **rows[1], b4=rows[4], info=info,
+                key_group_sweep=key_group_sweep(dev, g))
+
+
+def _max_err(got, ref) -> float:
+    """Largest |difference| over the forward's (O, LSE) pair."""
+    return max((a - b).abs().max().item() for a, b in zip(got, ref))
+
+
+#: (B, T) at H=8, D=64: served prefill buckets at B=1 (8 to 128 blocks of
+#: 64 query rows) and batches from 192 to 512 blocks (training's is the
+#: last), two at 384 blocks with different T
+KEY_GROUP_SHAPES = ((1, 64), (1, 128), (1, 256), (1, 512), (1, 1024),
+                    (2, 768), (2, 1024), (3, 768), (4, 640), (3, 896),
+                    (3, 960), (3, 1024), (6, 512), (4, 1024))
+
+
+def key_group_sweep(dev, g):
+    """The forward with one and with two key groups per block, each held
+    against its plain version (causal, every key live) and timed, over
+    KEY_GROUP_SHAPES: the measurement behind key_groups_for's rule."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    H, D = 8, 64
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for B, T in KEY_GROUP_SHAPES:
+        q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev)
+                   for _ in range(3))
+        km = torch.ones((B, T), device=dev)
+        ref = fa.flash_attention_torch(q, k, v, True, km)
+        row = dict(B=B, T=T, blocks=B * H * -(-T // 64),
+                   chosen=fa.key_groups_for(B, T, H, dev))
+        for kg in (1, 2):
+            err = _max_err(fa._flash_attention_cuda(q, k, v, True, km, kg),
+                           ref)
+            if not err <= FLASH_TOL:
+                raise AssertionError(f"flash_attention B={B} T={T} key "
+                                     f"groups {kg}: {err:.3e} from plain")
+            row[f"err_{kg}"] = err
+            row[f"ms_{kg}"] = time_ms(
+                lambda kg=kg: fa._flash_attention_cuda(q, k, v, True, km, kg))
+        out.append(row)
+        print(f"flash_attention key groups B={B} T={T} ({row['blocks']} "
+              f"blocks on {sms} SMs): 1 group {row['ms_1']:.4f} ms, 2 groups "
+              f"{row['ms_2']:.4f} ms, chosen {row['chosen']}; max_abs_err "
+              f"{row['err_1']:.2e}, {row['err_2']:.2e}")
+    return out
 
 
 def check_paged(dev):
@@ -473,16 +604,19 @@ def check_paged_int8(dev):
     tbl_d = torch.from_numpy(tbl).to(dev)
     lens_d = torch.from_numpy(lens.astype(np.int32)).to(dev)
     got = pa.paged_attention(q, k, v, tbl_d, lens_d)
+    again = pa.paged_attention(q, k, v, tbl_d, lens_d)
     want = pa.paged_attention_torch(q, k, v, tbl_d, lens_d)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     finite = bool(torch.isfinite(got).all())
     zero_row = got[0].abs().max().item()
+    same = torch.equal(got, again)
     print(f"paged_attention int8: max_abs_err {err:.3e} (tol {INT8_TOL:g}), "
-          f"finite {finite}, len-0 row max {zero_row}, {used} live blocks")
-    if not (finite and err <= INT8_TOL and zero_row == 0.0):
+          f"finite {finite}, len-0 row max {zero_row}, {used} live blocks, "
+          f"two calls bit-identical {same}")
+    if not (finite and err <= INT8_TOL and zero_row == 0.0 and same):
         raise AssertionError("paged_attention int8 disagrees with its plain "
-                             "version")
+                             "version or with itself")
     _refuses_mixed(lambda a, b: pa.paged_attention(q, a, b, tbl_d, lens_d),
                    k, kvq.dequantize(v))
     k.scale.copy_(clean_k)
@@ -518,10 +652,13 @@ def check_paged_int8(dev):
           f"library (SDPA on the gathered dequantised f32 panel, gather and "
           f"dequantisation not timed) {lib_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms")
+    info = {d: pa.int8_kernel_info(d) for d in (12, 32, 64, 128)}
+    print(f"paged_attention int8 registers, spills, blocks per SM and load "
+          f"width by head dim: {info}")
     return dict(max_abs_err=err, tol=INT8_TOL, slot_kernel_err=slot_err,
                 live_blocks=used, ms=ms, plain_ms=plain_ms,
                 slot_kernel_dense_ms=slot_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=bound_by)
+                bound_ms=bound_ms, bound_by=bound_by, info=info)
 
 
 def cpu_copy(lm, cfg):
@@ -823,16 +960,6 @@ def check_flash_bwd(dev):
     for name in res:
         res[name]["library_ms"] = lib_ms
         res[name]["library_backend"] = backend
-    # the forward (B3) at these shapes, beside its B=1 row of phase 3
-    fwd_bound, fwd_by = _bound(4 * tensor + B * T * 4 + rows,
-                               4 * D * B * H * pairs)
-    fwd = dict(ms=time_ms(lambda: fa.flash_attention(q, k, v, True, km)),
-               plain_ms=time_ms(lambda: fa.flash_attention_torch(
-                   q, k, v, True, km)),
-               library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                   qt.detach(), kt.detach(), vt.detach(), attn_mask=mask)),
-               bound_ms=fwd_bound, bound_by=fwd_by)
-    res["fwd_b4"] = fwd
     pair_ms = res["dq"]["ms"] + res["dkv"]["ms"]
     res["pair"] = dict(ms=pair_ms, library_ms=lib_ms,
                        ratio_to_library=pair_ms / lib_ms)
@@ -850,9 +977,6 @@ def check_flash_bwd(dev):
           f"{lib_ms:.4f} ms (ratio {pair_ms / lib_ms:.3f}); two calls of each "
           f"kernel bit-identical in every bucket; shared bytes and blocks "
           f"per SM by head dim {res['occupancy']}")
-    print(f"flash forward (B3) B={B} H={H} T={T} D={D} causal: kernel "
-          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.4f} ms, library "
-          f"{fwd['library_ms']:.4f} ms, bound {fwd['bound_ms']:.4f} ms")
     return res
 
 
@@ -1318,15 +1442,130 @@ def profile_window(eng):
         n_kernels += e.count
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    # the port's own kernels, whether or not they are among the top
+    ours = {n: t for n, t in kernels.items() if PORT_KERNEL.search(n)}
     return dict(wall_ms=wall * 1e3, busy_ms=busy_ms,
-                busy_share=busy_ms / (wall * 1e3), top=top,
+                busy_share=busy_ms / (wall * 1e3), top=top, ours=ours,
                 device_kernels=n_kernels,
                 decode_steps=st1["decode_steps"] - st0["decode_steps"],
                 prefills=st1["prefills"] - st0["prefills"])
 
 
+def sass_counts():
+    """HMMA and I2F (I2F, I2FP) instructions per instantiation of the
+    flash forward and the int8 paged kernel in the built libraries, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    from deeplearning4j_tpu_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    kernel = re.compile(r"(flash_fwd_kernel|paged_attention_int8_kernel)"
+                        r"ILi(\d+)E(?:Li(\d+)E)?")
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                        r"([A-Z][A-Z0-9]*)")
+    counts = {}
+    for lib in ("flash_attention", "paged_attention"):
+        text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                              capture_output=True, text=True, check=True,
+                              timeout=300).stdout
+        fn = None
+        for line in text.splitlines():
+            if "Function :" in line:
+                m = kernel.search(line)
+                fn = (f"{m[1]}<{m[2]}" + (f",{m[3]}>" if m[3] else ">")
+                      if m else None)
+                if fn:
+                    counts[fn] = {"HMMA": 0, "I2F": 0}
+                continue
+            op = opcode.search(line) if fn else None
+            if op and op[1] in ("HMMA", "I2F", "I2FP"):
+                counts[fn]["HMMA" if op[1] == "HMMA" else "I2F"] += 1
+    return counts
+
+
+def check_sass(counts):
+    """The forward must run on the tensor cores (HMMA > 0) and the int8
+    paged kernel must convert int8 without I2F (0)."""
+    bad = [f for f, c in counts.items()
+           if (f.startswith("flash") and not c["HMMA"])
+           or (f.startswith("paged") and c["I2F"])]
+    if bad or not counts:
+        raise AssertionError(f"SASS: the forward must run HMMA and the int8 "
+                             f"paged kernel no I2F: {counts}")
+
+
+AB_CODE = r"""
+import json, torch
+import chip_smoke as cs
+from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+dev = torch.device("cuda")
+card = cs.card_line()
+out = {"flash_ms": {}}
+g = torch.Generator(device="cpu").manual_seed(2)
+for B in (1, 4):
+    q, k, v = (torch.randn((B, 1024, 8, 64), generator=g).to(dev)
+               for _ in range(3))
+    km = torch.ones((B, 1024), device=dev)
+    out["flash_ms"][B] = cs.time_ms(lambda: fa.flash_attention(q, k, v, True,
+                                                               km))
+    if B == 4:  # the backward kernels at the training shape
+        do = torch.randn((B, 1024, 8, 64), generator=g).to(dev)
+        o, lse = fa.flash_attention(q, k, v, True, km)
+        args = (q, k, v, km, do, lse, fa.backward_delta(do, o), True)
+        out["dq_ms"] = cs.time_ms(lambda: fa.flash_attention_bwd_dq(*args))
+        out["dkv_ms"] = cs.time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+out["decode_ms"] = cs.check_decode(dev)["float32"]["ms"]
+out["paged_ms"] = cs.check_paged(dev)["float32"]["ms"]
+out["paged_int8_ms"] = cs.check_paged_int8(dev)["ms"]
+out["decode_int8_ms"] = cs.check_decode_int8(dev)["ms"]
+tr = cs.train(card)
+out["train"] = dict(step_p50_ms=tr["step_p50_ms"],
+                    tokens_per_s=tr["tokens_per_s"],
+                    device_ms=tr["profile"]["busy_ms"],
+                    by_kind=tr["profile"]["by_kind"])
+prof = cs.serve_paged(card, kv_dtype="int8")["profile"]
+out["phase7_window"] = dict(
+    device_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
+    paged_int8_ms=sum(t for n, t in (prof["ours"].items() if "ours" in prof
+                                     else prof["top"])
+                      if "paged_attention_int8" in n))
+print("AB " + json.dumps(out))
+"""
+
+
+def run_ab(parent: str) -> int:
+    """``--ab PARENT``: the parent checkout's and this checkout's own
+    code in turns (parent, this, this, parent), each in a process of its
+    own: B3 at B=1 and B=4, B6 and B7 at B=4, B1, B2, B4 and B5 (their
+    phase-3 checks), phase 9 and phase 7's profile window; prints each
+    turn as JSON, then all of them on one "A/B runs:" line."""
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = card_line()
+    print(f"device: {card}")
+    runs = []
+    for label, root in (("parent", parent), ("change", here),
+                        ("change", here), ("parent", parent)):
+        proc = subprocess.run([sys.executable, "-c", AB_CODE], cwd=root,
+                              capture_output=True, text=True, timeout=1200)
+        if proc.returncode:
+            print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
+            raise RuntimeError(f"A/B turn {label} failed")
+        line = [x for x in proc.stdout.splitlines() if x.startswith("AB ")]
+        runs.append(dict(label=label, **json.loads(line[-1][3:])))
+        print(f"A/B {label}: {json.dumps(runs[-1])}")
+    print("A/B runs: " + json.dumps(dict(card=card, runs=runs)))
+    print(card)
+    return 0
+
+
 def main() -> int:
     import torch
+    if sys.argv[1:2] == ["--ab"]:
+        return run_ab(sys.argv[2])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1344,6 +1583,11 @@ def main() -> int:
             if "entry function" in line or "registers" in line \
                     or "spill" in line:
                 print(f"  ptxas {name}: {line.strip()}")
+    sass = sass_counts()
+    if sass is not None:
+        check_sass(sass)
+    print(f"SASS HMMA and I2F counts per kernel instantiation: "
+          f"{'not measured (no cuobjdump)' if sass is None else sass}")
 
     decode = check_decode(dev)
     flash = check_flash(dev)
@@ -1392,7 +1636,7 @@ def main() -> int:
              decode_int8=decode8, paged_int8=paged8, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
              e2e_paged_int8=e2e_paged_int8, flash_bwd=bwd, train=trained,
-             build={n: l["seconds"] for n, l in logs.items()}),
+             build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -18,35 +18,70 @@
 // ~130 flops or more per byte it must move, so the arithmetic rate
 // bounds it, not memory.
 //
-// The forward (B3) computes in FP32 FMA on the CUDA cores (67 TFLOP/s):
-// its output is the served path's logits, and TF32 would move them by
-// ~1e-3 and break greedy parity with the reference. The backward (dQ,
-// dK/dV) runs its products on the tensor cores in 3xTF32: each f32
+// All three run their products on the tensor cores in 3xTF32: each f32
 // operand x splits into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and
 // a product is lo*hi + hi*lo + hi*hi (small terms first, f32
 // accumulation), which drops only lo*lo (~2^-22 of the product). That
-// keeps gradients at f32 accuracy (the tests and chip_smoke.py hold
-// them within 1e-4 of the plain version, times the largest gradient
-// where it exceeds 1; one TF32 pass errs by ~1e-3) at the cost of three
-// TF32 products per f32 product, so the backward's bound is
-// 3 x its flops at 495 TFLOP/s: at B=4, H=8, T=1024, D=64, causal,
-// dQ 6.45 GFLOP -> 0.0391 ms and dK/dV 8.60 GFLOP -> 0.0521 ms (0.0962
-// and 0.1283 ms at the f32 rate).
+// keeps f32 accuracy at the cost of three TF32 products per f32 product
+// (the forward splits more cheaply, leaving lo for the tensor cores to
+// truncate, which drops ~2^-20 instead: split_tf32_fast):
+// the forward's output stays within 1e-4 of the plain f32 version (one
+// TF32 pass errs by ~1e-3 there, which would move the served path's
+// logits and break greedy parity with the reference; the split's error
+// is ~1e-6, far below the logit margins that parity rests on), and the
+// gradients within 1e-4 of theirs, times the largest gradient where it
+// exceeds 1. So a kernel's bound is 3 x its flops at 495 TFLOP/s, beside
+// its flops at the f32 rate (67 TFLOP/s): at H=8, T=1024, D=64, causal,
+// the forward does 1.075 GFLOP at B=1 -> 0.0065 ms (0.0160 ms at f32)
+// and 4.30 GFLOP at B=4 -> 0.0261 ms (0.0642 ms); at B=4, dQ 6.45 GFLOP
+// -> 0.0391 ms (0.0962) and dK/dV 8.60 GFLOP -> 0.0521 ms (0.1283).
 //
 // Forward design (B3):
-//  - One block of 256 threads per (64-row query tile, batch*head); the
-//    query tile stays in shared memory, K and V stream through it one
-//    64-row tile at a time.
-//  - Register tiling, as in an SGEMM: thread (ty, tx) of a 16 x 16 grid
-//    computes a 4 x 4 block of scores (its rows 4ty..4ty+3 against the
-//    streamed rows tx + 16j, tile_dot) and a 4 x D/16 block of the
-//    accumulator (tile_pv), reading 16-byte vectors from shared memory,
-//    so each vector load feeds four FMAs. Row strides are padded to an
-//    odd number of 16-byte units, so neighbouring threads' vectors fall
-//    in different banks.
-//  - Probabilities go through shared memory between the two products of
-//    a step; row maxima and sums are reduced across the 16 threads of a
-//    row with shuffles.
+//  - One block per (64-row query tile, batch*head), in KG groups of 4
+//    warps; warp w of a group owns query rows 16w .. 16w+15. Q is copied
+//    once, split into hi and lo in shared memory, and at D <= 64 held in
+//    registers as split A fragments.
+//  - Group kg walks the key tiles kg, kg + KG, ... (BN = 32 keys, 16 at
+//    D = 128) through its own two-stage cp.async ring, split in place as
+//    in the backward but by split_tf32_fast (hi by an integer add and
+//    mask, lo left for the tensor cores to truncate: 3 instructions
+//    where cvt.rna with its NaN guard takes ~9, and measured faster on
+//    the H100 at B=1 and B=4), with one barrier of its own per tile.
+//  - KG answers the single wave at B = 1: 16 query tiles x 8 heads are
+//    128 blocks on 132 SMs, so the kernel lasts as long as its longest
+//    block, and under the causal mask the last query tile walks 16 times
+//    the keys of the first. With KG = 2 each block's keys are split over
+//    two groups, which halves that chain and puts two warps on every SM
+//    sub-partition, with no second pass and no scratch: the groups'
+//    (m, l, O) are merged once at the end through shared memory, always
+//    group 0's first, so two calls give identical bits. A two-group
+//    block takes a whole SM (1 block per SM, against 2 of one group),
+//    so once the work, not the longest chain, sets the time, the merge
+//    and the halved tiles per group cost more than the balance gains.
+//    Measured on the H100 (chip_smoke.py key_group_sweep, H=8, D=64,
+//    causal): two groups win at every served bucket at B=1 (T=1024:
+//    0.0555 against 0.0656 ms; T=256: 0.0174 against 0.0197) and up to
+//    336 blocks (by 2%), one group from 360 blocks on (training's B=4,
+//    T=1024, 512 blocks: 0.1035 against 0.1197). So the wrapper passes
+//    KG = 2 while the grid is at most 2.5 blocks per SM
+//    (kernels/flash_attention.py key_groups_for). A consequence: a
+//    row's bits (the order its keys are summed in) depend on the batch
+//    it runs in and on the card's SM count, though both versions stay
+//    within 1e-4 of the plain one. Smaller query tiles were not built:
+//    a warp owns 16 query rows either way and the last one still walks
+//    every key tile to the diagonal, so they would not shorten the
+//    longest chain, which key groups halve.
+//  - S = Q K^T stays in accumulator fragments; the online softmax runs in
+//    registers on log2(e)-scaled scores (exp2f), each row's max reduced
+//    over the four threads that hold it; P is formed in place and fed as
+//    the A operand of O += P V through the FlashAttention-2 permutation
+//    (frag_a_acc), so P never goes through shared memory. Each thread
+//    sums its own columns of l and reduces them once at the end.
+//  - Causal key tiles above the diagonal are never visited, a warp skips
+//    the products of a tile wholly above its rows, and the grid runs the
+//    last query tile (the longest) first.
+//  - A row with no live key keeps m = -1e30: its O is exactly 0 and its
+//    LSE exactly -1e30, as the backward's where-guards expect.
 //
 // Backward design (dQ and dK/dV):
 //  - One block of 4 warps per (64-row tile, batch*head): a query tile
@@ -92,248 +127,26 @@
 // fully masked row's LSE is -1e30, so exp(s - lse) would be 1 there: the
 // backward where-guards p rather than relying on the exponential to
 // underflow, which makes that row's gradients exactly 0.
-// Not yet: wgmma/TMA, warp-specialised producers, split tiles for the
-// causal imbalance.
+// Not yet: wgmma/TMA, warp-specialised producers. Every warp reads the
+// whole streamed tile's hi and lo fragments from shared memory, which
+// with the tensor cores' mma.sync issue and the split instructions sets
+// the pace; wgmma, whose B operand a warpgroup reads once, is the way
+// past it.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
 
-constexpr int kBM = 64;        // rows of a block's own tile
-constexpr int kBN = 64;        // rows of a streamed tile
-constexpr int kThreads = 256;  // a 16 x 16 thread grid
-constexpr int kLDP = kBN + 4;  // row stride of P / dS tiles
 constexpr float kNegInf = -1e30f;
 
-template <int N>
-__device__ __forceinline__ void load_vec(const float* p, float (&out)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int c = 0; c < N; c += 4) {
-      const float4 x = *reinterpret_cast<const float4*>(p + c);
-      out[c] = x.x; out[c + 1] = x.y; out[c + 2] = x.z; out[c + 3] = x.w;
-    }
-  } else {
-#pragma unroll
-    for (int c = 0; c < N; c += 2) {
-      const float2 x = *reinterpret_cast<const float2*>(p + c);
-      out[c] = x.x; out[c + 1] = x.y;
-    }
-  }
-}
+// ---- 3xTF32 mma.sync building blocks, scores in registers, cp.async ring ----
 
-// Rows t0 .. t0+63 of one (batch, head) of a [B, T, H, D] tensor into a
-// [64][DMAX + 4] shared tile, zero past T and past D.
-template <int DMAX>
-__device__ __forceinline__ void load_tile(float* dst,
-                                          const float* __restrict__ src,
-                                          size_t base, size_t row, int t0,
-                                          int T, int D, int tid) {
-  constexpr int LD = DMAX + 4;
-  for (int idx = tid; idx < 64 * DMAX; idx += kThreads) {
-    const int r = idx / DMAX, d = idx % DMAX;
-    const int t = t0 + r;
-    dst[r * LD + d] = (t < T && d < D) ? src[base + t * row + d] : 0.f;
-  }
-}
-
-// The same rows of two tensors (K and V) in one pass: one index
-// computation feeds both loads.
-template <int DMAX>
-__device__ __forceinline__ void load_tile_pair(
-    float* dst_a, const float* __restrict__ src_a, float* dst_b,
-    const float* __restrict__ src_b, size_t base, size_t row, int t0, int T,
-    int D, int tid) {
-  constexpr int LD = DMAX + 4;
-  for (int idx = tid; idx < 64 * DMAX; idx += kThreads) {
-    const int r = idx / DMAX, d = idx % DMAX;
-    const int t = t0 + r;
-    const bool ok = t < T && d < D;
-    dst_a[r * LD + d] = ok ? src_a[base + t * row + d] : 0.f;
-    dst_b[r * LD + d] = ok ? src_b[base + t * row + d] : 0.f;
-  }
-}
-
-// s[i][j] = A[4ty + i] . Bt[tx + 16j]: rows of two [64][DMAX + 4] tiles
-template <int DMAX>
-__device__ __forceinline__ void tile_dot(const float* A, const float* Bt,
-                                         int ty, int tx, float (&s)[4][4]) {
-  constexpr int LD = DMAX + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < DMAX; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      av[i] = *reinterpret_cast<const float4*>(A + (4 * ty + i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      bv[j] = *reinterpret_cast<const float4*>(Bt + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float a = s[i][j];
-        a = fmaf(av[i].x, bv[j].x, a);
-        a = fmaf(av[i].y, bv[j].y, a);
-        a = fmaf(av[i].z, bv[j].z, a);
-        a = fmaf(av[i].w, bv[j].w, a);
-        s[i][j] = a;
-      }
-  }
-}
-
-// acc[i][c] += sum_kk P[4ty + i][kk] * M[kk][tx * DMAX/16 + c], with P a
-// [64][kLDP] tile and M a [64][DMAX + 4] tile
-template <int DMAX>
-__device__ __forceinline__ void tile_pv(const float* P, const float* M,
-                                        int ty, int tx,
-                                        float (&acc)[4][DMAX / 16]) {
-  constexpr int LD = DMAX + 4;
-  constexpr int COLS = DMAX / 16;
-#pragma unroll 2
-  for (int kk = 0; kk < kBN; kk += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      pv[i] = *reinterpret_cast<const float4*>(P + (4 * ty + i) * kLDP + kk);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float mr[COLS];
-      load_vec<COLS>(M + (kk + u) * LD + tx * COLS, mr);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
-                      : u == 2 ? pv[i].z : pv[i].w;
-#pragma unroll
-        for (int c = 0; c < COLS; ++c) acc[i][c] = fmaf(p, mr[c], acc[i][c]);
-      }
-    }
-  }
-}
-
-// 1 where key t0 + j lies inside T and is not masked, per streamed key
-__device__ __forceinline__ void load_key_ok(float* ok,
-                                            const float* __restrict__ km,
-                                            int b, int t0, int T, int tid) {
-  if (tid < kBN) {
-    const int t = t0 + tid;
-    ok[tid] = (t < T && (km == nullptr || km[(size_t)b * T + t] > 0.f))
-                  ? 1.f : 0.f;
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v,
-                 const float* __restrict__ key_mask,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int H, int T, int D, int causal, float scale) {
-  constexpr int LD = DMAX + 4;     // row stride of Q, K, V tiles
-  constexpr int COLS = DMAX / 16;  // output elements per thread and row
-  extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                // [kBM][LD]
-  float* Ks = Qs + kBM * LD;       // [kBN][LD]
-  float* Vs = Ks + kBN * LD;       // [kBN][LD]
-  float* Ps = Vs + kBN * LD;       // [kBM][kLDP]
-  float* colok = Ps + kBM * kLDP;  // [kBN] 1 = key inside T and unmasked
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.y;
-  const int b = bh / H, h = bh % H;
-  const size_t row = (size_t)H * D;  // stride between positions
-  const size_t base = (size_t)b * T * row + (size_t)h * D;
-  const int q0 = blockIdx.x * kBM;
-
-  load_tile<DMAX>(Qs, q, base, row, q0, T, D, tid);
-
-  float m[4], l[4], acc[4][COLS];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) acc[i][c] = 0.f;
-  }
-
-  const int n_tiles = (T + kBN - 1) / kBN;
-  int last = n_tiles - 1;
-  if (causal) {
-    const int diag = (q0 + kBM - 1) / kBN;
-    last = diag < last ? diag : last;
-  }
-  for (int kt = 0; kt <= last; ++kt) {
-    __syncthreads();  // the previous tile and P are consumed
-    load_tile_pair<DMAX>(Ks, k, Vs, v, base, row, kt * kBN, T, D, tid);
-    load_key_ok(colok, key_mask, b, kt * kBN, T, tid);
-    __syncthreads();
-
-    float s[4][4];  // S = Q K^T: rows 4ty + i, keys tx + 16j
-    tile_dot<DMAX>(Qs, Ks, ty, tx, s);
-
-    // online softmax per row; the 16 threads of a row share a half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q0 + 4 * ty + i;
-      unsigned valid = 0u;
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const bool ok = colok[c] > 0.f && (!causal || kt * kBN + c <= q_pos);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        valid |= ok ? (1u << j) : 0u;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float corr = expf(m[i] - mx);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = (valid >> j) & 1u ? expf(s[i][j] - mx) : 0.f;
-        psum += p;
-        Ps[(4 * ty + i) * kLDP + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, off);
-      l[i] = l[i] * corr + psum;
-      m[i] = mx;
-#pragma unroll
-      for (int c = 0; c < COLS; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    tile_pv<DMAX>(Ps, Vs, ty, tx, acc);  // O += P V
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q_pos = q0 + 4 * ty + i;
-    if (q_pos >= T) continue;
-    const float lc = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < COLS; ++c) {
-      const int d = tx * COLS + c;
-      if (d < D) o[base + q_pos * row + d] = acc[i][c] / lc;
-    }
-    if (tx == 0) lse[(size_t)bh * T + q_pos] = m[i] + logf(lc);
-  }
-}
-
-// ---- backward: 3xTF32 mma.sync, scores in registers, cp.async ring ----
-
-constexpr int kBwdWarps = 4;
+constexpr int kBwdWarps = 4;  // a backward block, a forward key group
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kBwdRows = 16 * kBwdWarps;  // a block's own tile
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Per head-dim bucket and kernel (DKV: dK/dV, else dQ): the streamed
 // tile's rows, whether the warp's A fragments of the block's own tiles
@@ -361,6 +174,26 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
                                            uint32_t& lo) {
   hi = tf32_rna(x);
   lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// The forward's split, in 3 instructions instead of ~9: hi is x rounded
+// to TF32 half away from zero (cvt.rna's result for finite x, without
+// its NaN guard: NaN stays NaN, only an infinity turns NaN), and lo =
+// x - hi (exact) is left for the tensor cores, which read a TF32
+// operand's top 19 bits and ignore the rest, so lo is truncated. lo*hi
+// + hi*lo + hi*hi then drops ~2^-20 of the product instead of ~2^-22.
+__device__ __forceinline__ void split_tf32_fast(float x, uint32_t& hi,
+                                                uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+template <bool kFast>
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kFast)
+    split_tf32_fast(x, hi, lo);
+  else
+    split_tf32(x, hi, lo);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4],
@@ -465,13 +298,14 @@ __device__ __forceinline__ void frag_b_cols(const float* yh, const float* yl,
 
 // An accumulator (rows g, g + 8; columns 2t, 2t + 1) as the A operand of
 // a product over its columns, in frag_b_cols's order
+template <bool kFast = false>
 __device__ __forceinline__ void frag_a_acc(const float (&c)[4],
                                            uint32_t (&hi)[4],
                                            uint32_t (&lo)[4]) {
-  split_tf32(c[0], hi[0], lo[0]);
-  split_tf32(c[2], hi[1], lo[1]);
-  split_tf32(c[1], hi[2], lo[2]);
-  split_tf32(c[3], hi[3], lo[3]);
+  split<kFast>(c[0], hi[0], lo[0]);
+  split<kFast>(c[2], hi[1], lo[1]);
+  split<kFast>(c[1], hi[2], lo[2]);
+  split<kFast>(c[3], hi[3], lo[3]);
 }
 
 // cp.async global -> shared; !valid writes zeros and reads nothing
@@ -497,14 +331,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows t0 .. t0+ROWS-1 of one (batch, head) of two [B, T, H, D] tensors
-// into [ROWS][DMAX + 4] shared tiles, zero past T and past D. vec4: D % 4
-// == 0 and both tensors 16-byte aligned, so 16-byte copies.
-template <int DMAX, int ROWS>
-__device__ __forceinline__ void async_tile_pair(
-    float* dst_a, const float* __restrict__ src_a, float* dst_b,
-    const float* __restrict__ src_b, size_t base, size_t row, int t0, int T,
-    int D, bool vec4, int tid) {
+// Rows t0 .. t0+ROWS-1 of one (batch, head) of N [B, T, H, D] tensors
+// into [ROWS][DMAX + 4] shared tiles, zero past T and past D; one index
+// computation feeds the N copies. vec4: D % 4 == 0 and the tensors
+// 16-byte aligned, so 16-byte copies.
+template <int DMAX, int ROWS, int N>
+__device__ __forceinline__ void async_tiles(float* const (&dst)[N],
+                                            const float* const (&src)[N],
+                                            size_t base, size_t row, int t0,
+                                            int T, int D, bool vec4,
+                                            int tid) {
   constexpr int LD = DMAX + 4;
   static_assert(ROWS * DMAX % (4 * kBwdThreads) == 0, "whole passes");
   if (vec4) {
@@ -515,8 +351,9 @@ __device__ __forceinline__ void async_tile_pair(
       const int r = idx / CH, d = (idx % CH) * 4, t = t0 + r;
       const bool ok = t < T && d < D;
       const size_t off = ok ? base + (size_t)t * row + d : 0;
-      cp_async16(dst_a + r * LD + d, src_a + off, ok);
-      cp_async16(dst_b + r * LD + d, src_b + off, ok);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        cp_async16(dst[j] + r * LD + d, src[j] + off, ok);
     }
   } else {
 #pragma unroll 4
@@ -525,21 +362,33 @@ __device__ __forceinline__ void async_tile_pair(
       const int r = idx / DMAX, d = idx % DMAX, t = t0 + r;
       const bool ok = t < T && d < D;
       const size_t off = ok ? base + (size_t)t * row + d : 0;
-      cp_async4(dst_a + r * LD + d, src_a + off, ok);
-      cp_async4(dst_b + r * LD + d, src_b + off, ok);
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        cp_async4(dst[j] + r * LD + d, src[j] + off, ok);
     }
   }
 }
 
+template <int DMAX, int ROWS>
+__device__ __forceinline__ void async_tile_pair(
+    float* dst_a, const float* __restrict__ src_a, float* dst_b,
+    const float* __restrict__ src_b, size_t base, size_t row, int t0, int T,
+    int D, bool vec4, int tid) {
+  async_tiles<DMAX, ROWS, 2>({dst_a, dst_b}, {src_a, src_b}, base, row, t0,
+                             T, D, vec4, tid);
+}
+
+template <bool kFast = false>
 __device__ __forceinline__ void split_in_place(float* hi, float* lo) {
   uint32_t h, l;
-  split_tf32(*hi, h, l);
+  split<kFast>(*hi, h, l);
   *hi = __uint_as_float(h);
   *lo = __uint_as_float(l);
 }
 
 // The same for a 16-byte chunk: one vector load and two vector stores
 // (scalar accesses to a thread's own chunk would conflict 4 ways)
+template <bool kFast = false>
 __device__ __forceinline__ void split_in_place4(float* hi, float* lo) {
   float4 x = *reinterpret_cast<const float4*>(hi);
   float* v = &x.x;
@@ -549,7 +398,7 @@ __device__ __forceinline__ void split_in_place4(float* hi, float* lo) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     uint32_t a, b;
-    split_tf32(v[e], a, b);
+    split<kFast>(v[e], a, b);
     hv[e] = __uint_as_float(a);
     lv[e] = __uint_as_float(b);
   }
@@ -557,14 +406,14 @@ __device__ __forceinline__ void split_in_place4(float* hi, float* lo) {
   *reinterpret_cast<float4*>(lo) = l;
 }
 
-// After async_tile_pair's copies have landed: each thread splits the
+// After async_tiles' copies have landed: each thread splits the
 // elements it copied itself (visible to it after its own wait, so no
 // barrier is needed) into hi, in place, and lo. Every warp then reads
 // ready TF32 pairs instead of splitting each element on each use.
-template <int DMAX, int ROWS>
-__device__ __forceinline__ void split_tile_pair(float* a_hi, float* a_lo,
-                                                float* b_hi, float* b_lo,
-                                                bool vec4, int tid) {
+template <int DMAX, int ROWS, int N, bool kFast>
+__device__ __forceinline__ void split_tiles(float* const (&hi)[N],
+                                            float* const (&lo)[N], bool vec4,
+                                            int tid) {
   constexpr int LD = DMAX + 4;
   if (vec4) {
     constexpr int CH = DMAX / 4;
@@ -572,18 +421,25 @@ __device__ __forceinline__ void split_tile_pair(float* a_hi, float* a_lo,
     for (int i = 0; i < ROWS * CH / kBwdThreads; ++i) {
       const int idx = tid + i * kBwdThreads;
       const int o = (idx / CH) * LD + (idx % CH) * 4;
-      split_in_place4(a_hi + o, a_lo + o);
-      split_in_place4(b_hi + o, b_lo + o);
+#pragma unroll
+      for (int j = 0; j < N; ++j) split_in_place4<kFast>(hi[j] + o, lo[j] + o);
     }
   } else {
 #pragma unroll 4
     for (int i = 0; i < ROWS * DMAX / kBwdThreads; ++i) {
       const int idx = tid + i * kBwdThreads;
       const int o = (idx / DMAX) * LD + idx % DMAX;
-      split_in_place(a_hi + o, a_lo + o);
-      split_in_place(b_hi + o, b_lo + o);
+#pragma unroll
+      for (int j = 0; j < N; ++j) split_in_place<kFast>(hi[j] + o, lo[j] + o);
     }
   }
+}
+
+template <int DMAX, int ROWS, bool kFast = false>
+__device__ __forceinline__ void split_tile_pair(float* a_hi, float* a_lo,
+                                                float* b_hi, float* b_lo,
+                                                bool vec4, int tid) {
+  split_tiles<DMAX, ROWS, 2, kFast>({a_hi, b_hi}, {a_lo, b_lo}, vec4, tid);
 }
 
 // src[i0 .. i0+n-1] into dst, 0 past `end`
@@ -908,6 +764,299 @@ flash_bwd_dkv_kernel(const float* __restrict__ q,
     }
 }
 
+// ---- forward (B3): 3xTF32 mma.sync, P in registers, key groups ----
+
+// A fragments of a warp's 16 rows of a tile already split into hi and lo
+// in shared memory: held in registers (kHeld) or read at each use.
+template <int DMAX, bool kHeld>
+struct SplitAFrags {
+  static constexpr int KS = DMAX / 8;
+  static constexpr int LD = DMAX + 4;
+  uint32_t hi[kHeld ? KS : 1][4], lo[kHeld ? KS : 1][4];
+  const float *th, *tl;
+  int o;  // (m0 + g) * LD + t
+
+  __device__ __forceinline__ SplitAFrags(const float* h, const float* l,
+                                         int m0, int g, int t)
+      : th(h), tl(l), o((m0 + g) * LD + t) {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) read(ks, hi[ks], lo[ks]);
+    }
+  }
+  __device__ __forceinline__ void read(int ks, uint32_t (&h)[4],
+                                       uint32_t (&l)[4]) const {
+    const int p = o + 8 * ks;
+    h[0] = __float_as_uint(th[p]);
+    h[1] = __float_as_uint(th[p + 8 * LD]);
+    h[2] = __float_as_uint(th[p + 4]);
+    h[3] = __float_as_uint(th[p + 8 * LD + 4]);
+    l[0] = __float_as_uint(tl[p]);
+    l[1] = __float_as_uint(tl[p + 8 * LD]);
+    l[2] = __float_as_uint(tl[p + 4]);
+    l[3] = __float_as_uint(tl[p + 8 * LD + 4]);
+  }
+  __device__ __forceinline__ void get(int ks, uint32_t (&h)[4],
+                                      uint32_t (&l)[4]) const {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        h[i] = hi[ks][i];
+        l[i] = lo[ks][i];
+      }
+    } else {
+      read(ks, h, l);
+    }
+  }
+};
+
+// Per head-dim bucket and key-group count KG: the streamed tile's rows,
+// whether Q's fragments are held in registers, and the dynamic shared
+// memory: Q split into hi and lo ([64][LD] each), and per key group two
+// stages of K hi, K lo, V hi, V lo ([BN][LD] each) and of the [BN] key
+// flags.
+template <int DMAX, int KG>
+struct FwdTile {
+  static constexpr int BN = DMAX == 128 ? 16 : 32;
+  static constexpr bool kHeld = DMAX <= 64;
+  static constexpr int LD = DMAX + 4;
+  static constexpr int kRing = 8 * BN * LD + 2 * BN;  // floats a group
+  static constexpr int kThreads = KG * kBwdThreads;
+  static constexpr size_t kSmemBytes =
+      (size_t)(2 * kBwdRows * LD + KG * kRing) * sizeof(float);
+};
+
+__device__ __forceinline__ void group_barrier(int id) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(kBwdThreads) : "memory");
+}
+
+// O = softmax(Q K^T * scale + mask) V and the LSE of each row. Grid:
+// (B*H, query tiles), the last query tile (the most key tiles under the
+// causal mask) first. A block is KG groups of 4 warps; warp w of a group
+// owns rows 16w .. 16w+15 of the 64-row query tile, and group kg walks
+// the key tiles kg, kg + KG, ... through its own cp.async ring, so the
+// longest query tile's chain of key tiles is KG times shorter. The
+// groups' (m, l, O) are merged at the end in a fixed order.
+template <int DMAX, int KG>
+__global__ void __launch_bounds__(KG * kBwdThreads, KG == 1 ? 2 : 1)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v,
+                 const float* __restrict__ key_mask,
+                 float* __restrict__ o, float* __restrict__ lse, int H,
+                 int T, int D, int causal, float scale, int vec4) {
+  using Tile = FwdTile<DMAX, KG>;
+  constexpr int BN = Tile::BN;
+  constexpr int LD = Tile::LD;
+  constexpr int KS = DMAX / 8;  // 8-wide steps over the head dim
+  constexpr int NB = BN / 8;    // 8-key blocks of a streamed tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qh = smem;                   // [kBwdRows][LD]
+  float* Ql = Qh + kBwdRows * LD;     // [kBwdRows][LD]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int kg = warp / kBwdWarps;    // the warp's key group
+  const int gtid = tid % kBwdThreads;  // thread index in the group
+  float* ring = Ql + kBwdRows * LD + kg * Tile::kRing;
+  float* okring = ring + 8 * BN * LD;  // [2][BN] 1 = key inside T, unmasked
+  auto tile = [&](int st, int i) { return ring + (4 * st + i) * BN * LD; };
+
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const size_t row = (size_t)H * D;
+  const size_t base = (size_t)b * T * row + (size_t)h * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
+  const int m0 = 16 * (warp % kBwdWarps);  // the warp's rows of the tile
+  const float sl2 = scale * kLog2e;        // scores in log2 units
+
+  const int n_tiles = (T + BN - 1) / BN;
+  int last = n_tiles - 1;
+  if (causal) {
+    const int diag = (q0 + kBwdRows - 1) / BN;
+    last = diag < last ? diag : last;
+  }
+  auto load_kv = [&](int kt, int st) {
+    async_tile_pair<DMAX, BN>(tile(st, 0), k, tile(st, 2), v, base, row,
+                              kt * BN, T, D, vec4, gtid);
+    if (key_mask != nullptr)
+      async_vec(okring + st * BN, key_mask + (size_t)b * T, kt * BN, BN, T,
+                gtid);
+    else if (gtid < BN)
+      okring[st * BN + gtid] = kt * BN + gtid < T ? 1.f : 0.f;
+  };
+
+  // each group copies and splits its share of Q, then its first tile
+  constexpr int QR = kBwdRows / KG;
+  async_tiles<DMAX, QR, 1>({Qh + kg * QR * LD}, {q}, base, row, q0 + kg * QR,
+                          T, D, vec4, gtid);
+  if (kg <= last) load_kv(kg, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  split_tiles<DMAX, QR, 1, true>({Qh + kg * QR * LD}, {Ql + kg * QR * LD},
+                                vec4, gtid);
+  if (kg <= last)
+    split_tile_pair<DMAX, BN, true>(tile(0, 0), tile(0, 1), tile(0, 2),
+                                    tile(0, 3), vec4, gtid);
+  __syncthreads();
+  const SplitAFrags<DMAX, Tile::kHeld> qf(Qh, Ql, m0, g, t4);
+
+  // this thread's rows q0 + m0 + g and 8 below: running max (log2
+  // units), its own columns' share of the sum, and O's columns 8n + 2t4,
+  // + 1
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[KS][4];
+#pragma unroll
+  for (int n = 0; n < KS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // Each step: start loading the group's next tile, compute this one,
+  // then wait for and split the next; the group's barrier ends the step.
+  for (int kt = kg, st = 0; kt <= last; kt += KG, st ^= 1) {
+    if (kt + KG <= last) load_kv(kt + KG, st ^ 1);
+    cp_async_commit();
+    const int k0 = kt * BN;
+    // a warp whose rows all lie before the tile's first key has nothing
+    // to add
+    if (!causal || k0 <= q0 + m0 + 15) {
+      const float *Kh = tile(st, 0), *Kl = tile(st, 1);
+      const float *Vh = tile(st, 2), *Vl = tile(st, 3);
+      const float* oks = okring + st * BN;
+
+      float s[NB][4];  // Q K^T: keys 8nb + 2t4, + 1
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qh[4], ql[4];
+        qf.get(ks, qh, ql);
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          uint32_t bhi[2], blo[2];
+          frag_b_rows<LD>(Kh, Kl, 8 * nb, 8 * ks, g, t4, bhi, blo);
+          mma_3xtf32(s[nb], qh, ql, bhi, blo);
+        }
+      }
+      // online softmax: masked scores are -1e30 and their p is 0; a row's
+      // max is reduced over the quad that holds it
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = 8 * nb + 2 * t4 + (e & 1);
+          const bool ok = oks[c] > 0.f &&
+                          (!causal || k0 + c <= q0 + m0 + g + 8 * r);
+          s[nb][e] = ok ? s[nb][e] * sl2 : kNegInf;
+          mx[r] = fmaxf(mx[r], s[nb][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float corr = exp2f(m[r] - mx[r]);
+        l[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          acc[n][2 * r] *= corr;
+          acc[n][2 * r + 1] *= corr;
+        }
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p =
+              s[nb][e] > kNegInf ? exp2f(s[nb][e] - m[r]) : 0.f;
+          l[r] += p;
+          s[nb][e] = p;
+        }
+      // O += P V, P straight from the accumulators
+#pragma unroll
+      for (int j = 0; j < NB; ++j) {
+        uint32_t ah[4], al[4];
+        frag_a_acc<true>(s[j], ah, al);
+#pragma unroll
+        for (int n = 0; n < KS; ++n) {
+          uint32_t bhi[2], blo[2];
+          frag_b_cols<LD>(Vh, Vl, 8 * j, 8 * n, g, t4, bhi, blo);
+          mma_3xtf32(acc[n], ah, al, bhi, blo);
+        }
+      }
+    }
+    cp_async_wait_all();
+    if (kt + KG <= last)
+      split_tile_pair<DMAX, BN, true>(tile(st ^ 1, 0), tile(st ^ 1, 1),
+                                      tile(st ^ 1, 2), tile(st ^ 1, 3), vec4,
+                                      gtid);
+    group_barrier(1 + kg);  // the next tile is in and split; this one done
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+
+  if constexpr (KG == 2) {
+    // group 1 hands its state to group 0 through its own (finished) ring,
+    // slot-major so that a warp's accesses are consecutive; group 0
+    // merges the two in a fixed order
+    constexpr int kSlots = 4 + 4 * KS;
+    float* xfer = Ql + kBwdRows * LD + Tile::kRing;
+    if (kg == 1) {
+      xfer[0 * kBwdThreads + gtid] = m[0];
+      xfer[1 * kBwdThreads + gtid] = m[1];
+      xfer[2 * kBwdThreads + gtid] = l[0];
+      xfer[3 * kBwdThreads + gtid] = l[1];
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          xfer[(4 + 4 * n + e) * kBwdThreads + gtid] = acc[n][e];
+    }
+    static_assert(kSlots * kBwdThreads <= Tile::kRing, "hand-over fits");
+    __syncthreads();
+    if (kg == 1) return;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float m1 = xfer[r * kBwdThreads + gtid];
+      const float mm = fmaxf(m[r], m1);
+      const float c0 = exp2f(m[r] - mm), c1 = exp2f(m1 - mm);
+      l[r] = l[r] * c0 + xfer[(2 + r) * kBwdThreads + gtid] * c1;
+#pragma unroll
+      for (int n = 0; n < KS; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e)
+          acc[n][e] = acc[n][e] * c0 +
+                      xfer[(4 + 4 * n + e) * kBwdThreads + gtid] * c1;
+      m[r] = mm;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + m0 + g + 8 * r;
+    if (qp >= T) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / lc;
+#pragma unroll
+    for (int n = 0; n < KS; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const int d = 8 * n + 2 * t4 + (e & 1);
+        if (d < D) o[base + (size_t)qp * row + d] = acc[n][e] * inv;
+      }
+    // a row with no live key keeps m = -1e30 and gets LSE -1e30 exactly
+    if (t4 == 0)
+      lse[(size_t)bh * T + qp] =
+          m[r] > kNegInf ? m[r] * kLn2 + logf(lc) : kNegInf;
+  }
+}
+
 // Raise a kernel's dynamic shared-memory limit when it needs more than
 // the default 48 KB.
 template <typename Kernel>
@@ -917,23 +1066,46 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <int DMAX>
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+}
+
+template <int DMAX, int KG>
 int launch_fwd(const void* q, const void* k, const void* v, const void* km,
                void* o, void* lse, int B, int T, int H, int D, int causal,
                float scale, void* stream) {
-  const size_t smem =
-      (size_t)(3 * kBN * (DMAX + 4) + kBM * kLDP + kBN) * sizeof(float);
-  cudaError_t e = allow_smem(flash_fwd_kernel<DMAX>, smem);
+  using Tile = FwdTile<DMAX, KG>;
+  cudaError_t e = allow_smem(flash_fwd_kernel<DMAX, KG>, Tile::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T + kBM - 1) / kBM, B * H);
-  flash_fwd_kernel<DMAX><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
+  const int vec4 = D % 4 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
+  flash_fwd_kernel<DMAX, KG><<<grid, Tile::kThreads, Tile::kSmemBytes,
+                               (cudaStream_t)stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)km,
-      (float*)o, (float*)lse, H, T, D, causal, scale);
+      (float*)o, (float*)lse, H, T, D, causal, scale, vec4);
   return (int)cudaGetLastError();
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
+// out[0..4]: registers a thread, local (spill) bytes, dynamic shared
+// bytes, resident blocks per SM and threads a block of the forward
+// kernel at DMAX with KG key groups
+template <int DMAX, int KG>
+int fwd_info(int* out) {
+  using Tile = FwdTile<DMAX, KG>;
+  cudaFuncAttributes attr;
+  cudaError_t e = allow_smem(flash_fwd_kernel<DMAX, KG>, Tile::kSmemBytes);
+  if (e == cudaSuccess)
+    e = cudaFuncGetAttributes(&attr, flash_fwd_kernel<DMAX, KG>);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[3], flash_fwd_kernel<DMAX, KG>, Tile::kThreads,
+        Tile::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)Tile::kSmemBytes;
+  out[4] = Tile::kThreads;
+  return 0;
 }
 
 template <int DMAX>
@@ -1003,14 +1175,19 @@ int bwd_info(int* out) {
     return (int)cudaErrorInvalidValue;                     \
   } while (0)
 
+// The forward with key_groups (KG, 1 or 2) groups of 4 warps a block
 extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, const void* key_mask,
                                        void* o, void* lse, int B, int T,
                                        int H, int D, int causal, float scale,
-                                       void* stream) {
-  if (B < 1 || T < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
-#define FWD(DM) launch_fwd<DM>(q, k, v, key_mask, o, lse, B, T, H, D, \
-                               causal, scale, stream)
+                                       int key_groups, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D < 1 || key_groups < 1 || key_groups > 2)
+    return (int)cudaErrorInvalidValue;
+#define FWD(DM)                                                          \
+  (key_groups == 1 ? launch_fwd<DM, 1>(q, k, v, key_mask, o, lse, B, T, H, \
+                                       D, causal, scale, stream)         \
+                   : launch_fwd<DM, 2>(q, k, v, key_mask, o, lse, B, T, H, \
+                                       D, causal, scale, stream))
   DISPATCH_HEAD_DIM(D, FWD);
 #undef FWD
 }
@@ -1036,6 +1213,16 @@ extern "C" int flash_attention_bwd_dkv_f32(
                                B, T, H, D, causal, scale, stream)
   DISPATCH_HEAD_DIM(D, DKV);
 #undef DKV
+}
+
+// Registers, spills, shared memory and resident blocks per SM of the
+// forward kernel at head dim D with KG key groups (see fwd_info).
+extern "C" int flash_attention_fwd_info(int D, int key_groups, int* out) {
+  if (D < 1 || key_groups < 1 || key_groups > 2)
+    return (int)cudaErrorInvalidValue;
+#define INFO(DM) (key_groups == 1 ? fwd_info<DM, 1>(out) : fwd_info<DM, 2>(out))
+  DISPATCH_HEAD_DIM(D, INFO);
+#undef INFO
 }
 
 // Shared memory and resident blocks per SM of the backward kernels at

@@ -39,7 +39,9 @@ launches_dkv = 0
 _SIGNATURES = {
     "flash_attention_fwd_f32":
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
-        + [ctypes.c_float, ctypes.c_void_p],
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p],
+    "flash_attention_fwd_info": [ctypes.c_int, ctypes.c_int,
+                                 ctypes.POINTER(ctypes.c_int)],
     "flash_attention_bwd_dq_f32":
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
@@ -159,10 +161,26 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _flash_attention_cuda(q, k, v, causal, key_mask):
+def key_groups_for(B: int, T: int, H: int, device) -> int:
+    """Groups of 4 warps that split each forward block's key tiles: 2
+    while the grid of 64-row query tiles is at most 2.5 blocks per SM
+    (every served prefill at B=1; there the longest block's chain of
+    key tiles sets the time), else 1, where the work rather than the
+    chain does (measured crossover on the H100, see the forward design
+    at the top of ``csrc/flash_attention.cu``). The choice, and with it
+    the rounding of every output row, depends on the batch and the card,
+    not only on the row's own inputs."""
+    blocks = B * H * -(-T // 64)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return 2 if 2 * blocks <= 5 * sms else 1
+
+
+def _flash_attention_cuda(q, k, v, causal, key_mask, key_groups=None):
     global launches
     B, T, H, D = q.shape
     key_mask = _check_operands((("q", q), ("k", k), ("v", v)), q, key_mask)
+    if key_groups is None:
+        key_groups = key_groups_for(B, T, H, q.device)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
@@ -171,7 +189,7 @@ def _flash_attention_cuda(q, k, v, causal, key_mask):
         rc = lib.flash_attention_fwd_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
             out.data_ptr(), lse.data_ptr(), B, T, H, D, int(bool(causal)),
-            1.0 / math.sqrt(D), stream)
+            1.0 / math.sqrt(D), int(key_groups), stream)
     _build.check(rc, "flash_attention")
     launches += 1
     return out, lse
@@ -235,6 +253,18 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
     _build.check(rc, "flash_attention_bwd_dkv")
     launches_dkv += 1
     return dk, dv
+
+
+def fwd_kernel_info(D: int, key_groups: int) -> dict:
+    """Registers a thread, local (spill) bytes, dynamic shared memory
+    (bytes), resident blocks per SM and threads a block of the forward
+    kernel at head dim ``D``, as the card reports them."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    out = (ctypes.c_int * 5)()
+    _build.check(lib.flash_attention_fwd_info(D, key_groups, out),
+                 "flash_attention_fwd_info")
+    return dict(registers=out[0], local_bytes=out[1], smem_bytes=out[2],
+                blocks_per_sm=out[3], threads=out[4])
 
 
 def bwd_kernel_info(D: int) -> dict:

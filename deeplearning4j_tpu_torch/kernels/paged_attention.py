@@ -46,7 +46,9 @@ _SIG = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float,
 _SIG_INT8 = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 _SIGNATURES = {"paged_attention_f32": _SIG, "paged_attention_bf16": _SIG,
-               "paged_attention_int8": _SIG_INT8}
+               "paged_attention_int8": _SIG_INT8,
+               "paged_attention_int8_info": [ctypes.c_int, ctypes.c_int,
+                                             ctypes.POINTER(ctypes.c_int)]}
 
 
 def gather_blocks(pool, block_tables):
@@ -139,6 +141,19 @@ def _paged_attention_int8_cuda(q, k_pool, v_pool, block_tables, lengths):
     _build.check(rc, "paged_attention_int8")
     launches_int8 += 1
     return out
+
+
+def int8_kernel_info(D: int, table_blocks: int = 64) -> dict:
+    """Registers a thread, local (spill) bytes, resident blocks per SM
+    and load width (bytes) of the int8 kernel at head dim ``D`` with
+    16-byte-aligned pools and tables of ``table_blocks`` entries, as the
+    card reports them."""
+    lib = _build.load("paged_attention", _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.paged_attention_int8_info(D, table_blocks, out),
+                 "paged_attention_int8_info")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                load_bytes=out[3])
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, lengths,

@@ -283,7 +283,11 @@ class GenerationEngine:
       copies the scale rows with the values.
 
     Arguments of the JAX engine whose features are not ported yet
-    raise ``NotImplementedError`` naming their ROADMAP.md item.
+    raise ``NotImplementedError`` naming their ROADMAP.md item; they are
+    accepted at the JAX engine's defaults. The JAX engine's
+    ``decode_impl`` is not taken, so from the 8th parameter on the
+    positional order differs from the JAX engine's: pass those by
+    keyword.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -301,12 +305,20 @@ class GenerationEngine:
                  session_capacity: int = 64,
                  metrics: Optional[GenerationMetrics] = None,
                  fault_injector=None,
+                 max_step_retries: int = 3,
+                 retry_backoff_ms: float = 1.0,
+                 retry_backoff_max_ms: float = 50.0,
+                 max_recoveries_per_request: int = 3,
+                 stall_timeout_s: float = 30.0,
                  batch_queue_fraction: float = 0.5,
                  speculation_k: int = 0,
                  draft_model=None,
                  decode_pipeline: bool = False,
                  kv_dtype: str = "f32",
-                 offload_host_bytes: int = 0):
+                 offload_host_bytes: int = 0,
+                 offload_disk_bytes: int = 0,
+                 offload_dir: Optional[str] = None,
+                 offload_prefetch: bool = True):
         if cache not in ("slots", "paged"):
             raise ValueError(f"cache must be 'slots' or 'paged', "
                              f"got {cache!r}")
@@ -316,8 +328,20 @@ class GenerationEngine:
             raise _todo("speculative decoding (speculation_k > 0)", "7")
         if int(offload_host_bytes):
             raise _todo("the host KV tier (offload_host_bytes > 0)", "8")
+        if int(offload_disk_bytes) or offload_dir is not None \
+                or not offload_prefetch:
+            raise _todo("the disk KV tier and its prefetch (offload_disk_"
+                        "bytes, offload_dir, offload_prefetch)", "8")
         if fault_injector is not None:
             raise _todo("fault injection (fault_injector)", "6.4")
+        if (int(max_step_retries), float(retry_backoff_ms),
+                float(retry_backoff_max_ms),
+                int(max_recoveries_per_request),
+                float(stall_timeout_s)) != (3, 1.0, 50.0, 3, 30.0):
+            raise _todo("the retry, recovery and stall-watchdog knobs "
+                        "(max_step_retries, retry_backoff_ms, "
+                        "retry_backoff_max_ms, max_recoveries_per_request, "
+                        "stall_timeout_s)", "6.4")
         if decode_pipeline:
             raise _todo("the pipelined decode loop (decode_pipeline=True)",
                         "6.3")

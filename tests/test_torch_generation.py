@@ -276,10 +276,47 @@ def test_device_error_fails_in_flight_requests_with_it(jlm):
                                 dict(speculation_k=2),
                                 dict(offload_host_bytes=1 << 20),
                                 dict(fault_injector=object()),
-                                dict(decode_pipeline=True)])
+                                dict(decode_pipeline=True),
+                                dict(max_step_retries=0),
+                                dict(retry_backoff_ms=2.0),
+                                dict(retry_backoff_max_ms=10.0),
+                                dict(max_recoveries_per_request=0),
+                                dict(stall_timeout_s=1.0),
+                                dict(offload_disk_bytes=1 << 20),
+                                dict(offload_dir="/tmp/x"),
+                                dict(offload_prefetch=False)])
 def test_unported_options_raise(jlm, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationEngine(_port_lm(jlm), **kw)
+
+
+#: the JAX engine's defaults for the knobs the port accepts but does
+#: not implement (ROADMAP.md queue A, items 6.4 and 8)
+JAX_DEFAULT_KNOBS = dict(max_step_retries=3, retry_backoff_ms=1.0,
+                         retry_backoff_max_ms=50.0,
+                         max_recoveries_per_request=3,
+                         stall_timeout_s=30.0, offload_disk_bytes=0,
+                         offload_dir=None, offload_prefetch=True)
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(max_step_retries=0), "6.4"), (dict(stall_timeout_s=1.0), "6.4"),
+    (dict(offload_disk_bytes=1 << 20), "8"),
+    (dict(offload_prefetch=False), "8")])
+def test_unported_knobs_name_their_item(jlm, kw, item):
+    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
+        GenerationEngine(_port_lm(jlm), **kw)
+
+
+def test_unported_knobs_accepted_at_jax_defaults(engines, jlm):
+    _, te = engines
+    eng = GenerationEngine(_port_lm(jlm), **ENGINE, **JAX_DEFAULT_KNOBS)
+    try:
+        eng.warmup()
+        kw = dict(prompt=[3, 1, 4, 1, 5], max_tokens=8)
+        assert eng.generate(**kw)["tokens"] == te.generate(**kw)["tokens"]
+    finally:
+        eng.stop()
 
 
 def test_stats_surface(engines):

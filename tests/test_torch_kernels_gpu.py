@@ -86,6 +86,52 @@ def test_flash_kernel_matches_plain(D, T):
     assert (lse - lref).abs().max().item() <= TOL_F32
 
 
+@pytest.mark.parametrize("key_groups", [1, 2])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [12, 64])
+@pytest.mark.parametrize("T", [8, 100, 257])
+def test_flash_forward_kernel_cases(T, D, causal, key_groups):
+    """The 3xTF32 forward (B3) with either key-group count, causal or
+    not, at D=12 (a head dim under the 32 bucket: zero-padded fragments)
+    and D=64, a ragged key mask and a batch row whose keys are all
+    masked (O exactly 0, LSE exactly -1e30); two calls agree bit for
+    bit."""
+    dev = _device()
+    rs = np.random.RandomState(5 * T + D + causal)
+    q, k, v = (_randn(rs, 3, T, 2, D, dev=dev) for _ in range(3))
+    km = torch.ones((3, T), device=dev)
+    km[1, 2 * T // 3:] = 0.0
+    km[2] = 0.0
+    got = fa._flash_attention_cuda(q, k, v, causal, km, key_groups)
+    again = fa._flash_attention_cuda(q, k, v, causal, km, key_groups)
+    ref, lref = fa.flash_attention_torch(q, k, v, causal=causal, key_mask=km)
+    torch.cuda.synchronize()
+    out, lse = got
+    assert torch.isfinite(out).all()
+    assert (out - ref).abs().max().item() <= TOL_F32
+    assert (lse - lref).abs().max().item() <= TOL_F32
+    assert out[2].abs().max().item() == 0.0
+    assert bool((lse[2] == -1e30).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_flash_forward_kernel_takes_the_4_byte_copy_path():
+    """A view that starts 4 bytes into its storage is not 16-byte
+    aligned, so the kernel copies 4 bytes at a time; D=5 (not a
+    multiple of 4) takes the same path."""
+    dev = _device()
+    rs = np.random.RandomState(13)
+    for D in (64, 5):
+        flat = _randn(rs, 3, 1 + 2 * 100 * 2 * D, dev=dev)
+        q, k, v = (x[1:].view(2, 100, 2, D) for x in flat)
+        assert q.data_ptr() % 16 or D % 4
+        out, lse = fa.flash_attention(q, k, v, True, None)
+        ref, lref = fa.flash_attention_torch(q, k, v, True, None)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max().item() <= TOL_F32
+        assert (lse - lref).abs().max().item() <= TOL_F32
+
+
 def _paged_case(rs, dtype, dev, S=6, H=2, Bs=16, D=64, N=64, B=8):
     """Pools with NaN in the null block and in every sequence's stale
     tail; each table is a random set of distinct blocks, NULL-padded
@@ -230,6 +276,27 @@ def test_int8_paged_kernel_matches_plain(shape):
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= TOL_INT8
     assert got[0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D", [12, 32, 64, 128])
+@pytest.mark.parametrize("Bs", [8, 16, 32])
+def test_int8_paged_kernel_block_and_head_sizes(Bs, D):
+    """The redesigned int8 paged kernel (B5) at every load width (16
+    bytes at D = 32, 64, 128; 4 at D = 12) and at blocks shorter than,
+    equal to and longer than its tile, against the plain version; NaN
+    in the null block's and every stale tail's scales; two calls agree
+    bit for bit."""
+    dev = _device()
+    q, k, v, tbl, lens = _int8_paged_case(np.random.RandomState(Bs + D), dev,
+                                          Bs=Bs, D=D)
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    again = pa.paged_attention(q, k, v, tbl, lens)
+    want = pa.paged_attention_torch(q, k, v, tbl, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_INT8
+    assert got[0].abs().max().item() == 0.0
+    assert torch.equal(got, again)
 
 
 def test_int8_paged_kernel_matches_int8_slot_kernel_on_gathered_panel():
