@@ -19,7 +19,9 @@ Phases, each of which fails the run when it fails:
    layers, 8 heads, max_seq_len 1024, random weights from a seed)
    served by GenerationEngine(num_slots=32): ~32 concurrent requests,
    both kernels' launch counters must move, and a teacher-forced check
-   against a CPU copy of the model holds each greedy token;
+   against a CPU copy of the model holds each greedy token. The same
+   requests then run through the eager decode step, and every token
+   must be the CUDA graph's;
 5. end to end on the paged backend: the same model served by the
    paged configuration of docs/generation.md (64 slots, 4096 blocks of
    16, chunks of 512, prefix sharing on): a primer that registers a
@@ -50,20 +52,26 @@ Phases, each of which fails the run when it fails:
    step, the loss must fall, and a 2-block copy's loss and gradients on
    the card must match a CPU copy.
 
+Phases 4 to 7 serve with the engine's defaults on the card: the
+pipelined decode loop, and the decode step captured at warmup as one
+CUDA graph and replayed every step (a replay counts the launches the
+capture recorded). Each phase must capture exactly once, at warmup.
+
 Phase 3 also checks the two int8 kernels (decode and paged) against
 their plain versions at the served shapes, with NaN in the scale rows
-of the null block and of every stale tail, a length-0 lane, and K/V of
-mixed quantisation refused. The flash forward (3xTF32 on the tensor
-cores) is also checked on a fully masked row (O 0, LSE -1e30) and
-timed at B=1 and B=4 beside both its bounds; each key-group count (one
-and two groups of warps a block) is held against the plain version
-there and timed over a sweep of batch and length (the measurement
-behind the rule that picks it); the flash forward and the int8 paged
-kernel must give the same bits on two calls, and report registers,
-spills and blocks per SM.
-Phase 2 counts HMMA in the flash forward and I2F in the int8 paged
-kernel from ``cuobjdump -sass`` where the toolkit has it (the forward
-must use the tensor cores, the int8 kernel must convert without I2F).
+of the null block and of every stale tail, a length-0 lane, two calls
+giving the same bits, and K/V of mixed quantisation refused, and
+reports their registers, spills and blocks per SM. The flash forward
+(3xTF32 on the tensor cores) is also checked on a fully masked row (O
+0, LSE -1e30) and timed at B=1 and B=4 beside both its bounds; each
+key-group count (one and two groups of warps a block) is held against
+the plain version there and timed over a sweep of batch and length
+(the measurement behind the rule that picks it); the flash forward
+must give the same bits on two calls, and reports registers, spills
+and blocks per SM.
+Phase 2 counts HMMA in the flash forward and I2F in the two int8
+kernels from ``cuobjdump -sass`` where the toolkit has it (the forward
+must use the tensor cores, the int8 kernels must convert without I2F).
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -75,8 +83,9 @@ compares the code of another checkout with this one on the card
 instead: each checkout's own code in turns (parent, this, this,
 parent), each turn a process of its own, timing the flash forward at
 B=1 and B=4 and its backward kernels at B=4, the decode and paged
-kernels, f32 and int8 (their phase-3 checks), phase 9 and phase 7's
-profile window; an "A/B runs:" line carries every turn as JSON.
+kernels, f32 and int8 (their phase-3 checks), and serving phases 4 to
+7 with their profile windows; an "A/B runs:" line carries every turn
+as JSON.
 """
 from __future__ import annotations
 
@@ -537,16 +546,19 @@ def check_decode_int8(dev):
         v.scale[s, :, int(lens[s]):] = float("nan")
     lens = lens.to(dev, torch.int32)
     got = da.decode_attention(q, k, v, lens)
+    again = da.decode_attention(q, k, v, lens)
     want = da.decode_attention_torch(q, k, v, lens)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     finite = bool(torch.isfinite(got).all())
     zero_row = got[0].abs().max().item()
+    same = torch.equal(got, again)
     print(f"decode_attention int8: max_abs_err {err:.3e} (tol {INT8_TOL:g}),"
-          f" finite {finite}, len-0 row max {zero_row}")
-    if not (finite and err <= INT8_TOL and zero_row == 0.0):
+          f" finite {finite}, len-0 row max {zero_row}, two calls "
+          f"bit-identical {same}")
+    if not (finite and err <= INT8_TOL and zero_row == 0.0 and same):
         raise AssertionError("decode_attention int8 disagrees with its "
-                             "plain version")
+                             "plain version or with itself")
     _refuses_mixed(lambda a, b: da.decode_attention(q, a, b, lens), k,
                    kvq.dequantize(v))
     k.scale.copy_(clean_k)
@@ -560,12 +572,16 @@ def check_decode_int8(dev):
     nbytes = 2 * S * H * T * D + 2 * S * H * T * 4 + 2 * S * H * D * 4 \
         + S * 4
     bound_ms, bound_by = _bound(nbytes, 4 * D * H * S * T)
+    info = {d: da.int8_kernel_info(d) for d in (12, 32, 64, 128)}
     print(f"decode_attention int8 S={S} H={H} T={T} D={D}: kernel "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA on the "
           f"dequantised f32 panel, dequantisation not timed) {lib_ms:.4f} "
-          f"ms, bound {bound_ms:.4f} ms")
+          f"ms, bound {bound_ms:.4f} ms (share {bound_ms / ms:.3f}); "
+          f"registers, spills, blocks per SM and load width by head dim: "
+          f"{info}")
     return dict(max_abs_err=err, tol=INT8_TOL, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+                library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+                info=info)
 
 
 def check_paged_int8(dev):
@@ -772,8 +788,12 @@ def slot_traffic():
     return reqs
 
 
-def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
-    """Phase 4 (f32) or 6 (int8): the slot backend end to end."""
+def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
+          eager_ab: bool = False):
+    """Phase 4 (f32) or 6 (int8): the slot backend end to end, the
+    decode step replayed as the engine's CUDA graph on the card. With
+    ``eager_ab`` the same traffic then runs through the eager step and
+    must give the same tokens."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.serving import GenerationEngine
@@ -781,11 +801,13 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
         CausalTransformerLM
     int8 = kv_dtype == "int8"
     lm = CausalTransformerLM(**cfg, device=device).init()
-    eng = GenerationEngine(lm, num_slots=32, kv_dtype=kv_dtype)
+    engine_kw = dict(num_slots=32, kv_dtype=kv_dtype)
+    eng = GenerationEngine(lm, **engine_kw)
     try:
         t0 = time.perf_counter()
         eng.warmup()
         warm_s = time.perf_counter() - t0
+        captures = warmed_compiles(eng)
         reqs = slot_traffic()
         st0 = eng.stats()
         reset_launches()
@@ -805,8 +827,10 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
                                  f"{cfg['n_layers']} x steps, flash must run")
         n_tok = sum(len(r["tokens"]) for r in results)
         prof = profile_window(eng)
+        no_capture_since(eng, captures)
     finally:
         eng.stop()
+    eager = eager_run(lm, engine_kw, reqs, results) if eager_ab else None
 
     # teacher-forced check: every greedy token the card emitted has a
     # CPU logit within the tolerance of the CPU maximum there; at int8
@@ -824,8 +848,12 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
                ttft_p99_ms=st["ttft_ms"]["p99"],
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
+               decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
+               decode_sync_wait_p99_ms=st["decode_sync_wait_ms"]["p99"],
                prefill_p50_ms=st["prefill_ms"]["p50"],
                decode_steps=steps, prefills=st["prefills"],
+               cuda_graph=eng._cuda_graph, compiles_after_warmup=captures,
+               eager=eager,
                mean_occupancy=st["slots"]["mean_occupancy"],
                kv_cache_bytes=st["kv_cache_bytes"],
                kv_bytes_per_token=st["kv_bytes_per_token"],
@@ -837,10 +865,21 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None):
     tag = " int8" if int8 else ""
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
-          f"{e2e['ttft_p50_ms']:.1f} ms, decode step p50 "
-          f"{e2e['decode_step_p50_ms']:.2f} ms, launches {launches} over "
-          f"{steps} decode steps, cache {st['kv_cache_bytes']} bytes, "
-          f"{st['kv_bytes_per_token']} bytes per token")
+          f"{e2e['ttft_p50_ms']:.1f} ms, decode step p50/p99 "
+          f"{e2e['decode_step_p50_ms']:.2f}/{e2e['decode_step_p99_ms']:.2f} "
+          f"ms, sync wait p50/p99 {e2e['decode_sync_wait_p50_ms']:.2f}/"
+          f"{e2e['decode_sync_wait_p99_ms']:.2f} ms, launches {launches} "
+          f"over {steps} decode steps ({captures} decode-step graph "
+          f"captured at warmup, none after), cache {st['kv_cache_bytes']} "
+          f"bytes, {st['kv_bytes_per_token']} bytes per token")
+    if eager is not None:
+        print(f"e2e{tag} eager step [{card}]: the same requests through the "
+              f"eager decode step: {eager['identical']} requests' tokens "
+              f"identical to the graph's, {eager['tokens_per_s']:.1f} "
+              f"tokens/s, decode step p50/p99 "
+              f"{eager['decode_step_p50_ms']:.2f}/"
+              f"{eager['decode_step_p99_ms']:.2f} ms, sync wait p50 "
+              f"{eager['decode_sync_wait_p50_ms']:.2f} ms")
     print(f"teacher-forced{tag}: {checked} greedy tokens checked, "
           f"exact-match rate {e2e['teacher_exact_rate']:.4f}, worst gap "
           f"{worst_gap:.3e} (tol {tol:g})"
@@ -1183,12 +1222,8 @@ def grad_check(cfg, device=None):
 
 def reset_launches():
     """Set every kernel's launch count to 0 (just before a path runs)."""
-    from deeplearning4j_tpu_torch.kernels import decode_attention as da
-    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
-    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
-    da.launches = da.launches_int8 = fa.launches = 0
-    fa.launches_dq = fa.launches_dkv = 0
-    pa.launches = pa.launches_int8 = 0
+    from deeplearning4j_tpu_torch import kernels
+    kernels.add_launches({k: -n for k, n in kernels.launch_counts().items()})
 
 
 def paged_traffic(vocab: int):
@@ -1252,6 +1287,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
         t0 = time.perf_counter()
         eng.warmup()
         warm_s = time.perf_counter() - t0
+        captures = warmed_compiles(eng)
         st0 = eng.stats()
         reset_launches()
         eng.generate(timeout_ms=600_000, **primer)
@@ -1281,6 +1317,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
             raise AssertionError(f"prefix cache did not serve as "
                                  f"expected: {pc}")
         prof = profile_window(eng)
+        no_capture_since(eng, captures)
         eng.evict_sessions()
         eng.clear_prefix_cache()
         free = (eng._allocator.free_count, eng._allocator.capacity)
@@ -1326,6 +1363,9 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
                ttft_p99_ms=st["ttft_ms"]["p99"],
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
+               decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
+               decode_sync_wait_p99_ms=st["decode_sync_wait_ms"]["p99"],
+               cuda_graph=eng._cuda_graph, compiles_after_warmup=captures,
                prefill_chunk_p50_ms=st["prefill_ms"]["p50"],
                decode_steps=steps,
                prefill_chunks=st["paged"]["prefill_chunks"],
@@ -1353,7 +1393,9 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
           f"in {wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s; phase "
           f"TTFT p50/p99 {e2e['ttft_p50_ms']:.1f}/{e2e['ttft_p99_ms']:.1f} "
           f"ms, decode step p50/p99 {e2e['decode_step_p50_ms']:.2f}/"
-          f"{e2e['decode_step_p99_ms']:.2f} ms, prefill chunk p50 "
+          f"{e2e['decode_step_p99_ms']:.2f} ms, sync wait p50/p99 "
+          f"{e2e['decode_sync_wait_p50_ms']:.2f}/"
+          f"{e2e['decode_sync_wait_p99_ms']:.2f} ms, prefill chunk p50 "
           f"{e2e['prefill_chunk_p50_ms']:.2f} ms, {pc['prefix_hits']} "
           f"prefix hits ({pc['session_hits']} sessions), "
           f"{pc['prefix_tokens_matched']} prompt tokens matched, "
@@ -1372,6 +1414,53 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
              f"greedy requests identical"))
     print_profile(f"profile window paged{tag}", card, prof)
     return e2e
+
+
+def warmed_compiles(eng) -> int:
+    """Decode-step graph captures after warmup: one where the engine
+    replays its CUDA graph (the card's default), none for the eager
+    step."""
+    n = eng.stats()["compile_cache"]["compiles"]
+    if n != int(eng._cuda_graph):
+        raise AssertionError(f"{n} decode-step captures after warmup "
+                             f"(CUDA graph {eng._cuda_graph})")
+    return n
+
+
+def no_capture_since(eng, captures: int):
+    """Nothing may be captured once the engine is warm."""
+    n = eng.stats()["compile_cache"]["compiles"]
+    if n != captures:
+        raise AssertionError(f"{n - captures} decode-step captures after "
+                             f"warmup")
+
+
+def eager_run(lm, engine_kw, reqs, results):
+    """``reqs`` again, through the eager decode step (the engine's private
+    ``_cuda_graph`` switched off before warmup): every request's tokens
+    must be those of the graphed run (``results``). Returns its step
+    and throughput numbers."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    eng = GenerationEngine(lm, **engine_kw)
+    eng._cuda_graph = False
+    try:
+        eng.warmup()
+        warmed_compiles(eng)
+        got, wall = run_requests(eng, reqs)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    same = sum(a["tokens"] == b["tokens"] for a, b in zip(got, results))
+    if same != len(reqs):
+        raise AssertionError(f"the eager step gave other tokens than the "
+                             f"CUDA graph: {same} of {len(reqs)} identical")
+    n_tok = sum(len(r["tokens"]) for r in got)
+    return dict(identical=f"{same}/{len(reqs)}", wall_s=wall,
+                tokens_per_s=n_tok / wall,
+                decode_step_p50_ms=st["decode_step_ms"]["p50"],
+                decode_step_p99_ms=st["decode_step_ms"]["p99"],
+                decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
+                decode_sync_wait_p99_ms=st["decode_sync_wait_ms"]["p99"])
 
 
 def check_lengths(results, reqs):
@@ -1453,18 +1542,19 @@ def profile_window(eng):
 
 def sass_counts():
     """HMMA and I2F (I2F, I2FP) instructions per instantiation of the
-    flash forward and the int8 paged kernel in the built libraries, from
+    flash forward and the two int8 kernels in the built libraries, from
     ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     from deeplearning4j_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    kernel = re.compile(r"(flash_fwd_kernel|paged_attention_int8_kernel)"
+    kernel = re.compile(r"(flash_fwd_kernel|paged_attention_int8_kernel|"
+                        r"decode_attention_int8_kernel)"
                         r"ILi(\d+)E(?:Li(\d+)E)?")
     opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                         r"([A-Z][A-Z0-9]*)")
     counts = {}
-    for lib in ("flash_attention", "paged_attention"):
+    for lib in ("flash_attention", "paged_attention", "decode_attention"):
         text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
                               capture_output=True, text=True, check=True,
                               timeout=300).stdout
@@ -1484,14 +1574,15 @@ def sass_counts():
 
 
 def check_sass(counts):
-    """The forward must run on the tensor cores (HMMA > 0) and the int8
-    paged kernel must convert int8 without I2F (0)."""
+    """The forward must run on the tensor cores (HMMA > 0) and both int8
+    kernels must convert int8 without I2F (0)."""
     bad = [f for f, c in counts.items()
            if (f.startswith("flash") and not c["HMMA"])
-           or (f.startswith("paged") and c["I2F"])]
-    if bad or not counts:
+           or ("int8" in f and c["I2F"])]
+    kinds = {f.split("<")[0] for f in counts}
+    if bad or len(kinds) != 3:
         raise AssertionError(f"SASS: the forward must run HMMA and the int8 "
-                             f"paged kernel no I2F: {counts}")
+                             f"kernels no I2F: {counts}")
 
 
 AB_CODE = r"""
@@ -1518,17 +1609,21 @@ out["decode_ms"] = cs.check_decode(dev)["float32"]["ms"]
 out["paged_ms"] = cs.check_paged(dev)["float32"]["ms"]
 out["paged_int8_ms"] = cs.check_paged_int8(dev)["ms"]
 out["decode_int8_ms"] = cs.check_decode_int8(dev)["ms"]
-tr = cs.train(card)
-out["train"] = dict(step_p50_ms=tr["step_p50_ms"],
-                    tokens_per_s=tr["tokens_per_s"],
-                    device_ms=tr["profile"]["busy_ms"],
-                    by_kind=tr["profile"]["by_kind"])
-prof = cs.serve_paged(card, kv_dtype="int8")["profile"]
-out["phase7_window"] = dict(
-    device_ms=prof["busy_ms"], wall_ms=prof["wall_ms"],
-    paged_int8_ms=sum(t for n, t in (prof["ours"].items() if "ours" in prof
-                                     else prof["top"])
-                      if "paged_attention_int8" in n))
+out["serving"] = {}
+for phase, run in ((4, lambda: cs.serve(card)),
+                   (5, lambda: cs.serve_paged(card)),
+                   (6, lambda: cs.serve(card, kv_dtype="int8")),
+                   (7, lambda: cs.serve_paged(card, kv_dtype="int8"))):
+    e = run()
+    prof = e["profile"]
+    out["serving"][phase] = dict(
+        {k: e.get(k) for k in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                               "decode_step_p50_ms", "decode_step_p99_ms",
+                               "decode_sync_wait_p50_ms",
+                               "decode_sync_wait_p99_ms")},
+        window={k: prof[k] for k in ("busy_share", "busy_ms", "wall_ms",
+                                     "device_kernels", "decode_steps",
+                                     "ours")})
 print("AB " + json.dumps(out))
 """
 
@@ -1537,8 +1632,9 @@ def run_ab(parent: str) -> int:
     """``--ab PARENT``: the parent checkout's and this checkout's own
     code in turns (parent, this, this, parent), each in a process of its
     own: B3 at B=1 and B=4, B6 and B7 at B=4, B1, B2, B4 and B5 (their
-    phase-3 checks), phase 9 and phase 7's profile window; prints each
-    turn as JSON, then all of them on one "A/B runs:" line."""
+    phase-3 checks), and phases 4 to 7 with their profile windows;
+    prints each turn as JSON, then all of them on one "A/B runs:"
+    line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1594,7 +1690,7 @@ def main() -> int:
     paged = check_paged(dev)
     decode8 = check_decode_int8(dev)
     paged8 = check_paged_int8(dev)
-    e2e = serve(card)
+    e2e = serve(card, eager_ab=True)
     e2e_paged = serve_paged(card)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8")

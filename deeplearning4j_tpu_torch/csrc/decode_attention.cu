@@ -188,14 +188,20 @@ extern "C" int decode_attention_bf16(const void* q, const void* k,
                                stream);
 }
 
-// int8 caches: k, v [S, H, T, D] int8 with scales ks, vs [S, H, T] f32;
-// the numeric contract and the lane layout are in int8_attention.cuh.
-// One block per (slot, head), 8 warps; warp w takes the tiles of keys
-// starting at w * kTile, then every 8th tile, and stops at the slot's
-// length.
+// int8 caches (B4): k, v [S, H, T, D] int8 with scales ks, vs [S, H, T]
+// f32. Replaces decode_attention.py::_decode_kernel_quant.
+//
+// The numeric contract, the folds, the lane layout, the I2F-free
+// conversion and the merge are int8_attention.cuh's, shared with the
+// int8 paged kernel (B5). This kernel walks the slot's contiguous panel:
+// one block per (slot, head) on a 2-D grid (no division by H), warp w
+// folds tiles w, w + 8, ... of kTile rows and stops at the slot's
+// length, so a stale tail's values and scales are never loaded. The
+// warp's next tile is loaded into the second register buffer before the
+// current one is folded.
 namespace {
 
-template <int G>
+template <int G, int VEC>
 __global__ void __launch_bounds__(int8_attention::kThreads)
 decode_attention_int8_kernel(const float* __restrict__ q,
                              const int8_t* __restrict__ k,
@@ -203,23 +209,43 @@ decode_attention_int8_kernel(const float* __restrict__ q,
                              const float* __restrict__ ks,
                              const float* __restrict__ vs,
                              const int* __restrict__ lengths,
-                             float* __restrict__ out, int H, int T_cap, int D,
+                             float* __restrict__ out, int T_cap, int D,
                              float scale) {
-  using Lane = int8_attention::Lane<G>;
-  const int sh = blockIdx.x;  // slot * H + head
-  const int warp = threadIdx.x / 32;
-  int len = lengths[sh / H];
+  using Lane = int8_attention::Int8Lane<G, VEC>;
+  constexpr int kStep = int8_attention::kWarps * Lane::kTile;
+  __shared__ typename Lane::Merge sm;
+  const int s = blockIdx.x, h = blockIdx.y;  // slots in x: no cap
+  const size_t sh = (size_t)s * gridDim.y + h;
+  int len = lengths[s];
   len = len < 0 ? 0 : (len > T_cap ? T_cap : len);
-  Lane ln(q + (size_t)sh * D, D);
-  const size_t row0 = (size_t)sh * T_cap;
-  for (int t0 = warp * Lane::kTile; t0 < len;
-       t0 += int8_attention::kWarps * Lane::kTile) {
-    const int n = min(Lane::kTile, len - t0);
-    ln.tile(k + (row0 + t0) * D, v + (row0 + t0) * D, ks + row0 + t0,
-            vs + row0 + t0, n, D, scale);
+  Lane lane(q + sh * D, D);
+  const size_t row0 = sh * T_cap;
+  auto load = [&](typename Lane::Buf& b, int t0) {
+    lane.load(b, k + (row0 + t0) * D, v + (row0 + t0) * D, ks + row0 + t0,
+              vs + row0 + t0, min(Lane::kTile, len - t0), D);
+  };
+
+  // the warp's tiles in order, the next one loading while this one folds
+  typename Lane::Buf cur, nxt;
+  int t0 = (threadIdx.x / 32) * Lane::kTile;
+  if (t0 < len) load(cur, t0);
+  for (; t0 < len; t0 += kStep) {
+    if (t0 + kStep < len) load(nxt, t0 + kStep);
+    lane.fold(cur, min(Lane::kTile, len - t0), scale);
+    cur = nxt;
   }
-  ln.merge_store(out + (size_t)sh * D, D, nullptr);
+
+  lane.stash(sm, D);
+  __syncthreads();
+  const int d = threadIdx.x;
+  if (d < D) out[sh * D + d] = Lane::combine(sm, d, D);
 }
+
+struct DecodeInt8 {
+  using Fn = decltype(&decode_attention_int8_kernel<1, 4>);
+  template <int G, int VEC>
+  static Fn fn() { return decode_attention_int8_kernel<G, VEC>; }
+};
 
 }  // namespace
 
@@ -228,20 +254,32 @@ extern "C" int decode_attention_int8(const void* q, const void* k,
                                      const void* vs, const void* lengths,
                                      void* out, int S, int H, int T_cap,
                                      int D, float scale, void* stream) {
-  decltype(&decode_attention_int8_kernel<1>) kernel;
-  switch (int8_attention::group_width(D)) {
-    case 1: kernel = decode_attention_int8_kernel<1>; break;
-    case 2: kernel = decode_attention_int8_kernel<2>; break;
-    case 4: kernel = decode_attention_int8_kernel<4>; break;
-    case 8: kernel = decode_attention_int8_kernel<8>; break;
-    case 16: kernel = decode_attention_int8_kernel<16>; break;
-    case 32: kernel = decode_attention_int8_kernel<32>; break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  if (S * H == 0) return (int)cudaErrorInvalidValue;
-  kernel<<<S * H, int8_attention::kThreads, 0, (cudaStream_t)stream>>>(
+  const DecodeInt8::Fn kernel =
+      int8_attention::kernel_for<DecodeInt8>(k, v, D);
+  if (kernel == nullptr || S < 1 || H < 1 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  kernel<<<dim3(S, H), int8_attention::kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)q, (const int8_t*)k, (const int8_t*)v, (const float*)ks,
-      (const float*)vs, (const int*)lengths, (float*)out, H, T_cap, D,
-      scale);
+      (const float*)vs, (const int*)lengths, (float*)out, T_cap, D, scale);
   return (int)cudaGetLastError();
+}
+
+// The int8 decode kernel taken at head dim D with 16-byte-aligned
+// caches: out = {registers, local (spill) bytes, blocks per SM, load
+// width}.
+extern "C" int decode_attention_int8_info(int D, int* out) {
+  const void* aligned = reinterpret_cast<const void*>(256);
+  const DecodeInt8::Fn kernel =
+      int8_attention::kernel_for<DecodeInt8>(aligned, aligned, D);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
+  cudaFuncAttributes attr;
+  cudaError_t e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &out[2], kernel, int8_attention::kThreads, 0);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[3] = int8_attention::load_width(aligned, aligned, D);
+  return 0;
 }

@@ -37,7 +37,9 @@ _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float,
 _SIG_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 _SIGNATURES = {"decode_attention_f32": _SIG, "decode_attention_bf16": _SIG,
-               "decode_attention_int8": _SIG_INT8}
+               "decode_attention_int8": _SIG_INT8,
+               "decode_attention_int8_info": [ctypes.c_int,
+                                              ctypes.c_void_p]}
 
 
 def decode_attention_torch(q, k, v, lengths):
@@ -99,8 +101,8 @@ def check_operands(what: str, q, named, shapes, lengths) -> None:
 
 def check_int8_operands(what: str, k, v, D: int) -> None:
     """The int8 kernels' extra checks: int8 values with f32 scales, a
-    head dim they take (4..128, a multiple of 4: rows load as 4-byte
-    vectors) and 4-byte aligned value rows."""
+    head dim they take (4..128, a multiple of 4: rows load as vectors
+    of 4, 8 or 16 bytes) and 4-byte aligned value rows."""
     if k.q.dtype != torch.int8 or v.q.dtype != torch.int8 \
             or k.scale.dtype != torch.float32 \
             or v.scale.dtype != torch.float32:
@@ -160,6 +162,18 @@ def _decode_attention_int8_cuda(q, k, v, lengths):
     _build.check(rc, "decode_attention_int8")
     launches_int8 += 1
     return out
+
+
+def int8_kernel_info(D: int) -> dict:
+    """Registers a thread, local (spill) bytes, resident blocks per SM
+    and load width (bytes) of the int8 kernel at head dim ``D`` with
+    16-byte-aligned caches, as the card reports them."""
+    lib = _build.load("decode_attention", _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    _build.check(lib.decode_attention_int8_info(D, out),
+                 "decode_attention_int8_info")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                load_bytes=out[3])
 
 
 def decode_attention(q, k, v, lengths, impl: str = "auto"):

@@ -1,6 +1,6 @@
 """Continuous-batching autoregressive generation (counterpart of
 ``deeplearning4j_tpu/serving/generation.py``: the slot and paged
-backends, synchronous decode loop).
+backends and the pipelined decode loop).
 
 Iteration-level scheduling (Orca, OSDI '22): every loop iteration the
 scheduler
@@ -21,6 +21,18 @@ scheduler
    request and step from ``fold_in(PRNGKey(seed), step)``, bit-identical
    to ``jax.random``, so results do not depend on slot or schedule),
 4. retires sequences on EOS or ``max_tokens`` and frees their slots.
+
+With ``decode_pipeline`` (the default, as in the JAX engine) step t+1
+is dispatched before step t's tokens are synced, so emit, retire and
+admit overlap the device: a continuing lane's token is fed from the
+previous step's device output, and every device call runs on the one
+current stream, so a freed slot's or block's next writer is ordered
+after the in-flight step that still reads it. On the card the decode
+step (embedding, the layers with their in-place K/V writes, the
+attention kernel, the finite-logits guard, sampling and the done
+flags) is one CUDA graph per engine, captured at :meth:`warmup` (the
+torch form of the JAX engine's one AOT decode executable) and replayed
+every step; ``metrics.compiles`` counts captures.
 
 Overload semantics match the JAX engine: a bounded queue sheds (503,
 :class:`QueueFullError`), batch-priority work is shed first, and
@@ -51,6 +63,7 @@ import torch
 
 from .. import random as jrandom
 from ..faults import PoisonRequestError, poll_until_idle
+from ..kernels import add_launches, launch_counts
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_copy_row,
                                 kv_update_slice)
 from ..profiler import OpProfiler
@@ -68,6 +81,11 @@ _NEG_INF = -1e30
 #: static cap on per-request top_k (the filter thresholds against
 #: ``topk(logits, cap)``); top_k >= vocab means no filter
 TOP_K_CAP = 128
+
+#: the int32 rows of the decode step's input buffer, one entry per lane
+#: each (temp and uniform hold f32 bits); the paged tables follow
+_IN_ROWS = ("tok_host", "use_host", "pos", "top_k", "eos", "step",
+            "max_steps", "temp", "uniform")
 
 
 def _todo(what: str, item: str) -> NotImplementedError:
@@ -282,6 +300,10 @@ class GenerationEngine:
       dequantized inside the int8 attention kernels; copy-on-write
       copies the scale rows with the values.
 
+    - ``decode_pipeline`` (default on, as in the JAX engine): step t+1
+      is dispatched before step t's tokens are synced; ``False`` syncs
+      every step. Tokens are identical either way.
+
     Arguments of the JAX engine whose features are not ported yet
     raise ``NotImplementedError`` naming their ROADMAP.md item; they are
     accepted at the JAX engine's defaults. The JAX engine's
@@ -313,7 +335,7 @@ class GenerationEngine:
                  batch_queue_fraction: float = 0.5,
                  speculation_k: int = 0,
                  draft_model=None,
-                 decode_pipeline: bool = False,
+                 decode_pipeline: bool = True,
                  kv_dtype: str = "f32",
                  offload_host_bytes: int = 0,
                  offload_disk_bytes: int = 0,
@@ -342,9 +364,6 @@ class GenerationEngine:
                         "(max_step_retries, retry_backoff_ms, "
                         "retry_backoff_max_ms, max_recoveries_per_request, "
                         "stall_timeout_s)", "6.4")
-        if decode_pipeline:
-            raise _todo("the pipelined decode loop (decode_pipeline=True)",
-                        "6.3")
         if getattr(model, "_params", None) is None:
             model.init()
         self.model = model
@@ -396,6 +415,33 @@ class GenerationEngine:
         self._kcs = self._cache.ks
         self._vcs = self._cache.vs
         self._slots = SlotTable(self.num_slots)
+        # -- the decode step's device buffers (static, so one CUDA graph
+        # replays them): int32 inputs (rows of _IN_ROWS, then the paged
+        # tables) and int64 outputs [next token, logits finite, done]
+        S = self.num_slots
+        n_in = len(_IN_ROWS) * S
+        if cache == "paged":
+            n_in += S * self._blocks_per_seq
+        self._step_in = torch.zeros(n_in, dtype=torch.int32,
+                                    device=self.device)
+        self._step_out = torch.zeros((3, S), dtype=torch.int64,
+                                     device=self.device)
+        # -- pipelined decode: with it on, the loop dispatches step t+1
+        # before collecting step t (the JAX engine's default; the knob
+        # exists for A/B identity tests)
+        self.decode_pipeline = bool(decode_pipeline)
+        # in-flight decode steps, oldest first (at most 2)
+        self._pending: "collections.deque" = collections.deque()
+        # lanes whose current token lives only on the device (the last
+        # dispatched step's output); prefill refreshes the host mirror
+        self._tok_on_dev = np.zeros(S, bool)
+        # the decode step as a CUDA graph (card only, captured at warmup
+        # or on the first decode step after a hot one); replays add
+        # _graph_launches to the kernels' launch counters. Set
+        # _cuda_graph False before warmup for the eager step (A/B runs)
+        self._cuda_graph = self.device.type == "cuda"
+        self._graph = None
+        self._graph_launches: Dict[str, int] = {}
         if cache == "paged":
             self.metrics.block_size = self.block_size
             self.metrics.blocks_total = self._allocator.capacity
@@ -588,40 +634,196 @@ class GenerationEngine:
             for pool in self._kcs + self._vcs:
                 kv_copy_row(pool, src, dst)
 
-    def _decode_call(self):
-        """One decode step over the full slot batch. Returns host arrays
-        (next token, logits finite, done) per lane, where done = the
-        lane sampled its EOS or reached max_tokens."""
-        st, dev = self._slots, self.device
-        ints = torch.from_numpy(np.stack(
-            [st.token, st.pos, st.top_k, st.eos, st.step,
-             st.max_steps]).astype(np.int64)).to(dev)
-        tok, pos, top_ks, eos, steps, max_steps = ints
+    def _decode_step_fn(self, kcs, vcs, step_in, step_out):
+        """One decode step over the full slot batch, from an input
+        buffer laid out as ``_step_in`` to an output buffer laid out as
+        ``_step_out`` (the engine's own buffers are what the CUDA graph
+        captures; warmup passes scratch ones). Each lane's input token
+        comes from the host mirror or, where ``use_host`` is 0, from the
+        previous step's output, as the JAX engine's decode function
+        takes it; done = the lane sampled its EOS or reached
+        max_tokens."""
+        S = self.num_slots
+        n = len(_IN_ROWS) * S
+        rows = step_in[:n].view(len(_IN_ROWS), S)
+        tok_host, use_host, pos, top_ks, eos, steps, max_steps = \
+            rows[:7].long()
+        temps, us = rows[7:].view(torch.float32)
+        tok = torch.where(use_host > 0, tok_host, step_out[0])
         if self.cache_backend == "paged":
             logits, _, _ = self.model.forward_decode_paged(
-                self.model._params, tok, pos, self._kcs, self._vcs,
-                torch.from_numpy(self._tables).to(dev))
+                self.model._params, tok, pos, kcs, vcs,
+                step_in[n:].view(S, self._blocks_per_seq))
         else:
             logits, _, _ = self.model.forward_decode(
-                self.model._params, tok, pos, self._kcs, self._vcs)
+                self.model._params, tok, pos, kcs, vcs)
         ok = torch.isfinite(logits).all(dim=-1)  # per lane
-        # greedy lanes ignore their uniform: skip the draws when no
-        # lane samples
-        us = (_uniforms(st.seed, st.step) if (st.temp > 0).any()
-              else torch.zeros(len(st.temp)))
-        nxt = _sample_from_logits(
-            logits, torch.from_numpy(st.temp).to(dev), top_ks, us.to(dev))
+        nxt = _sample_from_logits(logits, temps, top_ks, us)
         done = ((nxt == eos) & (eos >= 0)) | (steps + 1 >= max_steps)
-        out = torch.stack([nxt, ok.to(torch.int64),
-                           done.to(torch.int64)]).cpu().numpy()  # sync
-        return out[0], out[1].astype(bool), out[2].astype(bool)
+        step_out.copy_(torch.stack([nxt, ok.long(), done.long()]))
+
+    def _run_decode_step(self):
+        self._decode_step_fn(self._kcs, self._vcs, self._step_in,
+                             self._step_out)
+
+    def _capture_decode_graph(self):
+        """Capture :meth:`_decode_step_fn` into the engine's CUDA graph
+        (counted in ``metrics.compiles``). The capture launches nothing:
+        the kernels' launch counters are put back, and each replay adds
+        what the capture counted. A failed capture raises."""
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._run_decode_step()
+        except Exception as e:
+            raise ServingError(
+                f"capturing the decode step ({self.cache_backend}, "
+                f"{self.kv_dtype}) into a CUDA graph failed: {e!r}") from e
+        finally:
+            counted = {k: n - before[k] for k, n in launch_counts().items()
+                       if n != before[k]}
+            add_launches({k: -n for k, n in counted.items()})
+        self._graph_launches = counted
+        self._graph = graph
+        self.metrics.inc("compiles")
+
+    def _host(self, shape, dtype) -> torch.Tensor:
+        """A host buffer for one step's copies: pinned on the card (the
+        caching host allocator reuses it only after its copies' events),
+        plain memory on the CPU."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self.device.type == "cuda")
+
+    def _dispatch_decode(self) -> bool:
+        """Launch one decode step without waiting for it: the inputs go
+        from a pinned buffer of the step's own into the static input
+        buffer, the step runs (the graph's replay, or eagerly), and its
+        [next token, ok, done] go into a pinned buffer of the step's own,
+        all on the current stream; an event marks the step's end. Each
+        stepped lane's current token then lives on the device (fed to
+        the next step from the output buffer), and pos and step advance
+        on the host at once. Returns False when no lane is ready."""
+        st = self._slots
+        active = self._ready_slots()
+        if not active:
+            return False
+        S = self.num_slots
+        cold = not self._decode_hot
+        if self._cuda_graph and self._graph is None and not cold:
+            self._capture_decode_graph()
+            cold = True
+        h_in = self._host(self._step_in.shape, torch.int32)
+        buf = h_in.numpy()
+        n = len(_IN_ROWS) * S
+        rows = buf[:n].reshape(len(_IN_ROWS), S)
+        rows[:7] = (st.token, ~self._tok_on_dev, st.pos, st.top_k, st.eos,
+                    st.step, st.max_steps)
+        f32 = rows[7:].view(np.float32)
+        f32[0] = st.temp
+        # greedy lanes ignore their uniform: zeros when no lane samples
+        f32[1] = (_uniforms(st.seed, st.step).numpy()
+                  if (st.temp > 0).any() else 0.0)
+        if self.cache_backend == "paged":
+            buf[n:] = self._tables.reshape(-1)
+        t0 = time.perf_counter()
+        self._step_in.copy_(h_in, non_blocking=True)
+        if self._graph is not None:
+            self._graph.replay()
+            add_launches(self._graph_launches)
+        else:
+            self._run_decode_step()
+        h_out = self._host((3, S), torch.int64)
+        h_out.copy_(self._step_out, non_blocking=True)
+        event = None
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+        self._decode_hot = True
+        self._tok_on_dev[:] = False
+        self._tok_on_dev[active] = True
+        st.pos[active] += 1
+        st.step[active] += 1
+        self.metrics.inc("decode_steps")
+        self.metrics.occupancy_hist.record(len(active))
+        # h_in rides along: its buffer lives until the step is collected
+        self._pending.append((h_out, event, h_in, t0, cold,
+                              [(s, st.requests[s]) for s in active]))
+        return True
+
+    def _collect_decode(self, keep: int = 0):
+        """Sync and apply in-flight decode steps, oldest first, until
+        only ``keep`` remain (keep=1 right after a dispatch: the new step
+        stays in flight while this host work overlaps it). The event
+        wait is the only blocking point. A lane whose slot retired or
+        changed hands while its step was in flight is skipped: its write
+        landed past its sequence's valid length and its token is never
+        read."""
+        st = self._slots
+        while len(self._pending) > keep:
+            h_out, event, _, t0, cold, lanes = self._pending.popleft()
+            t_wait = time.perf_counter()
+            if event is not None:
+                event.synchronize()
+            now = time.perf_counter()
+            span_s, wait_s = now - t0, now - t_wait
+            self._profiler.note("generation.decode_step", span_s)
+            dt_ms = span_s * 1e3
+            self.metrics.decode_step_ms.record(dt_ms)
+            self.metrics.decode_sync_wait_ms.record(wait_s * 1e3)
+            # a cold step (the first, or one that captured the graph)
+            # pays one-time costs and stays out of the estimate
+            if not cold:
+                self._decode_ewma_ms = dt_ms if not self._decode_ewma_ms \
+                    else 0.8 * self._decode_ewma_ms + 0.2 * dt_ms
+            out = h_out.numpy()
+            tokens = out[0].tolist()
+            ok, done = out[1].astype(bool), out[2].astype(bool)
+            emitted = 0
+            itl: List[float] = []
+            for slot, req in lanes:
+                if st.requests[slot] is not req \
+                        or req.finish_reason is not None \
+                        or req.error is not None:
+                    continue
+                if not ok[slot]:
+                    # poison quarantine: the guard is per lane, so only
+                    # this request fails; its batchmates decode on
+                    self.metrics.inc("quarantined")
+                    exc = PoisonRequestError(
+                        "request produced non-finite logits at decode "
+                        f"step {int(st.step[slot])}; quarantined")
+                    self._release_slot(slot)
+                    self._fail(req, exc)
+                    continue
+                token = tokens[slot]
+                # the host mirror; a step already dispatched took this
+                # lane's token from the device
+                st.token[slot] = token
+                self._emit(req, token, now, itl_out=itl)
+                emitted += 1
+                self._retire(slot, req, token, bool(done[slot]), now)
+            if emitted:
+                self.metrics.tokens.record(emitted)
+            if itl:
+                self.metrics.itl_ms.record_many(itl)
+            if self.cache_backend == "paged":
+                self._update_block_gauges()
+
+    def _drop_pending(self):
+        """Discard the in-flight steps (a failed device call, shutdown):
+        nothing of a dropped step is ever emitted, and every lane's next
+        token comes from the host mirror."""
+        self._pending.clear()
+        self._tok_on_dev[:] = False
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> List[int]:
         """Run every prefill bucket (paged: every chunk bucket) and one
         decode step once, on the scheduler thread and on scratch
         tensors, so the first requests pay no one-time costs (kernel
-        build and load, library handles). Returns the warmed bucket
-        list."""
+        build and load, library handles); then, on the card, capture
+        the decode step into the engine's CUDA graph. A failed capture
+        raises. Returns the warmed bucket list."""
         paged = self.cache_backend == "paged"
         ladder = self.chunk_buckets if paged else self.prompt_buckets
         buckets = sorted(set(int(x) for x in (buckets or ladder)))
@@ -632,49 +834,44 @@ class GenerationEngine:
                     f"{'chunk_buckets' if paged else 'prompt_buckets'} "
                     f"{ladder}")
 
-        def paged_job():
-            dev, model = self.device, self.model
-            params = model._params
-            bs = self.block_size
-            # null block + one block: every scratch table entry is NULL
-            scratch = PagedKVCache(model.cache_shapes(bs), 2,
-                                   kv_dtype=self.kv_dtype, device=dev)
-            for c in buckets:
-                tbl = torch.full((pow2_bucket(blocks_for(c, bs)),),
-                                 NULL_BLOCK, dtype=torch.int32, device=dev)
-                model.forward_prefill_chunk(
-                    params, torch.zeros((1, c), dtype=torch.int64,
-                                        device=dev), 0, c, scratch.ks,
-                    scratch.vs, tbl)
-                self._hot_buckets.add(c)
-            S = self.num_slots
-            z = torch.zeros(S, dtype=torch.int64, device=dev)
-            model.forward_decode_paged(
-                params, z, z, scratch.ks, scratch.vs,
-                torch.full((S, self._blocks_per_seq), NULL_BLOCK,
-                           dtype=torch.int32, device=dev))
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-            self._decode_hot = True
-
         def job():
             dev, model = self.device, self.model
             params = model._params
-            for b in buckets:
-                model.forward_prefill(
-                    params, torch.zeros((1, b), dtype=torch.int64,
-                                        device=dev),
-                    torch.ones((1, b), device=dev))
-                self._hot_buckets.add(b)
-            scratch = KVCache(model.cache_shapes(self.max_seq_len), 1,
-                              kv_dtype=self.kv_dtype, device=dev)
-            z = torch.zeros(1, dtype=torch.int64, device=dev)
-            model.forward_decode(params, z, z, scratch.ks, scratch.vs)
+            if paged:
+                bs = self.block_size
+                # null block + one block: every scratch table entry is
+                # NULL, and so is every scratch decode lane's
+                scratch = PagedKVCache(model.cache_shapes(bs), 2,
+                                       kv_dtype=self.kv_dtype, device=dev)
+                for c in buckets:
+                    tbl = torch.full((pow2_bucket(blocks_for(c, bs)),),
+                                     NULL_BLOCK, dtype=torch.int32,
+                                     device=dev)
+                    model.forward_prefill_chunk(
+                        params, torch.zeros((1, c), dtype=torch.int64,
+                                            device=dev), 0, c, scratch.ks,
+                        scratch.vs, tbl)
+                    self._hot_buckets.add(c)
+            else:
+                for b in buckets:
+                    model.forward_prefill(
+                        params, torch.zeros((1, b), dtype=torch.int64,
+                                            device=dev),
+                        torch.ones((1, b), device=dev))
+                    self._hot_buckets.add(b)
+                # every lane decodes position 0 of a one-position slot
+                scratch = KVCache(model.cache_shapes(1), self.num_slots,
+                                  kv_dtype=self.kv_dtype, device=dev)
+            self._decode_step_fn(scratch.ks, scratch.vs,
+                                 torch.zeros_like(self._step_in),
+                                 torch.zeros_like(self._step_out))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self._decode_hot = True
+            if self._cuda_graph and self._graph is None:
+                self._capture_decode_graph()
 
-        self._run_on_scheduler(paged_job if paged else job)
+        self._run_on_scheduler(job)
         self.metrics.warmed_buckets = sorted(
             set(self.metrics.warmed_buckets) | set(buckets))
         return buckets
@@ -931,6 +1128,7 @@ class GenerationEngine:
         """Free a slot and (paged) its blocks and decode-table row. No
         zeroing either way (see serving/kvcache.py, serving/paging.py)."""
         self._slots.free(slot)
+        self._tok_on_dev[slot] = False
         if self.cache_backend == "paged":
             table = self._slot_blocks[slot]
             if table is not None:
@@ -1018,7 +1216,8 @@ class GenerationEngine:
         if self.cache_backend == "paged":
             return self._admit_paged()
         while self._running and self._slots.free_count and not self._jobs:
-            req = self._next_queued(busy=bool(self._slots.active_count))
+            req = self._next_queued(busy=bool(self._slots.active_count
+                                              or self._pending))
             if req is None:
                 return
             self.metrics.queue_depth = self._queue.qsize()
@@ -1078,6 +1277,9 @@ class GenerationEngine:
         st.top_k[slot] = req.top_k
         st.eos[slot] = -1 if req.eos_id is None else req.eos_id
         st.max_steps[slot] = req.max_tokens
+        # the lane's token was written here: the next step takes it from
+        # the host mirror, not the device
+        self._tok_on_dev[slot] = False
         self.metrics.active_slots = st.active_count
         if self.cache_backend == "paged":
             self._update_block_gauges()
@@ -1200,7 +1402,7 @@ class GenerationEngine:
             else:
                 req = self._next_queued(
                     busy=bool(self._slots.active_count
-                              or self._prefilling))
+                              or self._prefilling or self._pending))
                 if req is None:
                     return
                 self.metrics.queue_depth = self._queue.qsize()
@@ -1364,59 +1566,17 @@ class GenerationEngine:
         return [s for s in range(self.num_slots)
                 if st.requests[s] is not None and st.step[s] > 0]
 
-    def _decode_step(self):
-        st = self._slots
-        active = self._ready_slots()
-        if not active:
-            return
-        t0 = time.perf_counter()
-        with self._profiler.record("generation.decode_step"):
-            tokens, ok, done = self._decode_call()
-        now = time.perf_counter()
-        dt_ms = (now - t0) * 1e3
-        self.metrics.decode_step_ms.record(dt_ms)
-        if self._decode_hot:
-            self._decode_ewma_ms = dt_ms if not self._decode_ewma_ms \
-                else 0.8 * self._decode_ewma_ms + 0.2 * dt_ms
-        self._decode_hot = True
-        self.metrics.inc("decode_steps")
-        self.metrics.occupancy_hist.record(len(active))
-        emitted = 0
-        itl: List[float] = []
-        for slot in active:
-            req = st.requests[slot]
-            if not ok[slot]:
-                # poison quarantine: the guard is per lane, so only
-                # this request fails; its batchmates decode on
-                self.metrics.inc("quarantined")
-                exc = PoisonRequestError(
-                    "request produced non-finite logits at decode "
-                    f"step {int(st.step[slot])}; quarantined")
-                self._release_slot(slot)
-                self._fail(req, exc)
-                continue
-            token = int(tokens[slot])
-            st.token[slot] = token
-            st.pos[slot] += 1
-            st.step[slot] += 1
-            self._emit(req, token, now, itl_out=itl)
-            emitted += 1
-            self._retire(slot, req, token, bool(done[slot]), now)
-        if emitted:
-            self.metrics.tokens.record(emitted)
-        if itl:
-            self.metrics.itl_ms.record_many(itl)
-        if self.cache_backend == "paged":
-            self._update_block_gauges()
-
     def _fail_in_flight(self, exc: BaseException):
         """A device call raised: every in-flight request (decoding or
         mid-prefill) and the request held for blocks fail with that
         error, and their slots and blocks are released. The cache is
         kept: whatever the failed call wrote lies in slots or blocks
         just freed, past any later occupant's length, or in the null
-        block; cached prefixes and sessions were never written."""
+        block; cached prefixes and sessions were never written. The
+        in-flight decode steps are dropped first, so nothing of them is
+        emitted."""
         self.metrics.inc("device_failures")
+        self._drop_pending()
         self._fail_all(exc)
 
     def _fail_all(self, exc: BaseException, count: bool = True):
@@ -1437,9 +1597,10 @@ class GenerationEngine:
 
     def _loop(self):
         """The scheduler: run queued jobs (warmup, admin), admit, run
-        one prefill chunk (paged), decode one step. The loop survives a
-        failed device call; the requests in flight fail with its
-        error."""
+        one prefill chunk (paged), dispatch one decode step and collect
+        the previous one (pipelined) or this one (synchronous). The loop
+        survives a failed device call; the requests in flight fail with
+        its error."""
         paged = self.cache_backend == "paged"
         with torch.inference_mode():
             while self._running:
@@ -1449,11 +1610,17 @@ class GenerationEngine:
                     self._admit()
                     if paged and self._prefilling:
                         self._prefill_chunk_step()
-                    self._decode_step()
+                    # dispatch step t+1 first, then collect step t: the
+                    # admit and prefill work above and the emit/retire
+                    # work in the collect overlap the step just launched
+                    launched = self._dispatch_decode()
+                    self._collect_decode(
+                        keep=1 if launched and self.decode_pipeline else 0)
                 except Exception as e:  # noqa: BLE001 — reported to callers
                     self._fail_in_flight(e)
         # shutdown runs on this thread, so no slot-table mutation races
         # a device call still in flight
+        self._drop_pending()
         while self._jobs:
             self._jobs.popleft()()
         while True:

@@ -42,6 +42,12 @@ class GenerationMetrics:
         self.itl_ms = Reservoir(latency_window)     # inter-token gap
         self.prefill_ms = Reservoir(latency_window)
         self.decode_step_ms = Reservoir(latency_window)
+        # pipelined decode: how long the scheduler blocked at step t's
+        # sync after dispatching step t+1 (near zero when host work
+        # overlaps the device, near decode_step_ms when the device is
+        # the bottleneck)
+        self.decode_sync_wait_ms = Reservoir(latency_window)
+        self.compiles = 0          # decode-step CUDA graph captures
         self.queue_depth = 0       # gauge, updated by the scheduler
         self.queue_max = 0
         self.active_slots = 0      # gauge
@@ -159,6 +165,7 @@ class GenerationMetrics:
             "itl_ms": res(self.itl_ms),
             "prefill_ms": res(self.prefill_ms),
             "decode_step_ms": res(self.decode_step_ms),
+            "decode_sync_wait_ms": res(self.decode_sync_wait_ms),
             "kv_cache_bytes": self.cache_bytes,
             "kv_dtype": self.kv_dtype,
             "kv_bits": self.kv_bits,
@@ -167,5 +174,8 @@ class GenerationMetrics:
                 "blocks_quantized": self.quant_blocks_quantized,
                 "scale_bytes": self.quant_scale_bytes,
             },
-            "warmed_buckets": list(self.warmed_buckets),
+            "compile_cache": {
+                "compiles": self.compiles,
+                "warmed_buckets": list(self.warmed_buckets),
+            },
         }

@@ -272,11 +272,9 @@ def test_device_error_fails_in_flight_requests_with_it(jlm):
 
 
 @pytest.mark.parametrize("kw", [dict(speculation_k=2, cache="paged"),
-                                dict(decode_pipeline=True, cache="paged"),
                                 dict(speculation_k=2),
                                 dict(offload_host_bytes=1 << 20),
                                 dict(fault_injector=object()),
-                                dict(decode_pipeline=True),
                                 dict(max_step_retries=0),
                                 dict(retry_backoff_ms=2.0),
                                 dict(retry_backoff_max_ms=10.0),

@@ -1,6 +1,8 @@
-"""Evidence on the CPU for the int8 paged kernel's design (B5).
+"""Evidence on the CPU for the int8 kernels' shared design
+(``csrc/int8_attention.cuh``, used by the int8 decode kernel B4 and the
+int8 paged kernel B5).
 
-``paged_attention_int8_kernel`` (``csrc/paged_attention.cu``) turns int8
+``int8x4_to_f32`` turns int8
 into f32 without the quarter-rate I2F conversion: each 32-bit word of
 four int8 is XORed with 0x80808080 (int8 b becomes the byte b + 128), a
 byte permute (PRMT) puts one byte into the low byte of 0x4B000000,
@@ -9,13 +11,14 @@ leaves b. The first tests emulate that with torch integer ops and hold
 it exactly equal to float(int8) for all 256 values in all four byte
 positions.
 
-The kernel also reads its tiles in a layout of its own (VEC-byte loads,
-L lanes per row, R rows per warp load) while it must keep the int8
-decode kernel's (B4's) folds: stream g of a warp takes rows g, g + 32/G,
-... of each tile of 8 * 32/G rows, G = ``group_width(D)``. The last test
-rebuilds both index maps for every head dim the kernel takes and every
-load width, and checks that each lane's rows belong to one stream and
-that each stream gets exactly B4's rows.
+The kernels read their tiles in a layout of their own (VEC-byte loads,
+L lanes per row, R rows per warp load) while they keep the folds the
+int8 decode kernel had before it took this layout: stream g of a warp
+takes rows g, g + 32/G, ... of each tile of 8 * 32/G rows, G =
+``group_width(D)``. The last test rebuilds both index maps for every
+head dim the kernels take and every load width, and checks that each
+lane's rows belong to one stream and that each stream gets exactly
+those rows.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ import torch
 
 MAGIC = 0x4B000000          # the f32 2^23
 OFFSET = 8388608.0 + 128.0  # 2^23 + 128, exact in f32
-UNROLL = 8                  # int8_attention::kUnroll: loads per B4 tile
+UNROLL = 8                  # int8_attention::kUnroll: rows of a stream per tile
 
 
 def int8x4_to_f32(words, e):

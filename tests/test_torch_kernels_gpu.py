@@ -235,6 +235,34 @@ def test_int8_decode_kernel_matches_plain(S, H, T, D):
     assert got[0].abs().max().item() == 0.0
 
 
+@pytest.mark.parametrize("D", [12, 32, 64, 128])
+def test_int8_decode_kernel_edges_and_repeatable(D):
+    """The int8 decode kernel (B4) at every load width (16 bytes at
+    D = 32, 64, 128; 4 at D = 12) with lengths at and around its tile
+    edges (0, 1, 15, 16, 17, T), NaN in every stale tail's scales and
+    a length-0 row: within TOL_INT8 of plain, finite, the length-0 row
+    exactly 0, and two calls bit-identical."""
+    dev = _device()
+    rs = np.random.RandomState(40 + D)
+    S, H, T = 6, 3, 100
+    q = _randn(rs, S, H, D, dev=dev)
+    k = _quantized(rs, S, H, T, D, dev=dev)
+    v = _quantized(rs, S, H, T, D, dev=dev)
+    lens = np.array([0, 1, 15, 16, 17, T], np.int32)
+    for s, n in enumerate(lens):
+        k.scale[s, :, n:] = float("nan")
+        v.scale[s, :, n:] = float("nan")
+    lens = torch.from_numpy(lens).to(dev)
+    got = da.decode_attention(q, k, v, lens)
+    again = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= TOL_INT8
+    assert got[0].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+
+
 def _int8_paged_case(rs, dev, S=6, H=2, Bs=16, D=64, N=64, B=8):
     """int8 pools with NaN in the null block's scales and in every
     sequence's stale tail's scales; each table a random set of distinct
@@ -305,6 +333,24 @@ def test_int8_paged_kernel_matches_int8_slot_kernel_on_gathered_panel():
     differs."""
     dev = _device()
     q, k, v, tbl, lens = _int8_paged_case(np.random.RandomState(9), dev)
+    got = pa.paged_attention(q, k, v, tbl, lens)
+    gk, gv = pa.gather_blocks(k, tbl), pa.gather_blocks(v, tbl)
+    dense = da.decode_attention(
+        q, kvq.QuantArray(gk.q.contiguous(), gk.scale.contiguous()),
+        kvq.QuantArray(gv.q.contiguous(), gv.scale.contiguous()), lens)
+    torch.cuda.synchronize()
+    assert (got - dense).abs().max().item() <= TOL_F32
+
+
+@pytest.mark.parametrize("D,Bs", [(32, 32), (128, 8)])
+def test_int8_paged_and_slot_kernels_agree_where_a_block_is_a_tile(D, Bs):
+    """Both int8 kernels fold through one layout (int8_attention.cuh):
+    where a pool block is one tile (kTile = 8 * 32 / G rows: 32 at
+    D = 32, 8 at D = 128) the paged kernel folds the gathered panel's
+    rows as the slot kernel does, so only f32 rounding may differ."""
+    dev = _device()
+    q, k, v, tbl, lens = _int8_paged_case(np.random.RandomState(D), dev,
+                                          Bs=Bs, D=D)
     got = pa.paged_attention(q, k, v, tbl, lens)
     gk, gv = pa.gather_blocks(k, tbl), pa.gather_blocks(v, tbl)
     dense = da.decode_attention(
@@ -497,3 +543,101 @@ def test_network_step_on_the_card_matches_the_cpu():
             err = (grads[key][name].cpu() - t).abs().max().item()
             assert err <= 1e-3 * max(t.abs().max().item(), 1e-12), \
                 f"{key}.{name}"
+
+
+#: the engine tests' model: head dim 32, so the int8 kernels take
+#: 16-byte loads
+LM_CFG = dict(vocab_size=512, d_model=64, n_layers=2, n_heads=2,
+              max_seq_len=64, seed=0)
+
+
+def _serve_all(eng, reqs):
+    """Every request at once, from its own thread; their tokens."""
+    import threading
+    out = [None] * len(reqs)
+
+    def go(i):
+        out[i] = eng.generate(timeout_ms=120_000, **reqs[i])["tokens"]
+
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+        assert not t.is_alive()
+    return out
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("cache", ["slots", "paged"])
+def test_decode_step_graph_replay_matches_eager(cache, kv_dtype):
+    """The engine's decode step captured once at warmup and replayed
+    (the card's default) gives the eager step's tokens, greedy and
+    sampled, with more requests than slots; so does an engine never
+    warmed, which captures once after its first (eager) step. Nothing
+    else is captured, and each step counts its attention kernel once per
+    layer, replays included."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    dev = _device()
+    lm = CausalTransformerLM(**LM_CFG, device=dev).init()
+    rs = np.random.RandomState(3)
+    reqs = [dict(prompt=rs.randint(0, 512, rs.randint(1, 40)).tolist(),
+                 max_tokens=int(rs.randint(4, 20)),
+                 temperature=0.8 if i % 3 == 2 else 0.0,
+                 top_k=16 if i % 2 else 0, seed=i) for i in range(12)]
+    kw = dict(num_slots=4, min_prompt_bucket=8, kv_dtype=kv_dtype)
+    if cache == "paged":
+        kw.update(cache="paged", block_size=16, prefill_chunk_tokens=16)
+    counter = (f"{'paged' if cache == 'paged' else 'decode'}_attention."
+               f"launches{'_int8' if kv_dtype == 'int8' else ''}")
+    tokens = {}
+    # (mode, captures after warmup, captures after the traffic)
+    for mode, warm, served in (("graph", 1, 1), ("eager", 0, 0),
+                               ("lazy", 0, 1)):
+        eng = GenerationEngine(lm, **kw)
+        eng._cuda_graph = mode != "eager"
+        try:
+            if mode != "lazy":
+                eng.warmup()
+            assert eng.metrics.compiles == warm
+            before, steps = kernels.launch_counts(), eng.metrics.decode_steps
+            tokens[mode] = _serve_all(eng, reqs)
+            torch.cuda.synchronize()
+            steps = eng.metrics.decode_steps - steps
+            launched = kernels.launch_counts()[counter] - before[counter]
+            assert steps and launched == LM_CFG["n_layers"] * steps
+            assert eng.metrics.compiles == served
+        finally:
+            eng.stop()
+    assert tokens["graph"] == tokens["eager"] == tokens["lazy"]
+
+
+def test_failed_capture_raises_from_warmup():
+    """A decode step that syncs the host cannot be captured: warmup
+    raises, naming the CUDA graph, and the engine has no graph. Last in
+    the file: the card's state after a failed capture is not the other
+    tests' business."""
+    from deeplearning4j_tpu_torch.serving import GenerationEngine, ServingError
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+
+    class SyncingLM(CausalTransformerLM):
+        def forward_decode(self, *args, **kw):
+            out = super().forward_decode(*args, **kw)
+            if not bool(torch.isfinite(out[0]).all()):  # a host sync
+                raise AssertionError("non-finite logits")
+            return out
+
+    _device()
+    eng = GenerationEngine(SyncingLM(**LM_CFG).init(), num_slots=2,
+                           min_prompt_bucket=8)
+    try:
+        with pytest.raises(ServingError, match="CUDA graph"):
+            eng.warmup()
+        assert eng._graph is None and eng.metrics.compiles == 0
+    finally:
+        eng.stop()
