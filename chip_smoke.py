@@ -46,11 +46,25 @@ Phases, each of which fails the run when it fails:
    fully masked row, which must give exactly 0), two calls of each
    bit-identical, then timed at the training shapes beside SDPA's
    backward, with their share of the 3xTF32-rate and f32-rate bounds;
+   Then the bf16 legs of the three flash kernels (f32 from the same
+   bf16 values in their plain versions) at phase 10's shapes (B=4, H=8,
+   T=1024, D=64) and at B=1, causal and not, with a ragged key mask and
+   a fully masked row (O and gradients exactly 0), two calls of each
+   bit-identical, then each timed beside its bound at the bf16 rate,
+   its plain version and SDPA at bf16 (its backward for dQ and dK/dV);
 9. training: the served width in the layer DSL fitted through
    MultiLayerNetwork.fit (one warmup and five timed Adam steps of
    4 x 1024 tokens); each flash kernel must launch once per layer and
    step, the loss must fall, and a 2-block copy's loss and gradients on
-   the card must match a CPU copy.
+   the card must match a CPU copy;
+10. bf16 training: phase 9 with data_type("bfloat16") (the bf16
+   mixed-precision policy: every layer but the output layer computes in
+   bf16, the masters and Adam state stay f32); each bf16 flash leg must
+   launch once per layer and step and the f32 legs never, the loss must
+   fall, the masters and Adam state must stay f32, and a 2-block copy's
+   loss and gradients on the card must match a CPU copy at bf16. Its
+   profiled step splits device time into bf16 GEMMs, f32 GEMMs (the
+   output layer), flash and the rest.
 
 Phases 4 to 7 serve with the engine's defaults on the card: the
 pipelined decode loop, and the decode step captured at warmup as one
@@ -69,9 +83,10 @@ the plain version there and timed over a sweep of batch and length
 (the measurement behind the rule that picks it); the flash forward
 must give the same bits on two calls, and reports registers, spills
 and blocks per SM.
-Phase 2 counts HMMA in the flash forward and I2F in the two int8
-kernels from ``cuobjdump -sass`` where the toolkit has it (the forward
-must use the tensor cores, the int8 kernels must convert without I2F).
+Phase 2 counts HMMA in every flash kernel (f32 and bf16 legs; the
+bf16 legs' must be bf16 HMMA) and I2F in the two int8 kernels from
+``cuobjdump -sass`` where the toolkit has it (the flash kernels must use
+the tensor cores, the int8 kernels must convert without I2F).
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -127,6 +142,22 @@ TRAIN_GRAD_TOL = 1e-3   # card vs CPU, each gradient leaf's max error over
 #                         512-2048 terms and attention over 1024 keys sum
 #                         in another order, and a leaf's small entries
 #                         (embedding rows, biases) carry that error
+FLASH_BF16_O_TOL = 1e-2     # bf16 legs vs plain, times max(1, max|O|): P
+#                             is rounded to bf16 before P V, and both
+#                             sides round O to bf16 (one ulp is up to
+#                             2^-7 of the largest value)
+FLASH_BF16_GRAD_TOL = 2e-2  # times max(1, max|grad|): P and dS rounded to
+#                             bf16 before the second products, then the
+#                             gradients rounded to bf16 on both sides
+FLASH_BF16_LSE_TOL = 1e-5   # f32 on both sides, from bf16-exact products;
+#                             9.5e-7 measured on an H100 at these shapes
+TRAIN_BF16_LOSS_RTOL = 1e-2  # phase 10, card vs CPU at bf16: both round
+#                              activations to bf16 (~2^-9 an op), at other
+#                              places and in another order
+TRAIN_BF16_GRAD_TOL = 3e-2   # each leaf's max error over its max |value|:
+#                              bf16 activations on both sides, and the
+#                              small leaves (biases, norm gains) sum 1024
+#                              tokens' bf16-rounded terms
 INT8_TEACHER_TOL = 1e-2  # int8 teacher-forced gap: card and CPU both run
 #                         int8, but sums in another order can move a K/V
 #                         value across an int8 rounding boundary (one step
@@ -152,6 +183,7 @@ TRAIN_STEPS = 5  # timed steps, after one warmup step
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12      # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12    # TF32 tensor cores, dense
+H100_BF16_FLOPS = 989e12    # bf16 tensor cores, dense
 
 #: the device-side names of the port's kernels (csrc/*.cu)
 PORT_KERNEL = re.compile(r"(decode_attention|paged_attention|flash_fwd|"
@@ -1033,6 +1065,162 @@ def _same_bits(got, args, where):
                                  f"on the same inputs differ")
 
 
+def check_flash_bf16(dev):
+    """Phases 3 and 8 for the bf16 legs of B3, B6 and B7: each against
+    its plain version (f32 from the same bf16 values) at phase 10's
+    shapes (B=4, H=8, T=1024, D=64) and at B=1, causal and not, with a
+    ragged key mask and (at B=4) a fully masked row (O and every
+    gradient exactly 0, LSE -1e30), two calls of each bit-identical;
+    then each timed at the training shapes (causal, every key live)
+    beside its bound at the bf16 rate, its plain version and one library
+    call (SDPA at bf16 for the forward, SDPA's backward at bf16 for the
+    backward pair), with registers, spills, shared memory and blocks per
+    SM by head dim."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    H, T, D = 8, 1024, 64
+    g = torch.Generator(device="cpu").manual_seed(10)
+    worst = {"fwd": 0.0, "lse": 0.0, "dq": 0.0, "dkv": 0.0}
+    cases = {}
+
+    def scaled(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / max(b.abs().max().item(), 1.0)).item()
+
+    for B in (1, 4):
+        q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(dev)
+                       .bfloat16() for _ in range(4))
+        # rows of length T, ~3T/4, ~T/3 and 0 (every key masked)
+        lens = torch.tensor([T, (3 * T) // 4 + 1, T // 3 + 1, 0][:B]
+                            if B == 4 else [(3 * T) // 4 + 1])
+        km = (torch.arange(T)[None] < lens[:, None]).to(torch.float32)
+        km = km.to(dev)
+        for causal in (False, True):
+            out, lse = fa.flash_attention(q, k, v, causal, km)
+            again = fa.flash_attention(q, k, v, causal, km)
+            ro, rl = fa.flash_attention_torch(q, k, v, causal, km)
+            delta = fa.backward_delta(do, ro)
+            args = (q, k, v, km, do, rl, delta)
+            dq = fa.flash_attention_bwd_dq(*args, causal)
+            dk, dv = fa.flash_attention_bwd_dkv(*args, causal)
+            dq2 = fa.flash_attention_bwd_dq(*args, causal)
+            dk2, dv2 = fa.flash_attention_bwd_dkv(*args, causal)
+            want_dq = fa.flash_attention_bwd_dq_torch(*args, causal)
+            want_dk, want_dv = fa.flash_attention_bwd_dkv_torch(*args,
+                                                                causal)
+            torch.cuda.synchronize()
+            same = (all(torch.equal(a, b) for a, b in zip((out, lse), again))
+                    and torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                    and torch.equal(dv, dv2))
+            errs = dict(fwd=scaled(out, ro),
+                        lse=(lse - rl).abs().max().item(),
+                        dq=scaled(dq, want_dq),
+                        dkv=max(scaled(dk, want_dk), scaled(dv, want_dv)))
+            masked = (max(x[3].abs().max().item()
+                          for x in (out, dq, dk, dv)) == 0.0
+                      and bool((lse[3] == -1e30).all())) if B == 4 else True
+            finite = all(bool(torch.isfinite(x).all())
+                         for x in (out, dq, dk, dv))
+            ok = (errs["fwd"] <= FLASH_BF16_O_TOL
+                  and errs["lse"] <= FLASH_BF16_LSE_TOL
+                  and errs["dq"] <= FLASH_BF16_GRAD_TOL
+                  and errs["dkv"] <= FLASH_BF16_GRAD_TOL)
+            if not (ok and same and masked and finite
+                    and out.dtype == dq.dtype == torch.bfloat16):
+                raise AssertionError(
+                    f"bf16 flash legs B={B} causal={causal}: errors {errs} "
+                    f"(tol O {FLASH_BF16_O_TOL:g}, grads "
+                    f"{FLASH_BF16_GRAD_TOL:g}, LSE {FLASH_BF16_LSE_TOL:g}), "
+                    f"two calls identical {same}, fully masked row 0 "
+                    f"{masked}, finite {finite}")
+            cases[f"B={B} causal={causal}"] = errs
+            for key in worst:
+                worst[key] = max(worst[key], errs[key])
+    print(f"flash bf16 legs at H={H} T={T} D={D}, B=1 and B=4, causal and "
+          f"not, ragged key mask, a fully masked row at B=4 (O, LSE and "
+          f"gradients exact): errors (O and gradients over max(1, max)) "
+          f"{cases}; two calls of each leg bit-identical")
+
+    # timed at the training shapes, causal, every key live
+    B = 4
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g).to(dev).bfloat16()
+                   for _ in range(4))
+    km = torch.ones((B, T), device=dev)
+    out, lse = fa.flash_attention(q, k, v, True, km)
+    delta = fa.backward_delta(do, out)
+    pairs = T * (T + 1) // 2
+    tensor = B * T * H * D * 2          # one bf16 [B, T, H, D] tensor
+    rows = B * H * T * 4                # one f32 [B, H, T] row vector
+    mask_bytes = B * T * 4
+    res = {}
+    for name, fn, plain, flops, nbytes in (
+            ("fwd", lambda: fa.flash_attention(q, k, v, True, km),
+             lambda: fa.flash_attention_torch(q, k, v, True, km),
+             4 * D * B * H * pairs, 4 * tensor + rows + mask_bytes),
+            ("dq",
+             lambda: fa.flash_attention_bwd_dq(q, k, v, km, do, lse, delta,
+                                               True),
+             lambda: fa.flash_attention_bwd_dq_torch(q, k, v, km, do, lse,
+                                                     delta, True),
+             6 * D * B * H * pairs, 5 * tensor + 2 * rows + mask_bytes),
+            ("dkv",
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, km, do, lse, delta,
+                                                True),
+             lambda: fa.flash_attention_bwd_dkv_torch(q, k, v, km, do, lse,
+                                                      delta, True),
+             8 * D * B * H * pairs, 6 * tensor + 2 * rows + mask_bytes)):
+        bound_ms, bound_by = _bound(nbytes, flops, H100_BF16_FLOPS)
+        ms = time_ms(fn)
+        res[name] = dict(max_abs_err=worst[name], tol=FLASH_BF16_O_TOL
+                         if name == "fwd" else FLASH_BF16_GRAD_TOL,
+                         ms=ms, plain_ms=time_ms(plain), bound_ms=bound_ms,
+                         bound_by=bound_by, share_of_bound=bound_ms / ms,
+                         gflop=flops / 1e9, mbytes=nbytes / 1e6)
+    res["fwd"]["lse_err"] = worst["lse"]
+    # the library yardsticks, on the same bf16 inputs and mask
+    mask = torch.ones((T, T), dtype=torch.bool, device=dev).tril()[None,
+                                                                   None]
+    mask = mask & (km > 0)[:, None, None, :]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+
+    def fwd_lib():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    res["fwd"]["library_ms"] = time_ms(fwd_lib)
+    res["fwd"]["library_backend"] = _top_kernel(fwd_lib)
+    lib_out = fwd_lib()
+    dot = do.transpose(1, 2)
+
+    def lib_bwd():
+        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
+                                   retain_graph=True)
+    lib_ms = time_ms(lib_bwd)
+    backend = _top_kernel(lib_bwd)
+    for name in ("dq", "dkv"):
+        res[name]["library_ms"] = lib_ms
+        res[name]["library_backend"] = backend
+    pair_ms = res["dq"]["ms"] + res["dkv"]["ms"]
+    res["pair"] = dict(ms=pair_ms, library_ms=lib_ms,
+                       ratio_to_library=pair_ms / lib_ms)
+    res["cases"] = cases
+    res["info"] = {d: fa.bf16_kernel_info(d) for d in (32, 64, 128)}
+    for name, label in (("fwd", "forward (B3)"), ("dq", "dQ (B6)"),
+                        ("dkv", "dK/dV (B7)")):
+        r = res[name]
+        print(f"flash bf16 {label} B={B} H={H} T={T} D={D} causal: kernel "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.4f} ms ({r['library_backend']}), bound "
+              f"{r['bound_ms']:.5f} ms at bf16 ({r['bound_by']}; share "
+              f"{r['share_of_bound']:.3f}) ({r['gflop']:.3f} GFLOP, "
+              f"{r['mbytes']:.2f} MB)")
+    print(f"flash bf16 B6 + B7: {pair_ms:.4f} ms against SDPA's bf16 "
+          f"backward {lib_ms:.4f} ms (ratio {pair_ms / lib_ms:.3f}); "
+          f"registers, spills, shared bytes, blocks per SM by head dim "
+          f"{res['info']}")
+    return res
+
+
 def _top_kernel(fn) -> str:
     """Name of the longest device kernel of one call of ``fn``."""
     import torch
@@ -1061,7 +1249,8 @@ def train_conf(cfg):
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
         EmbeddingSequenceLayer, RnnOutputLayer)
     b = (NeuralNetConfiguration.builder().seed(cfg["seed"])
-         .updater(Adam(cfg["lr"])).weight_init("xavier").list()
+         .updater(Adam(cfg["lr"])).weight_init("xavier")
+         .data_type(cfg.get("dtype", "float")).list()
          .layer(EmbeddingSequenceLayer(n_in=cfg["vocab_size"],
                                        n_out=cfg["d_model"])))
     for _ in range(cfg["n_layers"]):
@@ -1091,10 +1280,14 @@ def recurrence_batch(cfg, batch, seed, device):
 
 
 def train(card: str, cfg=TRAIN_CFG, device=None, steps=TRAIN_STEPS):
-    """Phase 9: the training path end to end (see the module doc)."""
+    """Phase 9 (f32) and, with ``cfg["dtype"] = "bfloat16"``, phase 10
+    (the bf16 mixed-precision policy): the training path end to end (see
+    the module doc). The phase's flash legs (f32 or bf16) must each
+    launch once per layer and step, and the other legs never."""
     import torch
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    bf16 = cfg.get("dtype", "float") == "bfloat16"
     net = MultiLayerNetwork(train_conf(cfg), device=device)
     t0 = time.perf_counter()
     net.init()
@@ -1105,53 +1298,76 @@ def train(card: str, cfg=TRAIN_CFG, device=None, steps=TRAIN_STEPS):
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    losses, step_ms = [], []
+    losses, step_ms, enqueue_ms = [], [], []
     for _ in range(1 + steps):   # one warmup step, then the timed ones
         t0 = time.perf_counter()
         net.fit(x, y)
+        # fit returns once the step is queued: the host's share
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
         if on_card:
             torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(net.score_)
-    launches = {"flash_attention": fa.launches,
+    f32_legs = {"flash_attention": fa.launches,
                 "flash_attention_bwd_dq": fa.launches_dq,
                 "flash_attention_bwd_dkv": fa.launches_dkv}
+    bf16_legs = {"flash_attention_bf16": fa.launches_bf16,
+                 "flash_attention_bwd_dq_bf16": fa.launches_dq_bf16,
+                 "flash_attention_bwd_dkv_bf16": fa.launches_dkv_bf16}
+    launches = dict(f32_legs, **bf16_legs)
     want = cfg["n_layers"] * (1 + steps)
-    if any(n != want for n in launches.values()):
-        raise AssertionError(f"launches {launches}: each flash kernel must "
-                             f"run {cfg['n_layers']} layers x {1 + steps} "
-                             f"steps = {want} times")
+    ran, idle = (bf16_legs, f32_legs) if bf16 else (f32_legs, bf16_legs)
+    if any(n != want for n in ran.values()) or any(idle.values()):
+        raise AssertionError(
+            f"launches {launches}: each {'bf16' if bf16 else 'f32'} flash "
+            f"leg must run {cfg['n_layers']} layers x {1 + steps} steps = "
+            f"{want} times, the other legs never")
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"the loss did not fall: {losses}")
+    dtypes = sorted({str(t.dtype) for p in net.params().values()
+                     for t in p.values()} |
+                    {str(t.dtype) for st in net.get_updater_state().values()
+                     for part in st.values() if isinstance(part, dict)
+                     for t in part.values()})
+    if dtypes != ["torch.float32"]:
+        raise AssertionError(f"master params and Adam state must stay f32: "
+                             f"{dtypes}")
     peak = torch.cuda.max_memory_allocated() if on_card else None
     timed = sorted(step_ms[1:])
     p50 = timed[len(timed) // 2]
+    enqueue_p50 = sorted(enqueue_ms[1:])[steps // 2]
     tokens = cfg["batch"] * cfg["seq_len"]
     prof = profile_train_step(net, x, y) if on_card else None
     grad = grad_check(cfg, device)
+    phase = "train bf16" if bf16 else "train"
     res = dict(cfg=cfg, steps=steps, losses=losses, step_ms=step_ms,
-               step_p50_ms=p50, tokens_per_step=tokens,
+               step_p50_ms=p50, enqueue_ms=enqueue_ms,
+               enqueue_p50_ms=enqueue_p50, tokens_per_step=tokens,
                tokens_per_s=tokens / (p50 / 1e3), peak_bytes=peak,
                params=net.num_params(), init_s=init_s, launches=launches,
-               grad_check=grad, profile=prof)
-    print(f"train [{card}]: {net.num_params()} params, {steps} timed Adam "
-          f"steps of {tokens} tokens after one warmup: step p50 "
-          f"{p50:.2f} ms (all {[round(t, 2) for t in step_ms]}), "
+               master_dtypes=dtypes, grad_check=grad, profile=prof)
+    print(f"{phase} [{card}]: {net.num_params()} params, {steps} timed "
+          f"Adam steps of {tokens} tokens after one warmup: step p50 "
+          f"{p50:.2f} ms (all {[round(t, 2) for t in step_ms]}; queued by "
+          f"the host in p50 {enqueue_p50:.2f} ms), "
           f"{res['tokens_per_s']:.1f} tokens/s, loss "
           f"{[round(v, 4) for v in losses]}, peak "
           f"{'not measured' if peak is None else f'{peak / 2**30:.3f} GiB'}"
-          f", launches {launches}")
-    print(f"train gradient check (2 blocks, B=1, card vs CPU): loss rel err "
-          f"{grad['loss_rel_err']:.3e} (tol {TRAIN_LOSS_RTOL:g}), worst "
-          f"leaf {grad['worst_leaf']} at {grad['worst_rel_err']:.3e} of its "
-          f"max (tol {TRAIN_GRAD_TOL:g}), {grad['leaves']} leaves")
+          f", launches {launches}, masters and Adam state {dtypes}")
+    print(f"{phase} gradient check (2 blocks, B=1, card vs CPU): loss rel "
+          f"err {grad['loss_rel_err']:.3e} (tol {grad['loss_tol']:g}), "
+          f"worst leaf {grad['worst_leaf']} at {grad['worst_rel_err']:.3e} "
+          f"of its max (tol {grad['grad_tol']:g}), {grad['leaves']} leaves")
     if prof is not None:
-        print(f"train profile [{card}] (one step, profiler on): device busy "
-              f"{prof['busy_share']:.3f} of {prof['wall_ms']:.1f} ms, "
+        print(f"{phase} profile [{card}] (one step, profiler on): device "
+              f"busy {prof['busy_share']:.3f} of {prof['wall_ms']:.1f} ms, "
               f"{prof['device_kernels']} device kernels; by kind (ms) "
               f"{ {k: round(v, 3) for k, v in prof['by_kind'].items()} }; "
               f"top kernels (ms): "
               + ", ".join(f"{n[:60]} {t:.3f}" for n, t in prof["top"]))
+        print(f"{phase} profile: host ops by self CPU ms (calls): "
+              + ", ".join(f"{n[:40]} {t:.2f} ({c})"
+                          for n, t, c in prof["host_top"]))
     return res
 
 
@@ -1168,8 +1384,10 @@ def profile_train_step(net, x, y):
         wall = time.perf_counter() - t0
     kernels = {}
     n_kernels = 0
+    host = []
     for e in p.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1177,23 +1395,35 @@ def profile_train_step(net, x, y):
         kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
         n_kernels += e.count
     busy_ms = sum(kernels.values())
-    # device time by kind: the flash kernels, GEMMs, everything else
-    # (elementwise, reductions, copies, the loss and Adam)
-    by_kind = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    # device time by kind: the flash kernels, bf16 and f32 GEMMs (cuBLAS
+    # names a GEMM's types, except its nvjet kernels, which run only
+    # half-precision tensor-core products here: TF32 is off), everything
+    # else (elementwise, reductions, copies, casts, the loss and Adam)
+    by_kind = {"flash": 0.0, "gemm_bf16": 0.0, "gemm_f32": 0.0, "other": 0.0}
+    gemms = {}
     for name, ms in kernels.items():
-        kind = "flash" if "flash_" in name else \
-            "gemm" if "gemm" in name.lower() else "other"
+        low = name.lower()
+        if "flash_" in name:
+            kind = "flash"
+        elif "gemm" in low or low.startswith("nvjet"):
+            kind = "gemm_bf16" if "bf16" in low or low.startswith("nvjet") \
+                else "gemm_f32"
+            gemms[name[:120]] = (kind, ms)
+        else:
+            kind = "other"
         by_kind[kind] += ms
     return dict(wall_ms=wall * 1e3, busy_ms=busy_ms,
                 busy_share=busy_ms / (wall * 1e3), device_kernels=n_kernels,
-                by_kind=by_kind,
-                top=sorted(kernels.items(), key=lambda kv: -kv[1])[:10])
+                by_kind=by_kind, gemms=gemms,
+                top=sorted(kernels.items(), key=lambda kv: -kv[1])[:10],
+                host_top=sorted(host, key=lambda h: -h[1])[:12])
 
 
 def grad_check(cfg, device=None):
     """One step's loss and gradients of a reduced copy (2 blocks, the
     full width, B=1, T=1024) on the network's device (the flash
-    kernels) against the same params on the CPU (plain attention)."""
+    kernels) against the same params on the CPU (plain attention), at
+    the configuration's dtype (f32, or the bf16 policy on both sides)."""
     from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
     small = dict(cfg, n_layers=2)
     net = MultiLayerNetwork(train_conf(small), device=device).init()
@@ -1212,12 +1442,16 @@ def grad_check(cfg, device=None):
             if err >= worst:
                 worst, worst_leaf = err, f"{key}.{name}"
     n = sum(len(p) for p in ref.values())
-    if not (loss_rel <= TRAIN_LOSS_RTOL and worst <= TRAIN_GRAD_TOL):
+    bf16 = cfg.get("dtype", "float") == "bfloat16"
+    loss_tol = TRAIN_BF16_LOSS_RTOL if bf16 else TRAIN_LOSS_RTOL
+    grad_tol = TRAIN_BF16_GRAD_TOL if bf16 else TRAIN_GRAD_TOL
+    if not (loss_rel <= loss_tol and worst <= grad_tol):
         raise AssertionError(f"card vs CPU: loss rel err {loss_rel:.3e}, "
                              f"{worst_leaf} off by {worst:.3e} of its max")
     return dict(loss=float(loss), cpu_loss=float(ref_loss),
                 loss_rel_err=loss_rel, worst_rel_err=worst,
-                worst_leaf=worst_leaf, leaves=n)
+                worst_leaf=worst_leaf, leaves=n, loss_tol=loss_tol,
+                grad_tol=grad_tol)
 
 
 def reset_launches():
@@ -1521,8 +1755,10 @@ def profile_window(eng):
     st1 = eng.stats()
     kernels = {}
     n_kernels = 0
+    host = []
     for e in p.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
             continue
         us = getattr(e, "self_device_time_total", None)
         if us is None:
@@ -1541,18 +1777,22 @@ def profile_window(eng):
 
 
 def sass_counts():
-    """HMMA and I2F (I2F, I2FP) instructions per instantiation of the
-    flash forward and the two int8 kernels in the built libraries, from
-    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
+    """HMMA (and of them bf16 HMMA) and I2F (I2F, I2FP) instructions per
+    instantiation of the flash kernels (f32 and bf16 legs) and the two
+    int8 kernels in the built libraries, from ``cuobjdump -sass``; None
+    where the toolkit has no cuobjdump."""
     from deeplearning4j_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    kernel = re.compile(r"(flash_fwd_kernel|paged_attention_int8_kernel|"
+    kernel = re.compile(r"(flash_fwd_kernel|flash_bwd_dq_kernel|"
+                        r"flash_bwd_dkv_kernel|flash_fwd_bf16_kernel|"
+                        r"flash_bwd_dq_bf16_kernel|flash_bwd_dkv_bf16_kernel|"
+                        r"paged_attention_int8_kernel|"
                         r"decode_attention_int8_kernel)"
                         r"ILi(\d+)E(?:Li(\d+)E)?")
     opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                        r"([A-Z][A-Z0-9]*)")
+                        r"([A-Z][A-Z0-9]*)(\.[A-Z0-9.]*)?")
     counts = {}
     for lib in ("flash_attention", "paged_attention", "decode_attention"):
         text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
@@ -1565,24 +1805,29 @@ def sass_counts():
                 fn = (f"{m[1]}<{m[2]}" + (f",{m[3]}>" if m[3] else ">")
                       if m else None)
                 if fn:
-                    counts[fn] = {"HMMA": 0, "I2F": 0}
+                    counts[fn] = {"HMMA": 0, "HMMA_BF16": 0, "I2F": 0}
                 continue
             op = opcode.search(line) if fn else None
             if op and op[1] in ("HMMA", "I2F", "I2FP"):
                 counts[fn]["HMMA" if op[1] == "HMMA" else "I2F"] += 1
+                if op[1] == "HMMA" and ".BF16" in (op[2] or ""):
+                    counts[fn]["HMMA_BF16"] += 1
     return counts
 
 
 def check_sass(counts):
-    """The forward must run on the tensor cores (HMMA > 0) and both int8
-    kernels must convert int8 without I2F (0)."""
+    """Every flash kernel must run on the tensor cores (HMMA > 0), the
+    bf16 legs with bf16 HMMA, and both int8 kernels must convert int8
+    without I2F (0)."""
     bad = [f for f, c in counts.items()
            if (f.startswith("flash") and not c["HMMA"])
+           or ("bf16" in f and not c["HMMA_BF16"])
            or ("int8" in f and c["I2F"])]
     kinds = {f.split("<")[0] for f in counts}
-    if bad or len(kinds) != 3:
-        raise AssertionError(f"SASS: the forward must run HMMA and the int8 "
-                             f"kernels no I2F: {counts}")
+    if bad or len(kinds) != 8:
+        raise AssertionError(f"SASS: every flash kernel must run HMMA (the "
+                             f"bf16 legs bf16 HMMA) and the int8 kernels no "
+                             f"I2F: {counts}")
 
 
 AB_CODE = r"""
@@ -1695,7 +1940,9 @@ def main() -> int:
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8")
     bwd = check_flash_bwd(dev)
+    bf16 = check_flash_bf16(dev)
     trained = train(card)
+    trained_bf16 = train(card, cfg=dict(TRAIN_CFG, dtype="bfloat16"))
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -1726,12 +1973,24 @@ def main() -> int:
         row("flash_attention_bwd_dkv", "flash_attention.cu",
             "flash_attention.py:214",
             trained["launches"]["flash_attention_bwd_dkv"], bwd["dkv"]),
+        row("flash_attention_bf16", "flash_attention.cu",
+            "flash_attention.py:65",
+            trained_bf16["launches"]["flash_attention_bf16"], bf16["fwd"]),
+        row("flash_attention_bwd_dq_bf16", "flash_attention.cu",
+            "flash_attention.py:169",
+            trained_bf16["launches"]["flash_attention_bwd_dq_bf16"],
+            bf16["dq"]),
+        row("flash_attention_bwd_dkv_bf16", "flash_attention.cu",
+            "flash_attention.py:214",
+            trained_bf16["launches"]["flash_attention_bwd_dkv_bf16"],
+            bf16["dkv"]),
     ]
     print("details: " + json.dumps(
         dict(card=card, decode=decode, flash=flash, paged=paged,
              decode_int8=decode8, paged_int8=paged8, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
-             e2e_paged_int8=e2e_paged_int8, flash_bwd=bwd, train=trained,
+             e2e_paged_int8=e2e_paged_int8, flash_bwd=bwd, flash_bf16=bf16,
+             train=trained, train_bf16=trained_bf16,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

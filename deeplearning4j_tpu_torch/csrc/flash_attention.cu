@@ -132,6 +132,7 @@
 // with the tensor cores' mma.sync issue and the split instructions sets
 // the pace; wgmma, whose B operand a warpgroup reads once, is the way
 // past it.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -1057,6 +1058,687 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
+// ---- bf16 legs (B3, B6, B7 on bf16 operands): bf16 mma.sync ----
+//
+// Replace the same three TPU kernels for bf16 q, k, v and dO
+// (deeplearning4j_tpu/kernels/flash_attention.py: _fwd_kernel, which
+// casts each block to f32 and writes O in q's dtype, :90-92 and :116;
+// _bwd_dq_kernel, :189-192 and :211; _bwd_dkv_kernel, :236-239 and
+// :260-261). O, dQ, dK and dV are bf16; the LSE, delta and the key mask
+// stay f32 [B, H, T] and [B, T] as in the f32 legs.
+//
+// Arithmetic. Every product is one mma.sync.m16n8k16 with bf16
+// operands and f32 accumulation. A product of two bf16 values is exact
+// in f32, so S = Q K^T and dP = dO V^T equal the reference's f32 dot of
+// the bf16 values up to the order of the f32 sums. The second products
+// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q) need P or dS as
+// bf16 A operands: P and dS are rounded to bf16 (round to nearest even,
+// ~2^-9 of each term) right before them. That rounding, and the final
+// rounding of O, dQ, dK and dV to bf16, are the legs' only errors
+// beyond the order of the sums. The softmax, the LSE and delta stay f32.
+//
+// Bounds on this card (989 TFLOP/s bf16 dense, 3.35 TB/s; each input
+// read once, each output written once) at the training shapes B=4, H=8,
+// T=1024, D=64, causal (524,800 live (query, key) pairs a head):
+//  - forward: 4.298 GFLOP -> 0.00435 ms; q, k, v, O in bf16 (16.78 MB)
+//    with the mask (16 KB) and the LSE (131 KB): 16.92 MB -> 0.00505 ms,
+//    so bytes bound it, at 0.00505 ms;
+//  - dQ: 6.449 GFLOP -> 0.00652 ms; q, k, v, dO read and dQ written
+//    (20.97 MB) with LSE, delta and mask: 21.25 MB -> 0.00634 ms, so
+//    operations bound it, at 0.00652 ms;
+//  - dK/dV: 8.598 GFLOP -> 0.00869 ms; 25.44 MB -> 0.00760 ms:
+//    operations, at 0.00869 ms.
+// All three sit near the ridge (~300 flops a byte), so neither the
+// tensor cores nor memory alone sets the pace; what the design does:
+//  - tiles sit in shared memory as bf16 (half the f32 legs' bytes),
+//    rows padded by 16 bytes so that every ldmatrix phase hits 8
+//    distinct 16-byte bank groups, filled by 16-byte cp.async (D % 8 ==
+//    0 and 16-byte aligned tensors; plain loads otherwise) through a
+//    two-stage ring: the next tile loads while this one computes;
+//  - fragments come from shared memory by ldmatrix (x4: four 8x8 b16
+//    matrices a warp-wide instruction), and by ldmatrix.trans where an
+//    operand is needed transposed (V in P V; K in dS K; dO and Q in
+//    P^T dO and dS^T Q), so no tile is stored twice;
+//  - S and dP stay in the accumulators; the m16n8k16 accumulator layout
+//    (rows g, g + 8; columns 2t, 2t + 1 of each 8-wide block) is the A
+//    operand's layout of a 16-wide k step, so P and dS become A
+//    fragments by packing two accumulator blocks, with no permutation;
+//  - the block's own A fragments (Q and dO for dQ, K and V for dK/dV, Q
+//    for the forward) are held in registers at D <= 64 and read by
+//    ldmatrix at each use at D = 128, which keeps every leg within 255
+//    registers at 2 blocks (8 warps) per SM;
+//  - one key group: the bf16 forward's only caller is training (B=4:
+//    512 blocks, 3.9 per SM), past the f32 leg's measured crossover of
+//    2.5 blocks per SM where one group wins; served prefills run f32;
+//  - causal tiles above the diagonal are never loaded, a warp skips
+//    the products of a tile wholly on the masked side of its rows, and
+//    the grid runs the longest tiles first, as in the f32 legs;
+//  - one owner block per output row, summing in a fixed order: two
+//    calls give the same bits.
+// Masking as in the f32 legs: masked scores are -1e30, p is
+// where-guarded to 0 (a fully masked row has O = 0, LSE = -1e30 and
+// gradients of exactly 0), rows past T are zero-filled by the copy.
+// Not yet: wgmma and TMA (a warpgroup reading each B tile once).
+
+template <int DMAX, int BN_>
+struct Bf16Tile {
+  static constexpr int BN = BN_;           // streamed rows a tile
+  static constexpr int LD = DMAX + 8;      // bf16 a row, 16-byte pad
+  static constexpr bool kHeld = DMAX <= 64;
+  // the block's two (fwd: one) [64][LD] tiles and two stages of two
+  // streamed [BN][LD] tiles, bf16, then NV [2][BN] f32 row vectors
+  static constexpr size_t smem(int own, int nvec) {
+    return (size_t)(own * kBwdRows * LD + 4 * BN * LD) * 2 +
+           (size_t)nvec * 2 * BN * 4;
+  }
+};
+template <int DMAX> using Bf16FwdTile = Bf16Tile<DMAX, 64>;
+template <int DMAX> using Bf16DqTile = Bf16Tile<DMAX, DMAX == 128 ? 32 : 64>;
+template <int DMAX> using Bf16DkvTile = Bf16Tile<DMAX, DMAX == 128 ? 16 : 32>;
+
+__device__ __forceinline__ float bf16_to_f32(uint16_t x) {
+  return __uint_as_float((uint32_t)x << 16);
+}
+
+__device__ __forceinline__ uint16_t f32_to_bf16(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+// two f32 values rounded to bf16 (nearest even), lo in the low half as
+// mma.sync expects the lower column there
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+               "[%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const uint16_t* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+               "{%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// ldmatrix addresses, lane = this thread's lane (g = lane / 4, t = lane %
+// 4 below are the fragments' coordinates).
+// A of a row-major [.][LD] tile, rows m0 .. m0+15, k step ks: a0 (row g,
+// columns 2t, 2t+1), a1 (row g + 8), a2 (columns + 8), a3 (both).
+template <int LD>
+__device__ __forceinline__ const uint16_t* a_addr(const uint16_t* s, int m0,
+                                                  int ks, int lane) {
+  return s + (m0 + (lane & 15)) * LD + 16 * ks + (lane >> 4) * 8;
+}
+// B of X Y^T over k step ks for the two 8-row blocks n0 .. n0+15 of a
+// row-major Y: r0, r1 = block n0's (b0, b1), r2, r3 = block n0 + 8's.
+template <int LD>
+__device__ __forceinline__ const uint16_t* bt_addr(const uint16_t* s, int n0,
+                                                   int ks, int lane) {
+  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + 16 * ks +
+         ((lane >> 3) & 1) * 8;
+}
+// B of P Y over the 16 rows r0 .. r0+15 of a row-major Y (read
+// transposed), for its columns c0 .. c0+15: r0, r1 = columns c0 .. c0+7,
+// r2, r3 = columns c0+8 .. c0+15.
+template <int LD>
+__device__ __forceinline__ const uint16_t* bn_addr(const uint16_t* s, int r0,
+                                                   int c0, int lane) {
+  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
+}
+
+// S accumulator blocks 2j and 2j + 1 (16 columns) as the A operand of a
+// product over those columns, rounded to bf16
+__device__ __forceinline__ void acc_to_a(const float (&lo)[4],
+                                         const float (&hi)[4],
+                                         uint32_t (&a)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// A fragments of a warp's 16 rows of a bf16 [64][LD] tile: held in
+// registers (kHeld) or read by ldmatrix at each use
+template <int DMAX, bool kHeld>
+struct Bf16AFrags {
+  static constexpr int KS = DMAX / 16;
+  static constexpr int LD = DMAX + 8;
+  uint32_t r[kHeld ? KS : 1][4];
+  const uint16_t* p;  // this lane's address at ks = 0
+
+  __device__ __forceinline__ Bf16AFrags(const uint16_t* s, int m0, int lane)
+      : p(a_addr<LD>(s, m0, 0, lane)) {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) ldsm_x4(r[ks], p + 16 * ks);
+    }
+  }
+  __device__ __forceinline__ void get(int ks, uint32_t (&a)[4]) const {
+    if constexpr (kHeld) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = r[ks][i];
+    } else {
+      ldsm_x4(a, p + 16 * ks);
+    }
+  }
+};
+
+// Rows t0 .. t0+ROWS-1 of one (batch, head) of N bf16 [B, T, H, D]
+// tensors into [ROWS][DMAX + 8] shared tiles, zero past T and past D.
+// vec8: D % 8 == 0 and the tensors 16-byte aligned, so 16-byte cp.async
+// copies; else plain 2-byte loads and stores (visible after the step's
+// barrier like the copies).
+template <int DMAX, int ROWS, int N>
+__device__ __forceinline__ void bf16_tiles(uint16_t* const (&dst)[N],
+                                           const uint16_t* const (&src)[N],
+                                           size_t base, size_t row, int t0,
+                                           int T, int D, bool vec8, int tid) {
+  constexpr int LD = DMAX + 8;
+  if (vec8) {
+    constexpr int CH = DMAX / 8;
+    static_assert(ROWS * CH % kBwdThreads == 0, "whole passes");
+#pragma unroll
+    for (int i = 0; i < ROWS * CH / kBwdThreads; ++i) {
+      const int idx = tid + i * kBwdThreads;
+      const int r = idx / CH, d = (idx % CH) * 8, t = t0 + r;
+      const bool ok = t < T && d < D;
+      const size_t off = ok ? base + (size_t)t * row + d : 0;
+#pragma unroll
+      for (int j = 0; j < N; ++j)
+        cp_async16(reinterpret_cast<float*>(dst[j] + r * LD + d),
+                   reinterpret_cast<const float*>(src[j] + off), ok);
+    }
+  } else {
+#pragma unroll 4
+    for (int i = 0; i < ROWS * DMAX / kBwdThreads; ++i) {
+      const int idx = tid + i * kBwdThreads;
+      const int r = idx / DMAX, d = idx % DMAX, t = t0 + r;
+      const bool ok = t < T && d < D;
+      const size_t off = base + (size_t)t * row + d;
+#pragma unroll
+      for (int j = 0; j < N; ++j) dst[j][r * LD + d] = ok ? src[j][off] : 0;
+    }
+  }
+}
+
+// O = softmax(Q K^T * scale + mask) V and the LSE, bf16 operands. Grid:
+// (B*H, query tiles), the last query tile first; 4 warps, warp w owns
+// query rows 16w .. 16w+15; K and V stream in tiles of 64 keys.
+template <int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      const float* __restrict__ key_mask,
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      int H, int T, int D, int causal, float scale, int vec8) {
+  using Tile = Bf16FwdTile<DMAX>;
+  constexpr int BN = Tile::BN;
+  constexpr int LD = Tile::LD;
+  constexpr int KS = DMAX / 16;  // 16-wide k steps over the head dim
+  constexpr int NB = BN / 8;     // 8-key blocks of a streamed tile
+  constexpr int ND = DMAX / 8;   // 8-wide blocks of the head dim
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);   // [64][LD]
+  uint16_t* ring = Qs + kBwdRows * LD;                    // [2][K, V][BN][LD]
+  float* okring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
+  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const size_t row = (size_t)H * D;
+  const size_t base = (size_t)b * T * row + (size_t)h * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
+  const int m0 = 16 * warp;
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+
+  const int n_tiles = (T + BN - 1) / BN;
+  int last = n_tiles - 1;
+  if (causal) {
+    const int diag = (q0 + kBwdRows - 1) / BN;
+    last = diag < last ? diag : last;
+  }
+  auto load_kv = [&](int kt, int st) {
+    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {k, v}, base, row,
+                            kt * BN, T, D, vec8, tid);
+    if (key_mask != nullptr)
+      async_vec(okring + st * BN, key_mask + (size_t)b * T, kt * BN, BN, T,
+                tid);
+    else if (tid < BN)
+      okring[st * BN + tid] = kt * BN + tid < T ? 1.f : 0.f;
+  };
+
+  bf16_tiles<DMAX, kBwdRows, 1>({Qs}, {q}, base, row, q0, T, D, vec8, tid);
+  load_kv(0, 0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const Bf16AFrags<DMAX, Tile::kHeld> qf(Qs, m0, lane);
+
+  // this thread's rows q0 + m0 + g and 8 below: running max (log2
+  // units), its own columns' share of the sum, O's columns 8n + 2t4, + 1
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int st = kt & 1;
+    if (kt < last) load_kv(kt + 1, st ^ 1);
+    cp_async_commit();
+    const int k0 = kt * BN;
+    if (!causal || k0 <= q0 + m0 + 15) {
+      const uint16_t *Ks = tile(st, 0), *Vs = tile(st, 1);
+      const float* oks = okring + st * BN;
+      float s[NB][4];  // Q K^T: keys 8nb + 2t4, + 1
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t a[4];
+        qf.get(ks, a);
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          uint32_t bk[4];
+          ldsm_x4(bk, bt_addr<LD>(Ks, 8 * nb, ks, lane));
+          mma_bf16(s[nb], a, bk[0], bk[1]);
+          mma_bf16(s[nb + 1], a, bk[2], bk[3]);
+        }
+      }
+      // online softmax, as the f32 leg
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = 8 * nb + 2 * t4 + (e & 1);
+          const bool ok = oks[c] > 0.f &&
+                          (!causal || k0 + c <= q0 + m0 + g + 8 * r);
+          s[nb][e] = ok ? s[nb][e] * sl2 : kNegInf;
+          mx[r] = fmaxf(mx[r], s[nb][e]);
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float corr = exp2f(m[r] - mx[r]);
+        l[r] *= corr;
+#pragma unroll
+        for (int n = 0; n < ND; ++n) {
+          acc[n][2 * r] *= corr;
+          acc[n][2 * r + 1] *= corr;
+        }
+        m[r] = mx[r];
+      }
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = s[nb][e] > kNegInf ? exp2f(s[nb][e] - m[r]) : 0.f;
+          l[r] += p;  // the f32 p: only the product below sees it rounded
+          s[nb][e] = p;
+        }
+      // O += P V: P rounded to bf16 as the A operand, V read transposed
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        uint32_t a[4];
+        acc_to_a(s[2 * j], s[2 * j + 1], a);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t bv[4];
+          ldsm_x4_trans(bv, bn_addr<LD>(Vs, 16 * j, 8 * n, lane));
+          mma_bf16(acc[n], a, bv[0], bv[1]);
+          mma_bf16(acc[n + 1], a, bv[2], bv[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // tile kt + 1 is in; tile kt is done
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int qp = q0 + m0 + g + 8 * r;
+    if (qp >= T) continue;
+    const float lc = fmaxf(l[r], 1e-30f);
+    const float inv = 1.f / lc;
+#pragma unroll
+    for (int n = 0; n < ND; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const int d = 8 * n + 2 * t4 + (e & 1);
+        if (d < D) o[base + (size_t)qp * row + d] = f32_to_bf16(acc[n][e] * inv);
+      }
+    if (t4 == 0)
+      lse[(size_t)bh * T + qp] =
+          m[r] > kNegInf ? m[r] * kLn2 + logf(lc) : kNegInf;
+  }
+}
+
+// dQ = sum over key tiles of dS K * scale, bf16 operands. Grid: (B*H,
+// query tiles), the last query tile first; Q and dO stay, K and V
+// stream.
+template <int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
+                         const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v,
+                         const float* __restrict__ key_mask,
+                         const uint16_t* __restrict__ dout,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         uint16_t* __restrict__ dq, int H, int T, int D,
+                         int causal, float scale, int vec8) {
+  using Tile = Bf16DqTile<DMAX>;
+  constexpr int BN = Tile::BN;
+  constexpr int LD = Tile::LD;
+  constexpr int KS = DMAX / 16;
+  constexpr int NB = BN / 8;
+  constexpr int ND = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);  // [64][LD]
+  uint16_t* dOs = Qs + kBwdRows * LD;                    // [64][LD]
+  uint16_t* ring = dOs + kBwdRows * LD;                  // [2][K, V][BN][LD]
+  float* okring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
+  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const size_t row = (size_t)H * D;
+  const size_t base = (size_t)b * T * row + (size_t)h * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
+  const int m0 = 16 * warp;
+  const float sl2 = scale * kLog2e;
+  float rlse[2], rdelta[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int qp = q0 + m0 + g + 8 * r;
+    rlse[r] = qp < T ? lse[(size_t)bh * T + qp] * kLog2e : 0.f;
+    rdelta[r] = qp < T ? delta[(size_t)bh * T + qp] : 0.f;
+  }
+
+  const int n_tiles = (T + BN - 1) / BN;
+  int last = n_tiles - 1;
+  if (causal) {
+    const int diag = (q0 + kBwdRows - 1) / BN;
+    last = diag < last ? diag : last;
+  }
+  auto load_kv = [&](int kt) {
+    const int st = kt & 1;
+    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {k, v}, base, row,
+                            kt * BN, T, D, vec8, tid);
+    if (key_mask != nullptr)
+      async_vec(okring + st * BN, key_mask + (size_t)b * T, kt * BN, BN, T,
+                tid);
+    else if (tid < BN)
+      okring[st * BN + tid] = kt * BN + tid < T ? 1.f : 0.f;
+  };
+
+  bf16_tiles<DMAX, kBwdRows, 2>({Qs, dOs}, {q, dout}, base, row, q0, T, D,
+                                vec8, tid);
+  load_kv(0);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const Bf16AFrags<DMAX, Tile::kHeld> qf(Qs, m0, lane), of(dOs, m0, lane);
+
+  float acc[ND][4];  // dQ: rows g, g + 8; columns 8n + 2t4, + 1
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  for (int kt = 0; kt <= last; ++kt) {
+    const int st = kt & 1;
+    if (kt < last) load_kv(kt + 1);
+    cp_async_commit();
+    const int k0 = kt * BN;
+    if (!causal || k0 <= q0 + m0 + 15) {
+      const uint16_t *Ks = tile(st, 0), *Vs = tile(st, 1);
+      const float* oks = okring + st * BN;
+      float s[NB][4], dp[NB][4];  // Q K^T, dO V^T: keys 8nb + 2t4, + 1
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t aq[4], ao[4];
+        qf.get(ks, aq);
+        of.get(ks, ao);
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          uint32_t bk[4], bv[4];
+          ldsm_x4(bk, bt_addr<LD>(Ks, 8 * nb, ks, lane));
+          mma_bf16(s[nb], aq, bk[0], bk[1]);
+          mma_bf16(s[nb + 1], aq, bk[2], bk[3]);
+          ldsm_x4(bv, bt_addr<LD>(Vs, 8 * nb, ks, lane));
+          mma_bf16(dp[nb], ao, bv[0], bv[1]);
+          mma_bf16(dp[nb + 1], ao, bv[2], bv[3]);
+        }
+      }
+      // dS = P o (dP - delta) in place of S, P recomputed under the guard
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = 8 * nb + 2 * t4 + (e & 1);
+          const int qp = q0 + m0 + g + 8 * r;
+          const bool ok = oks[c] > 0.f && (!causal || k0 + c <= qp);
+          const float p = ok ? exp2f(fmaf(s[nb][e], sl2, -rlse[r])) : 0.f;
+          s[nb][e] = p * (dp[nb][e] - rdelta[r]);
+        }
+      // dQ += dS K: dS rounded to bf16 as the A operand, K transposed
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        uint32_t a[4];
+        acc_to_a(s[2 * j], s[2 * j + 1], a);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t bk[4];
+          ldsm_x4_trans(bk, bn_addr<LD>(Ks, 16 * j, 8 * n, lane));
+          mma_bf16(acc[n], a, bk[0], bk[1]);
+          mma_bf16(acc[n + 1], a, bk[2], bk[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qp = q0 + m0 + g + 8 * (e >> 1);
+      const int d = 8 * n + 2 * t4 + (e & 1);
+      if (qp < T && d < D)
+        dq[base + (size_t)qp * row + d] = f32_to_bf16(acc[n][e] * scale);
+    }
+}
+
+// dV = sum over query tiles of P^T dO; dK = sum of dS^T Q * scale, bf16
+// operands. Grid: (B*H, key tiles), the first key tile first; K and V
+// stay, Q, dO, LSE and delta stream from the diagonal down. Scores are
+// computed transposed (rows = keys), so P^T and dS^T are accumulators
+// ready to be A operands.
+template <int DMAX>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+                          const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v,
+                          const float* __restrict__ key_mask,
+                          const uint16_t* __restrict__ dout,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
+                          int H, int T, int D, int causal, float scale,
+                          int vec8) {
+  using Tile = Bf16DkvTile<DMAX>;
+  constexpr int BN = Tile::BN;
+  constexpr int LD = Tile::LD;
+  constexpr int KS = DMAX / 16;
+  constexpr int NB = BN / 8;  // 8-query blocks of a streamed tile
+  constexpr int ND = DMAX / 8;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem_raw);  // [64][LD]
+  uint16_t* Vs = Ks + kBwdRows * LD;                     // [64][LD]
+  uint16_t* ring = Vs + kBwdRows * LD;                   // [2][Q, dO][BN][LD]
+  float* lring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
+  float* dring = lring + 2 * BN;                                // [2][BN]
+  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int bh = blockIdx.x;
+  const int b = bh / H, h = bh % H;
+  const size_t row = (size_t)H * D;
+  const size_t base = (size_t)b * T * row + (size_t)h * D;
+  const int k0 = blockIdx.y * kBwdRows;
+  const int m0 = 16 * warp;
+  const float sl2 = scale * kLog2e;
+  bool kok[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int kp = k0 + m0 + g + 8 * r;
+    kok[r] = kp < T &&
+             (key_mask == nullptr || key_mask[(size_t)b * T + kp] > 0.f);
+  }
+
+  const int n_tiles = (T + BN - 1) / BN;
+  const int first = causal ? k0 / BN : 0;
+  auto load_q = [&](int qt) {
+    const int st = (qt - first) & 1;
+    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {q, dout}, base, row,
+                            qt * BN, T, D, vec8, tid);
+    async_vec(lring + st * BN, lse + (size_t)bh * T, qt * BN, BN, T, tid);
+    async_vec(dring + st * BN, delta + (size_t)bh * T, qt * BN, BN, T, tid);
+  };
+
+  bf16_tiles<DMAX, kBwdRows, 2>({Ks, Vs}, {k, v}, base, row, k0, T, D, vec8,
+                                tid);
+  load_q(first);
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  const Bf16AFrags<DMAX, Tile::kHeld> kf(Ks, m0, lane), vf(Vs, m0, lane);
+
+  float dka[ND][4], dva[ND][4];  // rows g, g + 8; columns 8n + 2t4, + 1
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    const int st = (qt - first) & 1;
+    if (qt + 1 < n_tiles) load_q(qt + 1);
+    cp_async_commit();
+    const int t0 = qt * BN;
+    if (!causal || t0 + BN - 1 >= k0 + m0) {
+      const uint16_t *Qt = tile(st, 0), *dOt = tile(st, 1);
+      const float* ls = lring + st * BN;
+      const float* ds = dring + st * BN;
+      float s[NB][4], dp[NB][4];  // K Q^T, V dO^T: queries 8nb + 2t4, + 1
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ak[4], av[4];
+        kf.get(ks, ak);
+        vf.get(ks, av);
+#pragma unroll
+        for (int nb = 0; nb < NB; nb += 2) {
+          uint32_t bq[4], bo[4];
+          ldsm_x4(bq, bt_addr<LD>(Qt, 8 * nb, ks, lane));
+          mma_bf16(s[nb], ak, bq[0], bq[1]);
+          mma_bf16(s[nb + 1], ak, bq[2], bq[3]);
+          ldsm_x4(bo, bt_addr<LD>(dOt, 8 * nb, ks, lane));
+          mma_bf16(dp[nb], av, bo[0], bo[1]);
+          mma_bf16(dp[nb + 1], av, bo[2], bo[3]);
+        }
+      }
+      // P^T in place of S^T, dS^T = P^T o (dP^T - delta) in place of dP^T
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int c = 8 * nb + 2 * t4 + (e & 1);  // query row of the tile
+          const int qp = t0 + c;
+          const bool ok = kok[r] && qp < T &&
+                          (!causal || k0 + m0 + g + 8 * r <= qp);
+          const float p =
+              ok ? exp2f(fmaf(s[nb][e], sl2, -ls[c] * kLog2e)) : 0.f;
+          s[nb][e] = p;
+          dp[nb][e] = p * (dp[nb][e] - ds[c]);
+        }
+      // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to bf16 as the
+      // A operands, dO and Q read transposed
+#pragma unroll
+      for (int j = 0; j < NB / 2; ++j) {
+        uint32_t ap[4], as[4];
+        acc_to_a(s[2 * j], s[2 * j + 1], ap);
+        acc_to_a(dp[2 * j], dp[2 * j + 1], as);
+#pragma unroll
+        for (int n = 0; n < ND; n += 2) {
+          uint32_t bo[4], bq[4];
+          ldsm_x4_trans(bo, bn_addr<LD>(dOt, 16 * j, 8 * n, lane));
+          mma_bf16(dva[n], ap, bo[0], bo[1]);
+          mma_bf16(dva[n + 1], ap, bo[2], bo[3]);
+          ldsm_x4_trans(bq, bn_addr<LD>(Qt, 16 * j, 8 * n, lane));
+          mma_bf16(dka[n], as, bq[0], bq[1]);
+          mma_bf16(dka[n + 1], as, bq[2], bq[3]);
+        }
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int kp = k0 + m0 + g + 8 * (e >> 1);
+      const int d = 8 * n + 2 * t4 + (e & 1);
+      if (kp < T && d < D) {
+        dk[base + (size_t)kp * row + d] = f32_to_bf16(dka[n][e] * scale);
+        dv[base + (size_t)kp * row + d] = f32_to_bf16(dva[n][e]);
+      }
+    }
+}
+
 // Raise a kernel's dynamic shared-memory limit when it needs more than
 // the default 48 KB.
 template <typename Kernel>
@@ -1165,6 +1847,94 @@ int bwd_info(int* out) {
   return (int)e;
 }
 
+// The bf16 legs' launches; vec8: 16-byte copies (D % 8 == 0 and every
+// tile tensor 16-byte aligned)
+template <int DMAX>
+int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    const void* km, void* o, void* lse, int B, int T, int H,
+                    int D, int causal, float scale, void* stream) {
+  const size_t smem = Bf16FwdTile<DMAX>::smem(1, 1);
+  cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DMAX>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
+  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
+  flash_fwd_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
+                                (cudaStream_t)stream>>>(
+      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
+      (const float*)km, (uint16_t*)o, (float*)lse, H, T, D, causal, scale,
+      vec8);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_dq_bf16(const void* q, const void* k, const void* v,
+                   const void* km, const void* dout, const void* lse,
+                   const void* delta, void* dq, int B, int T, int H, int D,
+                   int causal, float scale, void* stream) {
+  const size_t smem = Bf16DqTile<DMAX>::smem(2, 1);
+  cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<DMAX>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dout);
+  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
+  flash_bwd_dq_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
+                                   (cudaStream_t)stream>>>(
+      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
+      (const float*)km, (const uint16_t*)dout, (const float*)lse,
+      (const float*)delta, (uint16_t*)dq, H, T, D, causal, scale, vec8);
+  return (int)cudaGetLastError();
+}
+
+template <int DMAX>
+int launch_dkv_bf16(const void* q, const void* k, const void* v,
+                    const void* km, const void* dout, const void* lse,
+                    const void* delta, void* dk, void* dv, int B, int T,
+                    int H, int D, int causal, float scale, void* stream) {
+  const size_t smem = Bf16DkvTile<DMAX>::smem(2, 2);
+  cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<DMAX>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) &&
+                   aligned16(v) && aligned16(dout);
+  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
+  flash_bwd_dkv_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
+                                    (cudaStream_t)stream>>>(
+      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
+      (const float*)km, (const uint16_t*)dout, (const float*)lse,
+      (const float*)delta, (uint16_t*)dk, (uint16_t*)dv, H, T, D, causal,
+      scale, vec8);
+  return (int)cudaGetLastError();
+}
+
+// out[0..4]: registers a thread, local (spill) bytes, dynamic shared
+// bytes, resident blocks per SM and threads a block of a kernel
+template <typename Kernel>
+int kernel_info(Kernel kernel, size_t smem, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
+                                                      kBwdThreads, smem);
+  if (e != cudaSuccess) return (int)e;
+  out[0] = attr.numRegs;
+  out[1] = (int)attr.localSizeBytes;
+  out[2] = (int)smem;
+  out[4] = kBwdThreads;
+  return 0;
+}
+
+template <int DMAX>
+int bf16_info(int which, int* out) {
+  if (which == 0)
+    return kernel_info(flash_fwd_bf16_kernel<DMAX>,
+                       Bf16FwdTile<DMAX>::smem(1, 1), out);
+  if (which == 1)
+    return kernel_info(flash_bwd_dq_bf16_kernel<DMAX>,
+                       Bf16DqTile<DMAX>::smem(2, 1), out);
+  return kernel_info(flash_bwd_dkv_bf16_kernel<DMAX>,
+                     Bf16DkvTile<DMAX>::smem(2, 2), out);
+}
+
 }  // namespace
 
 #define DISPATCH_HEAD_DIM(D, CALL)                         \
@@ -1230,6 +2000,52 @@ extern "C" int flash_attention_fwd_info(int D, int key_groups, int* out) {
 extern "C" int flash_attention_bwd_info(int D, int* out) {
   if (D < 1) return (int)cudaErrorInvalidValue;
 #define INFO(DM) bwd_info<DM>(out)
+  DISPATCH_HEAD_DIM(D, INFO);
+#undef INFO
+}
+
+// The bf16 legs: the same arguments as the f32 entry points (the
+// forward has one key group), q, k, v, dO, O, dQ, dK and dV bf16
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, const void* key_mask,
+                                        void* o, void* lse, int B, int T,
+                                        int H, int D, int causal, float scale,
+                                        void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+#define FWD(DM) launch_fwd_bf16<DM>(q, k, v, key_mask, o, lse, B, T, H, D, \
+                                    causal, scale, stream)
+  DISPATCH_HEAD_DIM(D, FWD);
+#undef FWD
+}
+
+extern "C" int flash_attention_bwd_dq_bf16(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    const void* dout, const void* lse, const void* delta, void* dq, int B,
+    int T, int H, int D, int causal, float scale, void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+#define DQ(DM) launch_dq_bf16<DM>(q, k, v, key_mask, dout, lse, delta, dq, B, \
+                                  T, H, D, causal, scale, stream)
+  DISPATCH_HEAD_DIM(D, DQ);
+#undef DQ
+}
+
+extern "C" int flash_attention_bwd_dkv_bf16(
+    const void* q, const void* k, const void* v, const void* key_mask,
+    const void* dout, const void* lse, const void* delta, void* dk,
+    void* dv, int B, int T, int H, int D, int causal, float scale,
+    void* stream) {
+  if (B < 1 || T < 1 || H < 1 || D < 1) return (int)cudaErrorInvalidValue;
+#define DKV(DM) launch_dkv_bf16<DM>(q, k, v, key_mask, dout, lse, delta, dk, \
+                                    dv, B, T, H, D, causal, scale, stream)
+  DISPATCH_HEAD_DIM(D, DKV);
+#undef DKV
+}
+
+// Registers, spills, shared memory, resident blocks per SM and threads
+// of a bf16 leg (which: 0 forward, 1 dQ, 2 dK/dV) at head dim D.
+extern "C" int flash_attention_bf16_info(int which, int D, int* out) {
+  if (D < 1 || which < 0 || which > 2) return (int)cudaErrorInvalidValue;
+#define INFO(DM) bf16_info<DM>(which, out)
   DISPATCH_HEAD_DIM(D, INFO);
 #undef INFO
 }

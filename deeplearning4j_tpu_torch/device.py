@@ -19,6 +19,11 @@ import torch
 # on).
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# Under the bf16 policy XLA accumulates a bf16 dot in f32. cuBLAS may
+# reduce the partial sums of a split-K bf16 GEMM in bf16 unless told not
+# to, which would round inside the sum; pinned off so bf16 GEMMs sum in
+# f32 throughout.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 
 def resolve_device(device: Optional[Union[str, torch.device]] = None

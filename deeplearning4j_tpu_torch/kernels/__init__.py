@@ -11,7 +11,9 @@ kernel first runs, so importing these modules needs no CUDA toolkit.
 #: each kernel module's launch counters
 _COUNTERS = (("decode_attention", ("launches", "launches_int8")),
              ("paged_attention", ("launches", "launches_int8")),
-             ("flash_attention", ("launches", "launches_dq", "launches_dkv")))
+             ("flash_attention", ("launches", "launches_dq", "launches_dkv",
+                                  "launches_bf16", "launches_dq_bf16",
+                                  "launches_dkv_bf16")))
 
 
 def launch_counts() -> dict:

@@ -16,6 +16,13 @@ tensors; :func:`flash_attention_bwd` runs both backward kernels.
 :func:`flash_attention_autograd` is the differentiable form the
 training path calls. Nothing falls back: a CUDA tensor the
 kernels do not take raises.
+
+Each kernel has an f32 leg (3xTF32 on the tensor cores) and a bf16 leg
+(bf16 ``mma.sync`` with f32 accumulation), picked by the operands'
+dtype, which must be one and the same for q, k, v (and dO). As in the
+JAX kernels, both compute in f32 from the operands' values and return
+O, dQ, dK and dV in the operands' dtype; the LSE and delta are f32.
+fp16 operands are not ported (ROADMAP.md queue B, item B8).
 """
 from __future__ import annotations
 
@@ -35,6 +42,10 @@ launches = 0
 #: since the last reset: one each per attention layer and backward pass
 launches_dq = 0
 launches_dkv = 0
+#: the bf16 legs' launches, counted apart from the f32 legs' above
+launches_bf16 = 0
+launches_dq_bf16 = 0
+launches_dkv_bf16 = 0
 
 _SIGNATURES = {
     "flash_attention_fwd_f32":
@@ -49,7 +60,33 @@ _SIGNATURES = {
         [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_void_p],
     "flash_attention_bwd_info": [ctypes.c_int, ctypes.POINTER(ctypes.c_int)],
+    "flash_attention_fwd_bf16":
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bwd_dq_bf16":
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bwd_dkv_bf16":
+        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+        + [ctypes.c_float, ctypes.c_void_p],
+    "flash_attention_bf16_info": [ctypes.c_int, ctypes.c_int,
+                                  ctypes.POINTER(ctypes.c_int)],
 }
+
+#: the dtypes the kernels take; fp16 is not ported (ROADMAP.md queue B,
+#: item B8)
+_LEGS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _same_dtype(named):
+    """The one dtype of the named operands; mixed dtypes raise
+    ``TypeError`` (the JAX kernels would cast each to f32 and write the
+    outputs in each operand's own dtype, which no caller relies on)."""
+    dtypes = {name: t.dtype for name, t in named}
+    if len(set(dtypes.values())) != 1:
+        raise TypeError(f"flash attention operands must share one dtype, "
+                        f"got {dtypes}")
+    return named[0][1].dtype
 
 
 def _mask(B, T, causal, key_mask, device):
@@ -64,10 +101,12 @@ def _mask(B, T, causal, key_mask, device):
 
 
 def flash_attention_torch(q, k, v, causal: bool = False, key_mask=None):
-    """Plain PyTorch version of the flash forward, in f32, with the
-    kernel's masking rules: masked scores are -1e30, probabilities are
-    forced to 0 where masked (a fully masked row gives 0), and
-    ``lse = m + log(max(l, 1e-30))``."""
+    """Plain PyTorch version of the flash forward, in f32 from the
+    operands' values, with the kernel's masking rules: masked scores
+    are -1e30, probabilities are forced to 0 where masked (a fully
+    masked row gives 0), and ``lse = m + log(max(l, 1e-30))``. O comes
+    back in the operands' dtype (rounded once), the LSE in f32."""
+    _same_dtype((("q", q), ("k", k), ("v", v)))
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -87,6 +126,7 @@ def _bwd_probs(q, k, v, key_mask, lse, g, delta, causal):
     backward: p from the saved ``lse`` [B, H, T], where-guarded (a
     fully masked row's lse is -1e30, so ``exp(s - lse)`` alone would be
     1 there), ``ds = p * (g V^T - delta)``."""
+    _same_dtype((("q", q), ("k", k), ("v", v), ("g", g)))
     B, T, H, D = q.shape
     scale = 1.0 / math.sqrt(D)
     q, k, v, g = (x.float() for x in (q, k, v, g))
@@ -99,33 +139,36 @@ def _bwd_probs(q, k, v, key_mask, lse, g, delta, causal):
 
 
 def backward_delta(g, out):
-    """rowsum(dO * O) as [B, H, T]: O(T), outside the kernels as in JAX."""
+    """rowsum(dO * O) as [B, H, T] in f32 from the operands' values:
+    O(T), outside the kernels as in JAX."""
     return (g.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
 def flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
                                  causal: bool = False):
-    """Plain version of the dQ kernel: ``dq = ds K * scale``."""
-    _, k, _, _, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
-                                       causal)
-    return torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale
+    """Plain version of the dQ kernel: ``dq = ds K * scale``, in f32,
+    returned in q's dtype."""
+    _, kf, _, _, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
+                                        causal)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale).to(q.dtype)
 
 
 def flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse, delta,
                                   causal: bool = False):
     """Plain version of the dK/dV kernel: ``dk = ds^T Q * scale``,
-    ``dv = p^T dO``."""
-    q, _, g, p, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
-                                       causal)
-    return (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
-            torch.einsum("bhqk,bqhd->bkhd", p, g))
+    ``dv = p^T dO``, in f32, returned in k's and v's dtype."""
+    qf, _, gf, p, ds, scale = _bwd_probs(q, k, v, key_mask, lse, g, delta,
+                                         causal)
+    return ((torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale).to(k.dtype),
+            torch.einsum("bhqk,bqhd->bkhd", p, gf).to(v.dtype))
 
 
 def flash_attention_bwd_torch(q, k, v, key_mask, out, lse, g,
                               causal: bool = False):
-    """Plain version of the flash backward, in f32: (dq, dk, dv), each
-    [B, T, H, D], of the forward's ``out`` given its gradient ``g`` and
-    the forward's ``lse``."""
+    """Plain version of the flash backward, in f32 from the operands'
+    values: (dq, dk, dv), each [B, T, H, D] in the operands' dtype, of
+    the forward's ``out`` given its gradient ``g`` and the forward's
+    ``lse``."""
     delta = backward_delta(g, out)
     return (flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
                                          causal),
@@ -134,13 +177,16 @@ def flash_attention_bwd_torch(q, k, v, key_mask, out, lse, g,
 
 
 def _check_operands(named, q, key_mask):
-    """Every named tensor f32, contiguous, on q's device and shaped like
-    q; D within the kernels' 1..128; key_mask [B, T] or None. Returns
-    the mask as a contiguous f32 tensor (or None)."""
+    """Every named tensor f32 or bf16, all of one dtype, contiguous, on
+    q's device and shaped like q; D within the kernels' 1..128;
+    key_mask [B, T] or None. Returns the leg (``"f32"`` or ``"bf16"``)
+    and the mask as a contiguous f32 tensor (or None)."""
     B, T, H, D = q.shape
+    dtype = _same_dtype(named)
+    if dtype not in _LEGS:
+        raise TypeError(f"flash kernels take f32 or bf16 operands, not "
+                        f"{dtype} (fp16 legs: ROADMAP.md queue B, item B8)")
     for name, t in named:
-        if t.dtype != torch.float32:
-            raise TypeError(f"flash kernel takes f32, {name} is {t.dtype}")
         if tuple(t.shape) != (B, T, H, D):
             raise ValueError(f"{name} shape {tuple(t.shape)} != q shape "
                              f"{(B, T, H, D)}")
@@ -149,12 +195,12 @@ def _check_operands(named, q, key_mask):
     if not 1 <= D <= 128:
         raise ValueError(f"head dim {D} outside the kernel's 1..128")
     if key_mask is None:
-        return None
+        return _LEGS[dtype], None
     if tuple(key_mask.shape) != (B, T) or key_mask.device != q.device:
         raise ValueError(f"key_mask must be [B, T] = {(B, T)} on "
                          f"{q.device}, got {tuple(key_mask.shape)} on "
                          f"{key_mask.device}")
-    return key_mask.to(torch.float32).contiguous()
+    return _LEGS[dtype], key_mask.to(torch.float32).contiguous()
 
 
 def _ptr(t):
@@ -162,73 +208,86 @@ def _ptr(t):
 
 
 def key_groups_for(B: int, T: int, H: int, device) -> int:
-    """Groups of 4 warps that split each forward block's key tiles: 2
-    while the grid of 64-row query tiles is at most 2.5 blocks per SM
+    """Groups of 4 warps that split each f32 forward block's key tiles:
+    2 while the grid of 64-row query tiles is at most 2.5 blocks per SM
     (every served prefill at B=1; there the longest block's chain of
     key tiles sets the time), else 1, where the work rather than the
     chain does (measured crossover on the H100, see the forward design
     at the top of ``csrc/flash_attention.cu``). The choice, and with it
     the rounding of every output row, depends on the batch and the card,
-    not only on the row's own inputs."""
+    not only on the row's own inputs. The bf16 leg has one group."""
     blocks = B * H * -(-T // 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 2 if 2 * blocks <= 5 * sms else 1
 
 
 def _flash_attention_cuda(q, k, v, causal, key_mask, key_groups=None):
-    global launches
+    global launches, launches_bf16
     B, T, H, D = q.shape
-    key_mask = _check_operands((("q", q), ("k", k), ("v", v)), q, key_mask)
-    if key_groups is None:
-        key_groups = key_groups_for(B, T, H, q.device)
+    leg, key_mask = _check_operands((("q", q), ("k", k), ("v", v)), q,
+                                    key_mask)
     lib = _build.load("flash_attention", _SIGNATURES)
     out = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+            out.data_ptr(), lse.data_ptr(), B, T, H, D, int(bool(causal)),
+            1.0 / math.sqrt(D))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flash_attention_fwd_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            out.data_ptr(), lse.data_ptr(), B, T, H, D, int(bool(causal)),
-            1.0 / math.sqrt(D), int(key_groups), stream)
-    _build.check(rc, "flash_attention")
-    launches += 1
+        if leg == "bf16":
+            if key_groups not in (None, 1):
+                raise ValueError("the bf16 forward has one key group")
+            rc = lib.flash_attention_fwd_bf16(*args, stream)
+        else:
+            if key_groups is None:
+                key_groups = key_groups_for(B, T, H, q.device)
+            rc = lib.flash_attention_fwd_f32(*args, int(key_groups), stream)
+    _build.check(rc, f"flash_attention ({leg})")
+    if leg == "bf16":
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out, lse
 
 
 def _check_bwd_operands(q, k, v, key_mask, g, lse, delta):
-    """The backward kernels' operands; returns the mask as for the
-    forward."""
+    """The backward kernels' operands; returns the leg and the mask as
+    for the forward."""
     B, T, H, _ = q.shape
-    key_mask = _check_operands((("q", q), ("k", k), ("v", v), ("g", g)),
-                               q, key_mask)
+    leg, key_mask = _check_operands(
+        (("q", q), ("k", k), ("v", v), ("g", g)), q, key_mask)
     for name, t in (("lse", lse), ("delta", delta)):
         if t.dtype != torch.float32 or tuple(t.shape) != (B, H, T) \
                 or t.device != q.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous f32 [B, H, T] = "
                              f"{(B, H, T)} on {q.device}")
-    return key_mask
+    return leg, key_mask
 
 
 def flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta,
                            causal: bool = False):
     """dQ kernel (B6) on CUDA tensors, its plain version on CPU ones.
     ``delta = rowsum(g * out)`` [B, H, T]."""
-    global launches_dq
+    global launches_dq, launches_dq_bf16
     if not q.is_cuda:
         return flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
                                             causal)
     B, T, H, D = q.shape
-    key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
+    leg, key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
     lib = _build.load("flash_attention", _SIGNATURES)
+    fn = lib.flash_attention_bwd_dq_bf16 if leg == "bf16" \
+        else lib.flash_attention_bwd_dq_f32
     dq = torch.empty_like(q)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd_dq_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            B, T, H, D, int(bool(causal)), 1.0 / math.sqrt(D),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention_bwd_dq")
-    launches_dq += 1
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+                B, T, H, D, int(bool(causal)), 1.0 / math.sqrt(D),
+                torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"flash_attention_bwd_dq ({leg})")
+    if leg == "bf16":
+        launches_dq_bf16 += 1
+    else:
+        launches_dq += 1
     return dq
 
 
@@ -236,29 +295,33 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
                             causal: bool = False):
     """dK/dV kernel (B7) on CUDA tensors, its plain version on CPU
     ones. Returns (dk, dv)."""
-    global launches_dkv
+    global launches_dkv, launches_dkv_bf16
     if not q.is_cuda:
         return flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse,
                                              delta, causal)
     B, T, H, D = q.shape
-    key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
+    leg, key_mask = _check_bwd_operands(q, k, v, key_mask, g, lse, delta)
     lib = _build.load("flash_attention", _SIGNATURES)
+    fn = lib.flash_attention_bwd_dkv_bf16 if leg == "bf16" \
+        else lib.flash_attention_bwd_dkv_f32
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd_dkv_f32(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
-            g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), B, T, H, D, int(bool(causal)),
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
-    _build.check(rc, "flash_attention_bwd_dkv")
-    launches_dkv += 1
+        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(key_mask),
+                g.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B, T, H, D, int(bool(causal)),
+                1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+    _build.check(rc, f"flash_attention_bwd_dkv ({leg})")
+    if leg == "bf16":
+        launches_dkv_bf16 += 1
+    else:
+        launches_dkv += 1
     return dk, dv
 
 
 def fwd_kernel_info(D: int, key_groups: int) -> dict:
     """Registers a thread, local (spill) bytes, dynamic shared memory
-    (bytes), resident blocks per SM and threads a block of the forward
-    kernel at head dim ``D``, as the card reports them."""
+    (bytes), resident blocks per SM and threads a block of the f32
+    forward kernel at head dim ``D``, as the card reports them."""
     lib = _build.load("flash_attention", _SIGNATURES)
     out = (ctypes.c_int * 5)()
     _build.check(lib.flash_attention_fwd_info(D, key_groups, out),
@@ -269,13 +332,31 @@ def fwd_kernel_info(D: int, key_groups: int) -> dict:
 
 def bwd_kernel_info(D: int) -> dict:
     """Dynamic shared memory (bytes) and resident blocks per SM of the
-    dQ and dK/dV kernels at head dim ``D``, as the card reports them."""
+    f32 dQ and dK/dV kernels at head dim ``D``, as the card reports
+    them."""
     lib = _build.load("flash_attention", _SIGNATURES)
     out = (ctypes.c_int * 4)()
     _build.check(lib.flash_attention_bwd_info(D, out),
                  "flash_attention_bwd_info")
     return {"dq": {"smem_bytes": out[0], "blocks_per_sm": out[1]},
             "dkv": {"smem_bytes": out[2], "blocks_per_sm": out[3]}}
+
+
+def bf16_kernel_info(D: int) -> dict:
+    """Registers a thread, local (spill) bytes, dynamic shared memory
+    (bytes), resident blocks per SM and threads a block of each bf16
+    leg (``fwd``, ``dq``, ``dkv``) at head dim ``D``, as the card
+    reports them."""
+    lib = _build.load("flash_attention", _SIGNATURES)
+    res = {}
+    for which, name in enumerate(("fwd", "dq", "dkv")):
+        out = (ctypes.c_int * 5)()
+        _build.check(lib.flash_attention_bf16_info(which, D, out),
+                     "flash_attention_bf16_info")
+        res[name] = dict(registers=out[0], local_bytes=out[1],
+                         smem_bytes=out[2], blocks_per_sm=out[3],
+                         threads=out[4])
+    return res
 
 
 def flash_attention(q, k, v, causal: bool = False, key_mask=None):
@@ -292,8 +373,8 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g,
     given its gradient ``g`` and the forward's ``lse``: the dQ and
     dK/dV kernels for CUDA tensors, their plain versions for CPU
     ones."""
-    if q.is_cuda and (out.shape != q.shape or out.dtype != torch.float32):
-        raise ValueError(f"out must be f32 {tuple(q.shape)}")
+    if q.is_cuda and (out.shape != q.shape or out.dtype != q.dtype):
+        raise ValueError(f"out must be {q.dtype} {tuple(q.shape)}")
     delta = backward_delta(g, out)
     return (flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta, causal),
             *flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
@@ -303,7 +384,9 @@ def flash_attention_bwd(q, k, v, key_mask, out, lse, g,
 class FlashAttentionFunction(torch.autograd.Function):
     """The ``jax.custom_vjp`` of the JAX module: the forward kernel
     (B3) saves q, k, v, the mask, the output and the LSE; the backward
-    runs the dQ and dK/dV kernels. The mask gets no gradient."""
+    runs the dQ and dK/dV kernels. f32 and bf16 operands take their own
+    legs, and bf16 leaves get bf16 gradients. The mask gets no
+    gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_mask, causal):

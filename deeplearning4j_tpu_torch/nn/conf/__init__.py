@@ -9,8 +9,10 @@ produce.
             .layer(RnnOutputLayer(n_out=32000, loss="mcxent"))
             .input_type_recurrent(1, timesteps=1024).build())
 
-Settings the port cannot train with yet (TBPTT, remat, a bf16 dtype)
-are recorded here and refused by ``MultiLayerNetwork``.
+Settings the port cannot train with yet (TBPTT, remat) are recorded
+here and refused by ``MultiLayerNetwork``. A half dtype
+(``data_type("bfloat16")``) trains under the bf16 mixed-precision
+policy (``nn/precision.py``).
 """
 from __future__ import annotations
 
@@ -147,7 +149,9 @@ class NeuralNetConfiguration:
         return self
 
     def data_type(self, dt: str):
-        """The configuration's dtype; only f32 trains in the port."""
+        """The configuration's dtype: ``"float"`` (the default) trains in
+        f32; ``"bfloat16"``, ``"bf16"``, ``"half"``, ``"float16"`` and
+        ``"fp16"`` under the bf16 mixed-precision policy."""
         self._dtype = dt
         return self
 

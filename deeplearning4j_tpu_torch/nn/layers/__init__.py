@@ -15,8 +15,11 @@ dict, as in the JAX package:
 
 Shapes exclude the batch axis; sequences are [B, T, C]. Weights are
 ``[in, out]`` and applied as ``x @ W``, so JAX weights carry over as a
-plain copy. Gradients come from autograd. Dropout is not ported yet: a
-nonzero rate raises when a training pass would apply it.
+plain copy. A layer computes in the promoted dtype of its input and
+params, as the JAX layers do: bf16 under the bf16 policy
+(``nn/precision.py``), f32 where an f32 mask has promoted the input.
+Gradients come from autograd. Dropout is not ported yet: a nonzero
+rate raises when a training pass would apply it.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from ... import activations as A
 from ... import learning as U
 from ... import losses as L
 from ...weightinit import init_weights
+from ..functional import matmul
 
 Shape = Tuple[int, ...]
 
@@ -172,7 +176,7 @@ class DenseLayer(Layer):
         """The pre-activation both ``apply`` and the output layers'
         ``compute_loss`` go through."""
         x = self._maybe_dropout(x, train, rng)
-        z = x @ params["W"]
+        z = matmul(x, params["W"])
         if self.has_bias:
             z = z + params["b"]
         return z

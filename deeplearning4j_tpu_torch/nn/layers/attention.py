@@ -12,7 +12,11 @@ params dict with weights shaped ``[in, out]`` and applied as
 Attention over a whole sequence goes through the flash kernels on the
 card (forward B3, backward B6/B7 through
 :func:`~..kernels.flash_attention.flash_attention_autograd`), so
-gradients reach Wq, Wk and Wv. The decode and paged-prefill paths
+gradients reach Wq, Wk and Wv. Under the bf16 policy the projections
+and the MLP are bf16 ``torch.matmul`` (f32 accumulation; JAX left them
+to XLA) and q, k, v go to the kernels' bf16 legs; on the CPU the plain
+path computes in f32 from the bf16 values and returns bf16, as JAX's
+plain path does. The decode and paged-prefill paths
 write K/V into the cache or pool tensors in place; the JAX code
 returned updated caches that the executables donated.
 """
@@ -30,7 +34,7 @@ from ...kernels.kv_quant import QuantArray, is_quantized, kv_set, mm
 from ...kernels.paged_attention import paged_attention
 from ...parallel.longseq import dot_product_attention
 from ...weightinit import init_weights
-from ..functional import layer_norm
+from ..functional import layer_norm, matmul
 from . import Layer, register
 
 
@@ -158,9 +162,9 @@ class SelfAttentionLayer(Layer):
             causal=self.causal)
 
     def _project(self, params, x, shape):
-        return ((x @ params["Wq"]).reshape(shape),
-                (x @ params["Wk"]).reshape(shape),
-                (x @ params["Wv"]).reshape(shape))
+        return (matmul(x, params["Wq"]).reshape(shape),
+                matmul(x, params["Wk"]).reshape(shape),
+                matmul(x, params["Wv"]).reshape(shape))
 
     def apply_seq(self, params, x, state, train, rng, carry, mask):
         """Forward over x [B, T, C]; ``mask`` is an optional [B, T]
@@ -171,7 +175,7 @@ class SelfAttentionLayer(Layer):
         x = self._maybe_dropout(x, train, rng)
         q, k, v = self._project(params, x, (B, T, H, self.n_out // H))
         att = self._attend(q, k, v, mask)
-        out = att.reshape(B, T, self.n_out) @ params["Wo"] + params["b"]
+        out = matmul(att.reshape(B, T, self.n_out), params["Wo"]) + params["b"]
         if mask is not None:
             out = out * mask[..., None]
         return self.activation(out), state, carry
@@ -345,9 +349,10 @@ class TransformerEncoderLayer(Layer):
                                         train, rng, (), mask)
         x = x + att
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
-        h = F.gelu(h @ params["W1"] + params["b1"], approximate="tanh")
+        h = F.gelu(matmul(h, params["W1"]) + params["b1"],
+                   approximate="tanh")
         h = self._maybe_dropout(h, train, rng)
-        x = x + (h @ params["W2"] + params["b2"])
+        x = x + (matmul(h, params["W2"]) + params["b2"])
         if mask is not None:
             x = x * mask[..., None]
         return x, state, carry

@@ -10,6 +10,16 @@ place under ``torch.no_grad``. Params, gradients and updater state
 live on the network's device: the GPU unless ``device="cpu"`` is
 asked for.
 
+A configuration with a half dtype (``data_type("bfloat16")``) trains
+under the bf16 mixed-precision policy of ``precision.py``, as in JAX:
+the loss casts every layer's params but the output layer's, and the
+input, to bf16, runs the stack up to the output layer in bf16 (the
+attention layers through the flash kernels' bf16 legs on the card),
+promotes the features back to f32 and takes the output layer's loss
+and the L1/L2 terms on the f32 masters. Autograd carries the gradients
+back through the casts, so gradients, the updater state and the
+updates stay f32. ``output()`` runs uncast, in f32.
+
 Not ported yet, and refused: TBPTT, remat, layerwise pretraining,
 stateful ``rnn_time_step``, the anomaly guard and listeners.
 """
@@ -22,7 +32,8 @@ import torch
 from ..device import resolve_device
 from .conf import MultiLayerConfiguration
 from .layers import Layer
-from .precision import compute_dtype
+from .precision import (cast_feats_to_f32, cast_input_for_compute,
+                        cast_params_for_compute, compute_dtype)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -75,7 +86,6 @@ class MultiLayerNetwork:
             _not_ported("truncated BPTT")
         if conf.remat:
             _not_ported("remat")
-        compute_dtype(conf.dtype)  # only the f32 policy is ported
         self.conf = conf
         self.device = resolve_device(device)
         self.layers: List[Layer] = conf.layers
@@ -97,8 +107,10 @@ class MultiLayerNetwork:
         if self._input_shape is None:
             raise ValueError("Configuration needs an input_type to init()")
         if dtype != torch.float32:
-            raise NotImplementedError("only f32 params are ported "
-                                      "(ROADMAP.md queue A, item 11)")
+            raise NotImplementedError(
+                "only f32 master params are ported; a half data_type trains "
+                "them under the bf16 policy (pure-bf16 params: ROADMAP.md "
+                "queue A, item 11)")
         shape = tuple(self._input_shape)
         gen = torch.Generator().manual_seed(self.conf.seed)
         params: Params = {}
@@ -147,9 +159,17 @@ class MultiLayerNetwork:
 
     def _loss_fn(self, params: Params, x, y, mask, train: bool):
         """Data loss plus the L1/L2 terms. ``mask`` is both the feature
-        and the label mask of a sequence model."""
-        feats = self._forward(params, x, train, upto=len(self.layers) - 1,
-                              fmask=mask)
+        and the label mask of a sequence model. Under the bf16 policy
+        the layers before the output layer compute in bf16 from cast
+        params and input; the output layer, the loss and the L1/L2
+        terms use the f32 masters."""
+        cdt = compute_dtype(self.conf.dtype)
+        params_c = cast_params_for_compute(params, {self._layer_keys[-1]},
+                                           cdt)
+        xc = cast_input_for_compute(x, cdt)
+        feats = self._forward(params_c, xc, train,
+                              upto=len(self.layers) - 1, fmask=mask)
+        feats = cast_feats_to_f32(feats)
         lmask = mask
         if mask is not None and feats.ndim == 2 and x.ndim == 3:
             # a sequence pooled to [B, C]: the [B, T] mask was consumed

@@ -489,8 +489,15 @@ def test_flash_backward_refuses_what_it_does_not_take():
     dev = _device()
     x = torch.zeros((1, 8, 2, 8), device=dev)
     lse = torch.zeros((1, 2, 8), device=dev)
-    with pytest.raises(TypeError):
+    delta = torch.zeros((1, 2, 8), device=dev)
+    # mixed dtypes (f32 q with a bf16 g) and fp16 operands (not ported)
+    with pytest.raises(TypeError, match="one dtype"):
         fa.flash_attention_bwd(x, x, x, None, x, lse, x.bfloat16())
+    h = x.half()
+    with pytest.raises(TypeError, match="B8"):
+        fa.flash_attention_bwd_dq(h, h, h, None, h, lse, delta)
+    with pytest.raises(TypeError, match="B8"):
+        fa.flash_attention_bwd_dkv(h, h, h, None, h, lse, delta)
     with pytest.raises(ValueError):
         fa.flash_attention_bwd(x, x, x, None, x, lse,
                                x.transpose(1, 2).contiguous().transpose(1, 2))
@@ -502,11 +509,15 @@ def test_flash_backward_refuses_what_it_does_not_take():
                                torch.zeros((1, 1, 8), device=dev), wide)
 
 
-def test_network_step_on_the_card_matches_the_cpu():
+@pytest.mark.parametrize("dtype", ["float", "bfloat16"])
+def test_network_step_on_the_card_matches_the_cpu(dtype):
     """One loss and gradient of a small causal LM through
     MultiLayerNetwork on the card (flash kernels) against a CPU copy
-    (plain attention): loss within 1e-4 relative, each gradient leaf
-    within 1e-3 of its max-norm."""
+    (plain attention). f32: loss within 1e-4 relative, each gradient
+    leaf within 1e-3 of its max-norm. bf16 policy (the bf16 legs, bf16
+    cuBLAS GEMMs; the CPU copy in bf16 too, rounding at other places in
+    another order): 1e-2 and 3e-2, and the f32 legs never launch.
+    Gradients reach the f32 masters as f32 either way."""
     from deeplearning4j_tpu_torch.learning import Adam
     from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
                                              NeuralNetConfiguration)
@@ -515,10 +526,13 @@ def test_network_step_on_the_card_matches_the_cpu():
     from deeplearning4j_tpu_torch.nn.layers.recurrent import (
         EmbeddingSequenceLayer, RnnOutputLayer)
     dev = _device()
+    bf16 = dtype == "bfloat16"
+    loss_tol, grad_tol = (1e-2, 3e-2) if bf16 else (1e-4, 1e-3)
 
     def conf():
         return (NeuralNetConfiguration.builder().seed(0).updater(Adam(1e-3))
-                .list().layer(EmbeddingSequenceLayer(n_in=50, n_out=64))
+                .data_type(dtype).list()
+                .layer(EmbeddingSequenceLayer(n_in=50, n_out=64))
                 .layer(TransformerEncoderLayer(n_heads=2, causal=True))
                 .layer(TransformerEncoderLayer(n_heads=2, causal=True))
                 .layer(RnnOutputLayer(n_out=50))
@@ -530,19 +544,177 @@ def test_network_step_on_the_card_matches_the_cpu():
     rs = np.random.RandomState(2)
     x = rs.randint(0, 50, (3, 96))
     y = np.eye(50, dtype=np.float32)[(3 * x + 1) % 50]
-    m = np.ones((3, 96), np.float32)
-    m[1, 60:] = 0.0
-    n = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    # a ragged row; under the bf16 policy the f32 mask would promote
+    # the layers after the first attention to f32, so no mask there
+    m = None
+    if not bf16:
+        m = np.ones((3, 96), np.float32)
+        m[1, 60:] = 0.0
+    names = ("launches", "launches_dq", "launches_dkv", "launches_bf16",
+             "launches_dq_bf16", "launches_dkv_bf16")
+    n = [getattr(fa, c) for c in names]
     loss, grads = card.loss_and_gradients(x, y, m)
-    assert (fa.launches - n[0], fa.launches_dq - n[1],
-            fa.launches_dkv - n[2]) == (2, 2, 2)
+    ran = tuple(getattr(fa, c) - b for c, b in zip(names, n))
+    assert ran == ((0, 0, 0, 2, 2, 2) if bf16 else (2, 2, 2, 0, 0, 0))
     ref_loss, ref = cpu.loss_and_gradients(x, y, m)
-    assert abs(float(loss) - float(ref_loss)) <= 1e-4 * abs(float(ref_loss))
+    assert abs(float(loss) - float(ref_loss)) <= \
+        loss_tol * abs(float(ref_loss))
     for key, p in ref.items():
         for name, t in p.items():
-            err = (grads[key][name].cpu() - t).abs().max().item()
-            assert err <= 1e-3 * max(t.abs().max().item(), 1e-12), \
+            got = grads[key][name]
+            assert got.dtype == torch.float32
+            err = (got.cpu() - t).abs().max().item()
+            assert err <= grad_tol * max(t.abs().max().item(), 1e-12), \
                 f"{key}.{name}"
+
+
+# -- the bf16 legs of B3, B6 and B7 -------------------------------------
+# bf16 legs against their plain versions (f32 from the same bf16
+# values): P and dS are rounded to bf16 before the second products, and
+# both sides round O, dQ, dK and dV to bf16 once (one ulp is up to 2^-7
+# of the largest value), so O within 1e-2 x max(1, max|O|), each
+# gradient within 2e-2 x max(1, its max); the LSE is f32 on both sides
+TOL_BF16_O = 1e-2
+TOL_BF16_GRAD = 2e-2
+TOL_BF16_LSE = 1e-5
+
+
+def _bf16_case(rs, B, T, H, D, dev):
+    q, k, v, g = (_randn(rs, B, T, H, D, dev=dev).bfloat16()
+                  for _ in range(4))
+    km = torch.ones((B, T), device=dev)
+    km[0, (2 * T) // 3:] = 0.0   # a ragged row
+    km[-1] = 0.0                 # every key masked
+    return q, k, v, g, km
+
+
+def _scaled_err(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() /
+            max(want.abs().max().item(), 1.0)).item()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("T", [8, 100, 257])
+def test_bf16_legs_match_plain(T, D, causal):
+    """The three bf16 legs against their plain versions: a ragged key
+    mask, a batch row whose keys are all masked (O 0, LSE -1e30,
+    gradients exactly 0), T not a multiple of 64; each leg counts its
+    own launch and the f32 legs' counters stay."""
+    dev = _device()
+    rs = np.random.RandomState(7 * T + D + causal)
+    q, k, v, g, km = _bf16_case(rs, 3, T, 2, D, dev)
+    f32 = (fa.launches, fa.launches_dq, fa.launches_dkv)
+    n = (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16)
+    out, lse = fa.flash_attention(q, k, v, causal, km)
+    ro, rl = fa.flash_attention_torch(q, k, v, causal, km)
+    delta = fa.backward_delta(g, ro)
+    got = (fa.flash_attention_bwd_dq(q, k, v, km, g, rl, delta, causal),
+           *fa.flash_attention_bwd_dkv(q, k, v, km, g, rl, delta, causal))
+    want = (fa.flash_attention_bwd_dq_torch(q, k, v, km, g, rl, delta,
+                                            causal),
+            *fa.flash_attention_bwd_dkv_torch(q, k, v, km, g, rl, delta,
+                                              causal))
+    torch.cuda.synchronize()
+    assert (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16) \
+        == (n[0] + 1, n[1] + 1, n[2] + 1)
+    assert (fa.launches, fa.launches_dq, fa.launches_dkv) == f32
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    assert _scaled_err(out, ro) <= TOL_BF16_O
+    assert (lse - rl).abs().max().item() <= TOL_BF16_LSE
+    assert out[2].abs().max().item() == 0.0 and bool((lse[2] == -1e30).all())
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        assert _scaled_err(a, b) <= TOL_BF16_GRAD
+        assert a[2].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_bf16_legs_are_deterministic(D):
+    """One owner block per output row, no atomics: two calls of each
+    bf16 leg give the same bits."""
+    dev = _device()
+    q, k, v, g, km = _bf16_case(np.random.RandomState(D), 3, 257, 2, D, dev)
+    first = fa.flash_attention(q, k, v, True, km)
+    assert all(torch.equal(a, b) for a, b in
+               zip(first, fa.flash_attention(q, k, v, True, km)))
+    args = (q, k, v, km, g, first[1], fa.backward_delta(g, first[0]))
+    a = _bwd_kernels(*args, True)
+    b = _bwd_kernels(*args, True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_bf16_legs_at_the_training_shape():
+    """B=4, H=8, T=1024, D=64, causal, every key live: the bf16 training
+    path's shape (chip_smoke.py phase 10)."""
+    dev = _device()
+    rs = np.random.RandomState(2048)
+    q, k, v, g = (_randn(rs, 4, 1024, 8, 64, dev=dev).bfloat16()
+                  for _ in range(4))
+    km = torch.ones((4, 1024), device=dev)
+    out, lse = fa.flash_attention(q, k, v, True, km)
+    ro, rl = fa.flash_attention_torch(q, k, v, True, km)
+    delta = fa.backward_delta(g, ro)
+    got = _bwd_kernels(q, k, v, km, g, rl, delta, True)
+    want = (fa.flash_attention_bwd_dq_torch(q, k, v, km, g, rl, delta, True),
+            *fa.flash_attention_bwd_dkv_torch(q, k, v, km, g, rl, delta,
+                                              True))
+    torch.cuda.synchronize()
+    assert _scaled_err(out, ro) <= TOL_BF16_O
+    assert (lse - rl).abs().max().item() <= TOL_BF16_LSE
+    for a, b in zip(got, want):
+        assert _scaled_err(a, b) <= TOL_BF16_GRAD
+
+
+def test_bf16_autograd_function_on_the_card():
+    """bf16 leaves through the Function on the card get bf16 gradients
+    that match the same Function on a CPU copy (plain versions), and
+    each bf16 leg ran once."""
+    dev = _device()
+    rs = np.random.RandomState(12)
+    host = [torch.from_numpy(rs.randn(2, 130, 4, 64).astype(np.float32))
+            .bfloat16() for _ in range(4)]
+    km = torch.ones((2, 130))
+    km[0, 90:] = 0.0
+    grads = {}
+    for where in ("cpu", dev):
+        q, k, v = (x.detach().to(where).requires_grad_(True)
+                   for x in host[:3])
+        n = (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16)
+        out = fa.flash_attention_autograd(q, k, v, True, km.to(where))
+        assert out.dtype == torch.bfloat16
+        out.backward(host[3].to(where))
+        ran = tuple(a - b for a, b in zip(
+            (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16),
+            n))
+        assert ran == ((0, 0, 0) if where == "cpu" else (1, 1, 1))
+        grads[str(where)] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads[str(dev)], grads["cpu"]):
+        assert a.dtype == torch.bfloat16
+        assert _scaled_err(a, b) <= TOL_BF16_GRAD
+
+
+def test_bf16_cuda_operands_the_legs_do_not_take_raise():
+    """fp16 operands, mixed dtypes and D > 128 raise on the card; no
+    bf16 CUDA tensor reaches a plain version."""
+    dev = _device()
+    x = torch.zeros((1, 8, 2, 8), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="B8"):
+        fa.flash_attention(x.half(), x.half(), x.half())
+    with pytest.raises(TypeError, match="one dtype"):
+        fa.flash_attention(x, x.float(), x)
+    wide = torch.zeros((1, 8, 1, 160), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(wide, wide, wide)
+    lse = torch.zeros((1, 1, 8), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention_bwd(wide, wide, wide, None, wide, lse, wide)
+    with pytest.raises(ValueError, match="out must be"):
+        fa.flash_attention_bwd(x, x, x, None, x.float(),
+                               torch.zeros((1, 2, 8), device=dev), x)
 
 
 #: the engine tests' model: head dim 32, so the int8 kernels take

@@ -18,6 +18,24 @@ Tolerances, with their reasons:
 - Adam's m and v after those steps: rtol 1e-3, atol 1e-7 (they
   accumulate gradients whose smallest entries carry the summation-order
   error relative to their size).
+
+At ``data_type("bfloat16")`` (the bf16 mixed-precision policy on both
+sides: every layer but the output layer computes in bf16, masters and
+Adam state stay f32), with the same params and batch:
+- loss: rtol 1e-2 (bf16 activations round at ~2^-9 per op; measured
+  2.8e-4);
+- every gradient leaf within 4e-2 of its largest magnitude. The two
+  sides round bf16 at different places (JAX's GELU rounds each of its
+  seven bf16 ops, PyTorch's once from f32; the backward's reductions
+  run in another order), and the small leaves (layer-norm gains,
+  biases) sum 128 tokens' bf16 terms. JAX's own bf16 gradients stand up
+  to 3.7e-2 from its f32 gradients on those leaves, the port's 2.0e-2
+  (measured, CPU), so the two differ by up to 3.4e-2 (measured over
+  four batches); 2e-2 would hold the port to JAX's own rounding;
+- three Adam steps at lr 1e-3: params within 2 * lr per step (Adam's
+  first steps move a param by ~lr * sign(g), and a bf16-rounded
+  gradient near 0 may flip one step's sign; measured 4.1e-3 of the
+  6e-3 after three steps).
 """
 import jax
 import jax.numpy as jnp
@@ -41,7 +59,8 @@ from deeplearning4j_tpu_torch.learning import Adam
 from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
                                          MultiLayerNetwork,
                                          NeuralNetConfiguration)
-from deeplearning4j_tpu_torch.nn.layers import GlobalPoolingLayer, OutputLayer
+from deeplearning4j_tpu_torch.nn.layers import (DenseLayer, GlobalPoolingLayer,
+                                                OutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.attention import \
     TransformerEncoderLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
@@ -56,9 +75,12 @@ PORT_SIDE = (NeuralNetConfiguration, EmbeddingSequenceLayer,
              TransformerEncoderLayer, RnnOutputLayer, Adam)
 
 
-def _lm_conf(side, impl, l2=0.0, max_norm=None, lr=1e-3, dropout=None):
+def _lm_conf(side, impl, l2=0.0, max_norm=None, lr=1e-3, dropout=None,
+             dtype=None):
     Conf, Emb, Enc, Out, Opt = side
     b = Conf.builder().seed(0).updater(Opt(lr)).weight_init("xavier")
+    if dtype:
+        b = b.data_type(dtype)
     if l2:
         b = b.l2(l2)
     if max_norm:
@@ -70,6 +92,11 @@ def _lm_conf(side, impl, l2=0.0, max_norm=None, lr=1e-3, dropout=None):
             .layer(Enc(**enc)).layer(Enc(**enc))
             .layer(Out(n_out=V, loss="mcxent", activation="softmax"))
             .input_type_recurrent(1, timesteps=T).build())
+
+
+BF16_LOSS_RTOL = 1e-2
+BF16_GRAD_TOL = 4e-2
+BF16_LR = 1e-3
 
 
 def _pair(impl, **kw):
@@ -240,10 +267,23 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="dropout"):
         MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain", dropout=0.1),
                           device="cpu").fit(*_batch()[:2])
-    bf16 = (NeuralNetConfiguration.builder().data_type("bfloat16").list()
+    # a bf16 configuration builds and trains on the CPU (the bf16
+    # policy); only pure-bf16 params stay unported
+    bf16 = (NeuralNetConfiguration.builder().seed(0).data_type("bfloat16")
+            .updater(Adam(1e-2)).list()
+            .layer(DenseLayer(n_out=8, activation="tanh"))
             .layer(OutputLayer(n_out=2)).input_type_feed_forward(3).build())
+    net = MultiLayerNetwork(bf16, device="cpu").init()
+    rs = np.random.RandomState(0)
+    xs = rs.randn(32, 3).astype(np.float32)
+    ys = np.eye(2, dtype=np.float32)[(xs.sum(1) > 0).astype(int)]
+    first = net.score(xs, ys)
+    net.fit(xs, ys, epochs=20)
+    assert net.score(xs, ys) < first
+    assert all(t.dtype == torch.float32 for p in net.params().values()
+               for t in p.values())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MultiLayerNetwork(bf16, device="cpu")
+        net.init(dtype=torch.bfloat16)
     for kw in (dict(tbptt_fwd_length=8), dict(remat=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             MultiLayerNetwork(MultiLayerConfiguration(
@@ -280,3 +320,69 @@ def test_auto_takes_plain_attention_on_cpu(monkeypatch):
         MultiLayerNetwork(_lm_conf(PORT_SIDE, impl), device="cpu").fit(x, y)
         assert len(calls) == want
     assert (fa.launches, fa.launches_dq, fa.launches_dkv) == n
+
+
+# -- the bf16 mixed-precision policy (data_type("bfloat16")) ------------
+def _bf16_pair(impl):
+    return _pair(impl, dtype="bfloat16")
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_bf16_loss_and_every_gradient_match_jax(impl, masked):
+    """The bf16 policy's loss and gradients against JAX's: gradients
+    reach the f32 masters as f32."""
+    jn, tn = _bf16_pair(impl)
+    x, y, m = _batch(masked=masked)
+    jl, jg = _jax_loss_and_grads(jn, x, y, m)
+    tl, tg = tn.loss_and_gradients(x, y, m)
+    _close(float(tl), float(jl), rtol=BF16_LOSS_RTOL, atol=0)
+    assert sorted(tg) == sorted(jg)
+    for key in jg:
+        for name, want in jg[key].items():
+            got = tg[key][name]
+            assert got.dtype == torch.float32
+            want = np.asarray(want)
+            err = np.abs(got.numpy() - want).max()
+            assert err <= BF16_GRAD_TOL * np.abs(want).max(), \
+                f"{key}.{name}: {err} of max {np.abs(want).max()}"
+
+
+def test_bf16_forward_computes_in_bf16(monkeypatch):
+    """Every layer but the output layer sees bf16 params and
+    activations; the output layer's features come back f32."""
+    _, tn = _bf16_pair("flash")
+    seen = []
+    real = TransformerEncoderLayer.apply_seq
+
+    def spy(self, params, x, *a, **kw):
+        seen.append((x.dtype, params["W1"].dtype))
+        return real(self, params, x, *a, **kw)
+    monkeypatch.setattr(TransformerEncoderLayer, "apply_seq", spy)
+    tn.loss_and_gradients(*_batch()[:2])
+    assert seen == [(torch.bfloat16, torch.bfloat16)] * 2
+    # output() runs uncast, as in JAX
+    assert tn.output(_batch()[0]).dtype == torch.float32
+
+
+@pytest.mark.parametrize("impl", ["plain", "flash"])
+def test_bf16_three_adam_steps_match_jax(impl):
+    jn, tn = _bf16_pair(impl)
+    x, y, _ = _batch(1)
+    steps = 3
+    losses = []
+    for _ in range(steps):
+        jn.fit(x, y)
+        tn.fit(x, y)
+        losses.append(tn.score_)
+    _close(tn.score_, float(jn._last_loss), rtol=BF16_LOSS_RTOL, atol=0)
+    assert losses[-1] < losses[0]
+    jp = jn.params()
+    for key, p in tn.params().items():
+        for name, t in p.items():
+            assert t.dtype == torch.float32
+            _close(t.detach().numpy(), jp[key][name], rtol=0,
+                   atol=2 * BF16_LR * steps, what=f"{key}.{name}")
+    for st in tn.get_updater_state().values():
+        for part in ("m", "v"):
+            assert all(t.dtype == torch.float32 for t in st[part].values())

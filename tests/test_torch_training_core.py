@@ -66,8 +66,8 @@ def test_unported_names_raise():
         L.get("binaryxent")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         U.get("rmsprop")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_dtype("bfloat16")
+    # the bf16 policy is ported: the half names map to bf16
+    assert compute_dtype("bfloat16") == torch.bfloat16
     assert compute_dtype("float") is None
 
 
