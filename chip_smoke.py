@@ -51,7 +51,10 @@ Phases, each of which fails the run when it fails:
    T=1024, D=64) and at B=1, causal and not, with a ragged key mask and
    a fully masked row (O and gradients exactly 0), two calls of each
    bit-identical, then each timed beside its bound at the bf16 rate,
-   its plain version and SDPA at bf16 (its backward for dQ and dK/dV);
+   its plain version and SDPA at bf16 (its backward for dQ and dK/dV).
+   The dQ and dK/dV pair and the whole bf16 backward (delta, dQ, dK/dV)
+   are timed beside SDPA's bf16 backward (with the mask and with
+   is_causal) at T = 1024, 2048 and 4096;
 9. training: the served width in the layer DSL fitted through
    MultiLayerNetwork.fit (one warmup and five timed Adam steps of
    4 x 1024 tokens); each flash kernel must launch once per layer and
@@ -83,10 +86,12 @@ the plain version there and timed over a sweep of batch and length
 (the measurement behind the rule that picks it); the flash forward
 must give the same bits on two calls, and reports registers, spills
 and blocks per SM.
-Phase 2 counts HMMA in every flash kernel (f32 and bf16 legs; the
-bf16 legs' must be bf16 HMMA) and I2F in the two int8 kernels from
-``cuobjdump -sass`` where the toolkit has it (the flash kernels must use
-the tensor cores, the int8 kernels must convert without I2F).
+Phase 2 counts HMMA (``mma.sync``) and HGMMA (``wgmma``) in every flash
+kernel and I2F in the two int8 kernels from ``cuobjdump -sass`` where
+the toolkit has it: the bf16 dQ and dK/dV kernels must run bf16 HGMMA
+and no HMMA at each head-dim bucket (32, 64, 128), the other flash
+kernels HMMA (the bf16 forward bf16 HMMA), and the int8 kernels must
+convert without I2F.
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -97,10 +102,12 @@ the kernels line, the card's name and power limit, and last
 compares the code of another checkout with this one on the card
 instead: each checkout's own code in turns (parent, this, this,
 parent), each turn a process of its own, timing the flash forward at
-B=1 and B=4 and its backward kernels at B=4, the decode and paged
-kernels, f32 and int8 (their phase-3 checks), and serving phases 4 to
-7 with their profile windows; an "A/B runs:" line carries every turn
-as JSON.
+B=1 and B=4 and its backward kernels at B=4, the bf16 legs of all
+three and the whole bf16 backward (delta included) at B=4, T=1024,
+the decode and paged kernels, f32 and int8 (their phase-3 checks),
+serving phases 4 to 7 with their profile windows, and phase 10 (step
+p50, the host's enqueue p50, device time by kind); an "A/B runs:"
+line carries every turn as JSON.
 """
 from __future__ import annotations
 
@@ -1074,8 +1081,11 @@ def check_flash_bf16(dev):
     then each timed at the training shapes (causal, every key live)
     beside its bound at the bf16 rate, its plain version and one library
     call (SDPA at bf16 for the forward, SDPA's backward at bf16 for the
-    backward pair), with registers, spills, shared memory and blocks per
-    SM by head dim."""
+    backward pair), with registers, spills, shared memory, blocks per SM
+    and threads by head dim. The pair and the port's whole backward
+    (delta included) are also held against SDPA's bf16 backward, with
+    the mask and with is_causal, there and at T = 2048 and 4096 (B = 4
+    and 1); see bwd_against_sdpa."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -1191,18 +1201,24 @@ def check_flash_bf16(dev):
     res["fwd"]["library_backend"] = _top_kernel(fwd_lib)
     lib_out = fwd_lib()
     dot = do.transpose(1, 2)
-
-    def lib_bwd():
-        return torch.autograd.grad(lib_out, (qt, kt, vt), dot,
-                                   retain_graph=True)
-    lib_ms = time_ms(lib_bwd)
-    backend = _top_kernel(lib_bwd)
+    backend = _top_kernel(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True))
+    res["pair"] = bwd_against_sdpa(dev, q, k, v, km, do, out, lse, mask)
+    res["pair"]["library_backend"] = backend
     for name in ("dq", "dkv"):
-        res[name]["library_ms"] = lib_ms
+        res[name]["library_ms"] = res["pair"]["library_ms"]
         res[name]["library_backend"] = backend
-    pair_ms = res["dq"]["ms"] + res["dkv"]["ms"]
-    res["pair"] = dict(ms=pair_ms, library_ms=lib_ms,
-                       ratio_to_library=pair_ms / lib_ms)
+    # the pair at longer sequences: T = 2048 and 4096, B = 4 and 1
+    res["long"] = {}
+    for Bl, Tl in ((4, 2048), (1, 2048), (4, 4096), (1, 4096)):
+        ql, kl, vl, dol = (torch.randn((Bl, Tl, H, D), generator=g).to(dev)
+                           .bfloat16() for _ in range(4))
+        kml = torch.ones((Bl, Tl), device=dev)
+        outl, lsel = fa.flash_attention(ql, kl, vl, True, kml)
+        maskl = torch.ones((Tl, Tl), dtype=torch.bool, device=dev).tril()[
+            None, None] & (kml > 0)[:, None, None, :]
+        res["long"][f"B={Bl} T={Tl}"] = bwd_against_sdpa(
+            dev, ql, kl, vl, kml, dol, outl, lsel, maskl)
     res["cases"] = cases
     res["info"] = {d: fa.bf16_kernel_info(d) for d in (32, 64, 128)}
     for name, label in (("fwd", "forward (B3)"), ("dq", "dQ (B6)"),
@@ -1214,11 +1230,57 @@ def check_flash_bf16(dev):
               f"{r['bound_ms']:.5f} ms at bf16 ({r['bound_by']}; share "
               f"{r['share_of_bound']:.3f}) ({r['gflop']:.3f} GFLOP, "
               f"{r['mbytes']:.2f} MB)")
-    print(f"flash bf16 B6 + B7: {pair_ms:.4f} ms against SDPA's bf16 "
-          f"backward {lib_ms:.4f} ms (ratio {pair_ms / lib_ms:.3f}); "
-          f"registers, spills, shared bytes, blocks per SM by head dim "
-          f"{res['info']}")
+    for shape, r in [(f"B={B} T={T}", res["pair"])] + list(
+            res["long"].items()):
+        print(f"flash bf16 backward {shape} H={H} D={D} causal: B6 + B7 "
+              f"{r['ms']:.4f} ms, the whole backward (delta "
+              f"{r['delta_ms']:.4f} + B6 + B7) {r['whole_ms']:.4f} ms, "
+              f"against SDPA's bf16 backward with the mask "
+              f"{r['library_ms']:.4f} ms (pair ratio "
+              f"{r['ratio_to_library']:.3f}, whole "
+              f"{r['whole_ratio_to_library']:.3f}) and with is_causal "
+              f"{r['library_causal_ms']:.4f} ms (pair "
+              f"{r['ms'] / r['library_causal_ms']:.3f}, whole "
+              f"{r['whole_ms'] / r['library_causal_ms']:.3f})")
+    print(f"flash bf16 registers, spills, shared bytes, blocks per SM and "
+          f"threads by head dim {res['info']}")
     return res
+
+
+def bwd_against_sdpa(dev, q, k, v, km, do, out, lse, mask):
+    """The bf16 backward's device time on these inputs (causal): the dQ
+    and dK/dV kernels alone (the pair) and the port's whole backward
+    (``flash_attention_bwd``: delta, then both kernels), beside SDPA's
+    bf16 backward on the same values, once with the boolean mask the
+    kernels apply (causal and key mask) and once with ``is_causal``
+    (every key live here, so the same function; SDPA picks its own
+    kernel for each). Library calls are yardsticks only."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    delta = fa.backward_delta(do, out)
+    dq_ms = time_ms(lambda: fa.flash_attention_bwd_dq(q, k, v, km, do, lse,
+                                                      delta, True))
+    dkv_ms = time_ms(lambda: fa.flash_attention_bwd_dkv(q, k, v, km, do, lse,
+                                                        delta, True))
+    whole_ms = time_ms(lambda: fa.flash_attention_bwd(q, k, v, km, out, lse,
+                                                      do, True))
+    delta_ms = time_ms(lambda: fa.backward_delta(do, out))
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    lib = {}
+    for name, kw in (("mask", dict(attn_mask=mask)),
+                     ("causal", dict(is_causal=True))):
+        o = F.scaled_dot_product_attention(qt, kt, vt, **kw)
+        lib[name] = time_ms(lambda: torch.autograd.grad(
+            o, (qt, kt, vt), dot, retain_graph=True))
+    pair_ms = dq_ms + dkv_ms
+    return dict(ms=pair_ms, pair_dq_ms=dq_ms, pair_dkv_ms=dkv_ms,
+                whole_ms=whole_ms, delta_ms=delta_ms,
+                library_ms=lib["mask"], library_causal_ms=lib["causal"],
+                ratio_to_library=pair_ms / lib["mask"],
+                whole_ratio_to_library=whole_ms / lib["mask"])
 
 
 def _top_kernel(fn) -> str:
@@ -1777,10 +1839,11 @@ def profile_window(eng):
 
 
 def sass_counts():
-    """HMMA (and of them bf16 HMMA) and I2F (I2F, I2FP) instructions per
-    instantiation of the flash kernels (f32 and bf16 legs) and the two
-    int8 kernels in the built libraries, from ``cuobjdump -sass``; None
-    where the toolkit has no cuobjdump."""
+    """Tensor-core instructions per instantiation of the flash kernels
+    (f32 and bf16 legs): HMMA (``mma.sync``) and HGMMA (``wgmma``), each
+    with its bf16 form; and I2F (I2F, I2FP) in the two int8 kernels; in
+    the built libraries, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
     from deeplearning4j_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -1792,7 +1855,7 @@ def sass_counts():
                         r"decode_attention_int8_kernel)"
                         r"ILi(\d+)E(?:Li(\d+)E)?")
     opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
-                        r"([A-Z][A-Z0-9]*)(\.[A-Z0-9.]*)?")
+                        r"([A-Z][A-Z0-9]*)(\.[A-Za-z0-9.]*)?")
     counts = {}
     for lib in ("flash_attention", "paged_attention", "decode_attention"):
         text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
@@ -1805,29 +1868,44 @@ def sass_counts():
                 fn = (f"{m[1]}<{m[2]}" + (f",{m[3]}>" if m[3] else ">")
                       if m else None)
                 if fn:
-                    counts[fn] = {"HMMA": 0, "HMMA_BF16": 0, "I2F": 0}
+                    counts[fn] = {"HMMA": 0, "HMMA_BF16": 0, "HGMMA": 0,
+                                  "HGMMA_BF16": 0, "I2F": 0}
                 continue
             op = opcode.search(line) if fn else None
-            if op and op[1] in ("HMMA", "I2F", "I2FP"):
-                counts[fn]["HMMA" if op[1] == "HMMA" else "I2F"] += 1
-                if op[1] == "HMMA" and ".BF16" in (op[2] or ""):
-                    counts[fn]["HMMA_BF16"] += 1
+            if op and op[1] in ("HMMA", "HGMMA"):
+                counts[fn][op[1]] += 1
+                if ".BF16" in (op[2] or ""):
+                    counts[fn][op[1] + "_BF16"] += 1
+            elif op and op[1] in ("I2F", "I2FP"):
+                counts[fn]["I2F"] += 1
     return counts
 
 
+#: the kernels on wgmma (bf16 HGMMA, no HMMA) at every head-dim bucket
+WGMMA_KERNELS = ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+
+
 def check_sass(counts):
-    """Every flash kernel must run on the tensor cores (HMMA > 0), the
-    bf16 legs with bf16 HMMA, and both int8 kernels must convert int8
-    without I2F (0)."""
-    bad = [f for f, c in counts.items()
-           if (f.startswith("flash") and not c["HMMA"])
-           or ("bf16" in f and not c["HMMA_BF16"])
-           or ("int8" in f and c["I2F"])]
+    """The bf16 dQ and dK/dV kernels must run on wgmma (bf16 HGMMA, no
+    HMMA) at each head-dim bucket (32, 64, 128); every other flash
+    kernel on mma.sync (HMMA; the bf16 forward's bf16 HMMA); both int8
+    kernels must convert int8 without I2F (0)."""
+    def bad(f, c):
+        if f.split("<")[0] in WGMMA_KERNELS:
+            return not c["HGMMA_BF16"] or c["HMMA"]
+        return ((f.startswith("flash") and not c["HMMA"])
+                or ("bf16" in f and not c["HMMA_BF16"])
+                or ("int8" in f and c["I2F"]))
+    wrong = [f for f, c in counts.items() if bad(f, c)]
+    missing = [f"{k}<{d}>" for k in WGMMA_KERNELS for d in (32, 64, 128)
+               if f"{k}<{d}>" not in counts]
     kinds = {f.split("<")[0] for f in counts}
-    if bad or len(kinds) != 8:
-        raise AssertionError(f"SASS: every flash kernel must run HMMA (the "
-                             f"bf16 legs bf16 HMMA) and the int8 kernels no "
-                             f"I2F: {counts}")
+    if wrong or missing or len(kinds) != 8:
+        raise AssertionError(f"SASS: the bf16 dQ and dK/dV kernels must run "
+                             f"bf16 HGMMA and no HMMA at D 32, 64, 128 "
+                             f"(missing {missing}), every other flash "
+                             f"kernel HMMA (the bf16 forward bf16 HMMA), the "
+                             f"int8 kernels no I2F: {wrong} in {counts}")
 
 
 AB_CODE = r"""
@@ -1850,6 +1928,19 @@ for B in (1, 4):
         args = (q, k, v, km, do, lse, fa.backward_delta(do, o), True)
         out["dq_ms"] = cs.time_ms(lambda: fa.flash_attention_bwd_dq(*args))
         out["dkv_ms"] = cs.time_ms(lambda: fa.flash_attention_bwd_dkv(*args))
+# the bf16 legs at the training shape, and the whole bf16 backward
+qb, kb, vb, dob = (torch.randn((4, 1024, 8, 64), generator=g).to(dev)
+                   .bfloat16() for _ in range(4))
+km = torch.ones((4, 1024), device=dev)
+ob, lseb = fa.flash_attention(qb, kb, vb, True, km)
+args = (qb, kb, vb, km, dob, lseb, fa.backward_delta(dob, ob), True)
+out["bf16_ms"] = dict(
+    fwd=cs.time_ms(lambda: fa.flash_attention(qb, kb, vb, True, km)),
+    dq=cs.time_ms(lambda: fa.flash_attention_bwd_dq(*args)),
+    dkv=cs.time_ms(lambda: fa.flash_attention_bwd_dkv(*args)),
+    whole_bwd=cs.time_ms(lambda: fa.flash_attention_bwd(qb, kb, vb, km, ob,
+                                                        lseb, dob, True)))
+out["bf16_ms"]["pair"] = out["bf16_ms"]["dq"] + out["bf16_ms"]["dkv"]
 out["decode_ms"] = cs.check_decode(dev)["float32"]["ms"]
 out["paged_ms"] = cs.check_paged(dev)["float32"]["ms"]
 out["paged_int8_ms"] = cs.check_paged_int8(dev)["ms"]
@@ -1869,6 +1960,11 @@ for phase, run in ((4, lambda: cs.serve(card)),
         window={k: prof[k] for k in ("busy_share", "busy_ms", "wall_ms",
                                      "device_kernels", "decode_steps",
                                      "ours")})
+tr = cs.train(card, cfg=dict(cs.TRAIN_CFG, dtype="bfloat16"))  # phase 10
+out["train_bf16"] = dict(
+    {k: tr[k] for k in ("step_p50_ms", "enqueue_p50_ms", "step_ms",
+                        "enqueue_ms")},
+    device_ms_by_kind=tr["profile"]["by_kind"])
 print("AB " + json.dumps(out))
 """
 
@@ -1876,10 +1972,11 @@ print("AB " + json.dumps(out))
 def run_ab(parent: str) -> int:
     """``--ab PARENT``: the parent checkout's and this checkout's own
     code in turns (parent, this, this, parent), each in a process of its
-    own: B3 at B=1 and B=4, B6 and B7 at B=4, B1, B2, B4 and B5 (their
-    phase-3 checks), and phases 4 to 7 with their profile windows;
-    prints each turn as JSON, then all of them on one "A/B runs:"
-    line."""
+    own: B3 at B=1 and B=4, B6 and B7 at B=4, the bf16 legs of B3, B6
+    and B7 and the whole bf16 backward at B=4, B1, B2, B4 and B5 (their
+    phase-3 checks), phases 4 to 7 with their profile windows, and phase
+    10's step p50, enqueue p50 and device time by kind; prints each turn
+    as JSON, then all of them on one "A/B runs:" line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1927,7 +2024,7 @@ def main() -> int:
     sass = sass_counts()
     if sass is not None:
         check_sass(sass)
-    print(f"SASS HMMA and I2F counts per kernel instantiation: "
+    print(f"SASS HMMA, HGMMA and I2F counts per kernel instantiation: "
           f"{'not measured (no cuobjdump)' if sass is None else sass}")
 
     decode = check_decode(dev)

@@ -137,6 +137,8 @@
 
 #include <cstdint>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr float kNegInf = -1e30f;
@@ -1058,7 +1060,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// ---- bf16 legs (B3, B6, B7 on bf16 operands): bf16 mma.sync ----
+// ---- bf16 legs (B3, B6, B7 on bf16 operands) ----
 //
 // Replace the same three TPU kernels for bf16 q, k, v and dO
 // (deeplearning4j_tpu/kernels/flash_attention.py: _fwd_kernel, which
@@ -1067,15 +1069,17 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // :260-261). O, dQ, dK and dV are bf16; the LSE, delta and the key mask
 // stay f32 [B, H, T] and [B, T] as in the f32 legs.
 //
-// Arithmetic. Every product is one mma.sync.m16n8k16 with bf16
-// operands and f32 accumulation. A product of two bf16 values is exact
-// in f32, so S = Q K^T and dP = dO V^T equal the reference's f32 dot of
-// the bf16 values up to the order of the f32 sums. The second products
-// (O += P V, dQ += dS K, dV += P^T dO, dK += dS^T Q) need P or dS as
-// bf16 A operands: P and dS are rounded to bf16 (round to nearest even,
-// ~2^-9 of each term) right before them. That rounding, and the final
-// rounding of O, dQ, dK and dV to bf16, are the legs' only errors
-// beyond the order of the sums. The softmax, the LSE and delta stay f32.
+// Arithmetic. Every product takes bf16 operands and accumulates in f32
+// (mma.sync.m16n8k16 in the forward, wgmma m64n64k16 in dQ and dK/dV). A
+// product of two bf16 values is exact in f32, so S = Q K^T and dP = dO
+// V^T equal the reference's f32 dot of the bf16 values up to the order
+// of the f32 sums. The second products (O += P V, dQ += dS K, dV += P^T
+// dO, dK += dS^T Q) need P or dS as bf16 A operands: P and dS are
+// rounded to bf16 (round to nearest even, ~2^-9 of each term) right
+// before them. That rounding, and the final rounding of O, dQ, dK and dV
+// to bf16, are the legs' only errors beyond the order of the sums (and,
+// in dQ and dK/dV, ex2.approx's ~2^-22). The softmax, the LSE and delta
+// stay f32.
 //
 // Bounds on this card (989 TFLOP/s bf16 dense, 3.35 TB/s; each input
 // read once, each output written once) at the training shapes B=4, H=8,
@@ -1089,56 +1093,91 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //  - dK/dV: 8.598 GFLOP -> 0.00869 ms; 25.44 MB -> 0.00760 ms:
 //    operations, at 0.00869 ms.
 // All three sit near the ridge (~300 flops a byte), so neither the
-// tensor cores nor memory alone sets the pace; what the design does:
+// tensor cores nor memory alone sets the pace.
+//
+// Forward (B3, bf16 mma.sync):
 //  - tiles sit in shared memory as bf16 (half the f32 legs' bytes),
 //    rows padded by 16 bytes so that every ldmatrix phase hits 8
 //    distinct 16-byte bank groups, filled by 16-byte cp.async (D % 8 ==
 //    0 and 16-byte aligned tensors; plain loads otherwise) through a
 //    two-stage ring: the next tile loads while this one computes;
 //  - fragments come from shared memory by ldmatrix (x4: four 8x8 b16
-//    matrices a warp-wide instruction), and by ldmatrix.trans where an
-//    operand is needed transposed (V in P V; K in dS K; dO and Q in
-//    P^T dO and dS^T Q), so no tile is stored twice;
-//  - S and dP stay in the accumulators; the m16n8k16 accumulator layout
-//    (rows g, g + 8; columns 2t, 2t + 1 of each 8-wide block) is the A
-//    operand's layout of a 16-wide k step, so P and dS become A
-//    fragments by packing two accumulator blocks, with no permutation;
-//  - the block's own A fragments (Q and dO for dQ, K and V for dK/dV, Q
-//    for the forward) are held in registers at D <= 64 and read by
-//    ldmatrix at each use at D = 128, which keeps every leg within 255
-//    registers at 2 blocks (8 warps) per SM;
+//    matrices a warp-wide instruction), and by ldmatrix.trans for V in
+//    P V, so no tile is stored twice;
+//  - S stays in the accumulators; the m16n8k16 accumulator layout (rows
+//    g, g + 8; columns 2t, 2t + 1 of each 8-wide block) is the A
+//    operand's layout of a 16-wide k step, so P becomes A fragments by
+//    packing two accumulator blocks, with no permutation;
+//  - Q's A fragments are held in registers at D <= 64 and read by
+//    ldmatrix at each use at D = 128;
 //  - one key group: the bf16 forward's only caller is training (B=4:
 //    512 blocks, 3.9 per SM), past the f32 leg's measured crossover of
-//    2.5 blocks per SM where one group wins; served prefills run f32;
-//  - causal tiles above the diagonal are never loaded, a warp skips
-//    the products of a tile wholly on the masked side of its rows, and
-//    the grid runs the longest tiles first, as in the f32 legs;
-//  - one owner block per output row, summing in a fixed order: two
-//    calls give the same bits.
+//    2.5 blocks per SM where one group wins; served prefills run f32.
+// Not yet for the forward: wgmma and TMA (the building blocks are in
+// sm90.cuh, see dQ and dK/dV below).
+//
+// dQ and dK/dV (B6, B7, wgmma fed by TMA, warp-specialised). mma.sync
+// cannot reach Hopper's tensor-core rate, and its every warp re-reads
+// the whole streamed tile from shared memory. Here:
+//  - a block of 384 threads: two consumer warpgroups own 64 rows each of
+//    a 128-row tile (queries for dQ, keys for dK/dV), and one warp of the
+//    third streams the other side (K and V, or Q and dO) in 64-row tiles
+//    through a three-stage ring (two at D = 128) in shared memory, which
+//    both consumers read. setmaxnreg moves registers from the producer
+//    warpgroup (56) to the consumers (224): no spills at any D;
+//  - TMA copies every tile (4-D tensor maps over [B, T, H, D], boxes of
+//    64 columns by 64 rows, encoded on the host at each launch through
+//    the runtime's driver entry point) in the 128-byte swizzle that the
+//    wgmma descriptors read; rows past T and columns past D arrive as 0.
+//    Where TMA cannot take the strides (D % 8 != 0, or a tensor not
+//    16-byte aligned), the producer warp writes the same swizzled bytes
+//    with 2-byte loads, then a proxy fence; the consumers do not change;
+//  - mbarriers, no block-wide barrier in the loop: a stage's full
+//    barrier completes on the tiles' bytes and the producer's arrival
+//    with the stage's two f32 vectors (dQ: each key's predicate, key
+//    mask and T; dK/dV: the queries' LSE in log2 units, +inf past T, and
+//    delta), which it reads from global memory one tile ahead so their
+//    latency hides behind the wait for a free stage; its empty barrier
+//    on one arrival from each of the 8 consumer warps once their
+//    products on the stage have completed;
+//  - every product is wgmma m64n64k16: S = Q K^T and dP = dO V^T (dQ),
+//    S^T = K Q^T and dP^T = V dO^T (dK/dV) with the block's own rows as
+//    A (held in registers at D <= 64, read by ldmatrix through the
+//    swizzle once a block; from shared memory at D = 128) and the
+//    streamed tile as a K-major B; then dQ += dS K, dV += P^T dO and dK
+//    += dS^T Q with A = P or dS from the accumulators (the m64nNk16
+//    accumulator has mma.sync's per-warp layout, so two 8-column blocks
+//    pack into a k step's A) and B = the same streamed tile read MN-major
+//    through the transpose bit: no tile is stored twice;
+//  - p = 2^(s scale log2(e) - lse log2(e)) is one FFMA and one ex2.approx
+//    (exp2f's range check and rescale cost more than the products here);
+//    the causal compare runs only on the diagonal tile, the key's
+//    predicate is one select a column (dQ) or a row (dK/dV), and the
+//    where-guard stays wherever a key can be masked, so a fully masked
+//    row's gradients are exactly 0;
+//  - causal tiles wholly above the diagonal are never loaded, a
+//    warpgroup waits for and releases, but skips, a stage wholly on the
+//    masked side of its rows, and the grid runs the longest tiles first
+//    (dQ the last query tile, dK/dV the first key tile);
+//  - one owner block per output row, summing in a fixed order, no
+//    atomics: two calls give the same bits.
 // Masking as in the f32 legs: masked scores are -1e30, p is
 // where-guarded to 0 (a fully masked row has O = 0, LSE = -1e30 and
-// gradients of exactly 0), rows past T are zero-filled by the copy.
-// Not yet: wgmma and TMA (a warpgroup reading each B tile once).
+// gradients of exactly 0).
 
 template <int DMAX, int BN_>
 struct Bf16Tile {
   static constexpr int BN = BN_;           // streamed rows a tile
   static constexpr int LD = DMAX + 8;      // bf16 a row, 16-byte pad
   static constexpr bool kHeld = DMAX <= 64;
-  // the block's two (fwd: one) [64][LD] tiles and two stages of two
-  // streamed [BN][LD] tiles, bf16, then NV [2][BN] f32 row vectors
+  // `own` [64][LD] tiles of the block and two stages of two streamed
+  // [BN][LD] tiles, bf16, then nvec [2][BN] f32 row vectors
   static constexpr size_t smem(int own, int nvec) {
     return (size_t)(own * kBwdRows * LD + 4 * BN * LD) * 2 +
            (size_t)nvec * 2 * BN * 4;
   }
 };
 template <int DMAX> using Bf16FwdTile = Bf16Tile<DMAX, 64>;
-template <int DMAX> using Bf16DqTile = Bf16Tile<DMAX, DMAX == 128 ? 32 : 64>;
-template <int DMAX> using Bf16DkvTile = Bf16Tile<DMAX, DMAX == 128 ? 16 : 32>;
-
-__device__ __forceinline__ float bf16_to_f32(uint16_t x) {
-  return __uint_as_float((uint32_t)x << 16);
-}
 
 __device__ __forceinline__ uint16_t f32_to_bf16(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
@@ -1441,12 +1480,309 @@ flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
   }
 }
 
-// dQ = sum over key tiles of dS K * scale, bf16 operands. Grid: (B*H,
-// query tiles), the last query tile first; Q and dO stay, K and V
-// stream.
+// ---- bf16 backward (B6, B7): wgmma, TMA and a warp-specialised ring ----
+//
+// Per head-dim bucket: the padded width DP (64 or 128 columns, held as
+// 64-wide swizzled panels; D <= 32 is read into one panel whose upper
+// half is zero), the 16-wide contraction steps over the head dim, the
+// streamed tile (BN rows), the block's own rows (BM: two consumer
+// warpgroups of 64), the ring's stages and the dynamic shared memory:
+// the two own tiles, two streamed tiles and two [BN] f32 vectors a
+// stage, the barriers, and 1024 bytes to align the panels.
 template <int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
+struct WgBwd {
+  static constexpr int DP = DMAX < 64 ? 64 : DMAX;
+  static constexpr int NP = DP / 64;    // 64-column panels
+  static constexpr int KS = DMAX / 16;  // k steps over the head dim
+  static constexpr int BN = 64;
+  static constexpr int BM = 128;
+  static constexpr int STAGES = NP == 1 ? 3 : 2;
+  static constexpr int kThreads = 384;  // consumers 0..255, producer WG
+  static constexpr uint32_t OWN = NP * BM * 128;     // bytes, own tile
+  static constexpr uint32_t STREAM = NP * BN * 128;  // bytes, streamed
+  static constexpr size_t kSmemBytes = 1024 + 2 * OWN +
+                                       STAGES * 2 * (STREAM + BN * 4) +
+                                       (2 * STAGES + 1) * 8;
+};
+
+// The block's shared memory, carved from the dynamic allocation: own
+// tiles [2][NP][BM][64], ring [STAGES][2][NP][BN][64] (bf16, swizzled),
+// vectors [STAGES][2][BN] f32, barriers full[STAGES], empty[STAGES],
+// own.
+template <int DMAX>
+struct WgSmem {
+  using W = WgBwd<DMAX>;
+  unsigned char* own;
+  unsigned char* ring;
+  float* vec;
+  uint64_t* full;
+  uint64_t* empty;
+  uint64_t* own_bar;
+
+  __device__ __forceinline__ explicit WgSmem(unsigned char* raw) {
+    own = raw + ((1024 - (sm90::smem_u32(raw) & 1023)) & 1023);
+    ring = own + 2 * W::OWN;
+    vec = reinterpret_cast<float*>(ring + W::STAGES * 2 * W::STREAM);
+    full = reinterpret_cast<uint64_t*>(vec + W::STAGES * 2 * W::BN);
+    empty = full + W::STAGES;
+    own_bar = empty + W::STAGES;
+  }
+  __device__ __forceinline__ unsigned char* stage(int s) const {
+    return ring + s * 2 * W::STREAM;
+  }
+  // every barrier, by one thread, before the block's roles part
+  __device__ __forceinline__ void init() const {
+    for (int s = 0; s < W::STAGES; ++s) {
+      sm90::mbar_init(&full[s], 2);   // the tiles' bytes, the vectors
+      sm90::mbar_init(&empty[s], 8);  // each consumer warp
+    }
+    sm90::mbar_init(own_bar, 1);
+    sm90::fence_mbar_init();
+  }
+};
+
+// Rows t0 .. t0 + rows - 1 of one (batch, head) of a bf16 [B, T, H, D]
+// tensor into NP swizzled [rows][64] panels at dst, zero past T and past
+// D: the bytes TMA would write, by one warp's 2-byte loads (for strides
+// or alignments TMA does not take; cp.async cannot copy 2-byte pieces
+// either)
+template <int NP>
+__device__ void fill_panels(unsigned char* dst, const uint16_t* src,
+                            size_t base, size_t row, int t0, int rows, int T,
+                            int D, int lane) {
+  for (int idx = lane; idx < rows * NP * 64; idx += 32) {
+    const int r = idx / (NP * 64), c = idx % (NP * 64), t = t0 + r;
+    const uint16_t x = t < T && c < D ? src[base + (size_t)t * row + c] : 0;
+    *reinterpret_cast<uint16_t*>(dst + (c >> 6) * rows * 128 +
+                                 sm90::swz128(r, c & 63)) = x;
+  }
+}
+
+// The producer warp: the block's two own tiles (rows own_t0 ..) once,
+// then n pairs of streamed tiles (tile first + i at rows 64 (first + i))
+// through the ring, by TMA when `tma`, else by fill_panels and a proxy
+// fence. Each stage also gets two [BN] f32 vectors: load(t0, v) reads a
+// lane's share of them from global memory into registers one tile ahead
+// (so their latency hides behind the wait for a free stage) and
+// store(stage, v) writes them. A stage's full barrier takes two
+// arrivals: the tiles' (with their bytes) and the vectors'.
+template <int DMAX, typename Load, typename Store>
+__device__ __forceinline__ void bwd_produce(
+    const WgSmem<DMAX>& sm, const CUtensorMap* own0_map,
+    const CUtensorMap* own1_map, const CUtensorMap* map0,
+    const CUtensorMap* map1, const uint16_t* own0, const uint16_t* own1,
+    const uint16_t* src0, const uint16_t* src1, int b, int h, size_t base,
+    size_t row, int own_t0, int first, int n, int T, int D, bool tma,
+    int lane, Load load, Store store) {
+  using W = WgBwd<DMAX>;
+  float v[4];
+  load(first * W::BN, v);
+  const uint32_t own_s = sm90::smem_u32(sm.own);
+  if (tma) {
+    if (lane == 0) {
+      sm90::mbar_arrive_tx(sm.own_bar, 2 * W::OWN);
+#pragma unroll
+      for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+        for (int rr = 0; rr < W::BM / W::BN; ++rr) {
+          const uint32_t off = (p * W::BM + rr * W::BN) * 128;
+          const int t = own_t0 + rr * W::BN;
+          sm90::tma_load_4d(own_s + off, own0_map, sm.own_bar, 64 * p, h, t,
+                            b);
+          sm90::tma_load_4d(own_s + W::OWN + off, own1_map, sm.own_bar,
+                            64 * p, h, t, b);
+        }
+    }
+  } else {
+    fill_panels<W::NP>(sm.own, own0, base, row, own_t0, W::BM, T, D, lane);
+    fill_panels<W::NP>(sm.own + W::OWN, own1, base, row, own_t0, W::BM, T,
+                       D, lane);
+    sm90::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(sm.own_bar);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % W::STAGES;
+    sm90::mbar_wait(&sm.empty[s], ((i / W::STAGES) & 1) ^ 1);
+    const int t0 = (first + i) * W::BN;
+    unsigned char* tile = sm.stage(s);
+    if (tma) {
+      if (lane == 0) {
+        const uint32_t dst = sm90::smem_u32(tile);
+        sm90::mbar_arrive_tx(&sm.full[s], 2 * W::STREAM);
+#pragma unroll
+        for (int p = 0; p < W::NP; ++p) {
+          sm90::tma_load_4d(dst + p * W::BN * 128, map0, &sm.full[s], 64 * p,
+                            h, t0, b);
+          sm90::tma_load_4d(dst + W::STREAM + p * W::BN * 128, map1,
+                            &sm.full[s], 64 * p, h, t0, b);
+        }
+      }
+    } else {
+      fill_panels<W::NP>(tile, src0, base, row, t0, W::BN, T, D, lane);
+      fill_panels<W::NP>(tile + W::STREAM, src1, base, row, t0, W::BN, T, D,
+                         lane);
+      sm90::fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) sm90::mbar_arrive(&sm.full[s]);
+    }
+    store(s, v);
+    __syncwarp();
+    if (lane == 0) sm90::mbar_arrive(&sm.full[s]);
+    if (i + 1 < n) load(t0 + W::BN, v);
+  }
+}
+
+// 2^x by the special-function unit in one instruction (exp2f adds a
+// range check and a rescale around it): relative error ~2^-22, under the
+// bf16 rounding that p and dS get before the second products; -inf -> 0
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// A consumer warpgroup's A operand of its first products: its 64 rows of
+// an own tile (at `rows`), per k step over the head dim.
+// HELD: read once into registers by ldmatrix (through the swizzle) and
+// multiplied from there; else read from shared memory by every product.
+template <int DMAX, bool HELD>
+struct OwnA {
+  using W = WgBwd<DMAX>;
+  uint32_t base;
+  uint32_t r[HELD ? W::KS : 1][4];
+
+  __device__ __forceinline__ OwnA(const unsigned char* rows, int warp,
+                                  int lane)
+      : base(sm90::smem_u32(rows)) {
+    if constexpr (HELD) {
+      const int row = 16 * warp + (lane & 15);
+#pragma unroll
+      for (int ks = 0; ks < W::KS; ++ks) {
+        const int chunk = 2 * (ks % 4) + (lane >> 4);
+        ldsm_x4(r[ks], reinterpret_cast<const uint16_t*>(
+                           rows + (ks / 4) * W::BM * 128 + row * 128 +
+                           ((chunk ^ (row & 7)) << 4)));
+      }
+    }
+  }
+  // x (+)= A[:, 16 ks ..] B, B K-major at descriptor db
+  __device__ __forceinline__ void mma(float (&x)[32], int ks,
+                                      uint64_t db) const {
+    if constexpr (HELD)
+      sm90::wgmma_rs<0>(x, r[ks], db, ks > 0);
+    else
+      sm90::wgmma_ss<0>(
+          x,
+          sm90::desc128(base + (ks / 4) * W::BM * 128 + (ks % 4) * 32, 16,
+                        1024),
+          db, ks > 0);
+  }
+};
+
+// The two first products of a consumer warpgroup over one streamed
+// stage, issued and committed as one group: x = A0 B0^T and y = A1 B1^T,
+// A the warpgroup's 64 own rows, B the stage's two tiles (at b0, b1),
+// contracted over the head dim, K-major.
+template <int DMAX, typename A>
+__device__ __forceinline__ void first_products(float (&x)[32],
+                                               float (&y)[32], const A& a0,
+                                               const A& a1, uint32_t b0,
+                                               uint32_t b1) {
+  using W = WgBwd<DMAX>;
+  sm90::wgmma_fence();
+  sm90::fence_acc(x);
+  sm90::fence_acc(y);
+#pragma unroll
+  for (int ks = 0; ks < W::KS; ++ks) {
+    const uint32_t pb = (ks / 4) * W::BN * 128 + (ks % 4) * 32;
+    a0.mma(x, ks, sm90::desc128(b0 + pb, 16, 1024));
+    a1.mma(y, ks, sm90::desc128(b1 + pb, 16, 1024));
+  }
+  sm90::wgmma_commit();
+}
+
+// Accumulator columns 16kk .. 16kk + 15 rounded to bf16 pairs: the A
+// operand of k step kk of a second product
+__device__ __forceinline__ void acc_to_a16(const float (&x)[32], int kk,
+                                           uint32_t (&a)[4]) {
+  a[0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// d[p] += A B[p] for each 64-column panel p of a streamed tile at bt,
+// contracted over its BN rows (MN-major through the transpose bit), A
+// from registers (a[kk] for rows 16kk ..)
+template <int DMAX>
+__device__ __forceinline__ void second_product(
+    float (&d)[WgBwd<DMAX>::NP][32], const uint32_t (&a)[4][4], uint32_t bt) {
+  using W = WgBwd<DMAX>;
+#pragma unroll
+  for (int kk = 0; kk < W::BN / 16; ++kk)
+#pragma unroll
+    for (int p = 0; p < W::NP; ++p)
+      sm90::wgmma_rs<1>(
+          d[p], a[kk],
+          sm90::desc128(bt + p * W::BN * 128 + kk * 2048, 1024, 1024));
+}
+
+// A warpgroup's 64 rows of an output [B, T, H, D] in bf16: rows r0 + 16w
+// + g (+ 8), columns 64p + 8j + 2t (+ 1), times `mul`; pairs stored as
+// one 4-byte word when `pair` (D even, output 4-byte aligned)
+template <int NP>
+__device__ __forceinline__ void store_rows(uint16_t* out,
+                                           const float (&x)[NP][32],
+                                           float mul, size_t base,
+                                           size_t row, int r0, int T, int D,
+                                           bool pair, int warp, int lane) {
+  const int g = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int t = r0 + 16 * warp + g + 8 * rr;
+    if (t >= T) continue;
+    uint16_t* o = out + base + (size_t)t * row;
+#pragma unroll
+    for (int p = 0; p < NP; ++p)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int d = 64 * p + 8 * j + 2 * t4;
+        const float v0 = x[p][4 * j + 2 * rr] * mul;
+        const float v1 = x[p][4 * j + 2 * rr + 1] * mul;
+        if (pair && d + 1 < D) {
+          *reinterpret_cast<uint32_t*>(o + d) = pack_bf16(v0, v1);
+        } else {
+          if (d < D) o[d] = f32_to_bf16(v0);
+          if (d + 1 < D) o[d + 1] = f32_to_bf16(v1);
+        }
+      }
+  }
+}
+
+__device__ __forceinline__ float pos_inf() {
+  return __int_as_float(0x7f800000);
+}
+
+// A consumer warp is done with a stage: its products that read it have
+// completed
+__device__ __forceinline__ void release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) sm90::mbar_arrive(empty);
+}
+
+// dQ = sum over key tiles of dS K * scale, bf16 operands. Grid: (B*H,
+// 128-row query blocks), the last block first. Warpgroups 0 and 1 own
+// query rows q0 .. q0 + 63 and q0 + 64 .. q0 + 127 (Q and dO, loaded
+// once); warp 8 streams K and V with each key's column predicate (key
+// mask and T) through the ring.
+template <int DMAX>
+__global__ void __launch_bounds__(WgBwd<DMAX>::kThreads, 1)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const __grid_constant__ CUtensorMap map_do,
+                         const uint16_t* __restrict__ q,
                          const uint16_t* __restrict__ k,
                          const uint16_t* __restrict__ v,
                          const float* __restrict__ key_mask,
@@ -1454,146 +1790,128 @@ flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q,
                          const float* __restrict__ lse,
                          const float* __restrict__ delta,
                          uint16_t* __restrict__ dq, int H, int T, int D,
-                         int causal, float scale, int vec8) {
-  using Tile = Bf16DqTile<DMAX>;
-  constexpr int BN = Tile::BN;
-  constexpr int LD = Tile::LD;
-  constexpr int KS = DMAX / 16;
-  constexpr int NB = BN / 8;
-  constexpr int ND = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);  // [64][LD]
-  uint16_t* dOs = Qs + kBwdRows * LD;                    // [64][LD]
-  uint16_t* ring = dOs + kBwdRows * LD;                  // [2][K, V][BN][LD]
-  float* okring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
-  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+                         int causal, float scale, int tma, int pair) {
+  using W = WgBwd<DMAX>;
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem<DMAX> sm(smem_raw);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t row = (size_t)H * D;
   const size_t base = (size_t)b * T * row + (size_t)h * D;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
-  const int m0 = 16 * warp;
-  const float sl2 = scale * kLog2e;
-  float rlse[2], rdelta[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int qp = q0 + m0 + g + 8 * r;
-    rlse[r] = qp < T ? lse[(size_t)bh * T + qp] * kLog2e : 0.f;
-    rdelta[r] = qp < T ? delta[(size_t)bh * T + qp] : 0.f;
-  }
-
-  const int n_tiles = (T + BN - 1) / BN;
-  int last = n_tiles - 1;
-  if (causal) {
-    const int diag = (q0 + kBwdRows - 1) / BN;
-    last = diag < last ? diag : last;
-  }
-  auto load_kv = [&](int kt) {
-    const int st = kt & 1;
-    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {k, v}, base, row,
-                            kt * BN, T, D, vec8, tid);
-    if (key_mask != nullptr)
-      async_vec(okring + st * BN, key_mask + (size_t)b * T, kt * BN, BN, T,
-                tid);
-    else if (tid < BN)
-      okring[st * BN + tid] = kt * BN + tid < T ? 1.f : 0.f;
-  };
-
-  bf16_tiles<DMAX, kBwdRows, 2>({Qs, dOs}, {q, dout}, base, row, q0, T, D,
-                                vec8, tid);
-  load_kv(0);
-  cp_async_commit();
-  cp_async_wait_all();
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * W::BM;
+  const int n_kt = (T + W::BN - 1) / W::BN;
+  const int n = causal ? min(n_kt, (q0 + W::BM - 1) / W::BN + 1) : n_kt;
+  if (tid == 0) sm.init();
   __syncthreads();
-  const Bf16AFrags<DMAX, Tile::kHeld> qf(Qs, m0, lane), of(dOs, m0, lane);
 
-  float acc[ND][4];  // dQ: rows g, g + 8; columns 8n + 2t4, + 1
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int st = kt & 1;
-    if (kt < last) load_kv(kt + 1);
-    cp_async_commit();
-    const int k0 = kt * BN;
-    if (!causal || k0 <= q0 + m0 + 15) {
-      const uint16_t *Ks = tile(st, 0), *Vs = tile(st, 1);
-      const float* oks = okring + st * BN;
-      float s[NB][4], dp[NB][4];  // Q K^T, dO V^T: keys 8nb + 2t4, + 1
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t aq[4], ao[4];
-        qf.get(ks, aq);
-        of.get(ks, ao);
-#pragma unroll
-        for (int nb = 0; nb < NB; nb += 2) {
-          uint32_t bk[4], bv[4];
-          ldsm_x4(bk, bt_addr<LD>(Ks, 8 * nb, ks, lane));
-          mma_bf16(s[nb], aq, bk[0], bk[1]);
-          mma_bf16(s[nb + 1], aq, bk[2], bk[3]);
-          ldsm_x4(bv, bt_addr<LD>(Vs, 8 * nb, ks, lane));
-          mma_bf16(dp[nb], ao, bv[0], bv[1]);
-          mma_bf16(dp[nb + 1], ao, bv[2], bv[3]);
-        }
-      }
-      // dS = P o (dP - delta) in place of S, P recomputed under the guard
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int c = 8 * nb + 2 * t4 + (e & 1);
-          const int qp = q0 + m0 + g + 8 * r;
-          const bool ok = oks[c] > 0.f && (!causal || k0 + c <= qp);
-          const float p = ok ? exp2f(fmaf(s[nb][e], sl2, -rlse[r])) : 0.f;
-          s[nb][e] = p * (dp[nb][e] - rdelta[r]);
-        }
-      // dQ += dS K: dS rounded to bf16 as the A operand, K transposed
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        uint32_t a[4];
-        acc_to_a(s[2 * j], s[2 * j + 1], a);
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t bk[4];
-          ldsm_x4_trans(bk, bn_addr<LD>(Ks, 16 * j, 8 * n, lane));
-          mma_bf16(acc[n], a, bk[0], bk[1]);
-          mma_bf16(acc[n + 1], a, bk[2], bk[3]);
-        }
-      }
+  if (tid >= 256) {
+    sm90::setmaxnreg_dec<56>();
+    if (tid < 288) {
+      const int lane = tid - 256;
+      bwd_produce<DMAX>(
+          sm, &map_q, &map_do, &map_k, &map_v, q, dout, k, v, b, h, base,
+          row, q0, 0, n, T, D, tma != 0, lane,
+          [&](int t0, float (&x)[4]) {  // each key's predicate
+            for (int j = 0; j < 2; ++j) {
+              const int t = t0 + lane + 32 * j;
+              x[j] = t < T && (key_mask == nullptr ||
+                               key_mask[(size_t)b * T + t] > 0.f)
+                         ? 1.f
+                         : 0.f;
+            }
+          },
+          [&](int s, const float (&x)[4]) {
+            float* ok = sm.vec + s * 2 * W::BN;
+            ok[lane] = x[0];
+            ok[lane + 32] = x[1];
+          });
     }
-    cp_async_wait_all();
-    __syncthreads();
+  } else {
+    sm90::setmaxnreg_inc<224>();
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = q0 + 64 * wg;        // the warpgroup's first query
+    const int mrow = 16 * warp + g;     // this thread's rows: mrow, + 8
+    const float sl2 = scale * kLog2e;
+    float rl[2], rd[2];  // LSE (log2 units; +inf past T) and delta
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r0 + mrow + 8 * r;
+      rl[r] = t < T ? lse[(size_t)bh * T + t] * kLog2e : pos_inf();
+      rd[r] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+    }
+    float acc[W::NP][32];
+#pragma unroll
+    for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    sm90::mbar_wait(sm.own_bar, 0);
+    const unsigned char* aq = sm.own + wg * 64 * 128;
+    const OwnA<DMAX, DMAX <= 64> qa(aq, warp, lane),
+        oa(aq + W::OWN, warp, lane);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % W::STAGES;
+      sm90::mbar_wait(&sm.full[st], (i / W::STAGES) & 1);
+      const int k0 = i * W::BN;
+      if (r0 < T && (!causal || k0 <= r0)) {
+        const bool diag = causal && k0 == r0;
+        const uint32_t kt = sm90::smem_u32(sm.stage(st)), vt = kt + W::STREAM;
+        float s[32], dp[32];  // Q K^T, dO V^T (the first step overwrites)
+        first_products<DMAX>(s, dp, qa, oa, kt, vt);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(s);
+        sm90::fence_acc(dp);
+        // dS = P o (dP - delta) in place of S; p where-guarded by the
+        // key's predicate and, on the diagonal tile, the causal compare
+        const float* ok = sm.vec + st * 2 * W::BN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 o2 = *reinterpret_cast<const float2*>(ok + 8 * j +
+                                                             2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e, r = e >> 1;
+            const int c = 8 * j + 2 * t4 + (e & 1);
+            const bool keep = ((e & 1) ? o2.y : o2.x) > 0.f &&
+                              (!diag || c <= mrow + 8 * r);
+            const float p = keep ? exp2_fast(fmaf(s[x], sl2, -rl[r])) : 0.f;
+            s[x] = p * (dp[x] - rd[r]);
+          }
+        }
+        uint32_t a[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(s, kk, a[kk]);
+        // dQ += dS K: dS rounded to bf16 as A, K read MN-major
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < W::NP; ++p) sm90::fence_acc(acc[p]);
+        second_product<DMAX>(acc, a, kt);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < W::NP; ++p) sm90::fence_acc(acc[p]);
+      }
+      release(&sm.empty[st], lane);
+    }
+    store_rows<W::NP>(dq, acc, scale, base, row, r0, T, D, pair != 0, warp,
+                      lane);
   }
-
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int qp = q0 + m0 + g + 8 * (e >> 1);
-      const int d = 8 * n + 2 * t4 + (e & 1);
-      if (qp < T && d < D)
-        dq[base + (size_t)qp * row + d] = f32_to_bf16(acc[n][e] * scale);
-    }
 }
 
 // dV = sum over query tiles of P^T dO; dK = sum of dS^T Q * scale, bf16
-// operands. Grid: (B*H, key tiles), the first key tile first; K and V
-// stay, Q, dO, LSE and delta stream from the diagonal down. Scores are
+// operands. Grid: (B*H, 128-row key blocks), the first block first.
+// Warpgroups 0 and 1 own keys k0 .. k0 + 63 and k0 + 64 .. k0 + 127 (K
+// and V, loaded once); warp 8 streams Q and dO with their LSE (log2
+// units, +inf past T) and delta from the diagonal down. Scores are
 // computed transposed (rows = keys), so P^T and dS^T are accumulators
 // ready to be A operands.
 template <int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
+__global__ void __launch_bounds__(WgBwd<DMAX>::kThreads, 1)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                          const __grid_constant__ CUtensorMap map_k,
+                          const __grid_constant__ CUtensorMap map_v,
+                          const __grid_constant__ CUtensorMap map_do,
+                          const uint16_t* __restrict__ q,
                           const uint16_t* __restrict__ k,
                           const uint16_t* __restrict__ v,
                           const float* __restrict__ key_mask,
@@ -1602,141 +1920,135 @@ flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q,
                           const float* __restrict__ delta,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                           int H, int T, int D, int causal, float scale,
-                          int vec8) {
-  using Tile = Bf16DkvTile<DMAX>;
-  constexpr int BN = Tile::BN;
-  constexpr int LD = Tile::LD;
-  constexpr int KS = DMAX / 16;
-  constexpr int NB = BN / 8;  // 8-query blocks of a streamed tile
-  constexpr int ND = DMAX / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem_raw);  // [64][LD]
-  uint16_t* Vs = Ks + kBwdRows * LD;                     // [64][LD]
-  uint16_t* ring = Vs + kBwdRows * LD;                   // [2][Q, dO][BN][LD]
-  float* lring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
-  float* dring = lring + 2 * BN;                                // [2][BN]
-  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
+                          int tma, int pair) {
+  using W = WgBwd<DMAX>;
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem<DMAX> sm(smem_raw);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t row = (size_t)H * D;
   const size_t base = (size_t)b * T * row + (size_t)h * D;
-  const int k0 = blockIdx.y * kBwdRows;
-  const int m0 = 16 * warp;
-  const float sl2 = scale * kLog2e;
-  bool kok[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int kp = k0 + m0 + g + 8 * r;
-    kok[r] = kp < T &&
-             (key_mask == nullptr || key_mask[(size_t)b * T + kp] > 0.f);
-  }
-
-  const int n_tiles = (T + BN - 1) / BN;
-  const int first = causal ? k0 / BN : 0;
-  auto load_q = [&](int qt) {
-    const int st = (qt - first) & 1;
-    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {q, dout}, base, row,
-                            qt * BN, T, D, vec8, tid);
-    async_vec(lring + st * BN, lse + (size_t)bh * T, qt * BN, BN, T, tid);
-    async_vec(dring + st * BN, delta + (size_t)bh * T, qt * BN, BN, T, tid);
-  };
-
-  bf16_tiles<DMAX, kBwdRows, 2>({Ks, Vs}, {k, v}, base, row, k0, T, D, vec8,
-                                tid);
-  load_q(first);
-  cp_async_commit();
-  cp_async_wait_all();
+  const int k0 = blockIdx.y * W::BM;
+  const int first = causal ? k0 / W::BN : 0;
+  const int n = (T + W::BN - 1) / W::BN - first;
+  if (tid == 0) sm.init();
   __syncthreads();
-  const Bf16AFrags<DMAX, Tile::kHeld> kf(Ks, m0, lane), vf(Vs, m0, lane);
 
-  float dka[ND][4], dva[ND][4];  // rows g, g + 8; columns 8n + 2t4, + 1
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
-
-  for (int qt = first; qt < n_tiles; ++qt) {
-    const int st = (qt - first) & 1;
-    if (qt + 1 < n_tiles) load_q(qt + 1);
-    cp_async_commit();
-    const int t0 = qt * BN;
-    if (!causal || t0 + BN - 1 >= k0 + m0) {
-      const uint16_t *Qt = tile(st, 0), *dOt = tile(st, 1);
-      const float* ls = lring + st * BN;
-      const float* ds = dring + st * BN;
-      float s[NB][4], dp[NB][4];  // K Q^T, V dO^T: queries 8nb + 2t4, + 1
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t ak[4], av[4];
-        kf.get(ks, ak);
-        vf.get(ks, av);
-#pragma unroll
-        for (int nb = 0; nb < NB; nb += 2) {
-          uint32_t bq[4], bo[4];
-          ldsm_x4(bq, bt_addr<LD>(Qt, 8 * nb, ks, lane));
-          mma_bf16(s[nb], ak, bq[0], bq[1]);
-          mma_bf16(s[nb + 1], ak, bq[2], bq[3]);
-          ldsm_x4(bo, bt_addr<LD>(dOt, 8 * nb, ks, lane));
-          mma_bf16(dp[nb], av, bo[0], bo[1]);
-          mma_bf16(dp[nb + 1], av, bo[2], bo[3]);
-        }
-      }
-      // P^T in place of S^T, dS^T = P^T o (dP^T - delta) in place of dP^T
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int c = 8 * nb + 2 * t4 + (e & 1);  // query row of the tile
-          const int qp = t0 + c;
-          const bool ok = kok[r] && qp < T &&
-                          (!causal || k0 + m0 + g + 8 * r <= qp);
-          const float p =
-              ok ? exp2f(fmaf(s[nb][e], sl2, -ls[c] * kLog2e)) : 0.f;
-          s[nb][e] = p;
-          dp[nb][e] = p * (dp[nb][e] - ds[c]);
-        }
-      // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to bf16 as the
-      // A operands, dO and Q read transposed
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        uint32_t ap[4], as[4];
-        acc_to_a(s[2 * j], s[2 * j + 1], ap);
-        acc_to_a(dp[2 * j], dp[2 * j + 1], as);
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t bo[4], bq[4];
-          ldsm_x4_trans(bo, bn_addr<LD>(dOt, 16 * j, 8 * n, lane));
-          mma_bf16(dva[n], ap, bo[0], bo[1]);
-          mma_bf16(dva[n + 1], ap, bo[2], bo[3]);
-          ldsm_x4_trans(bq, bn_addr<LD>(Qt, 16 * j, 8 * n, lane));
-          mma_bf16(dka[n], as, bq[0], bq[1]);
-          mma_bf16(dka[n + 1], as, bq[2], bq[3]);
-        }
-      }
+  if (tid >= 256) {
+    sm90::setmaxnreg_dec<56>();
+    if (tid < 288) {
+      const int lane = tid - 256;
+      bwd_produce<DMAX>(
+          sm, &map_k, &map_v, &map_q, &map_do, k, v, q, dout, b, h, base,
+          row, k0, first, n, T, D, tma != 0, lane,
+          [&](int t0, float (&x)[4]) {  // LSE (log2 units) and delta
+            for (int j = 0; j < 2; ++j) {
+              const int t = t0 + lane + 32 * j;
+              x[j] = t < T ? lse[(size_t)bh * T + t] * kLog2e : pos_inf();
+              x[2 + j] = t < T ? delta[(size_t)bh * T + t] : 0.f;
+            }
+          },
+          [&](int s, const float (&x)[4]) {
+            float* lv = sm.vec + s * 2 * W::BN;
+            lv[lane] = x[0];
+            lv[lane + 32] = x[1];
+            lv[W::BN + lane] = x[2];
+            lv[W::BN + lane + 32] = x[3];
+          });
     }
-    cp_async_wait_all();
-    __syncthreads();
+  } else {
+    sm90::setmaxnreg_inc<224>();
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = k0 + 64 * wg;     // the warpgroup's first key
+    const int mrow = 16 * warp + g;  // this thread's keys: mrow, + 8
+    const float sl2 = scale * kLog2e;
+    bool kok[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r0 + mrow + 8 * r;
+      kok[r] = t < T &&
+               (key_mask == nullptr || key_mask[(size_t)b * T + t] > 0.f);
+    }
+    float dka[W::NP][32], dva[W::NP][32];
+#pragma unroll
+    for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) dka[p][i] = dva[p][i] = 0.f;
+    sm90::mbar_wait(sm.own_bar, 0);
+    const unsigned char* ak = sm.own + wg * 64 * 128;
+    const OwnA<DMAX, DMAX <= 64> ka(ak, warp, lane),
+        va(ak + W::OWN, warp, lane);
+    for (int i = 0; i < n; ++i) {
+      const int st = i % W::STAGES;
+      sm90::mbar_wait(&sm.full[st], (i / W::STAGES) & 1);
+      const int t0 = (first + i) * W::BN;
+      if (r0 < T && (!causal || t0 >= r0)) {
+        const bool diag = causal && t0 == r0;
+        const uint32_t qt = sm90::smem_u32(sm.stage(st)), ot = qt + W::STREAM;
+        float s[32], dp[32];  // K Q^T, V dO^T (the first step overwrites)
+        first_products<DMAX>(s, dp, ka, va, qt, ot);
+        sm90::wgmma_wait<0>();
+        sm90::fence_acc(s);
+        sm90::fence_acc(dp);
+        // P^T in place of S^T, where-guarded by the key's predicate and,
+        // on the diagonal tile, the causal compare
+        const float* lv = sm.vec + st * 2 * W::BN;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 l2 = *reinterpret_cast<const float2*>(lv + 8 * j +
+                                                             2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e, r = e >> 1;
+            const int c = 8 * j + 2 * t4 + (e & 1);
+            const bool keep = kok[r] && (!diag || mrow + 8 * r <= c);
+            s[x] = keep ? exp2_fast(fmaf(s[x], sl2, -((e & 1) ? l2.y : l2.x)))
+                        : 0.f;
+          }
+        }
+        uint32_t ap[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(s, kk, ap[kk]);
+        // dS^T = P^T o (dP^T - delta) in place of dP^T
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 d2 = *reinterpret_cast<const float2*>(
+              lv + W::BN + 8 * j + 2 * t4);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int x = 4 * j + e;
+            dp[x] = s[x] * (dp[x] - ((e & 1) ? d2.y : d2.x));
+          }
+        }
+        uint32_t as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) acc_to_a16(dp, kk, as[kk]);
+        // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to bf16 as A,
+        // dO and Q read MN-major
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int p = 0; p < W::NP; ++p) {
+          sm90::fence_acc(dva[p]);
+          sm90::fence_acc(dka[p]);
+        }
+        second_product<DMAX>(dva, ap, ot);
+        second_product<DMAX>(dka, as, qt);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+#pragma unroll
+        for (int p = 0; p < W::NP; ++p) {
+          sm90::fence_acc(dva[p]);
+          sm90::fence_acc(dka[p]);
+        }
+      }
+      release(&sm.empty[st], lane);
+    }
+    store_rows<W::NP>(dk, dka, scale, base, row, r0, T, D, pair != 0, warp,
+                      lane);
+    store_rows<W::NP>(dv, dva, 1.f, base, row, r0, T, D, pair != 0, warp,
+                      lane);
   }
-
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int kp = k0 + m0 + g + 8 * (e >> 1);
-      const int d = 8 * n + 2 * t4 + (e & 1);
-      if (kp < T && d < D) {
-        dk[base + (size_t)kp * row + d] = f32_to_bf16(dka[n][e] * scale);
-        dv[base + (size_t)kp * row + d] = f32_to_bf16(dva[n][e]);
-      }
-    }
 }
 
 // Raise a kernel's dynamic shared-memory limit when it needs more than
@@ -1866,22 +2178,47 @@ int launch_fwd_bf16(const void* q, const void* k, const void* v,
   return (int)cudaGetLastError();
 }
 
+inline bool aligned4(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
+}
+
+// The bf16 backward legs' launches. TMA when D % 8 == 0 and q, k, v and
+// dO are 16-byte aligned (its strides must be multiples of 16 bytes):
+// the four tensor maps are encoded here, at every launch, and passed by
+// value; else the producer warp fills the same swizzled tiles itself and
+// the maps are unused.
+template <int DMAX>
+bool bwd_bf16_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
+                   const void* v, const void* dout, int B, int T, int H,
+                   int D, cudaError_t& e) {
+  const void* src[4] = {q, k, v, dout};
+  bool tma = D % 8 == 0;
+  for (int i = 0; i < 4; ++i) tma = tma && aligned16(src[i]);
+  e = cudaSuccess;
+  for (int i = 0; tma && i < 4 && e == cudaSuccess; ++i)
+    e = sm90::bf16_bthd_map(&maps[i], src[i], B, T, H, D, WgBwd<DMAX>::BN);
+  return tma;
+}
+
 template <int DMAX>
 int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* km, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int T, int H, int D,
                    int causal, float scale, void* stream) {
-  const size_t smem = Bf16DqTile<DMAX>::smem(2, 1);
-  cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<DMAX>, smem);
+  using W = WgBwd<DMAX>;
+  cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<DMAX>, W::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) &&
-                   aligned16(v) && aligned16(dout);
-  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
-  flash_bwd_dq_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
+  CUtensorMap maps[4] = {};
+  const int tma = bwd_bf16_maps<DMAX>(maps, q, k, v, dout, B, T, H, D, e);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (T + W::BM - 1) / W::BM);
+  flash_bwd_dq_bf16_kernel<DMAX><<<grid, W::kThreads, W::kSmemBytes,
                                    (cudaStream_t)stream>>>(
-      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-      (const float*)km, (const uint16_t*)dout, (const float*)lse,
-      (const float*)delta, (uint16_t*)dq, H, T, D, causal, scale, vec8);
+      maps[0], maps[1], maps[2], maps[3], (const uint16_t*)q,
+      (const uint16_t*)k, (const uint16_t*)v, (const float*)km,
+      (const uint16_t*)dout, (const float*)lse, (const float*)delta,
+      (uint16_t*)dq, H, T, D, causal, scale, tma,
+      D % 2 == 0 && aligned4(dq));
   return (int)cudaGetLastError();
 }
 
@@ -1890,49 +2227,53 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* km, const void* dout, const void* lse,
                     const void* delta, void* dk, void* dv, int B, int T,
                     int H, int D, int causal, float scale, void* stream) {
-  const size_t smem = Bf16DkvTile<DMAX>::smem(2, 2);
-  cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<DMAX>, smem);
+  using W = WgBwd<DMAX>;
+  cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<DMAX>, W::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
-  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) &&
-                   aligned16(v) && aligned16(dout);
-  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
-  flash_bwd_dkv_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
+  CUtensorMap maps[4] = {};
+  const int tma = bwd_bf16_maps<DMAX>(maps, q, k, v, dout, B, T, H, D, e);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (T + W::BM - 1) / W::BM);
+  flash_bwd_dkv_bf16_kernel<DMAX><<<grid, W::kThreads, W::kSmemBytes,
                                     (cudaStream_t)stream>>>(
-      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-      (const float*)km, (const uint16_t*)dout, (const float*)lse,
-      (const float*)delta, (uint16_t*)dk, (uint16_t*)dv, H, T, D, causal,
-      scale, vec8);
+      maps[0], maps[1], maps[2], maps[3], (const uint16_t*)q,
+      (const uint16_t*)k, (const uint16_t*)v, (const float*)km,
+      (const uint16_t*)dout, (const float*)lse, (const float*)delta,
+      (uint16_t*)dk, (uint16_t*)dv, H, T, D, causal, scale, tma,
+      D % 2 == 0 && aligned4(dk) && aligned4(dv));
   return (int)cudaGetLastError();
 }
 
 // out[0..4]: registers a thread, local (spill) bytes, dynamic shared
-// bytes, resident blocks per SM and threads a block of a kernel
+// bytes, resident blocks per SM and threads of a kernel launched with
+// blocks of `threads`
 template <typename Kernel>
-int kernel_info(Kernel kernel, size_t smem, int* out) {
+int kernel_info(Kernel kernel, size_t smem, int threads, int* out) {
   cudaFuncAttributes attr;
   cudaError_t e = allow_smem(kernel, smem);
   if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, kernel);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&out[3], kernel,
-                                                      kBwdThreads, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return (int)e;
   out[0] = attr.numRegs;
   out[1] = (int)attr.localSizeBytes;
   out[2] = (int)smem;
-  out[4] = kBwdThreads;
+  out[4] = threads;
   return 0;
 }
 
 template <int DMAX>
 int bf16_info(int which, int* out) {
+  using W = WgBwd<DMAX>;
   if (which == 0)
     return kernel_info(flash_fwd_bf16_kernel<DMAX>,
-                       Bf16FwdTile<DMAX>::smem(1, 1), out);
+                       Bf16FwdTile<DMAX>::smem(1, 1), kBwdThreads, out);
   if (which == 1)
-    return kernel_info(flash_bwd_dq_bf16_kernel<DMAX>,
-                       Bf16DqTile<DMAX>::smem(2, 1), out);
-  return kernel_info(flash_bwd_dkv_bf16_kernel<DMAX>,
-                     Bf16DkvTile<DMAX>::smem(2, 2), out);
+    return kernel_info(flash_bwd_dq_bf16_kernel<DMAX>, W::kSmemBytes,
+                       W::kThreads, out);
+  return kernel_info(flash_bwd_dkv_bf16_kernel<DMAX>, W::kSmemBytes,
+                     W::kThreads, out);
 }
 
 }  // namespace

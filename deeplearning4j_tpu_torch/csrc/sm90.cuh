@@ -1,0 +1,253 @@
+// Hopper (sm_90a) building blocks for warp-specialised kernels: shared
+// memory addresses, mbarriers, TMA tile loads and their tensor maps,
+// wgmma shared-memory descriptors and the bf16 wgmma products, and the
+// register hand-over between warpgroups (setmaxnreg). Inline PTX, as the
+// rest of csrc/; no CUTLASS. Used by the bf16 flash backward kernels
+// (flash_attention.cu, B6 and B7).
+//
+// Tile layout. Every tile that wgmma reads is a stack of [rows][64] bf16
+// panels (128 bytes a row) in the 128-byte swizzle that TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes: within each 1024-byte group of 8
+// rows, 16-byte chunk c of row r sits at chunk c ^ (r % 8). A panel's base
+// is 1024-byte aligned. The same layout serves both operand majors:
+//  - K-major (the contraction runs along the 64 columns): 8-row groups
+//    1024 bytes apart (SBO), a 16-wide k step 32 bytes further along;
+//  - MN-major (the contraction runs along the rows, through the
+//    transpose bit, bf16 only): 8-row groups 1024 bytes apart (SBO), a
+//    16-row k step 2048 bytes further down.
+#pragma once
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace sm90 {
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// ---- mbarriers ----
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA)
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// One arrival that also expects `bytes` from the async copies signalled
+// on this barrier's current phase
+__device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits until the phase of parity `parity` has completed (a fresh
+// barrier is in phase 0, so parity 1 passes at once). A phase that
+// never completes is a fault in the kernel's protocol: after 2^35 clock
+// cycles (~20 s) of polling the kernel traps, so the launch fails with
+// an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  long long start = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == 0) start = clock64();
+    else if ((polls & 1023) == 0 && clock64() - start > (1ll << 35))
+      __trap();
+  }
+}
+
+// Orders this thread's generic-proxy writes to shared memory before
+// later async-proxy reads (wgmma) of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- TMA ----
+
+// A [rows][64] bf16 box of a 4-D tensor map at coordinates (c0 innermost)
+// into shared memory at dst, completing `box bytes` on bar
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// The tensor map of a contiguous bf16 [B, T, H, D] tensor read in boxes
+// of 64 head-dim columns by `rows` time rows of one (batch, head), in the
+// 128-byte swizzle; columns past D and rows past T read as 0. Needs a
+// 16-byte aligned base and D % 8 == 0 (TMA's strides are multiples of 16
+// bytes). cuTensorMapEncodeTiled is a driver call: it is reached through
+// the runtime's entry-point query, so the library links no libcuda.
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle,
+                                  CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                     cudaEnableDefault, &found);
+#else
+    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                            &found);
+#endif
+    if (found == cudaDriverEntryPointSuccess) fn = (EncodeTiledFn)p;
+  }
+  return fn;
+}
+
+inline cudaError_t bf16_bthd_map(CUtensorMap* map, const void* base, int B,
+                                 int T, int H, int D, int rows) {
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r =
+      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+         dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Byte offset of element (r, c) of a [rows][64] bf16 panel in the
+// 128-byte swizzle (what TMA writes), for threads that fill a panel
+// themselves
+__device__ __forceinline__ uint32_t swz128(int r, int c) {
+  return (uint32_t)(r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2);
+}
+
+// ---- wgmma ----
+
+// Shared-memory matrix descriptor of a 128-byte-swizzled operand at
+// shared address `addr`: 8-row groups `sbo` bytes apart, `lbo` bytes
+// between 64-wide panels (read only for an MN-major operand wider than a
+// panel)
+__device__ __forceinline__ uint64_t desc128(uint32_t addr, uint32_t lbo,
+                                            uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it
+__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Accumulator of m64n64k16 (f32), per thread of the warpgroup: warp w
+// holds rows 16w .. 16w + 15; d[4j + e] is row g + 8 (e >> 1), column
+// 8j + 2t + (e & 1), with g = lane / 4 and t = lane % 4 (mma.sync's
+// m16n8 layout, repeated over the 8 column blocks). The A operand from
+// registers has m16n8k16's A layout per warp, so accumulator blocks 2j
+// and 2j + 1 packed to bf16 pairs are the A of k step j.
+#define SM90_ACC32(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
+      "+f"(d[31])
+#define SM90_ACC32_STR                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31}"
+
+// d (+)= A B, A [64][16] and B [16][64] from shared memory, bf16, f32
+// accumulation; A K-major; B K-major (TB = 0) or MN-major (TB = 1).
+// accumulate = 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32_STR
+      ", %32, %33, p, 1, 1, 0, %35;\n}\n"
+      : SM90_ACC32(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
+
+// d (+)= A B with A [64][16] from registers (a[0..3], per warp the A
+// layout of mma.sync m16n8k16) and B from shared memory as above
+template <int TB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db, int accumulate = 1) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " SM90_ACC32_STR
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+      : SM90_ACC32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate), "n"(TB));
+}
+
+// ---- warp specialisation ----
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+}  // namespace sm90

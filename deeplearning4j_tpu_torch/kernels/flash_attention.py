@@ -18,8 +18,10 @@ training path calls. Nothing falls back: a CUDA tensor the
 kernels do not take raises.
 
 Each kernel has an f32 leg (3xTF32 on the tensor cores) and a bf16 leg
-(bf16 ``mma.sync`` with f32 accumulation), picked by the operands'
-dtype, which must be one and the same for q, k, v (and dO). As in the
+(bf16 products with f32 accumulation: ``mma.sync`` in the forward;
+``wgmma`` fed by TMA through a warp-specialised ring in dQ and dK/dV,
+``csrc/sm90.cuh``), picked by the operands' dtype, which must be one
+and the same for q, k, v (and dO). As in the
 JAX kernels, both compute in f32 from the operands' values and return
 O, dQ, dK and dV in the operands' dtype; the LSE and delta are f32.
 fp16 operands are not ported (ROADMAP.md queue B, item B8).
@@ -343,10 +345,12 @@ def bwd_kernel_info(D: int) -> dict:
 
 
 def bf16_kernel_info(D: int) -> dict:
-    """Registers a thread, local (spill) bytes, dynamic shared memory
-    (bytes), resident blocks per SM and threads a block of each bf16
-    leg (``fwd``, ``dq``, ``dkv``) at head dim ``D``, as the card
-    reports them."""
+    """Registers a thread (at launch: the dQ and dK/dV kernels then move
+    registers from their producer warpgroup to their two consumer
+    warpgroups), local (spill) bytes, dynamic shared memory (bytes),
+    resident blocks per SM and threads a block of each bf16 leg
+    (``fwd``, ``dq``, ``dkv``) at head dim ``D``, as the card reports
+    them for the block each leg launches."""
     lib = _build.load("flash_attention", _SIGNATURES)
     res = {}
     for which, name in enumerate(("fwd", "dq", "dkv")):

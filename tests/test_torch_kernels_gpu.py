@@ -595,17 +595,24 @@ def _scaled_err(got, want):
             max(want.abs().max().item(), 1.0)).item()
 
 
+#: (H, D) of the bf16 cases: each head-dim bucket, D = 40 (not a power
+#: of two: TMA zero-fills the columns past D), and H = 1, D = 36, whose
+#: 72-byte row stride TMA cannot take (the dQ and dK/dV kernels' producer
+#: fills the same swizzled tiles itself)
+BF16_HEADS = [(2, 32), (2, 40), (2, 64), (2, 128), (1, 36)]
+
+
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [32, 64, 128])
+@pytest.mark.parametrize("H,D", BF16_HEADS)
 @pytest.mark.parametrize("T", [8, 100, 257])
-def test_bf16_legs_match_plain(T, D, causal):
+def test_bf16_legs_match_plain(T, H, D, causal):
     """The three bf16 legs against their plain versions: a ragged key
     mask, a batch row whose keys are all masked (O 0, LSE -1e30,
     gradients exactly 0), T not a multiple of 64; each leg counts its
     own launch and the f32 legs' counters stay."""
     dev = _device()
     rs = np.random.RandomState(7 * T + D + causal)
-    q, k, v, g, km = _bf16_case(rs, 3, T, 2, D, dev)
+    q, k, v, g, km = _bf16_case(rs, 3, T, H, D, dev)
     f32 = (fa.launches, fa.launches_dq, fa.launches_dkv)
     n = (fa.launches_bf16, fa.launches_dq_bf16, fa.launches_dkv_bf16)
     out, lse = fa.flash_attention(q, k, v, causal, km)
@@ -631,12 +638,13 @@ def test_bf16_legs_match_plain(T, D, causal):
         assert a[2].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("D", [32, 64, 128])
-def test_bf16_legs_are_deterministic(D):
+@pytest.mark.parametrize("H,D", BF16_HEADS)
+def test_bf16_legs_are_deterministic(H, D):
     """One owner block per output row, no atomics: two calls of each
-    bf16 leg give the same bits."""
+    bf16 leg give the same bits, on the TMA path and on the producer's
+    own fill (H = 1, D = 36)."""
     dev = _device()
-    q, k, v, g, km = _bf16_case(np.random.RandomState(D), 3, 257, 2, D, dev)
+    q, k, v, g, km = _bf16_case(np.random.RandomState(D), 3, 257, H, D, dev)
     first = fa.flash_attention(q, k, v, True, km)
     assert all(torch.equal(a, b) for a, b in
                zip(first, fa.flash_attention(q, k, v, True, km)))
@@ -667,6 +675,51 @@ def test_bf16_legs_at_the_training_shape():
     assert (lse - rl).abs().max().item() <= TOL_BF16_LSE
     for a, b in zip(got, want):
         assert _scaled_err(a, b) <= TOL_BF16_GRAD
+
+
+def test_bf16_backward_at_t2048_with_a_ragged_key_mask():
+    """The dQ and dK/dV pair against plain at T = 2048 (32 query and 32
+    key tiles of 64, 16 blocks of 128 rows a head), causal, with a key
+    mask that cuts each batch row at another place (mid-tile and on a
+    tile edge) and one row with every key masked."""
+    dev = _device()
+    rs = np.random.RandomState(2049)
+    B, T, H, D = 3, 2048, 2, 64
+    q, k, v, g = (_randn(rs, B, T, H, D, dev=dev).bfloat16()
+                  for _ in range(4))
+    km = torch.ones((B, T), device=dev)
+    km[0, 1333:] = 0.0
+    km[1, 1024:] = 0.0
+    km[2] = 0.0
+    ro, rl = fa.flash_attention_torch(q, k, v, True, km)
+    delta = fa.backward_delta(g, ro)
+    got = _bwd_kernels(q, k, v, km, g, rl, delta, True)
+    want = (fa.flash_attention_bwd_dq_torch(q, k, v, km, g, rl, delta, True),
+            *fa.flash_attention_bwd_dkv_torch(q, k, v, km, g, rl, delta,
+                                              True))
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and bool(torch.isfinite(a).all())
+        assert _scaled_err(a, b) <= TOL_BF16_GRAD
+        assert a[2].abs().max().item() == 0.0
+    for masked_key_rows in (got[1][0, 1333:], got[2][0, 1333:]):  # dK, dV
+        assert masked_key_rows.abs().max().item() == 0.0
+
+
+def test_bf16_kernel_info_reports_the_launched_block():
+    """bf16_kernel_info reports each leg's real block: 128 threads for
+    the forward, 384 (two consumer warpgroups and a producer) for dQ and
+    dK/dV, at least one resident block per SM, and registers that fit
+    the register file for that block."""
+    _device()
+    for D in (32, 64, 128):
+        info = fa.bf16_kernel_info(D)
+        assert info["fwd"]["threads"] == 128
+        assert info["dq"]["threads"] == info["dkv"]["threads"] == 384
+        for leg in info.values():
+            assert leg["blocks_per_sm"] >= 1
+            assert (leg["registers"] * leg["threads"] * leg["blocks_per_sm"]
+                    <= 65536)
 
 
 def test_bf16_autograd_function_on_the_card():
