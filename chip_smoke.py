@@ -52,9 +52,10 @@ Phases, each of which fails the run when it fails:
    a fully masked row (O and gradients exactly 0), two calls of each
    bit-identical, then each timed beside its bound at the bf16 rate,
    its plain version and SDPA at bf16 (its backward for dQ and dK/dV).
-   The dQ and dK/dV pair and the whole bf16 backward (delta, dQ, dK/dV)
-   are timed beside SDPA's bf16 backward (with the mask and with
-   is_causal) at T = 1024, 2048 and 4096;
+   The forward is also timed beside SDPA's bf16 forward with is_causal,
+   and, like the dQ and dK/dV pair and the whole bf16 backward (delta,
+   dQ, dK/dV), beside SDPA (with the mask and with is_causal) at B = 1
+   and 4 and T = 1024, 2048 and 4096;
 9. training: the served width in the layer DSL fitted through
    MultiLayerNetwork.fit (one warmup and five timed Adam steps of
    4 x 1024 tokens); each flash kernel must launch once per layer and
@@ -88,10 +89,10 @@ must give the same bits on two calls, and reports registers, spills
 and blocks per SM.
 Phase 2 counts HMMA (``mma.sync``) and HGMMA (``wgmma``) in every flash
 kernel and I2F in the two int8 kernels from ``cuobjdump -sass`` where
-the toolkit has it: the bf16 dQ and dK/dV kernels must run bf16 HGMMA
-and no HMMA at each head-dim bucket (32, 64, 128), the other flash
-kernels HMMA (the bf16 forward bf16 HMMA), and the int8 kernels must
-convert without I2F.
+the toolkit has it: the three bf16 flash kernels (forward, dQ, dK/dV)
+must run bf16 HGMMA and no HMMA at each head-dim bucket (32, 64, 128),
+the f32 flash kernels HMMA, and the int8 kernels must convert without
+I2F.
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -1082,10 +1083,10 @@ def check_flash_bf16(dev):
     beside its bound at the bf16 rate, its plain version and one library
     call (SDPA at bf16 for the forward, SDPA's backward at bf16 for the
     backward pair), with registers, spills, shared memory, blocks per SM
-    and threads by head dim. The pair and the port's whole backward
-    (delta included) are also held against SDPA's bf16 backward, with
-    the mask and with is_causal, there and at T = 2048 and 4096 (B = 4
-    and 1); see bwd_against_sdpa."""
+    and threads by head dim. The forward (see fwd_against_sdpa), the
+    pair and the port's whole backward (delta included; see
+    bwd_against_sdpa) are also held against SDPA at bf16, with the mask
+    and with is_causal, there and at B = 1 and T = 2048 and 4096."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
@@ -1199,6 +1200,8 @@ def check_flash_bf16(dev):
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
     res["fwd"]["library_ms"] = time_ms(fwd_lib)
     res["fwd"]["library_backend"] = _top_kernel(fwd_lib)
+    res["fwd"]["library_causal_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
     lib_out = fwd_lib()
     dot = do.transpose(1, 2)
     backend = _top_kernel(lambda: torch.autograd.grad(
@@ -1208,15 +1211,17 @@ def check_flash_bf16(dev):
     for name in ("dq", "dkv"):
         res[name]["library_ms"] = res["pair"]["library_ms"]
         res[name]["library_backend"] = backend
-    # the pair at longer sequences: T = 2048 and 4096, B = 4 and 1
-    res["long"] = {}
-    for Bl, Tl in ((4, 2048), (1, 2048), (4, 4096), (1, 4096)):
+    # the forward and the pair at B = 1 and at longer sequences
+    res["long"], res["fwd_long"] = {}, {}
+    for Bl, Tl in ((1, 1024), (4, 2048), (1, 2048), (4, 4096), (1, 4096)):
         ql, kl, vl, dol = (torch.randn((Bl, Tl, H, D), generator=g).to(dev)
                            .bfloat16() for _ in range(4))
         kml = torch.ones((Bl, Tl), device=dev)
         outl, lsel = fa.flash_attention(ql, kl, vl, True, kml)
         maskl = torch.ones((Tl, Tl), dtype=torch.bool, device=dev).tril()[
             None, None] & (kml > 0)[:, None, None, :]
+        res["fwd_long"][f"B={Bl} T={Tl}"] = fwd_against_sdpa(
+            ql, kl, vl, kml, maskl)
         res["long"][f"B={Bl} T={Tl}"] = bwd_against_sdpa(
             dev, ql, kl, vl, kml, dol, outl, lsel, maskl)
     res["cases"] = cases
@@ -1230,6 +1235,14 @@ def check_flash_bf16(dev):
               f"{r['bound_ms']:.5f} ms at bf16 ({r['bound_by']}; share "
               f"{r['share_of_bound']:.3f}) ({r['gflop']:.3f} GFLOP, "
               f"{r['mbytes']:.2f} MB)")
+    print(f"flash bf16 forward (B3) B={B} T={T} against SDPA's bf16 "
+          f"forward with is_causal: {res['fwd']['ms']:.4f} ms against "
+          f"{res['fwd']['library_causal_ms']:.4f} ms")
+    for shape, r in res["fwd_long"].items():
+        print(f"flash bf16 forward (B3) {shape} H={H} D={D} causal: "
+              f"{r['ms']:.4f} ms, against SDPA's bf16 forward with the mask "
+              f"{r['library_ms']:.4f} ms and with is_causal "
+              f"{r['library_causal_ms']:.4f} ms")
     for shape, r in [(f"B={B} T={T}", res["pair"])] + list(
             res["long"].items()):
         print(f"flash bf16 backward {shape} H={H} D={D} causal: B6 + B7 "
@@ -1245,6 +1258,22 @@ def check_flash_bf16(dev):
     print(f"flash bf16 registers, spills, shared bytes, blocks per SM and "
           f"threads by head dim {res['info']}")
     return res
+
+
+def fwd_against_sdpa(q, k, v, km, mask):
+    """The bf16 forward's device time on these inputs (causal) beside
+    SDPA's bf16 forward on the same values, once with the boolean mask
+    the kernel applies and once with ``is_causal`` (every key live here,
+    so the same function). Library calls are yardsticks only."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    return dict(
+        ms=time_ms(lambda: fa.flash_attention(q, k, v, True, km)),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask)),
+        library_causal_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)))
 
 
 def bwd_against_sdpa(dev, q, k, v, km, do, out, lse, mask):
@@ -1882,30 +1911,30 @@ def sass_counts():
 
 
 #: the kernels on wgmma (bf16 HGMMA, no HMMA) at every head-dim bucket
-WGMMA_KERNELS = ("flash_bwd_dq_bf16_kernel", "flash_bwd_dkv_bf16_kernel")
+WGMMA_KERNELS = ("flash_fwd_bf16_kernel", "flash_bwd_dq_bf16_kernel",
+                 "flash_bwd_dkv_bf16_kernel")
 
 
 def check_sass(counts):
-    """The bf16 dQ and dK/dV kernels must run on wgmma (bf16 HGMMA, no
-    HMMA) at each head-dim bucket (32, 64, 128); every other flash
-    kernel on mma.sync (HMMA; the bf16 forward's bf16 HMMA); both int8
-    kernels must convert int8 without I2F (0)."""
+    """The bf16 forward, dQ and dK/dV kernels must run on wgmma (bf16
+    HGMMA, no HMMA) at each head-dim bucket (32, 64, 128); every other
+    flash kernel on mma.sync (HMMA); both int8 kernels must convert int8
+    without I2F (0)."""
     def bad(f, c):
         if f.split("<")[0] in WGMMA_KERNELS:
             return not c["HGMMA_BF16"] or c["HMMA"]
         return ((f.startswith("flash") and not c["HMMA"])
-                or ("bf16" in f and not c["HMMA_BF16"])
                 or ("int8" in f and c["I2F"]))
     wrong = [f for f, c in counts.items() if bad(f, c)]
     missing = [f"{k}<{d}>" for k in WGMMA_KERNELS for d in (32, 64, 128)
                if f"{k}<{d}>" not in counts]
     kinds = {f.split("<")[0] for f in counts}
     if wrong or missing or len(kinds) != 8:
-        raise AssertionError(f"SASS: the bf16 dQ and dK/dV kernels must run "
-                             f"bf16 HGMMA and no HMMA at D 32, 64, 128 "
-                             f"(missing {missing}), every other flash "
-                             f"kernel HMMA (the bf16 forward bf16 HMMA), the "
-                             f"int8 kernels no I2F: {wrong} in {counts}")
+        raise AssertionError(f"SASS: the bf16 forward, dQ and dK/dV kernels "
+                             f"must run bf16 HGMMA and no HMMA at D 32, 64, "
+                             f"128 (missing {missing}), the f32 flash "
+                             f"kernels HMMA, the int8 kernels no I2F: "
+                             f"{wrong} in {counts}")
 
 
 AB_CODE = r"""

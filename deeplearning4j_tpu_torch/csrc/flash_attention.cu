@@ -1069,17 +1069,15 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // :260-261). O, dQ, dK and dV are bf16; the LSE, delta and the key mask
 // stay f32 [B, H, T] and [B, T] as in the f32 legs.
 //
-// Arithmetic. Every product takes bf16 operands and accumulates in f32
-// (mma.sync.m16n8k16 in the forward, wgmma m64n64k16 in dQ and dK/dV). A
-// product of two bf16 values is exact in f32, so S = Q K^T and dP = dO
-// V^T equal the reference's f32 dot of the bf16 values up to the order
-// of the f32 sums. The second products (O += P V, dQ += dS K, dV += P^T
-// dO, dK += dS^T Q) need P or dS as bf16 A operands: P and dS are
-// rounded to bf16 (round to nearest even, ~2^-9 of each term) right
-// before them. That rounding, and the final rounding of O, dQ, dK and dV
-// to bf16, are the legs' only errors beyond the order of the sums (and,
-// in dQ and dK/dV, ex2.approx's ~2^-22). The softmax, the LSE and delta
-// stay f32.
+// Arithmetic. Every product is wgmma (m64n64k16; the forward's S = Q K^T
+// m64n128k16) on bf16 operands with f32 accumulation. A product of two bf16 values is exact in f32, so S =
+// Q K^T and dP = dO V^T equal the reference's f32 dot of the bf16 values
+// up to the order of the f32 sums. The second products (O += P V, dQ +=
+// dS K, dV += P^T dO, dK += dS^T Q) need P or dS as bf16 A operands: P
+// and dS are rounded to bf16 (round to nearest even, ~2^-9 of each term)
+// right before them. That rounding, and the final rounding of O, dQ, dK
+// and dV to bf16, are the legs' only errors beyond the order of the sums
+// and ex2.approx's ~2^-22. The softmax, the LSE and delta stay f32.
 //
 // Bounds on this card (989 TFLOP/s bf16 dense, 3.35 TB/s; each input
 // read once, each output written once) at the training shapes B=4, H=8,
@@ -1093,40 +1091,26 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //  - dK/dV: 8.598 GFLOP -> 0.00869 ms; 25.44 MB -> 0.00760 ms:
 //    operations, at 0.00869 ms.
 // All three sit near the ridge (~300 flops a byte), so neither the
-// tensor cores nor memory alone sets the pace.
+// tensor cores nor memory alone sets the pace. Per 64 x 64 tile of
+// scores a warpgroup issues 8 (forward) to 16 (dK/dV) wgmma of 32
+// tensor-core cycles each at the card's peak, and the forward takes
+// 4,096 exponentials of the 16 a cycle an SM's special-function units
+// give: as long as the products (~256 cycles). So latency, and which
+// unit waits for which, sets the pace, not any one unit's rate: a
+// clock64 trace of one forward block spent most of each tile in the
+// softmax, both warpgroups at once, with the tensor cores idle.
 //
-// Forward (B3, bf16 mma.sync):
-//  - tiles sit in shared memory as bf16 (half the f32 legs' bytes),
-//    rows padded by 16 bytes so that every ldmatrix phase hits 8
-//    distinct 16-byte bank groups, filled by 16-byte cp.async (D % 8 ==
-//    0 and 16-byte aligned tensors; plain loads otherwise) through a
-//    two-stage ring: the next tile loads while this one computes;
-//  - fragments come from shared memory by ldmatrix (x4: four 8x8 b16
-//    matrices a warp-wide instruction), and by ldmatrix.trans for V in
-//    P V, so no tile is stored twice;
-//  - S stays in the accumulators; the m16n8k16 accumulator layout (rows
-//    g, g + 8; columns 2t, 2t + 1 of each 8-wide block) is the A
-//    operand's layout of a 16-wide k step, so P becomes A fragments by
-//    packing two accumulator blocks, with no permutation;
-//  - Q's A fragments are held in registers at D <= 64 and read by
-//    ldmatrix at each use at D = 128;
-//  - one key group: the bf16 forward's only caller is training (B=4:
-//    512 blocks, 3.9 per SM), past the f32 leg's measured crossover of
-//    2.5 blocks per SM where one group wins; served prefills run f32.
-// Not yet for the forward: wgmma and TMA (the building blocks are in
-// sm90.cuh, see dQ and dK/dV below).
-//
-// dQ and dK/dV (B6, B7, wgmma fed by TMA, warp-specialised). mma.sync
-// cannot reach Hopper's tensor-core rate, and its every warp re-reads
-// the whole streamed tile from shared memory. Here:
+// One design for all three (wgmma fed by TMA, warp-specialised):
 //  - a block of 384 threads: two consumer warpgroups own 64 rows each of
-//    a 128-row tile (queries for dQ, keys for dK/dV), and one warp of the
-//    third streams the other side (K and V, or Q and dO) in 64-row tiles
-//    through a three-stage ring (two at D = 128) in shared memory, which
-//    both consumers read. setmaxnreg moves registers from the producer
-//    warpgroup (56) to the consumers (224): no spills at any D;
+//    a 128-row tile (queries for the forward and dQ, keys for dK/dV), and
+//    one warp of the third streams the other side (K and V, or Q and dO)
+//    in 64-row tiles (the forward 128) through a ring of three stages
+//    (the forward four; two at D = 128) in shared memory, which both
+//    consumers read. setmaxnreg moves
+//    registers from the producer warpgroup (56) to the consumers (224):
+//    no spills at any D;
 //  - TMA copies every tile (4-D tensor maps over [B, T, H, D], boxes of
-//    64 columns by 64 rows, encoded on the host at each launch through
+//    64 columns by 64 rows (the forward 128), encoded on the host at each launch through
 //    the runtime's driver entry point) in the 128-byte swizzle that the
 //    wgmma descriptors read; rows past T and columns past D arrive as 0.
 //    Where TMA cannot take the strides (D % 8 != 0, or a tensor not
@@ -1134,69 +1118,94 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //    with 2-byte loads, then a proxy fence; the consumers do not change;
 //  - mbarriers, no block-wide barrier in the loop: a stage's full
 //    barrier completes on the tiles' bytes and the producer's arrival
-//    with the stage's two f32 vectors (dQ: each key's predicate, key
-//    mask and T; dK/dV: the queries' LSE in log2 units, +inf past T, and
+//    with the stage's f32 vectors (forward and dQ: each key's predicate,
+//    key mask and T, and for the forward whether every key of the tile
+//    is live; dK/dV: the queries' LSE in log2 units, +inf past T, and
 //    delta), which it reads from global memory one tile ahead so their
 //    latency hides behind the wait for a free stage; its empty barrier
 //    on one arrival from each of the 8 consumer warps once their
 //    products on the stage have completed;
-//  - every product is wgmma m64n64k16: S = Q K^T and dP = dO V^T (dQ),
-//    S^T = K Q^T and dP^T = V dO^T (dK/dV) with the block's own rows as
-//    A (held in registers at D <= 64, read by ldmatrix through the
-//    swizzle once a block; from shared memory at D = 128) and the
-//    streamed tile as a K-major B; then dQ += dS K, dV += P^T dO and dK
-//    += dS^T Q with A = P or dS from the accumulators (the m64nNk16
-//    accumulator has mma.sync's per-warp layout, so two 8-column blocks
-//    pack into a k step's A) and B = the same streamed tile read MN-major
-//    through the transpose bit: no tile is stored twice;
-//  - p = 2^(s scale log2(e) - lse log2(e)) is one FFMA and one ex2.approx
-//    (exp2f's range check and rescale cost more than the products here);
-//    the causal compare runs only on the diagonal tile, the key's
-//    predicate is one select a column (dQ) or a row (dK/dV), and the
-//    where-guard stays wherever a key can be masked, so a fully masked
-//    row's gradients are exactly 0;
+//  - the first products take the block's own rows as A (dQ and dK/dV:
+//    held in registers at D <= 64, read by ldmatrix through the swizzle
+//    once a block; from shared memory at D = 128 and in the forward) and
+//    the streamed tile as a
+//    K-major B: S = Q K^T (forward, dQ), dP = dO V^T (dQ), S^T = K Q^T
+//    and dP^T = V dO^T (dK/dV). The second products, O += P V, dQ += dS
+//    K, dV += P^T dO and dK += dS^T Q, take A = P or dS from the
+//    accumulators (the m64nNk16 accumulator has mma.sync's per-warp
+//    layout, so two 8-column blocks pack into a k step's A) and B = the
+//    same streamed tile read MN-major through the transpose bit: no tile
+//    is stored twice, and P and dS never touch shared memory;
+//  - an exponential is one FFMA and one ex2.approx (exp2f's range check
+//    and rescale cost more than the products here); the causal compare
+//    runs only on the diagonal tile, the key's predicate is one select a
+//    column (forward, dQ) or a row (dK/dV), and the where-guard stays
+//    wherever a key can be masked, so a fully masked row's O and
+//    gradients are exactly 0 and its LSE -1e30;
 //  - causal tiles wholly above the diagonal are never loaded, a
 //    warpgroup waits for and releases, but skips, a stage wholly on the
 //    masked side of its rows, and the grid runs the longest tiles first
-//    (dQ the last query tile, dK/dV the first key tile);
+//    (forward and dQ the last query tile, dK/dV the first key tile);
 //  - one owner block per output row, summing in a fixed order, no
 //    atomics: two calls give the same bits.
-// Masking as in the f32 legs: masked scores are -1e30, p is
-// where-guarded to 0 (a fully masked row has O = 0, LSE = -1e30 and
-// gradients of exactly 0).
-
-template <int DMAX, int BN_>
-struct Bf16Tile {
-  static constexpr int BN = BN_;           // streamed rows a tile
-  static constexpr int LD = DMAX + 8;      // bf16 a row, 16-byte pad
-  static constexpr bool kHeld = DMAX <= 64;
-  // `own` [64][LD] tiles of the block and two stages of two streamed
-  // [BN][LD] tiles, bf16, then nvec [2][BN] f32 row vectors
-  static constexpr size_t smem(int own, int nvec) {
-    return (size_t)(own * kBwdRows * LD + 4 * BN * LD) * 2 +
-           (size_t)nvec * 2 * BN * 4;
-  }
+//
+// The forward's own parts (B3):
+//  - online softmax per row over its running max m of the raw scores,
+//    reduced over the 4 threads that hold the row: p = 2^(s c - m c)
+//    with c = scale log2(e), the O accumulator and the row's sum l
+//    corrected once a tile by 2^((m_old - m_new) c); each thread sums
+//    its own columns of l, reduced once at the end; LSE = m scale +
+//    log(l) in f32;
+//  - a tile off the diagonal whose keys are all live (the producer's
+//    flag) takes no select; elsewhere a masked score is -1e30 and p is
+//    where-guarded to 0, so a row with no live key keeps m = -1e30;
+//  - one tile at a time: S, the softmax, then P V, each waited for;
+//  - tried on the H100 in scratch builds, timed in turns, and dropped:
+//    the softmax of tile i beside P V of tile i - 1 (no faster), beside
+//    S of tile i + 1 as well (slower: ptxas serialised the products),
+//    the two warpgroups taking turns to issue their products (slower
+//    where it ran; launch failures at T = 64), 64-key tiles (slower at
+//    long T, no faster at the training shape), the key mask read four
+//    tiles ahead (no change), and Q held in registers: in the
+//    one-tile-at-a-time loop ptxas reused those registers for the
+//    softmax (wrong results), and where right it was no faster.
+// Not yet (forward): the tensor cores kept busy while the softmax runs;
+// the softmax's special-function work moved in part to the FMA units.
+//
+// Per head-dim bucket and block: the padded width DP (64 or 128 columns,
+// held as 64-wide swizzled panels; D <= 32 is read into one panel whose
+// upper half is zero), the 16-wide contraction steps over the head dim,
+// the streamed tile (BN rows), the block's own rows (BM: two consumer
+// warpgroups of 64), the ring's stages and the dynamic shared memory:
+// NOWN own tiles (2: Q and dO, or K and V; the forward 1: Q), two
+// streamed tiles and two [BN] f32 vectors a stage, the barriers, and
+// 1024 bytes to align the panels.
+template <int DMAX, int NOWN = 2, int BN_ = 64>
+struct Wg {
+  static constexpr int DP = DMAX < 64 ? 64 : DMAX;
+  static constexpr int NP = DP / 64;    // 64-column panels
+  static constexpr int KS = DMAX / 16;  // k steps over the head dim
+  static constexpr int BN = BN_;
+  static constexpr int BM = 128;
+  static constexpr int STAGES = NP == 1 ? (NOWN == 1 ? 4 : 3) : 2;
+  static constexpr int NOWN_ = NOWN;
+  static constexpr int kThreads = 384;  // consumers 0..255, producer WG
+  static constexpr uint32_t OWN = NP * BM * 128;     // bytes, own tile
+  static constexpr uint32_t STREAM = NP * BN * 128;  // bytes, streamed
+  static constexpr size_t kSmemBytes = 1024 + NOWN * OWN +
+                                       STAGES * 2 * (STREAM + BN * 4) +
+                                       (2 * STAGES + 1) * 8;
 };
-template <int DMAX> using Bf16FwdTile = Bf16Tile<DMAX, 64>;
 
 __device__ __forceinline__ uint16_t f32_to_bf16(float x) {
   return __bfloat16_as_ushort(__float2bfloat16_rn(x));
 }
 
 // two f32 values rounded to bf16 (nearest even), lo in the low half as
-// mma.sync expects the lower column there
+// the A fragments expect the lower column there
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
@@ -1207,311 +1216,12 @@ __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
                : "r"(a));
 }
 
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const uint16_t* p) {
-  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// ldmatrix addresses, lane = this thread's lane (g = lane / 4, t = lane %
-// 4 below are the fragments' coordinates).
-// A of a row-major [.][LD] tile, rows m0 .. m0+15, k step ks: a0 (row g,
-// columns 2t, 2t+1), a1 (row g + 8), a2 (columns + 8), a3 (both).
-template <int LD>
-__device__ __forceinline__ const uint16_t* a_addr(const uint16_t* s, int m0,
-                                                  int ks, int lane) {
-  return s + (m0 + (lane & 15)) * LD + 16 * ks + (lane >> 4) * 8;
-}
-// B of X Y^T over k step ks for the two 8-row blocks n0 .. n0+15 of a
-// row-major Y: r0, r1 = block n0's (b0, b1), r2, r3 = block n0 + 8's.
-template <int LD>
-__device__ __forceinline__ const uint16_t* bt_addr(const uint16_t* s, int n0,
-                                                   int ks, int lane) {
-  return s + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LD + 16 * ks +
-         ((lane >> 3) & 1) * 8;
-}
-// B of P Y over the 16 rows r0 .. r0+15 of a row-major Y (read
-// transposed), for its columns c0 .. c0+15: r0, r1 = columns c0 .. c0+7,
-// r2, r3 = columns c0+8 .. c0+15.
-template <int LD>
-__device__ __forceinline__ const uint16_t* bn_addr(const uint16_t* s, int r0,
-                                                   int c0, int lane) {
-  return s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8;
-}
-
-// S accumulator blocks 2j and 2j + 1 (16 columns) as the A operand of a
-// product over those columns, rounded to bf16
-__device__ __forceinline__ void acc_to_a(const float (&lo)[4],
-                                         const float (&hi)[4],
-                                         uint32_t (&a)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// A fragments of a warp's 16 rows of a bf16 [64][LD] tile: held in
-// registers (kHeld) or read by ldmatrix at each use
-template <int DMAX, bool kHeld>
-struct Bf16AFrags {
-  static constexpr int KS = DMAX / 16;
-  static constexpr int LD = DMAX + 8;
-  uint32_t r[kHeld ? KS : 1][4];
-  const uint16_t* p;  // this lane's address at ks = 0
-
-  __device__ __forceinline__ Bf16AFrags(const uint16_t* s, int m0, int lane)
-      : p(a_addr<LD>(s, m0, 0, lane)) {
-    if constexpr (kHeld) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) ldsm_x4(r[ks], p + 16 * ks);
-    }
-  }
-  __device__ __forceinline__ void get(int ks, uint32_t (&a)[4]) const {
-    if constexpr (kHeld) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = r[ks][i];
-    } else {
-      ldsm_x4(a, p + 16 * ks);
-    }
-  }
-};
-
-// Rows t0 .. t0+ROWS-1 of one (batch, head) of N bf16 [B, T, H, D]
-// tensors into [ROWS][DMAX + 8] shared tiles, zero past T and past D.
-// vec8: D % 8 == 0 and the tensors 16-byte aligned, so 16-byte cp.async
-// copies; else plain 2-byte loads and stores (visible after the step's
-// barrier like the copies).
-template <int DMAX, int ROWS, int N>
-__device__ __forceinline__ void bf16_tiles(uint16_t* const (&dst)[N],
-                                           const uint16_t* const (&src)[N],
-                                           size_t base, size_t row, int t0,
-                                           int T, int D, bool vec8, int tid) {
-  constexpr int LD = DMAX + 8;
-  if (vec8) {
-    constexpr int CH = DMAX / 8;
-    static_assert(ROWS * CH % kBwdThreads == 0, "whole passes");
-#pragma unroll
-    for (int i = 0; i < ROWS * CH / kBwdThreads; ++i) {
-      const int idx = tid + i * kBwdThreads;
-      const int r = idx / CH, d = (idx % CH) * 8, t = t0 + r;
-      const bool ok = t < T && d < D;
-      const size_t off = ok ? base + (size_t)t * row + d : 0;
-#pragma unroll
-      for (int j = 0; j < N; ++j)
-        cp_async16(reinterpret_cast<float*>(dst[j] + r * LD + d),
-                   reinterpret_cast<const float*>(src[j] + off), ok);
-    }
-  } else {
-#pragma unroll 4
-    for (int i = 0; i < ROWS * DMAX / kBwdThreads; ++i) {
-      const int idx = tid + i * kBwdThreads;
-      const int r = idx / DMAX, d = idx % DMAX, t = t0 + r;
-      const bool ok = t < T && d < D;
-      const size_t off = base + (size_t)t * row + d;
-#pragma unroll
-      for (int j = 0; j < N; ++j) dst[j][r * LD + d] = ok ? src[j][off] : 0;
-    }
-  }
-}
-
-// O = softmax(Q K^T * scale + mask) V and the LSE, bf16 operands. Grid:
-// (B*H, query tiles), the last query tile first; 4 warps, warp w owns
-// query rows 16w .. 16w+15; K and V stream in tiles of 64 keys.
-template <int DMAX>
-__global__ void __launch_bounds__(kBwdThreads, 2)
-flash_fwd_bf16_kernel(const uint16_t* __restrict__ q,
-                      const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v,
-                      const float* __restrict__ key_mask,
-                      uint16_t* __restrict__ o, float* __restrict__ lse,
-                      int H, int T, int D, int causal, float scale, int vec8) {
-  using Tile = Bf16FwdTile<DMAX>;
-  constexpr int BN = Tile::BN;
-  constexpr int LD = Tile::LD;
-  constexpr int KS = DMAX / 16;  // 16-wide k steps over the head dim
-  constexpr int NB = BN / 8;     // 8-key blocks of a streamed tile
-  constexpr int ND = DMAX / 8;   // 8-wide blocks of the head dim
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  uint16_t* Qs = reinterpret_cast<uint16_t*>(smem_raw);   // [64][LD]
-  uint16_t* ring = Qs + kBwdRows * LD;                    // [2][K, V][BN][LD]
-  float* okring = reinterpret_cast<float*>(ring + 4 * BN * LD);  // [2][BN]
-  auto tile = [&](int st, int i) { return ring + (2 * st + i) * BN * LD; };
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int bh = blockIdx.x;
-  const int b = bh / H, h = bh % H;
-  const size_t row = (size_t)H * D;
-  const size_t base = (size_t)b * T * row + (size_t)h * D;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBwdRows;
-  const int m0 = 16 * warp;
-  const float sl2 = scale * kLog2e;  // scores in log2 units
-
-  const int n_tiles = (T + BN - 1) / BN;
-  int last = n_tiles - 1;
-  if (causal) {
-    const int diag = (q0 + kBwdRows - 1) / BN;
-    last = diag < last ? diag : last;
-  }
-  auto load_kv = [&](int kt, int st) {
-    bf16_tiles<DMAX, BN, 2>({tile(st, 0), tile(st, 1)}, {k, v}, base, row,
-                            kt * BN, T, D, vec8, tid);
-    if (key_mask != nullptr)
-      async_vec(okring + st * BN, key_mask + (size_t)b * T, kt * BN, BN, T,
-                tid);
-    else if (tid < BN)
-      okring[st * BN + tid] = kt * BN + tid < T ? 1.f : 0.f;
-  };
-
-  bf16_tiles<DMAX, kBwdRows, 1>({Qs}, {q}, base, row, q0, T, D, vec8, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  const Bf16AFrags<DMAX, Tile::kHeld> qf(Qs, m0, lane);
-
-  // this thread's rows q0 + m0 + g and 8 below: running max (log2
-  // units), its own columns' share of the sum, O's columns 8n + 2t4, + 1
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
-
-  for (int kt = 0; kt <= last; ++kt) {
-    const int st = kt & 1;
-    if (kt < last) load_kv(kt + 1, st ^ 1);
-    cp_async_commit();
-    const int k0 = kt * BN;
-    if (!causal || k0 <= q0 + m0 + 15) {
-      const uint16_t *Ks = tile(st, 0), *Vs = tile(st, 1);
-      const float* oks = okring + st * BN;
-      float s[NB][4];  // Q K^T: keys 8nb + 2t4, + 1
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        uint32_t a[4];
-        qf.get(ks, a);
-#pragma unroll
-        for (int nb = 0; nb < NB; nb += 2) {
-          uint32_t bk[4];
-          ldsm_x4(bk, bt_addr<LD>(Ks, 8 * nb, ks, lane));
-          mma_bf16(s[nb], a, bk[0], bk[1]);
-          mma_bf16(s[nb + 1], a, bk[2], bk[3]);
-        }
-      }
-      // online softmax, as the f32 leg
-      float mx[2] = {m[0], m[1]};
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int c = 8 * nb + 2 * t4 + (e & 1);
-          const bool ok = oks[c] > 0.f &&
-                          (!causal || k0 + c <= q0 + m0 + g + 8 * r);
-          s[nb][e] = ok ? s[nb][e] * sl2 : kNegInf;
-          mx[r] = fmaxf(mx[r], s[nb][e]);
-        }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float corr = exp2f(m[r] - mx[r]);
-        l[r] *= corr;
-#pragma unroll
-        for (int n = 0; n < ND; ++n) {
-          acc[n][2 * r] *= corr;
-          acc[n][2 * r + 1] *= corr;
-        }
-        m[r] = mx[r];
-      }
-#pragma unroll
-      for (int nb = 0; nb < NB; ++nb)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = s[nb][e] > kNegInf ? exp2f(s[nb][e] - m[r]) : 0.f;
-          l[r] += p;  // the f32 p: only the product below sees it rounded
-          s[nb][e] = p;
-        }
-      // O += P V: P rounded to bf16 as the A operand, V read transposed
-#pragma unroll
-      for (int j = 0; j < NB / 2; ++j) {
-        uint32_t a[4];
-        acc_to_a(s[2 * j], s[2 * j + 1], a);
-#pragma unroll
-        for (int n = 0; n < ND; n += 2) {
-          uint32_t bv[4];
-          ldsm_x4_trans(bv, bn_addr<LD>(Vs, 16 * j, 8 * n, lane));
-          mma_bf16(acc[n], a, bv[0], bv[1]);
-          mma_bf16(acc[n + 1], a, bv[2], bv[3]);
-        }
-      }
-    }
-    cp_async_wait_all();
-    __syncthreads();  // tile kt + 1 is in; tile kt is done
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    const int qp = q0 + m0 + g + 8 * r;
-    if (qp >= T) continue;
-    const float lc = fmaxf(l[r], 1e-30f);
-    const float inv = 1.f / lc;
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-      for (int e = 2 * r; e < 2 * r + 2; ++e) {
-        const int d = 8 * n + 2 * t4 + (e & 1);
-        if (d < D) o[base + (size_t)qp * row + d] = f32_to_bf16(acc[n][e] * inv);
-      }
-    if (t4 == 0)
-      lse[(size_t)bh * T + qp] =
-          m[r] > kNegInf ? m[r] * kLn2 + logf(lc) : kNegInf;
-  }
-}
-
-// ---- bf16 backward (B6, B7): wgmma, TMA and a warp-specialised ring ----
-//
-// Per head-dim bucket: the padded width DP (64 or 128 columns, held as
-// 64-wide swizzled panels; D <= 32 is read into one panel whose upper
-// half is zero), the 16-wide contraction steps over the head dim, the
-// streamed tile (BN rows), the block's own rows (BM: two consumer
-// warpgroups of 64), the ring's stages and the dynamic shared memory:
-// the two own tiles, two streamed tiles and two [BN] f32 vectors a
-// stage, the barriers, and 1024 bytes to align the panels.
-template <int DMAX>
-struct WgBwd {
-  static constexpr int DP = DMAX < 64 ? 64 : DMAX;
-  static constexpr int NP = DP / 64;    // 64-column panels
-  static constexpr int KS = DMAX / 16;  // k steps over the head dim
-  static constexpr int BN = 64;
-  static constexpr int BM = 128;
-  static constexpr int STAGES = NP == 1 ? 3 : 2;
-  static constexpr int kThreads = 384;  // consumers 0..255, producer WG
-  static constexpr uint32_t OWN = NP * BM * 128;     // bytes, own tile
-  static constexpr uint32_t STREAM = NP * BN * 128;  // bytes, streamed
-  static constexpr size_t kSmemBytes = 1024 + 2 * OWN +
-                                       STAGES * 2 * (STREAM + BN * 4) +
-                                       (2 * STAGES + 1) * 8;
-};
-
 // The block's shared memory, carved from the dynamic allocation: own
-// tiles [2][NP][BM][64], ring [STAGES][2][NP][BN][64] (bf16, swizzled),
-// vectors [STAGES][2][BN] f32, barriers full[STAGES], empty[STAGES],
-// own.
-template <int DMAX>
+// tiles [NOWN][NP][BM][64], ring [STAGES][2][NP][BN][64] (bf16,
+// swizzled), vectors [STAGES][2][BN] f32, barriers full[STAGES],
+// empty[STAGES], own.
+template <typename W>
 struct WgSmem {
-  using W = WgBwd<DMAX>;
   unsigned char* own;
   unsigned char* ring;
   float* vec;
@@ -1521,7 +1231,7 @@ struct WgSmem {
 
   __device__ __forceinline__ explicit WgSmem(unsigned char* raw) {
     own = raw + ((1024 - (sm90::smem_u32(raw) & 1023)) & 1023);
-    ring = own + 2 * W::OWN;
+    ring = own + W::NOWN_ * W::OWN;
     vec = reinterpret_cast<float*>(ring + W::STAGES * 2 * W::STREAM);
     full = reinterpret_cast<uint64_t*>(vec + W::STAGES * 2 * W::BN);
     empty = full + W::STAGES;
@@ -1558,45 +1268,45 @@ __device__ void fill_panels(unsigned char* dst, const uint16_t* src,
   }
 }
 
-// The producer warp: the block's two own tiles (rows own_t0 ..) once,
-// then n pairs of streamed tiles (tile first + i at rows 64 (first + i))
+// The producer warp: the block's NOWN own tiles (rows own_t0 .., from
+// own_map[j] or own[j]) once, then n pairs of streamed tiles (tile first
+// + i at rows 64 (first + i), from map0 and map1 or src0 and src1)
 // through the ring, by TMA when `tma`, else by fill_panels and a proxy
-// fence. Each stage also gets two [BN] f32 vectors: load(t0, v) reads a
-// lane's share of them from global memory into registers one tile ahead
-// (so their latency hides behind the wait for a free stage) and
-// store(stage, v) writes them. A stage's full barrier takes two
+// fence. Each stage also gets up to two [BN] f32 vectors: load(t0, v)
+// reads a lane's share of them from global memory into registers one
+// tile ahead (so their latency hides behind the wait for a free stage)
+// and store(stage, v) writes them. A stage's full barrier takes two
 // arrivals: the tiles' (with their bytes) and the vectors'.
-template <int DMAX, typename Load, typename Store>
-__device__ __forceinline__ void bwd_produce(
-    const WgSmem<DMAX>& sm, const CUtensorMap* own0_map,
-    const CUtensorMap* own1_map, const CUtensorMap* map0,
-    const CUtensorMap* map1, const uint16_t* own0, const uint16_t* own1,
-    const uint16_t* src0, const uint16_t* src1, int b, int h, size_t base,
-    size_t row, int own_t0, int first, int n, int T, int D, bool tma,
-    int lane, Load load, Store store) {
-  using W = WgBwd<DMAX>;
+template <typename W, typename Load, typename Store>
+__device__ __forceinline__ void wg_produce(
+    const WgSmem<W>& sm, const CUtensorMap* const (&own_map)[W::NOWN_],
+    const CUtensorMap* map0, const CUtensorMap* map1,
+    const uint16_t* const (&own)[W::NOWN_], const uint16_t* src0,
+    const uint16_t* src1, int b, int h, size_t base, size_t row, int own_t0,
+    int first, int n, int T, int D, bool tma, int lane, Load load,
+    Store store) {
+  constexpr int NOWN = W::NOWN_;
   float v[4];
   load(first * W::BN, v);
   const uint32_t own_s = sm90::smem_u32(sm.own);
   if (tma) {
     if (lane == 0) {
-      sm90::mbar_arrive_tx(sm.own_bar, 2 * W::OWN);
+      sm90::mbar_arrive_tx(sm.own_bar, NOWN * W::OWN);
 #pragma unroll
-      for (int p = 0; p < W::NP; ++p)
+      for (int j = 0; j < NOWN; ++j)
 #pragma unroll
-        for (int rr = 0; rr < W::BM / W::BN; ++rr) {
-          const uint32_t off = (p * W::BM + rr * W::BN) * 128;
-          const int t = own_t0 + rr * W::BN;
-          sm90::tma_load_4d(own_s + off, own0_map, sm.own_bar, 64 * p, h, t,
-                            b);
-          sm90::tma_load_4d(own_s + W::OWN + off, own1_map, sm.own_bar,
-                            64 * p, h, t, b);
-        }
+        for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+          for (int rr = 0; rr < W::BM / W::BN; ++rr)
+            sm90::tma_load_4d(
+                own_s + j * W::OWN + (p * W::BM + rr * W::BN) * 128,
+                own_map[j], sm.own_bar, 64 * p, h, own_t0 + rr * W::BN, b);
     }
   } else {
-    fill_panels<W::NP>(sm.own, own0, base, row, own_t0, W::BM, T, D, lane);
-    fill_panels<W::NP>(sm.own + W::OWN, own1, base, row, own_t0, W::BM, T,
-                       D, lane);
+#pragma unroll
+    for (int j = 0; j < NOWN; ++j)
+      fill_panels<W::NP>(sm.own + j * W::OWN, own[j], base, row, own_t0,
+                         W::BM, T, D, lane);
     sm90::fence_proxy_async();
     __syncwarp();
     if (lane == 0) sm90::mbar_arrive(sm.own_bar);
@@ -1648,7 +1358,7 @@ __device__ __forceinline__ float exp2_fast(float x) {
 // multiplied from there; else read from shared memory by every product.
 template <int DMAX, bool HELD>
 struct OwnA {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   uint32_t base;
   uint32_t r[HELD ? W::KS : 1][4];
 
@@ -1689,7 +1399,7 @@ __device__ __forceinline__ void first_products(float (&x)[32],
                                                float (&y)[32], const A& a0,
                                                const A& a1, uint32_t b0,
                                                uint32_t b1) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   sm90::wgmma_fence();
   sm90::fence_acc(x);
   sm90::fence_acc(y);
@@ -1704,7 +1414,8 @@ __device__ __forceinline__ void first_products(float (&x)[32],
 
 // Accumulator columns 16kk .. 16kk + 15 rounded to bf16 pairs: the A
 // operand of k step kk of a second product
-__device__ __forceinline__ void acc_to_a16(const float (&x)[32], int kk,
+template <int N>
+__device__ __forceinline__ void acc_to_a16(const float (&x)[N], int kk,
                                            uint32_t (&a)[4]) {
   a[0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
   a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
@@ -1715,10 +1426,9 @@ __device__ __forceinline__ void acc_to_a16(const float (&x)[32], int kk,
 // d[p] += A B[p] for each 64-column panel p of a streamed tile at bt,
 // contracted over its BN rows (MN-major through the transpose bit), A
 // from registers (a[kk] for rows 16kk ..)
-template <int DMAX>
+template <typename W>
 __device__ __forceinline__ void second_product(
-    float (&d)[WgBwd<DMAX>::NP][32], const uint32_t (&a)[4][4], uint32_t bt) {
-  using W = WgBwd<DMAX>;
+    float (&d)[W::NP][32], const uint32_t (&a)[W::BN / 16][4], uint32_t bt) {
 #pragma unroll
   for (int kk = 0; kk < W::BN / 16; ++kk)
 #pragma unroll
@@ -1729,12 +1439,12 @@ __device__ __forceinline__ void second_product(
 }
 
 // A warpgroup's 64 rows of an output [B, T, H, D] in bf16: rows r0 + 16w
-// + g (+ 8), columns 64p + 8j + 2t (+ 1), times `mul`; pairs stored as
+// + g + 8rr, columns 64p + 8j + 2t (+ 1), times mul[rr]; pairs stored as
 // one 4-byte word when `pair` (D even, output 4-byte aligned)
 template <int NP>
 __device__ __forceinline__ void store_rows(uint16_t* out,
                                            const float (&x)[NP][32],
-                                           float mul, size_t base,
+                                           const float (&mul)[2], size_t base,
                                            size_t row, int r0, int T, int D,
                                            bool pair, int warp, int lane) {
   const int g = lane / 4, t4 = lane % 4;
@@ -1748,8 +1458,8 @@ __device__ __forceinline__ void store_rows(uint16_t* out,
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int d = 64 * p + 8 * j + 2 * t4;
-        const float v0 = x[p][4 * j + 2 * rr] * mul;
-        const float v1 = x[p][4 * j + 2 * rr + 1] * mul;
+        const float v0 = x[p][4 * j + 2 * rr] * mul[rr];
+        const float v1 = x[p][4 * j + 2 * rr + 1] * mul[rr];
         if (pair && d + 1 < D) {
           *reinterpret_cast<uint32_t*>(o + d) = pack_bf16(v0, v1);
         } else {
@@ -1771,13 +1481,244 @@ __device__ __forceinline__ void release(uint64_t* empty, int lane) {
   if (lane == 0) sm90::mbar_arrive(empty);
 }
 
+// One key tile of the forward's online softmax for this thread's two
+// rows (mrow and mrow + 8 of its warpgroup), in place: s (N raw scores:
+// columns 8j + 2t + (x & 1) of row x >> 1 & 1, x = 4j + e) becomes p in
+// f32; m (running max of the raw scores), l (this thread's share of the
+// sum) and corr (the factor for the O accumulator) are updated. MASKED:
+// each key's predicate (ok) and, on a diagonal tile, the causal compare
+// (key column <= doff + row); a masked score is -1e30 and its p 0.
+template <bool MASKED, int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const float* ok, bool diag,
+                                             int doff, int mrow, int t4,
+                                             float c) {
+  if constexpr (MASKED) {
+#pragma unroll
+    for (int j = 0; j < N / 4; ++j) {
+      const float2 o2 = *reinterpret_cast<const float2*>(ok + 8 * j + 2 * t4);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e, col = 8 * j + 2 * t4 + (e & 1);
+        const bool keep = ((e & 1) ? o2.y : o2.x) > 0.f &&
+                          (!diag || col <= doff + mrow + 8 * (e >> 1));
+        s[x] = keep ? s[x] : kNegInf;
+      }
+    }
+  }
+  // two partial maxima and sums a row, for shorter dependency chains
+  float mx[2][2] = {{m[0], m[0]}, {m[1], m[1]}};
+#pragma unroll
+  for (int x = 0; x < N; ++x)
+    mx[(x >> 1) & 1][(x >> 2) & 1] =
+        fmaxf(mx[(x >> 1) & 1][(x >> 2) & 1], s[x]);
+  float nb[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float v = fmaxf(mx[r][0], mx[r][1]);
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+    corr[r] = exp2_fast((m[r] - v) * c);
+    m[r] = v;
+    nb[r] = -v * c;
+  }
+  float ls[2][2] = {{l[0] * corr[0], 0.f}, {l[1] * corr[1], 0.f}};
+#pragma unroll
+  for (int x = 0; x < N; ++x) {
+    const int r = (x >> 1) & 1;
+    float p = exp2_fast(fmaf(s[x], c, nb[r]));
+    if constexpr (MASKED) p = s[x] > kNegInf ? p : 0.f;
+    ls[r][(x >> 2) & 1] += p;  // the f32 p: only the product sees it rounded
+    s[x] = p;
+  }
+  l[0] = ls[0][0] + ls[0][1];
+  l[1] = ls[1][0] + ls[1][1];
+}
+
+// The bf16 forward's key tile: 128 keys, so that S = Q K^T is one
+// m64n128k16 product a k step (64 measured slower, see the notes above)
+constexpr int kFwdKeys = 128;
+
+// O = softmax(Q K^T * scale + mask) V and the LSE, bf16 operands. Grid:
+// (B*H, 128-row query blocks), the last block first. Warpgroups 0 and 1
+// own query rows q0 .. q0 + 63 and q0 + 64 .. q0 + 127 (Q, loaded once
+// and read from shared memory by every product); warp 8 streams K and V
+// in tiles of 128 keys with each key's predicate (key mask and T) and the
+// tile's all-live flag through the ring.
+template <int DMAX>
+__global__ void __launch_bounds__(Wg<DMAX, 1, kFwdKeys>::kThreads, 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
+                      const __grid_constant__ CUtensorMap map_k,
+                      const __grid_constant__ CUtensorMap map_v,
+                      const uint16_t* __restrict__ q,
+                      const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v,
+                      const float* __restrict__ key_mask,
+                      uint16_t* __restrict__ o, float* __restrict__ lse,
+                      int H, int T, int D, int causal, float scale, int tma,
+                      int pair) {
+  using W = Wg<DMAX, 1, kFwdKeys>;
+  constexpr int BN = W::BN;
+  extern __shared__ unsigned char smem_raw[];
+  const WgSmem<W> sm(smem_raw);
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const size_t row = (size_t)H * D;
+  const size_t base = (size_t)b * T * row + (size_t)h * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * W::BM;
+  const int n_kt = (T + BN - 1) / BN;
+  const int n = causal ? min(n_kt, (q0 + W::BM - 1) / BN + 1) : n_kt;
+  if (tid == 0) sm.init();
+  __syncthreads();
+
+  if (tid >= 256) {
+    sm90::setmaxnreg_dec<56>();
+    if (tid < 288) {
+      const int lane = tid - 256;
+      wg_produce<W>(
+          sm, {&map_q}, &map_k, &map_v, {q}, k, v, b, h, base, row, q0, 0, n,
+          T, D, tma != 0, lane,
+          [&](int t0, float (&x)[4]) {  // each key's mask value, 0 past T
+#pragma unroll
+            for (int j = 0; j < BN / 32; ++j) {
+              const int t = t0 + lane + 32 * j;
+              x[j] = t >= T ? 0.f
+                     : key_mask == nullptr ? 1.f
+                                           : key_mask[(size_t)b * T + t];
+            }
+          },
+          [&](int s, const float (&x)[4]) {  // predicates, all-live flag
+            float* ok = sm.vec + s * 2 * BN;
+            bool all = true;
+#pragma unroll
+            for (int j = 0; j < BN / 32; ++j) {
+              ok[lane + 32 * j] = x[j] > 0.f ? 1.f : 0.f;
+              all = all && x[j] > 0.f;
+            }
+            all = __all_sync(0xffffffffu, all);
+            if (lane == 0) ok[BN] = all ? 1.f : 0.f;
+          });
+    }
+  } else {
+    sm90::setmaxnreg_inc<224>();
+    const int wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
+    const int t4 = lane % 4;
+    const int r0 = q0 + 64 * wg;           // the warpgroup's first query
+    const int mrow = 16 * warp + lane / 4;  // this thread's rows: mrow, + 8
+    const float c = scale * kLog2e;
+    // key tiles this warpgroup computes: causal, up to its diagonal
+    const int nw = r0 >= T ? 0 : causal ? min(n, (r0 + 63) / BN + 1) : n;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+    float acc[W::NP][32];
+#pragma unroll
+    for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[p][i] = 0.f;
+    sm90::mbar_wait(sm.own_bar, 0);
+    const uint32_t qs = sm90::smem_u32(sm.own + wg * 64 * 128);
+    uint32_t a[BN / 16][4];  // P in bf16, the A of O += P V
+    float corr[2];           // the rows' correction of O and l
+
+    auto full = [&](int i) {
+      sm90::mbar_wait(&sm.full[i % W::STAGES], (i / W::STAGES) & 1);
+    };
+    // S = Q K^T of tile i into x, K K-major (issued and committed)
+    auto scores = [&](float (&x)[BN / 2], int i) {
+      const uint32_t kt = sm90::smem_u32(sm.stage(i % W::STAGES));
+      sm90::wgmma_fence();
+      sm90::fence_acc(x);
+#pragma unroll
+      for (int ks = 0; ks < W::KS; ++ks) {
+        const uint32_t k32 = (ks % 4) * 32;  // 16 columns of a panel
+        const uint64_t da =
+            sm90::desc128(qs + (ks / 4) * W::BM * 128 + k32, 16, 1024);
+        const uint64_t db =
+            sm90::desc128(kt + (ks / 4) * BN * 128 + k32, 16, 1024);
+        sm90::wgmma_ss_n128<0>(x, da, db, ks > 0);
+      }
+      sm90::wgmma_commit();
+    };
+    // p in place of S; off the diagonal, a tile whose keys are all live
+    // takes no select
+    auto softmax = [&](float (&x)[BN / 2], int i) {
+      sm90::fence_acc(x);
+      const float* ok = sm.vec + (i % W::STAGES) * 2 * BN;
+      const int k0 = i * BN;
+      const bool diag = causal && k0 + BN - 1 > r0;
+      if (!diag && ok[BN] > 0.f)
+        softmax_tile<false>(x, m, l, corr, ok, false, 0, mrow, t4, c);
+      else
+        softmax_tile<true>(x, m, l, corr, ok, diag, r0 - k0, mrow, t4, c);
+    };
+    // O corrected, and P rounded to bf16 as the A of P V
+    auto rescale_pack = [&](const float (&x)[BN / 2]) {
+#pragma unroll
+      for (int p = 0; p < W::NP; ++p)
+#pragma unroll
+        for (int j = 0; j < 32; ++j) acc[p][j] *= corr[(j >> 1) & 1];
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) acc_to_a16(x, kk, a[kk]);
+    };
+    // O += P V of tile i, V read MN-major (issued and committed)
+    auto pv = [&](int i) {
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int p = 0; p < W::NP; ++p) sm90::fence_acc(acc[p]);
+      second_product<W>(
+          acc, a, sm90::smem_u32(sm.stage(i % W::STAGES)) + W::STREAM);
+      sm90::wgmma_commit();
+    };
+    auto pv_done = [&] {
+#pragma unroll
+      for (int p = 0; p < W::NP; ++p) sm90::fence_acc(acc[p]);
+      sm90::fence_frag(a);
+    };
+    auto done = [&](int i) { release(&sm.empty[i % W::STAGES], lane); };
+
+    float s[BN / 2];  // S of a tile, then P in f32
+    for (int i = 0; i < nw; ++i) {
+      full(i);
+      scores(s, i);
+      sm90::wgmma_wait<0>();
+      softmax(s, i);
+      rescale_pack(s);
+      pv(i);
+      sm90::wgmma_wait<0>();
+      pv_done();
+      done(i);
+    }
+    for (int i = nw; i < n; ++i) {  // stages wholly above its rows
+      full(i);
+      done(i);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      l[r] = fmaxf(l[r], 1e-30f);
+    }
+    store_rows<W::NP>(o, acc, {1.f / l[0], 1.f / l[1]}, base, row, r0, T, D,
+                      pair != 0, warp, lane);
+    // a row with no live key keeps m = -1e30 and gets LSE -1e30 exactly
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = r0 + mrow + 8 * r;
+      if (t4 == 0 && t < T)
+        lse[(size_t)bh * T + t] =
+            m[r] > kNegInf ? m[r] * scale + logf(l[r]) : kNegInf;
+    }
+  }
+}
+
 // dQ = sum over key tiles of dS K * scale, bf16 operands. Grid: (B*H,
 // 128-row query blocks), the last block first. Warpgroups 0 and 1 own
 // query rows q0 .. q0 + 63 and q0 + 64 .. q0 + 127 (Q and dO, loaded
 // once); warp 8 streams K and V with each key's column predicate (key
 // mask and T) through the ring.
 template <int DMAX>
-__global__ void __launch_bounds__(WgBwd<DMAX>::kThreads, 1)
+__global__ void __launch_bounds__(Wg<DMAX>::kThreads, 1)
 flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                          const __grid_constant__ CUtensorMap map_k,
                          const __grid_constant__ CUtensorMap map_v,
@@ -1791,9 +1732,9 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                          const float* __restrict__ delta,
                          uint16_t* __restrict__ dq, int H, int T, int D,
                          int causal, float scale, int tma, int pair) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   extern __shared__ unsigned char smem_raw[];
-  const WgSmem<DMAX> sm(smem_raw);
+  const WgSmem<W> sm(smem_raw);
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t row = (size_t)H * D;
@@ -1808,8 +1749,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::setmaxnreg_dec<56>();
     if (tid < 288) {
       const int lane = tid - 256;
-      bwd_produce<DMAX>(
-          sm, &map_q, &map_do, &map_k, &map_v, q, dout, k, v, b, h, base,
+      wg_produce<W>(
+          sm, {&map_q, &map_do}, &map_k, &map_v, {q, dout}, k, v, b, h, base,
           row, q0, 0, n, T, D, tma != 0, lane,
           [&](int t0, float (&x)[4]) {  // each key's predicate
             for (int j = 0; j < 2; ++j) {
@@ -1885,7 +1826,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
         sm90::wgmma_fence();
 #pragma unroll
         for (int p = 0; p < W::NP; ++p) sm90::fence_acc(acc[p]);
-        second_product<DMAX>(acc, a, kt);
+        second_product<W>(acc, a, kt);
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
 #pragma unroll
@@ -1893,8 +1834,8 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       release(&sm.empty[st], lane);
     }
-    store_rows<W::NP>(dq, acc, scale, base, row, r0, T, D, pair != 0, warp,
-                      lane);
+    store_rows<W::NP>(dq, acc, {scale, scale}, base, row, r0, T, D,
+                      pair != 0, warp, lane);
   }
 }
 
@@ -1906,7 +1847,7 @@ flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
 // computed transposed (rows = keys), so P^T and dS^T are accumulators
 // ready to be A operands.
 template <int DMAX>
-__global__ void __launch_bounds__(WgBwd<DMAX>::kThreads, 1)
+__global__ void __launch_bounds__(Wg<DMAX>::kThreads, 1)
 flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v,
@@ -1921,9 +1862,9 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
                           uint16_t* __restrict__ dk, uint16_t* __restrict__ dv,
                           int H, int T, int D, int causal, float scale,
                           int tma, int pair) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   extern __shared__ unsigned char smem_raw[];
-  const WgSmem<DMAX> sm(smem_raw);
+  const WgSmem<W> sm(smem_raw);
   const int tid = threadIdx.x;
   const int bh = blockIdx.x, b = bh / H, h = bh % H;
   const size_t row = (size_t)H * D;
@@ -1938,8 +1879,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
     sm90::setmaxnreg_dec<56>();
     if (tid < 288) {
       const int lane = tid - 256;
-      bwd_produce<DMAX>(
-          sm, &map_k, &map_v, &map_q, &map_do, k, v, q, dout, b, h, base,
+      wg_produce<W>(
+          sm, {&map_k, &map_v}, &map_q, &map_do, {k, v}, q, dout, b, h, base,
           row, k0, first, n, T, D, tma != 0, lane,
           [&](int t0, float (&x)[4]) {  // LSE (log2 units) and delta
             for (int j = 0; j < 2; ++j) {
@@ -2032,8 +1973,8 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
           sm90::fence_acc(dva[p]);
           sm90::fence_acc(dka[p]);
         }
-        second_product<DMAX>(dva, ap, ot);
-        second_product<DMAX>(dka, as, qt);
+        second_product<W>(dva, ap, ot);
+        second_product<W>(dka, as, qt);
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
 #pragma unroll
@@ -2044,10 +1985,10 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap map_q,
       }
       release(&sm.empty[st], lane);
     }
-    store_rows<W::NP>(dk, dka, scale, base, row, r0, T, D, pair != 0, warp,
-                      lane);
-    store_rows<W::NP>(dv, dva, 1.f, base, row, r0, T, D, pair != 0, warp,
-                      lane);
+    store_rows<W::NP>(dk, dka, {scale, scale}, base, row, r0, T, D,
+                      pair != 0, warp, lane);
+    store_rows<W::NP>(dv, dva, {1.f, 1.f}, base, row, r0, T, D, pair != 0,
+                      warp, lane);
   }
 }
 
@@ -2159,45 +2100,44 @@ int bwd_info(int* out) {
   return (int)e;
 }
 
-// The bf16 legs' launches; vec8: 16-byte copies (D % 8 == 0 and every
-// tile tensor 16-byte aligned)
-template <int DMAX>
-int launch_fwd_bf16(const void* q, const void* k, const void* v,
-                    const void* km, void* o, void* lse, int B, int T, int H,
-                    int D, int causal, float scale, void* stream) {
-  const size_t smem = Bf16FwdTile<DMAX>::smem(1, 1);
-  cudaError_t e = allow_smem(flash_fwd_bf16_kernel<DMAX>, smem);
-  if (e != cudaSuccess) return (int)e;
-  const int vec8 = D % 8 == 0 && aligned16(q) && aligned16(k) && aligned16(v);
-  dim3 grid(B * H, (T + kBwdRows - 1) / kBwdRows);
-  flash_fwd_bf16_kernel<DMAX><<<grid, kBwdThreads, smem,
-                                (cudaStream_t)stream>>>(
-      (const uint16_t*)q, (const uint16_t*)k, (const uint16_t*)v,
-      (const float*)km, (uint16_t*)o, (float*)lse, H, T, D, causal, scale,
-      vec8);
-  return (int)cudaGetLastError();
-}
-
 inline bool aligned4(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 3u) == 0;
 }
 
-// The bf16 backward legs' launches. TMA when D % 8 == 0 and q, k, v and
-// dO are 16-byte aligned (its strides must be multiples of 16 bytes):
-// the four tensor maps are encoded here, at every launch, and passed by
-// value; else the producer warp fills the same swizzled tiles itself and
-// the maps are unused.
-template <int DMAX>
-bool bwd_bf16_maps(CUtensorMap (&maps)[4], const void* q, const void* k,
-                   const void* v, const void* dout, int B, int T, int H,
-                   int D, cudaError_t& e) {
-  const void* src[4] = {q, k, v, dout};
+// The bf16 legs' tensor maps: TMA when D % 8 == 0 and every tile tensor
+// (q, k, v, and dO for the backward) is 16-byte aligned (its strides must
+// be multiples of 16 bytes): the maps are encoded here, at every launch,
+// and passed by value; else the producer warp fills the same swizzled
+// tiles itself and the maps are unused.
+template <int N>
+bool bf16_maps(CUtensorMap (&maps)[N], const void* const (&src)[N], int B,
+               int T, int H, int D, int rows, cudaError_t& e) {
   bool tma = D % 8 == 0;
-  for (int i = 0; i < 4; ++i) tma = tma && aligned16(src[i]);
+  for (int i = 0; i < N; ++i) tma = tma && aligned16(src[i]);
   e = cudaSuccess;
-  for (int i = 0; tma && i < 4 && e == cudaSuccess; ++i)
-    e = sm90::bf16_bthd_map(&maps[i], src[i], B, T, H, D, WgBwd<DMAX>::BN);
+  for (int i = 0; tma && i < N && e == cudaSuccess; ++i)
+    e = sm90::bf16_bthd_map(&maps[i], src[i], B, T, H, D, rows);
   return tma;
+}
+
+
+template <int DMAX>
+int launch_fwd_bf16(const void* q, const void* k, const void* v,
+                    const void* km, void* o, void* lse, int B, int T, int H,
+                    int D, int causal, float scale, void* stream) {
+  using W = Wg<DMAX, 1, kFwdKeys>;
+  const auto kernel = flash_fwd_bf16_kernel<DMAX>;
+  cudaError_t e = allow_smem(kernel, W::kSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  CUtensorMap maps[3] = {};
+  const int tma = bf16_maps<3>(maps, {q, k, v}, B, T, H, D, W::BN, e);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(B * H, (T + W::BM - 1) / W::BM);
+  kernel<<<grid, W::kThreads, W::kSmemBytes, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], (const uint16_t*)q, (const uint16_t*)k,
+      (const uint16_t*)v, (const float*)km, (uint16_t*)o, (float*)lse, H, T,
+      D, causal, scale, tma, D % 2 == 0 && aligned4(o));
+  return (int)cudaGetLastError();
 }
 
 template <int DMAX>
@@ -2205,11 +2145,11 @@ int launch_dq_bf16(const void* q, const void* k, const void* v,
                    const void* km, const void* dout, const void* lse,
                    const void* delta, void* dq, int B, int T, int H, int D,
                    int causal, float scale, void* stream) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<DMAX>, W::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap maps[4] = {};
-  const int tma = bwd_bf16_maps<DMAX>(maps, q, k, v, dout, B, T, H, D, e);
+  const int tma = bf16_maps<4>(maps, {q, k, v, dout}, B, T, H, D, W::BN, e);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (T + W::BM - 1) / W::BM);
   flash_bwd_dq_bf16_kernel<DMAX><<<grid, W::kThreads, W::kSmemBytes,
@@ -2227,11 +2167,11 @@ int launch_dkv_bf16(const void* q, const void* k, const void* v,
                     const void* km, const void* dout, const void* lse,
                     const void* delta, void* dk, void* dv, int B, int T,
                     int H, int D, int causal, float scale, void* stream) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<DMAX>, W::kSmemBytes);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap maps[4] = {};
-  const int tma = bwd_bf16_maps<DMAX>(maps, q, k, v, dout, B, T, H, D, e);
+  const int tma = bf16_maps<4>(maps, {q, k, v, dout}, B, T, H, D, W::BN, e);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(B * H, (T + W::BM - 1) / W::BM);
   flash_bwd_dkv_bf16_kernel<DMAX><<<grid, W::kThreads, W::kSmemBytes,
@@ -2265,10 +2205,11 @@ int kernel_info(Kernel kernel, size_t smem, int threads, int* out) {
 
 template <int DMAX>
 int bf16_info(int which, int* out) {
-  using W = WgBwd<DMAX>;
+  using W = Wg<DMAX>;
   if (which == 0)
     return kernel_info(flash_fwd_bf16_kernel<DMAX>,
-                       Bf16FwdTile<DMAX>::smem(1, 1), kBwdThreads, out);
+                       Wg<DMAX, 1, kFwdKeys>::kSmemBytes,
+                       Wg<DMAX, 1, kFwdKeys>::kThreads, out);
   if (which == 1)
     return kernel_info(flash_bwd_dq_bf16_kernel<DMAX>, W::kSmemBytes,
                        W::kThreads, out);

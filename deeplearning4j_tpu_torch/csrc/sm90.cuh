@@ -2,8 +2,8 @@
 // memory addresses, mbarriers, TMA tile loads and their tensor maps,
 // wgmma shared-memory descriptors and the bf16 wgmma products, and the
 // register hand-over between warpgroups (setmaxnreg). Inline PTX, as the
-// rest of csrc/; no CUTLASS. Used by the bf16 flash backward kernels
-// (flash_attention.cu, B6 and B7).
+// rest of csrc/; no CUTLASS. Used by the bf16 flash kernels
+// (flash_attention.cu: the forward, B3, and the backward, B6 and B7).
 //
 // Tile layout. Every tile that wgmma reads is a stack of [rows][64] bf16
 // panels (128 bytes a row) in the 128-byte swizzle that TMA's
@@ -186,9 +186,20 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keeps the compiler from moving reads or writes of an accumulator across
 // the asynchronous products that own it
-__device__ __forceinline__ void fence_acc(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Keeps A fragments in their registers until the products that read them
+// have completed (wgmma reads register operands asynchronously)
+template <int N>
+__device__ __forceinline__ void fence_frag(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j]));
 }
 
 // Accumulator of m64n64k16 (f32), per thread of the warpgroup: warp w
@@ -209,6 +220,42 @@ __device__ __forceinline__ void fence_acc(float (&d)[32]) {
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
   "%30, %31}"
+
+// Accumulator of m64n128k16 (f32): as m64n64k16's, over 16 column blocks
+#define SM90_ACC64(d)                                                       \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),               \
+  "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),               \
+  "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),          \
+  "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),          \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),          \
+  "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),          \
+  "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),          \
+  "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),          \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),          \
+  "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),          \
+  "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),          \
+  "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),          \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+#define SM90_ACC64_STR                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, " \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "  \
+  "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "  \
+  "%58, %59, %60, %61, %62, %63}"
+
+// d (+)= A B, A [64][16] and B [16][128] from shared memory, bf16, f32
+// accumulation; A K-major; B K-major (TB = 0) or MN-major (TB = 1).
+// accumulate = 0 overwrites d.
+template <int TB>
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " SM90_ACC64_STR
+      ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+      : SM90_ACC64(d)
+      : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+}
 
 // d (+)= A B, A [64][16] and B [16][64] from shared memory, bf16, f32
 // accumulation; A K-major; B K-major (TB = 0) or MN-major (TB = 1).

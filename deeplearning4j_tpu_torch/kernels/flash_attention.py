@@ -18,10 +18,9 @@ training path calls. Nothing falls back: a CUDA tensor the
 kernels do not take raises.
 
 Each kernel has an f32 leg (3xTF32 on the tensor cores) and a bf16 leg
-(bf16 products with f32 accumulation: ``mma.sync`` in the forward;
-``wgmma`` fed by TMA through a warp-specialised ring in dQ and dK/dV,
-``csrc/sm90.cuh``), picked by the operands' dtype, which must be one
-and the same for q, k, v (and dO). As in the
+(bf16 products with f32 accumulation on ``wgmma``, fed by TMA through a
+warp-specialised ring, ``csrc/sm90.cuh``), picked by the operands'
+dtype, which must be one and the same for q, k, v (and dO). As in the
 JAX kernels, both compute in f32 from the operands' values and return
 O, dQ, dK and dV in the operands' dtype; the LSE and delta are f32.
 fp16 operands are not ported (ROADMAP.md queue B, item B8).
@@ -217,7 +216,9 @@ def key_groups_for(B: int, T: int, H: int, device) -> int:
     chain does (measured crossover on the H100, see the forward design
     at the top of ``csrc/flash_attention.cu``). The choice, and with it
     the rounding of every output row, depends on the batch and the card,
-    not only on the row's own inputs. The bf16 leg has one group."""
+    not only on the row's own inputs. The bf16 leg has no groups: its
+    blocks of 128 query rows split their rows, not their keys, between
+    two warpgroups."""
     blocks = B * H * -(-T // 64)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return 2 if 2 * blocks <= 5 * sms else 1
@@ -345,9 +346,9 @@ def bwd_kernel_info(D: int) -> dict:
 
 
 def bf16_kernel_info(D: int) -> dict:
-    """Registers a thread (at launch: the dQ and dK/dV kernels then move
-    registers from their producer warpgroup to their two consumer
-    warpgroups), local (spill) bytes, dynamic shared memory (bytes),
+    """Registers a thread (at launch: each leg then moves registers from
+    its producer warpgroup to its two consumer warpgroups), local
+    (spill) bytes, dynamic shared memory (bytes),
     resident blocks per SM and threads a block of each bf16 leg
     (``fwd``, ``dq``, ``dkv``) at head dim ``D``, as the card reports
     them for the block each leg launches."""

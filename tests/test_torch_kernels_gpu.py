@@ -597,19 +597,21 @@ def _scaled_err(got, want):
 
 #: (H, D) of the bf16 cases: each head-dim bucket, D = 40 (not a power
 #: of two: TMA zero-fills the columns past D), and H = 1, D = 36, whose
-#: 72-byte row stride TMA cannot take (the dQ and dK/dV kernels' producer
-#: fills the same swizzled tiles itself)
+#: 72-byte row stride TMA cannot take (the producer warp of each bf16
+#: leg fills the same swizzled tiles itself)
 BF16_HEADS = [(2, 32), (2, 40), (2, 64), (2, 128), (1, 36)]
 
 
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("H,D", BF16_HEADS)
-@pytest.mark.parametrize("T", [8, 100, 257])
+@pytest.mark.parametrize("T", [8, 100, 129, 257, 1024])
 def test_bf16_legs_match_plain(T, H, D, causal):
     """The three bf16 legs against their plain versions: a ragged key
     mask, a batch row whose keys are all masked (O 0, LSE -1e30,
-    gradients exactly 0), T not a multiple of 64; each leg counts its
-    own launch and the f32 legs' counters stay."""
+    gradients exactly 0), T not a multiple of 64 (129 straddles a
+    128-row query block by one row) and T = 1024 (eight blocks, the
+    causal diagonal in every one); each leg counts its own launch and
+    the f32 legs' counters stay."""
     dev = _device()
     rs = np.random.RandomState(7 * T + D + causal)
     q, k, v, g, km = _bf16_case(rs, 3, T, H, D, dev)
@@ -707,15 +709,15 @@ def test_bf16_backward_at_t2048_with_a_ragged_key_mask():
 
 
 def test_bf16_kernel_info_reports_the_launched_block():
-    """bf16_kernel_info reports each leg's real block: 128 threads for
-    the forward, 384 (two consumer warpgroups and a producer) for dQ and
-    dK/dV, at least one resident block per SM, and registers that fit
-    the register file for that block."""
+    """bf16_kernel_info reports each leg's real block: 384 threads (two
+    consumer warpgroups and a producer) for the forward, dQ and dK/dV,
+    at least one resident block per SM, and registers that fit the
+    register file for that block."""
     _device()
     for D in (32, 64, 128):
         info = fa.bf16_kernel_info(D)
-        assert info["fwd"]["threads"] == 128
-        assert info["dq"]["threads"] == info["dkv"]["threads"] == 384
+        assert info["fwd"]["threads"] == info["dq"]["threads"] \
+            == info["dkv"]["threads"] == 384
         for leg in info.values():
             assert leg["blocks_per_sm"] >= 1
             assert (leg["registers"] * leg["threads"] * leg["blocks_per_sm"]
