@@ -68,7 +68,24 @@ Phases, each of which fails the run when it fails:
    fall, the masters and Adam state must stay f32, and a 2-block copy's
    loss and gradients on the card must match a CPU copy at bf16. Its
    profiled step splits device time into bf16 GEMMs, f32 GEMMs (the
-   output layer), flash and the rest.
+   output layer), flash and the rest;
+11. the fault ladder, on the warmed engines of phase 4 (slots, f32)
+   and phase 7 (paged, int8) after their fault-free runs, through
+   set_fault_injector (no warmup or capture added): phase 4's 32
+   requests, and phase 7's primer and 48-request burst, again, each
+   under one seeded FaultInjector plan with one transient fault
+   (retried) and one corrupting fault (recovered) that lands while
+   several lanes decode and, on the paged engine, while a two-chunk
+   prompt is mid-chunk. No request may be lost, retries and recoveries
+   must be one each, nothing may be captured, the decode kernel must
+   launch once per layer and step, the slot engine's flash kernel once
+   per layer and prefill (each re-admitted request re-prefilled once),
+   the paged engine's chunks must outnumber a fault-free run's, every
+   block must come back, and every lane's tokens must equal the same
+   engine's fault-free tokens unless their first difference is a
+   near-tie of the CPU reference at the phase's teacher tolerance. It
+   prints how many lanes differed and the recovery's wall time (the
+   fault to the last re-admitted lane's next token).
 
 Phases 4 to 7 serve with the engine's defaults on the card: the
 pipelined decode loop, and the decode step captured at warmup as one
@@ -829,9 +846,11 @@ def slot_traffic():
 
 
 def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
-          eager_ab: bool = False):
+          eager_ab: bool = False, chaos: bool = False):
     """Phase 4 (f32) or 6 (int8): the slot backend end to end, the
     decode step replayed as the engine's CUDA graph on the card. With
+    ``chaos``, phase 11 then reruns the traffic on the same warmed engine
+    under :data:`SLOT_FAULT_PLAN` (:func:`fault_ladder`). With
     ``eager_ab`` the same traffic then runs through the eager step and
     must give the same tokens."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
@@ -868,6 +887,14 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
         n_tok = sum(len(r["tokens"]) for r in results)
         prof = profile_window(eng)
         no_capture_since(eng, captures)
+        ladder = None
+        if chaos:
+            ladder = fault_ladder(
+                eng, card, f"slots {kv_dtype} on phase {6 if int8 else 4}'s "
+                f"engine", reqs, results, SLOT_FAULT_PLAN,
+                lambda: cpu_copy(lm, cfg),
+                int8_slot_rows if int8 else f32_rows,
+                INT8_TEACHER_TOL if int8 else TEACHER_TOL, cfg["n_layers"])
     finally:
         eng.stop()
     eager = eager_run(lm, engine_kw, reqs, results) if eager_ab else None
@@ -901,7 +928,8 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                teacher_checked=checked, teacher_exact=exact,
                teacher_exact_rate=exact / max(checked, 1),
                teacher_worst_gap=worst_gap, teacher_tol=tol,
-               int8_vs_f32_logit_rel_err=rel, profile=prof)
+               int8_vs_f32_logit_rel_err=rel, profile=prof,
+               fault_ladder=ladder)
     tag = " int8" if int8 else ""
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
@@ -1586,9 +1614,13 @@ def paged_traffic(vocab: int):
     return primer, burst, turn1, tails
 
 
-def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
+def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
+                chaos: bool = False):
     """Phase 5 (f32) or 7 (int8, int8 MLP weights): the paged backend
-    end to end (see the module doc)."""
+    end to end (see the module doc). With ``chaos``, phase 11 then reruns
+    the primer and the 48-request burst on the same warmed engine under
+    :func:`paged_fault_plan`'s plan (:func:`fault_ladder`), and every
+    block must come back again."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -1643,12 +1675,20 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
                                  f"expected: {pc}")
         prof = profile_window(eng)
         no_capture_since(eng, captures)
-        eng.evict_sessions()
-        eng.clear_prefix_cache()
-        free = (eng._allocator.free_count, eng._allocator.capacity)
-        if free[0] != free[1]:
-            raise AssertionError(f"blocks leaked: {free[0]} of {free[1]} "
-                                 f"free after the caches were cleared")
+        all_blocks_back(eng)
+        ladder = None
+        if chaos:
+            plan, target, planned = paged_fault_plan(eng, primer, burst)
+            eng.generate(timeout_ms=600_000, **primer)
+            ladder = fault_ladder(
+                eng, card, f"paged {kv_dtype} on phase "
+                f"{7 if int8 else 5}'s engine", burst, results, plan,
+                lambda: cpu_copy(lm, cfg),
+                int8_paged_rows if int8 else f32_rows,
+                INT8_TEACHER_TOL if int8 else TEACHER_TOL, cfg["n_layers"],
+                planned_chunks=planned, mid_chunk_target=target)
+            ladder["blocks_free_after"] = all_blocks_back(eng, " under "
+                                                          "faults")
     finally:
         eng.stop()
 
@@ -1711,7 +1751,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
                quant=st["quant"], int8_vs_f32_logit_rel_err=rel,
                slot_engine_greedy_identical=None if same is None
                else f"{same}/{len(greedy)}",
-               profile=prof)
+               profile=prof, fault_ladder=ladder)
     tag = " int8" if int8 else ""
     print(f"e2e paged{tag} [{card}]: {n_tok} tokens from {len(burst)} "
           f"requests "
@@ -1739,6 +1779,364 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32"):
              f"greedy requests identical"))
     print_profile(f"profile window paged{tag}", card, prof)
     return e2e
+
+
+#: phase 11 on phase 4's engine: a transient fault at the 3rd prefill
+#: (retried), then a corrupting 6th decode step, while every lane
+#: decodes (recovered)
+SLOT_FAULT_PLAN = dict(seed=11, plan={"prefill": [3], "device_step": [6]},
+                       corrupting=("device_step",))
+
+
+def paged_fault_plan(eng, primer, burst):
+    """Phase 11's plan on phase 7's engine: a transient fault at the 3rd
+    decode step (retried), and a corrupting fault at the prefill seam
+    call that runs the SECOND chunk of the first two-chunk prompt behind
+    at least four fully prefilled requests, so the recovery
+    lands while those lanes decode and that prompt is mid-chunk. Chunk
+    calls follow the burst's submission order (admission and the chunk
+    queue are FIFO), and with the primer's system prompt in the prefix
+    index every shared prompt prefills its suffix in one chunk. Returns
+    (plan, index of the mid-chunk request, chunk calls the burst needs
+    fault-free)."""
+    system = primer["prompt"][:320]   # paged_traffic's system prompt
+    calls, done, target = 0, 0, None
+    for i, r in enumerate(burst):
+        match = len(system) if r["prompt"][:len(system)] == system else 0
+        n = len(eng._chunk_plan(len(r["prompt"]), start=match))
+        if target is None and n > 1 and done >= 4:
+            target, k = i, calls + 2
+        calls += n
+        done += 1
+    if target is None:
+        raise AssertionError("no two-chunk prompt behind enough prefilled "
+                             "requests in the paged burst")
+    return (dict(seed=11, plan={"device_step": [3], "prefill": [k]},
+                 corrupting=("prefill",)), target, calls)
+
+
+def watched_injector(eng, **plan):
+    """A FaultInjector with ``plan`` that also notes, at each corrupting
+    fire, what the engine had in flight: the time, the decoding lanes,
+    the requests holding slots with their emitted token counts, and
+    whether the head of the chunk queue is mid-prompt (a chunk done and
+    one to go)."""
+    from deeplearning4j_tpu_torch.faults import (CorruptedStateFault,
+                                                 FaultInjector)
+
+    class Watched(FaultInjector):
+        def __init__(self):
+            super().__init__(**plan)
+            self.at_fault = []
+
+        def fire(self, seam, worker=None):
+            try:
+                return super().fire(seam, worker)
+            except CorruptedStateFault:
+                chunks = getattr(eng, "_prefilling", ())
+                self.at_fault.append(dict(
+                    seam=seam, t=time.perf_counter(),
+                    decoding=len(eng._ready_slots()),
+                    in_flight=[(r, len(r.tokens))
+                               for r in eng._slots.requests
+                               if r is not None],
+                    mid_chunk=bool(chunks) and chunks[0].idx > 0,
+                    head=chunks[0].req if chunks else None))
+                raise
+
+    return Watched()
+
+
+def ordered_streams(eng, reqs):
+    """Submit every request as a stream from this thread, in list order
+    (so admission follows it), and read each from a thread of its own
+    that stamps every token's arrival. Returns the results, the
+    arrival times, the requests' engine objects and the wall time. A
+    failed request fails the run."""
+    streams = []
+    t0 = time.perf_counter()
+    for r in reqs:
+        streams.append(eng.stream(timeout_ms=600_000, **r))
+    results = [None] * len(reqs)
+    stamps = [[] for _ in reqs]
+    errors = [None] * len(reqs)
+
+    def read(i):
+        try:
+            for chunk in streams[i]:
+                if "token" in chunk:
+                    stamps[i].append(time.perf_counter())
+                else:
+                    results[i] = chunk
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors[i] = e
+
+    threads = [threading.Thread(target=read, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    for i, e in enumerate(errors):
+        if e is not None:
+            raise RuntimeError(f"request {i} failed under the fault "
+                               f"plan") from e
+    return results, stamps, [s._req for s in streams], wall
+
+
+def _pick(row, temp: float, top_k: int, u: float) -> int:
+    """The engine's sampler on one logits row, in float64: the top-k
+    filter, then the inverse CDF (in vocabulary order) at ``u``."""
+    import torch
+    if 0 < top_k < row.numel():
+        row = torch.where(row < torch.topk(row, top_k).values[-1],
+                          float("-inf"), row)
+    c = torch.cumsum(torch.softmax(row / temp, -1), -1)
+    return int(torch.argmax((c > u * c[-1]).int()))
+
+
+def _reachable(r, temp: float, top_k: int, u: float, t: int,
+               d: float) -> bool:
+    """Whether some change of the logits ``r``, no entry moved by more
+    than ``d``, makes the sampler (:func:`_pick`) pick token ``t``.
+
+    With weights w_i = exp(logit_i / temp) over the top-k set F, the
+    sampler picks t iff A <= u (A + W + C) < A + W, where A and C sum
+    the weights of F's tokens before and after t in vocabulary order
+    and W is t's: with D = (1 - u) A - u C, iff -(1 - u) W < D <= u W.
+    F is a top-k set of the changed logits iff for some threshold h
+    every member can reach h (logit + d >= h) and every token above h
+    + d is a member; a member's weight then ranges from exp(max(logit -
+    d, h) / temp) to exp((logit + d) / temp). For each breakpoint h
+    (a logit +- d between the (k+1)-th logit - d and the k-th + d) the
+    free members are chosen greedily to move D down (tokens after t by
+    largest weight, then those before by smallest) or up (the mirror),
+    t weighted at its largest, and D's range is tested."""
+    import torch
+    n = r.numel()
+    top = float(r.max()) + d
+    w_hi = torch.exp((r + d - top) / temp)
+    before = torch.arange(n) < t
+    after = torch.arange(n) > t
+    if 0 < top_k < n:
+        vals = torch.topk(r, top_k + 1).values
+        lo_h, hi_h = float(vals[top_k]) - d, float(vals[top_k - 1]) + d
+        band = r[(r >= lo_h - d) & (r <= hi_h + d)]
+        hs = torch.cat([band - d, band + d, torch.tensor([lo_h, hi_h],
+                                                         dtype=r.dtype)])
+        hs = sorted({float(h) for h in hs if lo_h <= float(h) <= hi_h})
+    else:
+        hs = [None]
+    for h in hs:
+        if h is None:
+            member = torch.ones(n, dtype=torch.bool)
+            w_lo = torch.exp((r - d - top) / temp)
+        else:
+            eligible = r + d >= h
+            forced = r - d > h
+            if not eligible[t]:
+                continue
+            w_lo = torch.exp((torch.clamp(r - d, min=h) - top) / temp)
+            forced[t] = True
+            need = top_k - int(forced.sum())
+            free = eligible & ~forced
+            if need < 0 or int(free.sum()) < need:
+                continue
+        for down in (True, False):
+            if h is not None:
+                first = after if down else before
+                second = before if down else after
+                # free tokens that move D the wanted way, largest weight
+                # first, then the others, smallest weight first
+                key = torch.where(free & first, 2.0 + w_hi,
+                                  torch.where(free & second, 1.0 - w_lo,
+                                              torch.zeros_like(w_hi)))
+                member = forced.clone()
+                if need:
+                    member[torch.topk(key, need).indices] = True
+            a_lo, a_hi = float(w_lo[member & before].sum()), \
+                float(w_hi[member & before].sum())
+            c_lo, c_hi = float(w_lo[member & after].sum()), \
+                float(w_hi[member & after].sum())
+            w = float(w_hi[t])
+            if (1 - u) * a_lo - u * c_hi <= u * w and \
+                    (1 - u) * a_hi - u * c_lo > -(1 - u) * w:
+                return True
+    return False
+
+
+def sample_gap(row, temp: float, top_k: int, u: float, a: int,
+               b: int) -> float:
+    """The sampled counterpart of a greedy logit gap: twice the smallest
+    change d of the logits ``row`` (no entry moved by more than d) under
+    which the engine's sampler at the request's uniform ``u`` picks
+    ``a`` (:func:`_reachable`), and likewise ``b``; the larger of the
+    two. A greedy choice of the top-k set may overstate it, never
+    understate it; inf when even d = 1 does not reach a token."""
+    r = row.double()
+    worst = 0.0
+    for t in (a, b):
+        if _pick(r, temp, top_k, u) == t:
+            continue
+        if not _reachable(r, temp, top_k, u, t, 1.0):
+            return float("inf")
+        lo, hi = 0.0, 1.0
+        for _ in range(30):
+            mid = (lo + hi) / 2
+            lo, hi = (lo, mid) if _reachable(r, temp, top_k, u, t, mid) \
+                else (mid, hi)
+        worst = max(worst, hi)
+    return 2 * worst
+
+
+def near_tie(rows_fn, cpu, req, got, want, tol):
+    """The first position where a lane's tokens under faults (``got``)
+    and fault-free (``want``) differ must be a near-tie of the reference
+    (``rows_fn`` on the CPU copy, teacher-forced on the common prefix):
+    a greedy lane's two tokens both within ``tol`` of the maximum logit
+    (the teacher-forced check on each), a sampled lane's
+    :func:`sample_gap` within ``tol``. Returns (the position, the
+    gap)."""
+    from deeplearning4j_tpu_torch.serving.generation import _uniforms
+    p = next(i for i, (a, b) in enumerate(zip(got, want)) if a != b)
+    row = rows_fn(cpu, req["prompt"], got[:p + 1])[p].double()
+    a, b = got[p], want[p]
+    if req["temperature"] <= 0:
+        gap = float(row.max() - min(row[a], row[b]))
+    else:
+        u = float(_uniforms(np.array([req["seed"]], np.uint32),
+                            np.array([p], np.int32))[0])
+        gap = sample_gap(row, req["temperature"], req["top_k"], u, a, b)
+    if gap > tol:
+        raise AssertionError(f"a lane's tokens under faults differ from "
+                             f"the fault-free run at position {p} "
+                             f"({a} vs {b}) by more than a near-tie: gap "
+                             f"{gap:.3e} (tol {tol:g})")
+    return p, gap
+
+
+def fault_ladder(eng, card, label, reqs, want, plan, cpu_fn, rows_fn, tol,
+                 layers, planned_chunks=None, mid_chunk_target=None):
+    """Phase 11 on a warmed engine of an earlier phase (through
+    set_fault_injector, so no warmup or capture is added): ``reqs``
+    again under the seeded ``plan``. No request may be lost, retries and
+    recoveries must be what the plan fires (one each), nothing may be
+    captured, the recovery must land while several lanes decode (and,
+    with ``mid_chunk_target``, while that request is mid-chunk), and every
+    lane's tokens must equal the fault-free ``want`` unless its first
+    difference is a near-tie (:func:`near_tie`). The decode kernel must
+    launch once per layer and decode step; on the slot backend the flash
+    kernel once per layer and prefill, each request prefilled once and
+    each re-admitted one once more; on the paged backend the chunks must
+    outnumber the ``planned_chunks`` of a fault-free run. Prints the
+    recovery's wall time, fault to the last re-admitted lane's next
+    token."""
+    from deeplearning4j_tpu_torch import kernels
+    captures = eng.stats()["compile_cache"]["compiles"]
+    st0 = eng.stats()
+    inj = watched_injector(eng, **plan)
+    eng.set_fault_injector(inj)
+    try:
+        reset_launches()
+        results, stamps, objs, wall = ordered_streams(eng, reqs)
+        launches = {k.split(".")[0] + k.split(".")[1][8:]: n
+                    for k, n in kernels.launch_counts().items()
+                    if n and "bf16" not in k}
+    finally:
+        eng.set_fault_injector(None)
+    st = eng.stats()
+    no_capture_since(eng, captures)
+    check_lengths(results, reqs)
+    faults = {k: st["faults"][k] - st0["faults"][k]
+              for k in ("retries", "recoveries")}
+    if faults != {"retries": 1, "recoveries": 1} or len(inj.at_fault) != 1:
+        raise AssertionError(f"the plan fires one transient and one "
+                             f"corrupting fault: {faults}, "
+                             f"{len(inj.at_fault)} corrupting fires")
+    snap = inj.at_fault[0]
+    index = {id(r): i for i, r in enumerate(objs)}
+    head = index.get(id(snap["head"]))
+    if snap["decoding"] < 2 or (mid_chunk_target is not None and not (
+            snap["mid_chunk"] and head == mid_chunk_target)):
+        raise AssertionError(f"the recovery landed with {snap['decoding']} "
+                             f"lanes decoding, request {head} at the head "
+                             f"of the chunk queue (mid-chunk "
+                             f"{snap['mid_chunk']}, aimed at "
+                             f"{mid_chunk_target})")
+    readmitted = [index[id(r)] for r, _ in snap["in_flight"]]
+    # each re-admitted lane's next token is the first one it had not
+    # emitted at the fault (its stamp is when its reader got it)
+    nxt = [stamps[index[id(r)]][n] for r, n in snap["in_flight"]]
+    recovery_ms = (max(nxt) - snap["t"]) * 1e3
+    steps = st["decode_steps"] - st0["decode_steps"]
+    prefills = st["prefills"] - st0["prefills"]
+    chunks = (st["paged"]["prefill_chunks"]
+              - st0["paged"]["prefill_chunks"]) if st["paged"] else None
+    decode = [k for k in launches if "flash" not in k]
+    if len(decode) != 1 or launches[decode[0]] != layers * steps \
+            or not steps:
+        raise AssertionError(f"launches {launches} over {steps} decode "
+                             f"steps: one decode kernel, {layers} x steps")
+    if chunks is None:
+        if prefills != len(reqs) + len(readmitted) \
+                or launches.get("flash_attention") != layers * prefills:
+            raise AssertionError(
+                f"{prefills} prefills for {len(reqs)} requests and "
+                f"{len(readmitted)} re-admissions, launches {launches}")
+    elif "flash_attention" in launches or chunks <= planned_chunks:
+        raise AssertionError(f"{chunks} chunks (fault-free "
+                             f"{planned_chunks}), launches {launches}")
+    differ = [i for i, r in enumerate(results)
+              if r["tokens"] != want[i]["tokens"]]
+    ties, not_ties = [], []
+    if differ:
+        cpu = cpu_fn()
+        for i in differ:
+            try:
+                ties.append((i,) + near_tie(rows_fn, cpu, reqs[i],
+                                            results[i]["tokens"],
+                                            want[i]["tokens"], tol))
+            except AssertionError as e:
+                not_ties.append(f"request {i}: {e}")
+    out = dict(engine=label, requests=len(reqs), plan=plan["plan"],
+               corrupting=list(plan["corrupting"]), **faults,
+               decoding_at_fault=snap["decoding"],
+               in_flight_at_fault=len(readmitted),
+               mid_chunk_at_fault=snap["mid_chunk"],
+               chunk_head_at_fault=head,
+               recovery_ms=recovery_ms, wall_s=wall, decode_steps=steps,
+               prefills=prefills, prefill_chunks=chunks, launches=launches,
+               lanes_differing=len(differ), near_ties=ties,
+               captures_after_warmup=captures)
+    print(f"fault ladder [{card}] (phase 11, {label}): {len(reqs)} "
+          f"requests under plan {plan['plan']} (corrupting "
+          f"{list(plan['corrupting'])}): none lost, {faults['retries']} "
+          f"retry, {faults['recoveries']} recovery with "
+          f"{snap['decoding']} lanes decoding and {len(readmitted)} "
+          f"requests re-admitted (mid-chunk: {snap['mid_chunk']}); "
+          f"recovery {recovery_ms:.1f} ms from the fault to the last "
+          f"re-admitted lane's next token; {len(differ)} lanes differ "
+          f"from the fault-free run (near-ties as (request, position, "
+          f"gap): {ties}); {prefills} "
+          f"prefills, {chunks} chunks, {steps} decode steps, launches "
+          f"{launches}; {captures} decode-step graph captured at warmup, "
+          f"none after")
+    if not_ties:
+        raise AssertionError("; ".join(not_ties))
+    return out
+
+
+def all_blocks_back(eng, when: str = "") -> int:
+    """Release the session pins and the prefix index; every block of
+    the pool must then be free. Returns the free count."""
+    eng.evict_sessions()
+    eng.clear_prefix_cache()
+    free, total = eng._allocator.free_count, eng._allocator.capacity
+    if free != total:
+        raise AssertionError(f"blocks leaked{when}: {free} of {total} free "
+                             f"after the caches were cleared")
+    return free
 
 
 def warmed_compiles(eng) -> int:
@@ -2061,10 +2459,12 @@ def main() -> int:
     paged = check_paged(dev)
     decode8 = check_decode_int8(dev)
     paged8 = check_paged_int8(dev)
-    e2e = serve(card, eager_ab=True)
+    # phases 4 to 7; phase 11 (the fault ladder) runs on the warmed
+    # engines of phases 4 and 7 after their fault-free runs
+    e2e = serve(card, eager_ab=True, chaos=True)
     e2e_paged = serve_paged(card)
     e2e_int8 = serve(card, kv_dtype="int8")
-    e2e_paged_int8 = serve_paged(card, kv_dtype="int8")
+    e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
     trained = train(card)

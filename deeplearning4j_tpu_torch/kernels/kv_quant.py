@@ -104,6 +104,19 @@ def kv_zeros(shape: Sequence[int], kv_dtype: str, device=None):
     return torch.zeros(shape, dtype=_storage(kv_dtype), device=device)
 
 
+def kv_zero_(pool):
+    """Zero one pool in place, an int8 pool's scale rows with its values:
+    the storage, and so every address a captured CUDA graph holds, stays
+    the same."""
+    _check_pool(pool)
+    if is_quantized(pool):
+        pool.q.zero_()
+        pool.scale.zero_()
+    else:
+        pool.zero_()
+    return pool
+
+
 def kv_nbytes(shape: Sequence[int], kv_dtype: str) -> int:
     """Device bytes one pool of ``shape`` pins, scales included."""
     n = int(np.prod(shape))

@@ -41,13 +41,30 @@ submission (from measured prefill/decode costs), in the queue and
 mid-generation. A lane whose logits go non-finite is quarantined alone
 (:class:`PoisonRequestError`).
 
-Unlike the JAX loop, this one does not turn every exception into
-recompute-recovery: a failed device call (a kernel or launch error)
-fails the in-flight requests with that same error, so the caller sees
-it. The recovery ladder comes with the fault-tolerance slice
-(ROADMAP.md queue A, item 6.4); on the paged backend the failed
-requests' blocks go back to the pool. Prefill, decode and copy-on-write
-write the KV cache in place; the JAX executables donated it.
+The loop is supervised as the JAX engine's is (the fault ladder):
+
+- a :class:`TransientFault` (raised before any device state changed)
+  retries the iteration with exponential backoff, up to
+  ``max_step_retries`` consecutive strikes;
+- exhausted strikes, a :class:`CorruptedStateFault` or any other
+  exception (a kernel or launch error) trigger recompute-recovery: the
+  in-flight decode steps are dropped, the KV cache is zeroed IN PLACE
+  (the decode step's CUDA graph holds its addresses and is never
+  recaptured), and every in-flight request is re-admitted ahead of the
+  queue and re-prefilled from its prompt plus the tokens it already
+  emitted, resuming at the PRNG fold a fault-free run would use, so its
+  tokens are those of a fault-free run. A request that rides
+  ``max_recoveries_per_request`` recoveries, or outlives its deadline,
+  fails alone;
+- a recovery that raises poisons the engine: every in-flight request
+  fails with :class:`ServingError` and the cache is zeroed again. A
+  CUDA error that persists (an illegal address makes every later call
+  raise) makes that raise too, and the scheduler thread ends:
+  :meth:`alive` then reports False.
+
+A prefill call that raises fails only its own request and recovers
+the others. Prefill, decode and copy-on-write write the KV cache in
+place; the JAX executables donated it.
 """
 from __future__ import annotations
 
@@ -62,7 +79,8 @@ import numpy as np
 import torch
 
 from .. import random as jrandom
-from ..faults import PoisonRequestError, poll_until_idle
+from ..faults import (CorruptedStateFault, PoisonRequestError,
+                      TransientFault, poll_until_idle)
 from ..kernels import add_launches, launch_counts
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_copy_row,
                                 kv_update_slice)
@@ -130,8 +148,9 @@ def _uniforms(seeds: np.ndarray, steps: np.ndarray) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def _recovery_seq(req: "_GenRequest") -> np.ndarray:
     """The K/V-valid prefix of a request: the prompt plus the emitted
-    tokens minus the last one, whose K/V the next decode step would
-    write. A finished session turn pins exactly this."""
+    tokens minus the last one, whose K/V the next decode step writes.
+    A recovered request re-prefills exactly this, and a finished
+    session turn pins it."""
     if req.tokens:
         return np.concatenate(
             [req.prompt, np.asarray(req.tokens[:-1], req.prompt.dtype)])
@@ -142,7 +161,7 @@ class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
                  "eos_id", "deadline", "priority", "session_id", "event",
                  "tokens", "error", "finish_reason", "stream_q", "t_submit",
-                 "t_first", "t_last", "abandoned", "_lock",
+                 "t_first", "t_last", "abandoned", "recoveries", "_lock",
                  "_timeout_counted")
 
     def __init__(self, prompt, max_tokens, temperature, top_k, seed,
@@ -171,6 +190,7 @@ class _GenRequest:
         self.t_first: Optional[float] = None
         self.t_last: Optional[float] = None
         self.abandoned = False  # submitter gave up: skip, don't recount
+        self.recoveries = 0     # recompute-recovery re-admissions
         self._lock = threading.Lock()
         self._timeout_counted = False
 
@@ -243,23 +263,25 @@ class _TokenStream:
 
 class _ChunkState:
     """One request mid-prefill on the paged backend: its slot, block
-    table, table bucket and chunk plan with a cursor. ``start`` is the
-    prefix-cache match length: positions below it already hold valid
-    K/V, so the plan begins there and ``done_tokens`` counts them as
-    live from admission on."""
+    table, table bucket, the sequence it prefills (the prompt, or after
+    a recovery :func:`_recovery_seq`) and its chunk plan with a cursor.
+    ``start`` is the prefix-cache match length: positions below it
+    already hold valid K/V, so the plan begins there and
+    ``done_tokens`` counts them as live from admission on."""
 
     __slots__ = ("req", "slot", "table", "tbl_bucket", "plan", "idx",
-                 "start")
+                 "seq", "start")
 
     def __init__(self, req: _GenRequest, slot: int, table: BlockTable,
                  tbl_bucket: int, plan: List[Tuple[int, int, int]],
-                 start: int = 0):
+                 seq: np.ndarray, start: int = 0):
         self.req = req
         self.slot = slot
         self.table = table
         self.tbl_bucket = tbl_bucket
         self.plan = plan                  # [(p0, chunk bucket, len)]
         self.idx = 0
+        self.seq = seq
         self.start = start
 
     @property
@@ -303,13 +325,21 @@ class GenerationEngine:
     - ``decode_pipeline`` (default on, as in the JAX engine): step t+1
       is dispatched before step t's tokens are synced; ``False`` syncs
       every step. Tokens are identical either way.
+    - ``decode_impl``: ``"auto"``, the one decode-attention dispatch of
+      the port (the kernel on the card, its plain version on the CPU);
+      any other name raises ``ValueError``.
+    - the fault ladder (see the module doc): ``fault_injector`` (a
+      :class:`~deeplearning4j_tpu_torch.faults.FaultInjector`, or
+      :meth:`set_fault_injector` later), ``max_step_retries``,
+      ``retry_backoff_ms`` doubling up to ``retry_backoff_max_ms``,
+      ``max_recoveries_per_request`` and ``stall_timeout_s`` (the
+      heartbeat age past which :meth:`alive` reports a wedged loop).
 
-    Arguments of the JAX engine whose features are not ported yet
-    raise ``NotImplementedError`` naming their ROADMAP.md item; they are
-    accepted at the JAX engine's defaults. The JAX engine's
-    ``decode_impl`` is not taken, so from the 8th parameter on the
-    positional order differs from the JAX engine's: pass those by
-    keyword.
+    The parameters take the JAX engine's positions and defaults.
+    Speculative decoding (``speculation_k``, ``draft_model``) and the
+    offload tiers (``offload_*``) are not ported yet: off their JAX
+    defaults they raise ``NotImplementedError`` naming their ROADMAP.md
+    item.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -318,6 +348,7 @@ class GenerationEngine:
                  min_prompt_bucket: int = 8,
                  max_queue: int = 256,
                  default_timeout_ms: float = 60_000.0,
+                 decode_impl: str = "auto",
                  cache: str = "slots",
                  block_size: int = 16,
                  num_blocks: Optional[int] = None,
@@ -345,6 +376,11 @@ class GenerationEngine:
             raise ValueError(f"cache must be 'slots' or 'paged', "
                              f"got {cache!r}")
         self.cache_backend = cache
+        if decode_impl != "auto":
+            raise ValueError(f"decode_impl must be 'auto' (the port's one "
+                             f"decode-attention dispatch), got "
+                             f"{decode_impl!r}")
+        self.decode_impl = decode_impl
         self.kv_dtype = canonical_kv_dtype(kv_dtype)
         if int(speculation_k) or draft_model is not None:
             raise _todo("speculative decoding (speculation_k > 0)", "7")
@@ -354,16 +390,6 @@ class GenerationEngine:
                 or not offload_prefetch:
             raise _todo("the disk KV tier and its prefetch (offload_disk_"
                         "bytes, offload_dir, offload_prefetch)", "8")
-        if fault_injector is not None:
-            raise _todo("fault injection (fault_injector)", "6.4")
-        if (int(max_step_retries), float(retry_backoff_ms),
-                float(retry_backoff_max_ms),
-                int(max_recoveries_per_request),
-                float(stall_timeout_s)) != (3, 1.0, 50.0, 3, 30.0):
-            raise _todo("the retry, recovery and stall-watchdog knobs "
-                        "(max_step_retries, retry_backoff_ms, "
-                        "retry_backoff_max_ms, max_recoveries_per_request, "
-                        "stall_timeout_s)", "6.4")
         if getattr(model, "_params", None) is None:
             model.init()
         self.model = model
@@ -467,6 +493,20 @@ class GenerationEngine:
         # work run on the scheduler thread between iterations (warmup)
         self._jobs: "collections.deque[Callable[[], None]]" = \
             collections.deque()
+        # -- the fault ladder: seams fire only with an injector; the
+        # supervised loop always runs (device faults need no injector)
+        self._faults = fault_injector
+        self._max_step_retries = int(max_step_retries)
+        self._retry_backoff_s = float(retry_backoff_ms) / 1e3
+        self._retry_backoff_max_s = float(retry_backoff_max_ms) / 1e3
+        self._max_recoveries = int(max_recoveries_per_request)
+        self._stall_timeout_s = float(stall_timeout_s)
+        # requests re-admitted ahead of the queue: admissions a fault
+        # interrupted and recovery's re-admissions (accepted earlier than
+        # anything still queued)
+        self._requeue: "collections.deque[_GenRequest]" = \
+            collections.deque()
+        self._beat = time.monotonic()  # scheduler heartbeat (alive())
         self._draining = False
         self._running = True
         self._thread = threading.Thread(target=self._loop, daemon=True,
@@ -708,6 +748,10 @@ class GenerationEngine:
         active = self._ready_slots()
         if not active:
             return False
+        # the seam fires before anything changes (the capture, the
+        # buffers, the cursors): a TransientFault here is retried with
+        # every state intact and the previous step still in flight
+        self._hit("device_step")
         S = self.num_slots
         cold = not self._decode_hot
         if self._cuda_graph and self._graph is None and not cold:
@@ -811,9 +855,11 @@ class GenerationEngine:
                 self._update_block_gauges()
 
     def _drop_pending(self):
-        """Discard the in-flight steps (a failed device call, shutdown):
-        nothing of a dropped step is ever emitted, and every lane's next
-        token comes from the host mirror."""
+        """Discard the in-flight steps (recovery, poison, shutdown):
+        nothing of a dropped step is ever emitted, so a recovery replay
+        regenerates its tokens at the same PRNG folds, and every lane's
+        next token comes from the host mirror (``use_host`` in the next
+        step's input buffer)."""
         self._pending.clear()
         self._tok_on_dev[:] = False
 
@@ -1052,8 +1098,10 @@ class GenerationEngine:
                  session_id: Optional[str] = None) -> Dict[str, Any]:
         """Blocking generate: returns ``{"tokens", "prompt_tokens",
         "finish_reason"}``. Raises :class:`ClientError`,
-        :class:`QueueFullError`, :class:`DeadlineExceededError`, or the
-        error a failed device call raised."""
+        :class:`QueueFullError`, :class:`DeadlineExceededError`,
+        :class:`PoisonRequestError`, the error its own prefill call
+        raised, or :class:`ServingError` when the fault ladder gave it
+        up (see the module doc)."""
         req = self._submit(prompt, max_tokens, temperature, top_k, seed,
                            eos_id, timeout_ms, stream=False,
                            priority=priority, session_id=session_id)
@@ -1095,6 +1143,13 @@ class GenerationEngine:
             raise
 
     # -- scheduler side --------------------------------------------------
+    def _hit(self, seam: str):
+        """Fire a fault-injection seam (one attribute load without an
+        injector)."""
+        fi = self._faults
+        if fi is not None:
+            fi.fire(seam)
+
     def _fail(self, req: _GenRequest, exc: BaseException,
               count: bool = True):
         """``count=False`` for shutdown drains: a restart is not an
@@ -1123,6 +1178,11 @@ class GenerationEngine:
         req.t_last = now
         if req.stream_q is not None:
             req.stream_q.put(("token", token))
+            fi = self._faults
+            if fi is not None and fi.fire("client_disconnect"):
+                # as if the consumer hung up mid-stream: the scheduler
+                # frees the slot at the next retirement check
+                req.abandoned = True
 
     def _release_slot(self, slot: int):
         """Free a slot and (paged) its blocks and decode-table row. No
@@ -1196,7 +1256,9 @@ class GenerationEngine:
         """Pop the next queued request. A busy engine must keep
         decoding, so the pop does not block; an idle one parks on the
         submit-wake event (clear-then-recheck closes the lost-wakeup
-        race), with a 1 s backstop in case a wake is lost."""
+        race), with a backstop in case a wake is lost that stays well
+        under the stall watchdog, so an idle engine never looks wedged
+        to :meth:`alive`."""
         try:
             return self._queue.get_nowait()
         except queue.Empty:
@@ -1207,20 +1269,32 @@ class GenerationEngine:
             return self._queue.get_nowait()
         except queue.Empty:
             if not self._jobs:
-                self._wake.wait(1.0)
+                self._wake.wait(
+                    max(0.05, min(1.0, self._stall_timeout_s / 4.0)))
             return None
 
     def _admit(self):
-        """Fill free slots from the queue. An exception from a prefill
-        device call propagates to :meth:`_loop`."""
+        """Fill free slots, the re-admission deque first (its requests
+        were accepted before anything still queued).
+
+        Fault contract of one admission: a :class:`TransientFault`
+        (injected before any state changed) re-stashes the request and
+        propagates, so the loop retries with backoff; a
+        :class:`CorruptedStateFault` propagates for recompute-recovery,
+        re-stashing the request unless it was failed already (a prefill
+        call that raised fails its own request); anything else fails
+        just this request."""
         if self.cache_backend == "paged":
             return self._admit_paged()
         while self._running and self._slots.free_count and not self._jobs:
-            req = self._next_queued(busy=bool(self._slots.active_count
-                                              or self._pending))
-            if req is None:
-                return
-            self.metrics.queue_depth = self._queue.qsize()
+            if self._requeue:
+                req = self._requeue.popleft()
+            else:
+                req = self._next_queued(busy=bool(self._slots.active_count
+                                                  or self._pending))
+                if req is None:
+                    return
+                self.metrics.queue_depth = self._queue.qsize()
             if req.abandoned:
                 continue
             if self._deadline_blown(req):
@@ -1230,17 +1304,36 @@ class GenerationEngine:
                 self._fail(req, DeadlineExceededError(
                     "deadline budget exhausted in the generation queue"))
                 continue
-            self._prefill(req)
+            try:
+                self._prefill(req)
+            except TransientFault:
+                self._requeue.appendleft(req)
+                raise
+            except CorruptedStateFault:
+                if req.error is None and req.finish_reason is None:
+                    self._requeue.appendleft(req)
+                raise
+            except Exception as e:  # noqa: BLE001 — fails one request
+                self._fail(req, e)
 
     def _prefill(self, req: _GenRequest):
+        """Prefill a request into a fresh slot: its prompt, or after a
+        recovery :func:`_recovery_seq`. A prefill call that raises fails
+        this request with its error and raises
+        :class:`CorruptedStateFault`: the call may have written any
+        slot's cache, so the others recover."""
+        # before the slot claim: a TransientFault leaves nothing to undo
+        self._hit("prefill")
+        seq = _recovery_seq(req)
         slot = self._slots.alloc(req)
         if slot is None:  # _admit checks free_count first
             raise ServingError("no free slot for admission")
-        L = len(req.prompt)
-        # the smallest configured bucket, not the raw pow2 ladder
+        L = len(seq)
+        # the smallest configured bucket, not the raw pow2 ladder; a
+        # recovery prefix fits too (max_seq_len is always a bucket)
         bucket = self._bucket(L)
         tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :L] = req.prompt
+        tokens[0, :L] = seq
         t0 = time.perf_counter()
         try:
             with self._profiler.record("generation.prefill"):
@@ -1248,7 +1341,8 @@ class GenerationEngine:
         except Exception as e:
             self._release_slot(slot)
             self._fail(req, e)
-            raise
+            raise CorruptedStateFault(
+                f"prefill device call failed: {e!r}") from e
         dt_ms = (time.perf_counter() - t0) * 1e3
         self._note_prefill_cost(dt_ms, bucket)
         self.metrics.inc("prefills")
@@ -1263,15 +1357,21 @@ class GenerationEngine:
                 "request produced non-finite logits during prefill; "
                 "quarantined"))
             return
-        self._start_decode(slot, req, first)
+        self._start_decode(slot, req, first, L)
 
-    def _start_decode(self, slot: int, req: _GenRequest, first: int):
-        """Make a prefilled request a decode lane and deliver its first
-        token (prefill's token is generated token #1)."""
+    def _start_decode(self, slot: int, req: _GenRequest, first: int,
+                      L: int):
+        """Make a prefilled request (``L`` positions of K/V written) a
+        decode lane. A fresh request's first token is prefill's, and is
+        delivered. A recovered request's stream stands: it resumes from
+        its last emitted token at the PRNG fold a fault-free run would
+        use next, and prefill's token is discarded."""
         st = self._slots
-        st.token[slot] = first
-        st.pos[slot] = len(req.prompt)  # where the next token's K/V goes
-        st.step[slot] = 1               # the PRNG fold of the next sample
+        resumed = bool(req.tokens)
+        st.token[slot] = req.tokens[-1] if resumed else first
+        st.pos[slot] = L  # where the next token's K/V goes
+        # the PRNG fold of the next sample
+        st.step[slot] = len(req.tokens) if resumed else 1
         st.seed[slot] = req.seed
         st.temp[slot] = req.temperature
         st.top_k[slot] = req.top_k
@@ -1283,6 +1383,8 @@ class GenerationEngine:
         self.metrics.active_slots = st.active_count
         if self.cache_backend == "paged":
             self._update_block_gauges()
+        if resumed:
+            return
         self.metrics.tokens.record(1)
         self._emit(req, first, time.perf_counter())
         self._check_done(slot, req, first)
@@ -1328,8 +1430,10 @@ class GenerationEngine:
         match ends mid-block, and admission copies it into a private
         block because the request writes there from ``match_len`` on.
         ``match_len`` is capped at len(prompt) - 1: the last prompt
-        position is computed to sample the first token."""
-        if not self.enable_prefix_sharing:
+        position is computed to sample the first token. A recovery's
+        re-admission (tokens already emitted) never matches: its block
+        budget and its token stream are settled."""
+        if not self.enable_prefix_sharing or req.tokens:
             return 0, [], None
         bs = self.block_size
         prompt = req.prompt
@@ -1394,10 +1498,15 @@ class GenerationEngine:
         block count, all or nothing. When blocks run out the request is
         HELD at the queue head (FIFO) until retirements free blocks.
         Admission only starts the prefill; chunks run one per loop
-        iteration. A failed copy-on-write propagates to :meth:`_loop`
-        after returning this request's blocks."""
+        iteration. The re-admission deque is served first, then the
+        held request, then the queue. Faults follow :meth:`_admit`'s
+        contract: the ``alloc`` seam fires before anything is claimed,
+        and a failed copy-on-write re-stashes the request and raises
+        :class:`CorruptedStateFault`."""
         while self._running and self._slots.free_count and not self._jobs:
-            if self._held is not None:
+            if self._requeue:
+                req = self._requeue.popleft()
+            elif self._held is not None:
                 req, self._held = self._held, None
             else:
                 req = self._next_queued(
@@ -1413,8 +1522,19 @@ class GenerationEngine:
                 self._fail(req, DeadlineExceededError(
                     "deadline budget exhausted in the generation queue"))
                 continue
-            L = len(req.prompt)
-            need = blocks_for(L + req.max_tokens, self.block_size)
+            seq = _recovery_seq(req)
+            L = len(seq)
+            # a recovery does not change the block budget: prefix +
+            # remaining generation = prompt + max_tokens positions
+            need = blocks_for(len(req.prompt) + req.max_tokens,
+                              self.block_size)
+            try:
+                self._hit("alloc")
+            except (TransientFault, CorruptedStateFault):
+                # nothing claimed yet: the retry (or recovery) re-admits
+                # the request, in order
+                self._requeue.appendleft(req)
+                raise
             match_len, shared, cow_src = self._match_prefix(req)
             pinned = shared + ([cow_src] if cow_src is not None else [])
             if pinned:
@@ -1427,7 +1547,13 @@ class GenerationEngine:
             if fresh is None:
                 if pinned:
                     self._allocator.free(pinned)
-                self._held = req
+                if self._held is None:
+                    self._held = req
+                else:
+                    # another request already waits for blocks (this one
+                    # came from the re-admission deque): it goes back
+                    # there, ahead of the held one's successors
+                    self._requeue.appendleft(req)
                 return
             if cow_src is not None:
                 # the match ends mid-block: the request writes positions
@@ -1435,10 +1561,11 @@ class GenerationEngine:
                 # first fresh block) and drops its pin on the original
                 try:
                     self._cow(cow_src, fresh[0])
-                except Exception as e:
-                    self._allocator.free(pinned + fresh)
-                    self._fail(req, e)
-                    raise
+                except Exception as e:  # noqa: BLE001 — the pool may be
+                    # half written: recovery rebuilds it
+                    self._requeue.appendleft(req)
+                    raise CorruptedStateFault(
+                        f"copy-on-write device call failed: {e!r}") from e
                 self._allocator.free([cow_src])
                 self.metrics.inc("cow_copies")
             table = BlockTable(shared + fresh, self.block_size)
@@ -1447,20 +1574,22 @@ class GenerationEngine:
             # rows inside the allocation land past the live length,
             # rows past it on NULL entries, never on another request's
             # blocks
-            span = max(L + req.max_tokens, plan[-1][0] + plan[-1][1])
+            span = max(len(req.prompt) + req.max_tokens,
+                       plan[-1][0] + plan[-1][1])
             tbl_bucket = pow2_bucket(blocks_for(span, self.block_size),
                                      cap=self._tbl_top)
             slot = self._slots.alloc(req)
             self._slot_blocks[slot] = table
             self._prefilling.append(_ChunkState(
-                req, slot, table, tbl_bucket, plan, start=match_len))
+                req, slot, table, tbl_bucket, plan, seq, start=match_len))
             self.metrics.active_slots = self._slots.active_count
             self._update_block_gauges()
 
     def _prefill_chunk_step(self):
         """Run ONE prefill chunk of the oldest mid-prefill request. A
-        failed device call fails that request, returns its blocks and
-        propagates to :meth:`_loop`."""
+        chunk call that raises fails that request with its error,
+        returns its blocks and raises :class:`CorruptedStateFault` for
+        the others' recovery."""
         st = self._prefilling[0]
         req = st.req
         if req.abandoned:
@@ -1472,11 +1601,14 @@ class GenerationEngine:
             self._release_slot(st.slot)
             self._fail(req, DeadlineExceededError(
                 "deadline exceeded during chunked prefill "
-                f"({st.done_tokens}/{len(req.prompt)} prompt tokens)"))
+                f"({st.done_tokens}/{len(st.seq)} prompt tokens)"))
             return
+        # before any change: after a TransientFault the chunk state is
+        # still at the deque head, and the retried iteration re-runs it
+        self._hit("prefill")
         p0, bucket, clen = st.plan[st.idx]
         tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :clen] = req.prompt[p0:p0 + clen]
+        tokens[0, :clen] = st.seq[p0:p0 + clen]
         t0 = time.perf_counter()
         try:
             with self._profiler.record("generation.prefill"):
@@ -1486,7 +1618,8 @@ class GenerationEngine:
             self._prefilling.popleft()
             self._release_slot(st.slot)
             self._fail(req, e)
-            raise
+            raise CorruptedStateFault(
+                f"prefill chunk device call failed: {e!r}") from e
         self._note_prefill_cost((time.perf_counter() - t0) * 1e3, bucket)
         self.metrics.inc("prefill_chunks")
         self.metrics.inc("prefill_tokens", clen)
@@ -1510,11 +1643,11 @@ class GenerationEngine:
         if len(st.plan) > 1:
             self.metrics.inc("chunked_prefills")
         self._tables[st.slot] = st.table.padded(self._blocks_per_seq)
-        if self.enable_prefix_sharing:
+        if self.enable_prefix_sharing and not req.tokens:
             # the prompt's full blocks now hold finished, immutable K/V
             # (decode writes land at pos >= prompt length): publish them
             self._register_prefix(req, st.table)
-        self._start_decode(st.slot, req, first)
+        self._start_decode(st.slot, req, first, len(st.seq))
 
     def _register_prefix(self, req: _GenRequest, table: BlockTable):
         """Publish a prefilled prompt's FULL blocks into the prefix
@@ -1566,47 +1699,122 @@ class GenerationEngine:
         return [s for s in range(self.num_slots)
                 if st.requests[s] is not None and st.step[s] > 0]
 
-    def _fail_in_flight(self, exc: BaseException):
-        """A device call raised: every in-flight request (decoding or
-        mid-prefill) and the request held for blocks fail with that
-        error, and their slots and blocks are released. The cache is
-        kept: whatever the failed call wrote lies in slots or blocks
-        just freed, past any later occupant's length, or in the null
-        block; cached prefixes and sessions were never written. The
-        in-flight decode steps are dropped first, so nothing of them is
-        emitted."""
-        self.metrics.inc("device_failures")
-        self._drop_pending()
-        self._fail_all(exc)
+    def _reset_blocks(self):
+        """Paged backend, after the cache was reset and every request
+        taken off its slot: reset the block bookkeeping wholesale, the
+        prefix index and the session pins included (their K/V went with
+        the cache). Mid-prefill requests hold slots too, so the slot
+        sweep collected them already."""
+        if self.cache_backend != "paged":
+            return
+        self._prefilling.clear()
+        self._allocator = BlockAllocator(self.num_blocks)
+        self._tables[:] = NULL_BLOCK
+        self._slot_blocks = [None] * self.num_slots
+        self._prefix_index.clear()
+        self._sessions.clear()
+        self._update_block_gauges()
 
-    def _fail_all(self, exc: BaseException, count: bool = True):
-        """Fail the request held for blocks and every slot's request
-        (decoding or mid-prefill) with ``exc``, releasing their slots
-        and blocks."""
+    def _poison(self, why: str):
+        """Last resort (recovery itself raised): every in-flight
+        sequence lost its K/V and cannot be rebuilt. Fail them all
+        loudly, then reset the cache so the engine stays servable. A
+        reset that raises again (a sticky CUDA error) ends the scheduler
+        thread; :meth:`alive` then reports False."""
+        st = self._slots
+        for slot in st.active_slots():
+            req = st.requests[slot]
+            st.free(slot)
+            self._fail(req, ServingError(f"generation step failed: "
+                                         f"{why}"))
+        self.metrics.active_slots = 0
+        self._drop_pending()
+        self._reset_blocks()
+        # in place: the decode step's CUDA graph keeps its addresses
+        self._cache.reset()
+
+    def _recover(self, why: str):
+        """Recompute-recovery: decode state is a pure function of the
+        prompt and the emitted tokens, so after a cache-corrupting
+        failure every in-flight request is re-admitted at the FRONT of
+        the line and re-prefilled from :func:`_recovery_seq`; its PRNG
+        stream continues at ``fold_in(seed, len(tokens))``, so its
+        output is the fault-free run's and no accepted request is lost.
+        The in-flight decode steps die with the cache: nothing of them
+        was emitted, so the replay regenerates them at the same folds.
+        Only requests that ride ``max_recoveries_per_request``
+        recoveries, or outlive their deadline, fail. The cache is zeroed
+        IN PLACE (the decode step's CUDA graph replays on the same
+        storage, never recaptured), and before any request leaves its
+        slot, so a reset that raises leaves :meth:`_poison` every
+        request to fail."""
+        self._drop_pending()
+        self._cache.reset()
+        st = self._slots
+        recovered: List[_GenRequest] = []
+        for slot in st.active_slots():
+            recovered.append(st.requests[slot])
+            st.free(slot)
+        self.metrics.active_slots = 0
+        self._reset_blocks()
+        now = time.perf_counter()
+        for req in recovered:
+            if req.abandoned:
+                continue
+            if now > req.deadline:
+                self._fail(req, DeadlineExceededError(
+                    "deadline exceeded during fault recovery "
+                    f"({len(req.tokens)} tokens emitted)"))
+            elif req.recoveries >= self._max_recoveries:
+                # a request that rides every crash is probably causing
+                # them: attribution of last resort
+                self._fail(req, ServingError(
+                    f"request failed {req.recoveries} recovery "
+                    f"attempts: {why}"))
+            else:
+                req.recoveries += 1
+                self._requeue.append(req)
+
+    def _fail_all(self, exc: BaseException):
+        """Shutdown: fail what is queued for re-admission, the request
+        held for blocks and every slot's request (decoding or
+        mid-prefill) with ``exc``, uncounted (a restart is not an
+        outage), releasing their slots and blocks."""
+        for req in self._requeue:
+            self._fail(req, exc, count=False)
+        self._requeue.clear()
         if self.cache_backend == "paged":
             self._prefilling.clear()  # their slots are released below
             if self._held is not None:
-                self._fail(self._held, exc, count=count)
+                self._fail(self._held, exc, count=False)
                 self._held = None
         for slot in self._slots.active_slots():
             req = self._slots.requests[slot]
             self._release_slot(slot)
             if req.error is None:
-                self._fail(req, exc, count=count)
+                self._fail(req, exc, count=False)
         self.metrics.active_slots = 0
 
     def _loop(self):
-        """The scheduler: run queued jobs (warmup, admin), admit, run
-        one prefill chunk (paged), dispatch one decode step and collect
-        the previous one (pipelined) or this one (synchronous). The loop
-        survives a failed device call; the requests in flight fail with
-        its error."""
+        """The supervised scheduler: run queued jobs (warmup, admin),
+        admit, run one prefill chunk (paged), dispatch one decode step
+        and collect the previous one (pipelined) or this one
+        (synchronous). The fault ladder (see the module doc): a
+        :class:`TransientFault` retries with backoff up to
+        ``max_step_retries`` strikes, then recovers; anything else
+        recovers at once; a recovery that raises poisons. A job's
+        exception goes back to its caller, never to the ladder. The
+        heartbeat goes stale only when an iteration hangs."""
         paged = self.cache_backend == "paged"
+        backoff = self._retry_backoff_s
+        strikes = 0
         with torch.inference_mode():
             while self._running:
+                self._beat = time.monotonic()
                 try:
                     while self._jobs:
                         self._jobs.popleft()()
+                    self._hit("latency")  # injected tail latency (sleeps)
                     self._admit()
                     if paged and self._prefilling:
                         self._prefill_chunk_step()
@@ -1616,8 +1824,34 @@ class GenerationEngine:
                     launched = self._dispatch_decode()
                     self._collect_decode(
                         keep=1 if launched and self.decode_pipeline else 0)
-                except Exception as e:  # noqa: BLE001 — reported to callers
-                    self._fail_in_flight(e)
+                except TransientFault as e:
+                    strikes += 1
+                    if strikes > self._max_step_retries:
+                        # bounded give-up: rebuild rather than spin
+                        self.metrics.inc("recoveries")
+                        try:
+                            self._recover(f"retries exhausted: {e!r}")
+                        except Exception as e2:  # noqa: BLE001
+                            self._poison(repr(e2))
+                        strikes = 0
+                        backoff = self._retry_backoff_s
+                    else:
+                        self.metrics.inc("retries")
+                        time.sleep(backoff)
+                        backoff = min(backoff * 2.0,
+                                      self._retry_backoff_max_s)
+                except Exception as e:  # noqa: BLE001 — cache-corrupting
+                    # or a device error: rebuild the in-flight state
+                    self.metrics.inc("recoveries")
+                    try:
+                        self._recover(repr(e))
+                    except Exception as e2:  # noqa: BLE001
+                        self._poison(repr(e2))
+                    strikes = 0
+                    backoff = self._retry_backoff_s
+                else:
+                    strikes = 0
+                    backoff = self._retry_backoff_s
         # shutdown runs on this thread, so no slot-table mutation races
         # a device call still in flight
         self._drop_pending()
@@ -1630,8 +1864,7 @@ class GenerationEngine:
                 break
             self._fail(req, ServingError("generation engine stopped"),
                        count=False)
-        self._fail_all(ServingError("generation engine stopped"),
-                       count=False)
+        self._fail_all(ServingError("generation engine stopped"))
 
     # -- admin -----------------------------------------------------------
     def stats(self) -> Dict:
@@ -1678,8 +1911,33 @@ class GenerationEngine:
             return len(blocks)
         return self._on_scheduler(job)
 
+    def set_fault_injector(self, injector) -> None:
+        """Swap the fault injector (``None`` disables injection). The
+        seams read it on every call, so one warmed engine serves fault
+        scenario after fault scenario, with no new capture."""
+        self._faults = injector
+
+    @property
+    def draining(self) -> bool:
+        """True once :meth:`drain` has started (new submissions are
+        shed with :class:`DrainingError`)."""
+        return self._draining
+
+    def alive(self) -> bool:
+        """Liveness: False only when the scheduler is wedged, its thread
+        dead while it should run or no heartbeat within
+        ``stall_timeout_s`` (the loop beats every iteration; its longest
+        legitimate pause is one device call). A stopped or drained
+        engine is not wedged."""
+        if not self._running:
+            return True
+        if not self._thread.is_alive():
+            return False
+        return (time.monotonic() - self._beat) <= self._stall_timeout_s
+
     def _idle(self) -> bool:
-        empty = self._queue.empty() and self._slots.active_count == 0
+        empty = (self._queue.empty() and not self._requeue
+                 and self._slots.active_count == 0)
         if self.cache_backend == "paged":
             empty = empty and not self._prefilling and self._held is None
         return empty

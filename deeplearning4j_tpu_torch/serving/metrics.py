@@ -1,9 +1,9 @@
 """Generation-engine counters (counterpart of
 ``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
-counters the slot and paged backends and the int8 KV cache move; the
-speculative and offload blocks come with their slices, and the
-Prometheus exposition with the serving shell, ROADMAP.md queue A, item
-9)."""
+counters the slot and paged backends, the int8 KV cache and the fault
+ladder move; the speculative and offload blocks come with their
+slices, and the Prometheus exposition with the serving shell, ROADMAP.md
+queue A, item 9)."""
 from __future__ import annotations
 
 import threading
@@ -29,9 +29,13 @@ class GenerationMetrics:
         self.shed_deadline = 0     # deadline budget blown before any
         #                            device work: rejected at admission
         self.timeouts = 0          # deadline exceeded (504)
-        self.quarantined = 0       # poison requests failed alone (500)
-        self.device_failures = 0   # device calls that raised; their
-        #                            in-flight requests failed with it
+        # the fault ladder (serving/generation.py): transient step
+        # failures retried with backoff, recompute-recoveries (every
+        # in-flight request re-admitted and re-prefilled), poison
+        # requests failed alone (500), graceful drains
+        self.retries = 0
+        self.recoveries = 0
+        self.quarantined = 0
         self.drains = 0
         self.prefills = 0          # prefill device calls
         self.decode_steps = 0      # decode device calls (all slots)
@@ -143,8 +147,9 @@ class GenerationMetrics:
             "shed_batch": self.shed_batch,
             "shed_deadline": self.shed_deadline,
             "timeouts": self.timeouts,
-            "faults": {"quarantined": self.quarantined,
-                       "device_failures": self.device_failures,
+            "faults": {"retries": self.retries,
+                       "recoveries": self.recoveries,
+                       "quarantined": self.quarantined,
                        "drains": self.drains},
             "queue_depth": self.queue_depth,
             "queue_max": self.queue_max,

@@ -43,7 +43,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_bytes_per_token,
-                                kv_nbytes, kv_scale_nbytes, kv_zeros)
+                                kv_nbytes, kv_scale_nbytes, kv_zero_,
+                                kv_zeros)
 
 #: Block index reserved as the write target of padded table entries.
 #: Never handed out by the allocator.
@@ -204,6 +205,16 @@ class PagedKVCache:
                                   device) for s in self.layer_shapes]
         self.vs: List = [kv_zeros((self.num_blocks,) + s, self.kv_dtype,
                                   device) for s in self.layer_shapes]
+
+    def reset(self):
+        """Zero every layer's K and V in place (int8 scale rows too),
+        as a freshly allocated pool would hold: the fault ladder's
+        recovery and poison rebuild on this instead of reallocating,
+        so the decode step's CUDA graph, which captured these tensors'
+        addresses, replays on the same storage and is never
+        recaptured."""
+        for pool in self.ks + self.vs:
+            kv_zero_(pool)
 
     def nbytes(self) -> int:
         """Device bytes the pool pins (K+V, every layer, int8 scales

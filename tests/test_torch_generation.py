@@ -2,7 +2,8 @@
 GenerationEngine on the same weights (CPU): a mixed concurrent
 workload with slot reuse and EOS/max_tokens retirement gives identical
 tokens, greedy and sampled; 503/504 shedding; per-lane NaN quarantine;
-a failing device call reaches its callers; unported options raise."""
+a failing device call goes through the JAX engine's fault ladder;
+unported options raise."""
 import threading
 
 import jax
@@ -19,6 +20,8 @@ from deeplearning4j_tpu_torch.serving import (ClientError,
                                               GenerationEngine,
                                               QueueFullError)
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
+
+from _torch_fault_rig import Rig, RigLM, gated_streams, jax_engine
 
 VOCAB = 64
 CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=4,
@@ -243,43 +246,51 @@ def test_prefill_poison_and_clean_slot_reuse(poison_engine):
     assert errs == [None] * 3 and out == base
 
 
-class _FailingLM(CausalTransformerLM):
-    """A model whose decode step raises once the flag is set, as a
-    failed kernel launch would."""
-
-    fail = False
-
-    def forward_decode(self, *args, **kw):
-        if self.fail:
-            raise RuntimeError("decode_attention: CUDA error 700 at launch")
-        return super().forward_decode(*args, **kw)
-
-
 def test_device_error_fails_in_flight_requests_with_it(jlm):
-    lm = _port_lm(jlm, _FailingLM)
-    eng = GenerationEngine(lm, num_slots=2, min_prompt_bucket=4)
-    eng.warmup()
-    lm.fail = True
-    _, errs = _run_all(eng, [dict(prompt=[1, 2], max_tokens=5),
-                             dict(prompt=[3], max_tokens=5)])
-    assert all(isinstance(e, RuntimeError) and "CUDA error 700" in str(e)
-               for e in errs)
-    assert eng.metrics.device_failures >= 1
-    lm.fail = False                     # the engine keeps serving
-    r = eng.generate([1, 2], max_tokens=3)
-    assert len(r["tokens"]) == 3
-    eng.stop()
+    """Held to the JAX engine's fault ladder on the same rig (its decode
+    device call raising as a failed kernel launch would): a one-shot
+    failure recovers every in-flight request token-identical; a
+    persistent one fails each with ServingError after
+    max_recoveries_per_request recoveries; then the engine serves on."""
+    rig = Rig()
+    lm = _port_lm(jlm, RigLM)
+    lm.rig = rig
+    reqs = [dict(prompt=[1, 2], max_tokens=5, temperature=0.8, top_k=8,
+                 seed=1),
+            dict(prompt=[3], max_tokens=5)]
+    outcomes = []
+    for eng in (jax_engine(jlm, rig, num_slots=2, min_prompt_bucket=4),
+                GenerationEngine(lm, num_slots=2, min_prompt_bucket=4)):
+        try:
+            eng.warmup()
+            rig.arm()
+            want = gated_streams(eng, reqs)
+            rig.arm(decode={3})
+            once = gated_streams(eng, reqs)
+            r1 = eng.metrics.recoveries
+            rig.arm(decode="always")
+            always = gated_streams(eng, reqs)
+            r2 = eng.metrics.recoveries
+            rig.arm()
+            after = eng.generate([1, 2], max_tokens=3)["tokens"]
+            outcomes.append((want, once, r1, always, r2, after,
+                             eng.stats()["faults"]))
+            assert eng._slots.free_count == eng.num_slots
+        finally:
+            eng.stop()
+    jax_out, port_out = outcomes
+    assert port_out == jax_out
+    want, once, r1, always, r2, _, faults = port_out
+    assert once == want and r1 == 1
+    assert all(o[1] == "ServingError" and "3 recovery attempts" in o[2]
+               and "CUDA error 700" in o[2] for o in always), always
+    assert r2 == 1 + 4   # three re-admissions, then the fourth fails both
+    assert set(faults) == {"retries", "recoveries", "quarantined", "drains"}
 
 
 @pytest.mark.parametrize("kw", [dict(speculation_k=2, cache="paged"),
                                 dict(speculation_k=2),
                                 dict(offload_host_bytes=1 << 20),
-                                dict(fault_injector=object()),
-                                dict(max_step_retries=0),
-                                dict(retry_backoff_ms=2.0),
-                                dict(retry_backoff_max_ms=10.0),
-                                dict(max_recoveries_per_request=0),
-                                dict(stall_timeout_s=1.0),
                                 dict(offload_disk_bytes=1 << 20),
                                 dict(offload_dir="/tmp/x"),
                                 dict(offload_prefetch=False)])
@@ -288,8 +299,9 @@ def test_unported_options_raise(jlm, kw):
         GenerationEngine(_port_lm(jlm), **kw)
 
 
-#: the JAX engine's defaults for the knobs the port accepts but does
-#: not implement (ROADMAP.md queue A, items 6.4 and 8)
+#: the JAX engine's defaults for the fault ladder's knobs and for the
+#: offload knobs the port accepts but does not implement (ROADMAP.md
+#: queue A, item 8)
 JAX_DEFAULT_KNOBS = dict(max_step_retries=3, retry_backoff_ms=1.0,
                          retry_backoff_max_ms=50.0,
                          max_recoveries_per_request=3,
@@ -298,7 +310,6 @@ JAX_DEFAULT_KNOBS = dict(max_step_retries=3, retry_backoff_ms=1.0,
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(max_step_retries=0), "6.4"), (dict(stall_timeout_s=1.0), "6.4"),
     (dict(offload_disk_bytes=1 << 20), "8"),
     (dict(offload_prefetch=False), "8")])
 def test_unported_knobs_name_their_item(jlm, kw, item):

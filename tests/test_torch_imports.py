@@ -36,7 +36,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          capture_output=True, text=True, timeout=120,
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    for mod in ("serving.generation", "serving.paging",
+    for mod in ("serving.generation", "serving.paging", "serving.faults",
+                "faults",
                 "kernels.paged_attention", "kernels.kv_quant",
                 "nn.layers.attention", "zoo.transformer_lm",
                 "nn.multilayer", "nn.conf", "nn.layers.recurrent",

@@ -5,7 +5,8 @@ a 32-request mixed workload (greedy and sampled, with block reuse and
 chunked prefill) token-identical to the JAX paged engine and to the
 port's slot engine, the same chunk plans, admission that waits for
 blocks, up-front rejection, stream drops and failed device calls that
-give every block back, and block reuse over poisoned stale K/V."""
+go through the JAX engine's fault ladder and give every block back,
+and block reuse over poisoned stale K/V."""
 import threading
 import time
 
@@ -26,6 +27,8 @@ from deeplearning4j_tpu_torch.serving import (BlockTable, ClientError,
                                               PagedKVCache)
 from deeplearning4j_tpu_torch.serving.paging import blocks_for, pow2_bucket
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
+
+from _torch_fault_rig import Rig, RigLM, gated_streams, jax_engine
 
 # f32 on both sides: the same math, summed in another order
 TOL = 1e-5
@@ -525,52 +528,66 @@ def test_block_reuse_over_poisoned_stale_kv(jlm, lm):
     eng.stop()
 
 
-class FailingLM(CausalTransformerLM):
-    """A model whose paged decode step (or prefill chunk) raises once
-    its flag is set, as a failed kernel launch would."""
-
-    fail = None
-
-    def forward_decode_paged(self, *args, **kw):
-        if self.fail == "decode":
-            raise RuntimeError("paged_attention: CUDA error 700 at launch")
-        return super().forward_decode_paged(*args, **kw)
-
-    def forward_prefill_chunk(self, *args, **kw):
-        if self.fail == "chunk":
-            raise RuntimeError("prefill chunk: CUDA error 700 at launch")
-        return super().forward_prefill_chunk(*args, **kw)
-
-
 @pytest.mark.parametrize("where", ["decode", "chunk"])
 def test_failed_device_call_releases_every_block(jlm, where):
-    """In flight: decoding lanes, a mid-prefill request and one held
-    for blocks. A failing device call fails them all with its error and
-    every block comes back; the engine keeps serving."""
-    lm = port_lm(jlm, FailingLM)
-    eng = GenerationEngine(lm, num_slots=3, max_queue=16,
-                           min_prompt_bucket=4, cache="paged", block_size=8,
-                           num_blocks=5, prefill_chunk_tokens=8)
-    eng.warmup()
-    # a cached prefix and a session pinned before the failure
-    first = eng.generate(list(range(1, 10)), max_tokens=2, session_id="s")
-    assert first["finish_reason"] == "length"
-    lm.fail = where
+    """In flight: decoding lanes, a mid-prefill request and one held for
+    blocks, over a cached prefix and a session pinned before. Held to the
+    JAX engine's fault ladder on the same rig (the paged decode step or
+    a prefill chunk raising as a failed kernel launch would): a one-shot
+    decode failure recovers every request token-identical, a one-shot
+    chunk failure fails its own request with its error and recovers the
+    rest; a persistent decode failure fails each request with
+    ServingError after max_recoveries_per_request recoveries, a
+    persistent chunk failure each with its own error. Every block comes
+    back and the engine keeps serving."""
+    rig = Rig()
+    lm = port_lm(jlm, RigLM)
+    lm.rig = rig
+    kw = dict(num_slots=3, max_queue=16, min_prompt_bucket=4, cache="paged",
+              block_size=8, num_blocks=5, prefill_chunk_tokens=8)
     reqs = [dict(prompt=list(range(1, 10)), max_tokens=7),
             dict(prompt=list(range(2, 14)), max_tokens=3),
             dict(prompt=[5, 6, 7], max_tokens=12)]
-    _, errs = run_all(eng, reqs)
-    assert all(isinstance(e, RuntimeError) and "CUDA error 700" in str(e)
-               for e in errs), errs
-    assert eng.metrics.device_failures >= 1
-    assert not eng._prefilling and eng._held is None
-    assert eng._slots.active_count == 0
-    eng.evict_sessions()
-    eng.clear_prefix_cache()
-    assert eng._allocator.free_count == eng._allocator.capacity
-    lm.fail = None
-    assert len(eng.generate([1, 2], max_tokens=3)["tokens"]) == 3
-    eng.stop()
+    outcomes = []
+    for eng in (jax_engine(jlm, rig, **kw), GenerationEngine(lm, **kw)):
+        try:
+            eng.warmup()
+            rig.arm()
+            first = eng.generate(list(range(1, 10)), max_tokens=2,
+                                 session_id="s")
+            assert first["finish_reason"] == "length"
+            want = gated_streams(eng, reqs)
+            runs = []
+            for fail in ({2}, "always"):
+                r0 = eng.metrics.recoveries
+                rig.arm(**{where: fail})
+                runs.append((gated_streams(eng, reqs),
+                             eng.metrics.recoveries - r0))
+            rig.arm()
+            assert eng._slots.active_count == 0
+            assert not eng._prefilling and eng._held is None
+            eng.evict_sessions()
+            eng.clear_prefix_cache()
+            assert eng._allocator.free_count == eng._allocator.capacity
+            after = eng.generate([1, 2], max_tokens=3)["tokens"]
+            outcomes.append((want, runs, after))
+        finally:
+            eng.stop()
+    jax_out, port_out = outcomes
+    assert port_out == jax_out
+    want, ((once, n_once), (always, _)), after = port_out
+    assert all(isinstance(w, list) for w in want) and len(after) == 3
+    failed = [o for o in once if not isinstance(o, list)]
+    assert [o for o in once if isinstance(o, list)] == \
+        [w for w, o in zip(want, once) if isinstance(o, list)]
+    if where == "decode":
+        assert not failed and n_once == 1
+        assert all(o[1] == "ServingError" and "3 recovery attempts" in o[2]
+                   for o in always), always
+    else:
+        assert len(failed) == 1 and n_once == 1
+        assert all(o[1] == "RuntimeError" and "CUDA error 700" in o[2]
+                   for o in failed + always), always
 
 
 def test_paged_kernel_never_launched_on_cpu(paged_engine):

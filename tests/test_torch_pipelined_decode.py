@@ -6,8 +6,9 @@ requests one at a time (the JAX ``TestPipelinedDecodeIdentity`` cases)
 and all at once, more requests than slots, so lanes retire while a step
 is in flight; the port's pipelined tokens equal the JAX engine's
 pipelined tokens on the same weights; a failed device call drops the
-in-flight steps so nothing of them is emitted; and ``stats()`` carries
-the JAX engine's ``decode_sync_wait_ms`` and ``compile_cache`` keys."""
+in-flight steps, so nothing of them is emitted, and recovers as the JAX
+engine does; and ``stats()`` carries the JAX engine's
+``decode_sync_wait_ms`` and ``compile_cache`` keys."""
 import threading
 import time
 
@@ -20,6 +21,8 @@ from deeplearning4j_tpu.zoo.transformer_lm import CausalTransformerLM as JaxLM
 from deeplearning4j_tpu_torch import kernels
 from deeplearning4j_tpu_torch.serving import GenerationEngine
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
+
+from _torch_fault_rig import Rig, RigLM, gated_streams, jax_engine
 
 VOCAB = 64
 CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=4,
@@ -173,76 +176,63 @@ def test_pipelined_identical_to_jax_pipelined(jlm, backend, kv_dtype):
         [r["finish_reason"] for r in want]
 
 
-class _FailingLM(CausalTransformerLM):
-    """A model whose ``fail_at``-th decode call raises, as a failed
-    kernel launch would; ``fail_prefill`` makes prefills (whole or
-    chunked) raise; ``decode_sleep_s`` slows every decode call."""
-
-    fail_at = 0
-    fail_prefill = False
-    decode_sleep_s = 0.0
-    calls = 0
-
-    def _maybe_fail(self):
-        self.calls += 1
-        time.sleep(self.decode_sleep_s)
-        if self.calls == self.fail_at:
-            raise RuntimeError("decode_attention: CUDA error 700 at launch")
-
-    def forward_decode(self, *args, **kw):
-        self._maybe_fail()
-        return super().forward_decode(*args, **kw)
-
-    def forward_decode_paged(self, *args, **kw):
-        self._maybe_fail()
-        return super().forward_decode_paged(*args, **kw)
-
-    def forward_prefill(self, *args, **kw):
-        if self.fail_prefill:
-            raise RuntimeError("flash_attention: CUDA error 700 at launch")
-        return super().forward_prefill(*args, **kw)
-
-    def forward_prefill_chunk(self, *args, **kw):
-        if self.fail_prefill:
-            raise RuntimeError("flash_attention: CUDA error 700 at launch")
-        return super().forward_prefill_chunk(*args, **kw)
-
-
 @pytest.mark.parametrize("pipeline", [False, True])
 @pytest.mark.parametrize("backend", sorted(BACKENDS))
 def test_failed_decode_call_drops_the_pending_step(jlm, backend, pipeline):
-    """The 4th decode call raises. Synchronous: steps 1-3 were each
-    collected, so the stream saw the prefill's token and 3 more.
-    Pipelined: step 3 was in flight when step 4's dispatch raised; it is
-    dropped, not emitted, so the stream saw one token fewer. Then the
-    engine serves on, with the tokens of an engine that never failed."""
-    lm = _port_lm(jlm, _FailingLM)
-    eng = _engine(lm, backend, "f32", decode_pipeline=pipeline)
-    kw = dict(max_tokens=12, temperature=0.7, top_k=8, seed=5)
-    try:
-        want = eng.generate([3, 1, 4], **kw)["tokens"]
-        _wait_collected(eng)
-        steps0 = eng.metrics.decode_steps
-        synced0 = eng.metrics.decode_sync_wait_ms.snapshot()["count"]
-        lm.calls, lm.fail_at = 0, 4
-        seen = []
-        with pytest.raises(RuntimeError, match="CUDA error 700"):
-            for chunk in eng.stream([3, 1, 4], **kw):
-                if "token" in chunk:
-                    seen.append(chunk["token"])
-        assert seen == want[:3 if pipeline else 4]
-        assert eng.metrics.device_failures == 1
-        assert not eng._pending and not eng._tok_on_dev.any()
-        assert eng._slots.free_count == eng.num_slots
-        assert eng.generate([3, 1, 4], **kw)["tokens"] == want
-        _wait_collected(eng)
-        # every dispatched step was collected (synced), except the one
-        # in flight at the failure, which was dropped
-        steps = eng.metrics.decode_steps - steps0
-        synced = eng.metrics.decode_sync_wait_ms.snapshot()["count"] - synced0
-        assert synced == steps - (1 if pipeline else 0)
-    finally:
-        eng.stop()
+    """The 4th decode call raises, as a failed kernel launch would.
+    Synchronous: steps 1-3 were each collected. Pipelined: step 3 was in
+    flight when step 4's dispatch raised; it is dropped, never emitted,
+    and recovery regenerates it at the same PRNG fold. Either way the
+    stream sees the tokens of an engine that never failed. A persistent
+    failure fails the request with ServingError after
+    max_recoveries_per_request recoveries. The JAX engine on the same rig
+    gives the same outcomes; then the engine serves on."""
+    rig = Rig()
+    lm = _port_lm(jlm, RigLM)
+    lm.rig = rig
+    kw = dict(prompt=[3, 1, 4], max_tokens=12, temperature=0.7, top_k=8,
+              seed=5)
+    outcomes = []
+    for port in (False, True):
+        eng = (_engine(lm, backend, "f32", decode_pipeline=pipeline) if port
+               else jax_engine(jlm, rig, **BACKENDS[backend],
+                               decode_pipeline=pipeline))
+        try:
+            if not port:
+                eng.warmup()
+            rig.arm()
+            want = eng.generate(**kw)["tokens"]
+            if port:
+                _wait_collected(eng)
+                steps0 = eng.metrics.decode_steps
+                synced0 = eng.metrics.decode_sync_wait_ms.snapshot()["count"]
+            r0 = eng.metrics.recoveries
+            rig.arm(decode={4})
+            seen = [c["token"] for c in eng.stream(**kw) if "token" in c]
+            r1 = eng.metrics.recoveries
+            if port:
+                _wait_collected(eng)
+                assert not eng._tok_on_dev.any()
+                # every dispatched step was collected (synced), except
+                # the one in flight at the failure, which was dropped
+                steps = eng.metrics.decode_steps - steps0
+                synced = (eng.metrics.decode_sync_wait_ms.snapshot()["count"]
+                          - synced0)
+                assert synced == steps - (1 if pipeline else 0)
+            rig.arm(decode="always")
+            always = gated_streams(eng, [kw])
+            r2 = eng.metrics.recoveries
+            rig.arm()
+            after = eng.generate(**kw)["tokens"]
+            outcomes.append((want, seen, r1 - r0, always, r2 - r1, after))
+            assert eng._slots.free_count == eng.num_slots
+        finally:
+            eng.stop()
+    jax_out, port_out = outcomes
+    assert port_out == jax_out
+    want, seen, once, always, n_always, after = port_out
+    assert seen == want == after and once == 1
+    assert always[0][1] == "ServingError" and n_always == 4
 
 
 def _wait_collected(eng, timeout_s=10.0):
@@ -255,25 +245,30 @@ def _wait_collected(eng, timeout_s=10.0):
 
 @pytest.mark.parametrize("backend", sorted(BACKENDS))
 def test_failed_prefill_with_a_step_in_flight(jlm, backend):
-    """A prefill that raises while another request's step is in flight
-    fails every in-flight request and drops the pending step; nothing
-    leaks and the engine serves on with unchanged tokens."""
-    lm = _port_lm(jlm, _FailingLM)
+    """A prefill (or chunk) call that raises while another request's step
+    is in flight fails only its own request, with its error, as the JAX
+    engine attributes it; the request in flight is recovered and
+    finishes with its fault-free tokens; nothing leaks."""
+    rig = Rig()
+    lm = _port_lm(jlm, RigLM)
+    lm.rig = rig
     eng = _engine(lm, backend, "f32")
     try:
         want = eng.generate([2, 7], max_tokens=25)["tokens"]
-        lm.decode_sleep_s = 0.02   # 25 steps outlast the next submit
+        rig.decode_sleep_s = 0.02   # 25 steps outlast the next submit
+        r0 = eng.metrics.recoveries
         stream = eng.stream([2, 7], max_tokens=25)
         first = next(stream)["token"]       # decoding, steps in flight
-        lm.fail_prefill = True
+        rig.arm(**{"chunk" if backend == "paged" else "prefill": {1}})
         with pytest.raises(RuntimeError, match="CUDA error 700"):
             eng.generate([5, 6, 7], max_tokens=4)
-        with pytest.raises(RuntimeError, match="CUDA error 700"):
-            list(stream)
-        assert first == want[0]
-        assert not eng._pending and not eng._tok_on_dev.any()
+        rest = [c["token"] for c in stream if "token" in c]
+        assert [first] + rest == want
+        assert eng.metrics.recoveries == r0 + 1
+        rig.decode_sleep_s = 0.0
+        _wait_collected(eng)
+        assert not eng._tok_on_dev.any()
         assert eng._slots.free_count == eng.num_slots
-        lm.fail_prefill, lm.decode_sleep_s = False, 0.0
         if backend == "paged":
             eng.clear_prefix_cache()
             assert eng._allocator.free_count == eng._allocator.capacity
