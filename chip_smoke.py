@@ -85,14 +85,32 @@ Phases, each of which fails the run when it fails:
    engine's fault-free tokens unless their first difference is a
    near-tie of the CPU reference at the phase's teacher tolerance. It
    prints how many lanes differed and the recovery's wall time (the
-   fault to the last re-admitted lane's next token).
+   fault to the last re-admitted lane's next token);
+12. speculative decoding at k=4: (a) phase 4's engine and 32 requests
+   with a same-config, same-seed copy of the target as the draft (the
+   accept-heavy identity rig), then the same requests again under a
+   corrupting verify fault (one recovery, none lost); (b) phase 5's
+   engine and traffic (primer, burst, sessions) with make_draft_lm's
+   default draft (d_model 32, one layer, 2 heads of 16: reject-heavy).
+   Each engine must capture two CUDA graphs at warmup (the decode step
+   and the draft's k-step proposal) and none after, the draft's B1
+   launches must be its layers x k x proposal calls and B3 must run its
+   primes, and every lane's tokens must equal phase 4's or 5's unless
+   their first difference is a near-tie of the CPU reference. It prints
+   the accept rate, verify batches, rollbacks, draft fallbacks,
+   tokens/s, decode step p50/p99, the draft call's and the verify's
+   p50, and on the paged engine how many verify spans met a shared
+   block in the copy-on-write guard.
 
 Phases 4 to 7 serve with the engine's defaults on the card: the
 pipelined decode loop, and the decode step captured at warmup as one
 CUDA graph and replayed every step (a replay counts the launches the
 capture recorded). Each phase must capture exactly once, at warmup.
 
-Phase 3 also checks the two int8 kernels (decode and paged) against
+Phase 3 also checks B1 (f32) and B3 (f32, causal, B=1) at the default
+draft's head dim (2 heads of 16, T=1024) against their plain versions
+and times them beside their bounds and SDPA (phase 12's proposals and
+primes run them there), and the two int8 kernels (decode and paged) against
 their plain versions at the served shapes, with NaN in the scale rows
 of the null block and of every stale tail, a length-0 lane, two calls
 giving the same bits, and K/V of mixed quantisation refused, and
@@ -250,15 +268,22 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def check_decode(dev):
+def check_decode(dev, S=32, H=8, D=64, bf16=True):
+    """Phase 3's decode kernel (B1) against its plain version at the
+    served slot shapes (S=32, T=1024), f32 and (``bf16``) bf16, with
+    lengths 0, 1 and T, ragged ones and NaN in stale tails; then timed
+    with every slot full beside its bound and SDPA. ``S=64, H=2, D=16,
+    bf16=False`` is the default draft's shape on the paged engine
+    (phase 12b's proposals: its dense draft cache has the engine's 64
+    slots)."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
-    S, H, T, D = 32, 8, 1024, 64
+    T = 1024
     g = torch.Generator(device="cpu").manual_seed(1)
     results = {}
     for dtype, tol in ((torch.float32, DECODE_TOL_F32),
-                       (torch.bfloat16, DECODE_TOL_BF16)):
+                       (torch.bfloat16, DECODE_TOL_BF16))[:1 + bf16]:
         q = torch.randn((S, H, D), generator=g).to(dev)
         k = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
         v = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
@@ -274,8 +299,10 @@ def check_decode(dev):
         err = (got - want).abs().max().item()
         finite = bool(torch.isfinite(got).all())
         zero_row = got[0].abs().max().item()
-        print(f"decode_attention {str(dtype)[6:]}: max_abs_err {err:.3e} "
-              f"(tol {tol:g}), finite {finite}, len-0 row max {zero_row}")
+        print(f"decode_attention {str(dtype)[6:]} S={S} H={H} D={D}: "
+              f"max_abs_err "
+              f"{err:.3e} (tol {tol:g}), finite {finite}, len-0 row max "
+              f"{zero_row}")
         if not (finite and err <= tol and zero_row == 0.0):
             raise AssertionError(f"decode_attention {dtype} disagrees "
                                  f"with its plain version")
@@ -417,6 +444,58 @@ def check_flash(dev):
     return dict(max_abs_err=worst, tol=FLASH_TOL, per_bucket=per_bucket,
                 **rows[1], b4=rows[4], info=info,
                 key_group_sweep=key_group_sweep(dev, g))
+
+
+def check_flash_draft(dev):
+    """B3 f32 at the draft's head dim (``make_draft_lm``: 2 heads of
+    16), as phase 12's draft primes run it: B=1 causal over the prefill
+    buckets with a padded prompt against its plain version, two calls
+    bit-identical, then timed at T=1024 beside its bounds and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    B, H, D = 1, 2, 16
+    g = torch.Generator(device="cpu").manual_seed(4)
+    worst, T = 0.0, 8
+    while T <= 1024:
+        q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev)
+                   for _ in range(3))
+        km = (torch.arange(T) < max(1, (3 * T) // 4 + 1)).to(
+            torch.float32)[None].to(dev)
+        got = fa.flash_attention(q, k, v, True, km)
+        err = _max_err(got, fa.flash_attention_torch(q, k, v, True, km))
+        worst = max(worst, err)
+        if not (err <= FLASH_TOL and bool(torch.isfinite(got[0]).all())):
+            raise AssertionError(f"flash_attention D={D} T={T} disagrees "
+                                 f"with its plain version: {err:.3e}")
+        T *= 2
+    T = 1024
+    q, k, v = (torch.randn((B, T, H, D), generator=g).to(dev)
+               for _ in range(3))
+    km = torch.ones((B, T), device=dev)
+    first = fa.flash_attention(q, k, v, True, km)
+    err = _max_err(first, fa.flash_attention_torch(q, k, v, True, km))
+    if not (all(torch.equal(a, b) for a, b in
+                zip(first, fa.flash_attention(q, k, v, True, km)))
+            and err <= FLASH_TOL):
+        raise AssertionError(f"flash_attention D={D} T={T}: two calls "
+                             f"differ, or {err:.3e} from plain")
+    ms = time_ms(lambda: fa.flash_attention(q, k, v, True, km))
+    plain_ms = time_ms(lambda: fa.flash_attention_torch(q, k, v, True, km))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    flops = 4 * D * H * B * (T * (T + 1) // 2)
+    nbytes = 4 * B * T * H * D * 4 + B * T * 4 + B * H * T * 4
+    bound_ms, bound_by = _bound(nbytes, 3 * flops, H100_TF32_FLOPS)
+    print(f"flash_attention draft B={B} H={H} T={T} D={D} causal: buckets "
+          f"8..1024 max_abs_err {max(worst, err):.3e} (tol {FLASH_TOL:g}), "
+          f"two calls bit-identical; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, SDPA is_causal {lib_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms at 3xTF32 ({bound_by})")
+    return dict(max_abs_err=max(worst, err), tol=FLASH_TOL, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=bound_by)
 
 
 def _max_err(got, ref) -> float:
@@ -929,7 +1008,7 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                teacher_exact_rate=exact / max(checked, 1),
                teacher_worst_gap=worst_gap, teacher_tol=tol,
                int8_vs_f32_logit_rel_err=rel, profile=prof,
-               fault_ladder=ladder)
+               fault_ladder=ladder, served=(None, [(reqs, results)]))
     tag = " int8" if int8 else ""
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
@@ -1751,7 +1830,9 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                quant=st["quant"], int8_vs_f32_logit_rel_err=rel,
                slot_engine_greedy_identical=None if same is None
                else f"{same}/{len(greedy)}",
-               profile=prof, fault_ladder=ladder)
+               profile=prof, fault_ladder=ladder,
+               served=(primer, [(burst, results), (turn1, res1),
+                                (turn2, res2)]))
     tag = " int8" if int8 else ""
     print(f"e2e paged{tag} [{card}]: {n_tok} tokens from {len(burst)} "
           f"requests "
@@ -1779,6 +1860,229 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
              f"greedy requests identical"))
     print_profile(f"profile window paged{tag}", card, prof)
     return e2e
+
+
+#: phase 12's speculation depth (docs/generation.md's example k)
+SPEC_K = 4
+#: phase 12a's fault rerun: a corrupting verify call while lanes decode
+SPEC_FAULT_PLAN = dict(seed=11, plan={"verify": [40]},
+                       corrupting=("verify",))
+
+
+def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
+    """Phase 12: speculative decoding at ``SPEC_K`` on the slot engine of
+    phase 4 with a same-config, same-seed copy of the target as its
+    draft (JAX's identity rig: with random weights only such a draft
+    accepts), or on the paged engine of phase 5 with ``make_draft_lm``'s
+    default draft (2 heads of 16: near-chance proposals). ``served`` is
+    what phase 4 or 5 served at k=0 on the card (:func:`serve`,
+    :func:`serve_paged`: the primer and the waves of requests with their
+    tokens): the same traffic runs again, wave after wave, and every
+    lane's tokens must equal those unless their first difference is a
+    near-tie of the CPU reference (:func:`near_tie` at the teacher
+    tolerance). Tokens/s is the first wave's (phase 4's or 5's burst). The
+    engine must capture two graphs at warmup (decode and proposal) and
+    none after; the draft's B1 launches must be its layers x k x the
+    proposal calls (graph replays counted) and B3 run its primes, and no
+    draft call may fall back (random weights give finite logits, so a
+    sound draft never does). The accept rate is split by lane
+    (:func:`accept_split`). A profile window (:func:`profile_window`)
+    gives the device's busy share under speculation. On the
+    slot engine the traffic then runs again under a corrupting verify
+    fault: one recovery, no request lost, no capture, the same gate."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.faults import FaultInjector
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import (
+        CausalTransformerLM, make_draft_lm)
+    lm = CausalTransformerLM(**cfg, device=device).init()
+    primer, waves = served
+    reqs = [r for wave, _ in waves for r in wave]
+    want = [r for _, res in waves for r in res]
+    if paged:
+        draft = make_draft_lm(lm)
+        engine_kw = dict(PAGED_ENGINE)
+    else:
+        draft = CausalTransformerLM(**cfg, device=device).init()
+        engine_kw = dict(num_slots=32)
+    label = f"{'paged' if paged else 'slots'} k={SPEC_K}"
+    eng = GenerationEngine(lm, **engine_kw, speculation_k=SPEC_K,
+                           draft_model=draft)
+    calls = []
+    guard = dict(spans=0, shared=0)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        captures = eng.stats()["compile_cache"]["compiles"]
+        if captures != 2 * int(eng._cuda_graph):
+            raise AssertionError(f"{label}: {captures} captures at warmup "
+                                 f"(two graphs: decode and proposal)")
+        propose = eng._propose_call
+        eng._propose_call = lambda: calls.append(1) or propose()
+        if paged:
+            cow_guard = eng._spec_cow_guard
+
+            def counted(slot, p0):
+                table, bs = eng._slot_blocks[slot], eng.block_size
+                last = min((p0 + eng._vbucket) // bs, len(table.blocks) - 1)
+                guard["spans"] += 1
+                guard["shared"] += any(
+                    eng._allocator.ref(table.blocks[i]) > 1
+                    for i in range(p0 // bs, last + 1))
+                return cow_guard(slot, p0)
+            eng._spec_cow_guard = counted
+        # every prime and verify in order, for the per-lane accept rates
+        events = []
+        verify_fn, prime = eng._verify_fn, eng._spec_prime
+
+        def verify_logged(*a):
+            out = verify_fn(*a)
+            # (slot or, paged, None; temperature; accepted, on the device)
+            events.append((None if paged else a[6], a[9], out[1]))
+            return out
+
+        def prime_logged(slot, seq):
+            events.append((slot, None, None))
+            return prime(slot, seq)
+        eng._verify_fn, eng._spec_prime = verify_logged, prime_logged
+        st0 = eng.stats()
+        reset_launches()
+        if primer is not None:
+            eng.generate(timeout_ms=600_000, **primer)
+        results, wall = [], None
+        for wave, _ in waves:
+            got, w = run_requests(eng, wave)
+            results += got
+            wall = wall or w
+        launches = {k: n for k, n in kernels.launch_counts().items() if n}
+        n_calls = len(calls)
+        st = eng.stats()
+        split = accept_split(events, SPEC_K)
+        prof = profile_window(eng)
+        no_capture_since(eng, captures)
+        ladder = None
+        if not paged:
+            ladder = dict(eng.stats()["faults"])
+            eng.set_fault_injector(FaultInjector(**SPEC_FAULT_PLAN))
+            try:
+                again, _ = run_requests(eng, reqs)
+            finally:
+                eng.set_fault_injector(None)
+            ladder = {k: eng.stats()["faults"][k] - ladder[k]
+                      for k in ("retries", "recoveries")}
+            no_capture_since(eng, captures)
+            if ladder != {"retries": 0, "recoveries": 1}:
+                raise AssertionError(f"{label}: the corrupting verify "
+                                     f"fault gave {ladder}")
+        if paged:
+            all_blocks_back(eng)
+    finally:
+        eng.stop()
+    check_lengths(results, reqs)
+    steps = st["decode_steps"] - st0["decode_steps"]
+    primes = st["prefills"] - st0["prefills"]
+    layers, d_layers = cfg["n_layers"], draft.n_layers
+    b1 = launches.get("decode_attention.launches", 0)
+    b3 = launches.get("flash_attention.launches", 0)
+    # slots: the target's plain steps (B1) and prefills (B3) too
+    want_b1 = d_layers * SPEC_K * n_calls + (0 if paged
+                                             else layers * steps)
+    want_b3 = (d_layers + (0 if paged else layers)) * primes
+    if not n_calls or b1 != want_b1 or b3 != want_b3:
+        raise AssertionError(f"{label}: launches {launches} over "
+                             f"{n_calls} proposal calls, {steps} plain "
+                             f"steps and {primes} primes: B1 must run "
+                             f"{want_b1}, B3 {want_b3}")
+    if st["spec"]["draft_fallbacks"]:
+        raise AssertionError(f"{label}: {st['spec']['draft_fallbacks']} "
+                             f"draft fallbacks in fault-free traffic")
+    cpu = None
+    differ, ties = 0, []
+    for run in ([results] if paged else [results, again]):
+        for i, (r, w) in enumerate(zip(run, want)):
+            if r["tokens"] == w["tokens"]:
+                continue
+            if cpu is None:
+                cpu = cpu_copy(lm, cfg)
+            differ += 1
+            ties.append((i,) + near_tie(f32_rows, cpu, reqs[i], r["tokens"],
+                                        w["tokens"], TEACHER_TOL))
+    sp = st["spec"]
+    n_tok = sum(len(r["tokens"]) for r in results[:len(waves[0][0])])
+    out = dict(backend="paged" if paged else "slots", k=SPEC_K,
+               draft=dict(d_model=draft.d_model, n_layers=d_layers,
+                          n_heads=draft.n_heads),
+               requests=len(reqs), burst_requests=len(waves[0][0]),
+               tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
+               warmup_s=warm_s,
+               captures_at_warmup=captures, captures_after=0, spec=sp,
+               decode_step_p50_ms=st["decode_step_ms"]["p50"],
+               decode_step_p99_ms=st["decode_step_ms"]["p99"],
+               draft_call_p50_ms=st["spec_draft_ms"]["p50"],
+               verify_p50_ms=st["spec_verify_ms"]["p50"],
+               ttft_p50_ms=st["ttft_ms"]["p50"], decode_steps=steps,
+               proposal_calls=n_calls, primes=primes, launches=launches,
+               b1_launches=b1, b3_launches=b3, accept_split=split,
+               lanes_differing=differ, near_ties=ties,
+               cow_guard=guard if paged else None, fault_ladder=ladder,
+               profile=prof)
+    print(f"speculative {label} [{card}] (phase 12): {n_tok} tokens from "
+          f"{len(waves[0][0])} requests in {wall:.3f} s = "
+          f"{n_tok / wall:.1f} tokens/s ({len(reqs)} requests in all); "
+          f"draft d{draft.d_model} x L{d_layers} x H{draft.n_heads}; "
+          f"captures {captures} at warmup, none after; "
+          f"accept rate {sp['accept_rate']} (by lane as (rate, draft "
+          f"tokens): {split}), {sp['verify_batches']} verify "
+          f"batches, {sp['rollbacks']} rollbacks, {sp['draft_fallbacks']} "
+          f"draft fallbacks; decode step p50/p99 "
+          f"{out['decode_step_p50_ms']:.2f}/{out['decode_step_p99_ms']:.2f}"
+          f" ms over {steps} plain steps; draft call p50 "
+          f"{out['draft_call_p50_ms']:.2f} ms, verify p50 "
+          f"{out['verify_p50_ms']:.2f} ms; B1 launches {b1} = draft "
+          f"{d_layers} x {SPEC_K} x {n_calls} proposal calls"
+          + ("" if paged else f" + target {layers} x {steps} steps")
+          + f", B3 {b3} = " + ("" if paged else f"target {layers} + ")
+          + f"draft {d_layers} x {primes} primes; launches "
+          f"{launches}; {differ} lanes differ from k=0 (near-ties as "
+          f"(request, position, gap): {ties})"
+          + (f"; COW guard: {guard['spans']} spans checked, "
+             f"{guard['shared']} met a shared block"
+             + ("" if guard["shared"] else " (none shared a block)")
+             if paged else
+             f"; corrupting verify rerun: {ladder['recoveries']} recovery, "
+             f"none lost, no capture"))
+    print_profile(f"profile window speculative {label}", card, prof)
+    return out
+
+
+def accept_split(events, k: int) -> dict:
+    """Phase 12's accept rate by lane, as (rate, draft tokens proposed)
+    from the engine's primes and verifies in order (``events``: ``(slot,
+    None, None)`` a prime, ``(slot, temperature, accepted)`` a verify,
+    slot None on the paged engine): greedy lanes apart from sampled
+    ones (a greedy draft rarely matches a sampled target token), and on
+    the slot engine the greedy rounds before a lane's first
+    all-accepted round apart from those after it. An all-accepted round
+    commits k + 1 positions but the draft wrote K/V at only k of them:
+    the last stays a hole in the draft cache (stale or a prime's padded
+    row) that every later proposal of the lane attends to."""
+    holes, tally = {}, {}
+    for slot, temp, n in events:
+        if temp is None:
+            holes[slot] = 0
+            continue
+        n = int(n)
+        keys = ["greedy" if temp == 0 else "sampled"]
+        if temp == 0 and slot is not None:
+            keys.append("greedy_after_a_hole" if holes.get(slot)
+                        else "greedy_before_any_hole")
+        for key in keys:
+            a, p = tally.get(key, (0, 0))
+            tally[key] = (a + n, p + k)
+        if slot is not None and n == k:
+            holes[slot] = holes.get(slot, 0) + 1
+    return {key: (a / p, p) for key, (a, p) in sorted(tally.items())}
 
 
 #: phase 11 on phase 4's engine: a transient fault at the 3rd prefill
@@ -2459,12 +2763,22 @@ def main() -> int:
     paged = check_paged(dev)
     decode8 = check_decode_int8(dev)
     paged8 = check_paged_int8(dev)
+    # the default draft's head dim at phase 12b's shapes (its proposals
+    # over the paged engine's slots, and its primes)
+    decode_draft = check_decode(dev, S=PAGED_ENGINE["num_slots"], H=2, D=16,
+                                bf16=False)["float32"]
+    flash_draft = check_flash_draft(dev)
     # phases 4 to 7; phase 11 (the fault ladder) runs on the warmed
-    # engines of phases 4 and 7 after their fault-free runs
+    # engines of phases 4 and 7 after their fault-free runs, phase 12
+    # (speculation) on their traffic and against their tokens
     e2e = serve(card, eager_ab=True, chaos=True)
     e2e_paged = serve_paged(card)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
+    spec = serve_spec(card, e2e.pop("served"), paged=False)
+    spec_paged = serve_spec(card, e2e_paged.pop("served"), paged=True)
+    for e in (e2e_int8, e2e_paged_int8):
+        e.pop("served")
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
     trained = train(card)
@@ -2510,12 +2824,23 @@ def main() -> int:
             "flash_attention.py:214",
             trained_bf16["launches"]["flash_attention_bwd_dkv_bf16"],
             bf16["dkv"]),
+        # the same kernels at the default draft's head dim (D=16):
+        # phase 12b's proposals (B1) and draft primes (B3), as counted
+        # there (the paged target runs neither)
+        row("decode_attention_draft_d16", "decode_attention.cu",
+            "decode_attention.py:100", spec_paged["b1_launches"],
+            decode_draft),
+        row("flash_attention_draft_d16", "flash_attention.cu",
+            "flash_attention.py:65", spec_paged["b3_launches"],
+            flash_draft),
     ]
     print("details: " + json.dumps(
         dict(card=card, decode=decode, flash=flash, paged=paged,
-             decode_int8=decode8, paged_int8=paged8, e2e=e2e,
+             decode_int8=decode8, paged_int8=paged8,
+             decode_draft=decode_draft, flash_draft=flash_draft, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
-             e2e_paged_int8=e2e_paged_int8, flash_bwd=bwd, flash_bf16=bf16,
+             e2e_paged_int8=e2e_paged_int8, spec=spec,
+             spec_paged=spec_paged, flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))

@@ -4,10 +4,11 @@
 :class:`SelfAttentionLayer` and :class:`TransformerEncoderLayer` are
 layers of the port's layer DSL: ``apply_seq`` is the training forward
 ``MultiLayerNetwork`` drives (autograd gives the backward), and the
-serving methods (prefill, decode, paged decode and chunked prefill)
-are what ``CausalTransformerLM`` calls. Each method takes an explicit
-params dict with weights shaped ``[in, out]`` and applied as
-``x @ W``, so JAX weights carry over as a plain copy.
+serving methods (prefill, decode, paged decode, chunked prefill and
+the speculative verify span) are what ``CausalTransformerLM`` calls.
+Each method takes an explicit params dict with weights shaped
+``[in, out]`` and applied as ``x @ W``, so JAX weights carry over as a
+plain copy.
 
 Attention over a whole sequence goes through the flash kernels on the
 card (forward B3, backward B6/B7 through
@@ -38,6 +39,14 @@ from ..functional import layer_norm, matmul
 from . import Layer, register
 
 
+def _cache_row(cache, i):
+    """Leading-axis row of a cache; an int8 QuantArray's scale row
+    comes with its values (the scales drop only the trailing axis)."""
+    if is_quantized(cache):
+        return QuantArray(cache.q[i], cache.scale[i])
+    return cache[i]
+
+
 def _gather_span(pool, block_table, H, Dh):
     """Gather a sequence's block-table span out of a paged pool into
     one [H, T, Dh] panel (T = n_blocks * Bs). An int8 pool gathers its
@@ -51,8 +60,9 @@ def _gather_span(pool, block_table, H, Dh):
 
 def _span_attend(q, kk, vv, gpos, p0c, out_dtype):
     """Causal span attention over one gathered K/V panel, the math of
-    :meth:`SelfAttentionLayer.apply_prefill_paged` (counterpart of the
-    JAX ``_span_attend``, plain PyTorch as it was plain jnp there).
+    :meth:`SelfAttentionLayer.apply_prefill_paged` and
+    :meth:`SelfAttentionLayer.apply_verify` (counterpart of the JAX
+    ``_span_attend``, plain PyTorch as it was plain jnp there).
 
     q: [C, H, Dh] span queries; kk/vv: [H, T, Dh] f32 or bf16 panels,
     or int8 QuantArrays with [H, T] scales; gpos: [C] global positions
@@ -283,6 +293,39 @@ class SelfAttentionLayer(Layer):
         out = att.reshape(C, self.n_out) @ params["Wo"] + params["b"]
         return out[None], k_pool, v_pool
 
+    def apply_verify(self, params, x, k_cache, v_cache, slot, p0,
+                     chunk_len):
+        """A speculative verify span against the dense slot cache, the
+        slot-backend sibling of :meth:`apply_prefill_paged`: write the
+        span's K/V at positions ``p0 + i`` of ``slot``'s panel IN PLACE,
+        then attend each row causally over the whole panel.
+
+        x: [1, C, Cin] (C is the verify bucket); k_cache/v_cache:
+        [S, H, T_max, Dh]; slot, p0: host ints; chunk_len: valid rows
+        (padded rows write junk past the live length, masked by every
+        reader until an accepted write overwrites it). Rows at positions
+        >= T_max are not written, as JAX's scatter drops them: an index
+        past the panel would raise on the CPU and fire a device-side
+        assert on the card. Returns (out [1, C, n_out], k_cache,
+        v_cache)."""
+        if not self.causal:
+            raise ValueError("cached decode needs causal=True attention")
+        C = x.shape[1]
+        H = self.n_heads
+        Dh = self.n_out // H
+        p0, slot = int(p0), int(slot)
+        q, k_t, v_t = self._project(params, x[0], (C, H, Dh))
+        gpos = p0 + torch.arange(C, device=x.device)
+        n = max(0, min(C, k_cache.shape[2] - p0))
+        heads = torch.arange(H, device=x.device)[None, :]
+        idx = (slot, heads, gpos[:n, None])
+        kv_set(k_cache, idx, k_t[:n])
+        kv_set(v_cache, idx, v_t[:n])
+        att = _span_attend(q, _cache_row(k_cache, slot),
+                           _cache_row(v_cache, slot), gpos, p0 + C, x.dtype)
+        out = att.reshape(C, self.n_out) @ params["Wo"] + params["b"]
+        return out[None], k_cache, v_cache
+
 
 @register
 class TransformerEncoderLayer(Layer):
@@ -411,3 +454,13 @@ class TransformerEncoderLayer(Layer):
             self._attn_params(params), h, k_pool, v_pool, block_table, p0,
             chunk_len)
         return self._mlp(params, x + att), k_pool, v_pool
+
+    def apply_verify(self, params, x, k_cache, v_cache, slot, p0,
+                     chunk_len):
+        """One verify span through the block against the dense slot
+        cache (see :meth:`SelfAttentionLayer.apply_verify`)."""
+        h = layer_norm(x, params["ln1_g"], params["ln1_b"])
+        att, k_cache, v_cache = self.attn.apply_verify(
+            self._attn_params(params), h, k_cache, v_cache, slot, p0,
+            chunk_len)
+        return self._mlp(params, x + att), k_cache, v_cache

@@ -1,6 +1,6 @@
 """Continuous-batching autoregressive generation (counterpart of
 ``deeplearning4j_tpu/serving/generation.py``: the slot and paged
-backends and the pipelined decode loop).
+backends, the pipelined decode loop and speculative decoding).
 
 Iteration-level scheduling (Orca, OSDI '22): every loop iteration the
 scheduler
@@ -21,6 +21,13 @@ scheduler
    request and step from ``fold_in(PRNGKey(seed), step)``, bit-identical
    to ``jax.random``, so results do not depend on slot or schedule),
 4. retires sequences on EOS or ``max_tokens`` and frees their slots.
+
+With ``speculation_k`` > 0 (``serving/speculative.py``) step 2 is
+preceded by a speculative round: one draft call proposes k tokens for
+every lane (on the card one CUDA graph, captured at :meth:`warmup`),
+each eligible lane's proposals are verified in one eager target span,
+and the lanes it advanced ride the plain step as passengers. Tokens
+are those of ``speculation_k=0``.
 
 With ``decode_pipeline`` (the default, as in the JAX engine) step t+1
 is dispatched before step t's tokens are synced, so emit, retire and
@@ -93,6 +100,9 @@ from .metrics import GenerationMetrics
 from .paging import (NULL_BLOCK, BlockAllocator, BlockTable, PagedKVCache,
                      PrefixIndex, SessionStore, blocks_for, chain_hashes,
                      pow2_bucket)
+from .speculative import (make_prime_fn, make_propose_fn,
+                          make_verify_paged_fn, make_verify_slots_fn,
+                          verify_bucket)
 
 _NEG_INF = -1e30
 
@@ -335,8 +345,15 @@ class GenerationEngine:
       ``max_recoveries_per_request`` and ``stall_timeout_s`` (the
       heartbeat age past which :meth:`alive` reports a wedged loop).
 
-    The parameters take the JAX engine's positions and defaults.
-    Speculative decoding (``speculation_k``, ``draft_model``) and the
+    - ``speculation_k`` > 0 turns speculative decoding on (see the
+      module doc; it forces ``decode_pipeline`` off, as in the JAX
+      engine): ``draft_model`` shares the target's vocab and covers
+      ``max_seq_len``, and defaults to
+      :func:`~deeplearning4j_tpu_torch.zoo.transformer_lm.make_draft_lm`'s
+      draft. Its cache is a dense f32 :class:`KVCache` whatever
+      ``kv_dtype``, counted in ``metrics.cache_bytes``.
+
+    The parameters take the JAX engine's positions and defaults. The
     offload tiers (``offload_*``) are not ported yet: off their JAX
     defaults they raise ``NotImplementedError`` naming their ROADMAP.md
     item.
@@ -382,8 +399,6 @@ class GenerationEngine:
                              f"{decode_impl!r}")
         self.decode_impl = decode_impl
         self.kv_dtype = canonical_kv_dtype(kv_dtype)
-        if int(speculation_k) or draft_model is not None:
-            raise _todo("speculative decoding (speculation_k > 0)", "7")
         if int(offload_host_bytes):
             raise _todo("the host KV tier (offload_host_bytes > 0)", "8")
         if int(offload_disk_bytes) or offload_dir is not None \
@@ -405,6 +420,19 @@ class GenerationEngine:
             raise ValueError(
                 f"max_seq_len {self.max_seq_len} exceeds the model's "
                 f"position table ({model.max_seq_len})")
+        # speculative decoding: k = 0 is off (no draft, no propose graph,
+        # the loop is the plain one)
+        self.speculation_k = int(speculation_k)
+        if self.speculation_k < 0:
+            raise ValueError(f"speculation_k must be >= 0, "
+                             f"got {speculation_k}")
+        if self.speculation_k and \
+                self.speculation_k + 1 >= self.max_seq_len:
+            raise ValueError(
+                f"speculation_k {self.speculation_k} leaves no room "
+                f"under max_seq_len {self.max_seq_len}")
+        self._vbucket = (verify_bucket(self.speculation_k)
+                         if self.speculation_k else 0)
         self.default_timeout_ms = float(default_timeout_ms)
         self.min_prompt_bucket = int(min_prompt_bucket)
         if prompt_buckets is None:
@@ -441,6 +469,10 @@ class GenerationEngine:
         self._kcs = self._cache.ks
         self._vcs = self._cache.vs
         self._slots = SlotTable(self.num_slots)
+        self._draft = None
+        if self.speculation_k:
+            self._init_speculation(draft_model)
+        self.metrics.speculation_k = self.speculation_k
         # -- the decode step's device buffers (static, so one CUDA graph
         # replays them): int32 inputs (rows of _IN_ROWS, then the paged
         # tables) and int64 outputs [next token, logits finite, done]
@@ -454,20 +486,26 @@ class GenerationEngine:
                                      device=self.device)
         # -- pipelined decode: with it on, the loop dispatches step t+1
         # before collecting step t (the JAX engine's default; the knob
-        # exists for A/B identity tests)
-        self.decode_pipeline = bool(decode_pipeline)
+        # exists for A/B identity tests). Speculation forces it off, as
+        # in JAX: a verify round needs the committed tokens on the host
+        self.decode_pipeline = bool(decode_pipeline) \
+            and not self.speculation_k
         # in-flight decode steps, oldest first (at most 2)
         self._pending: "collections.deque" = collections.deque()
         # lanes whose current token lives only on the device (the last
         # dispatched step's output); prefill refreshes the host mirror
         self._tok_on_dev = np.zeros(S, bool)
-        # the decode step as a CUDA graph (card only, captured at warmup
-        # or on the first decode step after a hot one); replays add
-        # _graph_launches to the kernels' launch counters. Set
-        # _cuda_graph False before warmup for the eager step (A/B runs)
+        # the decode step (and with speculation the propose call) as a
+        # CUDA graph (card only, captured at warmup or on the first call
+        # after a hot one); replays add the launches the capture counted
+        # to the kernels' counters. Set _cuda_graph False before warmup
+        # for the eager step (A/B runs)
         self._cuda_graph = self.device.type == "cuda"
         self._graph = None
         self._graph_launches: Dict[str, int] = {}
+        self._draft_graph = None
+        self._draft_graph_launches: Dict[str, int] = {}
+        self._draft_hot = False
         if cache == "paged":
             self.metrics.block_size = self.block_size
             self.metrics.blocks_total = self._allocator.capacity
@@ -560,6 +598,58 @@ class GenerationEngine:
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
         self._prefix_index = PrefixIndex(int(prefix_index_capacity))
         self._sessions = SessionStore(int(session_capacity))
+
+    def _init_speculation(self, draft_model):
+        """The draft (``make_draft_lm``'s by default), its dense f32
+        cache, the draft-prime bucket ladder, the device functions of
+        ``serving/speculative.py`` and the propose call's static
+        buffers. The messages are the JAX engine's."""
+        if draft_model is None:
+            from ..zoo.transformer_lm import make_draft_lm
+            draft_model = make_draft_lm(self.model)
+        if getattr(draft_model, "_params", None) is None:
+            draft_model.init()
+        if draft_model.vocab_size != self.model.vocab_size:
+            raise ValueError(
+                f"draft vocab {draft_model.vocab_size} != target "
+                f"vocab {self.model.vocab_size}: the draft must share "
+                f"the target's tokenizer")
+        if draft_model.max_seq_len < self.max_seq_len:
+            raise ValueError(
+                f"draft position table ({draft_model.max_seq_len})"
+                f" shorter than max_seq_len {self.max_seq_len}")
+        if draft_model.device.type != self.device.type:
+            raise ValueError(f"draft model on {draft_model.device}, "
+                             f"target on {self.device}")
+        self._draft = draft_model
+        # f32 whatever kv_dtype: the draft cache is small, and its
+        # tensors' addresses are what the propose graph captures, so it
+        # is zeroed in place (_reset_draft_cache), never reallocated
+        self._draft_cache = KVCache(
+            draft_model.cache_shapes(self.max_seq_len), self.num_slots,
+            kv_dtype="f32", device=self.device)
+        self.metrics.cache_bytes += self._draft_cache.nbytes()
+        # draft-prime ladder: pow2 steps topped by max_seq_len itself
+        # (the draft cache is exactly max_seq_len deep, and a prime slab
+        # must fit it)
+        self._prime_buckets = []
+        b = self.min_prompt_bucket
+        while b < self.max_seq_len:
+            self._prime_buckets.append(b)
+            b <<= 1
+        self._prime_buckets.append(self.max_seq_len)
+        self._prime_fn = make_prime_fn(draft_model)
+        self._propose_fn = make_propose_fn(draft_model, self.speculation_k)
+        self._verify_fn = (make_verify_paged_fn
+                           if self.cache_backend == "paged"
+                           else make_verify_slots_fn)(self.model)
+        S = self.num_slots
+        # the propose call reads [token, pos] per lane and writes
+        # [proposals..., ok] per lane: static, so one graph replays them
+        self._prop_in = torch.zeros((2, S), dtype=torch.int64,
+                                    device=self.device)
+        self._prop_out = torch.zeros((S, self.speculation_k + 1),
+                                     dtype=torch.int64, device=self.device)
 
     def _fresh_cache(self):
         """The slot cache sized to the engine's max_seq_len, or the
@@ -706,27 +796,46 @@ class GenerationEngine:
         self._decode_step_fn(self._kcs, self._vcs, self._step_in,
                              self._step_out)
 
-    def _capture_decode_graph(self):
-        """Capture :meth:`_decode_step_fn` into the engine's CUDA graph
-        (counted in ``metrics.compiles``). The capture launches nothing:
-        the kernels' launch counters are put back, and each replay adds
-        what the capture counted. A failed capture raises."""
+    def _run_propose(self):
+        """The draft's k-step proposal from ``_prop_in`` into
+        ``_prop_out`` (what the propose graph captures)."""
+        k = self.speculation_k
+        props, ok = self._propose_fn(self._draft._params,
+                                     self._draft_cache.ks,
+                                     self._draft_cache.vs,
+                                     self._prop_in[0], self._prop_in[1])
+        self._prop_out[:, :k].copy_(props)
+        self._prop_out[:, k].copy_(ok)
+
+    def _capture(self, run: Callable[[], None], what: str):
+        """Capture ``run`` into a CUDA graph (counted in
+        ``metrics.compiles``). The capture launches nothing: the kernels'
+        launch counters are put back, and each replay adds what the
+        capture counted. A failed capture raises. Returns (graph, the
+        launches one replay makes)."""
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
         try:
             with torch.cuda.graph(graph, capture_error_mode="thread_local"):
-                self._run_decode_step()
+                run()
         except Exception as e:
             raise ServingError(
-                f"capturing the decode step ({self.cache_backend}, "
+                f"capturing {what} ({self.cache_backend}, "
                 f"{self.kv_dtype}) into a CUDA graph failed: {e!r}") from e
         finally:
             counted = {k: n - before[k] for k, n in launch_counts().items()
                        if n != before[k]}
             add_launches({k: -n for k, n in counted.items()})
-        self._graph_launches = counted
-        self._graph = graph
         self.metrics.inc("compiles")
+        return graph, counted
+
+    def _capture_decode_graph(self):
+        self._graph, self._graph_launches = self._capture(
+            self._run_decode_step, "the decode step")
+
+    def _capture_draft_graph(self):
+        self._draft_graph, self._draft_graph_launches = self._capture(
+            self._run_propose, "the draft's proposal")
 
     def _host(self, shape, dtype) -> torch.Tensor:
         """A host buffer for one step's copies: pinned on the card (the
@@ -735,7 +844,7 @@ class GenerationEngine:
         return torch.empty(shape, dtype=dtype,
                            pin_memory=self.device.type == "cuda")
 
-    def _dispatch_decode(self) -> bool:
+    def _dispatch_decode(self, skip=frozenset()) -> bool:
         """Launch one decode step without waiting for it: the inputs go
         from a pinned buffer of the step's own into the static input
         buffer, the step runs (the graph's replay, or eagerly), and its
@@ -743,9 +852,16 @@ class GenerationEngine:
         all on the current stream; an event marks the step's end. Each
         stepped lane's current token then lives on the device (fed to
         the next step from the output buffer), and pos and step advance
-        on the host at once. Returns False when no lane is ready."""
+        on the host at once. Returns False when no lane is ready.
+
+        ``skip`` holds the lanes a speculative round advanced this
+        iteration: they ride the step as passengers (the batch is the
+        full slot panel either way), fed their committed token from the
+        host; their one K/V write lands at the position their next
+        verify span or decode step rewrites before reading it, and
+        their results are not applied."""
         st = self._slots
-        active = self._ready_slots()
+        active = [s for s in self._ready_slots() if s not in skip]
         if not active:
             return False
         # the seam fires before anything changes (the capture, the
@@ -868,8 +984,11 @@ class GenerationEngine:
         decode step once, on the scheduler thread and on scratch
         tensors, so the first requests pay no one-time costs (kernel
         build and load, library handles); then, on the card, capture
-        the decode step into the engine's CUDA graph. A failed capture
-        raises. Returns the warmed bucket list."""
+        the decode step into the engine's CUDA graph. With speculation
+        also every draft-prime bucket and one proposal, and on the card
+        the proposal's graph: a speculating engine captures two graphs
+        here and none later. A failed capture raises. Returns the warmed
+        bucket list."""
         paged = self.cache_backend == "paged"
         ladder = self.chunk_buckets if paged else self.prompt_buckets
         buckets = sorted(set(int(x) for x in (buckets or ladder)))
@@ -911,11 +1030,28 @@ class GenerationEngine:
             self._decode_step_fn(scratch.ks, scratch.vs,
                                  torch.zeros_like(self._step_in),
                                  torch.zeros_like(self._step_out))
+            draft = self._draft
+            if draft is not None:
+                for b in self._prime_buckets:
+                    draft.forward_prefill(
+                        draft._params, torch.zeros((1, b), dtype=torch.int64,
+                                                   device=dev),
+                        torch.ones((1, b), device=dev))
+                # every lane proposes at position 0 of a one-position slot
+                scratch = KVCache(draft.cache_shapes(1), self.num_slots,
+                                  device=dev)
+                self._propose_fn(draft._params, scratch.ks, scratch.vs,
+                                 torch.zeros_like(self._prop_in[0]),
+                                 torch.zeros_like(self._prop_in[1]))
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self._decode_hot = True
+            self._draft_hot = draft is not None
             if self._cuda_graph and self._graph is None:
                 self._capture_decode_graph()
+            if self._cuda_graph and draft is not None \
+                    and self._draft_graph is None:
+                self._capture_draft_graph()
 
         self._run_on_scheduler(job)
         self.metrics.warmed_buckets = sorted(
@@ -1357,19 +1493,20 @@ class GenerationEngine:
                 "request produced non-finite logits during prefill; "
                 "quarantined"))
             return
-        self._start_decode(slot, req, first, L)
+        self._start_decode(slot, req, first, seq)
 
     def _start_decode(self, slot: int, req: _GenRequest, first: int,
-                      L: int):
-        """Make a prefilled request (``L`` positions of K/V written) a
-        decode lane. A fresh request's first token is prefill's, and is
-        delivered. A recovered request's stream stands: it resumes from
-        its last emitted token at the PRNG fold a fault-free run would
-        use next, and prefill's token is discarded."""
+                      seq: np.ndarray):
+        """Make a request whose ``seq`` was prefilled (its K/V written)
+        a decode lane, priming its draft when speculating. A fresh
+        request's first token is prefill's, and is delivered. A
+        recovered request's stream stands: it resumes from its last
+        emitted token at the PRNG fold a fault-free run would use next,
+        and prefill's token is discarded."""
         st = self._slots
         resumed = bool(req.tokens)
         st.token[slot] = req.tokens[-1] if resumed else first
-        st.pos[slot] = L  # where the next token's K/V goes
+        st.pos[slot] = len(seq)  # where the next token's K/V goes
         # the PRNG fold of the next sample
         st.step[slot] = len(req.tokens) if resumed else 1
         st.seed[slot] = req.seed
@@ -1383,6 +1520,10 @@ class GenerationEngine:
         self.metrics.active_slots = st.active_count
         if self.cache_backend == "paged":
             self._update_block_gauges()
+        if self.speculation_k:
+            # the draft always prefills the whole committed prefix: it
+            # shares nothing, whatever the target's prefix cache skipped
+            self._spec_prime(slot, seq)
         if resumed:
             return
         self.metrics.tokens.record(1)
@@ -1647,7 +1788,7 @@ class GenerationEngine:
             # the prompt's full blocks now hold finished, immutable K/V
             # (decode writes land at pos >= prompt length): publish them
             self._register_prefix(req, st.table)
-        self._start_decode(st.slot, req, first, len(st.seq))
+        self._start_decode(st.slot, req, first, st.seq)
 
     def _register_prefix(self, req: _GenRequest, table: BlockTable):
         """Publish a prefilled prompt's FULL blocks into the prefix
@@ -1690,6 +1831,211 @@ class GenerationEngine:
         self._update_block_gauges()
         self.metrics.active_slots = self._slots.active_count
 
+    # -- speculative decoding (serving/speculative.py) ------------------
+    def _reset_draft_cache(self, disable_lanes: bool = False):
+        """Zero the draft cache IN PLACE (the propose graph holds its
+        addresses): after recompute-recovery and poison (lanes re-prime
+        at their decode entry), and when a draft call failed mid-flight,
+        which with ``disable_lanes`` drops every lane to plain decode
+        until it is primed again, without touching the target's state:
+        a draft failure never costs target work."""
+        self._draft_cache.reset()
+        if disable_lanes:
+            self._slots.spec_ok[:] = False
+
+    def _spec_prime(self, slot: int, seq: np.ndarray):
+        """Prefill the draft over a lane's committed prefix (eager, one
+        sync), marking the lane eligible when the draft's logits are
+        finite. Any draft failure here costs speculation only."""
+        L = len(seq)
+        bucket = next(b for b in self._prime_buckets if b >= L)
+        tokens = np.zeros((1, bucket), np.int64)
+        tokens[0, :L] = seq
+        try:
+            ok = bool(self._prime_fn(
+                self._draft._params, self._draft_cache.ks,
+                self._draft_cache.vs,
+                torch.from_numpy(tokens).to(self.device), L, slot))
+        except Exception:  # noqa: BLE001 — the target is untouched
+            self._reset_draft_cache(disable_lanes=True)
+            self.metrics.inc("spec_draft_fallbacks")
+            return
+        self._slots.spec_ok[slot] = ok
+        if not ok:
+            self.metrics.inc("spec_draft_fallbacks")
+
+    def _spec_cow_guard(self, slot: int, p0: int) -> bool:
+        """Copy-on-write isolation before any speculative write: a
+        verify span writes positions ``[p0, p0 + vbucket)`` (and the
+        passenger decode write one of them), and none may land in a
+        block another table still reads. Today's sharing shares only
+        prompt-prefix blocks, below every decode cursor, but the guard
+        is cheap (refcount reads) and keeps speculation safe against any
+        sharing pattern. False when no private block could be had (the
+        pool is exhausted): the lane skips speculation this round."""
+        table = self._slot_blocks[slot]
+        bs = self.block_size
+        last = min((p0 + self._vbucket) // bs, len(table.blocks) - 1)
+        for i in range(p0 // bs, last + 1):
+            b = table.blocks[i]
+            if self._allocator.ref(b) <= 1:
+                continue
+            fresh = self._alloc_with_eviction(1)
+            if fresh is None:
+                return False
+            try:
+                self._cow(b, fresh[0])
+            except Exception as e:  # noqa: BLE001 — the pool may be half
+                # written: recovery rebuilds it
+                raise CorruptedStateFault(
+                    f"speculative COW device copy failed: {e!r}") from e
+            self._allocator.free([b])
+            table.blocks[i] = fresh[0]
+            self._tables[slot] = table.padded(self._blocks_per_seq)
+            self.metrics.inc("cow_copies")
+        return True
+
+    def _propose_call(self) -> Tuple[np.ndarray, np.ndarray]:
+        """One draft call over every lane: [token, pos] from a pinned
+        buffer into the static input buffer, the propose graph's replay
+        (eager on the CPU, and in an engine never warmed until its first
+        call has run), and the [S, k] proposals and [S] ok flags back to
+        the host (a sync)."""
+        st = self._slots
+        h_in = self._host((2, self.num_slots), torch.int64)
+        h_in.numpy()[:] = (st.token, st.pos)
+        self._prop_in.copy_(h_in, non_blocking=True)
+        if self._draft_graph is not None:
+            self._draft_graph.replay()
+            add_launches(self._draft_graph_launches)
+        else:
+            self._run_propose()
+        self._draft_hot = True
+        out = self._prop_out.cpu().numpy()
+        k = self.speculation_k
+        return out[:, :k], out[:, k].astype(bool)
+
+    def _spec_step(self) -> frozenset:
+        """One speculative round: ONE draft call proposes k tokens for
+        every lane, then each eligible lane's proposals are verified in
+        one target span and its accepted run committed. Returns the
+        slots this round advanced (the plain decode step skips them).
+        Eligibility: a primed lane with at least k + 1 tokens left, so
+        every span has full width and never writes past the lane's
+        blocks or slot. Acceptance, rollback and the identity contract
+        live in ``serving/speculative.py``."""
+        st = self._slots
+        k = self.speculation_k
+        lanes = [s for s in self._ready_slots() if st.spec_ok[s]
+                 and st.requests[s].max_tokens - len(st.requests[s].tokens)
+                 >= k + 1]
+        if not lanes:
+            return frozenset()
+        if self._cuda_graph and self._draft_graph is None \
+                and self._draft_hot:
+            # outside the draft's except: a failed capture raises, as
+            # the decode step's does, and nothing runs eagerly instead
+            self._capture_draft_graph()
+        t0 = time.perf_counter()
+        try:
+            # the seam sits inside the except: any draft fault, injected
+            # or real, transient or corrupting, costs speculation only
+            self._hit("draft")
+            with self._profiler.record("generation.spec_draft"):
+                props, dok = self._propose_call()
+        except Exception:  # noqa: BLE001 — the target state is intact
+            self._reset_draft_cache(disable_lanes=True)
+            self.metrics.inc("spec_draft_fallbacks", len(lanes))
+            return frozenset()
+        t1 = time.perf_counter()
+        self.metrics.spec_draft_ms.record((t1 - t0) * 1e3)
+        vb = self._vbucket
+        paged = self.cache_backend == "paged"
+        dev = self.device
+        params = self.model._params
+        serviced = set()
+        emitted = 0
+        itl: List[float] = []
+        for s in lanes:
+            req = st.requests[s]
+            if not dok[s]:
+                # a draft NaN costs this lane's speculation only: it
+                # plain-decodes from here on (re-primed on recovery)
+                st.spec_ok[s] = False
+                self.metrics.inc("spec_draft_fallbacks")
+                continue
+            p0 = int(st.pos[s])
+            tokens = np.zeros((1, vb), np.int64)
+            tokens[0, 0] = st.token[s]
+            tokens[0, 1:k + 1] = props[s]
+            if paged:
+                if not self._spec_cow_guard(s, p0):
+                    continue
+                table = self._slot_blocks[s]
+                # the padded table covers the span's padded tail: the
+                # chunk path raises on an index past its table
+                tv = pow2_bucket(max(blocks_for(p0 + vb, self.block_size),
+                                     len(table.blocks)))
+                where = torch.from_numpy(table.padded(tv)).to(dev)
+            else:
+                where = s
+            self._hit("verify")
+            v0 = time.perf_counter()
+            try:
+                with self._profiler.record("generation.spec_verify"):
+                    tgt, n_acc, vok = self._verify_fn(
+                        params, self._kcs, self._vcs,
+                        torch.from_numpy(tokens).to(dev), p0, k + 1, where,
+                        req.seed, int(st.step[s]), req.temperature,
+                        req.top_k)
+                    out = torch.cat([tgt, n_acc[None],
+                                     vok[None].long()]).tolist()  # sync
+            except Exception as e:  # noqa: BLE001 — the call may have
+                # written any of the target's cache: fail this request,
+                # recover the others
+                self._release_slot(s)
+                self._fail(req, e)
+                raise CorruptedStateFault(
+                    f"speculative verify device call failed: {e!r}") from e
+            v1 = time.perf_counter()
+            self.metrics.spec_verify_ms.record((v1 - v0) * 1e3)
+            n_acc, vok = out[vb], out[vb + 1]
+            if not vok:
+                # the target's logits went non-finite on this lane's own
+                # tokens: quarantined alone, as a decode step rules
+                self.metrics.inc("quarantined")
+                exc = PoisonRequestError(
+                    "request produced non-finite logits during "
+                    f"speculative verify at step {int(st.step[s])}; "
+                    "quarantined")
+                self._release_slot(s)
+                self._fail(req, exc)
+                continue
+            n_emit = n_acc + 1
+            self.metrics.inc("spec_verify_batches")
+            self.metrics.inc("spec_draft_tokens_proposed", k)
+            self.metrics.inc("spec_draft_tokens_accepted", n_acc)
+            if n_acc < k:
+                # the rejected tail is rolled back by not committing it
+                self.metrics.inc("spec_rollbacks")
+            serviced.add(s)
+            for j in range(n_emit):
+                self._emit(req, out[j], v1, itl_out=itl)
+                emitted += 1
+                if self._check_done(s, req, out[j]):
+                    break
+            else:
+                # commit left the lane's current token on the host
+                st.commit(s, out[n_acc], n_emit)
+                self._tok_on_dev[s] = False
+        if emitted:
+            self.metrics.tokens.record(emitted)
+        if itl:
+            self.metrics.itl_ms.record_many(itl)
+        if paged:
+            self._update_block_gauges()
+        return frozenset(serviced)
+
     def _ready_slots(self) -> List[int]:
         """Slots in the decode phase (step > 0). A paged slot is claimed
         at admission but decodes only after its final chunk; until then
@@ -1730,8 +2076,10 @@ class GenerationEngine:
         self.metrics.active_slots = 0
         self._drop_pending()
         self._reset_blocks()
-        # in place: the decode step's CUDA graph keeps its addresses
+        # in place: the CUDA graphs keep their addresses
         self._cache.reset()
+        if self.speculation_k:
+            self._reset_draft_cache()
 
     def _recover(self, why: str):
         """Recompute-recovery: decode state is a pure function of the
@@ -1750,6 +2098,10 @@ class GenerationEngine:
         request to fail."""
         self._drop_pending()
         self._cache.reset()
+        if self.speculation_k:
+            # the draft replays nothing: each re-admitted lane re-primes
+            # at its decode entry (spec_ok goes with the slots)
+            self._reset_draft_cache()
         st = self._slots
         recovered: List[_GenRequest] = []
         for slot in st.active_slots():
@@ -1818,10 +2170,14 @@ class GenerationEngine:
                     self._admit()
                     if paged and self._prefilling:
                         self._prefill_chunk_step()
+                    # a speculative round first; the lanes it advanced
+                    # sit out the plain step that serves the others
+                    spun = (self._spec_step() if self.speculation_k
+                            else frozenset())
                     # dispatch step t+1 first, then collect step t: the
                     # admit and prefill work above and the emit/retire
                     # work in the collect overlap the step just launched
-                    launched = self._dispatch_decode()
+                    launched = self._dispatch_decode(skip=spun)
                     self._collect_decode(
                         keep=1 if launched and self.decode_pipeline else 0)
                 except TransientFault as e:

@@ -81,6 +81,10 @@ class SlotTable:
         # max_steps is the request's max_tokens, 0 for inactive lanes
         self.eos = np.full(self.num_slots, -1, np.int32)
         self.max_steps = np.zeros(self.num_slots, np.int32)
+        # speculative decoding (serving/speculative.py): a lane is
+        # eligible once its draft is primed; cleared on free() and when
+        # its draft fails (a draft fault never fails the request)
+        self.spec_ok = np.zeros(self.num_slots, bool)
 
     @property
     def free_count(self) -> int:
@@ -115,4 +119,20 @@ class SlotTable:
         self.top_k[slot] = 0
         self.eos[slot] = -1
         self.max_steps[slot] = 0
+        self.spec_ok[slot] = False
         self._free.append(slot)
+
+    def commit(self, slot: int, token: int, n_accepted: int):
+        """Settle a slot's cursors after a speculative round: advance
+        pos and step by the ``n_accepted`` tokens it emitted, ``token``
+        the last of them. A rejected tail needs no rollback: its K/V lies
+        past the cursor, masked by every reader until an accepted write
+        overwrites it (the no-zeroing invariant)."""
+        if self.requests[slot] is None:
+            raise ValueError(f"slot {slot} is free")
+        if n_accepted < 1:
+            raise ValueError(f"speculative round must commit >= 1 "
+                             f"token, got {n_accepted}")
+        self.token[slot] = token
+        self.pos[slot] += n_accepted
+        self.step[slot] += n_accepted

@@ -1,8 +1,8 @@
 """Generation-engine counters (counterpart of
 ``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
-counters the slot and paged backends, the int8 KV cache and the fault
-ladder move; the speculative and offload blocks come with their
-slices, and the Prometheus exposition with the serving shell, ROADMAP.md
+counters the slot and paged backends, the int8 KV cache, the fault
+ladder and speculative decoding move; the offload block comes with its
+slice, and the Prometheus exposition with the serving shell, ROADMAP.md
 queue A, item 9)."""
 from __future__ import annotations
 
@@ -51,7 +51,18 @@ class GenerationMetrics:
         # overlaps the device, near decode_step_ms when the device is
         # the bottleneck)
         self.decode_sync_wait_ms = Reservoir(latency_window)
-        self.compiles = 0          # decode-step CUDA graph captures
+        # speculative decoding (serving/speculative.py; both backends;
+        # all zero with speculation_k=0)
+        self.speculation_k = 0            # config knob (0 = off)
+        self.spec_draft_tokens_proposed = 0  # k per verify round
+        self.spec_draft_tokens_accepted = 0  # target-matched prefix
+        self.spec_verify_batches = 0      # verify device calls
+        self.spec_rollbacks = 0           # rounds with a rejected tail
+        self.spec_draft_fallbacks = 0     # draft failures -> plain
+        #                                   decode (lane never failed)
+        self.spec_draft_ms = Reservoir(latency_window)   # propose call
+        self.spec_verify_ms = Reservoir(latency_window)  # one lane's span
+        self.compiles = 0          # CUDA graph captures (decode, propose)
         self.queue_depth = 0       # gauge, updated by the scheduler
         self.queue_max = 0
         self.active_slots = 0      # gauge
@@ -165,6 +176,21 @@ class GenerationMetrics:
                 if (self.num_slots and steps) else 0.0,
                 "occupancy_hist": occ.snapshot(),
             },
+            "spec": {
+                "enabled": self.speculation_k > 0,
+                "speculation_k": self.speculation_k,
+                "draft_tokens_proposed": self.spec_draft_tokens_proposed,
+                "draft_tokens_accepted": self.spec_draft_tokens_accepted,
+                "accept_rate": round(
+                    self.spec_draft_tokens_accepted
+                    / self.spec_draft_tokens_proposed, 4)
+                if self.spec_draft_tokens_proposed else 0.0,
+                "verify_batches": self.spec_verify_batches,
+                "rollbacks": self.spec_rollbacks,
+                "draft_fallbacks": self.spec_draft_fallbacks,
+            },
+            "spec_draft_ms": res(self.spec_draft_ms),
+            "spec_verify_ms": res(self.spec_verify_ms),
             "prompt_bucket_hist": self.prompt_bucket_hist.snapshot(),
             "ttft_ms": res(self.ttft_ms),
             "itl_ms": res(self.itl_ms),

@@ -176,6 +176,30 @@ class CausalTransformerLM(nn.Module):
         x = layer_norm(x[0], params["lnf_g"], params["lnf_b"])
         return x @ params["head"], k_pools, v_pools
 
+    def forward_verify(self, params, tokens, p0, chunk_len, k_caches,
+                       v_caches, slot):
+        """A speculative verify span against the dense slot caches, the
+        slot-backend sibling of :meth:`forward_prefill_chunk`
+        (``serving/speculative.py`` scores a draft's proposals with it
+        in one causal pass): the chunk path's embedding and row mask,
+        each block's ``apply_verify`` on ``slot``'s panel.
+
+        tokens: [1, C] (C = verify bucket); p0: span start; chunk_len:
+        valid tokens; slot: the cache row. Returns (logits [C, V],
+        k_caches, v_caches), the caches written IN PLACE."""
+        C = tokens.shape[1]
+        dev = tokens.device
+        gpos = int(p0) + torch.arange(C, device=dev)
+        x = (params["tok"][tokens[0]]
+             + params["pos"][gpos.clamp(0, self.max_seq_len - 1)])
+        row_mask = (torch.arange(C, device=dev) < int(chunk_len)).to(x.dtype)
+        x = (x * row_mask[:, None])[None]
+        for blk, bp, kc, vc in zip(self.blocks, params["blocks"],
+                                   k_caches, v_caches):
+            x, _, _ = blk.apply_verify(bp, x, kc, vc, slot, p0, chunk_len)
+        x = layer_norm(x[0], params["lnf_g"], params["lnf_b"])
+        return x @ params["head"], k_caches, v_caches
+
     def logits(self, tokens) -> torch.Tensor:
         """Uncached full-sequence logits (tests; the serving path never
         calls this)."""
@@ -205,6 +229,28 @@ def quantize_mlp_weights(model: CausalTransformerLM) -> CausalTransformerLM:
             if not isinstance(bp[name], QuantWeight):
                 bp[name] = quantize_weight(bp[name])
     return model
+
+
+def make_draft_lm(target: CausalTransformerLM, d_model: int = 32,
+                  n_layers: int = 1, n_heads: int = 2,
+                  d_ff: Optional[int] = None,
+                  seed: Optional[int] = None) -> CausalTransformerLM:
+    """A narrow, shallow draft LM for speculative decoding
+    (``serving/speculative.py``; counterpart of the JAX
+    ``make_draft_lm``) on the target's device, sharing its token space:
+    the same vocab, ``eos_id`` and position-table reach, so every
+    proposal is a legal target token and the draft's cursor tracks the
+    target's positions one for one. Initialised; pass it to
+    ``GenerationEngine(draft_model=...)``. ``seed`` defaults to
+    ``target.seed + 1``: a same-seed, same-config draft would be the
+    target itself (an identity-test rig, not a draft)."""
+    draft = CausalTransformerLM(
+        vocab_size=target.vocab_size, d_model=d_model, n_layers=n_layers,
+        n_heads=n_heads, d_ff=d_ff, max_seq_len=target.max_seq_len,
+        eos_id=target.eos_id,
+        seed=target.seed + 1 if seed is None else seed,
+        device=target.device)
+    return draft.init()
 
 
 def _to_device(params, device):

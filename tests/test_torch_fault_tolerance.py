@@ -4,12 +4,13 @@ L2, vocab 64, weights carried across by ``load_params``): the JAX
 ``TestChaosSlots`` and ``TestChaosPaged`` cases with their
 ``retries``/``recoveries`` counts (no accepted request lost, tokens
 identical to the fault-free run, no capture after warmup, every block
-back), corrupting recovery on an int8 cache that keeps every tensor's
-storage, the same injector plan through the JAX engine and the port's
-with the same tokens and counts, the stall watchdog, a drain that waits
-for re-admissions, the poison fallback, ``decode_impl`` at the JAX
-engine's position, and the near-tie measure of ``chip_smoke.py``'s
-phase 11."""
+back), its ``TestChaosSpeculative`` cases on a speculating engine (the
+draft cache kept on its storage), corrupting recovery on an int8 cache
+that keeps every tensor's storage, the same injector plan through the
+JAX engine and the port's with the same tokens and counts, the stall
+watchdog, a drain that waits for re-admissions, the poison fallback,
+``decode_impl`` at the JAX engine's position, and the near-tie measure
+of ``chip_smoke.py``'s phase 11."""
 import importlib.util
 import inspect
 import pathlib
@@ -219,6 +220,110 @@ class TestChaosPaged:
         assert errs == [None] * len(_REQS)
         assert out == paged_baseline
         assert (retries, recoveries, captures) == (0, 1, 0)
+
+
+class _NaNDraftLM(CausalTransformerLM):
+    """Draft-side NaN rig: the prime (a prefill) is clean, so lanes
+    become eligible, but every draft decode step's logits are NaN, so
+    each round's per-lane guard trips. The target is untouched: the
+    engine plain-decodes the tripped lanes and fails no request."""
+
+    def forward_decode(self, *args, **kw):
+        logits, kcs, vcs = super().forward_decode(*args, **kw)
+        return torch.full_like(logits, float("nan")), kcs, vcs
+
+
+def _draft_storage(eng):
+    return [c.data_ptr() for c in eng._draft_cache.ks + eng._draft_cache.vs]
+
+
+@pytest.fixture(scope="module")
+def spec_eng(jlm, lm):
+    """A warmed speculating slot engine (k=2) whose draft is a copy of
+    the target, so rounds accept, shared by the speculative chaos
+    cases."""
+    draft = CausalTransformerLM(**CFG, seed=0, device="cpu").load_params(
+        jax.tree.map(np.asarray, jlm._params))
+    eng = _engine(lm, "slots", speculation_k=2, draft_model=draft)
+    yield eng
+    eng.stop()
+
+
+@pytest.fixture(scope="module")
+def spec_baseline(spec_eng, slot_baseline):
+    """Fault-free speculating outputs: the k=0 outputs (the identity
+    contract)."""
+    out, errs = _run_all(spec_eng)
+    assert errs == [None] * len(_REQS)
+    assert out == slot_baseline
+    assert spec_eng.stats()["spec"]["draft_tokens_accepted"] > 0
+    return out
+
+
+def _spec_chaos_run(eng, inj):
+    """:func:`_chaos_run` that also holds the draft cache to its
+    storage: recovery and draft faults zero it in place."""
+    where = _draft_storage(eng)
+    res = _chaos_run(eng, inj)
+    assert _draft_storage(eng) == where
+    return res
+
+
+class TestChaosSpeculative:
+    """The JAX ``TestChaosSpeculative`` cases: draft-side trouble (NaN
+    logits, a failed or corrupting draft call) costs speculation only,
+    a transient verify fault is retried, a corrupting one recovers, and
+    every request replays token-identical with no capture and the draft
+    cache on its storage."""
+
+    def test_draft_nan_falls_back_lane_only(self, lm, slot_baseline):
+        eng = _engine(lm, "slots", speculation_k=2, draft_model=_NaNDraftLM(
+            **CFG, seed=1, device="cpu").init())
+        try:
+            where, c0 = _draft_storage(eng), eng.metrics.compiles
+            out, errs = _run_all(eng)
+            assert errs == [None] * len(_REQS)   # never the request
+            assert out == slot_baseline          # the plain-decode result
+            sp = eng.stats()["spec"]
+            assert sp["draft_fallbacks"] >= 1
+            assert sp["draft_tokens_accepted"] == 0
+            assert eng.metrics.compiles == c0
+            assert _draft_storage(eng) == where
+        finally:
+            eng.stop()
+
+    def test_transient_verify_fault_retried_token_identical(
+            self, spec_eng, spec_baseline):
+        out, errs, retries, recoveries, captures = _spec_chaos_run(
+            spec_eng, FaultInjector(plan={"verify": [2]}))
+        assert errs == [None] * len(_REQS)
+        assert out == spec_baseline
+        assert (retries, recoveries, captures) == (1, 0, 0)
+
+    def test_corrupting_verify_fault_recovers_token_identical(
+            self, spec_eng, spec_baseline):
+        # the verify call writes the target's cache: a corrupting fire
+        # there recovers every in-flight request
+        out, errs, retries, recoveries, captures = _spec_chaos_run(
+            spec_eng, FaultInjector(plan={"verify": [3]},
+                                    corrupting=("verify",)))
+        assert errs == [None] * len(_REQS)
+        assert out == spec_baseline
+        assert (retries, recoveries, captures) == (0, 1, 0)
+
+    def test_corrupting_draft_fault_costs_speculation_only(
+            self, spec_eng, spec_baseline):
+        # the draft call writes only the draft's own cache: even a
+        # corrupting fire there degrades to plain decode, with no retry
+        # and no recovery
+        f0 = spec_eng.stats()["spec"]["draft_fallbacks"]
+        out, errs, retries, recoveries, captures = _spec_chaos_run(
+            spec_eng, FaultInjector(plan={"draft": [1, 2]},
+                                    corrupting=("draft",)))
+        assert errs == [None] * len(_REQS)
+        assert out == spec_baseline
+        assert (retries, recoveries, captures) == (0, 0, 0)
+        assert spec_eng.stats()["spec"]["draft_fallbacks"] > f0
 
 
 def _storage(eng):

@@ -3,6 +3,7 @@ GenerationEngine on the same weights (CPU): a mixed concurrent
 workload with slot reuse and EOS/max_tokens retirement gives identical
 tokens, greedy and sampled; 503/504 shedding; per-lane NaN quarantine;
 a failing device call goes through the JAX engine's fault ladder;
+speculation configs the JAX engine refuses raise its messages;
 unported options raise."""
 import threading
 
@@ -288,15 +289,55 @@ def test_device_error_fails_in_flight_requests_with_it(jlm):
     assert set(faults) == {"retries", "recoveries", "quarantined", "drains"}
 
 
-@pytest.mark.parametrize("kw", [dict(speculation_k=2, cache="paged"),
-                                dict(speculation_k=2),
-                                dict(offload_host_bytes=1 << 20),
+@pytest.mark.parametrize("kw", [dict(offload_host_bytes=1 << 20),
                                 dict(offload_disk_bytes=1 << 20),
                                 dict(offload_dir="/tmp/x"),
                                 dict(offload_prefetch=False)])
 def test_unported_options_raise(jlm, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         GenerationEngine(_port_lm(jlm), **kw)
+
+
+def _spec_case(case, jlm):
+    """(engine kwargs for the JAX engine, the same for the port's) of a
+    speculation config each engine refuses: a negative k, a k that
+    leaves no room under max_seq_len, a draft of another vocab, a draft
+    whose position table is shorter than max_seq_len."""
+    if case in ("k<0", "no room"):
+        kw = (dict(speculation_k=-1) if case == "k<0"
+              else dict(max_seq_len=4, speculation_k=4))
+        return kw, kw
+    cfg = (dict(CFG, vocab_size=2 * VOCAB) if case == "vocab"
+           else dict(CFG, max_seq_len=16))
+    jd = JaxLM(**cfg, seed=1, implementation="plain").init()
+    td = CausalTransformerLM(**cfg, seed=1, device="cpu").load_params(
+        jax.tree.map(np.asarray, jd._params))
+    return (dict(speculation_k=2, draft_model=jd),
+            dict(speculation_k=2, draft_model=td))
+
+
+@pytest.mark.parametrize("case", ["k<0", "no room", "vocab", "short"])
+@pytest.mark.parametrize("cache", ["slots", "paged"])
+def test_speculation_config_errors_match_jax(jlm, case, cache):
+    """The port refuses what the JAX engine refuses, with its message."""
+    jkw, tkw = _spec_case(case, jlm)
+    with pytest.raises(ValueError) as want:
+        JaxEngine(jlm, num_slots=2, cache=cache, **jkw).stop()
+    with pytest.raises(ValueError) as got:
+        GenerationEngine(_port_lm(jlm), num_slots=2, cache=cache,
+                         **tkw).stop()
+    assert str(got.value) == str(want.value)
+
+
+def test_draft_model_ignored_without_speculation(jlm):
+    """As in the JAX engine, a draft with speculation_k=0 builds
+    nothing."""
+    eng = GenerationEngine(_port_lm(jlm), num_slots=2,
+                           draft_model=_port_lm(jlm))
+    try:
+        assert eng._draft is None and eng.decode_pipeline
+    finally:
+        eng.stop()
 
 
 #: the JAX engine's defaults for the fault ladder's knobs and for the

@@ -843,11 +843,72 @@ def test_decode_step_graph_replay_matches_eager(cache, kv_dtype):
     assert tokens["graph"] == tokens["eager"] == tokens["lazy"]
 
 
-def test_failed_capture_raises_from_warmup():
+@pytest.mark.parametrize("draft_kind", ["same", "default"])
+@pytest.mark.parametrize("cache", ["slots", "paged"])
+def test_speculating_engine_captures_two_graphs(cache, draft_kind):
+    """A speculating engine (k=3) captures the decode step and the
+    draft's proposal at warmup and nothing after, a corrupting verify
+    recovery included (the draft cache is zeroed in place, on the same
+    storage); its tokens are the k=0 engine's, greedy and sampled; and
+    the draft's B1 launches are its layers x k x the proposal calls,
+    replays included (the paged target decodes on B2)."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.serving import (FaultInjector,
+                                                  GenerationEngine)
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import (
+        CausalTransformerLM, make_draft_lm)
+    dev = _device()
+    lm = CausalTransformerLM(**LM_CFG, device=dev).init()
+    draft = (CausalTransformerLM(**LM_CFG, device=dev).init()
+             if draft_kind == "same" else make_draft_lm(lm))
+    rs = np.random.RandomState(4)
+    reqs = [dict(prompt=rs.randint(0, 512, rs.randint(1, 30)).tolist(),
+                 max_tokens=int(rs.randint(4, 24)),
+                 temperature=0.8 if i % 3 == 2 else 0.0,
+                 top_k=16 if i % 2 else 0, seed=i) for i in range(8)]
+    kw = dict(num_slots=4, min_prompt_bucket=8)
+    if cache == "paged":
+        kw.update(cache="paged", block_size=16, prefill_chunk_tokens=16)
+    base = GenerationEngine(lm, **kw)
+    eng = GenerationEngine(lm, **kw, speculation_k=3, draft_model=draft)
+    try:
+        base.warmup()
+        want = _serve_all(base, reqs)
+        eng.warmup()
+        assert eng.metrics.compiles == 2
+        where = [c.data_ptr() for c in eng._draft_cache.ks
+                 + eng._draft_cache.vs]
+        calls = []
+        propose = eng._propose_call
+        eng._propose_call = lambda: calls.append(1) or propose()
+        before, steps = kernels.launch_counts(), eng.metrics.decode_steps
+        assert _serve_all(eng, reqs) == want
+        torch.cuda.synchronize()
+        n_calls, steps = len(calls), eng.metrics.decode_steps - steps
+        b1 = (kernels.launch_counts()["decode_attention.launches"]
+              - before["decode_attention.launches"])
+        target = 0 if cache == "paged" else LM_CFG["n_layers"] * steps
+        assert n_calls and b1 == target + draft.n_layers * 3 * n_calls
+        assert eng.stats()["spec"]["verify_batches"] > 0
+        eng.set_fault_injector(FaultInjector(plan={"verify": [4]},
+                                             corrupting=("verify",)))
+        assert _serve_all(eng, reqs) == want
+        eng.set_fault_injector(None)
+        assert eng.metrics.recoveries == 1 and eng.metrics.compiles == 2
+        assert where == [c.data_ptr() for c in eng._draft_cache.ks
+                         + eng._draft_cache.vs]
+    finally:
+        base.stop()
+        eng.stop()
+
+
+@pytest.mark.parametrize("which", ["decode", "draft"])
+def test_failed_capture_raises_from_warmup(which):
     """A decode step that syncs the host cannot be captured: warmup
-    raises, naming the CUDA graph, and the engine has no graph. Last in
-    the file: the card's state after a failed capture is not the other
-    tests' business."""
+    raises, naming the CUDA graph, and the engine has no graph; nor can
+    a speculating engine's proposal whose draft syncs (no eager
+    fallback). Last in the file: the card's state after a failed
+    capture is not the other tests' business."""
     from deeplearning4j_tpu_torch.serving import GenerationEngine, ServingError
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
         CausalTransformerLM
@@ -860,11 +921,20 @@ def test_failed_capture_raises_from_warmup():
             return out
 
     _device()
-    eng = GenerationEngine(SyncingLM(**LM_CFG).init(), num_slots=2,
-                           min_prompt_bucket=8)
+    if which == "decode":
+        eng = GenerationEngine(SyncingLM(**LM_CFG).init(), num_slots=2,
+                               min_prompt_bucket=8)
+    else:
+        eng = GenerationEngine(CausalTransformerLM(**LM_CFG).init(),
+                               num_slots=2, min_prompt_bucket=8,
+                               speculation_k=2,
+                               draft_model=SyncingLM(**LM_CFG).init())
     try:
         with pytest.raises(ServingError, match="CUDA graph"):
             eng.warmup()
-        assert eng._graph is None and eng.metrics.compiles == 0
+        if which == "decode":
+            assert eng._graph is None and eng.metrics.compiles == 0
+        else:
+            assert eng._draft_graph is None and eng.metrics.compiles == 1
     finally:
         eng.stop()
