@@ -100,13 +100,25 @@ Phases, each of which fails the run when it fails:
    the accept rate, verify batches, rollbacks, draft fallbacks,
    tokens/s, decode step p50/p99, the draft call's and the verify's
    p50, and on the paged engine how many verify spans met a shared
-   block in the copy-on-write guard.
+   block in the copy-on-write guard;
+13. bf16 on the slot backend: phase 4's 32 requests served by
+   GenerationEngine(num_slots=32, kv_dtype="bf16"): the f32/bf16
+   decode kernel's bf16 leg must launch once per layer and decode step,
+   and a teacher-forced check against the port's own bf16 path on a
+   CPU copy holds each greedy token.
 
-Phases 4 to 7 serve with the engine's defaults on the card: the
+Phases 4 to 7 and 13 serve with the engine's defaults on the card: the
 pipelined decode loop, and the decode step captured at warmup as one
 CUDA graph and replayed every step (a replay counts the launches the
 capture recorded). Each phase must capture exactly once, at warmup.
 
+Phase 3 holds B1 (f32 and bf16) against its plain version at head
+dims 16, 64, 128, 160 and 256 with lengths at its chunk edges and NaN
+in every stale tail, two calls giving the same bits, shows that a
+slot's bits are the same alone and among 64 slots and at a capacity of
+1024 and 2048 keys, reports each instantiation's registers, spills and
+blocks per SM, and times B1, B2, B4 and B5 at the lengths phases 4 to 7
+decode at (each request at its prompt plus half its new tokens).
 Phase 3 also checks B1 (f32) and B3 (f32, causal, B=1) at the default
 draft's head dim (2 heads of 16, T=1024) against their plain versions
 and times them beside their bounds and SDPA (phase 12's proposals and
@@ -127,7 +139,8 @@ kernel and I2F in the two int8 kernels from ``cuobjdump -sass`` where
 the toolkit has it: the three bf16 flash kernels (forward, dQ, dK/dV)
 must run bf16 HGMMA and no HMMA at each head-dim bucket (32, 64, 128),
 the f32 flash kernels HMMA, and the int8 kernels must convert without
-I2F.
+I2F; B1's instantiations with 16-byte loads must issue LDG.128 and use
+no local memory.
 
 A "details:" line carries every measured number as JSON; then come
 the kernels line, the card's name and power limit, and last
@@ -140,8 +153,10 @@ instead: each checkout's own code in turns (parent, this, this,
 parent), each turn a process of its own, timing the flash forward at
 B=1 and B=4 and its backward kernels at B=4, the bf16 legs of all
 three and the whole bf16 backward (delta included) at B=4, T=1024,
-the decode and paged kernels, f32 and int8 (their phase-3 checks),
-serving phases 4 to 7 with their profile windows, and phase 10 (step
+the decode and paged kernels, f32 and int8 (their phase-3 checks; B1
+also in bf16 and at the draft's shape), the four decode kernels at the
+lengths phases 4 to 7 serve, serving phases 4 to 7 with their profile
+windows, and phase 10 (step
 p50, the host's enqueue p50, device time by kind); an "A/B runs:"
 line carries every turn as JSON.
 """
@@ -201,6 +216,13 @@ TRAIN_BF16_GRAD_TOL = 3e-2   # each leaf's max error over its max |value|:
 #                              bf16 activations on both sides, and the
 #                              small leaves (biases, norm gains) sum 1024
 #                              tokens' bf16-rounded terms
+BF16_TEACHER_TOL = 1e-2  # bf16 teacher-forced gap (phase 13): card and
+#                         CPU both run the bf16 cache, but K/V computed in
+#                         another order can round to the neighbouring bf16
+#                         value (2^-8 of it) and the kernel rounds p before
+#                         normalising (DECODE_TOL_BF16); int8's bound on
+#                         such noise holds a fortiori; 0.0 measured on
+#                         an H100 at the served width
 INT8_TEACHER_TOL = 1e-2  # int8 teacher-forced gap: card and CPU both run
 #                         int8, but sums in another order can move a K/V
 #                         value across an int8 rounding boundary (one step
@@ -268,14 +290,56 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _decode_inputs(dev, S, H, T, D, dtype, g):
+    """q and K/V caches [S, H, T, D] with lengths 0, T, 1 and B1's chunk
+    edges (C - 1, C, C + 1, 2C + 1, 7C + 1) as far as S and T allow,
+    random others, and NaN past every slot's length."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    C = da.CHUNK_KEYS
+    q = torch.randn((S, H, D), generator=g).to(dev)
+    k = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
+    v = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
+    lens = torch.randint(1, T + 1, (S,), generator=g)
+    edges = [n for n in (0, T, 1, C - 1, C, C + 1, 2 * C + 1, 7 * C + 1)
+             if n <= T][:S]
+    lens[:len(edges)] = torch.tensor(edges)
+    for s in range(S):  # stale non-finite tails must not leak
+        k[s, :, int(lens[s]):] = float("nan")
+        v[s, :, int(lens[s]):] = float("nan")
+    return q, k, v, lens.to(dev, torch.int32)
+
+
+def _decode_against_plain(q, k, v, lens, tol, label):
+    """B1 against its plain version: within ``tol``, finite, slot 0
+    (length 0) exactly 0 and two calls bit-identical; returns the
+    largest error."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    got = da.decode_attention(q, k, v, lens)
+    again = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    finite = bool(torch.isfinite(got).all())
+    zero_row = got[0].abs().max().item()
+    same = torch.equal(got, again)
+    print(f"{label}: max_abs_err {err:.3e} (tol {tol:g}), finite {finite}, "
+          f"len-0 row max {zero_row}, two calls bit-identical {same}")
+    if not (finite and err <= tol and zero_row == 0.0 and same):
+        raise AssertionError(f"{label} disagrees with its plain version")
+    return err
+
+
 def check_decode(dev, S=32, H=8, D=64, bf16=True):
     """Phase 3's decode kernel (B1) against its plain version at the
     served slot shapes (S=32, T=1024), f32 and (``bf16``) bf16, with
-    lengths 0, 1 and T, ragged ones and NaN in stale tails; then timed
-    with every slot full beside its bound and SDPA. ``S=64, H=2, D=16,
-    bf16=False`` is the default draft's shape on the paged engine
-    (phase 12b's proposals: its dense draft cache has the engine's 64
-    slots)."""
+    lengths 0, 1, T, its chunk edges and ragged ones, NaN in every stale
+    tail and two calls bit-identical; its registers, spills and blocks
+    per SM; then timed with every slot full beside its bound and SDPA.
+    ``S=64, H=2, D=16, bf16=False`` is the default draft's shape on the
+    paged engine (phase 12b's proposals: its dense draft cache has the
+    engine's 64 slots)."""
     import torch
     import torch.nn.functional as F
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
@@ -284,28 +348,12 @@ def check_decode(dev, S=32, H=8, D=64, bf16=True):
     results = {}
     for dtype, tol in ((torch.float32, DECODE_TOL_F32),
                        (torch.bfloat16, DECODE_TOL_BF16))[:1 + bf16]:
-        q = torch.randn((S, H, D), generator=g).to(dev)
-        k = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
-        v = torch.randn((S, H, T, D), generator=g).to(dev, dtype)
-        lens = torch.randint(1, T + 1, (S,), generator=g)
-        lens[0], lens[1], lens[2] = 0, T, 1
-        for s in range(0, S, 2):  # stale non-finite tails must not leak
-            k[s, :, int(lens[s]):] = float("nan")
-            v[s, :, int(lens[s]):] = float("nan")
-        lens = lens.to(dev, torch.int32)
-        got = da.decode_attention(q, k, v, lens)
-        want = da.decode_attention_torch(q, k, v, lens)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        finite = bool(torch.isfinite(got).all())
-        zero_row = got[0].abs().max().item()
-        print(f"decode_attention {str(dtype)[6:]} S={S} H={H} D={D}: "
-              f"max_abs_err "
-              f"{err:.3e} (tol {tol:g}), finite {finite}, len-0 row max "
-              f"{zero_row}")
-        if not (finite and err <= tol and zero_row == 0.0):
-            raise AssertionError(f"decode_attention {dtype} disagrees "
-                                 f"with its plain version")
+        name = str(dtype)[6:]
+        q, k, v, lens = _decode_inputs(dev, S, H, T, D, dtype, g)
+        err = _decode_against_plain(
+            q, k, v, lens, tol, f"decode_attention {name} S={S} H={H} D={D}")
+        info = da.decode_kernel_info(D, dtype)
+        print(f"decode_attention {name} D={D}: {info}")
         # timed at the served width with every slot full (lengths = T):
         # the cache read is the whole work, and one library call
         # computes the same function
@@ -319,18 +367,150 @@ def check_decode(dev, S=32, H=8, D=64, bf16=True):
         item = k.element_size()
         nbytes = q.numel() * 4 + 2 * S * H * T * D * item + S * 4 \
             + S * H * D * 4
-        flops = 4 * D * H * S * T
-        bound_ms = max(nbytes / H100_BYTES_PER_S,
-                       flops / H100_F32_FLOPS) * 1e3
-        results[str(dtype)[6:]] = dict(
+        bound_ms, bound_by = _bound(nbytes, 4 * D * H * S * T)
+        results[name] = dict(
             max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms,
-            library_ms=lib_ms, bound_ms=bound_ms,
-            bound_by="bytes" if nbytes / H100_BYTES_PER_S
-            >= flops / H100_F32_FLOPS else "operations")
-        print(f"decode_attention {str(dtype)[6:]} S={S} H={H} T={T} D={D}: "
+            library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by,
+            bytes=nbytes, info=info)
+        print(f"decode_attention {name} S={S} H={H} T={T} D={D}: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms")
+              f"{lib_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({nbytes / 1e6:.2f} MB)")
     return results
+
+
+def check_decode_dims(dev):
+    """B1 at head dims above the served one (128, and 160 and 256 which
+    the TPU-era port refused), f32 and bf16: 8 slots of 4 heads, T=1024,
+    the chunk-edge lengths and NaN tails of check_decode; with each
+    instantiation's registers, spills and blocks per SM."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    g = torch.Generator(device="cpu").manual_seed(7)
+    out = {}
+    for D in (128, 160, 256):
+        for dtype, tol in ((torch.float32, DECODE_TOL_F32),
+                           (torch.bfloat16, DECODE_TOL_BF16)):
+            name = f"{str(dtype)[6:]}_d{D}"
+            q, k, v, lens = _decode_inputs(dev, 8, 4, 1024, D, dtype, g)
+            err = _decode_against_plain(q, k, v, lens, tol,
+                                        f"decode_attention {name}")
+            out[name] = dict(max_abs_err=err, tol=tol,
+                             info=da.decode_kernel_info(D, dtype))
+            print(f"decode_attention {name}: {out[name]['info']}")
+    return out
+
+
+def check_decode_bits(dev):
+    """A slot's B1 output bits depend only on its q, rows and length:
+    the same alone (S=1) as among 64 slots, and with the caches at
+    T_cap 1024 and 2048; f32 and bf16 at the served head dim, f32 at
+    the draft's."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    C = da.CHUNK_KEYS
+    g = torch.Generator(device="cpu").manual_seed(8)
+    S, alone = 64, (0, 1, 2, 3, 4, 5, 31, 63)
+    out = {}
+    for H, D, dtype in ((8, 64, torch.float32), (8, 64, torch.bfloat16),
+                        (2, 16, torch.float32)):
+        q = torch.randn((S, H, D), generator=g).to(dev)
+        k = torch.randn((S, H, 2048, D), generator=g).to(dev, dtype)
+        v = torch.randn((S, H, 2048, D), generator=g).to(dev, dtype)
+        lens = torch.randint(1, 1025, (S,), generator=g)
+        lens[:6] = torch.tensor([0, 1, C - 1, C + 1, 7 * C + 1, 1024])
+        lens = lens.to(dev, torch.int32)
+        wide = da.decode_attention(q, k, v, lens)
+        k1, v1 = (x[:, :, :1024].contiguous() for x in (k, v))
+        narrow = da.decode_attention(q, k1, v1, lens)
+        same_t = torch.equal(wide, narrow)
+        same_s = all(torch.equal(da.decode_attention(
+            q[s:s + 1].contiguous(), k1[s:s + 1].contiguous(),
+            v1[s:s + 1].contiguous(), lens[s:s + 1].contiguous())[0],
+            narrow[s]) for s in alone)
+        name = f"{str(dtype)[6:]}_h{H}_d{D}"
+        out[name] = dict(same_at_t_cap_1024_and_2048=same_t,
+                         same_alone_and_among_64=same_s)
+        print(f"decode_attention {name}: bits the same at T_cap 1024 and "
+              f"2048 {same_t}, alone and among {S} slots {same_s} (slots "
+              f"{alone})")
+        if not (same_t and same_s):
+            raise AssertionError(f"decode_attention {name}: a slot's bits "
+                                 f"depend on the batch or the capacity")
+        del q, k, v, k1, v1
+    return out
+
+
+def served_lengths():
+    """One length vector per serving phase, from its traffic: each
+    request at its prompt plus half its new tokens (the mean length it
+    decodes at), the slots it leaves idle at 0. Phases 4 and 6 serve
+    slot_traffic on 32 slots; phases 5 and 7 paged_traffic's burst of
+    48 on 64 slots."""
+    slots = [len(r["prompt"]) + r["max_tokens"] // 2 for r in slot_traffic()]
+    _, burst, _, _ = paged_traffic(SERVE_CFG["vocab_size"])
+    paged = [len(r["prompt"]) + r["max_tokens"] // 2 for r in burst]
+    paged += [0] * (PAGED_ENGINE["num_slots"] - len(paged))
+    return {4: slots, 5: paged, 6: slots, 7: paged}
+
+
+def served_decode_ms(dev):
+    """Each decode kernel's device ms a decode step at the lengths its
+    serving phase decodes at (served_lengths): B1 (phase 4), B2 (5), B4
+    (6) and B5 (7) at the served width (8 heads of 64, T = 1024, blocks
+    of 16 over a 4096-block pool through distinct blocks); one call
+    timed, times the 8 layers of a step, beside the call's bound."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    from deeplearning4j_tpu_torch.kernels import kv_quant as kvq
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    H, D, T = SERVE_CFG["n_heads"], 64, SERVE_CFG["max_seq_len"]
+    layers = SERVE_CFG["n_layers"]
+    Bs, N = PAGED_ENGINE["block_size"], PAGED_ENGINE["num_blocks"]
+    g = torch.Generator(device="cpu").manual_seed(9)
+    rs = np.random.RandomState(9)
+    out = {}
+    for phase, lens in served_lengths().items():
+        S, live = len(lens), sum(lens)
+        int8 = phase in (6, 7)
+        cast = kvq.quantize_rows if int8 else (lambda x: x)
+        q = torch.randn((S, H, D), generator=g).to(dev)
+        lens_d = torch.tensor(lens, dtype=torch.int32, device=dev)
+        if phase in (4, 6):
+            k, v = (cast(torch.randn((S, H, T, D), generator=g).to(dev))
+                    for _ in range(2))
+            name = "B4 decode_attention_int8" if int8 else \
+                "B1 decode_attention"
+            fn = lambda: da.decode_attention(q, k, v, lens_d)  # noqa: E731
+        else:
+            k, v = (cast(torch.randn((N, H, Bs, D), generator=g).to(dev))
+                    for _ in range(2))
+            perm = rs.permutation(np.arange(1, N))
+            tbl = np.zeros((S, T // Bs), np.int32)
+            used = 0
+            for s, n in enumerate(lens):
+                nb = -(-n // Bs)
+                tbl[s, :nb] = perm[used:used + nb]
+                used += nb
+            tbl_d = torch.from_numpy(tbl).to(dev)
+            name = "B5 paged_attention_int8" if int8 else \
+                "B2 paged_attention"
+            fn = lambda: pa.paged_attention(  # noqa: E731
+                q, k, v, tbl_d, lens_d)
+        ms = time_ms(fn)
+        row = 2 * D * (1 if int8 else 4) + (8 if int8 else 0)
+        nbytes = live * H * row + 2 * S * H * D * 4 + S * 4
+        bound_ms, _ = _bound(nbytes, 4 * D * H * live)
+        out[phase] = dict(kernel=name, slots=S, live_slots=sum(
+            n > 0 for n in lens), mean_live_length=live / max(1, sum(
+                n > 0 for n in lens)), ms=ms, step_ms=ms * layers,
+            bound_ms=bound_ms, step_bound_ms=bound_ms * layers)
+        print(f"served lengths, phase {phase}: {name} over {S} slots "
+              f"(mean live length {out[phase]['mean_live_length']:.1f}): "
+              f"{ms:.4f} ms a call, {ms * layers:.4f} ms a step of "
+              f"{layers} layers, bound {bound_ms:.4f} ms a call")
+        del k, v
+    return out
 
 
 def check_flash(dev):
@@ -838,10 +1018,20 @@ def int8_slot_rows(cpu, prompt, tokens):
     """The port's own int8 slot path on the CPU: the prompt attends its
     own f32 K/V, which go into an int8 cache; each later token is a
     decode step over that cache, fed the served tokens."""
+    return _slot_rows(cpu, prompt, tokens, "int8")
+
+
+def bf16_slot_rows(cpu, prompt, tokens):
+    """The port's own bf16 slot path on the CPU, as int8_slot_rows over
+    a bf16 cache."""
+    return _slot_rows(cpu, prompt, tokens, "bf16")
+
+
+def _slot_rows(cpu, prompt, tokens, kv_dtype):
     import torch
     from deeplearning4j_tpu_torch.kernels.kv_quant import kv_update_slice
     from deeplearning4j_tpu_torch.serving import KVCache
-    cache = KVCache(cpu.cache_shapes(), 1, kv_dtype="int8", device="cpu")
+    cache = KVCache(cpu.cache_shapes(), 1, kv_dtype=kv_dtype, device="cpu")
     params = cpu._params
     with torch.inference_mode():
         logits, ks, vs = cpu.forward_prefill(params,
@@ -926,8 +1116,8 @@ def slot_traffic():
 
 def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
           eager_ab: bool = False, chaos: bool = False):
-    """Phase 4 (f32) or 6 (int8): the slot backend end to end, the
-    decode step replayed as the engine's CUDA graph on the card. With
+    """Phase 4 (f32), 6 (int8) or 13 (bf16): the slot backend end to end,
+    the decode step replayed as the engine's CUDA graph on the card. With
     ``chaos``, phase 11 then reruns the traffic on the same warmed engine
     under :data:`SLOT_FAULT_PLAN` (:func:`fault_ladder`). With
     ``eager_ab`` the same traffic then runs through the eager step and
@@ -938,6 +1128,12 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
         CausalTransformerLM
     int8 = kv_dtype == "int8"
+    phase = {"f32": 4, "int8": 6, "bf16": 13}[kv_dtype]
+    # the reference rows of the teacher-forced checks: at int8 and bf16
+    # the port's own path over such a cache on the CPU
+    rows_fn, tol = {"f32": (f32_rows, TEACHER_TOL),
+                    "int8": (int8_slot_rows, INT8_TEACHER_TOL),
+                    "bf16": (bf16_slot_rows, BF16_TEACHER_TOL)}[kv_dtype]
     lm = CausalTransformerLM(**cfg, device=device).init()
     engine_kw = dict(num_slots=32, kv_dtype=kv_dtype)
     eng = GenerationEngine(lm, **engine_kw)
@@ -969,23 +1165,18 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
         ladder = None
         if chaos:
             ladder = fault_ladder(
-                eng, card, f"slots {kv_dtype} on phase {6 if int8 else 4}'s "
-                f"engine", reqs, results, SLOT_FAULT_PLAN,
-                lambda: cpu_copy(lm, cfg),
-                int8_slot_rows if int8 else f32_rows,
-                INT8_TEACHER_TOL if int8 else TEACHER_TOL, cfg["n_layers"])
+                eng, card, f"slots {kv_dtype} on phase {phase}'s engine",
+                reqs, results, SLOT_FAULT_PLAN, lambda: cpu_copy(lm, cfg),
+                rows_fn, tol, cfg["n_layers"])
     finally:
         eng.stop()
     eager = eager_run(lm, engine_kw, reqs, results) if eager_ab else None
 
     # teacher-forced check: every greedy token the card emitted has a
-    # CPU logit within the tolerance of the CPU maximum there; at int8
-    # the CPU reference is the port's own int8 path
+    # CPU logit within the tolerance of the CPU maximum there
     greedy = [i for i, q in enumerate(reqs) if q["temperature"] == 0.0][:4]
     cases = [(reqs[i]["prompt"], results[i]["tokens"]) for i in greedy]
     cpu = cpu_copy(lm, cfg)
-    rows_fn, tol = ((int8_slot_rows, INT8_TEACHER_TOL) if int8
-                    else (f32_rows, TEACHER_TOL))
     checked, exact, worst_gap = teacher_check(rows_fn, cpu, cases, tol)
     rel = int8_vs_f32(cpu, cpu, cases[:2], int8_slot_rows) if int8 else None
     e2e = dict(kv_dtype=kv_dtype, requests=len(reqs), tokens=n_tok,
@@ -1009,7 +1200,7 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                teacher_worst_gap=worst_gap, teacher_tol=tol,
                int8_vs_f32_logit_rel_err=rel, profile=prof,
                fault_ladder=ladder, served=(None, [(reqs, results)]))
-    tag = " int8" if int8 else ""
+    tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
           f"{e2e['ttft_p50_ms']:.1f} ms, decode step p50/p99 "
@@ -1833,7 +2024,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                profile=prof, fault_ladder=ladder,
                served=(primer, [(burst, results), (turn1, res1),
                                 (turn2, res2)]))
-    tag = " int8" if int8 else ""
+    tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
     print(f"e2e paged{tag} [{card}]: {n_tok} tokens from {len(burst)} "
           f"requests "
           f"in {wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s; phase "
@@ -2572,9 +2763,11 @@ def profile_window(eng):
 def sass_counts():
     """Tensor-core instructions per instantiation of the flash kernels
     (f32 and bf16 legs): HMMA (``mma.sync``) and HGMMA (``wgmma``), each
-    with its bf16 form; and I2F (I2F, I2FP) in the two int8 kernels; in
-    the built libraries, from ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
+    with its bf16 form; I2F (I2F, I2FP) in the two int8 kernels; and in
+    each instantiation of B1's kernel (<type, load bytes, lanes a row,
+    vectors a lane>) its 16-byte global loads (LDG128) and local-memory
+    accesses (LOCAL: LDL, STL); in the built libraries, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     from deeplearning4j_tpu_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
@@ -2587,6 +2780,8 @@ def sass_counts():
                         r"ILi(\d+)E(?:Li(\d+)E)?")
     opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
                         r"([A-Z][A-Z0-9]*)(\.[A-Za-z0-9.]*)?")
+    split = re.compile(r"(decode_attention_split_kernel)I(f|13__nv_bfloat16)"
+                       r"Li(\d+)ELi(\d+)ELi(\d+)E")
     counts = {}
     for lib in ("flash_attention", "paged_attention", "decode_attention"):
         text = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
@@ -2595,15 +2790,23 @@ def sass_counts():
         fn = None
         for line in text.splitlines():
             if "Function :" in line:
-                m = kernel.search(line)
+                m, b1 = kernel.search(line), split.search(line)
                 fn = (f"{m[1]}<{m[2]}" + (f",{m[3]}>" if m[3] else ">")
                       if m else None)
+                if b1:
+                    fn = (f"{b1[1]}<{'f32' if b1[2] == 'f' else 'bf16'},"
+                          f"{b1[3]},{b1[4]},{b1[5]}>")
                 if fn:
                     counts[fn] = {"HMMA": 0, "HMMA_BF16": 0, "HGMMA": 0,
-                                  "HGMMA_BF16": 0, "I2F": 0}
+                                  "HGMMA_BF16": 0, "I2F": 0, "LDG128": 0,
+                                  "LOCAL": 0}
                 continue
             op = opcode.search(line) if fn else None
-            if op and op[1] in ("HMMA", "HGMMA"):
+            if op and op[1] == "LDG" and ".128" in (op[2] or ""):
+                counts[fn]["LDG128"] += 1
+            elif op and op[1] in ("LDL", "STL"):
+                counts[fn]["LOCAL"] += 1
+            elif op and op[1] in ("HMMA", "HGMMA"):
                 counts[fn][op[1]] += 1
                 if ".BF16" in (op[2] or ""):
                     counts[fn][op[1] + "_BF16"] += 1
@@ -2621,26 +2824,32 @@ def check_sass(counts):
     """The bf16 forward, dQ and dK/dV kernels must run on wgmma (bf16
     HGMMA, no HMMA) at each head-dim bucket (32, 64, 128); every other
     flash kernel on mma.sync (HMMA); both int8 kernels must convert int8
-    without I2F (0)."""
+    without I2F (0); B1's instantiations with 16-byte loads (every
+    head dim that is a multiple of 16 bytes, with aligned caches) must
+    issue them (LDG.128) and use no local memory (the narrower ones, for
+    odd head dims and misaligned caches, may spill a word)."""
     def bad(f, c):
         if f.split("<")[0] in WGMMA_KERNELS:
             return not c["HGMMA_BF16"] or c["HMMA"]
+        if f.startswith("decode_attention_split"):
+            return f.split(",")[1] == "16" and (c["LOCAL"] or not c["LDG128"])
         return ((f.startswith("flash") and not c["HMMA"])
                 or ("int8" in f and c["I2F"]))
     wrong = [f for f, c in counts.items() if bad(f, c)]
     missing = [f"{k}<{d}>" for k in WGMMA_KERNELS for d in (32, 64, 128)
                if f"{k}<{d}>" not in counts]
     kinds = {f.split("<")[0] for f in counts}
-    if wrong or missing or len(kinds) != 8:
+    if wrong or missing or len(kinds) != 9:
         raise AssertionError(f"SASS: the bf16 forward, dQ and dK/dV kernels "
                              f"must run bf16 HGMMA and no HMMA at D 32, 64, "
                              f"128 (missing {missing}), the f32 flash "
-                             f"kernels HMMA, the int8 kernels no I2F: "
-                             f"{wrong} in {counts}")
+                             f"kernels HMMA, the int8 kernels no I2F, B1 "
+                             f"LDG.128 and no local memory: {wrong} in "
+                             f"{counts}")
 
 
 AB_CODE = r"""
-import json, torch
+import importlib.util, json, sys, torch
 import chip_smoke as cs
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 dev = torch.device("cuda")
@@ -2672,7 +2881,17 @@ out["bf16_ms"] = dict(
     whole_bwd=cs.time_ms(lambda: fa.flash_attention_bwd(qb, kb, vb, km, ob,
                                                         lseb, dob, True)))
 out["bf16_ms"]["pair"] = out["bf16_ms"]["dq"] + out["bf16_ms"]["dkv"]
-out["decode_ms"] = cs.check_decode(dev)["float32"]["ms"]
+dec = cs.check_decode(dev)
+out["decode_ms"] = dec["float32"]["ms"]
+out["decode_bf16_ms"] = dec["bfloat16"]["ms"]
+out["decode_draft_ms"] = cs.check_decode(dev, S=64, H=2, D=16,
+                                         bf16=False)["float32"]["ms"]
+# B1, B2, B4 and B5 at the lengths phases 4 to 7 serve, through this
+# checkout's kernels and the calling script's timing code
+spec = importlib.util.spec_from_file_location("cs_this", sys.argv[1])
+this = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(this)
+out["served_decode"] = this.served_decode_ms(dev)
 out["paged_ms"] = cs.check_paged(dev)["float32"]["ms"]
 out["paged_int8_ms"] = cs.check_paged_int8(dev)["ms"]
 out["decode_int8_ms"] = cs.check_decode_int8(dev)["ms"]
@@ -2704,10 +2923,13 @@ def run_ab(parent: str) -> int:
     """``--ab PARENT``: the parent checkout's and this checkout's own
     code in turns (parent, this, this, parent), each in a process of its
     own: B3 at B=1 and B=4, B6 and B7 at B=4, the bf16 legs of B3, B6
-    and B7 and the whole bf16 backward at B=4, B1, B2, B4 and B5 (their
-    phase-3 checks), phases 4 to 7 with their profile windows, and phase
-    10's step p50, enqueue p50 and device time by kind; prints each turn
-    as JSON, then all of them on one "A/B runs:" line."""
+    and B7 and the whole bf16 backward at B=4, B1 (f32 and bf16, and at
+    the draft's shape), B2, B4 and B5 (their phase-3 checks), the four
+    decode kernels at the lengths phases 4 to 7 serve
+    (``served_decode_ms`` of this script, on each checkout's kernels),
+    phases 4 to 7 with their profile windows, and phase 10's step p50,
+    enqueue p50 and device time by kind; prints each turn as JSON, then
+    all of them on one "A/B runs:" line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2718,7 +2940,8 @@ def run_ab(parent: str) -> int:
     runs = []
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", AB_CODE], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", AB_CODE,
+                               os.path.abspath(__file__)], cwd=root,
                               capture_output=True, text=True, timeout=1200)
         if proc.returncode:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
@@ -2759,6 +2982,8 @@ def main() -> int:
           f"{'not measured (no cuobjdump)' if sass is None else sass}")
 
     decode = check_decode(dev)
+    decode_dims = check_decode_dims(dev)
+    decode_bits = check_decode_bits(dev)
     flash = check_flash(dev)
     paged = check_paged(dev)
     decode8 = check_decode_int8(dev)
@@ -2768,6 +2993,7 @@ def main() -> int:
     decode_draft = check_decode(dev, S=PAGED_ENGINE["num_slots"], H=2, D=16,
                                 bf16=False)["float32"]
     flash_draft = check_flash_draft(dev)
+    served_decode = served_decode_ms(dev)
     # phases 4 to 7; phase 11 (the fault ladder) runs on the warmed
     # engines of phases 4 and 7 after their fault-free runs, phase 12
     # (speculation) on their traffic and against their tokens
@@ -2777,7 +3003,8 @@ def main() -> int:
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
     spec = serve_spec(card, e2e.pop("served"), paged=False)
     spec_paged = serve_spec(card, e2e_paged.pop("served"), paged=True)
-    for e in (e2e_int8, e2e_paged_int8):
+    e2e_bf16 = serve(card, kv_dtype="bf16")  # phase 13: B1's bf16 leg
+    for e in (e2e_int8, e2e_paged_int8, e2e_bf16):
         e.pop("served")
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
@@ -2797,6 +3024,9 @@ def main() -> int:
         row("decode_attention", "decode_attention.cu",
             "decode_attention.py:100",
             e2e["launches"]["decode_attention"], decode["float32"]),
+        row("decode_attention_bf16", "decode_attention.cu",
+            "decode_attention.py:100",
+            e2e_bf16["launches"]["decode_attention"], decode["bfloat16"]),
         row("flash_attention", "flash_attention.cu", "flash_attention.py:65",
             e2e["launches"]["flash_attention"], flash),
         row("paged_attention", "paged_attention.cu", "paged_attention.py:80",
@@ -2835,7 +3065,9 @@ def main() -> int:
             flash_draft),
     ]
     print("details: " + json.dumps(
-        dict(card=card, decode=decode, flash=flash, paged=paged,
+        dict(card=card, decode=decode, decode_dims=decode_dims,
+             decode_bits=decode_bits, served_decode=served_decode,
+             e2e_bf16=e2e_bf16, flash=flash, paged=paged,
              decode_int8=decode8, paged_int8=paged8,
              decode_draft=decode_draft, flash_draft=flash_draft, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,

@@ -3,7 +3,9 @@
 // wgmma shared-memory descriptors and the bf16 wgmma products, and the
 // register hand-over between warpgroups (setmaxnreg). Inline PTX, as the
 // rest of csrc/; no CUTLASS. Used by the bf16 flash kernels
-// (flash_attention.cu: the forward, B3, and the backward, B6 and B7).
+// (flash_attention.cu: the forward, B3, and the backward, B6 and B7)
+// and, for its clusters, by the f32/bf16 decode kernel
+// (decode_attention.cu, B1).
 //
 // Tile layout. Every tile that wgmma reads is a stack of [rows][64] bf16
 // panels (128 bytes a row) in the 128-byte swizzle that TMA's
@@ -62,24 +64,75 @@ __device__ __forceinline__ void mbar_arrive_tx(uint64_t* bar,
 // barrier is in phase 0, so parity 1 passes at once). A phase that
 // never completes is a fault in the kernel's protocol: after 2^35 clock
 // cycles (~20 s) of polling the kernel traps, so the launch fails with
-// an error instead of hanging the card.
+// an error instead of hanging the card. kCluster: the arrivals come from
+// other blocks of the cluster, whose writes the wait acquires.
+template <bool kCluster = false>
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
   const uint32_t a = smem_u32(bar);
   long long start = 0;
   for (uint32_t polls = 0;; ++polls) {
     uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
+    if constexpr (kCluster) {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
+          "[%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    } else {
+      asm volatile(
+          "{\n.reg .pred p;\n"
+          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, p;\n}\n"
+          : "=r"(done)
+          : "r"(a), "r"(parity)
+          : "memory");
+    }
     if (done) return;
     if (polls == 0) start = clock64();
     else if ((polls & 1023) == 0 && clock64() - start > (1ll << 35))
       __trap();
   }
+}
+
+// ---- thread block clusters ----
+
+// This thread's arrival at the cluster barrier, releasing its writes
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+// Waits until every thread of the cluster has arrived, acquiring their
+// writes
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// The shared::cluster address of `p` (in this block's shared memory) in
+// block `rank` of the cluster
+__device__ __forceinline__ uint32_t cluster_addr(const void* p,
+                                                 uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v)
+               : "memory");
+}
+
+// One arrival on a barrier in another block of the cluster (`bar` from
+// cluster_addr), releasing this thread's writes at cluster scope
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile(
+      "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
+          bar)
+      : "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before

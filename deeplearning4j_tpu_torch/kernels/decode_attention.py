@@ -32,12 +32,19 @@ _NEG_INF = -1e30
 launches = 0
 launches_int8 = 0
 
+#: keys a chunk of the f32/bf16 kernel (``kChunk`` in
+#: ``csrc/decode_attention.cu``; :func:`decode_kernel_info` reports the
+#: built kernel's)
+CHUNK_KEYS = 128
+
 _SIG = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                      ctypes.c_void_p]
 _SIG_INT8 = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float,
                                                           ctypes.c_void_p]
 _SIGNATURES = {"decode_attention_f32": _SIG, "decode_attention_bf16": _SIG,
                "decode_attention_int8": _SIG_INT8,
+               "decode_attention_info": [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_void_p],
                "decode_attention_int8_info": [ctypes.c_int,
                                               ctypes.c_void_p]}
 
@@ -126,8 +133,8 @@ def _decode_attention_cuda(q, k, v, lengths):
     check_operands("decode attention", q,
                    (("q", q), ("k", k), ("v", v), ("lengths", lengths)),
                    ((S, H, D), (S, H, T, D), (S, H, T, D), (S,)), lengths)
-    if not 1 <= D <= 128:
-        raise ValueError(f"head dim {D} outside the kernel's 1..128")
+    if not 1 <= D <= 256:
+        raise ValueError(f"head dim {D} outside the kernel's 1..256")
     lib = _build.load("decode_attention", _SIGNATURES)
     fn = (lib.decode_attention_f32 if k.dtype == torch.float32
           else lib.decode_attention_bf16)
@@ -162,6 +169,21 @@ def _decode_attention_int8_cuda(q, k, v, lengths):
     _build.check(rc, "decode_attention_int8")
     launches_int8 += 1
     return out
+
+
+def decode_kernel_info(D: int, dtype=torch.float32) -> dict:
+    """Registers a thread, local (spill) bytes, resident blocks per SM,
+    load width (bytes), keys a chunk and blocks a cluster of the f32 or
+    bf16 kernel at head dim ``D`` with 16-byte-aligned caches, as the
+    card reports them."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"decode kernel info takes f32 or bf16, got {dtype}")
+    lib = _build.load("decode_attention", _SIGNATURES)
+    out = (ctypes.c_int * 6)()
+    _build.check(lib.decode_attention_info(D, dtype == torch.bfloat16, out),
+                 "decode_attention_info")
+    return dict(registers=out[0], local_bytes=out[1], blocks_per_sm=out[2],
+                load_bytes=out[3], chunk_keys=out[4], cluster_blocks=out[5])
 
 
 def int8_kernel_info(D: int) -> dict:

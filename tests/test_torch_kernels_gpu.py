@@ -69,6 +69,133 @@ def test_decode_kernel_matches_plain(dtype, tol):
     assert got[0].abs().max().item() == 0.0
 
 
+def _decode_case(rs, S, H, T, D, dtype, dev, lens, offset=0):
+    """q, and K/V caches that start ``offset`` elements into their
+    storage (a narrower load width), NaN past every slot's length."""
+    q = _randn(rs, S, H, D, dev=dev)
+    k, v = (_randn(rs, offset + S * H * T * D, dev=dev).to(dtype)[offset:]
+            .view(S, H, T, D) for _ in range(2))
+    for s, n in enumerate(lens):
+        k[s, :, n:] = float("nan")
+        v[s, :, n:] = float("nan")
+    return q, k, v, torch.tensor(lens, dtype=torch.int32, device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL_F32),
+                                       (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("D", [1, 3, 16, 36, 64, 128, 160, 256])
+def test_decode_split_kernel_head_dims_and_chunk_edges(D, dtype, tol):
+    """B1's split kernel at head dims 1..256 (odd, partial lane groups,
+    two vectors a lane) with lengths 0, 1, C - 1, C, C + 1, 2C + 1 and
+    T around its chunks of C keys (T = 300, not a multiple of C), NaN in
+    every stale tail: within tol of plain, finite, the length-0 row
+    exactly 0, two calls bit-identical, one launch counted a call."""
+    dev = _device()
+    rs = np.random.RandomState(60 + D)
+    C, T = da.CHUNK_KEYS, 300
+    lens = [0, 1, C - 1, C, C + 1, 2 * C + 1, T]
+    q, k, v, lens = _decode_case(rs, len(lens), 2, T, D, dtype, dev, lens)
+    n0 = da.launches
+    got = da.decode_attention(q, k, v, lens)
+    again = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert da.launches == n0 + 2
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+    assert got[0].abs().max().item() == 0.0
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL_F32),
+                                       (torch.bfloat16, TOL_BF16)])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_decode_split_kernel_narrow_loads(offset, dtype, tol):
+    """Caches 1-3 elements into their storage take the 8-, 4- or (bf16)
+    2-byte loads; D = 64 and D = 6 (a bf16 row of 12 bytes)."""
+    dev = _device()
+    rs = np.random.RandomState(70 + offset)
+    for D in (64, 6):
+        q, k, v, lens = _decode_case(rs, 4, 2, 300, D, dtype, dev,
+                                     [0, 129, 255, 300], offset=offset)
+        assert k.data_ptr() % 16
+        got = da.decode_attention(q, k, v, lens)
+        want = da.decode_attention_torch(q, k, v, lens)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got).all()
+        assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, TOL_F32),
+                                       (torch.bfloat16, TOL_BF16)])
+def test_decode_split_kernel_long_cache(dtype, tol):
+    """Past 8 chunks (T = 3000) each block of a cluster folds several
+    chunks: lengths around 8 and 16 chunks of C keys, and T."""
+    dev = _device()
+    rs = np.random.RandomState(90)
+    C = da.CHUNK_KEYS
+    lens = [8 * C - 1, 8 * C, 8 * C + 1, 16 * C + 1, 3000]
+    q, k, v, lens = _decode_case(rs, len(lens), 2, 3000, 64, dtype, dev, lens)
+    got = da.decode_attention(q, k, v, lens)
+    want = da.decode_attention_torch(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 64])
+def test_decode_split_kernel_slot_bits_independent_of_batch_and_capacity(
+        D, dtype):
+    """A slot's output bits depend on its q, rows and length only: the
+    same alone (S = 1) as among 64 slots, at T_cap 1024 and 2048."""
+    dev = _device()
+    rs = np.random.RandomState(80 + D)
+    S, H = 64, 2
+    q = _randn(rs, S, H, D, dev=dev)
+    k, v = (_randn(rs, S, H, 2048, D, dev=dev).to(dtype) for _ in range(2))
+    lens = rs.randint(1, 1025, S).astype(np.int32)
+    lens[:4] = [0, 1, da.CHUNK_KEYS + 1, 1024]
+    lens = torch.from_numpy(lens).to(dev)
+    wide = da.decode_attention(q, k, v, lens)
+    k1, v1 = (x[:, :, :1024].contiguous() for x in (k, v))
+    narrow = da.decode_attention(q, k1, v1, lens)
+    for s in (0, 1, 2, 3, 17, 63):
+        alone = da.decode_attention(q[s:s + 1].contiguous(),
+                                    k1[s:s + 1].contiguous(),
+                                    v1[s:s + 1].contiguous(),
+                                    lens[s:s + 1].contiguous())
+        assert torch.equal(alone[0], narrow[s])
+    torch.cuda.synchronize()
+    assert torch.equal(wide, narrow)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_kernel_info_reports_the_split_kernel(dtype):
+    """16-byte loads where the row allows them, chunks of CHUNK_KEYS
+    keys, no spills, at least one block per SM."""
+    _device()
+    for D in (16, 64, 128, 160, 256):
+        info = da.decode_kernel_info(D, dtype)
+        assert info["chunk_keys"] == da.CHUNK_KEYS
+        assert info["load_bytes"] == 16
+        assert info["local_bytes"] == 0
+        assert info["blocks_per_sm"] >= 1 and info["registers"] > 0
+        assert info["cluster_blocks"] == 8
+
+
+def test_decode_split_kernel_refuses_what_it_does_not_take():
+    dev = _device()
+    lens = torch.ones(2, dtype=torch.int32, device=dev)
+    q = torch.zeros((2, 2, 257), device=dev)
+    k = torch.zeros((2, 2, 8, 257), device=dev)
+    with pytest.raises(ValueError):
+        da.decode_attention(q, k, k, lens)
+    h = torch.zeros((2, 2, 8, 16), dtype=torch.float16, device=dev)
+    with pytest.raises(TypeError):
+        da.decode_attention(q[..., :16].contiguous(), h, h, lens)
+
+
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("T", [8, 100, 257])
 def test_flash_kernel_matches_plain(D, T):
