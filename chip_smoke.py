@@ -20,8 +20,8 @@ Phases, each of which fails the run when it fails:
    served by GenerationEngine(num_slots=32): ~32 concurrent requests,
    both kernels' launch counters must move, and a teacher-forced check
    against a CPU copy of the model holds each greedy token. The same
-   requests then run through the eager decode step, and every token
-   must be the CUDA graph's;
+   requests then run on an engine with no CUDA graph (every prefill and
+   decode step eager), and every token must be the graphs';
 5. end to end on the paged backend: the same model served by the
    paged configuration of docs/generation.md (64 slots, 4096 blocks of
    16, chunks of 512, prefix sharing on): a primer that registers a
@@ -29,7 +29,9 @@ Phases, each of which fails the run when it fails:
    that prompt) and 8 two-turn sessions. The paged kernel must launch
    once per layer and decode step, prefixes and sessions must hit,
    copy-on-write must run, the teacher-forced check must hold, and
-   every block must come back to the pool;
+   every block must come back to the pool. The primer and the burst
+   then run on an engine with no CUDA graph (chunks, copies and decode
+   steps eager), and every token must be the graphs';
 6. int8 on the slot backend: phase 4's 32 requests served by
    GenerationEngine(num_slots=32, kv_dtype="int8"); the int8 decode
    kernel must launch once per layer and decode step, the flash kernel
@@ -92,8 +94,9 @@ Phases, each of which fails the run when it fails:
    corrupting verify fault (one recovery, none lost); (b) phase 5's
    engine and traffic (primer, burst, sessions) with make_draft_lm's
    default draft (d_model 32, one layer, 2 heads of 16: reject-heavy).
-   Each engine must capture two CUDA graphs at warmup (the decode step
-   and the draft's k-step proposal) and none after, the draft's B1
+   Each engine must capture its graph plan at warmup (with the decode
+   step and the draft's k-step proposal, the prime buckets and the
+   verify spans) and none after, the draft's B1
    launches must be its layers x k x proposal calls and B3 must run its
    primes, and every lane's tokens must equal phase 4's or 5's unless
    their first difference is a near-tie of the CPU reference. It prints
@@ -107,10 +110,16 @@ Phases, each of which fails the run when it fails:
    and a teacher-forced check against the port's own bf16 path on a
    CPU copy holds each greedy token.
 
-Phases 4 to 7 and 13 serve with the engine's defaults on the card: the
-pipelined decode loop, and the decode step captured at warmup as one
-CUDA graph and replayed every step (a replay counts the launches the
-capture recorded). Each phase must capture exactly once, at warmup.
+Phases 4 to 7, 12 and 13 serve with the engine's defaults on the card:
+the pipelined decode loop, and every executable of the JAX engine's
+warm set captured at warmup as a CUDA graph (``graph_plan``: the
+decode step, each prefill bucket on slots, each (chunk, table) bucket
+pair and the copy-on-write copy on the paged backend, with speculation
+the proposal, the prime buckets and the verify spans) and replayed (a
+replay counts the launches the capture recorded). Each phase must
+capture exactly its plan at warmup and nothing after, phase 11's
+recoveries included, and prints its captures, their wall time, the
+shared graph pool's MiB, prefill (chunk) p50 and TTFT p50/p99.
 
 Phase 3 holds B1 (f32 and bf16) against its plain version at head
 dims 16, 64, 128, 160 and 256 with lengths at its chunk edges and NaN
@@ -156,9 +165,11 @@ three and the whole bf16 backward (delta included) at B=4, T=1024,
 the decode and paged kernels, f32 and int8 (their phase-3 checks; B1
 also in bf16 and at the draft's shape), the four decode kernels at the
 lengths phases 4 to 7 serve, serving phases 4 to 7 with their profile
-windows, and phase 10 (step
-p50, the host's enqueue p50, device time by kind); an "A/B runs:"
-line carries every turn as JSON.
+windows (tokens/s, TTFT p50/p99, prefill or chunk p50), phase 11's
+recovery ms on phases 4 and 7's engines, phase 12 on both backends
+(tokens/s, verify p50), and phase 10 (step p50, the host's enqueue
+p50, device time by kind); an "A/B runs:" line carries every turn as
+JSON.
 """
 from __future__ import annotations
 
@@ -1142,6 +1153,8 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
         eng.warmup()
         warm_s = time.perf_counter() - t0
         captures = warmed_compiles(eng)
+        graphs = graph_memory(eng)
+        calls = count_calls(eng)
         reqs = slot_traffic()
         st0 = eng.stats()
         reset_launches()
@@ -1162,6 +1175,8 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
         n_tok = sum(len(r["tokens"]) for r in results)
         prof = profile_window(eng)
         no_capture_since(eng, captures)
+        replay = (busiest_replay(eng, calls, "prefill") if eng._cuda_graph
+                  else None)
         ladder = None
         if chaos:
             ladder = fault_ladder(
@@ -1190,7 +1205,7 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                prefill_p50_ms=st["prefill_ms"]["p50"],
                decode_steps=steps, prefills=st["prefills"],
                cuda_graph=eng._cuda_graph, compiles_after_warmup=captures,
-               eager=eager,
+               graphs=graphs, busiest_replay=replay, eager=eager,
                mean_occupancy=st["slots"]["mean_occupancy"],
                kv_cache_bytes=st["kv_cache_bytes"],
                kv_bytes_per_token=st["kv_bytes_per_token"],
@@ -1202,19 +1217,22 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                fault_ladder=ladder, served=(None, [(reqs, results)]))
     tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
-          f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50 "
-          f"{e2e['ttft_p50_ms']:.1f} ms, decode step p50/p99 "
+          f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
+          f"{e2e['ttft_p50_ms']:.1f}/{e2e['ttft_p99_ms']:.1f} ms, prefill "
+          f"p50 {e2e['prefill_p50_ms']:.2f} ms, decode step p50/p99 "
           f"{e2e['decode_step_p50_ms']:.2f}/{e2e['decode_step_p99_ms']:.2f} "
           f"ms, sync wait p50/p99 {e2e['decode_sync_wait_p50_ms']:.2f}/"
           f"{e2e['decode_sync_wait_p99_ms']:.2f} ms, launches {launches} "
-          f"over {steps} decode steps ({captures} decode-step graph "
-          f"captured at warmup, none after), cache {st['kv_cache_bytes']} "
-          f"bytes, {st['kv_bytes_per_token']} bytes per token")
+          f"over {steps} decode steps and {e2e['prefills']} prefills; "
+          f"{graph_line(graphs)}{replay_line(replay)}; cache "
+          f"{st['kv_cache_bytes']} bytes, {st['kv_bytes_per_token']} bytes "
+          f"per token")
     if eager is not None:
-        print(f"e2e{tag} eager step [{card}]: the same requests through the "
-              f"eager decode step: {eager['identical']} requests' tokens "
-              f"identical to the graph's, {eager['tokens_per_s']:.1f} "
-              f"tokens/s, decode step p50/p99 "
+        print(f"e2e{tag} eager [{card}]: the same requests on the engine "
+              f"with no CUDA graph: {eager['identical']} requests' tokens "
+              f"identical to the graphs', {eager['tokens_per_s']:.1f} "
+              f"tokens/s, TTFT p50 {eager['ttft_p50_ms']:.1f} ms, prefill "
+              f"p50 {eager['prefill_p50_ms']:.2f} ms, decode step p50/p99 "
               f"{eager['decode_step_p50_ms']:.2f}/"
               f"{eager['decode_step_p99_ms']:.2f} ms, sync wait p50 "
               f"{eager['decode_sync_wait_p50_ms']:.2f} ms")
@@ -1885,12 +1903,14 @@ def paged_traffic(vocab: int):
 
 
 def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
-                chaos: bool = False):
+                chaos: bool = False, eager_ab: bool = False):
     """Phase 5 (f32) or 7 (int8, int8 MLP weights): the paged backend
     end to end (see the module doc). With ``chaos``, phase 11 then reruns
     the primer and the 48-request burst on the same warmed engine under
     :func:`paged_fault_plan`'s plan (:func:`fault_ladder`), and every
-    block must come back again."""
+    block must come back again. With ``eager_ab`` the primer and the
+    burst then run on an engine with no CUDA graph and must give the
+    same tokens."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -1915,6 +1935,8 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
         eng.warmup()
         warm_s = time.perf_counter() - t0
         captures = warmed_compiles(eng)
+        graphs = graph_memory(eng)
+        calls = count_calls(eng)
         st0 = eng.stats()
         reset_launches()
         eng.generate(timeout_ms=600_000, **primer)
@@ -1946,6 +1968,9 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
         prof = profile_window(eng)
         no_capture_since(eng, captures)
         all_blocks_back(eng)
+        # every block is free: a replay's writes land on no live data
+        replay = (busiest_replay(eng, calls, "chunk") if eng._cuda_graph
+                  else None)
         ladder = None
         if chaos:
             plan, target, planned = paged_fault_plan(eng, primer, burst)
@@ -1961,6 +1986,8 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                                                           "faults")
     finally:
         eng.stop()
+    eager = (eager_run(lm, dict(PAGED_ENGINE, kv_dtype=kv_dtype), burst,
+                       results, primer=primer) if eager_ab else None)
 
     greedy = [i for i, q in enumerate(burst) if q["temperature"] == 0.0]
     same = None
@@ -2001,6 +2028,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
                decode_sync_wait_p99_ms=st["decode_sync_wait_ms"]["p99"],
                cuda_graph=eng._cuda_graph, compiles_after_warmup=captures,
+               graphs=graphs, busiest_replay=replay, eager=eager,
                prefill_chunk_p50_ms=st["prefill_ms"]["p50"],
                decode_steps=steps,
                prefill_chunks=st["paged"]["prefill_chunks"],
@@ -2038,9 +2066,20 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
           f"{pc['prefix_tokens_matched']} prompt tokens matched, "
           f"{pc['cow_copies']} COW copies, peak {e2e['blocks_peak_used']} "
           f"of {e2e['blocks_total']} blocks, launches {launches} over "
-          f"{steps} decode steps; pool {st['kv_cache_bytes']} bytes "
+          f"{steps} decode steps; {graph_line(graphs)}"
+          f"{replay_line(replay)}; pool "
+          f"{st['kv_cache_bytes']} bytes "
           f"({st['kv_cache_bytes'] / 2**30:.3f} GiB), "
           f"{st['kv_bytes_per_token']} bytes per token, quant {st['quant']}")
+    if eager is not None:
+        print(f"e2e paged{tag} eager [{card}]: the primer and burst on the "
+              f"engine with no CUDA graph: {eager['identical']} requests' "
+              f"tokens identical to the graphs', "
+              f"{eager['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+              f"{eager['ttft_p50_ms']:.1f} ms, prefill chunk p50 "
+              f"{eager['prefill_p50_ms']:.2f} ms, decode step p50/p99 "
+              f"{eager['decode_step_p50_ms']:.2f}/"
+              f"{eager['decode_step_p99_ms']:.2f} ms")
     print(f"teacher-forced (paged{tag}): {checked} greedy tokens of "
           f"{len(shared)} shared-prefix and {len(resumed)} turn-2 requests, "
           f"exact-match rate {e2e['teacher_exact_rate']:.4f}, worst gap "
@@ -2072,8 +2111,9 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
     lane's tokens must equal those unless their first difference is a
     near-tie of the CPU reference (:func:`near_tie` at the teacher
     tolerance). Tokens/s is the first wave's (phase 4's or 5's burst). The
-    engine must capture two graphs at warmup (decode and proposal) and
-    none after; the draft's B1 launches must be its layers x k x the
+    engine must capture its graph plan at warmup (decode, proposal,
+    prefill or chunk buckets, copy-on-write, primes, verify spans) and
+    nothing after; the draft's B1 launches must be its layers x k x the
     proposal calls (graph replays counted) and B3 run its primes, and no
     draft call may fall back (random weights give finite logits, so a
     sound draft never does). The accept rate is split by lane
@@ -2105,10 +2145,9 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
         t0 = time.perf_counter()
         eng.warmup()
         warm_s = time.perf_counter() - t0
-        captures = eng.stats()["compile_cache"]["compiles"]
-        if captures != 2 * int(eng._cuda_graph):
-            raise AssertionError(f"{label}: {captures} captures at warmup "
-                                 f"(two graphs: decode and proposal)")
+        captures = warmed_compiles(eng)
+        graphs = graph_memory(eng)
+        graph_calls = count_calls(eng)
         propose = eng._propose_call
         eng._propose_call = lambda: calls.append(1) or propose()
         if paged:
@@ -2125,18 +2164,19 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
             eng._spec_cow_guard = counted
         # every prime and verify in order, for the per-lane accept rates
         events = []
-        verify_fn, prime = eng._verify_fn, eng._spec_prime
+        verify, prime = eng._verify_call, eng._spec_prime
 
-        def verify_logged(*a):
-            out = verify_fn(*a)
-            # (slot or, paged, None; temperature; accepted, on the device)
-            events.append((None if paged else a[6], a[9], out[1]))
+        def verify_logged(slot, tokens, p0, req, table=None):
+            out = verify(slot, tokens, p0, req, table)
+            # (slot or, paged, None; temperature; accepted)
+            events.append((None if paged else slot, req.temperature,
+                           out[eng._vbucket]))
             return out
 
         def prime_logged(slot, seq):
             events.append((slot, None, None))
             return prime(slot, seq)
-        eng._verify_fn, eng._spec_prime = verify_logged, prime_logged
+        eng._verify_call, eng._spec_prime = verify_logged, prime_logged
         st0 = eng.stats()
         reset_launches()
         if primer is not None:
@@ -2168,6 +2208,8 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
                                      f"fault gave {ladder}")
         if paged:
             all_blocks_back(eng)
+        replay = (busiest_replay(eng, graph_calls, "verify")
+                  if eng._cuda_graph else None)
     finally:
         eng.stop()
     check_lengths(results, reqs)
@@ -2206,13 +2248,16 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
                           n_heads=draft.n_heads),
                requests=len(reqs), burst_requests=len(waves[0][0]),
                tokens=n_tok, wall_s=wall, tokens_per_s=n_tok / wall,
-               warmup_s=warm_s,
+               warmup_s=warm_s, graphs=graphs, busiest_replay=replay,
                captures_at_warmup=captures, captures_after=0, spec=sp,
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
                draft_call_p50_ms=st["spec_draft_ms"]["p50"],
                verify_p50_ms=st["spec_verify_ms"]["p50"],
-               ttft_p50_ms=st["ttft_ms"]["p50"], decode_steps=steps,
+               verify_p99_ms=st["spec_verify_ms"]["p99"],
+               ttft_p50_ms=st["ttft_ms"]["p50"],
+               ttft_p99_ms=st["ttft_ms"]["p99"],
+               prefill_p50_ms=st["prefill_ms"]["p50"], decode_steps=steps,
                proposal_calls=n_calls, primes=primes, launches=launches,
                b1_launches=b1, b3_launches=b3, accept_split=split,
                lanes_differing=differ, near_ties=ties,
@@ -2222,15 +2267,19 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
           f"{len(waves[0][0])} requests in {wall:.3f} s = "
           f"{n_tok / wall:.1f} tokens/s ({len(reqs)} requests in all); "
           f"draft d{draft.d_model} x L{d_layers} x H{draft.n_heads}; "
-          f"captures {captures} at warmup, none after; "
+          f"{graph_line(graphs)}{replay_line(replay)}; TTFT p50/p99 "
+          f"{out['ttft_p50_ms']:.1f}/"
+          f"{out['ttft_p99_ms']:.1f} ms, prefill p50 "
+          f"{out['prefill_p50_ms']:.2f} ms; "
           f"accept rate {sp['accept_rate']} (by lane as (rate, draft "
           f"tokens): {split}), {sp['verify_batches']} verify "
           f"batches, {sp['rollbacks']} rollbacks, {sp['draft_fallbacks']} "
           f"draft fallbacks; decode step p50/p99 "
           f"{out['decode_step_p50_ms']:.2f}/{out['decode_step_p99_ms']:.2f}"
           f" ms over {steps} plain steps; draft call p50 "
-          f"{out['draft_call_p50_ms']:.2f} ms, verify p50 "
-          f"{out['verify_p50_ms']:.2f} ms; B1 launches {b1} = draft "
+          f"{out['draft_call_p50_ms']:.2f} ms, verify p50/p99 "
+          f"{out['verify_p50_ms']:.2f}/{out['verify_p99_ms']:.2f} ms; "
+          f"B1 launches {b1} = draft "
           f"{d_layers} x {SPEC_K} x {n_calls} proposal calls"
           + ("" if paged else f" + target {layers} x {steps} steps")
           + f", B3 {b3} = " + ("" if paged else f"target {layers} + ")
@@ -2615,8 +2664,8 @@ def fault_ladder(eng, card, label, reqs, want, plan, cpu_fn, rows_fn, tol,
           f"from the fault-free run (near-ties as (request, position, "
           f"gap): {ties}); {prefills} "
           f"prefills, {chunks} chunks, {steps} decode steps, launches "
-          f"{launches}; {captures} decode-step graph captured at warmup, "
-          f"none after")
+          f"{launches}; {captures} graphs captured at warmup, none "
+          f"after")
     if not_ties:
         raise AssertionError("; ".join(not_ties))
     return out
@@ -2635,13 +2684,17 @@ def all_blocks_back(eng, when: str = "") -> int:
 
 
 def warmed_compiles(eng) -> int:
-    """Decode-step graph captures after warmup: one where the engine
-    replays its CUDA graph (the card's default), none for the eager
-    step."""
+    """Graph captures after warmup: exactly the engine's ``graph_plan``
+    (the decode step and every bucket of the JAX engine's warm set)
+    where it replays CUDA graphs (the card's default), none for the
+    engine with no graph."""
     n = eng.stats()["compile_cache"]["compiles"]
-    if n != int(eng._cuda_graph):
-        raise AssertionError(f"{n} decode-step captures after warmup "
-                             f"(CUDA graph {eng._cuda_graph})")
+    plan = eng.graph_plan() if eng._cuda_graph else []
+    buckets = {k for k in plan if k[0] not in ("decode", "propose")}
+    if n != len(plan) or set(eng._graphs) != buckets:
+        raise AssertionError(f"{n} captures after warmup, graphs "
+                             f"{sorted(eng._graphs)}: the plan is "
+                             f"{plan} (CUDA graph {eng._cuda_graph})")
     return n
 
 
@@ -2649,32 +2702,103 @@ def no_capture_since(eng, captures: int):
     """Nothing may be captured once the engine is warm."""
     n = eng.stats()["compile_cache"]["compiles"]
     if n != captures:
-        raise AssertionError(f"{n - captures} decode-step captures after "
+        raise AssertionError(f"{n - captures} graph captures after "
                              f"warmup")
 
 
-def eager_run(lm, engine_kw, reqs, results):
-    """``reqs`` again, through the eager decode step (the engine's private
-    ``_cuda_graph`` switched off before warmup): every request's tokens
-    must be those of the graphed run (``results``). Returns its step
-    and throughput numbers."""
+def graph_memory(eng) -> dict:
+    """The captures' wall time and the bytes the per-bucket graphs'
+    shared memory pool holds (its segments in the allocator's snapshot;
+    None where the snapshot names no pools)."""
+    import torch
+    pool, mib = eng._graph_pool, None
+    if pool is not None:
+        segs = torch.cuda.memory_snapshot()
+        if segs and "segment_pool_id" in segs[0]:
+            mib = sum(x["total_size"] for x in segs
+                      if tuple(x["segment_pool_id"]) == tuple(pool)) / 2**20
+    return dict(captures=eng.stats()["compile_cache"]["compiles"],
+                capture_ms=eng._capture_ms, graph_pool_mib=mib)
+
+
+def count_calls(eng) -> dict:
+    """Count the engine's per-bucket device calls by graph key (a
+    wrapper over ``_device_call``); returns the live dict."""
+    calls = {}
+    call = eng._device_call
+
+    def counted(key, *a, **k):
+        calls[key] = calls.get(key, 0) + 1
+        return call(key, *a, **k)
+    eng._device_call = counted
+    return calls
+
+
+def busiest_replay(eng, calls: dict, kind: str):
+    """The most called ``kind`` graph of this run, replayed alone on the
+    card: its device ms a replay (:func:`time_ms`) and the kernels one
+    replay runs (torch.profiler), beside its call count. Only where
+    nothing live can be overwritten: the replay writes its last call's
+    slot or blocks again (all free by then)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    keys = [k for k in calls if k[0] == kind and k in eng._graphs]
+    if not keys:
+        return None
+    key = max(keys, key=lambda k: calls[k])
+    graph = eng._graphs[key][0]
+    ms = time_ms(graph.replay)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.replay()
+        torch.cuda.synchronize()
+    kernels = sum(e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return dict(key=list(key), calls=calls[key], replay_ms=ms,
+                kernels=kernels)
+
+
+def replay_line(r) -> str:
+    if r is None:
+        return ""
+    return (f"; busiest graph {tuple(r['key'])}: {r['calls']} calls, one "
+            f"replay alone {r['replay_ms']:.3f} ms on the device over "
+            f"{r['kernels']} kernels")
+
+
+def graph_line(g: dict) -> str:
+    mib = g["graph_pool_mib"]
+    return (f"{g['captures']} graphs captured at warmup in "
+            f"{g['capture_ms']:.1f} ms, none after; shared graph pool "
+            + ("not measured" if mib is None else f"{mib:.1f} MiB"))
+
+
+def eager_run(lm, engine_kw, reqs, results, primer=None):
+    """``reqs`` again (after ``primer``, when given), on an engine with
+    no CUDA graph at all (the private ``_cuda_graph`` switched off before
+    warmup: the decode step, prefills, chunks and copies all eager):
+    every request's tokens must be those of the graphed run
+    (``results``). Returns its step and throughput numbers."""
     from deeplearning4j_tpu_torch.serving import GenerationEngine
     eng = GenerationEngine(lm, **engine_kw)
     eng._cuda_graph = False
     try:
         eng.warmup()
         warmed_compiles(eng)
+        if primer is not None:
+            eng.generate(timeout_ms=600_000, **primer)
         got, wall = run_requests(eng, reqs)
         st = eng.stats()
     finally:
         eng.stop()
     same = sum(a["tokens"] == b["tokens"] for a, b in zip(got, results))
     if same != len(reqs):
-        raise AssertionError(f"the eager step gave other tokens than the "
-                             f"CUDA graph: {same} of {len(reqs)} identical")
+        raise AssertionError(f"the eager engine gave other tokens than the "
+                             f"CUDA graphs: {same} of {len(reqs)} identical")
     n_tok = sum(len(r["tokens"]) for r in got)
     return dict(identical=f"{same}/{len(reqs)}", wall_s=wall,
                 tokens_per_s=n_tok / wall,
+                ttft_p50_ms=st["ttft_ms"]["p50"],
+                prefill_p50_ms=st["prefill_ms"]["p50"],
                 decode_step_p50_ms=st["decode_step_ms"]["p50"],
                 decode_step_p99_ms=st["decode_step_ms"]["p99"],
                 decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
@@ -2896,20 +3020,34 @@ out["paged_ms"] = cs.check_paged(dev)["float32"]["ms"]
 out["paged_int8_ms"] = cs.check_paged_int8(dev)["ms"]
 out["decode_int8_ms"] = cs.check_decode_int8(dev)["ms"]
 out["serving"] = {}
-for phase, run in ((4, lambda: cs.serve(card)),
+served = {}
+# phases 4 and 7 with phase 11's fault reruns on their engines
+for phase, run in ((4, lambda: cs.serve(card, chaos=True)),
                    (5, lambda: cs.serve_paged(card)),
                    (6, lambda: cs.serve(card, kv_dtype="int8")),
-                   (7, lambda: cs.serve_paged(card, kv_dtype="int8"))):
+                   (7, lambda: cs.serve_paged(card, kv_dtype="int8",
+                                              chaos=True))):
     e = run()
+    served[phase] = e.pop("served")
     prof = e["profile"]
     out["serving"][phase] = dict(
         {k: e.get(k) for k in ("tokens_per_s", "ttft_p50_ms", "ttft_p99_ms",
+                               "prefill_p50_ms", "prefill_chunk_p50_ms",
                                "decode_step_p50_ms", "decode_step_p99_ms",
                                "decode_sync_wait_p50_ms",
-                               "decode_sync_wait_p99_ms")},
+                               "decode_sync_wait_p99_ms", "warmup_s")},
+        recovery_ms=(e["fault_ladder"] or {}).get("recovery_ms"),
         window={k: prof[k] for k in ("busy_share", "busy_ms", "wall_ms",
                                      "device_kernels", "decode_steps",
                                      "ours")})
+# phase 12 on phases 4 and 5's traffic
+out["spec"] = {}
+for label, phase, paged in (("12a", 4, False), ("12b", 5, True)):
+    e = cs.serve_spec(card, served[phase], paged=paged)
+    out["spec"][label] = {k: e.get(k) for k in (
+        "tokens_per_s", "verify_p50_ms", "draft_call_p50_ms", "ttft_p50_ms",
+        "decode_step_p50_ms", "warmup_s")}
+    out["spec"][label]["busy_share"] = e["profile"]["busy_share"]
 tr = cs.train(card, cfg=dict(cs.TRAIN_CFG, dtype="bfloat16"))  # phase 10
 out["train_bf16"] = dict(
     {k: tr[k] for k in ("step_p50_ms", "enqueue_p50_ms", "step_ms",
@@ -2927,9 +3065,12 @@ def run_ab(parent: str) -> int:
     the draft's shape), B2, B4 and B5 (their phase-3 checks), the four
     decode kernels at the lengths phases 4 to 7 serve
     (``served_decode_ms`` of this script, on each checkout's kernels),
-    phases 4 to 7 with their profile windows, and phase 10's step p50,
-    enqueue p50 and device time by kind; prints each turn as JSON, then
-    all of them on one "A/B runs:" line."""
+    phases 4 to 7 with their profile windows (tokens/s, TTFT p50/p99,
+    prefill or chunk p50, decode step), phase 11's recovery ms on phases
+    4 and 7's engines, phase 12 (tokens/s, verify and draft call p50) on
+    both backends, and phase 10's step p50, enqueue p50 and device time
+    by kind; prints each turn as JSON, then all of them on one "A/B
+    runs:" line."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2942,7 +3083,7 @@ def run_ab(parent: str) -> int:
                         ("change", here), ("parent", parent)):
         proc = subprocess.run([sys.executable, "-c", AB_CODE,
                                os.path.abspath(__file__)], cwd=root,
-                              capture_output=True, text=True, timeout=1200)
+                              capture_output=True, text=True, timeout=1500)
         if proc.returncode:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
             raise RuntimeError(f"A/B turn {label} failed")
@@ -2998,7 +3139,7 @@ def main() -> int:
     # engines of phases 4 and 7 after their fault-free runs, phase 12
     # (speculation) on their traffic and against their tokens
     e2e = serve(card, eager_ab=True, chaos=True)
-    e2e_paged = serve_paged(card)
+    e2e_paged = serve_paged(card, eager_ab=True)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
     spec = serve_spec(card, e2e.pop("served"), paged=False)

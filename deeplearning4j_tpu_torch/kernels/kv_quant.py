@@ -162,25 +162,49 @@ def kv_set(cache, idx, values):
     return cache
 
 
-def kv_copy_row(pool, src: int, dst: int):
+def kv_copy_row(pool, src, dst):
     """Copy leading-axis row ``src`` of ``pool`` into row ``dst`` in
     place (a copy-on-write block duplicate) and return the pool. An
-    int8 pool copies the scale row with the values."""
+    int8 pool copies the scale row with the values. ``src`` and ``dst``
+    are host ints, or 1-element integer tensors on the pool's device
+    (the copy-on-write CUDA graph's runtime arguments: no host sync)."""
     _check_pool(pool)
-    if is_quantized(pool):
-        pool.q[int(dst)].copy_(pool.q[int(src)])
-        pool.scale[int(dst)].copy_(pool.scale[int(src)])
+    parts = (pool.q, pool.scale) if is_quantized(pool) else (pool,)
+    if isinstance(src, torch.Tensor):
+        s, d = src.reshape(1).long(), dst.reshape(1).long()
+        for t in parts:
+            t.index_copy_(0, d, t.index_select(0, s))
         return pool
-    pool[int(dst)].copy_(pool[int(src)])
+    for t in parts:
+        t[int(dst)].copy_(t[int(src)])
     return pool
 
 
-def kv_update_slice(cache, slab, start: Sequence[int]):
+def kv_update_slice(cache, slab, start: Sequence):
     """Write ``slab`` into ``cache`` at ``start`` (one index per cache
     axis), in place, quantizing on write for int8: the counterpart of
     ``dynamic_update_slice``, whose start JAX clamps so the slab fits;
-    a slab that does not fit raises here instead."""
+    a slab that does not fit raises here instead. The leading index may
+    be a 1-element integer tensor on the cache's device (a slot a CUDA
+    graph takes at run time: no host sync) when the slab's leading
+    extent is 1; the other indices are host ints."""
     _check_pool(cache)
+    lead = start[0]
+    if isinstance(lead, torch.Tensor):
+        if slab.shape[0] != 1:
+            raise ValueError(f"a tensor start indexes one row, the slab "
+                             f"has {slab.shape[0]}")
+        region = (slice(None),) + tuple(
+            slice(int(s), int(s) + n) for s, n in zip(start[1:],
+                                                      slab.shape[1:]))
+        idx = (lead.reshape(1).long(),)
+        if is_quantized(cache):
+            qv = quantize_rows(slab)
+            cache.q[region].index_put_(idx, qv.q)
+            cache.scale[region[:-1]].index_put_(idx, qv.scale)
+        else:
+            cache[region].index_put_(idx, slab.to(cache.dtype))
+        return cache
     region = tuple(slice(int(s), int(s) + n)
                    for s, n in zip(start, slab.shape))
     if is_quantized(cache):

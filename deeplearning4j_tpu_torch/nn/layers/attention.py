@@ -41,7 +41,15 @@ from . import Layer, register
 
 def _cache_row(cache, i):
     """Leading-axis row of a cache; an int8 QuantArray's scale row
-    comes with its values (the scales drop only the trailing axis)."""
+    comes with its values (the scales drop only the trailing axis).
+    ``i`` is a host int (a view) or a 1-element device tensor (a
+    gathered copy, no host sync)."""
+    if isinstance(i, torch.Tensor):
+        idx = i.reshape(1).long()
+        if is_quantized(cache):
+            return QuantArray(cache.q.index_select(0, idx)[0],
+                              cache.scale.index_select(0, idx)[0])
+        return cache.index_select(0, idx)[0]
     if is_quantized(cache):
         return QuantArray(cache.q[i], cache.scale[i])
     return cache[i]
@@ -270,7 +278,9 @@ class SelfAttentionLayer(Layer):
         [n_blocks] covering at least ``p0 + C`` positions (an index past
         it raises: an undersized table is the one fatal case, because
         the padded rows would alias another sequence's blocks); p0: the
-        chunk's first global position; chunk_len: its valid rows.
+        chunk's first global position; chunk_len: its valid rows. p0 and
+        chunk_len are host ints or 0-d device tensors (a CUDA graph's
+        runtime arguments); nothing here reads them on the host.
         Padded rows write junk past the live length or into the null
         block, where every reader's mask keeps it dark. Returns (out
         [1, C, n_out], k_pool, v_pool)."""
@@ -281,7 +291,7 @@ class SelfAttentionLayer(Layer):
         Dh = self.n_out // H
         Bs = k_pool.shape[2]
         q, k_t, v_t = self._project(params, x[0], (C, H, Dh))
-        gpos = int(p0) + torch.arange(C, device=x.device)
+        gpos = torch.arange(C, device=x.device) + p0
         blk = block_table.long()[gpos // Bs]
         heads = torch.arange(H, device=x.device)[None, :]
         idx = (blk[:, None], heads, (gpos % Bs)[:, None])
@@ -289,7 +299,7 @@ class SelfAttentionLayer(Layer):
         kv_set(v_pool, idx, v_t)
         kk = _gather_span(k_pool, block_table, H, Dh)
         vv = _gather_span(v_pool, block_table, H, Dh)
-        att = _span_attend(q, kk, vv, gpos, int(p0) + C, x.dtype)
+        att = _span_attend(q, kk, vv, gpos, p0 + C, x.dtype)
         out = att.reshape(C, self.n_out) @ params["Wo"] + params["b"]
         return out[None], k_pool, v_pool
 
@@ -301,26 +311,32 @@ class SelfAttentionLayer(Layer):
         then attend each row causally over the whole panel.
 
         x: [1, C, Cin] (C is the verify bucket); k_cache/v_cache:
-        [S, H, T_max, Dh]; slot, p0: host ints; chunk_len: valid rows
-        (padded rows write junk past the live length, masked by every
-        reader until an accepted write overwrites it). Rows at positions
-        >= T_max are not written, as JAX's scatter drops them: an index
-        past the panel would raise on the CPU and fire a device-side
-        assert on the card. Returns (out [1, C, n_out], k_cache,
-        v_cache)."""
+        [S, H, T_max, Dh]; slot: a host int or a 1-element device
+        tensor; p0 (< T_max, a lane's position): a host int or a 0-d
+        device tensor; chunk_len: valid rows (padded rows write junk
+        past the live length, masked by every reader until an accepted
+        write overwrites it). Rows at positions >= T_max are not
+        written, as JAX's scatter drops them, and with no host value:
+        every row writes at ``min(p0 + i, T_max - 1)`` the K/V of row
+        ``min(i, T_max - 1 - p0)``, so the rows past the panel repeat
+        the last in-panel row's write, value for value (no index past
+        the panel, no duplicate writes of different values). Returns
+        (out [1, C, n_out], k_cache, v_cache)."""
         if not self.causal:
             raise ValueError("cached decode needs causal=True attention")
         C = x.shape[1]
         H = self.n_heads
         Dh = self.n_out // H
-        p0, slot = int(p0), int(slot)
         q, k_t, v_t = self._project(params, x[0], (C, H, Dh))
-        gpos = p0 + torch.arange(C, device=x.device)
-        n = max(0, min(C, k_cache.shape[2] - p0))
+        gpos = torch.arange(C, device=x.device) + p0
+        wpos = gpos.clamp(max=k_cache.shape[2] - 1)
+        src = wpos - p0
         heads = torch.arange(H, device=x.device)[None, :]
-        idx = (slot, heads, gpos[:n, None])
-        kv_set(k_cache, idx, k_t[:n])
-        kv_set(v_cache, idx, v_t[:n])
+        row = (slot.reshape(1, 1).long() if isinstance(slot, torch.Tensor)
+               else int(slot))
+        idx = (row, heads, wpos[:, None])
+        kv_set(k_cache, idx, k_t[src])
+        kv_set(v_cache, idx, v_t[src])
         att = _span_attend(q, _cache_row(k_cache, slot),
                            _cache_row(v_cache, slot), gpos, p0 + C, x.dtype)
         out = att.reshape(C, self.n_out) @ params["Wo"] + params["b"]

@@ -24,10 +24,9 @@ scheduler
 
 With ``speculation_k`` > 0 (``serving/speculative.py``) step 2 is
 preceded by a speculative round: one draft call proposes k tokens for
-every lane (on the card one CUDA graph, captured at :meth:`warmup`),
-each eligible lane's proposals are verified in one eager target span,
-and the lanes it advanced ride the plain step as passengers. Tokens
-are those of ``speculation_k=0``.
+every lane, each eligible lane's proposals are verified in one target
+span, and the lanes it advanced ride the plain step as passengers.
+Tokens are those of ``speculation_k=0``.
 
 With ``decode_pipeline`` (the default, as in the JAX engine) step t+1
 is dispatched before step t's tokens are synced, so emit, retire and
@@ -39,7 +38,17 @@ step (embedding, the layers with their in-place K/V writes, the
 attention kernel, the finite-logits guard, sampling and the done
 flags) is one CUDA graph per engine, captured at :meth:`warmup` (the
 torch form of the JAX engine's one AOT decode executable) and replayed
-every step; ``metrics.compiles`` counts captures.
+every step. So is every other executable of the JAX engine, one graph
+per shape bucket: the slot prefill per prompt bucket (first token
+sampled inside), the paged chunk per (chunk bucket, table bucket), the
+copy-on-write copy, the draft's proposal, the draft prime per prime
+bucket and the verify span (per table bucket on the paged backend).
+Each reads its per-call values from one static device buffer of its
+kind and writes its results to another, which one pinned copy and one
+event bring to the host: a call is a host-to-device copy, a replay and
+one sync. :meth:`graph_plan` is the set :meth:`warmup` captures (the
+JAX engine's warm set); ``metrics.compiles`` counts captures, so after
+warmup it equals the JAX engine's compiles.
 
 Overload semantics match the JAX engine: a bounded queue sheds (503,
 :class:`QueueFullError`), batch-priority work is shed first, and
@@ -102,7 +111,7 @@ from .paging import (NULL_BLOCK, BlockAllocator, BlockTable, PagedKVCache,
                      pow2_bucket)
 from .speculative import (make_prime_fn, make_propose_fn,
                           make_verify_paged_fn, make_verify_slots_fn,
-                          verify_bucket)
+                          verify_bucket, verify_uniforms)
 
 _NEG_INF = -1e30
 
@@ -151,6 +160,53 @@ def _uniforms(seeds: np.ndarray, steps: np.ndarray) -> torch.Tensor:
         jrandom.PRNGKey(torch.from_numpy(seeds.astype(np.int64))),
         torch.from_numpy(steps.astype(np.int64)))
     return jrandom.uniform(key)
+
+
+class _InBuf:
+    """One graph kind's static int32 input buffer on the device, laid
+    out as named fields of given widths (``temp`` and ``u`` hold f32
+    bits): the buffer-driven device functions read their per-call values
+    from it, so one CUDA graph per bucket serves every call.
+    :meth:`load` fills it from a host buffer with one copy; fields not
+    given are 0 (``NULL_BLOCK`` for a table)."""
+
+    _F32 = frozenset(("temp", "u"))
+
+    def __init__(self, device, **widths):
+        self._at: Dict[str, Tuple[int, int]] = {}
+        n = 0
+        for name, w in widths.items():
+            self._at[name] = (n, int(w))
+            n += int(w)
+        self._pin = device.type == "cuda"
+        self.dev = torch.zeros(n, dtype=torch.int32, device=device)
+
+    def load(self, **values):
+        """Copy ``values`` (name -> scalar or 1-D array) into the device
+        buffer through a pinned host buffer, on the current stream."""
+        h = torch.zeros(self.dev.shape, dtype=torch.int32,
+                        pin_memory=self._pin)
+        words = h.numpy()
+        for name, v in values.items():
+            lo, w = self._at[name]
+            v = np.asarray(v).reshape(-1)
+            dst = words.view(np.float32) if name in self._F32 else words
+            dst[lo:lo + v.size] = v
+        self.dev.copy_(h, non_blocking=True)
+
+    def ints(self, name: str, n: Optional[int] = None) -> torch.Tensor:
+        """The first ``n`` entries of a field (all by default), int64."""
+        lo, w = self._at[name]
+        return self.dev[lo:lo + (w if n is None else n)].long()
+
+    def scalar(self, name: str) -> torch.Tensor:
+        """A one-word field as a 0-d int64 device tensor (used in
+        arithmetic only: a 0-d tensor as an index would sync)."""
+        return self.dev[self._at[name][0]].long()
+
+    def floats(self, name: str) -> torch.Tensor:
+        lo, w = self._at[name]
+        return self.dev[lo:lo + w].view(torch.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -499,13 +555,33 @@ class GenerationEngine:
         # CUDA graph (card only, captured at warmup or on the first call
         # after a hot one); replays add the launches the capture counted
         # to the kernels' counters. Set _cuda_graph False before warmup
-        # for the eager step (A/B runs)
+        # for an engine with no graph at all (A/B and identity runs)
         self._cuda_graph = self.device.type == "cuda"
         self._graph = None
         self._graph_launches: Dict[str, int] = {}
         self._draft_graph = None
         self._draft_graph_launches: Dict[str, int] = {}
         self._draft_hot = False
+        # -- the per-bucket graphs (graph_plan's keys but decode and
+        # propose): the prefill (slots) or chunk (paged) buffers, the
+        # copy-on-write ones, the graphs by key with the launches a
+        # replay makes, and the keys that ran once (a key's second call
+        # captures it in an engine never warmed). They share one memory
+        # pool: they replay one at a time on one stream, and each
+        # copies its results into its static output buffer
+        if cache == "paged":
+            self._pf_in = _InBuf(self.device, tok=self._chunk_cap, p0=1,
+                                 clen=1, top_k=1, temp=1, u=1,
+                                 table=self._tbl_top)
+            self._cow_in = _InBuf(self.device, src=1, dst=1)
+        else:
+            self._pf_in = _InBuf(self.device, tok=self.prompt_buckets[-1],
+                                 length=1, slot=1, top_k=1, temp=1, u=1)
+        self._pf_out = torch.zeros(2, dtype=torch.int64, device=self.device)
+        self._graphs: Dict[tuple, Tuple[Any, Dict[str, int]]] = {}
+        self._graph_hot: set = set()
+        self._graph_pool = None
+        self._capture_ms = 0.0  # wall time of every capture so far
         if cache == "paged":
             self.metrics.block_size = self.block_size
             self.metrics.blocks_total = self._allocator.capacity
@@ -578,13 +654,16 @@ class GenerationEngine:
         self._chunk_cap = cap
         self.chunk_buckets = sorted(
             set(b for b in self.prompt_buckets if b < cap) | {cap})
-        # largest per-request table bucket: the last chunk's bucket can
-        # overshoot the allocation by < chunk_cap, and the overshoot
-        # must stay inside the table. Indexing past a table raises (JAX
+        # largest per-request table bucket, JAX's: the last chunk's
+        # bucket can overshoot the allocation by < chunk_cap, and a
+        # verify span's padded tail by < its bucket; the overshoot must
+        # stay inside the table. Indexing past a table raises (JAX
         # clamped to the last entry, a real block), so an undersized
         # table fails loudly instead of aliasing live data
-        self._tbl_top = pow2_bucket(blocks_for(self.max_seq_len + cap,
-                                               self.block_size))
+        self._tbl_top = pow2_bucket(blocks_for(
+            self.max_seq_len + max(cap, self._vbucket), self.block_size))
+        self._tbl_buckets = [1 << i for i in
+                             range(self._tbl_top.bit_length())]
         self._allocator = BlockAllocator(self.num_blocks)
         self._tables = np.full((self.num_slots, self._blocks_per_seq),
                                NULL_BLOCK, np.int32)
@@ -650,6 +729,20 @@ class GenerationEngine:
                                     device=self.device)
         self._prop_out = torch.zeros((S, self.speculation_k + 1),
                                      dtype=torch.int64, device=self.device)
+        # the prime graphs' buffers (tokens, length, slot -> ok) and the
+        # verify graphs' (a span, its p0, width and slot or table, the
+        # lane's sampling and one uniform a row -> tgt, n_acc, ok)
+        self._prime_in = _InBuf(self.device, tok=self._prime_buckets[-1],
+                                length=1, slot=1)
+        self._prime_out = torch.zeros(1, dtype=torch.int64,
+                                      device=self.device)
+        vb = self._vbucket
+        where = (dict(table=self._tbl_top) if self.cache_backend == "paged"
+                 else dict(slot=1))
+        self._verify_in = _InBuf(self.device, tok=vb, p0=1, vlen=1,
+                                 top_k=1, temp=1, u=vb, **where)
+        self._verify_out = torch.zeros(vb + 2, dtype=torch.int64,
+                                       device=self.device)
 
     def _fresh_cache(self):
         """The slot cache sized to the engine's max_seq_len, or the
@@ -703,66 +796,184 @@ class GenerationEngine:
         self.metrics.sessions_live = len(self._sessions)
 
     # -- device calls ----------------------------------------------------
-    def _prefill_call(self, tokens: np.ndarray, length: int, slot: int,
-                      req: _GenRequest):
-        """One prompt pass at its bucket: K/V slab written into the
-        slot's cache row in place, first token sampled at the step-0
-        fold. Returns (first token, logits all finite)."""
-        dev = self.device
-        model, params = self.model, self.model._params
-        tok = torch.from_numpy(tokens).to(dev)
-        bucket = tok.shape[1]
-        key_mask = (torch.arange(bucket, device=dev)[None]
+    # The buffer-driven device functions: each reads its per-call values
+    # from its kind's static input buffer and writes its results into
+    # its static output buffer, so that one CUDA graph per bucket (the
+    # JAX engine's executable) replays it; on the CPU, with
+    # ``_cuda_graph`` off and at a cold key's first call they run
+    # eagerly, the same function. They take the caches to write, so
+    # warmup runs them on scratch ones.
+    def _sample_row(self, row, buf: _InBuf):
+        """Sample generation token #1 from ``row`` [1, V] at the
+        uniform of the step-0 fold the host put in ``buf``."""
+        return _sample_from_logits(row, buf.floats("temp"),
+                                   buf.ints("top_k"), buf.floats("u"))
+
+    def _prefill_fn(self, kcs, vcs, bucket: int):
+        """One prompt pass at ``bucket`` (JAX's ``_prefill_fn``): the K/V
+        slab written into the slot's cache row in place, token #1
+        sampled from row ``length - 1``; [token, logits all finite]
+        into ``_pf_out``. Positions past ``length`` get the padded
+        tail's K/V: masked by the length, and overwritten as decode
+        advances."""
+        buf = self._pf_in
+        length = buf.scalar("length")
+        slot = buf.ints("slot")
+        key_mask = (torch.arange(bucket, device=self.device)[None]
                     < length).to(torch.float32)
-        logits, ks, vs = model.forward_prefill(params, tok, key_mask)
+        logits, ks, vs = self.model.forward_prefill(
+            self.model._params, buf.ints("tok", bucket)[None], key_mask)
         # padded rows only see keys under key_mask, so a non-finite
         # value traces back to the request's own tokens
         ok = torch.isfinite(logits).all()
-        # positions past ``length`` get the padded tail's K/V: masked
-        # by the length, and overwritten as decode advances
-        for kc, k in zip(self._kcs, ks):
+        for kc, k in zip(kcs, ks):
             kv_update_slice(kc, k, (slot, 0, 0, 0))
-        for vc, v in zip(self._vcs, vs):
+        for vc, v in zip(vcs, vs):
             kv_update_slice(vc, v, (slot, 0, 0, 0))
-        return self._sample_first(logits[0, length - 1], ok, req)
+        first = self._sample_row(
+            logits[0].index_select(0, (length - 1).reshape(1)), buf)
+        self._pf_out.copy_(torch.cat([first, ok.long().reshape(1)]))
+
+    def _chunk_fn(self, kcs, vcs, bucket: int, tbl: int):
+        """One prefill chunk of ``bucket`` rows through a table of
+        ``tbl`` blocks on the paged pool (JAX's ``_chunk_fn``): K/V
+        written into the request's blocks in place, row ``clen - 1``
+        sampled at the step-0 fold (used only on the final chunk);
+        [token, the valid rows' logits all finite] into ``_pf_out``."""
+        buf = self._pf_in
+        clen = buf.scalar("clen")
+        logits, _, _ = self.model.forward_prefill_chunk(
+            self.model._params, buf.ints("tok", bucket)[None],
+            buf.scalar("p0"), clen, kcs, vcs, buf.ints("table", tbl))
+        # guard only rows < clen: padded rows attend positions past the
+        # live length, stale junk that may be anything
+        rows = torch.arange(bucket, device=self.device)
+        ok = torch.where((rows < clen)[:, None], torch.isfinite(logits),
+                         True).all()
+        first = self._sample_row(
+            logits.index_select(0, (clen - 1).reshape(1)), buf)
+        self._pf_out.copy_(torch.cat([first, ok.long().reshape(1)]))
+
+    def _cow_fn(self, kcs, vcs):
+        """Copy pool block ``src`` into ``dst`` (every layer, K and V,
+        an int8 pool's scale rows with its values)."""
+        src, dst = self._cow_in.ints("src"), self._cow_in.ints("dst")
+        for pool in kcs + vcs:
+            kv_copy_row(pool, src, dst)
+
+    def _prime_graph_fn(self, kcs, vcs, bucket: int):
+        """The draft prime at ``bucket`` into the draft cache; its ok
+        into ``_prime_out``."""
+        buf = self._prime_in
+        ok = self._prime_fn(self._draft._params, kcs, vcs,
+                            buf.ints("tok", bucket)[None],
+                            buf.scalar("length"), buf.ints("slot"))
+        self._prime_out.copy_(ok.long().reshape(1))
+
+    def _verify_graph_fn(self, kcs, vcs, tbl: Optional[int]):
+        """One verify span (through a table of ``tbl`` blocks on the
+        paged backend, on the slot's panel on the slot one); [tgt...,
+        n_accepted, ok] into ``_verify_out``."""
+        buf = self._verify_in
+        where = (buf.ints("table", tbl) if tbl is not None
+                 else buf.ints("slot"))
+        tgt, n_acc, ok = self._verify_fn(
+            self.model._params, kcs, vcs,
+            buf.ints("tok")[None], buf.scalar("p0"), buf.scalar("vlen"),
+            where, buf.floats("u"), buf.floats("temp"), buf.ints("top_k"))
+        self._verify_out.copy_(torch.cat([tgt, n_acc.reshape(1),
+                                          ok.long().reshape(1)]))
+
+    def _graph_run(self, key: tuple) -> Callable[[], None]:
+        """The device function of one :meth:`graph_plan` key (but decode
+        and propose) on the engine's own caches: what its graph
+        captures, and what runs eagerly where there is none."""
+        kind = key[0]
+        if kind == "prefill":
+            return lambda: self._prefill_fn(self._kcs, self._vcs, key[1])
+        if kind == "chunk":
+            return lambda: self._chunk_fn(self._kcs, self._vcs, key[1],
+                                          key[2])
+        if kind == "cow":
+            return lambda: self._cow_fn(self._kcs, self._vcs)
+        if kind == "prime":
+            return lambda: self._prime_graph_fn(
+                self._draft_cache.ks, self._draft_cache.vs, key[1])
+        if kind == "verify":
+            return lambda: self._verify_graph_fn(
+                self._kcs, self._vcs, key[1] if len(key) > 1 else None)
+        raise ValueError(f"no device function for {key!r}")
+
+    def _device_call(self, key: tuple, buf: _InBuf, out=None, **values):
+        """One call of ``key``'s device function: ``values`` into its
+        input buffer, then its graph's replay (captured here at a cold
+        key's second call), or the function eagerly; ``out`` comes back
+        to the host behind one event. Returns (the results as numpy or
+        None, whether this call captured)."""
+        captured = False
+        if self._cuda_graph and key not in self._graphs \
+                and key in self._graph_hot:
+            self._capture_graph(key)
+            captured = True
+        buf.load(**values)
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph[0].replay()
+            add_launches(graph[1])
+        else:
+            self._graph_run(key)()
+        self._graph_hot.add(key)
+        return (None if out is None else self._fetch(out)), captured
+
+    def _fetch(self, out: torch.Tensor) -> np.ndarray:
+        """A static output buffer on the host: one pinned copy behind an
+        event, the call's one sync."""
+        h = self._host(out.shape, out.dtype)
+        h.copy_(out, non_blocking=True)
+        if self.device.type == "cuda":
+            event = torch.cuda.Event()
+            event.record()
+            event.synchronize()
+        return h.numpy()
+
+    def _prefill_call(self, tokens: np.ndarray, length: int, slot: int,
+                      req: _GenRequest):
+        """One prompt pass at its bucket into ``slot``. Returns (first
+        token, logits all finite, whether the call captured)."""
+        bucket = tokens.shape[1]
+        out, cold = self._device_call(
+            ("prefill", bucket), self._pf_in, self._pf_out, tok=tokens[0],
+            length=length, slot=slot, top_k=req.top_k,
+            temp=req.temperature, u=self._first_uniform(req))
+        return int(out[0]), bool(out[1]), cold
 
     def _chunk_call(self, tokens: np.ndarray, p0: int, clen: int,
                     table: np.ndarray, req: _GenRequest):
-        """One prefill chunk on the paged pool: K/V written into the
-        request's blocks in place, and the row ``clen - 1`` sampled at
-        the step-0 fold (used only on the final chunk). Returns (that
-        token, the valid rows' logits all finite)."""
-        dev = self.device
-        logits, _, _ = self.model.forward_prefill_chunk(
-            self.model._params, torch.from_numpy(tokens).to(dev), p0, clen,
-            self._kcs, self._vcs, torch.from_numpy(table).to(dev))
-        # guard only rows < clen: padded rows attend positions past the
-        # live length, stale junk that may be anything
-        ok = torch.isfinite(logits[:clen]).all()
-        return self._sample_first(logits[clen - 1], ok, req)
+        """One prefill chunk through ``table`` (its bucket's width).
+        Returns (the row ``clen - 1`` token, the valid rows' logits all
+        finite, whether the call captured)."""
+        out, cold = self._device_call(
+            ("chunk", tokens.shape[1], len(table)), self._pf_in,
+            self._pf_out, tok=tokens[0], p0=p0, clen=clen, table=table,
+            top_k=req.top_k, temp=req.temperature,
+            u=self._first_uniform(req))
+        return int(out[0]), bool(out[1]), cold
 
-    def _sample_first(self, row, ok, req: _GenRequest):
-        """Sample generation token #1 from the prompt's last logits row
-        at the step-0 fold. Returns (token, ok) after one device sync."""
-        dev = self.device
-        u = (_uniforms(np.array([req.seed], np.uint32),
-                       np.zeros(1, np.int32))
-             if req.temperature > 0 else torch.zeros(1))
-        first = _sample_from_logits(
-            row[None],
-            torch.tensor([req.temperature], dtype=torch.float32,
-                         device=dev),
-            torch.tensor([req.top_k], device=dev), u.to(dev))[0]
-        out = torch.stack([first, ok.to(torch.int64)]).cpu()  # device sync
-        return int(out[0]), bool(out[1])
+    @staticmethod
+    def _first_uniform(req: _GenRequest) -> float:
+        """The uniform of token #1 (the step-0 fold); 0 for a greedy
+        request, which ignores it."""
+        if req.temperature <= 0:
+            return 0.0
+        return float(_uniforms(np.array([req.seed], np.uint32),
+                               np.zeros(1, np.int32))[0])
 
     def _cow(self, src: int, dst: int):
         """Copy pool block ``src`` into ``dst`` (every layer, K and V)
         so the admitted request writes into its private copy while
         every other reader of ``src`` sees it bit-unchanged."""
         with self._profiler.record("generation.cow"):
-            for pool in self._kcs + self._vcs:
-                kv_copy_row(pool, src, dst)
+            self._device_call(("cow",), self._cow_in, src=src, dst=dst)
 
     def _decode_step_fn(self, kcs, vcs, step_in, step_out):
         """One decode step over the full slot batch, from an input
@@ -807,16 +1018,24 @@ class GenerationEngine:
         self._prop_out[:, :k].copy_(props)
         self._prop_out[:, k].copy_(ok)
 
-    def _capture(self, run: Callable[[], None], what: str):
+    def _capture(self, run: Callable[[], None], what: str,
+                 shared: bool = False):
         """Capture ``run`` into a CUDA graph (counted in
-        ``metrics.compiles``). The capture launches nothing: the kernels'
+        ``metrics.compiles``, its wall time in ``_capture_ms``), with
+        ``shared`` in the memory pool the per-bucket graphs share, else
+        in a pool of its own. The capture launches nothing: the kernels'
         launch counters are put back, and each replay adds what the
         capture counted. A failed capture raises. Returns (graph, the
         launches one replay makes)."""
+        if shared and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        pool = self._graph_pool if shared else None
         before = launch_counts()
         graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            with torch.cuda.graph(graph, pool=pool,
+                                  capture_error_mode="thread_local"):
                 run()
         except Exception as e:
             raise ServingError(
@@ -826,8 +1045,15 @@ class GenerationEngine:
             counted = {k: n - before[k] for k, n in launch_counts().items()
                        if n != before[k]}
             add_launches({k: -n for k, n in counted.items()})
+            self._capture_ms += (time.perf_counter() - t0) * 1e3
         self.metrics.inc("compiles")
         return graph, counted
+
+    def _capture_graph(self, key: tuple):
+        """Capture one :meth:`graph_plan` key's graph (but decode and
+        propose) in the pool the per-bucket graphs share."""
+        self._graphs[key] = self._capture(self._graph_run(key),
+                                          f"the {key} call", shared=True)
 
     def _capture_decode_graph(self):
         self._graph, self._graph_launches = self._capture(
@@ -979,16 +1205,9 @@ class GenerationEngine:
         self._pending.clear()
         self._tok_on_dev[:] = False
 
-    def warmup(self, buckets: Optional[Sequence[int]] = None) -> List[int]:
-        """Run every prefill bucket (paged: every chunk bucket) and one
-        decode step once, on the scheduler thread and on scratch
-        tensors, so the first requests pay no one-time costs (kernel
-        build and load, library handles); then, on the card, capture
-        the decode step into the engine's CUDA graph. With speculation
-        also every draft-prime bucket and one proposal, and on the card
-        the proposal's graph: a speculating engine captures two graphs
-        here and none later. A failed capture raises. Returns the warmed
-        bucket list."""
+    def _warm_buckets(self, buckets: Optional[Sequence[int]]) -> List[int]:
+        """The prompt (slots) or chunk (paged) buckets to warm: all of
+        the ladder by default; one outside it raises."""
         paged = self.cache_backend == "paged"
         ladder = self.chunk_buckets if paged else self.prompt_buckets
         buckets = sorted(set(int(x) for x in (buckets or ladder)))
@@ -998,60 +1217,121 @@ class GenerationEngine:
                     f"bucket {b} not in "
                     f"{'chunk_buckets' if paged else 'prompt_buckets'} "
                     f"{ladder}")
+        return buckets
+
+    def graph_plan(self, buckets: Optional[Sequence[int]] = None
+                   ) -> List[tuple]:
+        """The keys of the CUDA graphs :meth:`warmup` captures on the
+        card: one per executable the JAX engine's ``warmup`` compiles
+        for the same configuration (offload, not ported, aside).
+        ``("decode",)``; slots: ``("prefill", b)`` per prompt bucket;
+        paged: ``("cow",)`` with prefix sharing and ``("chunk", c, t)``
+        per chunk bucket ``c`` and table bucket ``t`` with ``t *
+        block_size >= c``; with speculation ``("propose",)``,
+        ``("prime", b)`` per prime bucket and one ``("verify",)``
+        (slots) or ``("verify", t)`` per table bucket with ``t *
+        block_size`` >= the verify bucket (paged). ``buckets`` narrows
+        the prompt or chunk buckets, as :meth:`warmup`'s does."""
+        buckets = self._warm_buckets(buckets)
+        plan = [("decode",)]
+        if self.cache_backend == "paged":
+            bs = self.block_size
+            if self.enable_prefix_sharing:
+                plan.append(("cow",))
+            plan += [("chunk", c, t) for c in buckets
+                     for t in self._tbl_buckets if t * bs >= c]
+        else:
+            plan += [("prefill", b) for b in buckets]
+        if self.speculation_k:
+            plan.append(("propose",))
+            plan += [("prime", b) for b in self._prime_buckets]
+            if self.cache_backend == "paged":
+                plan += [("verify", t) for t in self._tbl_buckets
+                         if t * self.block_size >= self._vbucket]
+            else:
+                plan.append(("verify",))
+        return plan
+
+    def warmup(self, buckets: Optional[Sequence[int]] = None) -> List[int]:
+        """Run every prefill bucket (paged: every chunk bucket, and the
+        copy-on-write copy), one decode step and, with speculation,
+        every draft-prime bucket, one proposal and one verify span once,
+        on the scheduler thread and on scratch caches, so the first
+        requests pay no one-time costs (kernel build and load, library
+        handles); then, on the card, capture every graph of
+        :meth:`graph_plan` (the JAX engine's warm set): traffic then
+        replays them and captures nothing, recoveries included. A failed
+        capture raises; nothing runs eagerly instead. Returns the warmed
+        bucket list."""
+        paged = self.cache_backend == "paged"
+        plan = self.graph_plan(buckets)
+        buckets = self._warm_buckets(buckets)
 
         def job():
             dev, model = self.device, self.model
-            params = model._params
+            kv = self.kv_dtype
             if paged:
                 bs = self.block_size
-                # null block + one block: every scratch table entry is
-                # NULL, and so is every scratch decode lane's
+                # null block + one block; the tables the buffer holds are
+                # all NULL, and so is every scratch decode lane's
                 scratch = PagedKVCache(model.cache_shapes(bs), 2,
-                                       kv_dtype=self.kv_dtype, device=dev)
+                                       kv_dtype=kv, device=dev)
                 for c in buckets:
-                    tbl = torch.full((pow2_bucket(blocks_for(c, bs)),),
-                                     NULL_BLOCK, dtype=torch.int32,
-                                     device=dev)
-                    model.forward_prefill_chunk(
-                        params, torch.zeros((1, c), dtype=torch.int64,
-                                            device=dev), 0, c, scratch.ks,
-                        scratch.vs, tbl)
+                    self._pf_in.load(clen=c)
+                    self._chunk_fn(scratch.ks, scratch.vs, c,
+                                   pow2_bucket(blocks_for(c, bs)))
                     self._hot_buckets.add(c)
+                if self.enable_prefix_sharing:
+                    self._cow_in.load(src=0, dst=1)
+                    self._cow_fn(scratch.ks, scratch.vs)
+                span = scratch
             else:
+                span = KVCache(model.cache_shapes(self.max_seq_len), 1,
+                               kv_dtype=kv, device=dev)
                 for b in buckets:
-                    model.forward_prefill(
-                        params, torch.zeros((1, b), dtype=torch.int64,
-                                            device=dev),
-                        torch.ones((1, b), device=dev))
+                    self._pf_in.load(length=b)
+                    self._prefill_fn(span.ks, span.vs, b)
                     self._hot_buckets.add(b)
                 # every lane decodes position 0 of a one-position slot
                 scratch = KVCache(model.cache_shapes(1), self.num_slots,
-                                  kv_dtype=self.kv_dtype, device=dev)
+                                  kv_dtype=kv, device=dev)
             self._decode_step_fn(scratch.ks, scratch.vs,
                                  torch.zeros_like(self._step_in),
                                  torch.zeros_like(self._step_out))
             draft = self._draft
             if draft is not None:
+                primed = KVCache(draft.cache_shapes(self.max_seq_len), 1,
+                                 device=dev)
                 for b in self._prime_buckets:
-                    draft.forward_prefill(
-                        draft._params, torch.zeros((1, b), dtype=torch.int64,
-                                                   device=dev),
-                        torch.ones((1, b), device=dev))
+                    self._prime_in.load(length=b)
+                    self._prime_graph_fn(primed.ks, primed.vs, b)
                 # every lane proposes at position 0 of a one-position slot
                 scratch = KVCache(draft.cache_shapes(1), self.num_slots,
                                   device=dev)
                 self._propose_fn(draft._params, scratch.ks, scratch.vs,
                                  torch.zeros_like(self._prop_in[0]),
                                  torch.zeros_like(self._prop_in[1]))
+                self._verify_in.load(vlen=1)
+                self._verify_graph_fn(span.ks, span.vs, next(
+                    t for t in self._tbl_buckets
+                    if t * self.block_size >= self._vbucket)
+                    if paged else None)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             self._decode_hot = True
             self._draft_hot = draft is not None
-            if self._cuda_graph and self._graph is None:
-                self._capture_decode_graph()
-            if self._cuda_graph and draft is not None \
-                    and self._draft_graph is None:
-                self._capture_draft_graph()
+            if self._cuda_graph:
+                if self._graph is None:
+                    self._capture_decode_graph()
+                if draft is not None and self._draft_graph is None:
+                    self._capture_draft_graph()
+                # largest buckets first: a smaller graph's capture then
+                # reuses the shared pool's blocks instead of growing it
+                for key in sorted(plan, key=lambda k: [-x for x in k[1:]]):
+                    if key[0] not in ("decode", "propose") \
+                            and key not in self._graphs:
+                        self._capture_graph(key)
+            self._graph_hot.update(plan)
 
         self._run_on_scheduler(job)
         self.metrics.warmed_buckets = sorted(
@@ -1473,14 +1753,14 @@ class GenerationEngine:
         t0 = time.perf_counter()
         try:
             with self._profiler.record("generation.prefill"):
-                first, ok = self._prefill_call(tokens, L, slot, req)
+                first, ok, cold = self._prefill_call(tokens, L, slot, req)
         except Exception as e:
             self._release_slot(slot)
             self._fail(req, e)
             raise CorruptedStateFault(
                 f"prefill device call failed: {e!r}") from e
         dt_ms = (time.perf_counter() - t0) * 1e3
-        self._note_prefill_cost(dt_ms, bucket)
+        self._note_prefill_cost(dt_ms, bucket, cold)
         self.metrics.inc("prefills")
         self.metrics.prompt_bucket_hist.record(bucket)
         if not ok:
@@ -1530,12 +1810,13 @@ class GenerationEngine:
         self._emit(req, first, time.perf_counter())
         self._check_done(slot, req, first)
 
-    def _note_prefill_cost(self, dt_ms: float, bucket: int):
+    def _note_prefill_cost(self, dt_ms: float, bucket: int,
+                           cold: bool = False):
         """Record one prefill (or chunk) call and feed the per-token
-        EWMA, except from a bucket's first call, which pays one-time
-        costs."""
+        EWMA, except from a bucket's first call and a ``cold`` one (it
+        captured its graph), which pay one-time costs."""
         self.metrics.prefill_ms.record(dt_ms)
-        if bucket in self._hot_buckets:
+        if bucket in self._hot_buckets and not cold:
             self._prefill_ms_per_tok = dt_ms / bucket \
                 if not self._prefill_ms_per_tok else \
                 0.8 * self._prefill_ms_per_tok + 0.2 * dt_ms / bucket
@@ -1753,7 +2034,7 @@ class GenerationEngine:
         t0 = time.perf_counter()
         try:
             with self._profiler.record("generation.prefill"):
-                first, ok = self._chunk_call(
+                first, ok, cold = self._chunk_call(
                     tokens, p0, clen, st.table.padded(st.tbl_bucket), req)
         except Exception as e:
             self._prefilling.popleft()
@@ -1761,7 +2042,8 @@ class GenerationEngine:
             self._fail(req, e)
             raise CorruptedStateFault(
                 f"prefill chunk device call failed: {e!r}") from e
-        self._note_prefill_cost((time.perf_counter() - t0) * 1e3, bucket)
+        self._note_prefill_cost((time.perf_counter() - t0) * 1e3, bucket,
+                                cold)
         self.metrics.inc("prefill_chunks")
         self.metrics.inc("prefill_tokens", clen)
         self.metrics.prompt_bucket_hist.record(bucket)
@@ -1844,22 +2126,22 @@ class GenerationEngine:
             self._slots.spec_ok[:] = False
 
     def _spec_prime(self, slot: int, seq: np.ndarray):
-        """Prefill the draft over a lane's committed prefix (eager, one
-        sync), marking the lane eligible when the draft's logits are
-        finite. Any draft failure here costs speculation only."""
+        """Prefill the draft over a lane's committed prefix (the prime
+        graph of its bucket, one sync), marking the lane eligible when
+        the draft's logits are finite. Any draft failure here, a capture
+        at a cold bucket's second call included, costs speculation
+        only."""
         L = len(seq)
         bucket = next(b for b in self._prime_buckets if b >= L)
-        tokens = np.zeros((1, bucket), np.int64)
-        tokens[0, :L] = seq
         try:
-            ok = bool(self._prime_fn(
-                self._draft._params, self._draft_cache.ks,
-                self._draft_cache.vs,
-                torch.from_numpy(tokens).to(self.device), L, slot))
+            out, _ = self._device_call(("prime", bucket), self._prime_in,
+                                       self._prime_out, tok=seq, length=L,
+                                       slot=slot)
         except Exception:  # noqa: BLE001 — the target is untouched
             self._reset_draft_cache(disable_lanes=True)
             self.metrics.inc("spec_draft_fallbacks")
             return
+        ok = bool(out[0])
         self._slots.spec_ok[slot] = ok
         if not ok:
             self.metrics.inc("spec_draft_fallbacks")
@@ -1915,6 +2197,24 @@ class GenerationEngine:
         k = self.speculation_k
         return out[:, :k], out[:, k].astype(bool)
 
+    def _verify_call(self, slot: int, tokens: np.ndarray, p0: int,
+                     req: _GenRequest, table: Optional[np.ndarray] = None
+                     ) -> List[int]:
+        """One verify span of ``slot``'s lane from ``p0`` (its table on
+        the paged backend): the verify graph of its table bucket (one on
+        slots), one sync. Returns [tgt..., n_accepted, ok]."""
+        vb = self._vbucket
+        key = ("verify",) if table is None else ("verify", len(table))
+        where = dict(slot=slot) if table is None else dict(table=table)
+        step0 = int(self._slots.step[slot])
+        out, _ = self._device_call(
+            key, self._verify_in, self._verify_out, tok=tokens, p0=p0,
+            vlen=self.speculation_k + 1, top_k=req.top_k,
+            temp=req.temperature,
+            u=verify_uniforms(req.seed, step0, req.temperature, vb).numpy(),
+            **where)
+        return out.tolist()
+
     def _spec_step(self) -> frozenset:
         """One speculative round: ONE draft call proposes k tokens for
         every lane, then each eligible lane's proposals are verified in
@@ -1951,8 +2251,6 @@ class GenerationEngine:
         self.metrics.spec_draft_ms.record((t1 - t0) * 1e3)
         vb = self._vbucket
         paged = self.cache_backend == "paged"
-        dev = self.device
-        params = self.model._params
         serviced = set()
         emitted = 0
         itl: List[float] = []
@@ -1965,31 +2263,25 @@ class GenerationEngine:
                 self.metrics.inc("spec_draft_fallbacks")
                 continue
             p0 = int(st.pos[s])
-            tokens = np.zeros((1, vb), np.int64)
-            tokens[0, 0] = st.token[s]
-            tokens[0, 1:k + 1] = props[s]
+            tokens = np.zeros(vb, np.int64)
+            tokens[0] = st.token[s]
+            tokens[1:k + 1] = props[s]
+            padded = None
             if paged:
                 if not self._spec_cow_guard(s, p0):
                     continue
                 table = self._slot_blocks[s]
-                # the padded table covers the span's padded tail: the
-                # chunk path raises on an index past its table
+                # the padded table covers the span's padded tail (the
+                # chunk path raises on an index past its table), capped
+                # as JAX caps it: every bucket stays in the warmed set
                 tv = pow2_bucket(max(blocks_for(p0 + vb, self.block_size),
-                                     len(table.blocks)))
-                where = torch.from_numpy(table.padded(tv)).to(dev)
-            else:
-                where = s
+                                     len(table.blocks)), cap=self._tbl_top)
+                padded = table.padded(tv)
             self._hit("verify")
             v0 = time.perf_counter()
             try:
                 with self._profiler.record("generation.spec_verify"):
-                    tgt, n_acc, vok = self._verify_fn(
-                        params, self._kcs, self._vcs,
-                        torch.from_numpy(tokens).to(dev), p0, k + 1, where,
-                        req.seed, int(st.step[s]), req.temperature,
-                        req.top_k)
-                    out = torch.cat([tgt, n_acc[None],
-                                     vok[None].long()]).tolist()  # sync
+                    out = self._verify_call(s, tokens, p0, req, padded)
             except Exception as e:  # noqa: BLE001 — the call may have
                 # written any of the target's cache: fail this request,
                 # recover the others

@@ -40,7 +40,11 @@ accepted run only, and every reader masks what lies past the cursor.
 The paged verify is the chunked-prefill path (``forward_prefill_chunk``)
 plus the sampling tail; the slots verify is its dense sibling
 ``forward_verify``. Both write the target's cache IN PLACE, as the prime
-and the propose write the draft's.
+and the propose write the draft's. Every function here takes its
+per-call values (positions, lengths, slots, uniforms, sampling
+parameters) as device tensors and reads none on the host, so the
+engine captures each bucket of the prime and the verify as one CUDA
+graph, as it does the propose.
 """
 from __future__ import annotations
 
@@ -62,15 +66,19 @@ def make_prime_fn(draft):
     """Draft prefill into the draft's dense slot cache: the engine's
     prefill without sampling (the draft never emits). Returns
     ``prime(params, kcs, vcs, tokens [1, B], length, slot) -> ok``, the
-    finite-logits guard over the ``length`` valid rows (a device
-    bool)."""
+    finite-logits guard over the ``length`` valid rows (a device bool).
+    ``length`` is a host int or a 0-d device tensor, ``slot`` a host int
+    or a 1-element device tensor: the guard masks the rows past
+    ``length`` instead of slicing them, so one graph serves every
+    length of a bucket."""
 
     def prime(params, kcs, vcs, tokens, length, slot):
         bucket = tokens.shape[1]
-        key_mask = (torch.arange(bucket, device=tokens.device)[None]
-                    < length).to(torch.float32)
+        rows = torch.arange(bucket, device=tokens.device)
+        key_mask = (rows[None] < length).to(torch.float32)
         logits, ks, vs = draft.forward_prefill(params, tokens, key_mask)
-        ok = torch.isfinite(logits[0, :length]).all()
+        ok = torch.where((rows < length)[:, None],
+                         torch.isfinite(logits[0]), True).all()
         for kc, k in zip(kcs, ks):
             kv_update_slice(kc, k, (slot, 0, 0, 0))
         for vc, v in zip(vcs, vs):
@@ -113,54 +121,77 @@ def make_propose_fn(draft, k: int):
     return propose
 
 
-def _verify_tail(logits, tokens, vlen, seed, step0, temp, top_k):
-    """The accept/sample tail shared by both verifies: sample every row
-    with the engine's decode sampling (``_sample_from_logits``, row
-    ``i`` at the uniform of fold ``step0 + i``), then count the leading
-    run of draft rows that MATCH the target's sample, limited to the
-    ``vlen - 1`` real draft rows (the cumprod-sum). ``logits`` [C, V]
-    and ``tokens`` [1, C] live on one device; the scalars are host
-    values. Returns (tgt [C], n_accepted, ok) as device tensors."""
-    from .generation import _sample_from_logits, _uniforms
+def verify_uniforms(seed: int, step0: int, temp: float,
+                    C: int) -> torch.Tensor:
+    """The [C] uniforms of a verify span on the host: row ``i`` draws
+    from ``fold_in(PRNGKey(seed), step0 + i)``, as plain decode step
+    ``step0 + i`` would; zeros for a greedy lane, whose rows ignore
+    them (as in the decode step)."""
+    from .generation import _uniforms
+    if temp > 0:
+        return _uniforms(np.full(C, seed, np.uint32),
+                         step0 + np.arange(C, dtype=np.int64))
+    return torch.zeros(C)
+
+
+def verify_accept(logits, tokens, vlen, us, temp, top_k):
+    """The accept/sample tail shared by both verifies, on device
+    tensors: sample every row with the engine's decode sampling
+    (``_sample_from_logits`` at the row's uniform ``us[i]``), then count
+    the leading run of draft rows that MATCH the target's sample,
+    limited to the ``vlen - 1`` real draft rows (the cumprod-sum).
+    ``logits`` [C, V], ``tokens`` [1, C], ``us`` [C], ``temp`` and
+    ``top_k`` [1] live on one device; ``vlen`` is a host int or a 0-d
+    device tensor (the finite guard masks the padded rows). Returns
+    (tgt [C], n_accepted, ok) as device tensors."""
+    from .generation import _sample_from_logits
     C = tokens.shape[1]
-    dev = logits.device
-    rows = torch.arange(C, device=dev)
-    ok = torch.isfinite(logits[:vlen]).all()
-    # greedy rows ignore their uniform, as in the decode step
-    us = (_uniforms(np.full(C, seed, np.uint32),
-                    step0 + np.arange(C, dtype=np.int64))
-          if temp > 0 else torch.zeros(C))
-    tgt = _sample_from_logits(
-        logits, torch.full((C,), float(temp), device=dev),
-        torch.full((C,), int(top_k), device=dev), us.to(dev))
+    rows = torch.arange(C, device=logits.device)
+    ok = torch.where((rows < vlen)[:, None], torch.isfinite(logits),
+                     True).all()
+    tgt = _sample_from_logits(logits, temp.expand(C), top_k.expand(C), us)
     match = (tgt[:-1] == tokens[0, 1:]) & (rows[:-1] < vlen - 1)
     n_acc = torch.cumprod(match.to(torch.int64), dim=0).sum()
     return tgt, n_acc, ok
 
 
+def _verify_tail(logits, tokens, vlen, seed, step0, temp, top_k):
+    """:func:`verify_accept` from host scalars (the seed, the first
+    row's PRNG fold, the temperature and top-k of one lane): its
+    uniforms from :func:`verify_uniforms`. The host-argument form the
+    engine's buffer-driven verify is held to. Returns (tgt [C],
+    n_accepted, ok) as device tensors."""
+    dev = logits.device
+    C = tokens.shape[1]
+    return verify_accept(
+        logits, tokens, vlen,
+        verify_uniforms(seed, step0, temp, C).to(dev),
+        torch.full((1,), float(temp), device=dev),
+        torch.full((1,), int(top_k), device=dev))
+
+
 def make_verify_paged_fn(model):
     """Paged verification: ``forward_prefill_chunk`` (the chunk path,
-    unchanged) plus :func:`_verify_tail`. Returns ``verify(params, kcs,
-    vcs, tokens [1, C], p0, vlen, table, seed, step0, temp, top_k) ->
+    unchanged) plus :func:`verify_accept`. Returns ``verify(params, kcs,
+    vcs, tokens [1, C], p0, vlen, table, us [C], temp [1], top_k [1]) ->
     (tgt [C], n_accepted, ok)``."""
 
-    def verify(params, kcs, vcs, tokens, p0, vlen, table, seed, step0,
-               temp, top_k):
+    def verify(params, kcs, vcs, tokens, p0, vlen, table, us, temp,
+               top_k):
         logits, _, _ = model.forward_prefill_chunk(params, tokens, p0, vlen,
                                                    kcs, vcs, table)
-        return _verify_tail(logits, tokens, vlen, seed, step0, temp, top_k)
+        return verify_accept(logits, tokens, vlen, us, temp, top_k)
     return verify
 
 
 def make_verify_slots_fn(model):
     """Dense-backend verification: ``forward_verify`` plus
-    :func:`_verify_tail`. Returns ``verify(params, kcs, vcs,
-    tokens [1, C], p0, vlen, slot, seed, step0, temp, top_k) ->
+    :func:`verify_accept`. Returns ``verify(params, kcs, vcs,
+    tokens [1, C], p0, vlen, slot, us [C], temp [1], top_k [1]) ->
     (tgt [C], n_accepted, ok)``."""
 
-    def verify(params, kcs, vcs, tokens, p0, vlen, slot, seed, step0,
-               temp, top_k):
+    def verify(params, kcs, vcs, tokens, p0, vlen, slot, us, temp, top_k):
         logits, _, _ = model.forward_verify(params, tokens, p0, vlen, kcs,
                                             vcs, slot)
-        return _verify_tail(logits, tokens, vlen, seed, step0, temp, top_k)
+        return verify_accept(logits, tokens, vlen, us, temp, top_k)
     return verify

@@ -156,18 +156,19 @@ class CausalTransformerLM(nn.Module):
         one's row ``chunk_len - 1``.
 
         tokens: [1, C] (C = chunk bucket); p0: chunk start; chunk_len:
-        valid tokens in the chunk; block_table: [n_blocks] covering at
-        least ``p0 + C`` positions. Returns (logits [C, V], k_pools,
-        v_pools)."""
+        valid tokens in the chunk (each a host int or a 0-d device
+        tensor: a CUDA graph's runtime arguments); block_table:
+        [n_blocks] covering at least ``p0 + C`` positions. Returns
+        (logits [C, V], k_pools, v_pools)."""
         C = tokens.shape[1]
         dev = tokens.device
-        gpos = int(p0) + torch.arange(C, device=dev)
+        gpos = torch.arange(C, device=dev) + p0
         # padded tail rows can run past the position table: clamp the
         # lookup. Their embeddings are zeroed below and their K/V lands
         # beyond the live length, where the mask keeps it dark
         x = (params["tok"][tokens[0]]
              + params["pos"][gpos.clamp(0, self.max_seq_len - 1)])
-        row_mask = (torch.arange(C, device=dev) < int(chunk_len)).to(x.dtype)
+        row_mask = (torch.arange(C, device=dev) < chunk_len).to(x.dtype)
         x = (x * row_mask[:, None])[None]
         for blk, bp, kc, vc in zip(self.blocks, params["blocks"],
                                    k_pools, v_pools):
@@ -185,14 +186,15 @@ class CausalTransformerLM(nn.Module):
         each block's ``apply_verify`` on ``slot``'s panel.
 
         tokens: [1, C] (C = verify bucket); p0: span start; chunk_len:
-        valid tokens; slot: the cache row. Returns (logits [C, V],
-        k_caches, v_caches), the caches written IN PLACE."""
+        valid tokens (host ints or 0-d device tensors); slot: the cache
+        row (a host int or a 1-element device tensor). Returns (logits
+        [C, V], k_caches, v_caches), the caches written IN PLACE."""
         C = tokens.shape[1]
         dev = tokens.device
-        gpos = int(p0) + torch.arange(C, device=dev)
+        gpos = torch.arange(C, device=dev) + p0
         x = (params["tok"][tokens[0]]
              + params["pos"][gpos.clamp(0, self.max_seq_len - 1)])
-        row_mask = (torch.arange(C, device=dev) < int(chunk_len)).to(x.dtype)
+        row_mask = (torch.arange(C, device=dev) < chunk_len).to(x.dtype)
         x = (x * row_mask[:, None])[None]
         for blk, bp, kc, vc in zip(self.blocks, params["blocks"],
                                    k_caches, v_caches):

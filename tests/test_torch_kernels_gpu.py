@@ -923,15 +923,30 @@ def _serve_all(eng, reqs):
     return out
 
 
+def _counting_calls(eng):
+    """Count the engine's per-bucket device calls by key (its decode
+    steps count in ``metrics.decode_steps``)."""
+    calls = {}
+    call = eng._device_call
+
+    def counted(key, *a, **k):
+        calls[key] = calls.get(key, 0) + 1
+        return call(key, *a, **k)
+    eng._device_call = counted
+    return calls
+
+
 @pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
 @pytest.mark.parametrize("cache", ["slots", "paged"])
 def test_decode_step_graph_replay_matches_eager(cache, kv_dtype):
-    """The engine's decode step captured once at warmup and replayed
-    (the card's default) gives the eager step's tokens, greedy and
+    """The engine's graphs captured at warmup (the decode step and every
+    bucket of graph_plan: prefill or chunk, copy-on-write) and replayed
+    (the card's default) give the eager engine's tokens, greedy and
     sampled, with more requests than slots; so does an engine never
-    warmed, which captures once after its first (eager) step. Nothing
-    else is captured, and each step counts its attention kernel once per
-    layer, replays included."""
+    warmed, which captures the decode step after its first (eager) step
+    and each bucket at its second call. Nothing else is captured, and
+    each step counts its attention kernel once per layer, replays
+    included."""
     from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.serving import GenerationEngine
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
@@ -949,14 +964,15 @@ def test_decode_step_graph_replay_matches_eager(cache, kv_dtype):
     counter = (f"{'paged' if cache == 'paged' else 'decode'}_attention."
                f"launches{'_int8' if kv_dtype == 'int8' else ''}")
     tokens = {}
-    # (mode, captures after warmup, captures after the traffic)
-    for mode, warm, served in (("graph", 1, 1), ("eager", 0, 0),
-                               ("lazy", 0, 1)):
+    for mode in ("graph", "eager", "lazy"):
         eng = GenerationEngine(lm, **kw)
         eng._cuda_graph = mode != "eager"
+        calls = _counting_calls(eng)
         try:
+            plan = eng.graph_plan()
             if mode != "lazy":
                 eng.warmup()
+            warm = len(plan) if mode == "graph" else 0
             assert eng.metrics.compiles == warm
             before, steps = kernels.launch_counts(), eng.metrics.decode_steps
             tokens[mode] = _serve_all(eng, reqs)
@@ -964,21 +980,70 @@ def test_decode_step_graph_replay_matches_eager(cache, kv_dtype):
             steps = eng.metrics.decode_steps - steps
             launched = kernels.launch_counts()[counter] - before[counter]
             assert steps and launched == LM_CFG["n_layers"] * steps
-            assert eng.metrics.compiles == served
+            # lazy: the decode step and the buckets called twice or more
+            lazy = 1 + sum(n >= 2 for n in calls.values())
+            assert eng.metrics.compiles == {"graph": warm, "eager": 0,
+                                            "lazy": lazy}[mode]
+            assert set(eng._graphs) <= set(plan)
         finally:
             eng.stop()
     assert tokens["graph"] == tokens["eager"] == tokens["lazy"]
 
 
+@pytest.mark.parametrize("kv_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("cache", ["slots", "paged"])
+def test_bucket_graphs_give_eager_tokens_and_count_flash(cache, kv_dtype):
+    """Prefill (slots) and chunk (paged) graphs: a warmed engine's
+    tokens are those of the engine with no graph, and the flash forward
+    (B3) counts once per layer and prefill, replays included (the paged
+    chunks attend in plain PyTorch, so none there)."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    dev = _device()
+    lm = CausalTransformerLM(**LM_CFG, device=dev).init()
+    rs = np.random.RandomState(8)
+    reqs = [dict(prompt=rs.randint(0, 512, rs.randint(1, 60)).tolist(),
+                 max_tokens=int(rs.randint(2, 6)),
+                 temperature=0.8 if i % 4 == 3 else 0.0, top_k=0, seed=i)
+            for i in range(10)]
+    kw = dict(num_slots=4, min_prompt_bucket=8, kv_dtype=kv_dtype)
+    if cache == "paged":
+        kw.update(cache="paged", block_size=16, prefill_chunk_tokens=16)
+    tokens = {}
+    for graphed in (True, False):
+        eng = GenerationEngine(lm, **kw)
+        eng._cuda_graph = graphed
+        try:
+            eng.warmup()
+            before, prefills = kernels.launch_counts(), eng.metrics.prefills
+            tokens[graphed] = _serve_all(eng, reqs)
+            torch.cuda.synchronize()
+            b3 = (kernels.launch_counts()["flash_attention.launches"]
+                  - before["flash_attention.launches"])
+            prefills = eng.metrics.prefills - prefills
+            assert prefills == len(reqs)
+            assert b3 == (0 if cache == "paged"
+                          else LM_CFG["n_layers"] * prefills)
+            assert eng.metrics.compiles == (len(eng.graph_plan())
+                                            if graphed else 0)
+        finally:
+            eng.stop()
+    assert tokens[True] == tokens[False]
+
+
 @pytest.mark.parametrize("draft_kind", ["same", "default"])
 @pytest.mark.parametrize("cache", ["slots", "paged"])
 def test_speculating_engine_captures_two_graphs(cache, draft_kind):
-    """A speculating engine (k=3) captures the decode step and the
-    draft's proposal at warmup and nothing after, a corrupting verify
-    recovery included (the draft cache is zeroed in place, on the same
-    storage); its tokens are the k=0 engine's, greedy and sampled; and
-    the draft's B1 launches are its layers x k x the proposal calls,
-    replays included (the paged target decodes on B2)."""
+    """A speculating engine (k=3) captures its graph_plan at warmup (the
+    decode step, the draft's proposal, the prefill or chunk buckets,
+    copy-on-write, the draft primes and the verify spans) and nothing
+    after, a corrupting verify recovery included (the caches are zeroed
+    in place, on the same storage); its tokens are the k=0 engine's,
+    greedy and sampled; and the draft's B1 launches are its layers x k
+    x the proposal calls, replays included (the paged target decodes on
+    B2)."""
     from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.serving import (FaultInjector,
                                                   GenerationEngine)
@@ -1002,7 +1067,10 @@ def test_speculating_engine_captures_two_graphs(cache, draft_kind):
         base.warmup()
         want = _serve_all(base, reqs)
         eng.warmup()
-        assert eng.metrics.compiles == 2
+        plan = eng.graph_plan()
+        assert eng.metrics.compiles == len(plan)
+        assert set(eng._graphs) == {k for k in plan
+                                    if k[0] not in ("decode", "propose")}
         where = [c.data_ptr() for c in eng._draft_cache.ks
                  + eng._draft_cache.vs]
         calls = []
@@ -1021,7 +1089,8 @@ def test_speculating_engine_captures_two_graphs(cache, draft_kind):
                                              corrupting=("verify",)))
         assert _serve_all(eng, reqs) == want
         eng.set_fault_injector(None)
-        assert eng.metrics.recoveries == 1 and eng.metrics.compiles == 2
+        assert eng.metrics.recoveries == 1
+        assert eng.metrics.compiles == len(plan)
         assert where == [c.data_ptr() for c in eng._draft_cache.ks
                          + eng._draft_cache.vs]
     finally:
@@ -1029,13 +1098,14 @@ def test_speculating_engine_captures_two_graphs(cache, draft_kind):
         eng.stop()
 
 
-@pytest.mark.parametrize("which", ["decode", "draft"])
+@pytest.mark.parametrize("which", ["decode", "draft", "prefill"])
 def test_failed_capture_raises_from_warmup(which):
     """A decode step that syncs the host cannot be captured: warmup
     raises, naming the CUDA graph, and the engine has no graph; nor can
-    a speculating engine's proposal whose draft syncs (no eager
-    fallback). Last in the file: the card's state after a failed
-    capture is not the other tests' business."""
+    a speculating engine's proposal whose draft syncs, nor a prefill
+    bucket whose model syncs in its prompt pass (no eager fallback).
+    Last in the file: the card's state after a failed capture is not
+    the other tests' business."""
     from deeplearning4j_tpu_torch.serving import GenerationEngine, ServingError
     from deeplearning4j_tpu_torch.zoo.transformer_lm import \
         CausalTransformerLM
@@ -1047,10 +1117,20 @@ def test_failed_capture_raises_from_warmup(which):
                 raise AssertionError("non-finite logits")
             return out
 
+    class SyncingPrefillLM(CausalTransformerLM):
+        def forward_prefill(self, *args, **kw):
+            out = super().forward_prefill(*args, **kw)
+            if not bool(torch.isfinite(out[0]).all()):  # a host sync
+                raise AssertionError("non-finite logits")
+            return out
+
     _device()
     if which == "decode":
         eng = GenerationEngine(SyncingLM(**LM_CFG).init(), num_slots=2,
                                min_prompt_bucket=8)
+    elif which == "prefill":
+        eng = GenerationEngine(SyncingPrefillLM(**LM_CFG).init(),
+                               num_slots=2, min_prompt_bucket=8)
     else:
         eng = GenerationEngine(CausalTransformerLM(**LM_CFG).init(),
                                num_slots=2, min_prompt_bucket=8,
@@ -1061,6 +1141,9 @@ def test_failed_capture_raises_from_warmup(which):
             eng.warmup()
         if which == "decode":
             assert eng._graph is None and eng.metrics.compiles == 0
+        elif which == "prefill":
+            # the decode step went first; no prefill bucket has a graph
+            assert not eng._graphs and eng.metrics.compiles == 1
         else:
             assert eng._draft_graph is None and eng.metrics.compiles == 1
     finally:
