@@ -108,9 +108,33 @@ Phases, each of which fails the run when it fails:
    GenerationEngine(num_slots=32, kv_dtype="bf16"): the f32/bf16
    decode kernel's bf16 leg must launch once per layer and decode step,
    and a teacher-forced check against the port's own bf16 path on a
-   CPU copy holds each greedy token.
+   CPU copy holds each greedy token;
+14. the hierarchical KV tier (docs/generation.md's offload knobs: a
+   host budget, a disk ring in a temp file, prefetch on) on phase 5's
+   paged configuration with a pool that pins about three sessions: 32
+   two-turn sessions (turn 1 of 100-400 tokens, half behind phase 5's
+   system prompt; 32-64 new tokens a turn, every eighth sampled; all
+   first turns as one burst, then all second turns), at f32 and on
+   phase 7's int8 copy. The host budget (a quarter of the f32 working
+   set) makes runs spill to the ring, which is large enough that none
+   drops. Warmup must capture phase 5's plan plus a gather and a
+   scatter per run bucket and nothing after; sessions and px: prefix
+   entries must demote and restore, with no failed demotion or
+   restore, spills at f32 and no drop; every turn 2 must be a session
+   hit (no evicted session re-prefilled); the paged kernel must launch
+   once per layer and decode step and nothing else; each lane's tokens
+   must equal those of an engine with no offload and a pool that evicts
+   nothing unless their first difference is a near-tie of the CPU
+   reference; two restored greedy turn-2 lanes are held to a CPU copy
+   (teacher-forced); after offload_sessions, clear_prefix_cache and
+   clear_offload every block must be back and both tiers empty, and
+   the ring file must be gone after stop. It prints demote and restore
+   ms, prefetch hits, host bytes per demoted token and sessions per
+   host GiB (f32 beside int8), a 64-block run's captured gather and
+   scatter replayed alone, and the restored turn-2 TTFT p50 beside
+   phase 5's (7's) hot-session turn-2 TTFT p50 (not gated).
 
-Phases 4 to 7, 12 and 13 serve with the engine's defaults on the card:
+Phases 4 to 7 and 12 to 14 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
 warm set captured at warmup as a CUDA graph (``graph_plan``: the
 decode step, each prefill bucket on slots, each (chunk, table) bucket
@@ -1945,6 +1969,9 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
         turn2 = [dict(t, prompt=t["prompt"] + r["tokens"] + x["tail"],
                       max_tokens=x["max_tokens"])
                  for t, r, x in zip(turn1, res1, tails)]
+        # the hot sessions' turn-2 TTFT (phase 14 prints it beside its
+        # restored ones)
+        turn2_ttft = first_token_ms(eng)
         res2, _ = run_requests(eng, turn2)
         launches = {"decode_attention": da.launches,
                     "decode_attention_int8": da.launches_int8,
@@ -2023,6 +2050,8 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                tokens_per_s=n_tok / wall,
                ttft_p50_ms=st["ttft_ms"]["p50"],
                ttft_p99_ms=st["ttft_ms"]["p99"],
+               turn2_ttft_p50_ms=float(np.percentile(
+                   list(turn2_ttft.values()), 50)),
                decode_step_p50_ms=st["decode_step_ms"]["p50"],
                decode_step_p99_ms=st["decode_step_ms"]["p99"],
                decode_sync_wait_p50_ms=st["decode_sync_wait_ms"]["p50"],
@@ -2057,7 +2086,8 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
           f"requests "
           f"in {wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s; phase "
           f"TTFT p50/p99 {e2e['ttft_p50_ms']:.1f}/{e2e['ttft_p99_ms']:.1f} "
-          f"ms, decode step p50/p99 {e2e['decode_step_p50_ms']:.2f}/"
+          f"ms (session turn 2 p50 {e2e['turn2_ttft_p50_ms']:.1f}), decode "
+          f"step p50/p99 {e2e['decode_step_p50_ms']:.2f}/"
           f"{e2e['decode_step_p99_ms']:.2f} ms, sync wait p50/p99 "
           f"{e2e['decode_sync_wait_p50_ms']:.2f}/"
           f"{e2e['decode_sync_wait_p99_ms']:.2f} ms, prefill chunk p50 "
@@ -2323,6 +2353,327 @@ def accept_split(events, k: int) -> dict:
         if slot is not None and n == k:
             holes[slot] = holes.get(slot, 0) + 1
     return {key: (a / p, p) for key, (a, p) in sorted(tally.items())}
+
+
+#: phase 14: 32 two-turn sessions (docs/generation.md's offload scenario,
+#: "32 live two-turn sessions on a pool that pins ~3")
+OFFLOAD_SESSIONS = 32
+OFFLOAD_POOL_SESSIONS = 3
+
+
+def offload_traffic(vocab: int):
+    """Phase 14's sessions, from a fixed seed: 32 first turns of 100–400
+    prompt tokens (the even ones phase 5's 320-token system prompt and
+    an own suffix, so its blocks demote and restore as ``px:`` entries),
+    32–64 new tokens each, every eighth one sampled, and the tail of
+    8–64 tokens each second turn appends (with 32–64 new tokens)."""
+    system = paged_traffic(vocab)[0]["prompt"][:320]
+    rs = np.random.RandomState(14)
+    turn1, tails = [], []
+    for i in range(OFFLOAD_SESSIONS):
+        if i % 2 == 0:
+            prompt = system + rs.randint(0, vocab, rs.randint(8, 81)).tolist()
+        else:
+            prompt = rs.randint(0, vocab, rs.randint(100, 401)).tolist()
+        sampled = i % 8 == 7
+        turn1.append(dict(prompt=prompt, max_tokens=int(rs.randint(32, 65)),
+                          temperature=0.8 if sampled else 0.0,
+                          top_k=40 if sampled else 0, seed=200 + i,
+                          session_id=f"user-{i}"))
+        tails.append(dict(tail=rs.randint(0, vocab, rs.randint(8, 65)).tolist(),
+                          max_tokens=int(rs.randint(32, 65))))
+    return turn1, tails
+
+
+def offload_sizes(lm, turn1, tails):
+    """Phase 14's pool and tiers from the traffic: a pool that pins
+    about ``OFFLOAD_POOL_SESSIONS`` first turns (and holds the largest
+    second turn), a host budget of a quarter of the f32 working set
+    (every second turn's pinned run), so runs spill, and a disk ring of
+    four times it, so none drops (and the ring never wraps)."""
+    from deeplearning4j_tpu_torch.kernels.kv_quant import kv_bytes_per_token
+    from deeplearning4j_tpu_torch.serving.paging import blocks_for
+    bs = PAGED_ENGINE["block_size"]
+    pinned = [blocks_for(len(t["prompt"]) + t["max_tokens"] - 1, bs)
+              for t in turn1]
+    turn2 = [len(t["prompt"]) + t["max_tokens"] + len(x["tail"])
+             + x["max_tokens"] for t, x in zip(turn1, tails)]
+    num_blocks = 1 + max(OFFLOAD_POOL_SESSIONS
+                         * int(round(np.mean(pinned))),
+                         max(blocks_for(n, bs) for n in turn2))
+    block_f32 = bs * kv_bytes_per_token(lm.cache_shapes(bs), "f32")
+    working = sum(blocks_for(n - 1, bs) for n in turn2) * block_f32
+    return dict(num_blocks=num_blocks, host_bytes=working // 4,
+                disk_bytes=4 * working, working_set_f32=working,
+                mean_pinned_blocks=float(np.mean(pinned)))
+
+
+def wrap_counting(eng, name: str, key=None) -> list:
+    """Wrap the engine method ``name`` to record each call that returns
+    True (``key(args)`` of it, or True); returns the live list."""
+    got = []
+    fn = getattr(eng, name)
+
+    def wrapped(*a):
+        ok = fn(*a)
+        if ok:
+            got.append(key(*a) if key else True)
+        return ok
+    setattr(eng, name, wrapped)
+    return got
+
+
+def first_token_ms(eng) -> dict:
+    """Each request's TTFT (submit to first token, ms) by session id,
+    from a wrapper over the engine's token delivery; the live dict."""
+    out = {}
+    emit = eng._emit
+
+    def wrapped(req, token, now, itl_out=None):
+        first = req.t_first is None
+        emit(req, token, now, itl_out=itl_out)
+        if first and req.session_id is not None:
+            out[req.session_id] = (req.t_first - req.t_submit) * 1e3
+    eng._emit = wrapped
+    return out
+
+
+def offload_replay_ms(eng, n: int = 64) -> dict:
+    """The captured gather and scatter of the ``n``-block run bucket,
+    replayed alone on the card over ``n`` pool blocks (free by then:
+    every block is back; a pool of fewer repeats them) and timed, beside
+    the bound of the bytes they move (the run read once and written
+    once, every layer's K and V)."""
+    key_s, key_l = ("offload_save", n), ("offload_load", n)
+    eng._off_in.load(idx=np.arange(n) % (eng.num_blocks - 1) + 1)
+    save = time_ms(eng._graphs[key_s][0].replay)
+    load = time_ms(eng._graphs[key_l][0].replay)
+    nbytes = 2 * n * eng._cache.block_nbytes()
+    return dict(blocks=n, save_ms=save, load_ms=load, bytes=nbytes,
+                bound_ms=nbytes / H100_BYTES_PER_S * 1e3)
+
+
+def serve_offload(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG,
+                  device=None, hot_turn2_ttft_ms=None):
+    """Phase 14: the hierarchical KV tier (f32, or int8 KV on the int8
+    MLP copy of phase 7) on phase 5's paged configuration with a pool
+    that pins about three sessions (see the module doc).
+    ``hot_turn2_ttft_ms`` is phase 5's (or 7's) hot-session turn-2 TTFT
+    p50, printed beside this phase's (not gated)."""
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import (
+        CausalTransformerLM, quantize_mlp_weights)
+    int8 = kv_dtype == "int8"
+    lm = CausalTransformerLM(**cfg, device=device).init()
+    if int8:
+        quantize_mlp_weights(lm)
+    turn1, tails = offload_traffic(cfg["vocab_size"])
+    size = offload_sizes(lm, turn1, tails)
+
+    def turn2_of(res1):
+        return [dict(t, prompt=t["prompt"] + r["tokens"] + x["tail"],
+                     max_tokens=x["max_tokens"])
+                for t, r, x in zip(turn1, res1, tails)]
+
+    # the reference: the same traffic on an engine with no offload and
+    # a pool that evicts nothing
+    ref = GenerationEngine(lm, **PAGED_ENGINE, kv_dtype=kv_dtype)
+    try:
+        ref.warmup()
+        ref_plan = ref.graph_plan()
+        want1, _ = run_requests(ref, turn1)
+        turn2 = turn2_of(want1)
+        want2, _ = run_requests(ref, turn2)
+        if ref.stats()["paged"]["prefix_cache"]["session_evictions"]:
+            raise AssertionError("the reference engine evicted a session")
+    finally:
+        ref.stop()
+
+    eng = GenerationEngine(
+        lm, **dict(PAGED_ENGINE, num_blocks=size["num_blocks"]),
+        kv_dtype=kv_dtype, offload_host_bytes=size["host_bytes"],
+        offload_disk_bytes=size["disk_bytes"], offload_dir=None,
+        offload_prefetch=True)
+    try:
+        t0 = time.perf_counter()
+        eng.warmup()
+        warm_s = time.perf_counter() - t0
+        captures = warmed_compiles(eng)
+        plan = eng.graph_plan()
+        tier = {(k, b) for b in eng._off_buckets
+                for k in ("offload_save", "offload_load")}
+        if set(plan) != set(ref_plan) | tier or \
+                len(plan) != len(ref_plan) + len(tier):
+            raise AssertionError(f"the plan is not phase 5's plus a gather "
+                                 f"and a scatter per run bucket: {plan}")
+        graphs = graph_memory(eng)
+        demoted_sessions = wrap_counting(eng, "_demote_session",
+                                         lambda s: s.session_id)
+        demoted_prefixes = wrap_counting(eng, "_demote_prefix",
+                                         lambda digest, b: digest.hex())
+        restored = wrap_counting(eng, "_offload_restore",
+                                 lambda r: r.session_id)
+        ttft = first_token_ms(eng)
+        reset_launches()
+        st0 = eng.stats()
+        res1, wall1 = run_requests(eng, turn1)
+        st1 = eng.stats()
+        ttft1 = dict(ttft)
+        # turn 2 follows this run's own turn 1 (a lane may differ from
+        # the reference's at a near-tie, checked below)
+        turn2_here = turn2_of(res1)
+        res2, wall2 = run_requests(eng, turn2_here)
+        st2 = eng.stats()
+        launches = {"decode_attention": da.launches,
+                    "decode_attention_int8": da.launches_int8,
+                    "flash_attention": fa.launches,
+                    "paged_attention": pa.launches,
+                    "paged_attention_int8": pa.launches_int8}
+        no_capture_since(eng, captures)
+        check_lengths(res1 + res2, turn1 + turn2_here)
+        steps = st2["decode_steps"] - st0["decode_steps"]
+        paged = "paged_attention_int8" if int8 else "paged_attention"
+        if not steps or launches[paged] != cfg["n_layers"] * steps \
+                or sum(launches.values()) != launches[paged]:
+            raise AssertionError(f"launches {launches}: {paged} must run "
+                                 f"{cfg['n_layers']} x {steps} decode steps "
+                                 f"and nothing else")
+        off = st2["paged"]["offload"]
+        pc1, pc2 = (s["paged"]["prefix_cache"] for s in (st1, st2))
+        hits2 = pc2["session_hits"] - pc1["session_hits"]
+        misses2 = pc2["session_misses"] - pc1["session_misses"]
+        px_restores = off["restores"] - len(restored)
+        problems = []
+        if not (demoted_sessions and demoted_prefixes):
+            problems.append("demotions of both session and px: keys")
+        if not int8 and not off["spills"]:
+            problems.append("spills > 0 at f32")
+        if off["drops"] or off["demote_failures"] or off["restore_failures"]:
+            problems.append("no drop and no failed demotion or restore")
+        # a resume held for blocks matches again at each attempt, so
+        # hits may exceed the sessions; a miss is a re-prefill
+        if hits2 < OFFLOAD_SESSIONS or misses2:
+            problems.append("every turn 2 a session hit")
+        if not (restored and px_restores > 0
+                and off["prefetch_hits"] <= off["restores"]):
+            problems.append("session and px: restores, prefetch hits <= "
+                            "restores")
+        if problems:
+            raise AssertionError(f"phase 14 ({kv_dtype}) failed: "
+                                 f"{problems}; offload {off}, turn-2 "
+                                 f"session hits {hits2} misses {misses2}")
+        # bytes a demoted token costs on the host, from the session runs
+        # (every session demoted now)
+        eng.offload_sessions()
+        store = eng._offload
+        runs = [store.get(k) for k in store.keys() if not k.startswith("px:")]
+        run_bytes = sum(r.nbytes for r in runs)
+        run_tokens = sum(len(r.tokens) for r in runs)
+        eng.clear_prefix_cache()
+        eng.clear_offload()
+        st = store.stats()
+        free, total = eng._allocator.free_count, eng._allocator.capacity
+        if free != total or st["host_runs"] or st["disk_blocks"] \
+                or st["host_bytes"] or st["disk_bytes"]:
+            raise AssertionError(f"after offload_sessions, "
+                                 f"clear_prefix_cache and clear_offload: "
+                                 f"{free} of {total} blocks free, tiers {st}")
+        replay = offload_replay_ms(eng) if eng._cuda_graph else None
+        ring = store.disk._path
+    finally:
+        eng.stop()
+    if ring is not None and os.path.exists(ring):
+        raise AssertionError(f"stop() left the disk ring {ring}")
+
+    cpu = cpu_copy(lm, cfg)
+    rows_fn, tol = ((int8_paged_rows, INT8_TEACHER_TOL) if int8
+                    else (f32_rows, TEACHER_TOL))
+    differ = []
+    for reqs, got, want in ((turn1, res1, want1), (turn2_here, res2, None)):
+        for i, q in enumerate(reqs):
+            if want is None:
+                # a turn 2 is compared where its turn 1 matched (then its
+                # prompt is the reference's)
+                if res1[i]["tokens"] != want1[i]["tokens"]:
+                    continue
+                w = want2[i]["tokens"]
+            else:
+                w = want[i]["tokens"]
+            if got[i]["tokens"] != w:
+                differ.append((q["session_id"], near_tie(
+                    rows_fn, cpu, q, got[i]["tokens"], w, tol)))
+    resumed = [j for j, q in enumerate(turn2_here)
+               if q["temperature"] == 0.0
+               and q["session_id"] in restored][:2]
+    if len(resumed) < 2:
+        raise AssertionError("fewer than two restored greedy turn-2 lanes")
+    checked, exact, worst_gap = teacher_check(
+        rows_fn, cpu, [(turn2_here[j]["prompt"], res2[j]["tokens"])
+                       for j in resumed], tol, " (offload)")
+    t2 = [ttft[sid] for sid in set(restored) if sid in ttft]
+    restored_ttft = float(np.percentile(t2, 50)) if t2 else None
+    gib = float(2 ** 30)
+    out = dict(
+        kv_dtype=kv_dtype, sessions=OFFLOAD_SESSIONS, sizes=size,
+        warmup_s=warm_s, compiles_after_warmup=captures, graphs=graphs,
+        offload={k: off[k] for k in off},
+        demoted_sessions=len(demoted_sessions),
+        demoted_prefixes=len(demoted_prefixes),
+        session_restores=len(restored),
+        sessions_restored=len(set(restored)), prefix_restores=px_restores,
+        turn2_session_hits=hits2, turn2_session_misses=misses2,
+        launches=launches, decode_steps=steps,
+        wall_turn1_s=wall1, wall_turn2_s=wall2,
+        tokens_per_s=(sum(len(r["tokens"]) for r in res1 + res2)
+                      / (wall1 + wall2)),
+        host_bytes_per_token=run_bytes / max(run_tokens, 1),
+        sessions_per_host_gib=gib / (run_bytes / max(len(runs), 1)),
+        replay=replay, restored_turn2_ttft_p50_ms=restored_ttft,
+        turn1_ttft_p50_ms=float(np.percentile(list(ttft1.values()), 50)),
+        hot_turn2_ttft_p50_ms=hot_turn2_ttft_ms,
+        ttft_ratio=(restored_ttft / hot_turn2_ttft_ms
+                    if restored_ttft and hot_turn2_ttft_ms else None),
+        lanes_differing=differ, teacher_checked=checked,
+        teacher_exact=exact, teacher_worst_gap=worst_gap, teacher_tol=tol)
+    rm, dm = off["restore_ms"], off["demote_ms"]
+    print(f"offload {kv_dtype} [{card}] (phase 14): {OFFLOAD_SESSIONS} "
+          f"two-turn sessions on {size['num_blocks']} blocks (pins "
+          f"~{OFFLOAD_POOL_SESSIONS} of {size['mean_pinned_blocks']:.1f} "
+          f"blocks each), host budget {size['host_bytes']} bytes (f32 "
+          f"working set {size['working_set_f32']}), disk ring "
+          f"{size['disk_bytes']} bytes; {graph_line(graphs)}; demotions "
+          f"{off['demotions']} ({len(demoted_sessions)} sessions, "
+          f"{len(demoted_prefixes)} px:), restores {off['restores']} "
+          f"({len(restored)} sessions, {px_restores} px:), prefetch hits "
+          f"{off['prefetch_hits']}, spills {off['spills']}, drops "
+          f"{off['drops']}; turn 2 session hits {hits2}, misses "
+          f"{misses2}; demote ms p50/p99 {dm['p50']:.3f}/{dm['p99']:.3f}, "
+          f"restore ms p50/p99 {rm['p50']:.3f}/{rm['p99']:.3f}; "
+          f"{out['host_bytes_per_token']:.1f} host bytes per demoted "
+          f"token, {out['sessions_per_host_gib']:.1f} sessions per host "
+          f"GiB; restored turn-2 TTFT p50 "
+          + ("not measured" if restored_ttft is None
+             else f"{restored_ttft:.1f} ms")
+          + f" (turn 1 {out['turn1_ttft_p50_ms']:.1f}) beside the hot "
+          f"session's "
+          + ("not measured" if hot_turn2_ttft_ms is None
+             else f"{hot_turn2_ttft_ms:.1f} ms")
+          + (f" (ratio {out['ttft_ratio']:.2f}, not gated)"
+             if out["ttft_ratio"] else "")
+          + f"; launches {launches} over {steps} decode steps; "
+          f"{len(differ)} lanes differ from the eviction-free engine "
+          f"(near-ties {differ}); teacher-forced {checked} tokens of "
+          f"{len(resumed)} restored turn-2 lanes, worst gap "
+          f"{worst_gap:.3e} (tol {tol:g})"
+          + ("" if replay is None else
+             f"; a {replay['blocks']}-block run's captured gather "
+             f"{replay['save_ms']:.4f} ms and scatter "
+             f"{replay['load_ms']:.4f} ms on the device (bound "
+             f"{replay['bound_ms']:.4f} ms, {replay['bytes']} bytes)"))
+    return out
 
 
 #: phase 11 on phase 4's engine: a transient fault at the 3rd prefill
@@ -3147,6 +3498,17 @@ def main() -> int:
     e2e_bf16 = serve(card, kv_dtype="bf16")  # phase 13: B1's bf16 leg
     for e in (e2e_int8, e2e_paged_int8, e2e_bf16):
         e.pop("served")
+    # phase 14: the hierarchical KV tier at f32 (B2) and on phase 7's
+    # int8 copy (B5), beside phases 5 and 7's hot-session turn-2 TTFT
+    offload = serve_offload(
+        card, hot_turn2_ttft_ms=e2e_paged["turn2_ttft_p50_ms"])
+    offload8 = serve_offload(
+        card, "int8", hot_turn2_ttft_ms=e2e_paged_int8["turn2_ttft_p50_ms"])
+    print(f"offload host cost (phase 14): "
+          f"{offload['host_bytes_per_token']:.1f} (f32) vs "
+          f"{offload8['host_bytes_per_token']:.1f} (int8) host bytes per "
+          f"demoted token, {offload['sessions_per_host_gib']:.1f} vs "
+          f"{offload8['sessions_per_host_gib']:.1f} sessions per host GiB")
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
     trained = train(card)
@@ -3213,7 +3575,8 @@ def main() -> int:
              decode_draft=decode_draft, flash_draft=flash_draft, e2e=e2e,
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
              e2e_paged_int8=e2e_paged_int8, spec=spec,
-             spec_paged=spec_paged, flash_bwd=bwd, flash_bf16=bf16,
+             spec_paged=spec_paged, offload=offload,
+             offload_int8=offload8, flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))

@@ -14,9 +14,13 @@ NaN transparent: a non-finite row gets a non-finite scale, so every
 reader dequantizes the poison back and the engine's finite-logits
 guard still fires.
 
-The block-run helpers of the host KV tier (``kv_gather_rows``,
-``kv_scatter_rows``, ``kv_pack_host``, ``kv_unpack_host``) come with
-the offload slice (ROADMAP.md queue A, item 8).
+The block-run helpers of the host KV tier (``serving/offload.py``)
+move runs of pool rows between the device and host numpy:
+:func:`kv_gather_rows` (a demotion's read) and :func:`kv_scatter_rows`
+(a restore's write, in place), :func:`kv_pack_host` and
+:func:`kv_unpack_host`. An int8 pool's scale rows always travel with
+its values; a bf16 pool's rows live on the host as their 16-bit
+patterns (numpy has no bfloat16).
 """
 from __future__ import annotations
 
@@ -141,6 +145,12 @@ def kv_bytes_per_token(layer_shapes, kv_dtype: str) -> int:
     return sum(2 * h * dh * item for h, _, dh in layer_shapes)
 
 
+def kv_tensors(x) -> Tuple[torch.Tensor, ...]:
+    """The tensors of one pool or row set: ``(values,)``, or ``(q,
+    scale)`` for int8."""
+    return (x.q, x.scale) if is_quantized(x) else (x,)
+
+
 def _check_pool(pool) -> None:
     if not is_quantized(pool) and pool.dtype not in _STORAGE.values():
         raise TypeError(f"a {pool.dtype} pool is not a KV pool: int8 pools "
@@ -169,7 +179,7 @@ def kv_copy_row(pool, src, dst):
     are host ints, or 1-element integer tensors on the pool's device
     (the copy-on-write CUDA graph's runtime arguments: no host sync)."""
     _check_pool(pool)
-    parts = (pool.q, pool.scale) if is_quantized(pool) else (pool,)
+    parts = kv_tensors(pool)
     if isinstance(src, torch.Tensor):
         s, d = src.reshape(1).long(), dst.reshape(1).long()
         for t in parts:
@@ -215,6 +225,84 @@ def kv_update_slice(cache, slab, start: Sequence):
     cache[region].copy_(slab)
     return cache
 
+
+# ------------------------------------------- block-run gather / scatter
+#
+# The engine runs the two device halves as CUDA graphs per power-of-two
+# run bucket over static buffers: the gather writes into the leading
+# rows of a static row buffer (``out``), the scatter reads them from it
+# and writes the pool in place, so the pool keeps its storage and every
+# address the decode, chunk, copy-on-write and verify graphs captured.
+
+def kv_gather_rows(pool, idx: torch.Tensor, out=None):
+    """Leading-axis rows ``idx`` (an int64 tensor on the pool's device)
+    of ``pool``: a demotion's read. An int8 pool's scale rows come with
+    its values, never a dequantised f32 copy. With ``out`` (rows of the
+    pool's kind, at least ``len(idx)`` of them) the rows are written
+    into its leading rows, which are returned."""
+    _check_pool(pool)
+    n = int(idx.shape[0])
+    if out is None:
+        got = [t.index_select(0, idx) for t in kv_tensors(pool)]
+    else:
+        got = [torch.index_select(t, 0, idx, out=o[:n])
+               for t, o in zip(kv_tensors(pool), kv_tensors(out))]
+    return QuantArray(*got) if is_quantized(pool) else got[0]
+
+
+def kv_scatter_rows(pool, rows, idx: torch.Tensor):
+    """Write the leading ``len(idx)`` rows of ``rows`` (as
+    :func:`kv_gather_rows` gives them) into pool rows ``idx`` IN PLACE
+    (a restore's write) and return the pool: its storage never changes.
+    Padded entries of ``idx`` point at the null block; their repeated
+    writes land only there, and nothing reads that block."""
+    _check_pool(pool)
+    n = int(idx.shape[0])
+    for t, r in zip(kv_tensors(pool), kv_tensors(rows)):
+        t.index_copy_(0, idx, r[:n])
+    return pool
+
+
+def _host_array(t: torch.Tensor) -> np.ndarray:
+    """An owned, contiguous numpy copy of ``t`` (a bf16 tensor as its
+    uint16 bit patterns). A tensor on the card is copied to the host
+    first, which syncs."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        a = t.view(torch.int16).numpy().view(np.uint16)
+    else:
+        a = t.numpy()
+    # np.ascontiguousarray of a contiguous slice is a view of the
+    # (reused) buffer, not a copy
+    return np.array(a, copy=True, order="C")
+
+
+def kv_pack_host(rows, n: int) -> Tuple[np.ndarray, ...]:
+    """The first ``n`` rows as owned contiguous host numpy arrays:
+    ``(values,)`` (f32, or bf16 as uint16 bit patterns), ``(q, scale)``
+    for int8. Nothing returned shares memory with ``rows``, so the
+    buffer they came through may be reused at once."""
+    return tuple(_host_array(t[:n]) for t in kv_tensors(rows))
+
+
+def kv_unpack_host(parts: Sequence[np.ndarray], bucket: int, device=None):
+    """Scatter operands from :func:`kv_pack_host` output, zero-padded to
+    ``bucket`` rows (a tensor, bf16 where the parts are uint16 bit
+    patterns, or a :class:`QuantArray`), on ``device`` (the CPU by
+    default): every restore of one bucket reads one static row
+    buffer."""
+    out = []
+    for p in parts:
+        a = np.pad(p, [(0, bucket - p.shape[0])] + [(0, 0)] * (p.ndim - 1))
+        t = (torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+             if a.dtype == np.uint16 else torch.from_numpy(a))
+        out.append(t.to(device) if device is not None else t)
+    return QuantArray(*out) if len(out) == 2 else out[0]
+
+
+def kv_host_nbytes(parts) -> int:
+    """Host bytes one packed run occupies (budget accounting)."""
+    return int(sum(p.nbytes for p in parts))
 
 def kv_dequant_f32(cache) -> torch.Tensor:
     """Full f32 view of a pool (plain paths and tests; the kernels never

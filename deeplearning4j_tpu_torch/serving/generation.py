@@ -50,6 +50,20 @@ one sync. :meth:`graph_plan` is the set :meth:`warmup` captures (the
 JAX engine's warm set); ``metrics.compiles`` counts captures, so after
 warmup it equals the JAX engine's compiles.
 
+With ``offload_host_bytes`` > 0 (paged backend, prefix sharing on) the
+hierarchical KV tier (``serving/offload.py``) sits below the block
+pool: an evicted session pin or prefix-index entry is DEMOTED (its
+block run gathered into host RAM, spilling to an optional mmap'd disk
+ring) instead of discarded, and a returning session, or a prompt whose
+chained hashes match a demoted prefix, RESTORES its run into freshly
+allocated blocks before matching, so the turn pays only its suffix
+prefill. The gather and the scatter are CUDA graphs too, one pair per
+power-of-two run bucket (in :meth:`graph_plan`), over a static index
+buffer and one static row buffer of the largest bucket, through one
+fixed pinned staging buffer; the scatter writes the pool in place. A
+prefetch thread reads demoted runs (disk included) and builds their
+padded host operands while the resume waits in the queue.
+
 Overload semantics match the JAX engine: a bounded queue sheds (503,
 :class:`QueueFullError`), batch-priority work is shed first, and
 deadlines (504, :class:`DeadlineExceededError`) are enforced at
@@ -85,6 +99,7 @@ place; the JAX executables donated it.
 from __future__ import annotations
 
 import collections
+import os
 import queue
 import threading
 import time
@@ -98,17 +113,20 @@ from .. import random as jrandom
 from ..faults import (CorruptedStateFault, PoisonRequestError,
                       TransientFault, poll_until_idle)
 from ..kernels import add_launches, launch_counts
-from ..kernels.kv_quant import (canonical_kv_dtype, kv_copy_row,
-                                kv_update_slice)
+from ..kernels.kv_quant import (QuantArray, canonical_kv_dtype,
+                                is_quantized, kv_copy_row, kv_pack_host,
+                                kv_tensors, kv_unpack_host, kv_update_slice,
+                                kv_zeros)
 from ..profiler import OpProfiler
 from .batcher import (PRIORITIES, DeadlineExceededError, DrainingError,
                       QueueFullError)
 from .engine import ClientError, ServingError
 from .kvcache import KVCache, SlotTable
 from .metrics import GenerationMetrics
+from .offload import DiskRing, HostBlockStore, HostRun, OffloadPrefetcher
 from .paging import (NULL_BLOCK, BlockAllocator, BlockTable, PagedKVCache,
                      PrefixIndex, SessionStore, blocks_for, chain_hashes,
-                     pow2_bucket)
+                     export_block_run, import_block_run, pow2_bucket)
 from .speculative import (make_prime_fn, make_propose_fn,
                           make_verify_paged_fn, make_verify_slots_fn,
                           verify_bucket, verify_uniforms)
@@ -123,11 +141,6 @@ TOP_K_CAP = 128
 #: each (temp and uniform hold f32 bits); the paged tables follow
 _IN_ROWS = ("tok_host", "use_host", "pos", "top_k", "eos", "step",
             "max_steps", "temp", "uniform")
-
-
-def _todo(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md "
-                               f"queue A, item {item})")
 
 
 # ---------------------------------------------------------------------------
@@ -160,6 +173,14 @@ def _uniforms(seeds: np.ndarray, steps: np.ndarray) -> torch.Tensor:
         jrandom.PRNGKey(torch.from_numpy(seeds.astype(np.int64))),
         torch.from_numpy(steps.astype(np.int64)))
     return jrandom.uniform(key)
+
+
+def _pinned_like(x):
+    """A zeroed pinned host copy of the shape and dtype of ``x`` (a
+    tensor or a :class:`~..kernels.kv_quant.QuantArray`)."""
+    if is_quantized(x):
+        return QuantArray(_pinned_like(x.q), _pinned_like(x.scale))
+    return torch.zeros(x.shape, dtype=x.dtype, pin_memory=True)
 
 
 class _InBuf:
@@ -409,10 +430,17 @@ class GenerationEngine:
       draft. Its cache is a dense f32 :class:`KVCache` whatever
       ``kv_dtype``, counted in ``metrics.cache_bytes``.
 
-    The parameters take the JAX engine's positions and defaults. The
-    offload tiers (``offload_*``) are not ported yet: off their JAX
-    defaults they raise ``NotImplementedError`` naming their ROADMAP.md
-    item.
+    - the hierarchical KV tier (see the module doc; paged backend with
+      prefix sharing, else ``ValueError``): ``offload_host_bytes`` > 0
+      turns demote-on-evict on with that host RAM budget,
+      ``offload_disk_bytes`` > 0 adds the disk ring below it (a temp
+      file unlinked at :meth:`stop`, or ``kv_ring.bin`` in
+      ``offload_dir``), and ``offload_prefetch`` stages restores at
+      submit time. With ``offload_host_bytes=0`` the other three do
+      nothing, as in the JAX engine. :meth:`offload_sessions` demotes
+      every session, :meth:`clear_offload` empties both tiers.
+
+    The parameters take the JAX engine's positions and defaults.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -455,12 +483,6 @@ class GenerationEngine:
                              f"{decode_impl!r}")
         self.decode_impl = decode_impl
         self.kv_dtype = canonical_kv_dtype(kv_dtype)
-        if int(offload_host_bytes):
-            raise _todo("the host KV tier (offload_host_bytes > 0)", "8")
-        if int(offload_disk_bytes) or offload_dir is not None \
-                or not offload_prefetch:
-            raise _todo("the disk KV tier and its prefetch (offload_disk_"
-                        "bytes, offload_dir, offload_prefetch)", "8")
         if getattr(model, "_params", None) is None:
             model.init()
         self.model = model
@@ -511,6 +533,8 @@ class GenerationEngine:
             self._init_paged(block_size, num_blocks, prefill_chunk_tokens,
                              enable_prefix_sharing, prefix_index_capacity,
                              session_capacity)
+        self._init_offload(offload_host_bytes, offload_disk_bytes,
+                           offload_dir)
         self.metrics = metrics or GenerationMetrics()
         self.metrics.queue_max = int(max_queue)
         self.metrics.num_slots = self.num_slots
@@ -582,10 +606,31 @@ class GenerationEngine:
         self._graph_hot: set = set()
         self._graph_pool = None
         self._capture_ms = 0.0  # wall time of every capture so far
+        if self._offload is not None:
+            # the offload graphs' buffers: the run's block index, and one
+            # row buffer of the largest run bucket (every layer's K and V
+            # at the pool dtype) that the gather writes and the scatter
+            # reads, sliced per bucket; runs cross to and from the host
+            # through one fixed staging buffer of the same shape, pinned
+            # on the card (a demotion waits for its copy before numpy
+            # reads it, a restore for its scatter before the next one
+            # refills it). The host tier itself stays in pageable numpy
+            top = self._off_buckets[-1]
+            self._off_in = _InBuf(self.device, idx=top)
+            shapes = self._cache.layer_shapes
+            self._off_rows = tuple(
+                [kv_zeros((top,) + sh, self.kv_dtype, self.device)
+                 for sh in shapes] for _ in range(2))
+            self._off_host = self._off_rows
+            if self.device.type == "cuda":
+                self._off_host = tuple(
+                    [_pinned_like(r) for r in rows]
+                    for rows in self._off_rows)
         if cache == "paged":
             self.metrics.block_size = self.block_size
             self.metrics.blocks_total = self._allocator.capacity
             self.metrics.prefix_sharing = self.enable_prefix_sharing
+            self.metrics.offload_enabled = self._offload is not None
             self._update_block_gauges()
         self._profiler = OpProfiler.get_instance()
         # cost-aware admission: EWMAs of measured prefill ms per padded
@@ -623,6 +668,8 @@ class GenerationEngine:
         self._beat = time.monotonic()  # scheduler heartbeat (alive())
         self._draining = False
         self._running = True
+        if self._offload is not None and offload_prefetch:
+            self._offload_prefetcher = OffloadPrefetcher(self._stage_restore)
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="generation-scheduler")
         self._thread.start()
@@ -677,6 +724,38 @@ class GenerationEngine:
         self.enable_prefix_sharing = bool(enable_prefix_sharing)
         self._prefix_index = PrefixIndex(int(prefix_index_capacity))
         self._sessions = SessionStore(int(session_capacity))
+
+    def _init_offload(self, host_bytes, disk_bytes, offload_dir):
+        """The hierarchical KV tier (JAX's knobs, checks and messages):
+        the host store with its optional disk ring and the run buckets,
+        the power-of-two ladder of the block tables up to
+        ``pow2_bucket(blocks_per_seq)``. The prefetch thread starts with
+        the scheduler, after every check."""
+        self.offload_host_bytes = int(host_bytes)
+        self._offload: Optional[HostBlockStore] = None
+        self._offload_prefetcher: Optional[OffloadPrefetcher] = None
+        self._off_buckets: List[int] = []
+        if self.offload_host_bytes <= 0:
+            return
+        if self.cache_backend != "paged":
+            raise ValueError("offload_host_bytes requires the "
+                             "paged cache backend (cache='paged')")
+        if not self.enable_prefix_sharing:
+            raise ValueError(
+                "offload_host_bytes requires prefix sharing "
+                "(enable_prefix_sharing=True): restores re-enter "
+                "the engine through session/prefix matching")
+        disk = None
+        if int(disk_bytes) > 0:
+            path = (os.path.join(offload_dir, "kv_ring.bin")
+                    if offload_dir else None)
+            disk = DiskRing(int(disk_bytes), path=path)
+        self._offload = HostBlockStore(self.offload_host_bytes, disk=disk)
+        # a restore held for blocks: sid -> (run, operands or None, the
+        # run's stamp, whether the prefetcher staged it)
+        self._restore_parked: Dict[str, tuple] = {}
+        top = pow2_bucket(self._blocks_per_seq)
+        self._off_buckets = [b for b in self._tbl_buckets if b <= top]
 
     def _init_speculation(self, draft_model):
         """The draft (``make_draft_lm``'s by default), its dense f32
@@ -794,6 +873,17 @@ class GenerationEngine:
         self.metrics.shared_blocks = a.shared_count
         self.metrics.prefix_blocks = len(self._prefix_index)
         self.metrics.sessions_live = len(self._sessions)
+        off = self._offload
+        if off is not None:
+            s = off.stats()
+            m = self.metrics
+            m.offload_host_runs = s["host_runs"]
+            m.offload_host_blocks = s["host_blocks"]
+            m.offload_host_bytes = s["host_bytes"]
+            m.offload_disk_blocks = s["disk_blocks"]
+            m.offload_disk_bytes = s["disk_bytes"]
+            m.offload_spills = s["spills"]
+            m.offload_drops = s["drops"]
 
     # -- device calls ----------------------------------------------------
     # The buffer-driven device functions: each reads its per-call values
@@ -861,6 +951,21 @@ class GenerationEngine:
         for pool in kcs + vcs:
             kv_copy_row(pool, src, dst)
 
+    def _offload_save_fn(self, kcs, vcs, bucket: int):
+        """Gather the pool rows the first ``bucket`` entries of
+        ``_off_in`` name (every layer, K and V, an int8 pool's scale
+        rows with its values) into the leading rows of the row buffer:
+        a demotion's device half, which leaves the pools untouched."""
+        export_block_run(kcs, vcs, self._off_in.ints("idx", bucket),
+                         out=self._off_rows)
+
+    def _offload_load_fn(self, kcs, vcs, bucket: int):
+        """Scatter the row buffer's leading ``bucket`` rows into the pool
+        rows ``_off_in`` names, in place: a restore's device half.
+        Padded entries name the null block."""
+        import_block_run(kcs, vcs, *self._off_rows,
+                         self._off_in.ints("idx", bucket))
+
     def _prime_graph_fn(self, kcs, vcs, bucket: int):
         """The draft prime at ``bucket`` into the draft cache; its ok
         into ``_prime_out``."""
@@ -896,6 +1001,12 @@ class GenerationEngine:
                                           key[2])
         if kind == "cow":
             return lambda: self._cow_fn(self._kcs, self._vcs)
+        if kind == "offload_save":
+            return lambda: self._offload_save_fn(self._kcs, self._vcs,
+                                                 key[1])
+        if kind == "offload_load":
+            return lambda: self._offload_load_fn(self._kcs, self._vcs,
+                                                 key[1])
         if kind == "prime":
             return lambda: self._prime_graph_fn(
                 self._draft_cache.ks, self._draft_cache.vs, key[1])
@@ -930,11 +1041,16 @@ class GenerationEngine:
         event, the call's one sync."""
         h = self._host(out.shape, out.dtype)
         h.copy_(out, non_blocking=True)
+        self._sync()
+        return h.numpy()
+
+    def _sync(self):
+        """Wait for everything queued on the current stream (one event;
+        nothing on the CPU)."""
         if self.device.type == "cuda":
             event = torch.cuda.Event()
             event.record()
             event.synchronize()
-        return h.numpy()
 
     def _prefill_call(self, tokens: np.ndarray, length: int, slot: int,
                       req: _GenRequest):
@@ -974,6 +1090,258 @@ class GenerationEngine:
         every other reader of ``src`` sees it bit-unchanged."""
         with self._profiler.record("generation.cow"):
             self._device_call(("cow",), self._cow_in, src=src, dst=dst)
+
+    # -- the hierarchical KV tier (serving/offload.py) -------------------
+    # A demotion gathers a block run device -> host, a restore scatters
+    # it back: the offload graphs of one power-of-two run bucket over the
+    # index buffer and the row buffer, so no offload traffic captures
+    # after warmup and the pools keep their storage.
+    def _run_index(self, blocks: List[int]) -> Tuple[int, np.ndarray]:
+        """A run's bucket and its block index, NULL-padded to it."""
+        bucket = pow2_bucket(len(blocks))
+        idx = np.full(bucket, NULL_BLOCK, np.int32)
+        idx[:len(blocks)] = blocks
+        return bucket, idx
+
+    def _export_run(self, tokens: np.ndarray, blocks: List[int]) -> HostRun:
+        """Device half of a demotion: gather the run's pool rows (every
+        layer, K and V) into the row buffer, bring its first
+        ``len(blocks)`` rows to the staging buffer behind one event, and
+        copy them into host arrays of their own at the pool dtype. On
+        return the source blocks may be freed and the buffers reused."""
+        n = len(blocks)
+        bucket, idx = self._run_index(blocks)
+        with self._profiler.record("generation.offload_demote"):
+            self._device_call(("offload_save", bucket), self._off_in,
+                              idx=idx)
+            for dev, host in zip(self._off_rows, self._off_host):
+                if host is dev:
+                    continue
+                for d, h in zip(dev, host):
+                    for dt, ht in zip(kv_tensors(d), kv_tensors(h)):
+                        ht[:n].copy_(dt[:n], non_blocking=True)
+            self._sync()
+            ks, vs = ([kv_pack_host(r, n) for r in rows]
+                      for rows in self._off_host)
+        return HostRun(tokens, ks, vs, self.kv_dtype)
+
+    def _build_restore_ops(self, run: HostRun, bucket: int):
+        """A run's packed layers as host tensors at the pool dtype,
+        zero-padded to ``bucket`` rows: the scatter's operands. Host
+        work only, the half a prefetch overlaps with the queue wait."""
+        return ([kv_unpack_host(layer, bucket) for layer in run.ks],
+                [kv_unpack_host(layer, bucket) for layer in run.vs])
+
+    def _import_run(self, run: HostRun, blocks: List[int], ops=None):
+        """Device half of a restore: the operands through the staging
+        buffer into the row buffer, then the scatter into the freshly
+        allocated ``blocks``, in place, and one sync that surfaces a
+        device fault. Raises whatever the device call raises: the pools
+        may be written part way, so the CALLER maps a failure to
+        recompute-recovery."""
+        bucket, idx = self._run_index(blocks)
+        if ops is None:
+            ops = self._build_restore_ops(run, bucket)
+        with self._profiler.record("generation.offload_restore"):
+            for src, dev, host in zip(ops, self._off_rows, self._off_host):
+                for o, d, h in zip(src, dev, host):
+                    for ot, dt, ht in zip(kv_tensors(o), kv_tensors(d),
+                                          kv_tensors(h)):
+                        ht[:bucket].copy_(ot)
+                        if ht is not dt:
+                            dt[:bucket].copy_(ht[:bucket], non_blocking=True)
+            self._device_call(("offload_load", bucket), self._off_in,
+                              idx=idx)
+            self._sync()
+
+    def _demote_session(self, sess) -> bool:
+        """Copy an evicted session's block run to the host tier (the
+        caller still frees the device blocks). Any failure, the
+        ``offload_io`` seam or a real gather error, degrades to a plain
+        discard: the gather leaves the device tier untouched."""
+        off = self._offload
+        sid = sess.session_id
+        if off is None or sid is None:
+            return False
+        t0 = time.perf_counter()
+        try:
+            self._hit("offload_io")
+            run = self._export_run(sess.tokens, sess.blocks)
+        except Exception:  # noqa: BLE001 — torn demotion -> discard
+            self.metrics.inc("offload_demote_failures")
+            return False
+        off.put(sid, run)
+        self.metrics.inc("offload_demotions")
+        self.metrics.offload_demote_ms.record(
+            (time.perf_counter() - t0) * 1e3)
+        return True
+
+    def _demote_prefix(self, digest: bytes, block: int) -> bool:
+        """Demote one evicted prefix-index block under its chained
+        digest (``px:<hex>``): an admission whose prompt hashes to the
+        same chain restores it instead of re-prefilling it."""
+        off = self._offload
+        if off is None:
+            return False
+        try:
+            self._hit("offload_io")
+            run = self._export_run(np.zeros(0, np.int32), [block])
+        except Exception:  # noqa: BLE001 — torn demotion -> discard
+            self.metrics.inc("offload_demote_failures")
+            return False
+        off.put("px:" + digest.hex(), run)
+        self.metrics.inc("offload_demotions")
+        return True
+
+    def _stage_restore(self, key: str):
+        """The prefetch thread's stage: read the run (RAM or disk) and
+        build its padded host operands. Host memory only: the allocator,
+        the staging buffers and every device call stay on the scheduler
+        thread."""
+        off = self._offload
+        if off is None:
+            return None
+        stamp = off.stamp(key)
+        run = off.get(key)
+        if run is None:
+            return None
+        return (run, self._build_restore_ops(run, pow2_bucket(run.n_blocks)),
+                stamp)
+
+    def _offload_restore(self, req: "_GenRequest") -> Optional[bool]:
+        """The restore-or-re-prefill decision of one admission: a demoted
+        session's run scatters back into freshly allocated blocks and is
+        pinned again, so :meth:`_match_prefix` finds a session hit and
+        the turn pays only its suffix prefill. Falls back to the plain
+        path (False: a full prefill) on no host copy, a token mismatch,
+        a pool too small for the run even with nothing in flight, or a
+        torn restore (the ``offload_io`` seam). None: the run waits for
+        blocks that in-flight requests hold, and the caller holds the
+        request at the head of the line (the JAX engine re-prefills
+        there instead, which under a burst re-prefills sessions the host
+        tier still holds). Only a REAL scatter failure escapes, as
+        :class:`CorruptedStateFault`: the pools may be written part
+        way."""
+        off = self._offload
+        if off is None or req.tokens or req.session_id is None:
+            return False
+        sid = req.session_id
+        if sid in self._sessions:
+            return False  # the device pin is current; a host copy stale
+        pf = self._offload_prefetcher
+        # what an attempt held for blocks read, else the prefetch's stage
+        staged = self._restore_parked.pop(sid, None)
+        if staged is None and pf is not None:
+            got = pf.take(sid)
+            staged = None if got is None else got + (True,)
+        run = ops = None
+        prefetched = False
+        if staged is not None:
+            run, ops, stamp, prefetched = staged
+            if stamp is None or off.stamp(sid) != stamp:
+                # re-demoted (or popped) since: stale operands. A run
+                # spilled to disk since is still current (the JAX
+                # engine's RAM-only identity check drops it)
+                run = ops = None
+                prefetched = False
+        if run is None:
+            stamp = off.stamp(sid)
+            run = off.get(sid)
+            if run is None:
+                return False
+        # the session branch of _match_prefix's rule: the stored turn
+        # must prefix-match the prompt
+        prompt = req.prompt
+        stored = run.tokens
+        n = min(len(stored), len(prompt) - 1)
+        neq = stored[:n] != prompt[:n]
+        m = int(np.argmax(neq)) if neq.any() else n
+        if m <= 0:
+            return False
+        try:
+            self._hit("offload_io")
+        except (TransientFault, CorruptedStateFault):
+            # torn restore: drop the host copy and re-prefill; no device
+            # call ran, nothing to corrupt
+            off.pop(sid)
+            if pf is not None:
+                pf.discard(sid)
+            self.metrics.inc("offload_restore_failures")
+            return False
+        blocks = self._alloc_with_eviction(run.n_blocks)
+        if blocks is None:
+            if self._allocator.used_count <= self._reclaimable():
+                # nothing in flight to wait for: the pool cannot hold
+                # the run, re-prefill
+                return False
+            # the next attempt reuses what this one read (no disk read or
+            # operand build on the scheduler thread at every retry)
+            self._restore_parked = {sid: (run, ops, stamp, prefetched)}
+            return None
+        t0 = time.perf_counter()
+        try:
+            self._import_run(run, blocks, ops)
+        except Exception as e:  # noqa: BLE001 — the pools may be written
+            raise CorruptedStateFault(
+                f"offload restore device call failed: {e!r}") from e
+        evictions = 0
+        for old in self._sessions.put(sid, run.tokens, list(blocks)):
+            if old.session_id != sid:
+                self._demote_session(old)
+                evictions += 1
+            self._allocator.free(old.blocks)
+        if evictions:
+            self.metrics.inc("session_evictions", evictions)
+        off.pop(sid)
+        self.metrics.inc("offload_restores")
+        if prefetched:
+            self.metrics.inc("offload_prefetch_hits")
+        self.metrics.offload_restore_ms.record(
+            (time.perf_counter() - t0) * 1e3)
+        return True
+
+    def _restore_prefix_blocks(self, req: "_GenRequest"):
+        """Restore the demoted PREFIX blocks the prompt's chained hashes
+        name, before :meth:`_match_prefix`, so the index matches them as
+        usual; stops at the first digest in neither the index nor the
+        host tier (the chain breaks there)."""
+        off = self._offload
+        if off is None or req.tokens or not self.enable_prefix_sharing:
+            return
+        if req.session_id is not None and req.session_id in self._sessions:
+            return  # the session pin already covers the prefix
+        hashes = chain_hashes(req.prompt, self.block_size)
+        # the chain's own entries are never evicted for its restores (the
+        # JAX engine evicts the LRU entry, under pressure the chain's
+        # first, so restoring block i demoted block i - k at every
+        # admission attempt)
+        chain = frozenset(hashes)
+        for h in hashes:
+            if self._prefix_index.match([h]):
+                continue
+            key = "px:" + h.hex()
+            run = off.get(key)
+            if run is None:
+                return
+            try:
+                self._hit("offload_io")
+            except (TransientFault, CorruptedStateFault):
+                off.pop(key)
+                self.metrics.inc("offload_restore_failures")
+                return
+            blocks = self._alloc_with_eviction(1, protect=chain)
+            if blocks is None:
+                return
+            try:
+                self._import_run(run, blocks)
+            except Exception as e:  # noqa: BLE001 — the pools may be
+                # written
+                raise CorruptedStateFault(
+                    f"offload prefix restore device call failed: "
+                    f"{e!r}") from e
+            self._prefix_index.register(h, blocks[0])
+            off.pop(key)
+            self.metrics.inc("offload_restores")
 
     def _decode_step_fn(self, kcs, vcs, step_in, step_out):
         """One decode step over the full slot batch, from an input
@@ -1223,11 +1591,13 @@ class GenerationEngine:
                    ) -> List[tuple]:
         """The keys of the CUDA graphs :meth:`warmup` captures on the
         card: one per executable the JAX engine's ``warmup`` compiles
-        for the same configuration (offload, not ported, aside).
+        for the same configuration.
         ``("decode",)``; slots: ``("prefill", b)`` per prompt bucket;
-        paged: ``("cow",)`` with prefix sharing and ``("chunk", c, t)``
-        per chunk bucket ``c`` and table bucket ``t`` with ``t *
-        block_size >= c``; with speculation ``("propose",)``,
+        paged: ``("cow",)`` with prefix sharing, ``("offload_save",
+        b)`` and ``("offload_load", b)`` per run bucket ``b`` with the
+        KV tier on, and ``("chunk", c, t)`` per chunk bucket ``c`` and
+        table bucket ``t`` with ``t * block_size >= c``; with
+        speculation ``("propose",)``,
         ``("prime", b)`` per prime bucket and one ``("verify",)``
         (slots) or ``("verify", t)`` per table bucket with ``t *
         block_size`` >= the verify bucket (paged). ``buckets`` narrows
@@ -1238,6 +1608,8 @@ class GenerationEngine:
             bs = self.block_size
             if self.enable_prefix_sharing:
                 plan.append(("cow",))
+            plan += [(kind, b) for b in self._off_buckets
+                     for kind in ("offload_save", "offload_load")]
             plan += [("chunk", c, t) for c in buckets
                      for t in self._tbl_buckets if t * bs >= c]
         else:
@@ -1253,8 +1625,9 @@ class GenerationEngine:
         return plan
 
     def warmup(self, buckets: Optional[Sequence[int]] = None) -> List[int]:
-        """Run every prefill bucket (paged: every chunk bucket, and the
-        copy-on-write copy), one decode step and, with speculation,
+        """Run every prefill bucket (paged: every chunk bucket, the
+        copy-on-write copy and every offload run bucket's gather and
+        scatter), one decode step and, with speculation,
         every draft-prime bucket, one proposal and one verify span once,
         on the scheduler thread and on scratch caches, so the first
         requests pay no one-time costs (kernel build and load, library
@@ -1284,6 +1657,13 @@ class GenerationEngine:
                 if self.enable_prefix_sharing:
                     self._cow_in.load(src=0, dst=1)
                     self._cow_fn(scratch.ks, scratch.vs)
+                if self._offload is not None:
+                    # every run bucket's gather and scatter, through the
+                    # null block (an index buffer of zeros)
+                    self._off_in.load()
+                    for b in self._off_buckets:
+                        self._offload_save_fn(scratch.ks, scratch.vs, b)
+                        self._offload_load_fn(scratch.ks, scratch.vs, b)
                 span = scratch
             else:
                 span = KVCache(model.cache_shapes(self.max_seq_len), 1,
@@ -1550,6 +1930,15 @@ class GenerationEngine:
         """Validate and enqueue, counting pre-admission 5xx here."""
         try:
             req = self._make_request(*args, **kw)
+            pf = self._offload_prefetcher
+            if (pf is not None and req.session_id is not None
+                    and req.session_id not in self._sessions
+                    and req.session_id in self._offload):
+                # stage the demoted run (a disk read, the padded host
+                # operands) while the request waits in the queue; the
+                # scheduler re-checks staleness when it takes them, so
+                # this racy glance at its session store is safe
+                pf.request(req.session_id)
             self._enqueue(req)
             return req
         except (ClientError, QueueFullError, DeadlineExceededError):
@@ -1888,32 +2277,58 @@ class GenerationEngine:
         self.metrics.inc("prefix_tokens_matched", m)
         return m, list(matched), cow
 
-    def _evict_one_pin(self) -> bool:
+    def _evict_one_pin(self, protect=frozenset()) -> bool:
         """Release ONE cache pin under block pressure: the LRU prefix
-        index entry first, then the LRU session. False when nothing is
-        evictable."""
-        b = self._prefix_index.evict_lru()
-        if b is not None:
+        index entry first (but those whose digest is in ``protect``),
+        then the LRU session. False when nothing is evictable. With the
+        KV tier on, eviction DEMOTES: the pin's block run is copied to
+        the host before its blocks are freed (a torn demotion degrades
+        to the discard; the free runs either way)."""
+        ent = self._prefix_index.evict_lru_entry(protect)
+        if ent is not None:
+            digest, b = ent
+            self._demote_prefix(digest, b)
             self._allocator.free([b])
             self.metrics.inc("prefix_evictions")
             return True
         sess = self._sessions.evict_lru()
         if sess is not None:
+            self._demote_session(sess)
             self._allocator.free(sess.blocks)
             self.metrics.inc("session_evictions")
             return True
         return False
 
-    def _alloc_with_eviction(self, n: int) -> Optional[List[int]]:
+    def _alloc_with_eviction(self, n: int, protect=frozenset()
+                             ) -> Optional[List[int]]:
         """All-or-nothing alloc that reclaims cache pins under pressure
-        (in-flight requests outrank caching). None only when even an
-        evicted pool cannot cover ``n``."""
+        (in-flight requests outrank caching), never the prefix-index
+        entries whose digest is in ``protect``. None when even an
+        evicted pool cannot cover ``n``; then no pin is evicted. (The
+        JAX engine evicts them all first: a request held for blocks then
+        evicts, and with the KV tier demotes, the very session it
+        matched, and restores it again at every retry.)"""
+        blocks = self._allocator.alloc(n)
+        if blocks is not None:
+            return blocks
+        if self._allocator.free_count + self._reclaimable(protect) < n:
+            return None
         while True:
+            if not self._evict_one_pin(protect):
+                return None
             blocks = self._allocator.alloc(n)
             if blocks is not None:
                 return blocks
-            if not self._evict_one_pin():
-                return None
+
+    def _reclaimable(self, protect=frozenset()) -> int:
+        """Blocks that evicting every pin but the ``protect``ed prefix
+        entries would free: those whose every owner is such a pin."""
+        pins = collections.Counter(b for h, b in self._prefix_index.entries()
+                                   if h not in protect)
+        for blocks, _ in self._sessions.iter_pins():
+            pins.update(blocks)
+        ref = self._allocator.ref
+        return sum(1 for b, c in pins.items() if ref(b) == c)
 
     def _admit_paged(self):
         """Paged admission: claim a slot AND the request's worst-case
@@ -1957,6 +2372,24 @@ class GenerationEngine:
                 # the request, in order
                 self._requeue.appendleft(req)
                 raise
+            if self._offload is not None:
+                # restore before matching: a demoted session (or demoted
+                # prefix blocks) scatters back into the pool, so
+                # _match_prefix sees a normal hit. A torn restore already
+                # fell back to re-prefill inside; a real scatter failure
+                # escapes for recompute-recovery, the request re-admitted
+                # in order
+                try:
+                    restored = self._offload_restore(req)
+                    if restored is None:
+                        # the run waits for blocks in-flight work holds
+                        self._hold(req)
+                        return
+                    self._restore_prefix_blocks(req)
+                except CorruptedStateFault:
+                    self._requeue.appendleft(req)
+                    raise
+                self._update_block_gauges()
             match_len, shared, cow_src = self._match_prefix(req)
             pinned = shared + ([cow_src] if cow_src is not None else [])
             if pinned:
@@ -1969,13 +2402,7 @@ class GenerationEngine:
             if fresh is None:
                 if pinned:
                     self._allocator.free(pinned)
-                if self._held is None:
-                    self._held = req
-                else:
-                    # another request already waits for blocks (this one
-                    # came from the re-admission deque): it goes back
-                    # there, ahead of the held one's successors
-                    self._requeue.appendleft(req)
+                self._hold(req)
                 return
             if cow_src is not None:
                 # the match ends mid-block: the request writes positions
@@ -2006,6 +2433,17 @@ class GenerationEngine:
                 req, slot, table, tbl_bucket, plan, seq, start=match_len))
             self.metrics.active_slots = self._slots.active_count
             self._update_block_gauges()
+
+    def _hold(self, req: _GenRequest):
+        """Park an admission that waits for blocks at the head of the
+        line (FIFO) until retirements free them."""
+        if self._held is None:
+            self._held = req
+        else:
+            # another request already waits for blocks (this one came
+            # from the re-admission deque): it goes back there, ahead of
+            # the held one's successors
+            self._requeue.appendleft(req)
 
     def _prefill_chunk_step(self):
         """Run ONE prefill chunk of the oldest mid-prefill request. A
@@ -2102,11 +2540,20 @@ class GenerationEngine:
             self._allocator.free(trailing)
         evictions = 0
         for sess in self._sessions.put(req.session_id, seq, kept):
+            # the same session's superseded pin is not an eviction; an
+            # LRU-displaced one demotes to the host tier
+            if sess.session_id != req.session_id:
+                self._demote_session(sess)
+                evictions += 1
             self._allocator.free(sess.blocks)
-            # the same session's superseded pin is not an eviction
-            evictions += sess.session_id != req.session_id
         if evictions:
             self.metrics.inc("session_evictions", evictions)
+        if self._offload is not None:
+            # the fresh device pin supersedes any demoted copy: a stale
+            # host run must never be restored over it
+            self._offload.pop(req.session_id)
+            if self._offload_prefetcher is not None:
+                self._offload_prefetcher.discard(req.session_id)
         self._slots.free(slot)
         self._slot_blocks[slot] = None
         self._tables[slot] = NULL_BLOCK
@@ -2559,6 +3006,41 @@ class GenerationEngine:
             return len(blocks)
         return self._on_scheduler(job)
 
+    def offload_sessions(self) -> int:
+        """Demote EVERY session pin to the host tier (freeing its device
+        blocks); returns how many demoted cleanly (0 without the tier).
+        For maintenance before a restart, or to force the cold path."""
+        if self.cache_backend != "paged" or self._offload is None:
+            return 0
+
+        def job() -> int:
+            sessions = self._sessions.clear()
+            demoted = 0
+            for sess in sessions:
+                demoted += self._demote_session(sess)
+                self._allocator.free(sess.blocks)
+            if sessions:
+                self.metrics.inc("session_evictions", len(sessions))
+            self._update_block_gauges()
+            return demoted
+        return self._on_scheduler(job)
+
+    def clear_offload(self) -> int:
+        """Drop every demoted run from the host and disk tiers; returns
+        how many runs went. Their sessions re-prefill on their next
+        turn."""
+        off = self._offload
+        if off is None:
+            return 0
+
+        def job() -> int:
+            n = len(off.keys())
+            off.clear()
+            self._restore_parked.clear()
+            self._update_block_gauges()
+            return n
+        return self._on_scheduler(job)
+
     def set_fault_injector(self, injector) -> None:
         """Swap the fault injector (``None`` disables injection). The
         seams read it on every call, so one warmed engine serves fault
@@ -2606,7 +3088,12 @@ class GenerationEngine:
 
     def stop(self, timeout_s: float = 5.0):
         """Stop the scheduler; its exit path fails what is queued or in
-        flight."""
+        flight. Then the prefetch thread stops and the host tier closes
+        (its disk ring unlinks its temp file)."""
         self._running = False
         self._wake.set()
         self._thread.join(timeout=timeout_s)
+        if self._offload_prefetcher is not None:
+            self._offload_prefetcher.stop()
+        if self._offload is not None:
+            self._offload.close()

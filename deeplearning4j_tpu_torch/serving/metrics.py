@@ -1,9 +1,8 @@
 """Generation-engine counters (counterpart of
 ``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
 counters the slot and paged backends, the int8 KV cache, the fault
-ladder and speculative decoding move; the offload block comes with its
-slice, and the Prometheus exposition with the serving shell, ROADMAP.md
-queue A, item 9)."""
+ladder, speculative decoding and the host KV tier move; the Prometheus
+exposition comes with the serving shell, ROADMAP.md queue A, item 9)."""
 from __future__ import annotations
 
 import threading
@@ -62,7 +61,7 @@ class GenerationMetrics:
         #                                   decode (lane never failed)
         self.spec_draft_ms = Reservoir(latency_window)   # propose call
         self.spec_verify_ms = Reservoir(latency_window)  # one lane's span
-        self.compiles = 0          # CUDA graph captures (decode, propose)
+        self.compiles = 0          # CUDA graph captures (graph_plan)
         self.queue_depth = 0       # gauge, updated by the scheduler
         self.queue_max = 0
         self.active_slots = 0      # gauge
@@ -98,6 +97,27 @@ class GenerationMetrics:
         self.shared_blocks = 0         # gauge: blocks with refcount > 1
         self.prefix_blocks = 0         # gauge: blocks the index pins
         self.sessions_live = 0         # gauge
+        # the hierarchical KV tier (serving/offload.py): demote-on-evict
+        # to host RAM (and an optional disk ring), restore on resume.
+        # All zero unless offload_host_bytes > 0
+        self.offload_enabled = False   # config flag
+        self.offload_demotions = 0     # device->host block-run copies
+        self.offload_restores = 0      # host->device restores (each one
+        #                                is a re-prefill avoided)
+        self.offload_prefetch_hits = 0  # restores served from a staged
+        #                                 prefetch (overlapped IO)
+        self.offload_demote_failures = 0   # torn demotions -> discard
+        self.offload_restore_failures = 0  # torn restores -> re-prefill
+        self.offload_spills = 0        # gauge: RAM -> disk-ring spills
+        self.offload_drops = 0         # gauge: runs lost off the bottom
+        self.offload_host_runs = 0     # gauge: runs in host RAM
+        self.offload_host_blocks = 0   # gauge: blocks in host RAM
+        self.offload_host_bytes = 0    # gauge
+        self.offload_disk_blocks = 0   # gauge: blocks in the disk ring
+        self.offload_disk_bytes = 0    # gauge
+        self.offload_restore_ms = Reservoir(latency_window)  # host->
+        #                              device restore wall time
+        self.offload_demote_ms = Reservoir(latency_window)
         self.warmed_buckets: List[int] = []
 
     def inc(self, field: str, n: int = 1):
@@ -146,6 +166,23 @@ class GenerationMetrics:
                     "shared_blocks": self.shared_blocks,
                     "prefix_blocks": self.prefix_blocks,
                     "sessions_live": self.sessions_live,
+                },
+                "offload": {
+                    "enabled": self.offload_enabled,
+                    "demotions": self.offload_demotions,
+                    "restores": self.offload_restores,
+                    "prefetch_hits": self.offload_prefetch_hits,
+                    "demote_failures": self.offload_demote_failures,
+                    "restore_failures": self.offload_restore_failures,
+                    "spills": self.offload_spills,
+                    "drops": self.offload_drops,
+                    "host_runs": self.offload_host_runs,
+                    "host_blocks": self.offload_host_blocks,
+                    "host_bytes": self.offload_host_bytes,
+                    "disk_blocks": self.offload_disk_blocks,
+                    "disk_bytes": self.offload_disk_bytes,
+                    "restore_ms": res(self.offload_restore_ms),
+                    "demote_ms": res(self.offload_demote_ms),
                 },
             }
         return {

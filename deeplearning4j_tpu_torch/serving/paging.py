@@ -31,8 +31,9 @@ Prefix sharing layers per-block refcounts, a :class:`PrefixIndex` of
 chained content hashes of full prompt blocks, and a
 :class:`SessionStore` of finished turns pinned under a ``session_id``
 on the allocator. The pools are written in place; the JAX executables
-donated them. Block-run export and import for the host tier come with
-the offload slice (ROADMAP.md queue A, item 8).
+donated them. :func:`export_block_run` and :func:`import_block_run`
+move block runs out of and back into the pools for the host KV tier
+(``serving/offload.py``).
 """
 from __future__ import annotations
 
@@ -43,8 +44,8 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..kernels.kv_quant import (canonical_kv_dtype, kv_bytes_per_token,
-                                kv_nbytes, kv_scale_nbytes, kv_zero_,
-                                kv_zeros)
+                                kv_gather_rows, kv_nbytes, kv_scale_nbytes,
+                                kv_scatter_rows, kv_zero_, kv_zeros)
 
 #: Block index reserved as the write target of padded table entries.
 #: Never handed out by the allocator.
@@ -239,6 +240,31 @@ class PagedKVCache:
         return kv_bytes_per_token(self.layer_shapes, self.kv_dtype)
 
 
+def export_block_run(kcs, vcs, idx, out=None):
+    """Gather pool rows ``idx`` out of every layer's K and V pool: the
+    device half of a demotion, which leaves the pools untouched. With
+    ``out`` (lists of per-layer K and V row buffers) the rows land in
+    their leading rows. Returns (K rows, V rows) per layer."""
+    ok, ov = out if out is not None else ([None] * len(kcs),
+                                          [None] * len(vcs))
+    return ([kv_gather_rows(k, idx, o) for k, o in zip(kcs, ok)],
+            [kv_gather_rows(v, idx, o) for v, o in zip(vcs, ov)])
+
+
+def import_block_run(kcs, vcs, k_rows, v_rows, idx):
+    """Scatter gathered runs back into pool rows ``idx`` IN PLACE: the
+    device half of a restore. Padded ``idx`` entries point at
+    :data:`NULL_BLOCK`, so their junk writes land where nothing reads.
+    The pools keep their storage (the CUDA graphs hold their
+    addresses); a failure here may have written them part way, so the
+    engine treats it as a
+    :class:`~deeplearning4j_tpu_torch.faults.CorruptedStateFault`."""
+    for k, r in zip(kcs, k_rows):
+        kv_scatter_rows(k, r, idx)
+    for v, r in zip(vcs, v_rows):
+        kv_scatter_rows(v, r, idx)
+    return kcs, vcs
+
 def chain_hashes(tokens: Sequence[int], block_size: int) -> List[bytes]:
     """Chained content hash per FULL block of ``tokens``:
     ``h_i = blake2b(h_{i-1} || tokens[i*Bs:(i+1)*Bs])`` over int32
@@ -307,6 +333,20 @@ class PrefixIndex:
             return None
         _, block = self._entries.popitem(last=False)
         return block
+
+    def entries(self) -> Iterator[Tuple[bytes, int]]:
+        """All ``(digest, block)`` entries, eviction order first."""
+        return iter(self._entries.items())
+
+    def evict_lru_entry(self, skip=frozenset()
+                        ) -> Optional[Tuple[bytes, int]]:
+        """Like :meth:`evict_lru`, but returns ``(digest, block)``: a
+        demoting caller keys the host copy by the chained digest.
+        Entries whose digest is in ``skip`` stay."""
+        for digest in self._entries:
+            if digest not in skip:
+                return digest, self._entries.pop(digest)
+        return None
 
     def evict_over_capacity(self) -> List[int]:
         """Evict LRU entries until within capacity; returns their

@@ -5,12 +5,14 @@ tiny d64 x L2 LM:
 
 - the warm set: ``graph_plan()`` equals the keys of the executables
   the JAX engine's ``warmup()`` compiles (its compiles recorded, not
-  run) for slots, paged with sharing on and off, speculating at k=3 on
-  both backends, and paged with a verify bucket wider than the chunk
-  cap; an engine whose captures are recorded (each "replay" runs the
-  captured function) captures exactly that plan at warmup and nothing
-  after, a recovery included, and an engine never warmed captures a
-  key at its second call, with the tokens of the eager engine;
+  run) for slots, paged with sharing on and off, paged with the host
+  KV tier on (a gather and a scatter per run bucket), speculating at
+  k=3 on both backends, and paged with a verify bucket wider than the
+  chunk cap; an engine whose captures are recorded (each "replay" runs
+  the captured function) captures exactly that plan at warmup and
+  nothing after, a recovery included, or demotions and restores on the
+  KV tier, and an engine never warmed captures a key at its second
+  call, with the tokens of the eager engine;
 - the buffer-driven prefill, chunk, copy-on-write, draft prime and
   verify, run from their static buffers over seeded (p0, slot, length,
   table) values, equal the host-argument path bit for bit (token, ok,
@@ -65,6 +67,7 @@ CONFIGS = {
     "slots": dict(),
     "paged_sharing": dict(PAGED),
     "paged_no_sharing": dict(PAGED, enable_prefix_sharing=False),
+    "paged_offload": dict(PAGED, num_blocks=12, offload_host_bytes=1 << 20),
     "slots_k3": dict(speculation_k=3),
     "paged_k3": dict(PAGED, speculation_k=3),
     # verify bucket 8 wider than the chunk cap 4: JAX sizes the table
@@ -125,6 +128,8 @@ def _jax_keys(je) -> set:
     keys |= {("prime", b) for b in je._draft_prime_exe}
     keys |= {("verify",) if k == "slots" else ("verify", k)
              for k in je._verify_exe}
+    keys |= {("offload_save", b) for b in je._offload_save_exe}
+    keys |= {("offload_load", b) for b in je._offload_load_exe}
     return keys
 
 
@@ -217,13 +222,7 @@ def test_warmup_captures_the_plan_and_nothing_after(backend, lm, draft):
         assert eng.metrics.compiles == len(plan) == len(names)
 
         lazy_names = _recording(lazy)
-        calls = {}
-        call = lazy._device_call
-
-        def counted(key, *a, **k):
-            calls[key] = calls.get(key, 0) + 1
-            return call(key, *a, **k)
-        lazy._device_call = counted
+        calls = count_calls(lazy)
         assert _serve(lazy) == want
         again = {k for k, n in calls.items() if n >= 2}
         assert set(lazy._graphs) == again and again <= set(plan)
@@ -234,6 +233,65 @@ def test_warmup_captures_the_plan_and_nothing_after(backend, lm, draft):
         eager.stop()
         eng.stop()
         lazy.stop()
+
+
+def test_offload_traffic_captures_nothing_after_warmup(lm):
+    """The KV tier's gather and scatter are graphs of the plan: an
+    engine with recorded captures demotes and restores sessions (the
+    pool pins ~1 of 3) with no capture after warmup, and gives the
+    tokens of an eager engine that never offloads. An engine never
+    warmed captures a run bucket's gather and scatter at their second
+    calls only."""
+    kw = _kw("paged_offload", None)
+    hot = GenerationEngine(lm, **dict(kw, num_blocks=64,
+                                      offload_host_bytes=0))
+    eng = GenerationEngine(lm, **kw)
+    lazy = GenerationEngine(lm, **kw)
+    prompts = [list(range(1 + i, 25 + i)) for i in range(3)]
+
+    def two_turns(e):
+        outs = [e.generate(p, max_tokens=6, session_id=f"s{i}",
+                           timeout_ms=60_000)["tokens"]
+                for i, p in enumerate(prompts)]
+        return outs + [e.generate(p + o + [3, 5], max_tokens=5,
+                                  session_id=f"s{i}",
+                                  timeout_ms=60_000)["tokens"]
+                       for i, (p, o) in enumerate(zip(prompts, outs))]
+    try:
+        hot.warmup()
+        want = two_turns(hot)
+        names = _recording(eng)
+        eng.warmup()
+        plan = eng.graph_plan()
+        assert eng.metrics.compiles == len(plan) == len(names)
+        assert two_turns(eng) == want
+        off = eng.stats()["paged"]["offload"]
+        assert off["demotions"] > 0 and off["restores"] > 0
+        assert eng.metrics.compiles == len(plan) == len(names)
+        lazy_names = _recording(lazy)
+        calls = count_calls(lazy)
+        assert two_turns(lazy) == want
+        again = {k for k, n in calls.items() if n >= 2}
+        assert {k for k in lazy._graphs if k[0].startswith("offload")} == \
+            {k for k in again if k[0].startswith("offload")}
+        assert any(k[0] == "offload_load" for k in again)
+        assert lazy.metrics.compiles == len(lazy_names)
+    finally:
+        hot.stop()
+        eng.stop()
+        lazy.stop()
+
+
+def count_calls(eng) -> dict:
+    """Count ``eng``'s per-bucket device calls by graph key."""
+    calls = {}
+    call = eng._device_call
+
+    def counted(key, *a, **k):
+        calls[key] = calls.get(key, 0) + 1
+        return call(key, *a, **k)
+    eng._device_call = counted
+    return calls
 
 
 # ---------------------------------------------------------------------------

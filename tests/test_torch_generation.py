@@ -3,8 +3,9 @@ GenerationEngine on the same weights (CPU): a mixed concurrent
 workload with slot reuse and EOS/max_tokens retirement gives identical
 tokens, greedy and sampled; 503/504 shedding; per-lane NaN quarantine;
 a failing device call goes through the JAX engine's fault ladder;
-speculation configs the JAX engine refuses raise its messages;
-unported options raise."""
+speculation configs the JAX engine refuses raise its messages, and so
+do the offload knob sets it refuses, while the ones it accepts build
+the KV tier in the JAX engine's state."""
 import threading
 
 import jax
@@ -289,15 +290,6 @@ def test_device_error_fails_in_flight_requests_with_it(jlm):
     assert set(faults) == {"retries", "recoveries", "quarantined", "drains"}
 
 
-@pytest.mark.parametrize("kw", [dict(offload_host_bytes=1 << 20),
-                                dict(offload_disk_bytes=1 << 20),
-                                dict(offload_dir="/tmp/x"),
-                                dict(offload_prefetch=False)])
-def test_unported_options_raise(jlm, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GenerationEngine(_port_lm(jlm), **kw)
-
-
 def _spec_case(case, jlm):
     """(engine kwargs for the JAX engine, the same for the port's) of a
     speculation config each engine refuses: a negative k, a k that
@@ -341,8 +333,7 @@ def test_draft_model_ignored_without_speculation(jlm):
 
 
 #: the JAX engine's defaults for the fault ladder's knobs and for the
-#: offload knobs the port accepts but does not implement (ROADMAP.md
-#: queue A, item 8)
+#: offload knobs (the KV tier off)
 JAX_DEFAULT_KNOBS = dict(max_step_retries=3, retry_backoff_ms=1.0,
                          retry_backoff_max_ms=50.0,
                          max_recoveries_per_request=3,
@@ -350,12 +341,67 @@ JAX_DEFAULT_KNOBS = dict(max_step_retries=3, retry_backoff_ms=1.0,
                          offload_dir=None, offload_prefetch=True)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(offload_disk_bytes=1 << 20), "8"),
-    (dict(offload_prefetch=False), "8")])
-def test_unported_knobs_name_their_item(jlm, kw, item):
-    with pytest.raises(NotImplementedError, match=f"item {item}\\)"):
-        GenerationEngine(_port_lm(jlm), **kw)
+PAGED_KNOBS = dict(cache="paged", block_size=8, prefill_chunk_tokens=8)
+#: offload knob sets: the two the JAX engine refuses, then the disk,
+#: dir and prefetch knobs alone (with the host tier off they do
+#: nothing), then the tier on with and without the disk and prefetch
+OFFLOAD_CASES = {
+    "host_on_slots": dict(offload_host_bytes=1 << 20),
+    "host_without_sharing": dict(PAGED_KNOBS, enable_prefix_sharing=False,
+                                 offload_host_bytes=1 << 20),
+    "disk_alone": dict(offload_disk_bytes=1 << 20),
+    "dir_alone": dict(offload_dir="kv-tier"),
+    "prefetch_off_alone": dict(offload_prefetch=False),
+    "paged_disk_dir_prefetch_alone": dict(PAGED_KNOBS,
+                                          offload_disk_bytes=1 << 20,
+                                          offload_dir="kv-tier",
+                                          offload_prefetch=False),
+    "paged_host_and_disk": dict(PAGED_KNOBS, offload_host_bytes=1 << 20,
+                                offload_disk_bytes=1 << 20),
+    "paged_host_prefetch_off": dict(PAGED_KNOBS, offload_host_bytes=4096,
+                                    offload_prefetch=False),
+}
+
+
+def _offload_state(eng):
+    off = eng._offload
+    return dict(on=off is not None,
+                budget=None if off is None else off.byte_budget,
+                disk=None if off is None or off.disk is None
+                else off.disk.capacity,
+                buckets=list(eng._off_buckets),
+                prefetch=eng._offload_prefetcher is not None,
+                enabled=getattr(eng.metrics, "offload_enabled", False))
+
+
+@pytest.mark.parametrize("case", sorted(OFFLOAD_CASES))
+def test_offload_knobs_match_jax(jlm, case, tmp_path):
+    """Each offload knob set does on the port what it does on the JAX
+    engine: both raise the same ValueError, or both build with the KV
+    tier in the same state (budget, disk ring, run buckets, prefetch
+    thread), creating no file."""
+    kw = dict(OFFLOAD_CASES[case])
+    if "offload_dir" in kw:
+        kw["offload_dir"] = str(tmp_path / kw["offload_dir"])
+    built = []
+    for make in (lambda: JaxEngine(jlm, num_slots=2, **kw),
+                 lambda: GenerationEngine(_port_lm(jlm), num_slots=2,
+                                          **kw)):
+        try:
+            eng = make()
+        except ValueError as e:
+            built.append(("raised", str(e)))
+            continue
+        try:
+            built.append(("built", _offload_state(eng)))
+        finally:
+            eng.stop()
+    assert built[1] == built[0]
+    if case.startswith("host_"):
+        assert built[0][0] == "raised" and "offload" in built[0][1]
+    else:
+        assert built[0][0] == "built"
+    assert not any(tmp_path.iterdir())
 
 
 def test_unported_knobs_accepted_at_jax_defaults(engines, jlm):

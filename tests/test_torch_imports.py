@@ -37,7 +37,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
                          check=True)
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("serving.generation", "serving.paging", "serving.faults",
-                "serving.speculative",
+                "serving.speculative", "serving.offload",
                 "faults",
                 "kernels.paged_attention", "kernels.kv_quant",
                 "nn.layers.attention", "zoo.transformer_lm",

@@ -1098,12 +1098,128 @@ def test_speculating_engine_captures_two_graphs(cache, draft_kind):
         eng.stop()
 
 
-@pytest.mark.parametrize("which", ["decode", "draft", "prefill"])
+def _host_pool(kv_dtype, rs, n=12, shape=(8, 16, 64)):
+    """A seeded CPU pool of ``n`` blocks at ``kv_dtype``."""
+    x = torch.from_numpy(rs.randn(n, *shape).astype(np.float32))
+    if kv_dtype == "int8":
+        return kvq.quantize_rows(x)
+    return x.to(kvq._storage(kv_dtype))
+
+
+def _pool_parts(pool):
+    return (pool.q, pool.scale) if kvq.is_quantized(pool) else (pool,)
+
+
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "int8"])
+def test_block_run_helpers_on_the_card_match_the_cpu(kv_dtype):
+    """The KV tier's gather (into a static row buffer), pack, unpack and
+    scatter on pools on the card give the CPU path's bits, with
+    NULL-padded indices; the scatter writes in place (every pool keeps
+    its data_ptr) and the padding lands on the null block alone."""
+    dev = _device()
+    rs = np.random.RandomState(11)
+    src, dst = _host_pool(kv_dtype, rs), _host_pool(kv_dtype, rs)
+    n, bucket = 5, 8
+    idx = torch.full((bucket,), 0, dtype=torch.int64)
+    idx[:n] = torch.tensor([9, 2, 7, 3, 11])
+    got = {}
+    for label, where in (("cpu", torch.device("cpu")), ("card", dev)):
+        s, d = src.to(where), dst.to(where)
+        buf = kvq.kv_zeros((16,) + tuple(src.shape[1:]), kv_dtype, where)
+        rows = kvq.kv_gather_rows(s, idx.to(where), out=buf)
+        packed = kvq.kv_pack_host(rows, n)
+        ops = kvq.kv_unpack_host(packed, bucket, device=where)
+        ptrs = [t.data_ptr() for t in _pool_parts(d)]
+        kvq.kv_scatter_rows(d, ops, idx.to(where))
+        assert [t.data_ptr() for t in _pool_parts(d)] == ptrs
+        got[label] = (packed, [t.cpu() for t in _pool_parts(d)])
+    torch.cuda.synchronize()
+    (pc, dc), (pg, dg) = got["cpu"], got["card"]
+    for a, b in zip(pc, pg):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    for a, b in zip(dc, dg):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+    for a, s in zip(dg, _pool_parts(src)):
+        assert torch.equal(a[idx[:n]], s[idx[:n]])
+        assert not a[0].any()
+
+
+def test_offload_engine_on_the_card_matches_eager_and_captures_nothing():
+    """The paged engine with the host KV tier (f32, and int8 with its
+    scale rows) on the card: 6 two-turn sessions on a pool that pins
+    ~2, with a disk ring under a host budget that spills. The offload
+    gather and scatter graphs are captured at warmup with the rest of
+    the plan and nothing after; demotions, spills and restores happen,
+    none fails or drops; the tokens are those of the engine with no
+    graph and of an engine that never offloads; the paged kernel counts
+    once per layer and step; every block comes back."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.serving import GenerationEngine
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    dev = _device()
+    lm = CausalTransformerLM(**LM_CFG, device=dev).init()
+    rs = np.random.RandomState(5)
+    prompts = [rs.randint(0, 512, rs.randint(17, 30)).tolist()
+               for _ in range(6)]
+    for kv_dtype in ("f32", "int8"):
+        kw = dict(num_slots=2, min_prompt_bucket=8, cache="paged",
+                  block_size=16, prefill_chunk_tokens=16, num_blocks=9,
+                  kv_dtype=kv_dtype)
+        tokens = {}
+        for mode in ("graph", "eager", "hot"):
+            eng = GenerationEngine(lm, **dict(
+                kw, num_blocks=64 if mode == "hot" else 9,
+                offload_host_bytes=0 if mode == "hot" else 40_000,
+                offload_disk_bytes=0 if mode == "hot" else 1 << 22))
+            eng._cuda_graph = mode != "eager"
+            try:
+                eng.warmup()
+                warm = eng.metrics.compiles
+                assert warm == (len(eng.graph_plan())
+                                if mode != "eager" else 0)
+                before, steps = kernels.launch_counts(), \
+                    eng.metrics.decode_steps
+                outs = [eng.generate(p, max_tokens=6, session_id=f"s{i}",
+                                     timeout_ms=120_000)["tokens"]
+                        for i, p in enumerate(prompts)]
+                outs += [eng.generate(p + o + [1, 2, 3], max_tokens=5,
+                                      session_id=f"s{i}",
+                                      timeout_ms=120_000)["tokens"]
+                         for i, (p, o) in enumerate(zip(prompts, outs))]
+                torch.cuda.synchronize()
+                key = ("paged_attention.launches"
+                       + ("_int8" if kv_dtype == "int8" else ""))
+                steps = eng.metrics.decode_steps - steps
+                assert kernels.launch_counts()[key] - before[key] == \
+                    LM_CFG["n_layers"] * steps
+                assert eng.metrics.compiles == warm
+                off = eng.stats()["paged"]["offload"]
+                if mode != "hot":
+                    assert off["demotions"] > 0 and off["restores"] > 0
+                    assert off["spills"] > 0 and off["drops"] == 0
+                    assert off["demote_failures"] == 0
+                    assert off["restore_failures"] == 0
+                    eng.offload_sessions()
+                    eng.clear_offload()
+                eng.evict_sessions()
+                eng.clear_prefix_cache()
+                assert eng._allocator.free_count == eng._allocator.capacity
+                tokens[mode] = outs
+            finally:
+                eng.stop()
+        assert tokens["graph"] == tokens["eager"] == tokens["hot"]
+
+
+@pytest.mark.parametrize("which", ["decode", "draft", "prefill", "offload"])
 def test_failed_capture_raises_from_warmup(which):
     """A decode step that syncs the host cannot be captured: warmup
     raises, naming the CUDA graph, and the engine has no graph; nor can
     a speculating engine's proposal whose draft syncs, nor a prefill
-    bucket whose model syncs in its prompt pass (no eager fallback).
+    bucket whose model syncs in its prompt pass, nor a KV-tier gather
+    that syncs (no eager fallback).
     Last in the file: the card's state after a failed capture is not
     the other tests' business."""
     from deeplearning4j_tpu_torch.serving import GenerationEngine, ServingError
@@ -1131,6 +1247,19 @@ def test_failed_capture_raises_from_warmup(which):
     elif which == "prefill":
         eng = GenerationEngine(SyncingPrefillLM(**LM_CFG).init(),
                                num_slots=2, min_prompt_bucket=8)
+    elif which == "offload":
+        eng = GenerationEngine(CausalTransformerLM(**LM_CFG).init(),
+                               num_slots=2, min_prompt_bucket=8,
+                               cache="paged", block_size=16,
+                               prefill_chunk_tokens=16,
+                               offload_host_bytes=1 << 20)
+        save = eng._offload_save_fn
+
+        def syncing_save(kcs, vcs, bucket):
+            save(kcs, vcs, bucket)
+            if not bool(torch.isfinite(eng._off_rows[0][0]).all()):
+                raise AssertionError("non-finite rows")  # a host sync
+        eng._offload_save_fn = syncing_save
     else:
         eng = GenerationEngine(CausalTransformerLM(**LM_CFG).init(),
                                num_slots=2, min_prompt_bucket=8,
@@ -1144,6 +1273,10 @@ def test_failed_capture_raises_from_warmup(which):
         elif which == "prefill":
             # the decode step went first; no prefill bucket has a graph
             assert not eng._graphs and eng.metrics.compiles == 1
+        elif which == "offload":
+            # the decode step and the larger buckets went first
+            assert not any(k[0] == "offload_save" for k in eng._graphs)
+            assert eng.metrics.compiles == 1 + len(eng._graphs)
         else:
             assert eng._draft_graph is None and eng.metrics.compiles == 1
     finally:
