@@ -132,9 +132,33 @@ Phases, each of which fails the run when it fails:
    ms, prefetch hits, host bytes per demoted token and sessions per
    host GiB (f32 beside int8), a 64-block run's captured gather and
    scatter replayed alone, and the restored turn-2 TTFT p50 beside
-   phase 5's (7's) hot-session turn-2 TTFT p50 (not gated).
+   phase 5's (7's) hot-session turn-2 TTFT p50 (not gated);
+15. traced serving (request tracing and the Prometheus text), on warmed
+   engines of earlier phases, adding no warmup: (a) phase 4's engine
+   and 32 requests and (b) phase 5's engine and whole traffic (primer,
+   burst, both session turns, from emptied prefix and session caches
+   each time) each run four times in turns, untraced, traced, traced,
+   untraced, a fresh enabled Tracer tracing every request of a traced
+   turn; (c) one traced greedy request on phase 12a's speculating
+   engine; (d) phase 14's f32 run traces its turn-2 requests. Every
+   turn's tokens must be the phase's first run's, nothing may be
+   captured, the decode kernel must launch once per layer and decode
+   step (counters set to 0 just before), and every traced request must
+   have one admission span ("admitted"), one closed queue span, a
+   prefill span, one decode span whose steps are its token count, one
+   step_pipeline span on a pipelining engine and no open span; in (b)
+   every request behind the system prompt or resuming a session a
+   prefix_match span; in (c) draft and verify spans with 4 proposals a
+   round, and the tokens of phase 12's own run; in (d) one
+   offload_restore span per session restore of turn 2, and at least
+   one. The engines' stats() rendered as Prometheus text
+   (prometheus_text) must parse, each family typed once, with the
+   generated-token counter equal to stats(). It prints tokens/s per
+   turn, trace_overhead_frac (mean untraced over mean traced tokens/s,
+   minus 1) with its spread (not gated), spans, families and the wall
+   seconds the phase added.
 
-Phases 4 to 7 and 12 to 14 serve with the engine's defaults on the card:
+Phases 4 to 7 and 12 to 15 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
 warm set captured at warmup as a CUDA graph (``graph_plan``: the
 decode step, each prefill bucket on slots, each (chunk, table) bucket
@@ -1150,13 +1174,14 @@ def slot_traffic():
 
 
 def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
-          eager_ab: bool = False, chaos: bool = False):
+          eager_ab: bool = False, chaos: bool = False, traced: bool = False):
     """Phase 4 (f32), 6 (int8) or 13 (bf16): the slot backend end to end,
     the decode step replayed as the engine's CUDA graph on the card. With
     ``chaos``, phase 11 then reruns the traffic on the same warmed engine
-    under :data:`SLOT_FAULT_PLAN` (:func:`fault_ladder`). With
-    ``eager_ab`` the same traffic then runs through the eager step and
-    must give the same tokens."""
+    under :data:`SLOT_FAULT_PLAN` (:func:`fault_ladder`); with ``traced``,
+    phase 15a then runs it in traced and untraced turns
+    (:func:`traced_turns`). With ``eager_ab`` the same traffic then runs
+    through the eager step and must give the same tokens."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.serving import GenerationEngine
@@ -1207,6 +1232,14 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                 eng, card, f"slots {kv_dtype} on phase {phase}'s engine",
                 reqs, results, SLOT_FAULT_PLAN, lambda: cpu_copy(lm, cfg),
                 rows_fn, tol, cfg["n_layers"])
+        trace15 = None
+        if traced:
+            trace15 = traced_turns(
+                eng, card, f"15a, slots {kv_dtype} on phase {phase}'s "
+                f"engine", [reqs], [r["tokens"] for r in results], captures,
+                cfg["n_layers"], "decode_attention." + (
+                    "launches_int8" if int8 else "launches"),
+                also=("flash_attention.launches",))
     finally:
         eng.stop()
     eager = eager_run(lm, engine_kw, reqs, results) if eager_ab else None
@@ -1238,7 +1271,8 @@ def serve(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG, device=None,
                teacher_exact_rate=exact / max(checked, 1),
                teacher_worst_gap=worst_gap, teacher_tol=tol,
                int8_vs_f32_logit_rel_err=rel, profile=prof,
-               fault_ladder=ladder, served=(None, [(reqs, results)]))
+               fault_ladder=ladder, traced=trace15,
+               served=(None, [(reqs, results)]))
     tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
     print(f"e2e{tag} [{card}]: {n_tok} tokens from {len(reqs)} requests in "
           f"{wall:.3f} s = {e2e['tokens_per_s']:.1f} tokens/s, TTFT p50/p99 "
@@ -1927,14 +1961,18 @@ def paged_traffic(vocab: int):
 
 
 def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
-                chaos: bool = False, eager_ab: bool = False):
+                chaos: bool = False, eager_ab: bool = False,
+                traced: bool = False):
     """Phase 5 (f32) or 7 (int8, int8 MLP weights): the paged backend
     end to end (see the module doc). With ``chaos``, phase 11 then reruns
     the primer and the 48-request burst on the same warmed engine under
     :func:`paged_fault_plan`'s plan (:func:`fault_ladder`), and every
-    block must come back again. With ``eager_ab`` the primer and the
-    burst then run on an engine with no CUDA graph and must give the
-    same tokens."""
+    block must come back again. With ``traced``, phase 15b then runs the
+    whole traffic (primer, burst, both session turns) in traced and
+    untraced turns (:func:`traced_turns`), from emptied prefix and
+    session caches each time, as the first run started. With
+    ``eager_ab`` the primer and the burst then run on an engine with no
+    CUDA graph and must give the same tokens."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -1963,7 +2001,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
         calls = count_calls(eng)
         st0 = eng.stats()
         reset_launches()
-        eng.generate(timeout_ms=600_000, **primer)
+        primed = eng.generate(timeout_ms=600_000, **primer)
         results, wall = run_requests(eng, burst)
         res1, _ = run_requests(eng, turn1)
         turn2 = [dict(t, prompt=t["prompt"] + r["tokens"] + x["tail"],
@@ -2011,6 +2049,28 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                 planned_chunks=planned, mid_chunk_target=target)
             ladder["blocks_free_after"] = all_blocks_back(eng, " under "
                                                           "faults")
+        trace15 = None
+        if traced:
+            # the burst's requests behind the system prompt, and every
+            # session's turn 2, must match a cached prefix
+            system = primer["prompt"][:320]
+            behind = {1 + i for i, q in enumerate(burst)
+                      if q["prompt"][:320] == system}
+            behind |= set(range(1 + len(burst) + len(turn1),
+                                1 + len(burst) + len(turn1) + len(turn2)))
+
+            def empty_caches():
+                eng.evict_sessions()
+                eng.clear_prefix_cache()
+            trace15 = traced_turns(
+                eng, card, f"15b, paged {kv_dtype} on phase "
+                f"{7 if int8 else 5}'s engine",
+                [[primer], burst, turn1, turn2],
+                [r["tokens"] for r in [primed] + results + res1 + res2],
+                captures, cfg["n_layers"], "paged_attention." + (
+                    "launches_int8" if int8 else "launches"),
+                prep=empty_caches, prefix_idx=behind)
+            all_blocks_back(eng, " after phase 15")
     finally:
         eng.stop()
     eager = (eager_run(lm, dict(PAGED_ENGINE, kv_dtype=kv_dtype), burst,
@@ -2078,7 +2138,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                quant=st["quant"], int8_vs_f32_logit_rel_err=rel,
                slot_engine_greedy_identical=None if same is None
                else f"{same}/{len(greedy)}",
-               profile=prof, fault_ladder=ladder,
+               profile=prof, fault_ladder=ladder, traced=trace15,
                served=(primer, [(burst, results), (turn1, res1),
                                 (turn2, res2)]))
     tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
@@ -2129,7 +2189,8 @@ SPEC_FAULT_PLAN = dict(seed=11, plan={"verify": [40]},
                        corrupting=("verify",))
 
 
-def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
+def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None,
+               traced: bool = False):
     """Phase 12: speculative decoding at ``SPEC_K`` on the slot engine of
     phase 4 with a same-config, same-seed copy of the target as its
     draft (JAX's identity rig: with random weights only such a draft
@@ -2150,7 +2211,9 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
     (:func:`accept_split`). A profile window (:func:`profile_window`)
     gives the device's busy share under speculation. On the
     slot engine the traffic then runs again under a corrupting verify
-    fault: one recovery, no request lost, no capture, the same gate."""
+    fault: one recovery, no request lost, no capture, the same gate. With
+    ``traced``, phase 15c then traces one greedy request
+    (:func:`traced_spec_request`)."""
     from deeplearning4j_tpu_torch import kernels
     from deeplearning4j_tpu_torch.faults import FaultInjector
     from deeplearning4j_tpu_torch.serving import GenerationEngine
@@ -2236,6 +2299,11 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
             if ladder != {"retries": 0, "recoveries": 1}:
                 raise AssertionError(f"{label}: the corrupting verify "
                                      f"fault gave {ladder}")
+        trace15 = None
+        if traced:
+            i = next(i for i, q in enumerate(reqs) if q["temperature"] == 0)
+            trace15 = traced_spec_request(eng, card, label, reqs[i],
+                                          results[i]["tokens"], captures)
         if paged:
             all_blocks_back(eng)
         replay = (busiest_replay(eng, graph_calls, "verify")
@@ -2292,7 +2360,7 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
                b1_launches=b1, b3_launches=b3, accept_split=split,
                lanes_differing=differ, near_ties=ties,
                cow_guard=guard if paged else None, fault_ladder=ladder,
-               profile=prof)
+               traced=trace15, profile=prof)
     print(f"speculative {label} [{card}] (phase 12): {n_tok} tokens from "
           f"{len(waves[0][0])} requests in {wall:.3f} s = "
           f"{n_tok / wall:.1f} tokens/s ({len(reqs)} requests in all); "
@@ -2324,6 +2392,49 @@ def serve_spec(card: str, served, paged: bool, cfg=SERVE_CFG, device=None):
              f"none lost, no capture"))
     print_profile(f"profile window speculative {label}", card, prof)
     return out
+
+
+def traced_spec_request(eng, card, label, req, want, captures) -> dict:
+    """Phase 15c on phase 12's warmed speculating engine: one greedy
+    request traced (every counter set to 0 just before it). Its tokens
+    must be ``want`` (the same request in phase 12's own run), nothing
+    may be captured, B1 must run, its spans must pass
+    :func:`span_problems` (no step_pipeline: speculation syncs every
+    step), and its draft and verify spans must sum the same rounds with
+    ``SPEC_K`` proposals a round."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.tracing import Tracer
+    t0 = time.perf_counter()
+    reset_launches()
+    tracer = Tracer(enabled=True)
+    tr = tracer.begin()
+    out = eng.generate(timeout_ms=600_000, trace=tr, **req)
+    tracer.finish(tr)
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    no_capture_since(eng, captures)
+    bad = span_problems(tr, out["tokens"], eng.decode_pipeline)
+    kinds = {s.kind: s.attrs for s in tr.spans}
+    d, v = kinds.get("draft"), kinds.get("verify")
+    if d is None or v is None or v["rounds"] < 1 \
+            or d["rounds"] != v["rounds"] \
+            or v["proposed"] != SPEC_K * v["rounds"] \
+            or d["proposed"] != v["proposed"]:
+        bad.append(f"draft and verify spans with proposed = {SPEC_K} x "
+                   f"rounds: {d}, {v}")
+    if out["tokens"] != want:
+        bad.append("the tokens of phase 12's own run")
+    if not launches.get("decode_attention.launches"):
+        bad.append(f"B1 launches, got {launches}")
+    if bad:
+        raise AssertionError(f"phase 15c ({label}) failed: {bad}")
+    res = dict(spans=len(tr.spans), kinds=[s.kind for s in tr.spans],
+               draft=d, verify=v, tokens=len(out["tokens"]),
+               launches=launches, wall_s=time.perf_counter() - t0)
+    print(f"traced speculation {label} [{card}] (phase 15c): one greedy "
+          f"request of {res['tokens']} tokens, spans {res['kinds']}; "
+          f"verify {v}; tokens identical to phase 12's run, no capture; "
+          f"launches {launches}; the phase added {res['wall_s']:.2f} s")
+    return res
 
 
 def accept_split(events, k: int) -> dict:
@@ -2454,12 +2565,15 @@ def offload_replay_ms(eng, n: int = 64) -> dict:
 
 
 def serve_offload(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG,
-                  device=None, hot_turn2_ttft_ms=None):
+                  device=None, hot_turn2_ttft_ms=None, traced: bool = False):
     """Phase 14: the hierarchical KV tier (f32, or int8 KV on the int8
     MLP copy of phase 7) on phase 5's paged configuration with a pool
     that pins about three sessions (see the module doc).
     ``hot_turn2_ttft_ms`` is phase 5's (or 7's) hot-session turn-2 TTFT
-    p50, printed beside this phase's (not gated)."""
+    p50, printed beside this phase's (not gated). With ``traced`` (phase
+    15d) every turn-2 request is traced: each must pass
+    :func:`span_problems`, and there must be one offload_restore span per
+    session restore of turn 2, and at least one."""
     from deeplearning4j_tpu_torch.kernels import decode_attention as da
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     from deeplearning4j_tpu_torch.kernels import paged_attention as pa
@@ -2525,7 +2639,35 @@ def serve_offload(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG,
         # turn 2 follows this run's own turn 1 (a lane may differ from
         # the reference's at a near-tie, checked below)
         turn2_here = turn2_of(res1)
-        res2, wall2 = run_requests(eng, turn2_here)
+        restores1 = len(restored)
+        run2 = turn2_here
+        if traced:
+            from deeplearning4j_tpu_torch.tracing import Tracer
+            tracer = Tracer(enabled=True, ring=4096)
+            run2 = [dict(q, trace=tracer.begin()) for q in turn2_here]
+        res2, wall2 = run_requests(eng, run2)
+        trace15 = None
+        if traced:
+            bad, n_spans, n_restore = [], 0, 0
+            for q, r in zip(run2, res2):
+                tracer.finish(q["trace"])
+                n_spans += len(q["trace"].spans)
+                n_restore += sum(s.kind == "offload_restore"
+                                 for s in q["trace"].spans)
+                bad += span_problems(q["trace"], r["tokens"],
+                                     eng.decode_pipeline)
+            if bad or not n_restore \
+                    or n_restore != len(restored) - restores1:
+                raise AssertionError(
+                    f"phase 15d failed: {sorted(set(bad))}; "
+                    f"{n_restore} offload_restore spans for "
+                    f"{len(restored) - restores1} session restores")
+            trace15 = dict(spans=n_spans, offload_restore_spans=n_restore,
+                           traced_requests=len(run2), wall_turn2_s=wall2)
+            print(f"traced offload {kv_dtype} [{card}] (phase 15d): "
+                  f"{len(run2)} turn-2 requests traced, {n_spans} spans, "
+                  f"{n_restore} offload_restore spans = the turn's session "
+                  f"restores, turn 2 in {wall2:.3f} s")
         st2 = eng.stats()
         launches = {"decode_attention": da.launches,
                     "decode_attention_int8": da.launches_int8,
@@ -2637,7 +2779,8 @@ def serve_offload(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG,
         ttft_ratio=(restored_ttft / hot_turn2_ttft_ms
                     if restored_ttft and hot_turn2_ttft_ms else None),
         lanes_differing=differ, teacher_checked=checked,
-        teacher_exact=exact, teacher_worst_gap=worst_gap, teacher_tol=tol)
+        teacher_exact=exact, teacher_worst_gap=worst_gap, teacher_tol=tol,
+        traced=trace15)
     rm, dm = off["restore_ms"], off["demote_ms"]
     print(f"offload {kv_dtype} [{card}] (phase 14): {OFFLOAD_SESSIONS} "
           f"two-turn sessions on {size['num_blocks']} blocks (pins "
@@ -2673,6 +2816,168 @@ def serve_offload(card: str, kv_dtype: str = "f32", cfg=SERVE_CFG,
              f"{replay['save_ms']:.4f} ms and scatter "
              f"{replay['load_ms']:.4f} ms on the device (bound "
              f"{replay['bound_ms']:.4f} ms, {replay['bytes']} bytes)"))
+    return out
+
+
+#: phase 15: the turns of the traced-serving A/B (untraced, traced,
+#: traced, untraced), each traced turn under a fresh enabled tracer
+TRACE_TURNS = (False, True, True, False)
+_PROM_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                          r'(-?\d+(?:\.\d+)?(?:[eE][-+]?\d+)?)$')
+_PROM_TYPE = re.compile(r"^# TYPE ([a-zA-Z_:][a-zA-Z0-9_:]*) "
+                        r"(counter|gauge|summary)$")
+
+
+def span_problems(tr, tokens, pipelined: bool) -> list:
+    """Phase 15's checks of one finished traced request: one admission
+    span (verdict "admitted"), one queue span, a prefill span, one decode
+    span whose steps are the request's token count, one step_pipeline
+    span on a pipelining engine, and no span left open. Returns what
+    failed."""
+    kinds = [s.kind for s in tr.spans]
+    adm = [s for s in tr.spans if s.kind == "admission"]
+    dec = [s for s in tr.spans if s.kind == "decode"]
+    bad = []
+    if len(adm) != 1 or adm[0].attrs.get("verdict") != "admitted":
+        bad.append("one admitted admission span")
+    if kinds.count("queue") != 1:
+        bad.append("one queue span")
+    if "prefill" not in kinds:
+        bad.append("a prefill span")
+    if len(dec) != 1 or dec[0].attrs.get("steps") != len(tokens):
+        bad.append("one decode span, steps = tokens")
+    if pipelined and kinds.count("step_pipeline") != 1:
+        bad.append("one step_pipeline span")
+    if any(s.t_end is None for s in tr.spans):
+        bad.append("no open span")
+    return bad
+
+
+def parse_prometheus(text: str):
+    """Parse Prometheus text exposition (format 0.0.4), failing on a line
+    that is neither a sample nor a ``# TYPE`` line, a family typed twice,
+    or a sample that does not follow its own family's ``# TYPE`` line.
+    Returns ({(name, labels): value}, {name: type})."""
+    samples, types, family = {}, {}, None
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        m = _PROM_TYPE.match(line)
+        if m:
+            if m.group(1) in types:
+                raise AssertionError(f"family typed twice: {line!r}")
+            family = m.group(1)
+            types[family] = m.group(2)
+            continue
+        m = _PROM_SAMPLE.match(line)
+        if not m or m.group(1) != family:
+            raise AssertionError(f"invalid exposition line: {line!r}")
+        samples[(m.group(1), m.group(2) or "")] = float(m.group(3))
+    return samples, types
+
+
+def prometheus_check(eng) -> dict:
+    """Phase 15's exposition check: the engine's ``stats()`` rendered as
+    the serving shell will render it (``{"models": {"lm": ...}}``) parses,
+    and its generated-token counter is the snapshot's."""
+    from deeplearning4j_tpu_torch.serving import prometheus_text
+    snap = eng.stats()
+    samples, types = parse_prometheus(
+        prometheus_text({"models": {"lm": snap}}))
+    got = samples.get(("dl4j_model_tokens_generated_total", '{model="lm"}'))
+    if got != snap["tokens_generated"]:
+        raise AssertionError(f"dl4j_model_tokens_generated_total {got} != "
+                             f"stats() {snap['tokens_generated']}")
+    return dict(families=len(types), samples=len(samples))
+
+
+def traced_turns(eng, card, label, waves, want, captures, n_layers,
+                 decode_key, also=(), prep=None, prefix_idx=frozenset()):
+    """Phase 15a/15b on a warmed engine after its own phase's runs:
+    ``waves`` (lists of requests; each list at once, the lists in order)
+    run in the four turns of :data:`TRACE_TURNS`, every request of a
+    traced turn under its own trace; ``prep`` runs before each turn. Each
+    turn's tokens must be ``want`` (the phase's first run, in wave
+    order), nothing may be captured, ``decode_key``'s kernel must launch
+    once per layer and decode step over the four turns (every counter set
+    to 0 just before them), each kernel of ``also`` at least once and no
+    other, every traced request must pass :func:`span_problems` (and
+    carry a prefix_match span where its index in that order is in
+    ``prefix_idx``), and :func:`prometheus_check` must pass.
+    Prints each turn's tokens/s and the tracing overhead (the mean
+    untraced tokens/s over the mean traced one, minus 1) with its spread:
+    not gated, host noise moves serving tokens/s by more."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.tracing import Tracer
+    t_phase = time.perf_counter()
+    st0 = eng.stats()
+    reset_launches()
+    turns, problems, n_spans = [], [], 0
+    for traced in TRACE_TURNS:
+        if prep is not None:
+            prep()
+        tracer = Tracer(enabled=True, ring=4096) if traced else None
+        got, wall, n_tok = [], 0.0, 0
+        for wave in waves:
+            reqs = [dict(r, trace=tracer.begin()) if traced else r
+                    for r in wave]
+            res, w = run_requests(eng, reqs)
+            wall += w
+            for q, r in zip(reqs, res):
+                n_tok += len(r["tokens"])
+                got.append(r["tokens"])
+                if not traced:
+                    continue
+                tracer.finish(q["trace"])
+                n_spans += len(q["trace"].spans)
+                bad = span_problems(q["trace"], r["tokens"],
+                                    eng.decode_pipeline)
+                if len(got) - 1 in prefix_idx and not any(
+                        s.kind == "prefix_match" for s in q["trace"].spans):
+                    bad.append("a prefix_match span")
+                if bad:
+                    problems.append((len(got) - 1, bad))
+        differ = sum(a != b for a, b in zip(got, want))
+        if differ or len(got) != len(want):
+            problems.append(f"{differ} of {len(want)} requests' tokens "
+                            f"differ from the phase's first run")
+        turns.append(dict(traced=traced, tokens=n_tok, wall_s=wall,
+                          tokens_per_s=n_tok / wall))
+    launches = {k: n for k, n in kernels.launch_counts().items() if n}
+    steps = eng.stats()["decode_steps"] - st0["decode_steps"]
+    if not steps or launches.get(decode_key) != n_layers * steps \
+            or set(launches) != {decode_key, *also}:
+        problems.append(f"launches {launches}: {decode_key} must run "
+                        f"{n_layers} x {steps} decode steps, {also} run, "
+                        f"nothing else")
+    no_capture_since(eng, captures)
+    prom = prometheus_check(eng)
+    if problems:
+        raise AssertionError(f"phase 15 ({label}) failed: {problems}")
+    u = [t["tokens_per_s"] for t in turns if not t["traced"]]
+    v = [t["tokens_per_s"] for t in turns if t["traced"]]
+    pairs = [a / b - 1.0 for a in u for b in v]
+    out = dict(turns=turns, trace_overhead_frac=float(np.mean(u)
+                                                      / np.mean(v) - 1.0),
+               overhead_pairs=[min(pairs), max(pairs)],
+               untraced_spread=abs(u[0] - u[1]) / float(np.mean(u)),
+               traced_spread=abs(v[0] - v[1]) / float(np.mean(v)),
+               spans=n_spans, traced_requests=2 * len(want),
+               launches=launches, decode_steps=steps, prometheus=prom,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"traced serving {label} [{card}] (phase 15): tokens/s by turn "
+          + ", ".join(f"{'traced' if t['traced'] else 'untraced'} "
+                      f"{t['tokens_per_s']:.1f}" for t in turns)
+          + f"; trace_overhead_frac {out['trace_overhead_frac']:.4f} "
+          f"(pairs {out['overhead_pairs'][0]:.4f} to "
+          f"{out['overhead_pairs'][1]:.4f}; the untraced turns differ by "
+          f"{out['untraced_spread']:.4f}, the traced by "
+          f"{out['traced_spread']:.4f}; not gated); {n_spans} spans over "
+          f"{out['traced_requests']} traced requests, tokens identical to "
+          f"the first run in all 4 turns, no capture; launches {launches} "
+          f"over {steps} decode steps; Prometheus text of stats(): "
+          f"{prom['families']} families, {prom['samples']} samples; the "
+          f"phase added {out['wall_s']:.2f} s")
     return out
 
 
@@ -3489,11 +3794,11 @@ def main() -> int:
     # phases 4 to 7; phase 11 (the fault ladder) runs on the warmed
     # engines of phases 4 and 7 after their fault-free runs, phase 12
     # (speculation) on their traffic and against their tokens
-    e2e = serve(card, eager_ab=True, chaos=True)
-    e2e_paged = serve_paged(card, eager_ab=True)
+    e2e = serve(card, eager_ab=True, chaos=True, traced=True)
+    e2e_paged = serve_paged(card, eager_ab=True, traced=True)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
-    spec = serve_spec(card, e2e.pop("served"), paged=False)
+    spec = serve_spec(card, e2e.pop("served"), paged=False, traced=True)
     spec_paged = serve_spec(card, e2e_paged.pop("served"), paged=True)
     e2e_bf16 = serve(card, kv_dtype="bf16")  # phase 13: B1's bf16 leg
     for e in (e2e_int8, e2e_paged_int8, e2e_bf16):
@@ -3501,7 +3806,15 @@ def main() -> int:
     # phase 14: the hierarchical KV tier at f32 (B2) and on phase 7's
     # int8 copy (B5), beside phases 5 and 7's hot-session turn-2 TTFT
     offload = serve_offload(
-        card, hot_turn2_ttft_ms=e2e_paged["turn2_ttft_p50_ms"])
+        card, hot_turn2_ttft_ms=e2e_paged["turn2_ttft_p50_ms"], traced=True)
+    # phase 15 (traced serving) ran on the warmed engines of phases 4, 5,
+    # 12a and 14
+    added = sum(e["traced"]["wall_s"] for e in (e2e, e2e_paged, spec))
+    print(f"traced serving (phase 15): trace_overhead_frac "
+          f"{e2e['traced']['trace_overhead_frac']:.4f} (slots), "
+          f"{e2e_paged['traced']['trace_overhead_frac']:.4f} (paged), not "
+          f"gated; 15a-15c added {added:.2f} s; 15d traced phase 14's "
+          f"turn 2 and added no run")
     offload8 = serve_offload(
         card, "int8", hot_turn2_ttft_ms=e2e_paged_int8["turn2_ttft_p50_ms"])
     print(f"offload host cost (phase 14): "

@@ -18,10 +18,21 @@ Serving seams (fired by :class:`~.serving.generation.GenerationEngine`):
   abandoned, as if the consumer hung up mid-stream
 - ``latency``       — once per scheduler iteration; a fire sleeps
   ``latency_ms`` instead of raising (injects tail latency, not errors)
-- ``draft``, ``verify`` — speculative decoding's draft and verify calls
-  (ROADMAP.md queue A, item 7; nothing fires them yet)
-- ``offload_io``    — the KV tier's demotions and restores (item 8;
-  nothing fires it yet)
+- ``draft``         — immediately before the speculative round's draft
+  proposal call (``_spec_step``, serving/generation.py:2853), inside
+  the call's except scope: any fire, corrupting included, costs
+  speculation only (the lanes plain-decode until they re-prime)
+- ``verify``        — immediately before each lane's verify call against
+  the target cache (``_spec_step``, serving/generation.py:2890): a
+  corrupting fire forces recompute-recovery, as ``device_step`` does
+- ``offload_io``    — immediately before a KV-tier demotion (the
+  device-to-host gather of ``_demote_session`` and ``_demote_prefix``,
+  serving/generation.py:1220,1239) or restore (``_offload_restore`` and
+  ``_restore_prefix_blocks``, :1314,1382) touches any engine state. A
+  fire models torn tier IO: the engine drops the host copy and falls
+  back to a plain discard (demotion) or a clean re-prefill (restore),
+  so a failed tier copy never corrupts a lane. Combine with
+  ``slow_ms`` to model a slow host or disk tier instead
 
 Training seams (``train_step``, ``data_batch``, ``checkpoint_io``,
 ``preempt``) come along for the supervised training loop (item 12);

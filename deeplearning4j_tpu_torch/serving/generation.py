@@ -64,6 +64,18 @@ fixed pinned staging buffer; the scatter writes the pool in place. A
 prefetch thread reads demoted runs (disk included) and builds their
 padded host operands while the resume waits in the queue.
 
+A request traced by the caller (``trace=``, a
+:class:`~..tracing.Trace`) records the JAX engine's spans with the same
+attributes: ``admission`` (admitted, shed at submit, expired at
+dequeue) and the ``queue`` wait at submit, ``offload_restore``,
+``prefix_match`` and one ``prefill`` per prefill call or chunk at
+admission, ``recovery`` per re-admission, and at its end ``decode`` (or
+``error``), ``step_pipeline``, ``draft`` and ``verify``, rebuilt from
+what the engine keeps per request. Every site is one ``if req.trace is
+not None`` on the host; the decode loop carries none, and tracing adds
+no device call, sync or capture. :func:`~.metrics.prometheus_text`
+renders :meth:`GenerationEngine.stats` as Prometheus text.
+
 Overload semantics match the JAX engine: a bounded queue sheds (503,
 :class:`QueueFullError`), batch-priority work is shed first, and
 deadlines (504, :class:`DeadlineExceededError`) are enforced at
@@ -247,9 +259,12 @@ def _recovery_seq(req: "_GenRequest") -> np.ndarray:
 class _GenRequest:
     __slots__ = ("prompt", "max_tokens", "temperature", "top_k", "seed",
                  "eos_id", "deadline", "priority", "session_id", "event",
-                 "tokens", "error", "finish_reason", "stream_q", "t_submit",
-                 "t_first", "t_last", "abandoned", "recoveries", "_lock",
-                 "_timeout_counted")
+                 "tokens", "error", "finish_reason", "stream_q",
+                 "stream_notify", "t_submit", "t_first", "t_last",
+                 "abandoned", "recoveries", "_lock", "_timeout_counted",
+                 "trace", "qspan", "spec_rounds", "spec_proposed",
+                 "spec_accepted", "spec_emitted", "spec_dt0", "spec_dt1",
+                 "spec_vt0", "spec_vt1", "pipe_d0", "pipe_w0")
 
     def __init__(self, prompt, max_tokens, temperature, top_k, seed,
                  eos_id, deadline, stream: bool,
@@ -273,6 +288,10 @@ class _GenRequest:
         # streaming consumer
         self.stream_q: Optional["queue.Queue"] = (
             queue.Queue() if stream else None)
+        # called after each stream put, so an event-loop consumer can
+        # park on an event instead of a blocking get a stream; it must
+        # never raise into the scheduler, so puts go through _stream_push
+        self.stream_notify: Optional[Callable[[], None]] = None
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
         self.t_last: Optional[float] = None
@@ -280,6 +299,34 @@ class _GenRequest:
         self.recoveries = 0     # recompute-recovery re-admissions
         self._lock = threading.Lock()
         self._timeout_counted = False
+        self.trace = None   # a tracing.Trace when the request is traced
+        self.qspan = None   # its open queue-wait span
+        # a traced request's speculative rounds, summed so the terminal
+        # trace can rebuild its draft and verify spans
+        self.spec_rounds = 0
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_emitted = 0
+        self.spec_dt0: Optional[float] = None
+        self.spec_dt1: Optional[float] = None
+        self.spec_vt0: Optional[float] = None
+        self.spec_vt1: Optional[float] = None
+        # the engine's cumulative decode-step span and sync wait when a
+        # traced request became a decode lane; its step_pipeline span
+        # reports the growth over its decode (engine-wide, as the batch
+        # shares each step). None: never a decode lane of a pipelining
+        # engine
+        self.pipe_d0: Optional[float] = None
+        self.pipe_w0: Optional[float] = None
+
+    def _stream_push(self, item) -> None:
+        self.stream_q.put(item)
+        cb = self.stream_notify
+        if cb is not None:
+            try:
+                cb()
+            except Exception:  # noqa: BLE001 — the consumer's fault
+                pass
 
     def count_timeout_once(self, metrics) -> None:
         """The waiter and the scheduler can both see the deadline pass;
@@ -641,6 +688,11 @@ class GenerationEngine:
         # as the JAX engine keeps compiles out.
         self._prefill_ms_per_tok = 0.0
         self._decode_ewma_ms = 0.0
+        # cumulative seconds from decode dispatch to results on the host,
+        # and of them blocked in the sync: traced requests' step_pipeline
+        # spans report the growth over their decode
+        self._step_span_s = 0.0
+        self._sync_wait_s = 0.0
         self._hot_buckets: set = set()
         self._decode_hot = False
         self._queue: "queue.Queue[_GenRequest]" = queue.Queue(
@@ -1298,6 +1350,9 @@ class GenerationEngine:
             self.metrics.inc("offload_prefetch_hits")
         self.metrics.offload_restore_ms.record(
             (time.perf_counter() - t0) * 1e3)
+        if req.trace is not None:
+            req.trace.span("offload_restore", tokens=len(stored),
+                           blocks=run.n_blocks, prefetched=prefetched).end()
         return True
 
     def _restore_prefix_blocks(self, req: "_GenRequest"):
@@ -1522,6 +1577,8 @@ class GenerationEngine:
             now = time.perf_counter()
             span_s, wait_s = now - t0, now - t_wait
             self._profiler.note("generation.decode_step", span_s)
+            self._step_span_s += span_s
+            self._sync_wait_s += wait_s
             dt_ms = span_s * 1e3
             self.metrics.decode_step_ms.record(dt_ms)
             self.metrics.decode_sync_wait_ms.record(wait_s * 1e3)
@@ -1891,16 +1948,20 @@ class GenerationEngine:
                  eos_id: Optional[int] = None,
                  timeout_ms: Optional[float] = None,
                  priority: str = "interactive",
-                 session_id: Optional[str] = None) -> Dict[str, Any]:
+                 session_id: Optional[str] = None,
+                 trace=None) -> Dict[str, Any]:
         """Blocking generate: returns ``{"tokens", "prompt_tokens",
         "finish_reason"}``. Raises :class:`ClientError`,
         :class:`QueueFullError`, :class:`DeadlineExceededError`,
         :class:`PoisonRequestError`, the error its own prefill call
         raised, or :class:`ServingError` when the fault ladder gave it
-        up (see the module doc)."""
+        up (see the module doc). ``trace`` (a :class:`~..tracing.Trace`,
+        default ``None``: untraced) records the request's spans (see the
+        module doc)."""
         req = self._submit(prompt, max_tokens, temperature, top_k, seed,
                            eos_id, timeout_ms, stream=False,
-                           priority=priority, session_id=session_id)
+                           priority=priority, session_id=session_id,
+                           trace=trace)
         budget = req.deadline - time.perf_counter()
         if not req.event.wait(budget + 1.0):  # grace for the device call
             req.abandoned = True
@@ -1917,19 +1978,35 @@ class GenerationEngine:
                eos_id: Optional[int] = None,
                timeout_ms: Optional[float] = None,
                priority: str = "interactive",
-               session_id: Optional[str] = None) -> Iterator[Dict]:
+               session_id: Optional[str] = None,
+               trace=None) -> Iterator[Dict]:
         """Streaming generate: yields ``{"token", "index"}`` per token,
         then ``{"done": True, "finish_reason", ...}``. Admission errors
-        raise here; later failures raise from the iterator."""
+        raise here; later failures raise from the iterator. ``trace`` as
+        in :meth:`generate`."""
         req = self._submit(prompt, max_tokens, temperature, top_k, seed,
                            eos_id, timeout_ms, stream=True,
-                           priority=priority, session_id=session_id)
+                           priority=priority, session_id=session_id,
+                           trace=trace)
         return _TokenStream(self, req)
 
-    def _submit(self, *args, **kw) -> _GenRequest:
-        """Validate and enqueue, counting pre-admission 5xx here."""
+    def _submit(self, *args, trace=None, **kw) -> _GenRequest:
+        """Validate and enqueue, counting pre-admission 5xx here. A
+        traced request's ``admission`` span and open ``queue`` span are
+        attached before the enqueue: the scheduler may admit it at
+        once."""
+        t0 = time.perf_counter()
         try:
             req = self._make_request(*args, **kw)
+            if trace is not None:
+                req.trace = trace
+                trace.span(
+                    "admission", t_start=t0, verdict="admitted",
+                    est_cost_ms=round(self._est_cost_ms(
+                        len(req.prompt), req.max_tokens), 3),
+                    prefill_ms_per_tok=round(self._prefill_ms_per_tok, 4),
+                    decode_ewma_ms=round(self._decode_ewma_ms, 3)).end()
+                req.qspan = trace.span("queue", priority=req.priority)
             pf = self._offload_prefetcher
             if (pf is not None and req.session_id is not None
                     and req.session_id not in self._sessions
@@ -1941,7 +2018,12 @@ class GenerationEngine:
                 pf.request(req.session_id)
             self._enqueue(req)
             return req
-        except (ClientError, QueueFullError, DeadlineExceededError):
+        except (ClientError, QueueFullError, DeadlineExceededError) as e:
+            if trace is not None:
+                trace.span(
+                    "admission", t_start=t0, verdict="shed", error=str(e),
+                    prefill_ms_per_tok=round(self._prefill_ms_per_tok, 4),
+                    decode_ewma_ms=round(self._decode_ewma_ms, 3)).end()
             raise  # counted via their own counters / the client's fault
         except Exception:
             self.metrics.inc("server_errors")
@@ -1955,6 +2037,53 @@ class GenerationEngine:
         if fi is not None:
             fi.fire(seam)
 
+    def _trace_terminal(self, req: _GenRequest, reason=None, exc=None):
+        """A traced request's terminal spans, built from what the engine
+        keeps (``t_first``/``t_last``, the token count, the recoveries,
+        the pipeline counters, the speculation sums), so the decode loop
+        carries no tracing code: ``decode`` (``error`` for a request that
+        never emitted), ``step_pipeline`` over its decode lifetime, and
+        one ``draft`` and one ``verify`` span over its speculative
+        rounds."""
+        tr = req.trace
+        if tr is None:
+            return
+        if req.qspan is not None:
+            req.qspan.end()  # idempotent: shed before its claim
+        attrs = {"steps": len(req.tokens), "recoveries": req.recoveries}
+        if reason is not None:
+            attrs["finish_reason"] = reason
+        if exc is not None:
+            attrs["error"] = repr(exc)
+            if isinstance(exc, PoisonRequestError):
+                attrs["quarantined"] = True
+        if req.t_first is not None:
+            end = req.t_last if req.t_last is not None else req.t_first
+            tr.span("decode", t_start=req.t_first, t_end=end, **attrs)
+        else:
+            tr.span("error" if exc is not None else "decode", **attrs).end()
+        if req.pipe_d0 is not None and self._step_span_s > req.pipe_d0:
+            # engine-wide over the request's decode: every lane shares a
+            # step's dispatch and sync; the gap between the two is host
+            # work that overlapped the device
+            dev_s = self._step_span_s - req.pipe_d0
+            wait_s = self._sync_wait_s - req.pipe_w0
+            tr.span("step_pipeline", device_ms=round(dev_s * 1e3, 3),
+                    sync_wait_ms=round(wait_s * 1e3, 3),
+                    overlap_frac=round(max(0.0, 1.0 - wait_s / dev_s),
+                                       4)).end()
+        if req.spec_rounds:
+            rate = round(req.spec_accepted / max(req.spec_proposed, 1), 4)
+            tr.span("draft", t_start=req.spec_dt0, t_end=req.spec_dt1,
+                    rounds=req.spec_rounds, proposed=req.spec_proposed)
+            tr.span("verify", t_start=req.spec_vt0, t_end=req.spec_vt1,
+                    rounds=req.spec_rounds, proposed=req.spec_proposed,
+                    accepted=req.spec_accepted, accept_rate=rate,
+                    spec_tokens=req.spec_emitted,
+                    saved_est_ms=round(
+                        max(req.spec_emitted - req.spec_rounds, 0)
+                        * self._decode_ewma_ms, 3))
+
     def _fail(self, req: _GenRequest, exc: BaseException,
               count: bool = True):
         """``count=False`` for shutdown drains: a restart is not an
@@ -1964,8 +2093,9 @@ class GenerationEngine:
             req.count_timeout_once(self.metrics)
         elif count and not isinstance(exc, ClientError):
             self.metrics.inc("server_errors")
+        self._trace_terminal(req, exc=exc)
         if req.stream_q is not None:
-            req.stream_q.put(("error", exc))
+            req._stream_push(("error", exc))
         req.event.set()
 
     def _emit(self, req: _GenRequest, token: int, now: float,
@@ -1982,7 +2112,7 @@ class GenerationEngine:
             self.metrics.itl_ms.record((now - req.t_last) * 1e3)
         req.t_last = now
         if req.stream_q is not None:
-            req.stream_q.put(("token", token))
+            req._stream_push(("token", token))
             fi = self._faults
             if fi is not None and fi.fire("client_disconnect"):
                 # as if the consumer hung up mid-stream: the scheduler
@@ -2011,8 +2141,9 @@ class GenerationEngine:
             self._pin_session(slot, req)
         else:
             self._release_slot(slot)
+        self._trace_terminal(req, reason=reason)
         if req.stream_q is not None:
-            req.stream_q.put(("done", reason))
+            req._stream_push(("done", reason))
         req.event.set()
 
     def _check_done(self, slot: int, req: _GenRequest, token: int) -> bool:
@@ -2103,11 +2234,7 @@ class GenerationEngine:
             if req.abandoned:
                 continue
             if self._deadline_blown(req):
-                # the deadline budget went while queued: shed at
-                # dequeue, no device work spent on it
-                self.metrics.inc("shed_deadline")
-                self._fail(req, DeadlineExceededError(
-                    "deadline budget exhausted in the generation queue"))
+                self._expire(req)
                 continue
             try:
                 self._prefill(req)
@@ -2121,6 +2248,18 @@ class GenerationEngine:
             except Exception as e:  # noqa: BLE001 — fails one request
                 self._fail(req, e)
 
+    def _expire(self, req: _GenRequest):
+        """Shed a request whose deadline budget went while it was queued,
+        at dequeue: no device work is spent on it."""
+        self.metrics.inc("shed_deadline")
+        if req.trace is not None:
+            req.trace.span(
+                "admission", verdict="expired",
+                prefill_ms_per_tok=round(self._prefill_ms_per_tok, 4),
+                decode_ewma_ms=round(self._decode_ewma_ms, 3)).end()
+        self._fail(req, DeadlineExceededError(
+            "deadline budget exhausted in the generation queue"))
+
     def _prefill(self, req: _GenRequest):
         """Prefill a request into a fresh slot: its prompt, or after a
         recovery :func:`_recovery_seq`. A prefill call that raises fails
@@ -2129,6 +2268,8 @@ class GenerationEngine:
         slot's cache, so the others recover."""
         # before the slot claim: a TransientFault leaves nothing to undo
         self._hit("prefill")
+        if req.trace is not None:
+            req.qspan.end()  # the queue wait ends at the slot claim
         seq = _recovery_seq(req)
         slot = self._slots.alloc(req)
         if slot is None:  # _admit checks free_count first
@@ -2148,8 +2289,11 @@ class GenerationEngine:
             self._fail(req, e)
             raise CorruptedStateFault(
                 f"prefill device call failed: {e!r}") from e
-        dt_ms = (time.perf_counter() - t0) * 1e3
-        self._note_prefill_cost(dt_ms, bucket, cold)
+        t1 = time.perf_counter()
+        self._note_prefill_cost((t1 - t0) * 1e3, bucket, cold)
+        if req.trace is not None:
+            req.trace.span("prefill", t_start=t0, t_end=t1, bucket=bucket,
+                           chunks=1, resumed=bool(req.tokens))
         self.metrics.inc("prefills")
         self.metrics.prompt_bucket_hist.record(bucket)
         if not ok:
@@ -2186,6 +2330,12 @@ class GenerationEngine:
         # the lane's token was written here: the next step takes it from
         # the host mirror, not the device
         self._tok_on_dev[slot] = False
+        if req.trace is not None and req.pipe_d0 is None \
+                and self.decode_pipeline:
+            # the synchronous loop (speculation forces it) has no
+            # pipeline to report, as in the JAX engine
+            req.pipe_d0 = self._step_span_s
+            req.pipe_w0 = self._sync_wait_s
         self.metrics.active_slots = st.active_count
         if self.cache_backend == "paged":
             self._update_block_gauges()
@@ -2232,10 +2382,12 @@ class GenerationEngine:
         return plan
 
     def _match_prefix(self, req: _GenRequest
-                      ) -> Tuple[int, List[int], Optional[int]]:
+                      ) -> Tuple[int, List[int], Optional[int],
+                                 Optional[str]]:
         """Longest cached prefix of the prompt -> ``(match_len,
-        shared_blocks, cow_src)``. The session store is consulted first
-        (token-granular), then the prefix index (block-granular).
+        shared_blocks, cow_src, source)``. The session store is consulted
+        first (token-granular, ``source`` "session"), then the prefix
+        index (block-granular, "index").
         ``shared_blocks`` are matched full blocks the request reads
         through its table; ``cow_src`` holds the matched tail when the
         match ends mid-block, and admission copies it into a private
@@ -2245,7 +2397,7 @@ class GenerationEngine:
         re-admission (tokens already emitted) never matches: its block
         budget and its token stream are settled."""
         if not self.enable_prefix_sharing or req.tokens:
-            return 0, [], None
+            return 0, [], None, None
         bs = self.block_size
         prompt = req.prompt
         L = len(prompt)
@@ -2261,11 +2413,11 @@ class GenerationEngine:
                     self.metrics.inc("prefix_hits")
                     self.metrics.inc("prefix_tokens_matched", m)
                     cow = sess.blocks[m // bs] if m % bs else None
-                    return m, list(sess.blocks[:m // bs]), cow
+                    return m, list(sess.blocks[:m // bs]), cow, "session"
             self.metrics.inc("session_misses")
         matched = self._prefix_index.match(chain_hashes(prompt, bs))
         if not matched:
-            return 0, [], None
+            return 0, [], None, None
         m = len(matched) * bs
         cow = None
         if m >= L:
@@ -2275,7 +2427,7 @@ class GenerationEngine:
             matched, cow = matched[:m // bs], matched[m // bs]
         self.metrics.inc("prefix_hits")
         self.metrics.inc("prefix_tokens_matched", m)
-        return m, list(matched), cow
+        return m, list(matched), cow, "index"
 
     def _evict_one_pin(self, protect=frozenset()) -> bool:
         """Release ONE cache pin under block pressure: the LRU prefix
@@ -2355,9 +2507,7 @@ class GenerationEngine:
             if req.abandoned:
                 continue
             if self._deadline_blown(req):
-                self.metrics.inc("shed_deadline")
-                self._fail(req, DeadlineExceededError(
-                    "deadline budget exhausted in the generation queue"))
+                self._expire(req)
                 continue
             seq = _recovery_seq(req)
             L = len(seq)
@@ -2390,7 +2540,7 @@ class GenerationEngine:
                     self._requeue.appendleft(req)
                     raise
                 self._update_block_gauges()
-            match_len, shared, cow_src = self._match_prefix(req)
+            match_len, shared, cow_src, source = self._match_prefix(req)
             pinned = shared + ([cow_src] if cow_src is not None else [])
             if pinned:
                 # pin the matched blocks BEFORE allocating: the alloc
@@ -2419,6 +2569,14 @@ class GenerationEngine:
                 self.metrics.inc("cow_copies")
             table = BlockTable(shared + fresh, self.block_size)
             plan = self._chunk_plan(L, start=match_len)
+            if req.trace is not None and match_len:
+                full = sum(b for _, b, _ in self._chunk_plan(L))
+                part = sum(b for _, b, _ in plan)
+                req.trace.span(
+                    "prefix_match", source=source, matched_tokens=match_len,
+                    matched_blocks=len(shared), cow=cow_src is not None,
+                    saved_est_ms=round(
+                        (full - part) * self._prefill_ms_per_tok, 3)).end()
             # the table bucket also covers the last chunk's padded tail:
             # rows inside the allocation land past the live length,
             # rows past it on NULL entries, never on another request's
@@ -2429,6 +2587,8 @@ class GenerationEngine:
                                      cap=self._tbl_top)
             slot = self._slots.alloc(req)
             self._slot_blocks[slot] = table
+            if req.trace is not None:
+                req.qspan.end()  # the queue wait ends at the block claim
             self._prefilling.append(_ChunkState(
                 req, slot, table, tbl_bucket, plan, seq, start=match_len))
             self.metrics.active_slots = self._slots.active_count
@@ -2480,8 +2640,11 @@ class GenerationEngine:
             self._fail(req, e)
             raise CorruptedStateFault(
                 f"prefill chunk device call failed: {e!r}") from e
-        self._note_prefill_cost((time.perf_counter() - t0) * 1e3, bucket,
-                                cold)
+        t1 = time.perf_counter()
+        self._note_prefill_cost((t1 - t0) * 1e3, bucket, cold)
+        if req.trace is not None:
+            req.trace.span("prefill", t_start=t0, t_end=t1, bucket=bucket,
+                           chunk=st.idx, chunks=len(st.plan))
         self.metrics.inc("prefill_chunks")
         self.metrics.inc("prefill_tokens", clen)
         self.metrics.prompt_bucket_hist.record(bucket)
@@ -2757,6 +2920,14 @@ class GenerationEngine:
             if n_acc < k:
                 # the rejected tail is rolled back by not committing it
                 self.metrics.inc("spec_rollbacks")
+            if req.trace is not None:
+                req.spec_rounds += 1
+                req.spec_proposed += k
+                req.spec_accepted += n_acc
+                req.spec_emitted += n_emit
+                if req.spec_dt0 is None:
+                    req.spec_dt0, req.spec_vt0 = t0, v0
+                req.spec_dt1, req.spec_vt1 = t1, v1
             serviced.add(s)
             for j in range(n_emit):
                 self._emit(req, out[j], v1, itl_out=itl)
@@ -2864,6 +3035,9 @@ class GenerationEngine:
                     f"attempts: {why}"))
             else:
                 req.recoveries += 1
+                if req.trace is not None:
+                    req.trace.span("recovery", why=why,
+                                   tokens_kept=len(req.tokens)).end()
                 self._requeue.append(req)
 
     def _fail_all(self, exc: BaseException):

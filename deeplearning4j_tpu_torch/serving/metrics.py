@@ -1,14 +1,20 @@
-"""Generation-engine counters (counterpart of
-``deeplearning4j_tpu/serving/metrics.py::GenerationMetrics``, with the
-counters the slot and paged backends, the int8 KV cache, the fault
-ladder, speculative decoding and the host KV tier move; the Prometheus
-exposition comes with the serving shell, ROADMAP.md queue A, item 9)."""
+"""Generation-engine counters and their Prometheus text (counterpart
+of ``deeplearning4j_tpu/serving/metrics.py``: ``GenerationMetrics``
+with the counters the slot and paged backends, the int8 KV cache, the
+fault ladder, speculative decoding and the host KV tier move, and the
+text exposition, lifted: :func:`prometheus_text` renders a
+``stats()``-shaped snapshot into the same families as the JAX
+package's). The predict path's ``ServingMetrics`` and the HTTP server
+that serves ``GET /metrics`` come with the serving shell (ROADMAP.md
+queue A, item 9b)."""
 from __future__ import annotations
 
+import re
 import threading
 from typing import Dict, List
 
-from ..profiler import CountHistogram, RateMeter, Reservoir
+from ..profiler import (RESERVOIR_SNAPSHOT_KEYS, CountHistogram, OpProfiler,
+                        RateMeter, Reservoir)
 
 
 class GenerationMetrics:
@@ -22,6 +28,8 @@ class GenerationMetrics:
         self._lock = threading.Lock()
         self.requests = 0          # accepted into the queue
         self.responses = 0         # finished generations returned
+        self.client_errors = 0     # 4xx-class failures (counted by the
+        #                            HTTP server; the engine raises them)
         self.server_errors = 0     # 5xx-class failures
         self.shed = 0              # rejected, queue full (503)
         self.shed_batch = 0        # batch-priority work shed first (503)
@@ -190,6 +198,7 @@ class GenerationMetrics:
             "paged": paged,
             "requests": self.requests,
             "responses": self.responses,
+            "client_errors": self.client_errors,
             "server_errors": self.server_errors,
             "shed": self.shed,
             "shed_batch": self.shed_batch,
@@ -247,3 +256,184 @@ class GenerationMetrics:
                 "warmed_buckets": list(self.warmed_buckets),
             },
         }
+
+
+def profiler_sections() -> Dict:
+    """The profiler's own `serving.*` section timings (populated when
+    ProfilingMode is OPERATIONS/ALL), merged into `GET /stats`."""
+    return {name: stats for name, stats in
+            OpProfiler.get_instance().timings().items()
+            if name.startswith("serving.")}
+
+
+# -- Prometheus text exposition ----------------------------------------
+# The text is generated from the SAME snapshot dicts `stats()` returns
+# (and the serving shell's `GET /stats` will serve beside `GET
+# /metrics`), so the two views cannot drift: one source of truth, two
+# encodings.
+# Output follows the text exposition format version 0.0.4 (`# TYPE`
+# lines, label escaping, one family per metric name).
+
+#: monotonically increasing snapshot fields -> emitted as counters with
+#: the conventional ``_total`` suffix; every other numeric leaf is a
+#: gauge. Keyed by the LEAF name, so ``faults.retries`` matches
+#: ``retries`` here.
+_PROM_COUNTERS = frozenset({
+    "requests", "responses", "client_errors", "server_errors",
+    "shed", "shed_batch", "shed_deadline", "timeouts",
+    "retries", "recoveries", "quarantined", "drains",
+    "batches", "prefills", "decode_steps", "tokens_generated",
+    "prefill_chunks", "chunked_prefills",
+    "prefix_hits", "session_hits", "session_misses",
+    "prefix_tokens_matched", "prefill_tokens", "cow_copies",
+    "prefix_evictions", "session_evictions",
+    # speculative decoding (the `spec` snapshot block; leaf names —
+    # `spec_verify_batches` also matches the `batches` rule, the rest
+    # are matched here)
+    "draft_tokens_proposed", "draft_tokens_accepted", "verify_batches",
+    "rollbacks", "draft_fallbacks",
+    # hierarchical KV tier (the `paged.offload` snapshot block)
+    "demotions", "restores", "prefetch_hits", "demote_failures",
+    "restore_failures",
+    "compiles", "hits", "misses", "evictions",
+    "client_disconnects",
+    # fleet-side counters
+    "routed", "hedges", "hedges_won", "hedge_budget_denied",
+    "requests_lost", "ejections", "readmissions", "restarts",
+    "streams", "sheds", "cooldowns", "breaker_trips",
+    "breaker_probes", "breaker_recoveries", "fleet_shed",
+    "session_affinity_hits",
+    # training-side counters (supervisor / async writer / per-worker
+    # fleet telemetry / event-timeline rollups / stats router)
+    "anomalies_skipped", "async_checkpoints", "sync_checkpoints",
+    "sharded_checkpoints", "preemptions", "preempts_broadcast",
+    "preempts_received", "writes", "steps", "preempts",
+    "anomaly_skips", "dropped",
+    "preempt_broadcast", "preempt_received", "anomaly_skip",
+    "rollback", "checkpoint_commit", "re_mesh", "resume",
+})
+
+_RESERVOIR_KEYS = frozenset(RESERVOIR_SNAPSHOT_KEYS)
+
+
+def _prom_name(*parts: str) -> str:
+    name = "_".join(p for p in parts if p)
+    name = re.sub(r"[^a-zA-Z0-9_]", "_", name)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def _prom_escape(value) -> str:
+    return (str(value).replace("\\", "\\\\").replace("\n", "\\n")
+            .replace('"', '\\"'))
+
+
+def _prom_value(v) -> str:
+    if isinstance(v, bool):
+        return "1" if v else "0"
+    f = float(v)
+    return str(int(f)) if f == int(f) else repr(f)
+
+
+class _PromWriter:
+    """Accumulates samples grouped per metric family (the exposition
+    format requires all lines of one name to be contiguous, with the
+    `# TYPE` line first)."""
+
+    def __init__(self):
+        self._families: "Dict[str, Dict]" = {}
+
+    def sample(self, name: str, mtype: str, labels: Dict, value):
+        fam = self._families.get(name)
+        if fam is None:
+            fam = self._families[name] = {"type": mtype, "lines": []}
+        lab = ",".join(f'{k}="{_prom_escape(v)}"'
+                       for k, v in labels.items() if v is not None)
+        fam["lines"].append(
+            f"{name}{{{lab}}} {_prom_value(value)}" if lab
+            else f"{name} {_prom_value(value)}")
+
+    def render(self) -> str:
+        out = []
+        for name, fam in self._families.items():
+            out.append(f"# TYPE {name} {fam['type']}")
+            out.extend(fam["lines"])
+        return "\n".join(out) + "\n" if out else "\n"
+
+
+def _walk(w: _PromWriter, base: str, labels: Dict, obj) -> None:
+    """Recursively flatten a stats snapshot into exposition samples.
+    Reservoir-shaped dicts become summaries (quantile-labelled, plus
+    `_count`); integer-keyed dicts (CountHistograms) become one
+    labelled series; strings are skipped (identity lives in labels)."""
+    if isinstance(obj, bool) or isinstance(obj, (int, float)):
+        if any(base.endswith("_" + c) or base == c
+               for c in _PROM_COUNTERS):
+            w.sample(base + "_total", "counter", labels, obj)
+        else:
+            w.sample(base, "gauge", labels, obj)
+        return
+    if isinstance(obj, dict):
+        if obj and set(obj) == _RESERVOIR_KEYS:
+            for q, key in (("0.5", "p50"), ("0.9", "p90"),
+                           ("0.99", "p99")):
+                w.sample(base, "summary",
+                         {**labels, "quantile": q}, obj[key])
+            w.sample(base + "_count", "summary", labels, obj["count"])
+            w.sample(base + "_mean", "gauge", labels, obj["mean"])
+            w.sample(base + "_max", "gauge", labels, obj["max"])
+            return
+        if obj and all(_is_int_key(k) for k in obj) and \
+                all(isinstance(v, (int, float)) for v in obj.values()):
+            # CountHistogram shape: int keys, numeric values -> one
+            # bucket-labelled series. Int-keyed dicts of DICTS (e.g.
+            # per-worker fleet telemetry) fall through to nested paths
+            for k, v in obj.items():
+                w.sample(base, "gauge", {**labels, "bucket": k}, v)
+            return
+        for k, v in obj.items():
+            _walk(w, _prom_name(base, str(k)), labels, v)
+        return
+    if isinstance(obj, (list, tuple)):
+        w.sample(base + "_count", "gauge", labels, len(obj))
+        return
+    # strings / None: identity belongs in labels, not sample values
+
+
+def _is_int_key(k) -> bool:
+    try:
+        int(k)
+        return True
+    except (TypeError, ValueError):
+        return False
+
+
+def prometheus_text(stats: Dict, prefix: str = "dl4j") -> str:
+    """Render a `/stats`-shaped snapshot (replica server or fleet
+    router) as Prometheus text exposition. Replica server snapshots
+    (``{"summary", "models", "profiler"}``) emit per-model families
+    labelled ``{model=...}``; fleet snapshots (``{"fleet": ...}``)
+    emit fleet counters plus per-replica gauges labelled
+    ``{replica=...}``."""
+    w = _PromWriter()
+    if "models" in stats:
+        summary = dict(stats.get("summary") or {})
+        summary.pop("models", None)      # covered by the models block
+        _walk(w, _prom_name(prefix, "server"), {}, summary)
+        for mname, snap in (stats.get("models") or {}).items():
+            _walk(w, _prom_name(prefix, "model"), {"model": mname}, snap)
+        for section, timing in (stats.get("profiler") or {}).items():
+            _walk(w, _prom_name(prefix, "profiler"),
+                  {"section": section}, timing)
+    elif "fleet" in stats:
+        fl = dict(stats["fleet"])
+        replicas = fl.pop("replicas", [])
+        _walk(w, _prom_name(prefix, "fleet"), {}, fl)
+        for rep in replicas:
+            rid = rep.get("id") if isinstance(rep, dict) else None
+            _walk(w, _prom_name(prefix, "replica"),
+                  {"replica": rid}, rep)
+    else:
+        _walk(w, prefix, {}, stats)
+    return w.render()

@@ -21,7 +21,11 @@ same numpy-seeded weights:
   discard and re-prefill; a failed scatter goes through
   recompute-recovery with no request lost and no block leaked; the host
   tier survives a recovery; ``clear_offload``, the config guards, int8's
-  >= 3x sessions per host byte and the ``stats()`` block."""
+  >= 3x sessions per host byte and the ``stats()`` block;
+- traced turn 2s of the same workload: each restore's
+  ``offload_restore`` span (``tokens``, ``blocks``, ``prefetched``) and
+  each session hit's ``prefix_match`` are the JAX engine's, with the
+  prefetch off and with every restore staged by it."""
 import os
 import time
 
@@ -36,6 +40,7 @@ from deeplearning4j_tpu.serving import GenerationEngine as JaxEngine
 from deeplearning4j_tpu.serving import offload as joff
 from deeplearning4j_tpu.serving.metrics import \
     GenerationMetrics as JaxMetrics
+from deeplearning4j_tpu.tracing import Tracer as JaxTracer
 from deeplearning4j_tpu.zoo.transformer_lm import CausalTransformerLM as JaxLM
 from deeplearning4j_tpu_torch.faults import FaultInjector
 from deeplearning4j_tpu_torch.kernels import kv_quant as tkv
@@ -47,7 +52,10 @@ from deeplearning4j_tpu_torch.serving.offload import (DiskRing,
 from deeplearning4j_tpu_torch.serving.paging import (NULL_BLOCK,
                                                      export_block_run,
                                                      import_block_run)
+from deeplearning4j_tpu_torch.tracing import Tracer
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
+
+from _torch_fault_rig import Gate
 
 VOCAB = 64
 # n_heads=2 -> head_dim 16, where int8 (1 byte a value + a 4-byte scale
@@ -924,3 +932,84 @@ def test_offload_stats_block_has_jax_keys(lm):
     assert off["demotions"] > 0 and off["restores"] > 0
     assert off["restore_ms"]["count"] == off["restores"]
     assert off["demote_ms"]["count"] > 0
+
+
+# ---------------------------------------------------------------------------
+# the offload_restore span against the JAX engine's
+# ---------------------------------------------------------------------------
+def _staged_turn(eng, tracer, sid, prompt):
+    """One traced turn 2 whose demoted run the prefetch thread staged
+    before the scheduler admits it: the scheduler is held at its
+    ``latency`` seam from before the submit until the stage is in."""
+    gate = Gate()
+    eng.set_fault_injector(gate)
+    tr = tracer.begin()
+    try:
+        assert gate.held.wait(10.0)
+        demoted = sid not in eng._sessions and sid in eng._offload
+        stream = eng.stream(prompt, max_tokens=4, session_id=sid,
+                            timeout_ms=120_000, trace=tr)
+        staged = eng._offload_prefetcher._staged
+        t_end = time.monotonic() + 10.0
+        while demoted and sid not in staged and time.monotonic() < t_end:
+            time.sleep(0.005)
+        assert not demoted or sid in staged
+    finally:
+        gate.open.set()
+    toks = [c["token"] for c in stream if "token" in c]
+    eng.set_fault_injector(None)
+    tracer.finish(tr)
+    return toks, tr
+
+
+@pytest.mark.parametrize("prefetch", [False, True])
+def test_traced_restore_spans_are_jax_spans(lm, jlm, prefetch):
+    """JAX's 4-session workload with every turn 2 traced: the same tokens,
+    and per turn 2 the same ``offload_restore`` attributes (the restored
+    run's tokens and blocks; ``prefetched``, made deterministic by
+    holding the scheduler until the prefetch thread staged the run) and
+    ``prefix_match`` attributes as the JAX engine's."""
+    keep = ("tokens", "blocks", "prefetched", "source", "matched_tokens",
+            "matched_blocks", "cow")
+    got = []
+    for cls, model, tcls in ((JaxEngine, jlm, JaxTracer),
+                             (GenerationEngine, lm, Tracer)):
+        eng = cls(model, **dict(OPTS, offload_prefetch=prefetch))
+        try:
+            outs = [eng.generate(_prompt(i), max_tokens=5, session_id=f"s{i}",
+                                 timeout_ms=120_000)["tokens"]
+                    for i in range(4)]
+            tracer = tcls(enabled=True)
+            turns = []
+            for i in range(4):
+                prompt = _prompt(i) + outs[i] + [7, 11]
+                if prefetch:
+                    toks, tr = _staged_turn(eng, tracer, f"s{i}", prompt)
+                else:
+                    tr = tracer.begin()
+                    toks = eng.generate(prompt, max_tokens=4,
+                                        session_id=f"s{i}",
+                                        timeout_ms=120_000,
+                                        trace=tr)["tokens"]
+                    tracer.finish(tr)
+                turns.append((toks, [
+                    (sp.kind, {k: sp.attrs[k] for k in keep
+                               if k in sp.attrs})
+                    for sp in tr.spans
+                    if sp.kind in ("offload_restore", "prefix_match")]))
+            got.append((outs, turns, eng.stats()["paged"]["offload"]))
+        finally:
+            eng.stop()
+    (jouts, jturns, joff_snap), (outs, turns, off) = got
+    assert (outs, turns) == (jouts, jturns)
+    restores = [a for _, spans in turns for k, a in spans
+                if k == "offload_restore"]
+    assert restores and len(restores) == off["restores"] \
+        == joff_snap["restores"]
+    assert all(a["prefetched"] is prefetch for a in restores)
+    assert all(a == {"tokens": 20, "blocks": 3, "prefetched": prefetch}
+               for a in restores)
+    # every turn 2 is a session hit, restored or pinned
+    assert all([k for k, _ in spans].count("prefix_match") == 1
+               and dict(spans)["prefix_match"]["source"] == "session"
+               for _, spans in turns)

@@ -16,11 +16,19 @@ d32, L2, H2, max_seq_len 96, the same workload):
 - the copy-on-write guard, ``SlotTable.commit`` and the config surface,
   mirrored from the JAX tests.
 
-The JAX ``TestTracingSpans`` waits for the port's tracer (ROADMAP.md
-queue A, item 9); the engine's argument validation is held to JAX's
-messages in ``tests/test_torch_generation.py``, and the card's side
+- ``TestTracingSpans``: a traced speculating request's retroactive
+  ``draft`` and ``verify`` spans carry the round and accept sums, which
+  ``tools/trace_report.py`` folds from the port's dump as from JAX's,
+  and its spans (kinds, in order, and non-timing attributes) are the
+  JAX speculating engine's on slots and paged.
+
+The engine's argument validation is held to JAX's messages in
+``tests/test_torch_generation.py``, and the card's side
 (two CUDA graphs, the draft's launches) is in
 ``tests/test_torch_kernels_gpu.py``."""
+import importlib.util
+import json
+import os
 from concurrent.futures import ThreadPoolExecutor
 
 import jax
@@ -33,15 +41,18 @@ from deeplearning4j_tpu.kernels import kv_quant as jkv
 from deeplearning4j_tpu.serving import GenerationEngine as JaxEngine
 from deeplearning4j_tpu.serving import speculative as jspec
 from deeplearning4j_tpu.serving.kvcache import KVCache as JaxKVCache
+from deeplearning4j_tpu.tracing import Tracer as JaxTracer
 from deeplearning4j_tpu.zoo.transformer_lm import CausalTransformerLM as JaxLM
 from deeplearning4j_tpu.zoo.transformer_lm import make_draft_lm as jax_draft
 from deeplearning4j_tpu_torch.kernels import kv_quant as tkv
 from deeplearning4j_tpu_torch.serving import GenerationEngine, SlotTable
 from deeplearning4j_tpu_torch.serving import speculative as tspec
 from deeplearning4j_tpu_torch.serving.paging import BlockTable
+from deeplearning4j_tpu_torch.tracing import Tracer
 from deeplearning4j_tpu_torch.zoo.transformer_lm import (CausalTransformerLM,
                                                          make_draft_lm)
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 64
 CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=2,
            max_seq_len=96)
@@ -322,6 +333,84 @@ class TestCowGuard:
             assert eng.stats()["spec"]["verify_batches"] > 0
         finally:
             eng.stop()
+
+
+def _traced_spec(eng, tcls, prompt, max_tokens=16):
+    tracer = tcls(enabled=True, ring=8)
+    tr = tracer.begin()
+    out = eng.generate(prompt, max_tokens=max_tokens, temperature=0.0,
+                       seed=5, timeout_ms=120_000, trace=tr)
+    tracer.finish(tr)
+    return out["tokens"], tr
+
+
+#: the non-timing attributes of the engine's spans (the speculation
+#: spans' sums among them)
+SPAN_KEYS = ("verdict", "steps", "finish_reason", "recoveries", "bucket",
+             "chunk", "chunks", "resumed", "rounds", "proposed", "accepted",
+             "accept_rate", "spec_tokens")
+
+
+class TestTracingSpans:
+    def test_draft_and_verify_spans_aggregate(self, lm, drafts):
+        """``tests/test_speculative.py::TestTracingSpans`` on the port: the
+        verify span's round and accept sums, the draft span's rounds, and
+        ``tools/trace_report.py``'s speculation fold of the port's dump
+        (the tool loaded by path, as the JAX test loads it)."""
+        import tempfile
+        eng = _mk(GenerationEngine, lm, 3, drafts["same"][1])
+        try:
+            _, tr = _traced_spec(eng, Tracer, list(range(1, 10)))
+        finally:
+            eng.stop()
+        spans = {s.kind: s for s in tr.spans}
+        assert "draft" in spans and "verify" in spans
+        v = spans["verify"].attrs
+        assert v["rounds"] >= 1
+        assert v["proposed"] == 3 * v["rounds"]
+        assert 0 <= v["accepted"] <= v["proposed"]
+        assert v["accept_rate"] == round(v["accepted"] / v["proposed"], 4)
+        assert v["spec_tokens"] >= v["rounds"]
+        assert v["saved_est_ms"] >= 0
+        assert spans["draft"].attrs["rounds"] == v["rounds"]
+        spec = importlib.util.spec_from_file_location(
+            "trp", os.path.join(ROOT, "tools", "trace_report.py"))
+        trp = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(trp)
+        with tempfile.NamedTemporaryFile("w", suffix=".json",
+                                         delete=False) as f:
+            json.dump({"traces": [tr.to_dict()]}, f)
+            path = f.name
+        try:
+            rep = trp.report([path])
+        finally:
+            os.unlink(path)
+        sp = rep["speculation"]
+        assert sp["requests"] == 1
+        assert sp["rounds"] == v["rounds"]
+        assert sp["accepted"] == v["accepted"]
+
+    @pytest.mark.parametrize("cache", [None, "paged"])
+    def test_spans_equal_jax(self, jlm, lm, drafts, cache):
+        """One traced greedy request through the JAX speculating engine
+        and the port's (same-weights draft, k=3): the same tokens, the
+        same span kinds in order, the same non-timing attributes."""
+        jd, td = drafts["same"]
+        got = []
+        for cls, model, draft, tcls in ((JaxEngine, jlm, jd, JaxTracer),
+                                        (GenerationEngine, lm, td, Tracer)):
+            eng = _mk(cls, model, 3, draft, cache)
+            try:
+                toks, tr = _traced_spec(eng, tcls, list(range(2, 20)))
+            finally:
+                eng.stop()
+            got.append((toks, [(s.kind, {k: s.attrs[k] for k in SPAN_KEYS
+                                         if k in s.attrs})
+                               for s in tr.spans]))
+        assert got[1] == got[0]
+        kinds = [k for k, _ in got[1][1]]
+        assert kinds[-2:] == ["draft", "verify"]
+        assert dict(got[1][1])["verify"]["accepted"] > 0
 
 
 class TestSlotTableCommit:
