@@ -157,8 +157,34 @@ Phases, each of which fails the run when it fails:
    turn, trace_overhead_frac (mean untraced over mean traced tokens/s,
    minus 1) with its spread (not gated), spans, families and the wall
    seconds the phase added.
+16. the serving shell over HTTP (InferenceServer on its default asyncio
+   backend): (a) generators "lm" (phase 4's engine configuration) and
+   "plm" (phase 5's) on a model from phase 4's seed, warmed, serve
+   phase 4's 32 requests from 32 threads of a client process (so the
+   clients share no interpreter lock with the server), half of them
+   streamed, then phase 5's primer and 48-request burst; phase 4's
+   requests are also rerun none streamed, all streamed, and from
+   threads inside the server's process (informative). Every lane's tokens must
+   be phases 4 and 5's first runs' unless their first difference is a
+   near-tie of the CPU reference (phase 11's rule); B1 must launch once
+   per layer and decode step on "lm", B2 on "plm", and nothing may be
+   captured after warmup. Four of phase 4's requests also go through a
+   thread-backend server over the same registry. (b) /predict through
+   the micro-batcher: phase 9's embedding and 8 encoder layers
+   (non-causal) with average pooling and a 16-class softmax, buckets 1,
+   2, 4, 8 and 16 captured as CUDA graphs at warmup (compiles must be
+   5, and stay 5), 64 requests of 1-4 rows of 512 token ids from 16
+   threads of a client process. Every row must be within FLASH_TOL of net.output on
+   that row alone, B3 must launch 8 times a device call, and after
+   fit() and then set_params() a request must return the new weights'
+   answer. /stats must have the JAX server's key set, /metrics must
+   parse with every model's families, /healthz and /readyz answer 200;
+   then drain() with four long streams in flight: /readyz and a new
+   POST answer 503 with Retry-After and the streams finish. It prints
+   HTTP tokens/s and TTFT p50/p99 beside phases 4 and 5's, predict
+   rows/s and request p50/p99, and the seconds the phase added.
 
-Phases 4 to 7 and 12 to 15 serve with the engine's defaults on the card:
+Phases 4 to 7 and 12 to 16 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
 warm set captured at warmup as a CUDA graph (``graph_plan``: the
 decode step, each prefill bucket on slots, each (chunk, table) bucket
@@ -2139,6 +2165,7 @@ def serve_paged(card: str, cfg=SERVE_CFG, device=None, kv_dtype="f32",
                slot_engine_greedy_identical=None if same is None
                else f"{same}/{len(greedy)}",
                profile=prof, fault_ladder=ladder, traced=trace15,
+               primer_tokens=primed["tokens"],
                served=(primer, [(burst, results), (turn1, res1),
                                 (turn2, res2)]))
     tag = "" if kv_dtype == "f32" else f" {kv_dtype}"
@@ -3327,6 +3354,562 @@ def fault_ladder(eng, card, label, reqs, want, plan, cpu_fn, rows_fn, tol,
     return out
 
 
+#: phase 16b: the classifier's input length and classes, its buckets
+PREDICT_T = 512
+PREDICT_CLASSES = 16
+PREDICT_BUCKETS = (1, 2, 4, 8, 16)
+#: the key sets GET /stats has in the JAX package's InferenceServer
+#: (``stats()`` and ``summary()``, deeplearning4j_tpu/serving/__init__.py
+#: and registry.py): the CPU tests hold the port's to JAX's recursively;
+#: here each model's block is also held to its engine's own snapshot
+STATS_KEYS = {"summary", "models", "profiler"}
+SUMMARY_KEYS = {"ready", "draining", "load", "shed", "client_disconnects",
+                "models"}
+MODEL_SUMMARY_KEYS = {"mode", "queue_depth", "queue_max", "active",
+                      "capacity", "occupancy", "draining", "load", "shed"}
+SERVED_KEYS = {"predict": {"version", "model_class", "batching"},
+               "generation": {"version", "model_class", "serving_mode"}}
+
+
+def http_call(port, method, path, body=None, stream=False, headers=None):
+    """One HTTP request to the local server on its own connection.
+    Returns (status, headers, parsed JSON body or, with ``stream``, the
+    ndjson items, seconds to the first token item or None)."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        t0 = time.perf_counter()
+        conn.request(method, path, body=None if body is None
+                     else json.dumps(body), headers=headers or {})
+        resp = conn.getresponse()
+        hdrs = dict(resp.getheaders())
+        if not stream or resp.status != 200:
+            raw = resp.read()
+            if path == "/metrics":
+                return resp.status, hdrs, raw.decode(), None
+            return resp.status, hdrs, json.loads(raw) if raw else None, None
+        items, first = [], None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            item = json.loads(line)
+            if first is None and "token" in item:
+                first = time.perf_counter() - t0
+            items.append(item)
+        return resp.status, hdrs, items, first
+    finally:
+        conn.close()
+
+
+def _generate_clients(port, name, reqs, stream_every):
+    """The client side of :func:`generate_over_http` (run in the client
+    process): ``reqs`` at once, each from its own thread; every
+    ``stream_every``-th (from the second) with ``"stream": true``."""
+    results = [None] * len(reqs)
+    errors = [None] * len(reqs)
+    firsts = []
+
+    def go(i):
+        body = dict(reqs[i], timeout_ms=600_000)
+        stream = stream_every and i % stream_every == stream_every - 1
+        if stream:
+            body["stream"] = True
+        try:
+            code, _, out, first = http_call(
+                port, "POST", f"/v1/models/{name}/generate", body, stream)
+            if code != 200:
+                raise AssertionError(f"status {code}: {out}")
+            if stream:
+                toks = [o["token"] for o in out if "token" in o]
+                if out[-1].get("done") is not True or \
+                        out[-1]["tokens"] != toks:
+                    raise AssertionError(f"stream's final item {out[-1]} "
+                                         f"disagrees with its tokens {toks}")
+                out = out[-1]
+                firsts.append(first)
+            results[i] = out
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors[i] = f"request {i}: {e!r}"
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return dict(results=results, wall_s=time.perf_counter() - t0,
+                firsts=firsts, errors=[e for e in errors if e])
+
+
+def tokens_or_near_tie(label, reqs, got, want, cpu_fn):
+    """Every lane's tokens must be ``want``'s (the phase's first run)
+    unless its first difference is a near-tie of the CPU reference at
+    the teacher tolerance (phase 11's rule). Returns how many lanes
+    differed."""
+    cpu = None
+    differed = 0
+    for q, g, w in zip(reqs, got, want):
+        if g["tokens"] == w:
+            continue
+        differed += 1
+        cpu = cpu or cpu_fn()
+        near_tie(f32_rows, cpu, q, g["tokens"], w, TEACHER_TOL)
+    print(f"  {label}: {len(reqs) - differed} of {len(reqs)} lanes' tokens "
+          f"identical to the first run, {differed} differing at a near-tie")
+    return differed
+
+
+def stats_keys_check(port, srv):
+    """``GET /stats`` must have the JAX server's key set at its own two
+    levels, and each model's block its engine's snapshot keys plus the
+    registry's."""
+    code, _, st, _ = http_call(port, "GET", "/stats")
+    if code != 200 or set(st) != STATS_KEYS \
+            or set(st["summary"]) != SUMMARY_KEYS:
+        raise AssertionError(f"/stats keys {sorted(st)}, summary "
+                             f"{sorted(st.get('summary', {}))}")
+    for name, m in st["models"].items():
+        served = srv.served(name)
+        mode = "generation" if hasattr(served, "generate") else "predict"
+        want = set(served.metrics.snapshot()) | SERVED_KEYS[mode]
+        if set(m) != want or \
+                set(st["summary"]["models"][name]) != MODEL_SUMMARY_KEYS:
+            raise AssertionError(f"/stats model {name!r}: keys "
+                                 f"{sorted(set(m) ^ want)} differ")
+    return st
+
+
+def probes_check(port, names):
+    """``/metrics`` parses with each model's families, ``/healthz`` and
+    ``/readyz`` answer 200."""
+    code, hdrs, text, _ = http_call(port, "GET", "/metrics")
+    samples, types = parse_prometheus(text)
+    for name in names:
+        key = ("dl4j_model_requests_total", f'{{model="{name}"}}')
+        if code != 200 or key not in samples:
+            raise AssertionError(f"/metrics ({code}) lacks {key}")
+    for path in ("/healthz", "/readyz"):
+        code, _, body, _ = http_call(port, "GET", path)
+        if code != 200:
+            raise AssertionError(f"{path} answered {code}: {body}")
+    return dict(families=len(types), samples=len(samples))
+
+
+def classifier_conf(cfg):
+    """Phase 16b's network: phase 9's embedding and encoder stack at the
+    served width, non-causal, average-pooled into a 16-class softmax."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (GlobalPoolingLayer,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.attention import \
+        TransformerEncoderLayer
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import \
+        EmbeddingSequenceLayer
+    b = (NeuralNetConfiguration.builder().seed(cfg["seed"])
+         .updater(Adam(cfg["lr"])).weight_init("xavier").list()
+         .layer(EmbeddingSequenceLayer(n_in=cfg["vocab_size"],
+                                       n_out=cfg["d_model"])))
+    for _ in range(cfg["n_layers"]):
+        b = b.layer(TransformerEncoderLayer(n_heads=cfg["n_heads"],
+                                            d_ff=cfg["d_ff"], causal=False))
+    return (b.layer(GlobalPoolingLayer("avg"))
+            .layer(OutputLayer(n_out=PREDICT_CLASSES, loss="mcxent",
+                               activation="softmax"))
+            .input_type_recurrent(1, timesteps=cfg["seq_len"]).build())
+
+
+def predict_traffic(cfg, n=64, seed=16):
+    """Phase 16b's 64 requests of 1-4 rows of token ids, from a fixed
+    seed."""
+    rs = np.random.RandomState(seed)
+    return [rs.randint(0, cfg["vocab_size"],
+                       (int(rs.randint(1, 5)), cfg["seq_len"])).tolist()
+            for _ in range(n)]
+
+
+def predict_rows_check(label, net, xs, outs):
+    """Each row's output must be within FLASH_TOL of ``net.output`` on
+    that row alone. Returns the worst error."""
+    worst = 0.0
+    for x, out in zip(xs, outs):
+        for row, got in zip(x, out):
+            want = net.output(np.asarray([row], np.float32))[0].cpu()
+            worst = max(worst, float(np.abs(np.asarray(got)
+                                            - want.numpy()).max()))
+    if worst > FLASH_TOL:
+        raise AssertionError(f"{label}: a served row is {worst:.3e} from "
+                             f"net.output on it alone (tol {FLASH_TOL:g})")
+    return worst
+
+
+def _predict_clients(port, name, xs, clients):
+    """The client side of :func:`predict_over_http` (run in the client
+    process): ``xs`` over ``clients`` threads, each its share in turn."""
+    outs = [None] * len(xs)
+    lat = [None] * len(xs)
+    errors = []
+
+    def go(c):
+        try:
+            for i in range(c, len(xs), clients):
+                t0 = time.perf_counter()
+                code, _, body, _ = http_call(port, "POST",
+                                             f"/v1/models/{name}/predict",
+                                             {"inputs": xs[i]})
+                lat[i] = time.perf_counter() - t0
+                if code != 200:
+                    raise AssertionError(f"status {code}: {body}")
+                outs[i] = body["outputs"]
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(repr(e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=go, args=(c,)) for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return dict(outs=outs, wall_s=time.perf_counter() - t0, lat=lat,
+                errors=errors)
+
+
+def client_main():
+    """The HTTP client process of phase 16: one job as JSON on stdin, its
+    results as JSON on stdout. Only the standard library (and numpy) is
+    imported, so the client shares no interpreter lock with the server."""
+    job = json.load(sys.stdin)
+    if job["kind"] == "generate":
+        out = _generate_clients(job["port"], job["name"], job["reqs"],
+                                job["stream_every"])
+    else:
+        out = _predict_clients(job["port"], job["name"], job["xs"],
+                               job["clients"])
+    json.dump(out, sys.stdout)
+
+
+def run_client(job: dict) -> dict:
+    """Run one :func:`client_main` job in a process of its own (the load
+    a server sees from its users, not from threads inside it); a failed
+    request fails the run."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.client_main()"],
+        input=json.dumps(job), capture_output=True, text=True, cwd=here,
+        timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the HTTP client process failed: "
+                           f"{proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout)
+    if out["errors"]:
+        raise RuntimeError(f"HTTP requests to {job['name']} failed: "
+                           f"{out['errors'][:3]}")
+    return out
+
+
+def generate_over_http(port, name, reqs, stream_every=2):
+    """``reqs`` at once to ``/v1/models/<name>/generate``, each from its
+    own thread of a client process; every ``stream_every``-th (from the
+    second) with ``"stream": true``. Returns (results in ``reqs``'s order
+    as {"tokens", "finish_reason", ...}, wall seconds, seconds to the
+    first token of each stream)."""
+    out = run_client(dict(kind="generate", port=port, name=name, reqs=reqs,
+                          stream_every=stream_every))
+    return out["results"], out["wall_s"], out["firsts"]
+
+
+def predict_over_http(port, name, xs, clients=16):
+    """``xs`` over ``clients`` threads of a client process (each its
+    share in turn) to ``/v1/models/<name>/predict``. Returns (outputs in
+    ``xs``'s order, wall seconds, each request's seconds)."""
+    out = run_client(dict(kind="predict", port=port, name=name, xs=xs,
+                          clients=clients))
+    return out["outs"], out["wall_s"], out["lat"]
+
+
+def poll_until(cond, what: str, timeout_s: float = 30.0):
+    """Wait for ``cond()`` (a state change made by another thread)."""
+    t_end = time.monotonic() + timeout_s
+    while not cond():
+        if time.monotonic() > t_end:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def drain_check(srv, port, reqs):
+    """Streams in flight when ``drain()`` starts must finish; meanwhile
+    ``/readyz`` and a new POST answer 503 with Retry-After."""
+    import http.client
+    conns, first = [], []
+    for q in reqs:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/v1/models/lm/generate", body=json.dumps(
+            dict(q, stream=True, timeout_ms=600_000)))
+        resp = conn.getresponse()
+        first.append(json.loads(resp.readline()))  # in flight
+        conns.append((conn, resp))
+    drained = []
+    drainer = threading.Thread(target=lambda: drained.append(
+        srv.drain(timeout_s=120.0)))
+    drainer.start()
+    try:
+        poll_until(lambda: not srv.ready(), "drain() to flip readiness")
+        code, hdrs, _, _ = http_call(port, "GET", "/readyz")
+        post, phdrs, _, _ = http_call(port, "POST", "/v1/models/lm/generate",
+                                      dict(prompt=[1, 2, 3], max_tokens=2))
+        if code != 503 or "Retry-After" not in hdrs or post != 503 \
+                or "Retry-After" not in phdrs:
+            raise AssertionError(f"while draining /readyz answered {code} "
+                                 f"{hdrs}, a new POST {post} {phdrs}")
+        for (conn, resp), q, f in zip(conns, reqs, first):
+            items = [f] + [json.loads(ln) for ln in resp.read().decode()
+                           .splitlines() if ln.strip()]
+            toks = [o["token"] for o in items if "token" in o]
+            if len(toks) != q["max_tokens"] or items[-1].get("done") \
+                    is not True:
+                raise AssertionError(f"an in-flight stream did not finish "
+                                     f"over the drain: {items[-1]}")
+            conn.close()
+    finally:
+        drainer.join()
+    if drained != [True]:
+        raise AssertionError(f"drain() returned {drained}")
+    return dict(readyz_while_draining=code, post_while_draining=post,
+                streams_finished=len(reqs))
+
+
+def serve_http(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
+               device=None, train_cfg=TRAIN_CFG):
+    """Phase 16: the serving shell on the card (see the module doc).
+    ``served4`` and ``served5`` are phases 4 and 5's ``served`` (their
+    traffic and first-run tokens), ``primer_tokens`` phase 5's primer's
+    tokens."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import decode_attention as da
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import paged_attention as pa
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    t_phase = time.perf_counter()
+    reqs4, res4 = served4[1][0]
+    primer, (burst, res5) = served5[0], served5[1][0]
+    want5 = [r["tokens"] for r in res5]
+    lm = CausalTransformerLM(**cfg, device=device).init()
+    srv = InferenceServer(port=0)
+    port = srv.port
+    out = dict(backend=srv.http_backend)
+    try:
+        g = srv.register_generator("lm", lm, num_slots=32)
+        pg = srv.register_generator("plm", lm, **PAGED_ENGINE)
+        g.warmup()
+        pg.warmup()
+        caps = {n: warmed_compiles(s.engine) for n, s in (("lm", g),
+                                                         ("plm", pg))}
+        cpu_fn = (lambda: cpu_copy(lm, cfg))
+
+        # (a) /generate: phase 4's 32 requests on the slot engine, half
+        # of them streamed, then phase 5's primer and burst on the paged
+        st0 = g.engine.stats()
+        reset_launches()
+        got4, wall4, firsts4 = generate_over_http(port, "lm", reqs4)
+        st = g.engine.stats()
+        ttft4 = st["ttft_ms"]
+        steps = st["decode_steps"] - st0["decode_steps"]
+        launches4 = dict(decode=da.launches, flash=fa.launches,
+                         paged=pa.launches)
+        if launches4["decode"] != cfg["n_layers"] * steps or not steps \
+                or not launches4["flash"] or launches4["paged"]:
+            raise AssertionError(f"16a slots: launches {launches4} over "
+                                 f"{steps} decode steps")
+        check_lengths(got4, reqs4)
+        diff4 = tokens_or_near_tie("16a slots over HTTP", reqs4, got4,
+                                   [r["tokens"] for r in res4], cpu_fn)
+        n4 = sum(len(r["tokens"]) for r in got4)
+        # informative reruns of the same requests: none streamed, all
+        # streamed, and from client threads inside the server's own
+        # process (sharing its interpreter lock)
+        mix = {}
+        for label, every in (("none_streamed", 0), ("all_streamed", 1)):
+            got, wall, _ = generate_over_http(port, "lm", reqs4, every)
+            tokens_or_near_tie(f"16a slots, {label.replace('_', ' ')}",
+                               reqs4, got, [r["tokens"] for r in res4],
+                               cpu_fn)
+            mix[label] = n4 / wall
+        inproc = _generate_clients(port, "lm", reqs4, 2)
+        if inproc["errors"]:
+            raise RuntimeError(f"in-process clients: {inproc['errors'][:3]}")
+        diff_in = tokens_or_near_tie(
+            "16a slots, clients in the server's process", reqs4,
+            inproc["results"], [r["tokens"] for r in res4], cpu_fn)
+
+        pst0 = pg.engine.stats()
+        reset_launches()
+        code, _, primed, _ = http_call(port, "POST", "/v1/models/plm/generate",
+                                       dict(primer, timeout_ms=600_000))
+        if code != 200:
+            raise AssertionError(f"the primer answered {code}: {primed}")
+        got5, wall5, firsts5 = generate_over_http(port, "plm", burst)
+        pst = pg.engine.stats()
+        ttft5 = pst["ttft_ms"]
+        psteps = pst["decode_steps"] - pst0["decode_steps"]
+        launches5 = dict(decode=da.launches, flash=fa.launches,
+                         paged=pa.launches)
+        if launches5["paged"] != cfg["n_layers"] * psteps or not psteps \
+                or launches5["decode"] or launches5["flash"]:
+            raise AssertionError(f"16a paged: launches {launches5} over "
+                                 f"{psteps} decode steps")
+        check_lengths(got5, burst)
+        diff5 = tokens_or_near_tie(
+            "16a paged over HTTP",
+            [dict(primer, temperature=0.0, top_k=0)] + burst,
+            [primed] + got5, [primer_tokens] + want5, cpu_fn)
+        n5 = sum(len(r["tokens"]) for r in got5)
+        for name, s in (("lm", g), ("plm", pg)):
+            no_capture_since(s.engine, caps[name])
+
+        # the thread backend over the same registry: 4 of phase 4's
+        # requests
+        tsrv = InferenceServer(port=0, registry=srv.registry,
+                               http_backend="thread")
+        try:
+            got_t, _, _ = generate_over_http(tsrv.port, "lm", reqs4[:4])
+        finally:
+            tsrv.stop()
+        diff_t = tokens_or_near_tie("16a thread backend", reqs4[:4], got_t,
+                                    [r["tokens"] for r in res4[:4]], cpu_fn)
+
+        # (b) /predict through the micro-batcher: the classifier's 5
+        # buckets captured at warmup, 64 requests from 16 clients
+        pcfg = dict(train_cfg, seq_len=PREDICT_T)
+        net = MultiLayerNetwork(classifier_conf(pcfg), device=device).init()
+        cls = srv.register("cls", net, max_batch_size=PREDICT_BUCKETS[-1])
+        t0 = time.perf_counter()
+        cls.warmup(PREDICT_BUCKETS,
+                   example=np.zeros((1, PREDICT_T), np.float32))
+        pwarm = time.perf_counter() - t0
+        cc = cls.metrics.snapshot()["compile_cache"]
+        if cc["compiles"] != len(PREDICT_BUCKETS):
+            raise AssertionError(f"16b: {cc['compiles']} captures at "
+                                 f"warmup, not {len(PREDICT_BUCKETS)}")
+        xs = predict_traffic(pcfg)
+        b0 = cls.metrics.batches
+        reset_launches()
+        outs, pwall, lat = predict_over_http(port, "cls", xs)
+        batches = cls.metrics.batches - b0
+        plaunch = dict(flash=fa.launches, decode=da.launches,
+                       paged=pa.launches)
+        if plaunch["flash"] != pcfg["n_layers"] * batches or \
+                plaunch["decode"] or plaunch["paged"]:
+            raise AssertionError(f"16b: launches {plaunch} over {batches} "
+                                 f"device calls: B3 must run "
+                                 f"{pcfg['n_layers']} a call")
+        if cls.metrics.compiles != len(PREDICT_BUCKETS):
+            raise AssertionError("16b: a capture after warmup")
+        worst = predict_rows_check("16b", net, xs, outs)
+        rows = sum(len(x) for x in xs)
+
+        # live weights: fit() updates the leaves in place, set_params()
+        # replaces them; both must be served with no counted capture
+        probe = xs[0][:1]
+        before = np.asarray(http_call(port, "POST", "/v1/models/cls/predict",
+                                      {"inputs": probe})[2]["outputs"])
+        ids, labels = np.asarray(xs[1] + xs[2])[:4], np.zeros(
+            (4, PREDICT_CLASSES), np.float32)
+        labels[np.arange(4), np.arange(4)] = 1.0
+        net.fit(ids, labels)
+        after_fit = np.asarray(http_call(
+            port, "POST", "/v1/models/cls/predict",
+            {"inputs": probe})[2]["outputs"])
+        fit_err = predict_rows_check("16b after fit", net, [probe],
+                                     [after_fit])
+        other = MultiLayerNetwork(classifier_conf(dict(pcfg, seed=1)),
+                                  device=device).init()
+        ewma, caps0 = cls.batcher._device_ewma_ms, cls.engine.captures
+        net.set_params(other.params())
+        after_set = np.asarray(http_call(
+            port, "POST", "/v1/models/cls/predict",
+            {"inputs": probe})[2]["outputs"])
+        set_err = predict_rows_check("16b after set_params", net, [probe],
+                                     [after_set])
+        # the probe's bucket was captured again over the new leaves;
+        # that call stays out of the batcher's device-time estimate, so
+        # a budget of a few device calls is still admitted
+        if cls.engine.captures != caps0 + 1 or not ewma or \
+                cls.batcher._device_ewma_ms != ewma:
+            raise AssertionError(
+                f"16b: {cls.engine.captures - caps0} recaptures after "
+                f"set_params, device estimate {ewma} -> "
+                f"{cls.batcher._device_ewma_ms} ms")
+        status = http_call(port, "POST", "/v1/models/cls/predict",
+                           {"inputs": probe, "timeout_ms": 10 * ewma})[0]
+        if status != 200:
+            raise AssertionError(f"16b: a {10 * ewma:.1f} ms budget after "
+                                 f"set_params answered {status}")
+        moved = (float(np.abs(after_fit - before).max()),
+                 float(np.abs(after_set - after_fit).max()))
+        if min(moved) <= FLASH_TOL or \
+                cls.metrics.compiles != len(PREDICT_BUCKETS):
+            raise AssertionError(f"16b: the answer moved {moved} after fit "
+                                 f"and set_params, compiles "
+                                 f"{cls.metrics.compiles}")
+        del other
+
+        # probes, then the drain with streams in flight
+        st_http = stats_keys_check(port, srv)
+        prom = probes_check(port, ("lm", "plm", "cls"))
+        drained = drain_check(srv, port, [
+            dict(prompt=r["prompt"][:128], max_tokens=384, seed=r["seed"])
+            for r in reqs4[:4]])
+    finally:
+        srv.stop()
+    torch.cuda.synchronize()
+    lat_ms = np.asarray(lat) * 1e3
+    ttft = {"lm": ttft4, "plm": ttft5}
+    out.update(
+        generate=dict(
+            slots=dict(tokens=n4, wall_s=wall4, tokens_per_s=n4 / wall4,
+                       ttft_p50_ms=ttft["lm"]["p50"],
+                       ttft_p99_ms=ttft["lm"]["p99"],
+                       decode_step_p50_ms=st["decode_step_ms"]["p50"],
+                       decode_step_p99_ms=st["decode_step_ms"]["p99"],
+                       stream_first_token_p50_ms=float(
+                           np.percentile(firsts4, 50) * 1e3),
+                       lanes_differing=diff4, launches=launches4,
+                       decode_steps=steps, captures=caps["lm"],
+                       inproc_clients_tokens_per_s=n4 / inproc["wall_s"],
+                       none_streamed_tokens_per_s=mix["none_streamed"],
+                       all_streamed_tokens_per_s=mix["all_streamed"],
+                       inproc_clients_lanes_differing=diff_in),
+            paged=dict(tokens=n5, wall_s=wall5, tokens_per_s=n5 / wall5,
+                       ttft_p50_ms=ttft["plm"]["p50"],
+                       ttft_p99_ms=ttft["plm"]["p99"],
+                       decode_step_p50_ms=pst["decode_step_ms"]["p50"],
+                       decode_step_p99_ms=pst["decode_step_ms"]["p99"],
+                       stream_first_token_p50_ms=float(
+                           np.percentile(firsts5, 50) * 1e3),
+                       lanes_differing=diff5, launches=launches5,
+                       decode_steps=psteps, captures=caps["plm"]),
+            thread_backend_lanes_differing=diff_t),
+        predict=dict(requests=len(xs), rows=rows, wall_s=pwall,
+                     rows_per_s=rows / pwall,
+                     request_p50_ms=float(np.percentile(lat_ms, 50)),
+                     request_p99_ms=float(np.percentile(lat_ms, 99)),
+                     device_calls=batches, mean_batch=rows / batches,
+                     launches=plaunch, captures=cc["compiles"],
+                     warmup_s=pwarm, max_abs_err=worst,
+                     fit_err=fit_err, set_params_err=set_err,
+                     moved_after_fit=moved[0],
+                     moved_after_set_params=moved[1],
+                     bucket_hist=st_http["models"]["cls"]["bucket_hist"]),
+        prometheus=prom, drain=drained,
+        seconds=time.perf_counter() - t_phase)
+    return out
+
+
 def all_blocks_back(eng, when: str = "") -> int:
     """Release the session pins and the prefix index; every block of
     the pool must then be free. Returns the free count."""
@@ -3798,6 +4381,7 @@ def main() -> int:
     e2e_paged = serve_paged(card, eager_ab=True, traced=True)
     e2e_int8 = serve(card, kv_dtype="int8")
     e2e_paged_int8 = serve_paged(card, kv_dtype="int8", chaos=True)
+    served4, served5 = e2e["served"], e2e_paged["served"]
     spec = serve_spec(card, e2e.pop("served"), paged=False, traced=True)
     spec_paged = serve_spec(card, e2e_paged.pop("served"), paged=True)
     e2e_bf16 = serve(card, kv_dtype="bf16")  # phase 13: B1's bf16 leg
@@ -3822,6 +4406,42 @@ def main() -> int:
           f"{offload8['host_bytes_per_token']:.1f} (int8) host bytes per "
           f"demoted token, {offload['sessions_per_host_gib']:.1f} vs "
           f"{offload8['sessions_per_host_gib']:.1f} sessions per host GiB")
+    # phase 16: the serving shell over HTTP, against phases 4 and 5
+    shell = serve_http(card, served4, served5, e2e_paged["primer_tokens"])
+    gen, pred = shell["generate"], shell["predict"]
+    for tag, direct in (("slots", e2e), ("paged", e2e_paged)):
+        h = gen[tag]
+        print(f"serving shell (phase 16a, {shell['backend']}) [{card}]: "
+              f"{tag} over HTTP {h['tokens_per_s']:.1f} tokens/s, TTFT "
+              f"p50/p99 {h['ttft_p50_ms']:.1f}/{h['ttft_p99_ms']:.1f} ms, "
+              f"streams' first token p50 "
+              f"{h['stream_first_token_p50_ms']:.1f} ms, decode step "
+              f"p50/p99 {h['decode_step_p50_ms']:.2f}/"
+              f"{h['decode_step_p99_ms']:.2f} ms, beside the direct "
+              f"engine's {direct['tokens_per_s']:.1f} tokens/s, "
+              f"{direct['ttft_p50_ms']:.1f}/{direct['ttft_p99_ms']:.1f} ms "
+              f"and {direct['decode_step_p50_ms']:.2f}/"
+              f"{direct['decode_step_p99_ms']:.2f} ms "
+              f"(phase {4 if tag == 'slots' else 5})"
+              + (f"; {h['none_streamed_tokens_per_s']:.1f} tokens/s with "
+                 f"none streamed, {h['all_streamed_tokens_per_s']:.1f} with "
+                 f"all, {h['inproc_clients_tokens_per_s']:.1f} with the "
+                 f"clients in the server's process"
+                 if tag == "slots" else "")
+              + f"; {h['lanes_differing']} "
+              f"lanes differing at a near-tie, launches {h['launches']} "
+              f"over {h['decode_steps']} decode steps, {h['captures']} "
+              f"captures at warmup, none after")
+    print(f"serving shell (phase 16b) [{card}]: /predict {pred['rows']} rows "
+          f"in {pred['requests']} requests at {pred['rows_per_s']:.1f} "
+          f"rows/s, request p50/p99 {pred['request_p50_ms']:.1f}/"
+          f"{pred['request_p99_ms']:.1f} ms, {pred['device_calls']} device "
+          f"calls (mean {pred['mean_batch']:.2f} rows), launches "
+          f"{pred['launches']}, {pred['captures']} captures, max err "
+          f"{pred['max_abs_err']:.3e} (tol {FLASH_TOL:g}), after fit "
+          f"{pred['fit_err']:.3e}, after set_params "
+          f"{pred['set_params_err']:.3e}; drain {shell['drain']}; phase 16 "
+          f"added {shell['seconds']:.2f} s")
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
     trained = train(card)
@@ -3889,7 +4509,8 @@ def main() -> int:
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
              e2e_paged_int8=e2e_paged_int8, spec=spec,
              spec_paged=spec_paged, offload=offload,
-             offload_int8=offload8, flash_bwd=bwd, flash_bf16=bf16,
+             offload_int8=offload8, serving_shell=shell,
+             flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))

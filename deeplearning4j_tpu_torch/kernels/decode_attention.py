@@ -21,7 +21,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from .kv_quant import is_quantized, kv_operands
 
 _NEG_INF = -1e30
@@ -125,7 +125,6 @@ def check_int8_operands(what: str, k, v, D: int) -> None:
 
 
 def _decode_attention_cuda(q, k, v, lengths):
-    global launches
     S, H, T, D = k.shape
     if k.dtype not in (torch.float32, torch.bfloat16) or v.dtype != k.dtype:
         raise TypeError(f"decode attention kernel takes f32 or bf16 K/V "
@@ -145,12 +144,11 @@ def _decode_attention_cuda(q, k, v, lengths):
                 lengths.data_ptr(), out.data_ptr(), S, H, T, D,
                 1.0 / math.sqrt(D), stream)
     _build.check(rc, "decode_attention")
-    launches += 1
+    count_launch("decode_attention.launches")
     return out
 
 
 def _decode_attention_int8_cuda(q, k, v, lengths):
-    global launches_int8
     S, H, T, D = k.shape
     check_operands("int8 decode attention", q,
                    (("q", q), ("k", k.q), ("v", v.q), ("k scale", k.scale),
@@ -167,7 +165,7 @@ def _decode_attention_int8_cuda(q, k, v, lengths):
             k.scale.data_ptr(), v.scale.data_ptr(), lengths.data_ptr(),
             out.data_ptr(), S, H, T, D, 1.0 / math.sqrt(D), stream)
     _build.check(rc, "decode_attention_int8")
-    launches_int8 += 1
+    count_launch("decode_attention.launches_int8")
     return out
 
 

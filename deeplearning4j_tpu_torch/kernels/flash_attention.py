@@ -32,7 +32,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 
 _NEG_INF = -1e30
 
@@ -225,7 +225,6 @@ def key_groups_for(B: int, T: int, H: int, device) -> int:
 
 
 def _flash_attention_cuda(q, k, v, causal, key_mask, key_groups=None):
-    global launches, launches_bf16
     B, T, H, D = q.shape
     leg, key_mask = _check_operands((("q", q), ("k", k), ("v", v)), q,
                                     key_mask)
@@ -247,9 +246,9 @@ def _flash_attention_cuda(q, k, v, causal, key_mask, key_groups=None):
             rc = lib.flash_attention_fwd_f32(*args, int(key_groups), stream)
     _build.check(rc, f"flash_attention ({leg})")
     if leg == "bf16":
-        launches_bf16 += 1
+        count_launch("flash_attention.launches_bf16")
     else:
-        launches += 1
+        count_launch("flash_attention.launches")
     return out, lse
 
 
@@ -271,7 +270,6 @@ def flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta,
                            causal: bool = False):
     """dQ kernel (B6) on CUDA tensors, its plain version on CPU ones.
     ``delta = rowsum(g * out)`` [B, H, T]."""
-    global launches_dq, launches_dq_bf16
     if not q.is_cuda:
         return flash_attention_bwd_dq_torch(q, k, v, key_mask, g, lse, delta,
                                             causal)
@@ -288,9 +286,9 @@ def flash_attention_bwd_dq(q, k, v, key_mask, g, lse, delta,
                 torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash_attention_bwd_dq ({leg})")
     if leg == "bf16":
-        launches_dq_bf16 += 1
+        count_launch("flash_attention.launches_dq_bf16")
     else:
-        launches_dq += 1
+        count_launch("flash_attention.launches_dq")
     return dq
 
 
@@ -298,7 +296,6 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
                             causal: bool = False):
     """dK/dV kernel (B7) on CUDA tensors, its plain version on CPU
     ones. Returns (dk, dv)."""
-    global launches_dkv, launches_dkv_bf16
     if not q.is_cuda:
         return flash_attention_bwd_dkv_torch(q, k, v, key_mask, g, lse,
                                              delta, causal)
@@ -315,9 +312,9 @@ def flash_attention_bwd_dkv(q, k, v, key_mask, g, lse, delta,
                 1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
     _build.check(rc, f"flash_attention_bwd_dkv ({leg})")
     if leg == "bf16":
-        launches_dkv_bf16 += 1
+        count_launch("flash_attention.launches_dkv_bf16")
     else:
-        launches_dkv += 1
+        count_launch("flash_attention.launches_dkv")
     return dk, dv
 
 

@@ -27,7 +27,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, count_launch
 from .decode_attention import (check_int8_operands, check_operands,
                                decode_attention_torch)
 from .kv_quant import QuantArray, is_quantized
@@ -88,7 +88,6 @@ def _check_table(block_tables) -> None:
 
 
 def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
-    global launches
     N, H, Bs, D = k_pool.shape
     S, B = block_tables.shape
     if k_pool.dtype not in (torch.float32, torch.bfloat16) \
@@ -113,12 +112,11 @@ def _paged_attention_cuda(q, k_pool, v_pool, block_tables, lengths):
                 block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                 S, H, N, Bs, D, B, 1.0 / math.sqrt(D), stream)
     _build.check(rc, "paged_attention")
-    launches += 1
+    count_launch("paged_attention.launches")
     return out
 
 
 def _paged_attention_int8_cuda(q, k_pool, v_pool, block_tables, lengths):
-    global launches_int8
     N, H, Bs, D = k_pool.shape
     S, B = block_tables.shape
     _check_table(block_tables)
@@ -139,7 +137,7 @@ def _paged_attention_int8_cuda(q, k_pool, v_pool, block_tables, lengths):
             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
             S, H, N, Bs, D, B, 1.0 / math.sqrt(D), stream)
     _build.check(rc, "paged_attention_int8")
-    launches_int8 += 1
+    count_launch("paged_attention.launches_int8")
     return out
 
 

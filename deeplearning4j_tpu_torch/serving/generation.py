@@ -124,7 +124,7 @@ import torch
 from .. import random as jrandom
 from ..faults import (CorruptedStateFault, PoisonRequestError,
                       TransientFault, poll_until_idle)
-from ..kernels import add_launches, launch_counts
+from ..kernels import add_launches
 from ..kernels.kv_quant import (QuantArray, canonical_kv_dtype,
                                 is_quantized, kv_copy_row, kv_pack_host,
                                 kv_tensors, kv_unpack_host, kv_update_slice,
@@ -132,7 +132,7 @@ from ..kernels.kv_quant import (QuantArray, canonical_kv_dtype,
 from ..profiler import OpProfiler
 from .batcher import (PRIORITIES, DeadlineExceededError, DrainingError,
                       QueueFullError)
-from .engine import ClientError, ServingError
+from .engine import ClientError, ServingError, capture_graph
 from .kvcache import KVCache, SlotTable
 from .metrics import GenerationMetrics
 from .offload import DiskRing, HostBlockStore, HostRun, OffloadPrefetcher
@@ -1446,28 +1446,18 @@ class GenerationEngine:
         """Capture ``run`` into a CUDA graph (counted in
         ``metrics.compiles``, its wall time in ``_capture_ms``), with
         ``shared`` in the memory pool the per-bucket graphs share, else
-        in a pool of its own. The capture launches nothing: the kernels'
-        launch counters are put back, and each replay adds what the
-        capture counted. A failed capture raises. Returns (graph, the
-        launches one replay makes)."""
+        in a pool of its own (:func:`.engine.capture_graph`). A failed
+        capture raises. Returns (graph, the launches one replay
+        makes)."""
         if shared and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
         pool = self._graph_pool if shared else None
-        before = launch_counts()
-        graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
         try:
-            with torch.cuda.graph(graph, pool=pool,
-                                  capture_error_mode="thread_local"):
-                run()
-        except Exception as e:
-            raise ServingError(
-                f"capturing {what} ({self.cache_backend}, "
-                f"{self.kv_dtype}) into a CUDA graph failed: {e!r}") from e
+            graph, _, counted = capture_graph(
+                run, f"{what} ({self.cache_backend}, {self.kv_dtype})",
+                pool)
         finally:
-            counted = {k: n - before[k] for k, n in launch_counts().items()
-                       if n != before[k]}
-            add_launches({k: -n for k, n in counted.items()})
             self._capture_ms += (time.perf_counter() - t0) * 1e3
         self.metrics.inc("compiles")
         return graph, counted

@@ -1,12 +1,12 @@
-"""Generation-engine counters and their Prometheus text (counterpart
-of ``deeplearning4j_tpu/serving/metrics.py``: ``GenerationMetrics``
-with the counters the slot and paged backends, the int8 KV cache, the
-fault ladder, speculative decoding and the host KV tier move, and the
-text exposition, lifted: :func:`prometheus_text` renders a
-``stats()``-shaped snapshot into the same families as the JAX
-package's). The predict path's ``ServingMetrics`` and the HTTP server
-that serves ``GET /metrics`` come with the serving shell (ROADMAP.md
-queue A, item 9b)."""
+"""Serving counters and their Prometheus text (counterpart of
+``deeplearning4j_tpu/serving/metrics.py``, lifted): ``ServingMetrics``
+for the predict path (the micro-batcher's queue, shed and deadline
+counters, the engine's graph cache), ``GenerationMetrics`` with the
+counters the slot and paged backends, the int8 KV cache, the fault
+ladder, speculative decoding and the host KV tier move, and the text
+exposition: :func:`prometheus_text` renders a ``stats()``-shaped
+snapshot (``GET /stats`` of the HTTP server) into the same families as
+the JAX package's, served at ``GET /metrics``."""
 from __future__ import annotations
 
 import re
@@ -15,6 +15,93 @@ from typing import Dict, List
 
 from ..profiler import (RESERVOIR_SNAPSHOT_KEYS, CountHistogram, OpProfiler,
                         RateMeter, Reservoir)
+
+
+class ServingMetrics:
+    """Always-on counters for one served model (the reference's
+    PerformanceListener role, serving-side). Scalar counters are
+    mutated from many HTTP handler threads — use :meth:`inc`, not
+    ``+=`` (attribute += is load/add/store and loses updates under
+    preemption)."""
+
+    def __init__(self, latency_window: int = 8192):
+        self._lock = threading.Lock()
+        self.requests = 0          # accepted into the queue/engine
+        self.responses = 0         # successful results returned
+        self.client_errors = 0     # 4xx-class failures
+        self.server_errors = 0     # 5xx-class failures
+        self.shed = 0              # rejected, queue full (503)
+        self.shed_batch = 0        # batch-priority work shed first (503)
+        self.shed_deadline = 0     # deadline budget blown before the
+        #                            device call: rejected at dequeue-
+        #                            admission, zero device work spent
+        self.timeouts = 0          # request deadline exceeded (504)
+        # fault-tolerance counters (serving/faults.py)
+        self.retries = 0           # transient step failures retried
+        self.recoveries = 0        # state rebuilds (n/a for batcher)
+        self.quarantined = 0       # poison requests failed alone
+        self.drains = 0            # graceful drains initiated
+        self.batches = 0           # device calls issued
+        self.batch_hist = CountHistogram()   # rows per device call
+        self.bucket_hist = CountHistogram()  # padded bucket per call
+        self.latency_ms = Reservoir(latency_window)    # request e2e
+        self.device_ms = Reservoir(latency_window)     # device call
+        self.queue_depth = 0       # gauge, updated by the batcher
+        self.queue_max = 0
+        self.inflight = 0          # gauge: rows in the device call NOW
+        # the engine's (bucket, signature) cache: a CUDA graph captured
+        # per entry on the card, the eager forward on the CPU
+        self.compiles = 0
+        self.cache_hits = 0
+        self.cache_misses = 0
+        self.cache_evictions = 0
+        self.warmed_buckets: List[int] = []
+
+    def inc(self, field: str, n: int = 1):
+        """Thread-safe counter increment."""
+        with self._lock:
+            setattr(self, field, getattr(self, field) + n)
+
+    def mean_batch(self) -> float:
+        """Mean number of real rows per device call — the coalescing
+        factor (1.0 means the batcher never merged anything)."""
+        return self.batch_hist.mean()
+
+    def snapshot(self) -> Dict:
+        return {
+            "requests": self.requests,
+            "responses": self.responses,
+            "client_errors": self.client_errors,
+            "server_errors": self.server_errors,
+            "shed": self.shed,
+            "shed_batch": self.shed_batch,
+            "shed_deadline": self.shed_deadline,
+            "timeouts": self.timeouts,
+            "faults": {
+                "retries": self.retries,
+                "recoveries": self.recoveries,
+                "quarantined": self.quarantined,
+                "drains": self.drains,
+            },
+            "queue_depth": self.queue_depth,
+            "queue_max": self.queue_max,
+            "inflight": self.inflight,
+            "batches": self.batches,
+            "mean_batch": round(self.mean_batch(), 3),
+            "batch_hist": self.batch_hist.snapshot(),
+            "bucket_hist": self.bucket_hist.snapshot(),
+            "latency_ms": {k: round(v, 3) for k, v in
+                           self.latency_ms.snapshot().items()},
+            "device_ms": {k: round(v, 3) for k, v in
+                          self.device_ms.snapshot().items()},
+            "compile_cache": {
+                "compiles": self.compiles,
+                "hits": self.cache_hits,
+                "misses": self.cache_misses,
+                "evictions": self.cache_evictions,
+                "warmed_buckets": list(self.warmed_buckets),
+            },
+        }
 
 
 class GenerationMetrics:
@@ -268,9 +355,8 @@ def profiler_sections() -> Dict:
 
 # -- Prometheus text exposition ----------------------------------------
 # The text is generated from the SAME snapshot dicts `stats()` returns
-# (and the serving shell's `GET /stats` will serve beside `GET
-# /metrics`), so the two views cannot drift: one source of truth, two
-# encodings.
+# (and the server's `GET /stats` serves beside `GET /metrics`), so the
+# two views cannot drift: one source of truth, two encodings.
 # Output follows the text exposition format version 0.0.4 (`# TYPE`
 # lines, label escaping, one family per metric name).
 

@@ -10,10 +10,13 @@ verdict and the ``queue`` wait at submit, ``prefix_match``,
 paged backend) at admission, ``recovery`` when the fault ladder
 re-admits it, and at its end the ``decode`` (or ``error``),
 ``step_pipeline``, ``draft`` and ``verify`` spans, rebuilt from what
-the engine keeps per request. The HTTP server that mints request ids,
-serves ``GET /debug/traces`` and stitches the fleet router's hops into
-the same trace comes with the serving shell (ROADMAP.md queue A, item
-9b); its ``X-Request-Id`` is what :func:`new_request_id` mints.
+the engine keeps per request. The HTTP server
+(:class:`~.serving.InferenceServer`) mints request ids (its
+``X-Request-Id`` is what :func:`new_request_id` mints), opens the
+``http`` span, records the micro-batcher's ``admission``, ``queue`` and
+``device`` spans on ``/predict`` and serves ``GET /debug/traces``;
+stitching a fleet router's hops into the same trace comes with the
+fleet (ROADMAP.md queue A, item 9c).
 
 Design rules:
 

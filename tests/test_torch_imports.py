@@ -38,6 +38,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("serving.generation", "serving.paging", "serving.faults",
                 "serving.speculative", "serving.offload",
+                "serving.engine", "serving.batcher", "serving.registry",
+                "serving.aio",
                 "faults",
                 "kernels.paged_attention", "kernels.kv_quant",
                 "nn.layers.attention", "zoo.transformer_lm",
