@@ -181,10 +181,42 @@ Phases, each of which fails the run when it fails:
    parse with every model's families, /healthz and /readyz answer 200;
    then drain() with four long streams in flight: /readyz and a new
    POST answer 503 with Retry-After and the streams finish. It prints
-   HTTP tokens/s and TTFT p50/p99 beside phases 4 and 5's, predict
-   rows/s and request p50/p99, and the seconds the phase added.
+   HTTP tokens/s and TTFT p50/p99 beside phases 4 and 5's, the decode
+   step p50 of the half, none and all streamed turns, predict rows/s
+   and request p50/p99, and the seconds the phase added.
+17. the fleet: two InferenceServer replicas (aio) in this process, each
+   built and warmed by one factory over one model from phase 4's seed
+   ("lm" with phase 4's configuration, "plm" with phase 5's), behind a
+   FleetRouter (health polls every 0.05 s, tracing on, no hedging) on
+   its aio front-end. (a) From a client process, half streamed: phase
+   4's 32 requests on "lm", then phase 5's primer, burst and the two
+   turns of its 8 sessions on "plm" (turn 2 built on the fleet's own
+   turn 1). Every "lm" lane must be phase 4's; every "plm" lane phase
+   5's unless its first difference is a near-tie of the CPU reference;
+   on each replica B1 must launch once per layer and decode step of its
+   "lm" engine and B2 of its "plm" engine (the launches its engines'
+   replays added, counted by thread, must be all the counters saw);
+   each engine must capture its plan at warmup and nothing after; both
+   replicas' session hits must sum to 8 and the router's affinity hits
+   be 8 (each turn 2 on its turn 1's replica); each replica must serve
+   at least a quarter of the requests; the router's /stats must show
+   requests = responses + streams with none lost and no error; one
+   request with ?trace=1 and "trace": 1 must return the router's pick
+   and dispatch spans and the replica's queue, admission, prefill and
+   decode spans under one request id. (b) 8 threads of a client process
+   loop over phase 4's first 8 prompts (greedy, every other one
+   streamed) through the router while fleet.rolling_restart() rebuilds
+   both replicas:
+   restarts 2, none lost, every answer the restart-free run's, each
+   rebuilt replica capturing its plan at warmup and nothing after, and
+   the device memory allocated after the restarts (gc and empty_cache
+   first) within 5% of before. (c) A second router on the thread
+   backend serves 4 of phase 4's requests (2 streamed) with 17a's
+   tokens. It prints the router's tokens/s beside phase 16's single
+   replica, TTFT p50/p99, each replica's restart wall time, the memory
+   before and after, and the seconds the phase added.
 
-Phases 4 to 7 and 12 to 16 serve with the engine's defaults on the card:
+Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
 warm set captured at warmup as a CUDA graph (``graph_plan``: the
 decode step, each prefill bucket on slots, each (chunk, table) bucket
@@ -247,6 +279,9 @@ JSON.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
+import gc
 import json
 import os
 import re
@@ -3576,14 +3611,51 @@ def _predict_clients(port, name, xs, clients):
                 errors=errors)
 
 
+def _loop_clients(port, name, reqs):
+    """The client side of :func:`restart_traffic` (run in the client
+    process): a thread a request, each posting it again and again (every
+    other one streamed) until stdin closes, each answer a JSON line on
+    stdout as it comes."""
+    stop = threading.Event()
+    lock = threading.Lock()
+
+    def client(i):
+        body = dict(reqs[i], timeout_ms=600_000)
+        stream = i % 2 == 1
+        while not stop.is_set():
+            try:
+                code, _, out, _ = http_call(
+                    port, "POST", f"/v1/models/{name}/generate",
+                    dict(body, stream=True) if stream else body, stream)
+                line = ({"i": i, "tokens": out[-1]["tokens"] if stream
+                         else out["tokens"]} if code == 200 else
+                        {"i": i, "error": f"status {code}: {out}"})
+            except Exception as e:  # noqa: BLE001 — reported to the parent
+                line = {"i": i, "error": repr(e)}
+            with lock:
+                print(json.dumps(line), flush=True)
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    for t in threads:
+        t.start()
+    sys.stdin.read()
+    stop.set()
+    for t in threads:
+        t.join()
+    return dict(errors=[])
+
+
 def client_main():
-    """The HTTP client process of phase 16: one job as JSON on stdin, its
-    results as JSON on stdout. Only the standard library (and numpy) is
-    imported, so the client shares no interpreter lock with the server."""
-    job = json.load(sys.stdin)
+    """The HTTP client process of phases 16 and 17: one job as a JSON
+    line on stdin, its results as JSON on stdout. Only the standard
+    library (and numpy) is imported, so the client shares no interpreter
+    lock with the server."""
+    job = json.loads(sys.stdin.readline())
     if job["kind"] == "generate":
         out = _generate_clients(job["port"], job["name"], job["reqs"],
                                 job["stream_every"])
+    elif job["kind"] == "loop":
+        out = _loop_clients(job["port"], job["name"], job["reqs"])
     else:
         out = _predict_clients(job["port"], job["name"], job["xs"],
                                job["clients"])
@@ -3627,6 +3699,27 @@ def predict_over_http(port, name, xs, clients=16):
     out = run_client(dict(kind="predict", port=port, name=name, xs=xs,
                           clients=clients))
     return out["outs"], out["wall_s"], out["lat"]
+
+
+@contextlib.contextmanager
+def recorded(reservoir):
+    """The values ``reservoir`` records inside the block (a list that
+    fills as they come)."""
+    vals = []
+    record = reservoir.record
+
+    def keep(v):
+        vals.append(float(v))
+        record(v)
+    reservoir.record = keep
+    try:
+        yield vals
+    finally:
+        del reservoir.record
+
+
+def p50(xs):
+    return float(np.percentile(xs, 50)) if len(xs) else None
 
 
 def poll_until(cond, what: str, timeout_s: float = 30.0):
@@ -3715,7 +3808,8 @@ def serve_http(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
         # of them streamed, then phase 5's primer and burst on the paged
         st0 = g.engine.stats()
         reset_launches()
-        got4, wall4, firsts4 = generate_over_http(port, "lm", reqs4)
+        with recorded(g.engine.metrics.decode_step_ms) as half_steps:
+            got4, wall4, firsts4 = generate_over_http(port, "lm", reqs4)
         st = g.engine.stats()
         ttft4 = st["ttft_ms"]
         steps = st["decode_steps"] - st0["decode_steps"]
@@ -3732,13 +3826,15 @@ def serve_http(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
         # informative reruns of the same requests: none streamed, all
         # streamed, and from client threads inside the server's own
         # process (sharing its interpreter lock)
-        mix = {}
+        mix, mix_step = {}, {"half_streamed": p50(half_steps)}
         for label, every in (("none_streamed", 0), ("all_streamed", 1)):
-            got, wall, _ = generate_over_http(port, "lm", reqs4, every)
+            with recorded(g.engine.metrics.decode_step_ms) as steps_ms:
+                got, wall, _ = generate_over_http(port, "lm", reqs4, every)
             tokens_or_near_tie(f"16a slots, {label.replace('_', ' ')}",
                                reqs4, got, [r["tokens"] for r in res4],
                                cpu_fn)
             mix[label] = n4 / wall
+            mix_step[label] = p50(steps_ms)
         inproc = _generate_clients(port, "lm", reqs4, 2)
         if inproc["errors"]:
             raise RuntimeError(f"in-process clients: {inproc['errors'][:3]}")
@@ -3883,6 +3979,7 @@ def serve_http(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
                        inproc_clients_tokens_per_s=n4 / inproc["wall_s"],
                        none_streamed_tokens_per_s=mix["none_streamed"],
                        all_streamed_tokens_per_s=mix["all_streamed"],
+                       step_p50_ms_by_turn=mix_step,
                        inproc_clients_lanes_differing=diff_in),
             paged=dict(tokens=n5, wall_s=wall5, tokens_per_s=n5 / wall5,
                        ttft_p50_ms=ttft["plm"]["p50"],
@@ -3908,6 +4005,361 @@ def serve_http(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
         prometheus=prom, drain=drained,
         seconds=time.perf_counter() - t_phase)
     return out
+
+
+#: phase 17: the router's health poll, and how long a rolling restart
+#: may wait for a replica to drain and for its rebuild to answer ready
+FLEET_POLL_S = 0.05
+FLEET_DRAIN_S = 120.0
+FLEET_READY_S = 300.0
+#: phase 17b: the client loops over phase 4's first prompts
+RESTART_CLIENTS = 8
+#: phase 17b: the device memory after the restarts, against before them
+FLEET_MEMORY_RTOL = 0.05
+
+
+def launches_by_thread():
+    """Count the launches each thread's graph replays add (a replay adds
+    its capture's tally through ``generation.add_launches`` on the
+    engine's scheduler thread). Returns (counts keyed by thread ident,
+    a function that stops counting)."""
+    from deeplearning4j_tpu_torch.serving import generation
+    counts = collections.defaultdict(collections.Counter)
+    add = generation.add_launches
+
+    def counting(c):
+        counts[threading.get_ident()].update(c)
+        add(c)
+    generation.add_launches = counting
+    return counts, lambda: setattr(generation, "add_launches", add)
+
+
+def fleet_engines(fleet):
+    """Each replica's "lm" and "plm" engines, by replica id."""
+    return {rep.id: {name: rep.server.registry.get(name).engine
+                     for name in ("lm", "plm")}
+            for rep in fleet.replicas()}
+
+
+def replica_launch_check(fleet, by_thread, steps0, n_layers, label):
+    """Per replica: B1 = layers x its "lm" decode steps and B2 = layers x
+    its "plm" decode steps since ``steps0``, B2 and B3 never on "lm"'s
+    thread and B1 and B3 never on "plm"'s, and the kernels' counters
+    (set to 0 before the traffic) are the engines' replays and nothing
+    else. Returns the counts by replica."""
+    from deeplearning4j_tpu_torch import kernels
+    out, total = {}, collections.Counter()
+    for rid, engs in fleet_engines(fleet).items():
+        row = {}
+        for name, key, others in (
+                ("lm", "decode_attention.launches",
+                 ("paged_attention.launches",)),
+                ("plm", "paged_attention.launches",
+                 ("decode_attention.launches",
+                  "flash_attention.launches"))):
+            eng = engs[name]
+            c = by_thread.get(eng._thread.ident, collections.Counter())
+            steps = eng.metrics.decode_steps - steps0[rid][name]
+            if not steps or c[key] != n_layers * steps \
+                    or any(c[k] for k in others):
+                raise AssertionError(
+                    f"{label}: replica {rid} {name!r}: launches "
+                    f"{dict(c)} over {steps} decode steps")
+            row[name] = dict(decode_steps=steps, launches=dict(c))
+            total.update(c)
+        out[rid] = row
+    counted = {k: v for k, v in kernels.launch_counts().items() if v}
+    if counted != {k: v for k, v in total.items() if v}:
+        raise AssertionError(f"{label}: the kernels counted {counted}, the "
+                             f"replicas' engines replayed {dict(total)}")
+    return out
+
+
+def fleet_no_capture(fleet, caps):
+    """No engine of the fleet captured since ``caps`` (by replica id and
+    name)."""
+    for rid, engs in fleet_engines(fleet).items():
+        for name, eng in engs.items():
+            no_capture_since(eng, caps[rid][name])
+
+
+def fleet_trace_check(port, req):
+    """One request through the router with ``?trace=1`` (the router's
+    trace) and ``"trace": 1`` (the replica's): both halves come back in
+    the answer under one request id, with the router's pick and dispatch
+    spans and the replica's queue, admission, prefill and decode
+    spans."""
+    rid = "fleet-trace-17a"
+    code, hdrs, body, _ = http_call(
+        port, "POST", "/v1/models/lm/generate?trace=1",
+        dict(req, trace=1, timeout_ms=600_000),
+        headers={"X-Request-Id": rid})
+    if code != 200:
+        raise AssertionError(f"17a trace: status {code}: {body}")
+    rt, tr = body.get("router_trace") or {}, body.get("trace") or {}
+    rkinds = {sp["kind"] for sp in rt.get("spans", [])}
+    kinds = {sp["kind"] for sp in tr.get("spans", [])}
+    ids = {hdrs.get("X-Request-Id"), rt.get("trace_id"), tr.get("trace_id")}
+    if not ({"pick", "dispatch"} <= rkinds and {
+            "queue", "admission", "prefill", "decode"} <= kinds
+            and ids == {rid}):
+        raise AssertionError(f"17a trace: router spans {sorted(rkinds)}, "
+                             f"replica spans {sorted(kinds)}, ids {ids}")
+    return dict(router_spans=sorted(rkinds), replica_spans=sorted(kinds),
+                tokens=body["tokens"])
+
+
+def restart_traffic(fleet, port, reqs):
+    """Phase 17b: a client process loops over ``reqs`` through the
+    router, a thread a request (every other one streamed), while
+    ``fleet.rolling_restart()`` rebuilds every replica; the loops start
+    before it and each gets one more answer after it. Returns (every
+    answer's tokens by request, the restart's result, its wall seconds
+    by replica, its wall seconds, failures)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.client_main()"],
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True, cwd=here)
+    proc.stdin.write(json.dumps(dict(kind="loop", port=port, name="lm",
+                                     reqs=reqs)) + "\n")
+    proc.stdin.flush()
+    answers = [[] for _ in reqs]
+    failures = []
+
+    def read():
+        for line in proc.stdout:
+            d = json.loads(line)
+            if "i" not in d:
+                continue
+            if "tokens" in d:
+                answers[d["i"]].append(d["tokens"])
+            else:
+                failures.append(f"request {d['i']}: {d['error']}")
+    reader = threading.Thread(target=read)
+    reader.start()
+    spans, marks = {}, {}
+    cordon, uncordon = fleet.cordon, fleet.uncordon
+
+    def timed_cordon(rid):
+        marks[rid] = time.perf_counter()
+        cordon(rid)
+
+    def timed_uncordon(rid):
+        uncordon(rid)
+        spans[rid] = time.perf_counter() - marks[rid]
+    fleet.cordon, fleet.uncordon = timed_cordon, timed_uncordon
+    try:
+        poll_until(lambda: all(answers) or failures, "17b traffic", 600)
+        t0 = time.perf_counter()
+        ok = fleet.rolling_restart(drain_timeout_s=FLEET_DRAIN_S,
+                                   ready_timeout_s=FLEET_READY_S)
+        wall = time.perf_counter() - t0
+        after = [len(a) for a in answers]
+        poll_until(lambda: all(len(a) > n for a, n in zip(answers, after))
+                   or failures, "17b traffic after the restarts", 600)
+    finally:
+        del fleet.cordon, fleet.uncordon
+        proc.stdin.close()
+        proc.wait(timeout=900)
+        reader.join()
+    if proc.returncode != 0:
+        failures.append(f"the client process exited {proc.returncode}")
+    return answers, ok, spans, wall, failures
+
+
+def device_memory() -> int:
+    """Allocated device bytes once every dropped object is collected."""
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated()
+
+
+def serve_fleet(card: str, served4, served5, primer_tokens, cfg=SERVE_CFG,
+                device=None):
+    """Phase 17: the fleet on the card (see the module doc). ``served4``
+    and ``served5`` are phases 4 and 5's ``served`` (their traffic and
+    first-run tokens), ``primer_tokens`` phase 5's primer's tokens."""
+    from deeplearning4j_tpu_torch.serving import (FleetRouter,
+                                                  InferenceServer,
+                                                  ReplicaFleet)
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    t_phase = time.perf_counter()
+    reqs4, res4 = served4[1][0]
+    want4 = [r["tokens"] for r in res4]
+    primer = served5[0]
+    (burst, res5), (turn1, res1), (turn2, res2) = served5[1]
+    lm = CausalTransformerLM(**cfg, device=device).init()
+    cpu_fn = (lambda: cpu_copy(lm, cfg))
+    builds = []
+
+    def factory():
+        """A warmed replica: "lm" with phase 4's configuration and "plm"
+        with phase 5's, over the one model; each captures its plan."""
+        t0 = time.perf_counter()
+        srv = InferenceServer(port=0)
+        for name, kw in (("lm", dict(num_slots=32)), ("plm", PAGED_ENGINE)):
+            srv.register_generator(name, lm, **kw).warmup()
+        caps = {name: warmed_compiles(srv.registry.get(name).engine)
+                for name in ("lm", "plm")}
+        builds.append(dict(seconds=time.perf_counter() - t0,
+                           captures=caps))
+        return srv
+
+    def captures(fleet):
+        return {rid: {n: warmed_compiles(e) for n, e in engs.items()}
+                for rid, engs in fleet_engines(fleet).items()}
+
+    fleet = ReplicaFleet(poll_interval_s=FLEET_POLL_S)
+    routers = []
+    by_thread, unhook = launches_by_thread()
+    try:
+        for _ in range(2):
+            fleet.add(factory(), factory=factory)
+        router = FleetRouter(fleet, tracing=True)
+        routers.append(router)
+        _, port = router.serve()
+        caps = captures(fleet)
+
+        # (a) phase 4's requests on "lm" and phase 5's traffic on "plm"
+        # through the router, each half streamed, from a client process
+        steps0 = {rid: {n: e.metrics.decode_steps for n, e in engs.items()}
+                  for rid, engs in fleet_engines(fleet).items()}
+        routed0 = {rep.id: rep.routed for rep in fleet.replicas()}
+        lm_ttft = [recorded(engs["lm"].metrics.ttft_ms)
+                   for engs in fleet_engines(fleet).values()]
+        by_thread.clear()
+        reset_launches()
+        with contextlib.ExitStack() as stack:
+            ttfts = [stack.enter_context(r) for r in lm_ttft]
+            got4, wall4, firsts4 = generate_over_http(port, "lm", reqs4)
+        ttft_ms = [v for vals in ttfts for v in vals]
+        del lm_ttft, ttfts
+        check_lengths(got4, reqs4)
+        bad = [i for i, (g, w) in enumerate(zip(got4, want4))
+               if g["tokens"] != w]
+        if bad:
+            raise AssertionError(f"17a: lanes {bad} of phase 4's requests "
+                                 f"differ from phase 4 through the router")
+        n4 = sum(len(r["tokens"]) for r in got4)
+        code, _, primed, _ = http_call(port, "POST", "/v1/models/plm/generate",
+                                       dict(primer, timeout_ms=600_000))
+        if code != 200:
+            raise AssertionError(f"17a: the primer answered {code}: {primed}")
+        got5, wall5, firsts5 = generate_over_http(port, "plm", burst)
+        got1, _, _ = generate_over_http(port, "plm", turn1)
+        # turn 2 builds on the fleet's own turn 1, as a client would
+        tails = [t2["prompt"][len(t1["prompt"]) + len(r1["tokens"]):]
+                 for t1, r1, t2 in zip(turn1, res1, turn2)]
+        turn2_fleet = [dict(t2, prompt=t1["prompt"] + g1["tokens"] + tail)
+                       for t1, g1, t2, tail in zip(turn1, got1, turn2, tails)]
+        got2, _, _ = generate_over_http(port, "plm", turn2_fleet)
+        check_lengths(got5 + got1 + got2, burst + turn1 + turn2_fleet)
+        same1 = [i for i, (g, r) in enumerate(zip(got1, res1))
+                 if g["tokens"] == r["tokens"]]
+        diff5 = tokens_or_near_tie(
+            "17a paged through the router",
+            [dict(primer, temperature=0.0, top_k=0)] + burst
+            + turn1 + [turn2[i] for i in same1],
+            [primed] + got5 + got1 + [got2[i] for i in same1],
+            [primer_tokens] + [r["tokens"] for r in res5]
+            + [r["tokens"] for r in res1] + [res2[i]["tokens"]
+                                             for i in same1], cpu_fn)
+        n5 = sum(len(r["tokens"]) for r in got5)
+        launches = replica_launch_check(fleet, by_thread, steps0,
+                                        cfg["n_layers"], "17a")
+        fleet_no_capture(fleet, caps)
+        session_hits = {rid: engs["plm"].stats()["paged"]["prefix_cache"]
+                        ["session_hits"]
+                        for rid, engs in fleet_engines(fleet).items()}
+        fm = fleet.metrics
+        if sum(session_hits.values()) != len(turn1) or \
+                fm.session_affinity_hits != len(turn1):
+            raise AssertionError(f"17a: session hits {session_hits}, "
+                                 f"affinity hits {fm.session_affinity_hits}"
+                                 f": a turn 2 missed its turn 1's replica")
+        routed = {rep.id: rep.routed - routed0[rep.id]
+                  for rep in fleet.replicas()}
+        if min(routed.values()) * 4 < sum(routed.values()):
+            raise AssertionError(f"17a: requests by replica {routed}")
+        trace = fleet_trace_check(port, reqs4[0])
+        if trace["tokens"] != want4[0]:
+            raise AssertionError("17a trace: tokens differ from phase 4")
+        _, _, stats, _ = http_call(port, "GET", "/stats")
+        fs = stats["fleet"]
+        if fs["requests"] != fs["responses"] + fs["streams"] or \
+                fs["requests_lost"] or fs["server_errors"] or \
+                fs["client_errors"]:
+            raise AssertionError(f"17a: the router's /stats {fs}")
+
+        # (b) a rolling restart under phase 4's first prompts, greedy
+        reqs8 = [dict(q, temperature=0.0, top_k=0)
+                 for q in reqs4[:RESTART_CLIENTS]]
+        before = [http_call(port, "POST", "/v1/models/lm/generate",
+                            dict(q, timeout_ms=600_000))[2]["tokens"]
+                  for q in reqs8]
+        restarts0 = fm.restarts
+        mem0 = device_memory()
+        answers, ok, spans, rwall, failures = restart_traffic(
+            fleet, port, reqs8)
+        mem1 = device_memory()
+        wrong = [i for i, a in enumerate(answers)
+                 if any(t != before[i] for t in a)]
+        if not ok or failures or wrong or \
+                fm.restarts - restarts0 != 2 or fm.requests_lost:
+            raise AssertionError(
+                f"17b: restart ok {ok}, restarts {fm.restarts - restarts0}, "
+                f"lost {fm.requests_lost}, failures {failures[:3]}, lanes "
+                f"differing from the restart-free run {wrong}")
+        caps_after = captures(fleet)
+        if [b["captures"] for b in builds[2:]] != list(caps_after.values()):
+            raise AssertionError(f"17b: the rebuilt replicas captured "
+                                 f"{builds[2:]} at warmup, {caps_after} "
+                                 f"by now")
+        if abs(mem1 - mem0) > FLEET_MEMORY_RTOL * mem0:
+            raise AssertionError(f"17b: {mem1} bytes allocated after the "
+                                 f"restarts, {mem0} before (rtol "
+                                 f"{FLEET_MEMORY_RTOL:g})")
+
+        # (c) the thread backend: 4 of phase 4's requests, 2 streamed
+        trouter = FleetRouter(fleet)
+        routers.append(trouter)
+        _, tport = trouter.serve(backend="thread")
+        got_t, _, _ = generate_over_http(tport, "lm", reqs4[:4])
+        if [g["tokens"] for g in got_t] != [g["tokens"] for g in got4[:4]]:
+            raise AssertionError("17c: the thread backend's tokens differ "
+                                 "from 17a's")
+        _, _, stats, _ = http_call(port, "GET", "/stats")
+    finally:
+        unhook()
+        for r in routers:
+            r.stop()
+        fleet.stop(stop_replicas=True)
+    fs = stats["fleet"]
+    return dict(
+        replicas=len(fleet.replicas()), captures=caps,
+        builds=builds, launches=launches,
+        tokens_per_s=n4 / wall4, tokens=n4, wall_s=wall4,
+        ttft_p50_ms=float(np.percentile(ttft_ms, 50)),
+        ttft_p99_ms=float(np.percentile(ttft_ms, 99)),
+        stream_first_token_p50_ms=float(np.percentile(firsts4, 50) * 1e3),
+        paged_tokens_per_s=n5 / wall5,
+        paged_stream_first_token_p50_ms=float(
+            np.percentile(firsts5, 50) * 1e3),
+        paged_lanes_differing=diff5, session_hits=session_hits,
+        routed=routed, trace=trace,
+        restart=dict(ok=ok, wall_s=rwall, seconds_by_replica=spans,
+                     answers=sum(len(a) for a in answers),
+                     rebuild_s=[b["seconds"] for b in builds[2:]],
+                     memory_before=mem0, memory_after=mem1,
+                     captures_after=caps_after),
+        router_stats={k: fs[k] for k in (
+            "requests", "responses", "streams", "retries", "requests_lost",
+            "restarts", "routed", "session_affinity_hits", "sheds",
+            "server_errors", "client_errors")},
+        seconds=time.perf_counter() - t_phase)
 
 
 def all_blocks_back(eng, when: str = "") -> int:
@@ -4426,7 +4878,11 @@ def main() -> int:
               + (f"; {h['none_streamed_tokens_per_s']:.1f} tokens/s with "
                  f"none streamed, {h['all_streamed_tokens_per_s']:.1f} with "
                  f"all, {h['inproc_clients_tokens_per_s']:.1f} with the "
-                 f"clients in the server's process"
+                 f"clients in the server's process; decode step p50 "
+                 f"{h['step_p50_ms_by_turn']['half_streamed']:.3f} ms half "
+                 f"streamed, "
+                 f"{h['step_p50_ms_by_turn']['none_streamed']:.3f} none, "
+                 f"{h['step_p50_ms_by_turn']['all_streamed']:.3f} all"
                  if tag == "slots" else "")
               + f"; {h['lanes_differing']} "
               f"lanes differing at a near-tie, launches {h['launches']} "
@@ -4442,6 +4898,32 @@ def main() -> int:
           f"{pred['fit_err']:.3e}, after set_params "
           f"{pred['set_params_err']:.3e}; drain {shell['drain']}; phase 16 "
           f"added {shell['seconds']:.2f} s")
+    # phase 17: the fleet, two replicas behind the router
+    fleet = serve_fleet(card, served4, served5, e2e_paged["primer_tokens"])
+    rs = fleet["restart"]
+    print(f"fleet (phase 17a) [{card}]: {fleet['replicas']} replicas "
+          f"behind the router (aio), phase 4's requests at "
+          f"{fleet['tokens_per_s']:.1f} tokens/s beside phase 16's "
+          f"{gen['slots']['tokens_per_s']:.1f} on one replica, TTFT "
+          f"p50/p99 {fleet['ttft_p50_ms']:.1f}/{fleet['ttft_p99_ms']:.1f} "
+          f"ms, streams' first token p50 "
+          f"{fleet['stream_first_token_p50_ms']:.1f} ms; phase 5's burst "
+          f"{fleet['paged_tokens_per_s']:.1f} tokens/s, "
+          f"{fleet['paged_lanes_differing']} paged lanes differing at a "
+          f"near-tie; requests by replica {fleet['routed']}, session hits "
+          f"{fleet['session_hits']}, launches {fleet['launches']}, "
+          f"captures {fleet['captures']}, none after; router "
+          f"{fleet['router_stats']}; trace spans {fleet['trace']}")
+    print(f"fleet (phase 17b) [{card}]: rolling restart of both replicas "
+          f"under {RESTART_CLIENTS} client loops in {rs['wall_s']:.2f} s "
+          f"(by replica, cordon to uncordon: "
+          f"{ {k: round(v, 3) for k, v in rs['seconds_by_replica'].items()} } "
+          f"s; rebuilds {[round(x, 3) for x in rs['rebuild_s']]} s), "
+          f"{rs['answers']} answers all equal to the restart-free run, "
+          f"none lost; device memory {rs['memory_before']} bytes before, "
+          f"{rs['memory_after']} after (rtol {FLEET_MEMORY_RTOL:g}); "
+          f"17c thread-backend router: tokens equal 17a's; phase 17 added "
+          f"{fleet['seconds']:.2f} s")
     bwd = check_flash_bwd(dev)
     bf16 = check_flash_bf16(dev)
     trained = train(card)
@@ -4509,7 +4991,7 @@ def main() -> int:
              e2e_paged=e2e_paged, e2e_int8=e2e_int8,
              e2e_paged_int8=e2e_paged_int8, spec=spec,
              spec_paged=spec_paged, offload=offload,
-             offload_int8=offload8, serving_shell=shell,
+             offload_int8=offload8, serving_shell=shell, fleet=fleet,
              flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),

@@ -62,8 +62,14 @@ request's timeline in the response. Requests may carry ``"priority":
 
 ``/predict`` serves the port's ``MultiLayerNetwork`` and any model
 with an ``output(x)`` method; ComputationGraph and SameDiff models are
-not ported yet (ROADMAP.md queue A, items 13 and 15), nor is the fleet
-tier (``FleetRouter``, ``ReplicaFleet``: item 9c).
+not ported yet (ROADMAP.md queue A, items 13 and 15).
+
+Fleets (:mod:`.fleet`): :class:`~.fleet.ReplicaFleet` holds N
+``InferenceServer`` replicas (health polls of ``/healthz`` and the
+``summary`` block of ``/stats``, eject and readmit, cordon, rolling
+restart) and :class:`~.fleet.FleetRouter` routes to them by occupancy,
+with session affinity, retries, hedging and backpressure, over the
+same route table (``router.serve()``, aio or thread backend).
 """
 from __future__ import annotations
 
@@ -85,6 +91,8 @@ from .batcher import (DeadlineExceededError, DrainingError, MicroBatcher,
 from .engine import ClientError, InferenceEngine, ServingError, next_bucket
 from .faults import (CorruptedStateFault, FaultInjector,
                      PoisonRequestError, TransientFault)
+from .fleet import (FleetError, FleetMetrics, FleetRouter,
+                    NoReplicasError, Replica, ReplicaFleet)
 from .generation import GenerationEngine
 from .kvcache import KVCache, SlotTable
 from .metrics import (GenerationMetrics, ServingMetrics,
@@ -103,6 +111,8 @@ __all__ = [
     "ClientError", "ServingError", "QueueFullError",
     "DeadlineExceededError", "DrainingError", "FaultInjector",
     "TransientFault", "CorruptedStateFault", "PoisonRequestError",
+    "ReplicaFleet", "FleetRouter", "Replica", "FleetMetrics",
+    "FleetError", "NoReplicasError",
     "next_bucket", "export_stablehlo", "Tracer", "prometheus_text",
     "profiler_sections",
 ]
@@ -780,7 +790,7 @@ class InferenceServer:
         """Compact machine-readable routing summary, also embedded as
         the ``summary`` key of ``GET /stats``: per-model live
         occupancy / queue depth / draining flag plus a server-level
-        ``load`` total — what a fleet router (or any
+        ``load`` total — what :class:`~.fleet.FleetRouter` (or any
         external load balancer) reads to pick a replica without
         parsing nested histogram snapshots."""
         models = self.registry.summary()

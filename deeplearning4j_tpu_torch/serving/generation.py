@@ -290,7 +290,10 @@ class _GenRequest:
             queue.Queue() if stream else None)
         # called after each stream put, so an event-loop consumer can
         # park on an event instead of a blocking get a stream; it must
-        # never raise into the scheduler, so puts go through _stream_push
+        # never raise into the scheduler, so puts go through _stream_push.
+        # A decode step's calls come at its end, and hooks with a
+        # ``many`` attribute are called through it, once for all
+        # (GenerationEngine._notify_deferred)
         self.stream_notify: Optional[Callable[[], None]] = None
         self.t_submit = time.perf_counter()
         self.t_first: Optional[float] = None
@@ -321,6 +324,9 @@ class _GenRequest:
 
     def _stream_push(self, item) -> None:
         self.stream_q.put(item)
+        self._notify()
+
+    def _notify(self) -> None:
         cb = self.stream_notify
         if cb is not None:
             try:
@@ -622,6 +628,9 @@ class GenerationEngine:
         # lanes whose current token lives only on the device (the last
         # dispatched step's output); prefill refreshes the host mirror
         self._tok_on_dev = np.zeros(S, bool)
+        # a request for each stream item whose notify waits for the end
+        # of the decode step handing out tokens (None: notify at once)
+        self._deferred: Optional[List[_GenRequest]] = None
         # the decode step (and with speculation the propose call) as a
         # CUDA graph (card only, captured at warmup or on the first call
         # after a hot one); replays add the launches the capture counted
@@ -1582,6 +1591,7 @@ class GenerationEngine:
             ok, done = out[1].astype(bool), out[2].astype(bool)
             emitted = 0
             itl: List[float] = []
+            self._deferred = []
             for slot, req in lanes:
                 if st.requests[slot] is not req \
                         or req.finish_reason is not None \
@@ -1604,6 +1614,7 @@ class GenerationEngine:
                 self._emit(req, token, now, itl_out=itl)
                 emitted += 1
                 self._retire(slot, req, token, bool(done[slot]), now)
+            self._notify_deferred()
             if emitted:
                 self.metrics.tokens.record(emitted)
             if itl:
@@ -2085,8 +2096,39 @@ class GenerationEngine:
             self.metrics.inc("server_errors")
         self._trace_terminal(req, exc=exc)
         if req.stream_q is not None:
-            req._stream_push(("error", exc))
+            self._push(req, ("error", exc))
         req.event.set()
+
+    def _push(self, req: _GenRequest, item) -> None:
+        """Queue one stream item. While a decode step (or a speculative
+        round) hands out its tokens, the consumers' ``stream_notify``
+        calls wait for the step's end (:meth:`_notify_deferred`), so an
+        event-loop consumer wakes once a step for all of its streams,
+        not once a token."""
+        if self._deferred is None:
+            req._stream_push(item)
+        else:
+            req.stream_q.put(item)
+            self._deferred.append(req)
+
+    def _notify_deferred(self) -> None:
+        """Notify the consumers of the items queued since ``_deferred``
+        was set: each hook once an item, as :meth:`_push` would have,
+        but hooks that share a ``many`` attribute (one event loop's
+        streams) once in all, through it."""
+        reqs, self._deferred = self._deferred, None
+        groups: Dict[Callable, list] = {}
+        for req in reqs or ():
+            many = getattr(req.stream_notify, "many", None)
+            if many is None:
+                req._notify()
+            else:
+                groups.setdefault(many, []).append(req.stream_notify)
+        for many, hooks in groups.items():
+            try:
+                many(hooks)
+            except Exception:  # noqa: BLE001 — the consumer's fault
+                pass
 
     def _emit(self, req: _GenRequest, token: int, now: float,
               itl_out: Optional[List[float]] = None):
@@ -2102,7 +2144,7 @@ class GenerationEngine:
             self.metrics.itl_ms.record((now - req.t_last) * 1e3)
         req.t_last = now
         if req.stream_q is not None:
-            req._stream_push(("token", token))
+            self._push(req, ("token", token))
             fi = self._faults
             if fi is not None and fi.fire("client_disconnect"):
                 # as if the consumer hung up mid-stream: the scheduler
@@ -2133,7 +2175,7 @@ class GenerationEngine:
             self._release_slot(slot)
         self._trace_terminal(req, reason=reason)
         if req.stream_q is not None:
-            req._stream_push(("done", reason))
+            self._push(req, ("done", reason))
         req.event.set()
 
     def _check_done(self, slot: int, req: _GenRequest, token: int) -> bool:
@@ -2919,6 +2961,7 @@ class GenerationEngine:
                     req.spec_dt0, req.spec_vt0 = t0, v0
                 req.spec_dt1, req.spec_vt1 = t1, v1
             serviced.add(s)
+            self._deferred = []     # one wakeup for the lane's tokens
             for j in range(n_emit):
                 self._emit(req, out[j], v1, itl_out=itl)
                 emitted += 1
@@ -2928,6 +2971,7 @@ class GenerationEngine:
                 # commit left the lane's current token on the host
                 st.commit(s, out[n_acc], n_emit)
                 self._tok_on_dev[s] = False
+            self._notify_deferred()
         if emitted:
             self.metrics.tokens.record(emitted)
         if itl:
@@ -3111,6 +3155,10 @@ class GenerationEngine:
                 else:
                     strikes = 0
                     backoff = self._retry_backoff_s
+                finally:
+                    # a step cut short by a fault still wakes the
+                    # consumers of what it queued
+                    self._notify_deferred()
         # shutdown runs on this thread, so no slot-table mutation races
         # a device call still in flight
         self._drop_pending()

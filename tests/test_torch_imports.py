@@ -39,7 +39,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
     for mod in ("serving.generation", "serving.paging", "serving.faults",
                 "serving.speculative", "serving.offload",
                 "serving.engine", "serving.batcher", "serving.registry",
-                "serving.aio",
+                "serving.aio", "serving.fleet",
                 "faults",
                 "kernels.paged_attention", "kernels.kv_quant",
                 "nn.layers.attention", "zoo.transformer_lm",
@@ -48,6 +48,16 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "datasets", "convert"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
+
+
+def test_fleet_tier_is_the_ports_own():
+    """The router half of ``serving/aio.py`` and ``serving/fleet.py``
+    are the port's lifted copies, not the JAX package's."""
+    from deeplearning4j_tpu_torch.serving import aio, fleet
+    for cls in (aio.AioRouterFrontend, aio._AioUpstream, aio._AioConnPool,
+                fleet.FleetRouter, fleet.ReplicaFleet, fleet.Replica,
+                fleet.FleetMetrics, fleet._FleetStream, fleet._ConnPool):
+        assert cls.__module__.startswith("deeplearning4j_tpu_torch."), cls
 
 
 def test_no_jax_import_in_port_sources():

@@ -2,14 +2,15 @@
 brings (CPU), each mirrored at its JAX test's assertions:
 
 - ``tests/test_aio_frontend.py``: ``TestSocketEdgeCases``,
-  ``TestIdleStreamCost`` and the replica and unknown-backend cases of
-  ``TestThreadBackendSelectable`` (the router cases wait for the fleet,
-  ROADMAP.md queue A, item 9c);
+  ``TestIdleStreamCost`` and ``TestThreadBackendSelectable`` (replica
+  and router);
 - ``tests/test_fault_tolerance.py::test_healthz_flags_stalled_loop``;
-- ``tests/test_observability.py``: ``TestReplicaTracingHTTP`` and the
-  replica, prefix-cache and speculation cases of
+- ``tests/test_observability.py``: ``TestReplicaTracingHTTP``,
   ``TestPrometheusExposition`` (``tests/_obs_util.py``'s parity walker
-  over the port's ``/stats`` and ``/metrics``);
+  over the port's ``/stats`` and ``/metrics``, a replica's and a
+  router's), both sides of
+  ``TestAccessLog::test_replica_and_router_log_lines_parse_with_propagated_rid``
+  and ``TestFleetTraceStitching``;
 - ``tests/test_kv_offload.py::TestOffloadObservability``;
 - ``tests/test_generation.py::TestGenerationHTTP`` and
   ``tests/test_paged_generation.py``'s ``test_stats_over_http``.
@@ -17,8 +18,13 @@ brings (CPU), each mirrored at its JAX test's assertions:
 Where the JAX test sleeps to let a state arrive (a wedged loop's
 heartbeat going stale, streams going idle), the mirror waits for the
 state itself.
+
+``TestStreamWakeups`` holds the aio tier to one event-loop wakeup a
+decode step for all of the step's streams (ROADMAP.md section C, fault
+C5), with every stream's ndjson lines the direct engine's.
 """
 import http.client
+import io
 import json
 import re
 import socket
@@ -30,7 +36,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from deeplearning4j_tpu_torch.serving import InferenceServer
+from deeplearning4j_tpu_torch.serving import (FaultInjector, FleetRouter,
+                                              GenerationEngine,
+                                              InferenceServer, ReplicaFleet)
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
 
 from _obs_util import assert_exposition_parity, parse_prometheus
@@ -236,9 +244,111 @@ class TestThreadBackendSelectable:
         finally:
             srv.stop()
 
+    def test_router_thread_backend_roundtrip_and_stream(self, lm):
+        srv = InferenceServer(port=0, http_backend="thread")
+        g = srv.register_generator("lm", lm, num_slots=2, max_queue=16,
+                                   prompt_buckets=[8])
+        g.warmup()
+        fleet = ReplicaFleet(poll_interval_s=None)
+        fleet.add(srv)
+        router = FleetRouter(fleet)
+        host, port = router.serve(backend="thread")
+        body = json.dumps({"prompt": [1, 2, 3], "max_tokens": 4,
+                           "stream": True, "seed": 5,
+                           "timeout_ms": 60_000}).encode()
+        try:
+            sk, buf = _post_stream_head(host, port, body)
+            sk.settimeout(60)
+            while not buf.endswith(b"0\r\n\r\n"):
+                d = sk.recv(65536)
+                assert d, f"truncated stream: {buf[-80:]!r}"
+                buf += d
+            assert buf.count(b'"token"') == 4
+            sk.close()
+        finally:
+            router.stop()
+            fleet.stop(stop_replicas=True)
+
     def test_unknown_backend_rejected(self):
         with pytest.raises(ValueError):
             InferenceServer(port=0, http_backend="gevent")
+        fleet = ReplicaFleet(poll_interval_s=None)
+        router = FleetRouter(fleet)
+        try:
+            with pytest.raises(ValueError):
+                router.serve(backend="gevent")
+        finally:
+            router.stop()
+            fleet.stop()
+
+
+def _read_chunked(sk, buf):
+    """Read one chunked response to its end; returns its body's lines
+    (the chunk framing removed)."""
+    sk.settimeout(60)
+    while not buf.endswith(b"0\r\n\r\n"):
+        d = sk.recv(65536)
+        assert d, f"truncated stream: {buf[-80:]!r}"
+        buf += d
+    body, rest = b"", buf
+    while True:
+        size, _, rest = rest.partition(b"\r\n")
+        n = int(size, 16)
+        if n == 0:
+            return body.decode().splitlines()
+        body += rest[:n]
+        rest = rest[n + 2:]
+
+
+class TestStreamWakeups:
+    """Fault C5: the aio tier wakes its event loop once for all the
+    streams a decode step fed (the stream's ``stream_notify`` coalesces
+    into one ``call_soon_threadsafe`` until the loop has run), not once
+    a token, and every stream's lines stay the direct engine's."""
+
+    def test_one_wakeup_a_step_for_all_streams(self, lm):
+        reqs = [dict(prompt=[1 + i, 2, 3], max_tokens=24, seed=i,
+                     temperature=0.8 if i % 2 else 0.0, top_k=8)
+                for i in range(8)]
+        eng = GenerationEngine(lm, num_slots=8, prompt_buckets=[8])
+        try:
+            want = [[json.dumps(item) for item in
+                     eng.stream(timeout_ms=60_000, **q)] for q in reqs]
+        finally:
+            eng.stop()
+        srv = InferenceServer(port=0)
+        g = srv.register_generator("lm", lm, num_slots=8,
+                                   prompt_buckets=[8])
+        g.warmup()
+        loop = srv._aio._loop
+        wakeups = []
+        call = loop.call_soon_threadsafe
+
+        def counting(*a, **kw):
+            if threading.current_thread() is g.engine._thread:
+                wakeups.append(a[0])
+            return call(*a, **kw)
+        loop.call_soon_threadsafe = counting
+        socks = []
+        try:
+            base_threads = threading.active_count()
+            steps0 = g.engine.metrics.decode_steps
+            for q in reqs:
+                socks.append(_post_stream_head(
+                    srv.host, srv.port,
+                    json.dumps(dict(q, stream=True,
+                                    timeout_ms=60_000)).encode()))
+            assert threading.active_count() - base_threads <= 12
+            got = [_read_chunked(sk, buf) for sk, buf in socks]
+            steps = g.engine.metrics.decode_steps - steps0
+        finally:
+            for sk, _ in socks:
+                sk.close()
+            srv.stop()
+        assert got == want
+        assert steps >= 23
+        # 8 tokens a step would wake the loop 8 times a step
+        assert len(wakeups) <= 2 * steps, (len(wakeups), steps)
 
 
 def test_healthz_flags_stalled_loop(lm):
@@ -334,8 +444,31 @@ def _metrics(base):
 
 
 class TestPrometheusExposition:
-    """The replica cases of
-    ``tests/test_observability.py::TestPrometheusExposition``."""
+    """``tests/test_observability.py::TestPrometheusExposition``."""
+
+    def test_fleet_metrics_parse_and_agree_with_stats(self):
+        fleet = ReplicaFleet(poll_interval_s=None)
+        srv = InferenceServer(port=0)
+        srv.register("default", port_mlp())
+        fleet.add(srv)
+        fleet.poll_now()
+        router = FleetRouter(fleet)
+        try:
+            host, port = router.serve()
+            base = f"http://{host}:{port}"
+            for _ in range(2):
+                _post(base + "/predict", {"inputs": MX})
+            stats = get_json(base, "/stats")
+            _, (samples, types) = _metrics(base)
+            assert_exposition_parity(stats, samples, types)
+            assert samples[("dl4j_fleet_requests_total", "")] == \
+                stats["fleet"]["requests"]
+            # per-replica families carry {replica=...}
+            assert any(n == "dl4j_replica_in_flight" and "replica=" in lab
+                       for n, lab in samples)
+        finally:
+            router.stop()
+            fleet.stop(stop_replicas=True)
 
     def test_replica_metrics_parse_and_agree_with_stats(self):
         srv = InferenceServer(port=0)
@@ -447,6 +580,158 @@ class TestPrometheusExposition:
             assert types[f"{stem}restore_ms"] == "summary"
         finally:
             srv.stop()
+
+
+class TestAccessLog:
+    """``tests/test_observability.py::TestAccessLog``'s fleet case."""
+
+    def test_replica_and_router_log_lines_parse_with_propagated_rid(self):
+        rep_log, rtr_log = io.StringIO(), io.StringIO()
+        srv = InferenceServer(port=0, log_requests=rep_log)
+        srv.register("default", port_mlp())
+        fleet = ReplicaFleet(poll_interval_s=None)
+        fleet.add(srv)
+        fleet.poll_now()
+        router = FleetRouter(fleet)
+        try:
+            host, port = router.serve(log_requests=rtr_log)
+            rid = "acclog-rid-42"
+            resp, _ = _post(f"http://{host}:{port}/predict",
+                            {"inputs": MX},
+                            headers={"X-Request-Id": rid,
+                                     "X-Priority": "batch"})
+            assert resp.status == 200
+
+            def entries(buf):
+                return [json.loads(line) for line in
+                        buf.getvalue().splitlines() if line]
+
+            for log, path in ((rtr_log, "/predict"),
+                              (rep_log, "/predict")):
+                es = [e for e in entries(log)
+                      if e.get("request_id") == rid]
+                assert es, f"no access-log line with rid in {log}"
+                e = es[0]
+                assert e["method"] == "POST" and e["path"] == path
+                assert e["status"] == 200
+                assert e["latency_ms"] >= 0
+                assert e["priority"] == "batch"
+                assert "ts" in e and "shed_reason" not in e
+        finally:
+            router.stop()
+            fleet.stop(stop_replicas=True)
+
+
+class TestFleetTraceStitching:
+    """``tests/test_observability.py::TestFleetTraceStitching``: one
+    stitched trace for a hedged and retried generate through a
+    3-replica fleet, over HTTP."""
+
+    def test_hedged_and_retried_generate_yields_one_stitched_trace(
+            self, lm):
+        def mk():
+            server = InferenceServer(port=0, tracing=True)
+            g = server.register_generator(
+                "lm", lm, num_slots=2, max_seq_len=32,
+                prompt_buckets=[8], cache="paged", block_size=4,
+                num_blocks=16)
+            g.warmup()
+            return server, g
+
+        (sa, ga), (sb, gb), (sc, gc) = mk(), mk(), mk()
+        # slow generation on B and C so the hedge timer always fires
+        for g in (gb, gc):
+            g.engine.set_fault_injector(FaultInjector(
+                rates={"latency": 1.0}, latency_ms=5.0))
+        fleet = ReplicaFleet(poll_interval_s=None)
+        for s in (sa, sb, sc):
+            fleet.add(s)
+        fleet.poll_now()
+        sa.drain(timeout_s=10)       # A sheds 503 fast -> retry path
+        by_port = {r.port: r for r in fleet.replicas()}
+        # bias occupancy so the router picks A, then B, hedges to C
+        by_port[sb.port].begin()
+        by_port[sc.port].begin()
+        by_port[sc.port].begin()
+        router = FleetRouter(fleet, hedge_after_ms=30.0,
+                             hedge_generate=True, tracing=True)
+        try:
+            host, port = router.serve()
+            rid = "e2e-trace-1"
+            resp, body = _post(
+                f"http://{host}:{port}/v1/models/lm/generate",
+                {"prompt": [1, 2, 3], "max_tokens": 16, "seed": 7},
+                headers={"X-Request-Id": rid})
+            assert resp.status == 200
+            assert resp.headers.get("X-Request-Id") == rid
+            assert len(body["tokens"]) == 16
+            snap = fleet.snapshot()
+            assert snap["retries"] >= 1, "A's 503 must have retried"
+            assert snap["hedges"] >= 1, "the hedge timer must have fired"
+
+            def dump(base):
+                return get_json(
+                    base, f"/debug/traces?request_id={rid}")["traces"]
+
+            # the router's fragment: the hedge pair shares the trace,
+            # the losing arm is marked discarded
+            rt = dump(f"http://{host}:{port}")
+            assert len(rt) == 1 and rt[0]["trace_id"] == rid
+            rkinds = [s["kind"] for s in rt[0]["spans"]]
+            assert rkinds[0] == "frontend"
+            assert {"pick", "dispatch", "retry", "hedge"} <= set(rkinds)
+            hedge = next(s for s in rt[0]["spans"]
+                         if s["kind"] == "hedge")
+            dispatches = [s for s in rt[0]["spans"]
+                          if s["kind"] in ("dispatch", "hedge")]
+            assert sum(1 for s in dispatches
+                       if s["attrs"].get("discarded")) == 1
+            arms = {s["attrs"].get("replica") for s in dispatches}
+            assert len(arms) >= 2, "hedge arms hit distinct replicas"
+            assert hedge["attrs"]["replica"] in arms
+
+            # the winning replica's fragment carries the queue,
+            # admission, prefill and decode picture under the SAME id
+            winner = next(s["attrs"]["replica"] for s in dispatches
+                          if s["attrs"].get("status") == 200
+                          and not s["attrs"].get("discarded"))
+            win_rep = next(r for r in fleet.replicas()
+                           if r.id == winner)
+            wt = dump(f"http://{win_rep.host}:{win_rep.port}")
+            assert len(wt) == 1 and wt[0]["trace_id"] == rid
+            wkinds = {s["kind"] for s in wt[0]["spans"]}
+            assert {"http", "admission", "queue", "prefill",
+                    "decode"} <= wkinds
+            assert {t["trace_id"] for t in rt + wt} == {rid}
+        finally:
+            router.stop()
+            fleet.stop(stop_replicas=True)
+            for s in (sa, sb, sc):
+                s.stop()
+
+    def test_cooldown_wait_span_recorded_when_fleet_cooling(self):
+        fleet = ReplicaFleet(poll_interval_s=None)
+        srv = InferenceServer(port=0)
+        srv.register("default", port_mlp())
+        fleet.add(srv)
+        fleet.poll_now()
+        rep = fleet.replicas()[0]
+        rep.cooldown_until = time.monotonic() + 0.15
+        router = FleetRouter(fleet, cooldown_wait_s=1.0, tracing=True)
+        try:
+            status, _hdrs, _body = router.post_raw(
+                "/predict", json.dumps({"inputs": MX}).encode(),
+                {"X-Request-Id": "cool-1"})
+            assert status == 200
+            t = router.tracer.dump(request_id="cool-1")[0]
+            kinds = [s["kind"] for s in t["spans"]]
+            assert "cooldown_wait" in kinds
+            cw = next(s for s in t["spans"]
+                      if s["kind"] == "cooldown_wait")
+            assert cw["duration_ms"] > 0
+        finally:
+            router.stop()
+            fleet.stop(stop_replicas=True)
 
 
 class TestGenerationHTTP:

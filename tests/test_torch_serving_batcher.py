@@ -15,9 +15,9 @@ estimate, so the verdict cannot flip with the machine's load.
 ``test_cold_batcher_admits_everything`` runs the batcher's clock frozen:
 its claim is the cold estimate at submit, and a 5 ms budget would
 otherwise also bet on how soon the scheduler thread wakes.
-The generation-engine cases run on the port's GenerationEngine. The
-fleet-aggregate half of ``TestStatsUnderOverload`` waits for the fleet
-(ROADMAP.md queue A, item 9c).
+The generation-engine cases run on the port's GenerationEngine.
+``TestStatsUnderOverload`` also checks the fleet aggregates: a fleet's
+poll carries the replica's shed total into its snapshot.
 """
 import json
 import threading
@@ -34,7 +34,7 @@ from deeplearning4j_tpu_torch.serving import (ClientError,
                                               GenerationEngine,
                                               InferenceEngine,
                                               InferenceServer, MicroBatcher,
-                                              QueueFullError)
+                                              QueueFullError, ReplicaFleet)
 from deeplearning4j_tpu_torch.serving import batcher as batcher_mod
 from deeplearning4j_tpu_torch.serving import engine as port_engine
 from deeplearning4j_tpu_torch.tracing import Trace
@@ -466,8 +466,8 @@ class TestGenerationDeadlineAdmission:
 
 
 class TestStatsUnderOverload:
-    """The replica half of ``tests/test_overload.py::TestStatsUnderOverload``
-    (the fleet aggregates wait for the fleet, item 9c)."""
+    """``tests/test_overload.py::TestStatsUnderOverload``, with the
+    stalled device held on an Event."""
 
     @pytest.mark.parametrize("backend", ["aio", "thread"])
     def test_stats_reflect_saturation(self, backend):
@@ -492,6 +492,7 @@ class TestStatsUnderOverload:
                 outcomes.append(e.code)
 
         threads = [threading.Thread(target=client) for _ in range(12)]
+        fleet = ReplicaFleet(poll_interval_s=None)
         try:
             for t in threads:
                 t.start()
@@ -515,8 +516,19 @@ class TestStatsUnderOverload:
             assert model["shed"] >= 1
             assert stats["summary"]["models"]["default"]["shed"] >= 1
             assert stats["summary"]["shed"] >= 1
+            # fleet-level: the poll carries the shed total into the
+            # replica summary and the snapshot aggregates it
+            rep = fleet.add(server)
+            fleet.poll_now()
+            snap = fleet.snapshot()
+            assert snap["fleet_shed"] >= 1
+            rs = rep.snapshot()
+            assert rs["breaker"] == "closed"
+            assert rs["cooling"] is False
+            assert rs["consecutive_sheds"] == 0
         finally:
             gate.release.set()
+            fleet.stop()
             server.stop()
 
 

@@ -1,14 +1,17 @@
 """The predict path's CUDA graphs on the card: the InferenceEngine's
 per-bucket graphs against the network's own eager forward, live
 weights, a lazy capture while a generation engine decodes, and a
-failed capture.
+failed capture; and a two-replica fleet (its tokens against one
+replica's, and a rolling restart that loses nothing and leaks no device
+memory).
 
 Every test here carries the ``gpu`` marker and skips itself without a
 CUDA device. The file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -q tests/test_torch_serving_gpu.py
 
-``chip_smoke.py`` phase 16 serves the same path at the served width.
+``chip_smoke.py`` phase 16 serves the same path at the served width, and
+phase 17 the two-replica fleet that the last two tests run small.
 """
 import threading
 
@@ -201,3 +204,134 @@ def test_failed_capture_raises_and_caches_nothing():
     with pytest.raises(ServingError, match="CUDA graph"):
         eng.predict(np.zeros((2, T), np.float32))
     assert not eng._cache and eng.metrics.compiles == 0
+
+
+def _fleet_lm():
+    from deeplearning4j_tpu_torch.zoo.transformer_lm import \
+        CausalTransformerLM
+    return CausalTransformerLM(vocab_size=256, d_model=64, n_layers=2,
+                               n_heads=2, max_seq_len=128, seed=0).init()
+
+
+#: a replica's generators: "lm" on slots, "plm" on the paged pool
+_FLEET_GENS = (("lm", dict(num_slots=8, prompt_buckets=[16, 32])),
+               ("plm", dict(num_slots=8, cache="paged", block_size=8,
+                            num_blocks=128, prefill_chunk_tokens=32)))
+_FLEET_REQS = [dict(prompt=list(range(1 + i, 9 + 3 * i)), max_tokens=12,
+                    seed=i, temperature=0.7 if i % 3 == 2 else 0.0,
+                    top_k=8) for i in range(6)]
+
+
+def _fleet_factory(lm):
+    from deeplearning4j_tpu_torch.serving import InferenceServer
+
+    def factory():
+        srv = InferenceServer(port=0)
+        for name, kw in _FLEET_GENS:
+            srv.register_generator(name, lm, **kw).warmup()
+        return srv
+    return factory
+
+
+def _through(router, reqs, name):
+    out = [None] * len(reqs)
+
+    def go(i):
+        if i % 2:
+            out[i] = [x["token"] for x in router.stream(
+                f"/v1/models/{name}/generate", reqs[i]) if "token" in x]
+        else:
+            st, body = router.post(f"/v1/models/{name}/generate", reqs[i])
+            assert st == 200, body
+            out[i] = body["tokens"]
+    ts = [threading.Thread(target=go, args=(i,)) for i in range(len(reqs))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join()
+    return out
+
+
+def test_two_replica_fleet_tokens_equal_a_single_replica():
+    from deeplearning4j_tpu_torch.serving import FleetRouter, ReplicaFleet
+    _device()
+    lm = _fleet_lm()
+    factory = _fleet_factory(lm)
+    single = factory()
+    try:
+        want = {name: [single.registry.get(name).generate(
+            timeout_ms=120_000, **q)["tokens"] for q in _FLEET_REQS]
+            for name, _ in _FLEET_GENS}
+    finally:
+        single.stop()
+    fleet = ReplicaFleet(poll_interval_s=0.05)
+    router = FleetRouter(fleet)
+    try:
+        for _ in range(2):
+            fleet.add(factory(), factory=factory)
+        for name, _ in _FLEET_GENS:
+            assert _through(router, _FLEET_REQS, name) == want[name]
+        assert min(r.routed for r in fleet.replicas()) >= 1
+        m = fleet.metrics
+        assert m.requests_lost == 0 and m.server_errors == 0
+        for rep in fleet.replicas():
+            for name, _ in _FLEET_GENS:
+                eng = rep.server.registry.get(name).engine
+                assert eng.stats()["compile_cache"]["compiles"] == \
+                    len(eng.graph_plan())
+    finally:
+        router.stop()
+        fleet.stop(stop_replicas=True)
+
+
+def test_rolling_restart_loses_nothing_and_leaks_no_memory():
+    import gc
+    from deeplearning4j_tpu_torch.serving import FleetRouter, ReplicaFleet
+    _device()
+    lm = _fleet_lm()
+    factory = _fleet_factory(lm)
+    fleet = ReplicaFleet(poll_interval_s=0.05)
+    router = FleetRouter(fleet)
+    reqs = [dict(q, temperature=0.0) for q in _FLEET_REQS]
+    try:
+        for _ in range(2):
+            fleet.add(factory(), factory=factory)
+        want = _through(router, reqs, "lm")
+
+        def memory():
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            return torch.cuda.memory_allocated()
+        mem0 = memory()
+        stop, got, errors = threading.Event(), [], []
+
+        def client(i):
+            while not stop.is_set():
+                try:
+                    st, body = router.post("/v1/models/lm/generate",
+                                           reqs[i])
+                    got.append((i, st, body.get("tokens")))
+                except Exception as e:  # noqa: BLE001 — asserted below
+                    errors.append(repr(e))
+        ts = [threading.Thread(target=client, args=(i,))
+              for i in range(len(reqs))]
+        for t in ts:
+            t.start()
+        try:
+            assert fleet.rolling_restart(drain_timeout_s=60.0,
+                                         ready_timeout_s=120.0)
+        finally:
+            stop.set()
+            for t in ts:
+                t.join()
+        mem1 = memory()
+        assert not errors, errors[:3]
+        assert got and all(st == 200 and toks == want[i]
+                           for i, st, toks in got)
+        assert fleet.metrics.restarts == 2
+        assert fleet.metrics.requests_lost == 0
+        assert abs(mem1 - mem0) <= 0.05 * mem0, (mem0, mem1)
+    finally:
+        router.stop()
+        fleet.stop(stop_replicas=True)

@@ -13,11 +13,14 @@ default is 5 ms). For each turn it prints tokens/s (over HTTP, on the
 client process's clock from its first request to its last answer, as
 phase 16a), the decode step's p50 and its event wait's p50 (the
 engine's own clocks), the scheduler thread's CPU time a step (its
-thread CPU clock, whose resolution is printed too), and wall and CPU
+thread CPU clock, whose resolution is printed too), the event loop
+thread's, the whole server process's and the HTTP client process's
+CPU time a step (``getrusage``), and wall and CPU
 time a step inside the loop's parts (admit, which holds the idle wait
-for requests; dispatch; collect with the event wait, and the per-token
-emit and stream push inside collect), as one "LOOP" JSON line with the
-card's name and power limit.
+for requests; dispatch; collect with the event wait, the per-token
+emit inside collect, the stream push of items queued outside a decode
+step, and the notify of a step's streams at its end), as one "LOOP"
+JSON line with the card's name and power limit.
 
 A step whose wall time grows while its CPU time does not waits: for
 the device, or for the interpreter lock after the event wait released
@@ -28,6 +31,7 @@ it. A step whose CPU time grows does more host work a token.
 import collections
 import json
 import os
+import resource
 import sys
 import threading
 import time
@@ -40,7 +44,8 @@ PARTS = (("engine", "_admit", "admit"),
          ("engine", "_collect_decode", "collect"),
          ("event", "synchronize", "event_wait"),
          ("engine", "_emit", "emit"),
-         ("request", "_stream_push", "stream_push"))
+         ("request", "_stream_push", "stream_push"),
+         ("engine", "_notify_deferred", "notify"))
 
 #: (label, how the requests arrive, streamed every n-th (0: none), the
 #: interpreter's switch interval in seconds)
@@ -54,6 +59,14 @@ TURNS = (("direct", "engine", 0, 0.005),
          ("direct_again", "engine", 0, 0.005))
 #: runs of each turn (the thread CPU clock may tick in 10 ms)
 REPS = 3
+
+
+def _rusage_s(who: str) -> float:
+    """User + system CPU seconds of this process ("self") or of its
+    waited-for children ("children": the HTTP client processes)."""
+    r = resource.getrusage(resource.RUSAGE_SELF if who == "self"
+                           else resource.RUSAGE_CHILDREN)
+    return r.ru_utime + r.ru_stime
 
 
 def _p50(xs):
@@ -115,7 +128,8 @@ def main() -> int:
         setattr(owner, name, wrapped)
 
     for owner, name, label in PARTS:
-        timed(owners[owner], name, label)
+        if hasattr(owners[owner], name):   # older checkouts lack some
+            timed(owners[owner], name, label)
     card = cs.card_line()
     lm = CausalTransformerLM(**cs.SERVE_CFG).init()
     srv = InferenceServer(port=0)
@@ -126,6 +140,7 @@ def main() -> int:
         eng = gen.engine
         sched = eng._thread
         clock = time.pthread_getcpuclockid(sched.ident)
+        loop_clock = time.pthread_getcpuclockid(srv._aio._thread.ident)
         resolution_s = time.clock_getres(clock)
         steps_ms, waits_ms = [], []
         for res, out in ((eng.metrics.decode_step_ms, steps_ms),
@@ -147,9 +162,12 @@ def main() -> int:
             old = sys.getswitchinterval()
             sys.setswitchinterval(interval)
             n, busy_s, c_s, steps = 0, 0.0, 0.0, 0
+            other = collections.Counter()
             try:
                 for _ in range(REPS):
                     steps0 = eng.metrics.decode_steps
+                    u0 = (time.clock_gettime(loop_clock), _rusage_s("self"),
+                          _rusage_s("children"))
                     c0 = time.clock_gettime(clock)
                     if how == "engine":
                         results, wall_s = (stream_requests if every
@@ -158,6 +176,11 @@ def main() -> int:
                         results, wall_s, _ = cs.generate_over_http(
                             srv.port, "lm", reqs, every)
                     c_s += time.clock_gettime(clock) - c0
+                    for key, a, b in zip(
+                            ("loop", "process", "client"), u0,
+                            (time.clock_gettime(loop_clock),
+                             _rusage_s("self"), _rusage_s("children"))):
+                        other[key] += b - a
                     steps += eng.metrics.decode_steps - steps0
                     tokens = [r["tokens"] for r in results]
                     first = first or tokens
@@ -172,6 +195,9 @@ def main() -> int:
                 step_p50_ms=_p50(steps_ms),
                 event_wait_p50_ms=_p50(waits_ms),
                 loop_cpu_ms_per_step=c_s * 1e3 / steps,
+                event_loop_cpu_ms_per_step=other["loop"] * 1e3 / steps,
+                process_cpu_ms_per_step=other["process"] * 1e3 / steps,
+                client_cpu_ms_per_step=other["client"] * 1e3 / steps,
                 parts_wall_ms_per_step={k: v / steps
                                         for k, v in wall.items()},
                 parts_cpu_ms_per_step={k: v / steps
@@ -179,10 +205,13 @@ def main() -> int:
                 calls=dict(calls),
                 lanes_differing_from_first_run=sum(
                     a != b for a, b in zip(tokens, first))))
+            t = turns[-1]
             print(f"{label}: {n / busy_s:.1f} tokens/s, step p50 "
-                  f"{turns[-1]['step_p50_ms']:.3f} ms, loop cpu "
-                  f"{turns[-1]['loop_cpu_ms_per_step']:.3f} ms a step",
-                  flush=True)
+                  f"{t['step_p50_ms']:.3f} ms, cpu ms a step: scheduler "
+                  f"{t['loop_cpu_ms_per_step']:.3f}, event loop "
+                  f"{t['event_loop_cpu_ms_per_step']:.3f}, process "
+                  f"{t['process_cpu_ms_per_step']:.3f}, client "
+                  f"{t['client_cpu_ms_per_step']:.3f}", flush=True)
     finally:
         srv.stop()
     print("LOOP " + json.dumps(dict(
