@@ -215,6 +215,28 @@ Phases, each of which fails the run when it fails:
    tokens. It prints the router's tokens/s beside phase 16's single
    replica, TTFT p50/p99, each replica's restart wall time, the memory
    before and after, and the seconds the phase added.
+18. the CNN training core, on no TPU kernel (every launch counter must
+   stay 0): (a) BASELINE config 1 (LeNet exactly as
+   tests/test_real_digits.py builds it, seed 123, Adam(1e-3), He init)
+   fitted through MultiLayerNetwork.fit for 12 epochs at batch 128 over
+   the 1,437 vendored real-digit scans, then evaluate() on the 360-image
+   test split: accuracy at least 0.98; (b) a fresh LeNet on the card and
+   a CPU copy over 3 batches: at each step the loss and every layer's
+   pre-activation, then every gradient, the params and Adam's m and v
+   after the step, the CPU copy computing its gradient on the card's
+   pre-activations (z + (z_card - z).detach(), so its ReLUs and pools
+   choose as the card's did) and each ReLU whose sign differs between
+   the two being a near-tie (|z| within 1e-5 of its layer's max of 0:
+   cuDNN leaves tiny values where the CPU's sum over zeros is 0); (c)
+   the zoo's SimpleCNN (48x48x3, six conv + batch-norm layers, dropout
+   0.5) at batch 64 on a learnable synthetic batch, one warmup and five
+   timed steps: the loss must fall and every running stat move, then
+   one step under a fixed key against a CPU copy (the dropout mask bit
+   for bit, loss, gradients and new running stats as in (b)) and
+   output() in eval mode. It prints accuracy, step p50, the host's
+   enqueue p50, images/s, one profiled SimpleCNN step (device busy
+   share, kernels), one dropout draw's kernels and the phase's wall
+   time.
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -276,6 +298,12 @@ recovery ms on phases 4 and 7's engines, phase 12 on both backends
 (tokens/s, verify p50), and phase 10 (step p50, the host's enqueue
 p50, device time by kind); an "A/B runs:" line carries every turn as
 JSON.
+
+    python3 chip_smoke.py --ab-train PARENT_CHECKOUT
+
+turns the same way over phases 9 and 10 alone: each phase's step p50
+and enqueue p50 over 20 timed steps, and one profiled step's kernels,
+busy share and host ops.
 """
 from __future__ import annotations
 
@@ -1978,6 +2006,402 @@ def grad_check(cfg, device=None):
                 loss_rel_err=loss_rel, worst_rel_err=worst,
                 worst_leaf=worst_leaf, leaves=n, loss_tol=loss_tol,
                 grad_tol=grad_tol)
+
+
+# -- phase 18: the CNN training core -----------------------------------
+LENET_EPOCHS = 12      # BASELINE config 1 (tests/test_real_digits.py)
+LENET_MIN_ACC = 0.98
+LENET_COPY_STEPS = 3   # card against a CPU copy
+REAL_DIGITS = "real-digits-8x8"   # the vendored fixture phase 18 trains on
+SIMPLE_CNN_BATCH = 64
+SIMPLE_CNN_STEPS = 5   # timed steps, after one warmup step
+CNN_LOSS_RTOL = 1e-5   # card vs CPU loss of a step from the same params:
+#                        f32 on both (TF32 off in device.py), convolutions
+#                        and GEMMs summed in another order
+CNN_PARAM_ATOL = 1e-4  # params after each step (Adam, lr 1e-3), absolute
+CNN_TOL = 1e-4         # pre-activations, each gradient leaf, Adam's m and
+#                        v, batch norm's running stats and output(): max
+#                        error over the leaf's max |value|; f32 on both
+#                        sides, sums of up to 25,088 terms in another order
+NEAR_TIE = 1e-5        # a ReLU input whose sign differs between the card
+#                        and the CPU must be within this share of its
+#                        layer's largest |input| of 0: a near-tie, within
+#                        the two sides' rounding of 0 (cuDNN leaves tiny
+#                        values where the CPU's sum over zeros is 0)
+
+
+def lenet_conf():
+    """BASELINE config 1, as tests/test_real_digits.py builds it."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    DenseLayer, OutputLayer,
+                                                    SubsamplingLayer)
+    return (NeuralNetConfiguration.builder().seed(123).updater(Adam(1e-3))
+            .weight_init("relu").list()
+            .layer(ConvolutionLayer(n_out=20, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(ConvolutionLayer(n_out=50, kernel=(5, 5),
+                                    activation="relu"))
+            .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            .layer(DenseLayer(n_out=500, activation="relu"))
+            .layer(OutputLayer(n_out=10, loss="mcxent", activation="softmax"))
+            .input_type_convolutional(28, 28, 1).build())
+
+
+class StepClock:
+    """A training listener: the host's time to queue each step
+    (``on_timing``) and, synchronizing after each, its wall time."""
+
+    def __init__(self, sync: bool):
+        import torch
+        self.sync = torch.cuda.synchronize if sync else (lambda: None)
+        self.enqueue_ms, self.step_ms, self.images = [], [], 0
+        self._t = None
+
+    def start(self):
+        self.sync()
+        self._t = time.perf_counter()
+
+    def iteration_done(self, model, iteration, epoch):
+        self.sync()
+        now = time.perf_counter()
+        self.step_ms.append((now - self._t) * 1e3)
+        self._t = now
+
+    def on_timing(self, model, seconds, batch_size):
+        self.enqueue_ms.append(seconds * 1e3)
+        self.images += batch_size
+
+
+def _host(t):
+    return t.detach().cpu().double()
+
+
+def traced_step(net, x, y, rng=None, subst=None):
+    """One step's loss, gradients (f32) and new layer state through the
+    network's own ``_loss_fn``, with each hidden layer's pre-activation
+    (the input of its activation) and the dropout masks drawn. With
+    ``subst`` (pre-activations of another run), each pre-activation z
+    becomes ``z + (subst - z).detach()``: the other run's values, so
+    ReLUs and pools choose as it did, and this run's own gradient."""
+    import torch
+    from deeplearning4j_tpu_torch import random as R
+    x, y, _ = net._to_device(x, y)
+    pre = {}
+
+    def recording(i, act):
+        def f(z):
+            if subst is not None:
+                z = z + (subst[i].to(z.device, z.dtype) - z).detach()
+            pre[i] = _host(z)
+            return act(z)
+        return f
+    hidden = net.layers[:-1]
+    acts = [layer.activation for layer in hidden]
+    for i, layer in enumerate(hidden):
+        layer.activation = recording(i, layer.activation)
+    real, masks = R.bernoulli, []
+
+    def bernoulli(*a, **kw):
+        m = real(*a, **kw)
+        masks.append(m.cpu())
+        return m
+    R.bernoulli = bernoulli
+    try:
+        keys = [(k, n) for k, p in net._params.items() for n in p]
+        with torch.enable_grad():
+            loss, state = net._loss_fn(net._params, net._net_state, x, y,
+                                       None, True, rng)
+            gs = torch.autograd.grad(loss, [net._params[k][n]
+                                            for k, n in keys])
+    finally:
+        R.bernoulli = real
+        for layer, act in zip(hidden, acts):
+            layer.activation = act
+    grads = {k: {} for k in net._params}
+    for (k, n), g in zip(keys, gs):
+        grads[k][n] = g.detach().cpu()
+    return float(loss.detach()), grads, pre, {
+        k: {n: t.detach().cpu() for n, t in st.items()}
+        for k, st in state.items()}, masks
+
+
+def _rel(got, ref) -> float:
+    """Max error of a leaf over its max |value|."""
+    got, ref = _host(got), _host(ref)
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def _worst(got, ref):
+    """(worst leaf, its _rel) over two {key: {name: tensor}} trees."""
+    errs = {f"{k}.{n}": _rel(got[k][n], t)
+            for k, p in ref.items() for n, t in p.items()}
+    worst = max(errs, key=errs.get) if errs else None
+    return worst, errs.get(worst, 0.0)
+
+
+def compare_step(card, cpu, x, y, rng=None):
+    """One step from the same params on the card and on a CPU copy: the
+    dropout masks bit for bit, the loss and every hidden layer's
+    pre-activation, then every gradient leaf and the new layer state of
+    the CPU copy run on the card's pre-activations (its ReLUs and pools
+    then choose as the card's did; each ReLU that chose otherwise on
+    the CPU's own values must be a near-tie, and is counted)."""
+    xh = x.cpu() if hasattr(x, "cpu") else x
+    yh = y.cpu() if hasattr(y, "cpu") else y
+    lc, gc, pc, sc, mc = traced_step(card, x, y, rng)
+    lh, _, ph, _, mh = traced_step(cpu, xh, yh, rng)
+    if len(mc) != len(mh) or not all(a.shape == b.shape and bool((a == b)
+                                                                 .all())
+                                     for a, b in zip(mc, mh)):
+        raise AssertionError("dropout masks differ between card and CPU")
+    loss_rel = abs(lc - lh) / abs(lh)
+    pre_err, ties, tie_worst = 0.0, 0, 0.0
+    for i, z in ph.items():
+        pre_err = max(pre_err, _rel(pc[i], z))
+        if cpu.layers[i].activation.name == "relu":
+            flip = (pc[i] > 0) != (z > 0)
+            ties += int(flip.sum())
+            if flip.any():
+                tie_worst = max(tie_worst, max(
+                    float(z[flip].abs().max()),
+                    float(pc[i][flip].abs().max())) / float(z.abs().max()))
+    _, gh, _, sh, _ = traced_step(cpu, xh, yh, rng, subst=pc)
+    worst, grad_err = _worst(gc, gh)
+    _, state_err = _worst(sc, sh)
+    if not (loss_rel <= CNN_LOSS_RTOL and pre_err <= CNN_TOL
+            and grad_err <= CNN_TOL and state_err <= CNN_TOL
+            and tie_worst <= NEAR_TIE):
+        raise AssertionError(
+            f"card vs CPU: loss rel err {loss_rel:.3e}, pre-activations "
+            f"{pre_err:.3e}, gradient {worst} {grad_err:.3e}, new layer "
+            f"state {state_err:.3e}, {ties} ReLU choices differ (largest "
+            f"|z| {tie_worst:.2e} of its layer's max)")
+    return dict(loss=lc, loss_rel_err=loss_rel, pre_rel_err=pre_err,
+                worst_grad=worst, worst_grad_rel_err=grad_err,
+                state_rel_err=state_err, near_ties=ties,
+                near_tie_worst=tie_worst, cpu_grads=gh, cpu_state=sh,
+                masks=len(mc), mask_elems=sum(m.numel() for m in mc),
+                kept=(float(sum(m.sum() for m in mc))
+                      / max(sum(m.numel() for m in mc), 1)))
+
+
+def lenet_vs_cpu(device, batches):
+    """Phase 18b: a CPU copy of a fresh LeNet on the card. At each step
+    both compute the step on the same batch (compare_step: the copy on
+    the card's pre-activations), the card fits it and the copy applies
+    its own gradients; the params and Adam state must then agree."""
+    from deeplearning4j_tpu_torch import random as R
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    card = MultiLayerNetwork(lenet_conf(), device=device).init()
+    cpu = card.clone(device="cpu")
+    steps = []
+    for x, y in batches:
+        one = compare_step(card, cpu, x, y)
+        card.fit(x, y)
+        cpu.apply_gradients(one.pop("cpu_grads"), one.pop("cpu_state"))
+        cpu._rng = R.key_at(R.split(cpu._rng), 0)
+        pw, perr = _worst(card.params(), cpu.params())
+        perr_abs = max(float((_host(t) - _host(cpu.params()[k][n])).abs()
+                             .max()) for k, p in card.params().items()
+                       for n, t in p.items())
+        aw, aerr = _worst({f"{k}.{part}": st[part] for k, st in
+                           card.get_updater_state().items() for part in st},
+                          {f"{k}.{part}": st[part] for k, st in
+                           cpu.get_updater_state().items() for part in st})
+        if not (perr_abs <= CNN_PARAM_ATOL and aerr <= CNN_TOL):
+            raise AssertionError(f"LeNet after step {card._step}: params "
+                                 f"{perr_abs:.3e} ({pw}), Adam {aw} "
+                                 f"{aerr:.3e}")
+        one.update(param_abs_err=perr_abs, adam_worst=aw, adam_rel_err=aerr)
+        steps.append(one)
+    return steps
+
+
+def simple_cnn_batch(n, seed, shape=(48, 48, 3), classes=10):
+    """Images of a learnable task from ``seed``: the label is the argmax
+    of a fixed projection of each channel's quadrant means."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, *shape).astype(np.float32)
+    h, w = shape[0] // 2, shape[1] // 2
+    quads = np.concatenate([x[:, i * h:(i + 1) * h, j * w:(j + 1) * w]
+                            .mean((1, 2)) for i in (0, 1) for j in (0, 1)],
+                           axis=1)
+    proj = np.random.RandomState(1234).randn(quads.shape[1], classes)
+    cls = ((quads - quads.mean(0)) @ proj).argmax(1)
+    return x, np.eye(classes, dtype=np.float32)[cls]
+
+
+def dropout_launches(device, shape):
+    """Kernels and device ms of one Bernoulli draw (threefry in plain
+    PyTorch integer ops) at ``shape``, from torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch import random as R
+    key = R.PRNGKey(7)
+    R.bernoulli(key, 0.5, shape, device)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as p:
+        R.bernoulli(key, 0.5, shape, device)
+        torch.cuda.synchronize()
+    n, us = 0, 0.0
+    for e in p.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            n += e.count
+            t = getattr(e, "self_device_time_total", None)
+            us += e.self_cuda_time_total if t is None else t
+    return dict(shape=list(shape), kernels=n, device_ms=us / 1e3)
+
+
+def cnn_training(card: str, device=None, epochs=LENET_EPOCHS,
+                 simple_input=(48, 48, 3), batch=SIMPLE_CNN_BATCH,
+                 steps=SIMPLE_CNN_STEPS):
+    """Phase 18: (a) BASELINE config 1 on the card through fit and
+    evaluate, (b) LeNet on the card against a CPU copy, (c) the zoo's
+    SimpleCNN (batch norm, dropout) timed, its loss falling, its running
+    stats moving, and one step and output() against a CPU copy. No TPU
+    kernel is on this path: the launch counters must stay 0."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch import random as R
+    from deeplearning4j_tpu_torch.datasets import MnistDataSetIterator
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.zoo import SimpleCNN
+    t_phase = time.perf_counter()
+    reset_launches()
+    tr = MnistDataSetIterator(batch=128, train=True, flatten=False,
+                              shuffle=True)
+    if tr.source != REAL_DIGITS:
+        raise AssertionError(f"phase 18 needs the vendored real digits, "
+                             f"not {tr.source!r}")
+    copy = lenet_vs_cpu(device, [b for _, b in zip(range(LENET_COPY_STEPS),
+                                                    tr)])
+    # (a) BASELINE config 1 through the entry points
+    net = MultiLayerNetwork(lenet_conf(), device=device).init()
+    dev = net.device
+    on_card = dev.type == "cuda"
+    clock = StepClock(sync=on_card)
+    net.set_listeners(clock)
+    clock.start()
+    t0 = time.perf_counter()
+    net.fit(tr, epochs=epochs)
+    fit_s = time.perf_counter() - t0
+    te = MnistDataSetIterator(batch=512, train=False, flatten=False)
+    if te.source != REAL_DIGITS:
+        raise AssertionError(f"phase 18 needs the vendored real digits, "
+                             f"not {te.source!r}")
+    t0 = time.perf_counter()
+    ev = net.evaluate(te)
+    eval_s = time.perf_counter() - t0
+    acc = ev.accuracy()
+    if not (net._step == epochs * (tr.total_examples() // 128)
+            and acc >= LENET_MIN_ACC):
+        raise AssertionError(f"LeNet: {net._step} steps, test accuracy "
+                             f"{acc:.4f} (must be >= {LENET_MIN_ACC})")
+    lenet = dict(source=tr.source, steps=net._step, accuracy=acc,
+                 test_images=int(ev._conf.sum()), fit_s=fit_s,
+                 eval_s=eval_s,
+                 step_p50_ms=float(np.median(clock.step_ms)),
+                 enqueue_p50_ms=float(np.median(clock.enqueue_ms)),
+                 images_per_s=clock.images / fit_s,
+                 params=net.num_params(), vs_cpu=copy)
+    print(f"cnn (phase 18a) [{card}]: BASELINE config 1 (LeNet, "
+          f"{lenet['params']} params) fitted {lenet['steps']} steps "
+          f"({epochs} epochs x 128) on the {tr.source} scans: test accuracy "
+          f"{acc:.4f} on {lenet['test_images']} images (>= "
+          f"{LENET_MIN_ACC}), step p50 {lenet['step_p50_ms']:.3f} ms, "
+          f"queued by the host in p50 {lenet['enqueue_p50_ms']:.3f} ms, "
+          f"{lenet['images_per_s']:.1f} images/s, fit {fit_s:.2f} s, "
+          f"evaluate {eval_s:.3f} s")
+    print(f"cnn (phase 18b) [{card}]: LeNet card vs CPU copy over "
+          f"{len(copy)} steps: loss rel err "
+          f"{max(s['loss_rel_err'] for s in copy):.3e} (tol "
+          f"{CNN_LOSS_RTOL:g}), pre-activations "
+          f"{max(s['pre_rel_err'] for s in copy):.3e}, worst gradient "
+          f"{max(s['worst_grad_rel_err'] for s in copy):.3e} of its max "
+          f"(tol {CNN_TOL:g}), params after each step "
+          f"{max(s['param_abs_err'] for s in copy):.3e} (tol "
+          f"{CNN_PARAM_ATOL:g}), Adam state "
+          f"{max(s['adam_rel_err'] for s in copy):.3e} of its max; ReLU "
+          f"near-ties by step {[s['near_ties'] for s in copy]} (largest "
+          f"|z| {max(s['near_tie_worst'] for s in copy):.1e} of its "
+          f"layer's max, tol {NEAR_TIE:g}); losses "
+          f"{[round(s['loss'], 6) for s in copy]}")
+    # (c) SimpleCNN at the zoo's width
+    scnn = SimpleCNN(device=device, input_shape=simple_input, seed=0).init()
+    xs, ys = simple_cnn_batch(batch, 18, simple_input)
+    x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    state0 = {k: {n: t.clone() for n, t in st.items()}
+              for k, st in scnn.get_net_state().items()}
+    clock = StepClock(sync=on_card)
+    scnn.set_listeners(clock)
+    losses = []
+    clock.start()
+    for _ in range(1 + steps):
+        scnn.fit(x, y)
+        losses.append(scnn.score_)
+    scnn.set_listeners()
+    moved = sum(int(not torch.equal(t, state0[k][n]))
+                for k, st in scnn.get_net_state().items()
+                for n, t in st.items())
+    n_stats = sum(len(st) for st in state0.values())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and moved == n_stats):
+        raise AssertionError(f"SimpleCNN: losses {losses}, {moved} of "
+                             f"{n_stats} running stats moved")
+    cpu = scnn.clone(device="cpu")
+    one = compare_step(scnn, cpu, x, y, rng=R.PRNGKey(2024))
+    del one["cpu_grads"], one["cpu_state"]
+    if not one["masks"]:
+        raise AssertionError("SimpleCNN's step drew no dropout mask")
+    out_err = _rel(scnn.output(x), cpu.output(x.cpu()))
+    if out_err > CNN_TOL:
+        raise AssertionError(f"SimpleCNN output() card vs CPU {out_err:.3e}")
+    prof = profile_train_step(scnn, x, y) if on_card else None
+    rng_cost = dropout_launches(dev, (batch,) + tuple(
+        scnn.layers[-3].input_shape)) if on_card else None
+    timed = clock.step_ms[1:]
+    simple = dict(input=list(simple_input), batch=batch, steps=steps,
+                  params=scnn.num_params(), losses=losses,
+                  step_ms=clock.step_ms,
+                  step_p50_ms=float(np.median(timed)),
+                  enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
+                  images_per_s=batch / (float(np.median(timed)) / 1e3),
+                  stats_moved=moved, vs_cpu=one, output_abs_err=out_err,
+                  profile=prof, dropout_rng=rng_cost)
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 18 launched a TPU kernel: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"cnn (phase 18c) [{card}]: SimpleCNN {tuple(simple_input)} "
+          f"({simple['params']} params) at batch {batch}: step p50 "
+          f"{simple['step_p50_ms']:.3f} ms, queued in p50 "
+          f"{simple['enqueue_p50_ms']:.3f} ms, {simple['images_per_s']:.1f}"
+          f" images/s, loss {[round(v, 4) for v in losses]}, "
+          f"{moved}/{n_stats} running stats moved; one step vs CPU: "
+          f"{one['masks']} dropout mask(s) of {one['mask_elems']} equal bit "
+          f"for bit (kept {one['kept']:.4f}), loss rel err "
+          f"{one['loss_rel_err']:.3e}, pre-activations "
+          f"{one['pre_rel_err']:.3e}, worst gradient {one['worst_grad']} "
+          f"{one['worst_grad_rel_err']:.3e} of its max, new running stats "
+          f"{one['state_rel_err']:.3e}, {one['near_ties']} ReLU near-ties; "
+          f"output() {out_err:.3e}")
+    if prof is not None:
+        print(f"cnn (phase 18c) profile [{card}] (one SimpleCNN step): "
+              f"device busy {prof['busy_share']:.3f} of "
+              f"{prof['wall_ms']:.1f} ms, {prof['device_kernels']} device "
+              f"kernels; top (ms): "
+              + ", ".join(f"{n[:50]} {t:.3f}" for n, t in prof["top"][:6]))
+        print(f"cnn (phase 18c) dropout draw {rng_cost['shape']}: "
+              f"{rng_cost['kernels']} kernels, {rng_cost['device_ms']:.3f} "
+              f"ms of device time")
+    print(f"cnn (phase 18): launches no TPU kernel (every counter 0: "
+          f"{launches}); the phase took {wall:.2f} s")
+    return dict(lenet=lenet, simple_cnn=simple, wall_s=wall,
+                launches=launches)
 
 
 def reset_launches():
@@ -4748,7 +5172,25 @@ print("AB " + json.dumps(out))
 """
 
 
-def run_ab(parent: str) -> int:
+AB_TRAIN_CODE = r"""
+import json, sys
+import chip_smoke as cs
+card = cs.card_line()
+out = {}
+for phase, cfg in ((9, cs.TRAIN_CFG), (10, dict(cs.TRAIN_CFG, dtype="bfloat16"))):
+    tr = cs.train(card, cfg=cfg, steps=int(sys.argv[2]))
+    prof = tr["profile"]
+    out[phase] = dict(
+        {k: tr[k] for k in ("step_p50_ms", "enqueue_p50_ms", "step_ms",
+                            "enqueue_ms")},
+        device_kernels=prof["device_kernels"], busy_share=prof["busy_share"],
+        host_top=prof.get("host_top"))
+print("AB " + json.dumps(out))
+"""
+AB_TRAIN_STEPS = 20   # timed steps of each phase in each --ab-train turn
+
+
+def run_ab(parent: str, code: str = AB_CODE, *args: str) -> int:
     """``--ab PARENT``: the parent checkout's and this checkout's own
     code in turns (parent, this, this, parent), each in a process of its
     own: B3 at B=1 and B=4, B6 and B7 at B=4, the bf16 legs of B3, B6
@@ -4761,7 +5203,9 @@ def run_ab(parent: str) -> int:
     4 and 7's engines, phase 12 (tokens/s, verify and draft call p50) on
     both backends, and phase 10's step p50, enqueue p50 and device time
     by kind; prints each turn as JSON, then all of them on one "A/B
-    runs:" line."""
+    runs:" line. ``--ab-train PARENT`` turns the same way over phases 9
+    and 10 alone (``AB_TRAIN_STEPS`` timed steps each, and one profiled
+    step's kernels, busy share and host ops)."""
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4772,8 +5216,8 @@ def run_ab(parent: str) -> int:
     runs = []
     for label, root in (("parent", parent), ("change", here),
                         ("change", here), ("parent", parent)):
-        proc = subprocess.run([sys.executable, "-c", AB_CODE,
-                               os.path.abspath(__file__)], cwd=root,
+        proc = subprocess.run([sys.executable, "-c", code,
+                               os.path.abspath(__file__), *args], cwd=root,
                               capture_output=True, text=True, timeout=1500)
         if proc.returncode:
             print(proc.stdout[-3000:], proc.stderr[-6000:], file=sys.stderr)
@@ -4790,6 +5234,8 @@ def main() -> int:
     import torch
     if sys.argv[1:2] == ["--ab"]:
         return run_ab(sys.argv[2])
+    if sys.argv[1:2] == ["--ab-train"]:
+        return run_ab(sys.argv[2], AB_TRAIN_CODE, str(AB_TRAIN_STEPS))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -4928,6 +5374,7 @@ def main() -> int:
     bf16 = check_flash_bf16(dev)
     trained = train(card)
     trained_bf16 = train(card, cfg=dict(TRAIN_CFG, dtype="bfloat16"))
+    cnn = cnn_training(card)   # phase 18
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -4993,7 +5440,7 @@ def main() -> int:
              spec_paged=spec_paged, offload=offload,
              offload_int8=offload8, serving_shell=shell, fleet=fleet,
              flash_bwd=bwd, flash_bf16=bf16,
-             train=trained, train_bf16=trained_bf16,
+             train=trained, train_bf16=trained_bf16, cnn=cnn,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ the plain version runs only for tensors on the CPU.
 
 The causal transformer LM is served through ``GenerationEngine``'s
 slot backend and its paged backend (block pool, prefix sharing,
-sessions). What is still to port is listed
+sessions); ``nn.MultiLayerNetwork`` trains transformer stacks and CNNs
+(convolution, pooling, batch norm, dropout) through ``fit`` and
+scores them through ``evaluate``. What is still to port is listed
 in ``ROADMAP.md``.
 """
 from .device import resolve_device  # noqa: F401  (also pins TF32 off)

@@ -11,10 +11,13 @@ apply them as ``x @ W``. A JAX ``QuantWeight`` leaf (the int8 MLP of
 JAX nor the JAX package; the caller converts the leaves to numpy.
 
 ``network_params_from_jax`` does the same for a JAX
-``MultiLayerNetwork``'s params (``{"layer_i": {name: leaf}}``) and
-``updater_state_from_jax`` for its Adam state (``{"layer_i": {"m":
-{...}, "v": {...}}}``), in the layouts ``MultiLayerNetwork.set_params``
-and ``set_updater_state`` take.
+``MultiLayerNetwork``'s params (``{"layer_i": {name: leaf}}``; dense
+``[in, out]`` and convolution HWIO weights alike),
+``network_state_from_jax`` for its layer state (``_net_state``: batch
+norm's running ``mean``/``var``) and ``updater_state_from_jax`` for its
+updater state (Adam's ``{"layer_i": {"m": {...}, "v": {...}}}``, any
+updater's nested dicts), in the layouts ``MultiLayerNetwork.set_params``,
+``set_net_state`` and ``set_updater_state`` take.
 """
 from __future__ import annotations
 
@@ -62,19 +65,24 @@ def network_params_from_jax(tree, device="cpu"):
             for key, p in tree.items()}
 
 
+def network_state_from_jax(tree, device="cpu"):
+    """Copy a JAX ``MultiLayerNetwork._net_state`` tree (numpy leaves)
+    to ``{layer_key: {name: tensor}}`` on ``device``."""
+    return network_params_from_jax(tree or {}, device)
+
+
 def updater_state_from_jax(tree, device="cpu"):
-    """Copy a JAX ``get_updater_state()`` tree of Adam (``m``/``v``) or
-    stateless (Sgd: ``()``) per-layer states, numpy leaves, to the
-    port's layout on ``device``."""
-    out = {}
-    for key, st in tree.items():
-        if isinstance(st, dict):
-            out[key] = {part: {n: _tensor(v, device, f"{key}.{part}.{n}")
-                               for n, v in leaves.items()}
-                        for part, leaves in st.items()}
-        elif st in ((), None):
-            out[key] = {}
-        else:
-            raise TypeError(f"{key}: unsupported updater state "
-                            f"{type(st).__name__}")
-    return out
+    """Copy a JAX ``get_updater_state()`` tree (numpy leaves) to the
+    port's layout on ``device``: per layer a nested dict of leaves
+    (Adam's ``m``/``v``, Nesterovs' velocities ...), or ``{}`` for a
+    stateless updater (Sgd's ``()``)."""
+    def conv(x, where):
+        if isinstance(x, dict):
+            return {k: conv(v, f"{where}.{k}") for k, v in x.items()}
+        if isinstance(x, np.ndarray):
+            return _tensor(x, device, where)
+        if x in ((), None):
+            return {}
+        raise TypeError(f"{where}: unsupported updater state "
+                        f"{type(x).__name__}")
+    return {key: conv(st, key) for key, st in tree.items()}

@@ -10,7 +10,8 @@ produce.
             .input_type_recurrent(1, timesteps=1024).build())
 
 Settings the port cannot train with yet (TBPTT, remat) are recorded
-here and refused by ``MultiLayerNetwork``. A half dtype
+here and refused by ``MultiLayerNetwork``; weight noise and weight
+constraints raise here. A half dtype
 (``data_type("bfloat16")``) trains under the bf16 mixed-precision
 policy (``nn/precision.py``).
 """
@@ -25,8 +26,10 @@ Shape = Tuple[int, ...]
 
 
 class InputType:
-    """Feed-forward ``(size,)`` or recurrent ``(timesteps, size)``
-    input; timesteps -1 when unknown."""
+    """Feed-forward ``(size,)``, recurrent ``(timesteps, size)``
+    (timesteps -1 when unknown) or image ``(height, width, channels)``
+    input, NHWC as in JAX. ``convolutional_flat`` images arrive
+    flattened to [B, h*w*c] and the network reshapes them."""
 
     def __init__(self, kind: str, shape: Shape):
         self.kind = kind
@@ -39,6 +42,15 @@ class InputType:
     @staticmethod
     def recurrent(size: int, timesteps: Optional[int] = None) -> "InputType":
         return InputType("rnn", (timesteps or -1, size))
+
+    @staticmethod
+    def convolutional(height: int, width: int, channels: int) -> "InputType":
+        return InputType("cnn", (height, width, channels))
+
+    @staticmethod
+    def convolutional_flat(height: int, width: int,
+                           channels: int) -> "InputType":
+        return InputType("cnnflat", (height, width, channels))
 
 
 class MultiLayerConfiguration:
@@ -88,6 +100,10 @@ class ListBuilder:
                              ) -> "ListBuilder":
         return self.input_type(InputType.recurrent(size, timesteps))
 
+    def input_type_convolutional(self, h: int, w: int,
+                                 c: int) -> "ListBuilder":
+        return self.input_type(InputType.convolutional(h, w, c))
+
     def build(self) -> MultiLayerConfiguration:
         b = self._base
         return MultiLayerConfiguration(
@@ -107,6 +123,7 @@ class NeuralNetConfiguration:
         self._activation = None
         self._l1 = 0.0
         self._l2 = 0.0
+        self._dropout = 0.0
         self._max_grad_norm = None
         self._grad_clip_value = None
         self._dtype = "float"
@@ -139,6 +156,20 @@ class NeuralNetConfiguration:
         self._l2 = float(v)
         return self
 
+    def dropout(self, v):
+        """The layers' default dropout: a drop probability, or a
+        ``dropout.py`` scheme (Gaussian, alpha, spatial, noise)."""
+        self._dropout = float(v) if isinstance(v, (int, float)) else v
+        return self
+
+    def weight_noise(self, wn):
+        raise NotImplementedError("weight noise is not ported yet "
+                                  "(ROADMAP.md queue A, item 11)")
+
+    def constrain_weights(self, *constraints):
+        raise NotImplementedError("weight constraints are not ported yet "
+                                  "(ROADMAP.md queue A, item 11)")
+
     def gradient_normalization(self, max_norm: Optional[float] = None,
                                clip_value: Optional[float] = None):
         """``max_norm``: clip each layer's gradient to this L2 norm
@@ -167,6 +198,8 @@ class NeuralNetConfiguration:
             d["l1"] = self._l1
         if self._l2:
             d["l2"] = self._l2
+        if self._dropout:
+            d["dropout"] = self._dropout
         return d
 
     def list(self) -> ListBuilder:

@@ -1,6 +1,8 @@
 """Layer catalog of the port (counterpart of
-``deeplearning4j_tpu/nn/layers/__init__.py``; the layers a transformer
-trained through ``MultiLayerNetwork`` needs).
+``deeplearning4j_tpu/nn/layers/__init__.py``: dense and output layers,
+the CNN layers, batch norm, the parameter-free layers and global
+pooling; the sequence and attention layers live in ``recurrent.py`` and
+``attention.py``).
 
 A layer is configuration plus pure functions of an explicit params
 dict, as in the JAX package:
@@ -13,27 +15,84 @@ dict, as in the JAX package:
   rng, carry, mask) -> (out, state, carry)``;
 - ``output_shape(input_shape)``.
 
-Shapes exclude the batch axis; sequences are [B, T, C]. Weights are
-``[in, out]`` and applied as ``x @ W``, so JAX weights carry over as a
-plain copy. A layer computes in the promoted dtype of its input and
-params, as the JAX layers do: bf16 under the bf16 policy
-(``nn/precision.py``), f32 where an f32 mask has promoted the input.
-Gradients come from autograd. Dropout is not ported yet: a nonzero
-rate raises when a training pass would apply it.
+Shapes exclude the batch axis; sequences are [B, T, C] and images
+NHWC [B, H, W, C], as in JAX. Weights keep JAX's layout (dense
+``[in, out]`` applied as ``x @ W``, convolutions HWIO ``[kh, kw,
+in/groups, out]``), so JAX weights carry over as a plain copy; a
+convolution hands ``F.conv2d`` the OIHW view ``W.permute(3, 2, 0, 1)``
+and the NCHW view of its NHWC input, which on a contiguous NHWC tensor
+is PyTorch's ``channels_last`` layout (no copy). "SAME" padding is
+XLA's: ``total = max((ceil(h/s) - 1) s + (k - 1) d + 1 - h, 0)``,
+``total // 2`` before and the rest after, applied with ``F.pad``.
+
+A layer computes in the promoted dtype of its input and params, as the
+JAX layers do: bf16 under the bf16 policy (``nn/precision.py``), f32
+where an f32 mask has promoted the input. Gradients come from autograd.
+Dropout (a float rate or a ``conf/dropout.py`` scheme) applies to the
+layer input in training, drawn from the layer's ``random.py`` key as
+JAX draws it.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ... import activations as A
 from ... import learning as U
 from ... import losses as L
 from ...weightinit import init_weights
+from ..conf import dropout as D
 from ..functional import matmul
 
 Shape = Tuple[int, ...]
+
+
+def _pair(v) -> Tuple[int, int]:
+    if isinstance(v, (tuple, list)):
+        return (int(v[0]), int(v[1]))
+    return (int(v), int(v))
+
+
+def _same_pads(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
+    """XLA's SAME padding of one spatial axis (low, high)."""
+    total = max((-(-size // s) - 1) * s + (k - 1) * d + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
+def _spatial_pads(padding, hw, kernel, stride, dilation=(1, 1)):
+    """((top, bottom), (left, right)) of "same", "valid" or explicit
+    padding over an [H, W] input."""
+    if isinstance(padding, str):
+        if padding.lower() == "same":
+            return tuple(_same_pads(n, k, s, d) for n, k, s, d in
+                         zip(hw, kernel, stride, dilation))
+        if padding.lower() == "valid":
+            return ((0, 0), (0, 0))
+        raise ValueError(f"unknown padding {padding!r}")
+    return tuple(tuple(int(v) for v in p) for p in padding)
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _pad_nchw(x, pads, value=0.0):
+    (pt, pb), (pl, pr) = pads
+    if pt or pb or pl or pr:
+        return F.pad(x, (pl, pr, pt, pb), value=value)
+    return x
+
+
+def _not_ported(what: str, item: str = "11"):
+    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
+                              f"A, item {item})")
 
 #: kind -> Layer subclass
 REGISTRY: Dict[str, type] = {}
@@ -54,14 +113,20 @@ class Layer:
     is_rnn = False
     wants_mask = False
 
-    def __init__(self, name: Optional[str] = None,
-                 dropout: Optional[float] = None, activation=None,
-                 weight_init: Optional[str] = None, bias_init: float = 0.0,
-                 updater=None, l1: Optional[float] = None,
-                 l2: Optional[float] = None, l1_bias: Optional[float] = None,
-                 l2_bias: Optional[float] = None):
+    def __init__(self, name: Optional[str] = None, dropout=None,
+                 activation=None, weight_init: Optional[str] = None,
+                 bias_init: float = 0.0, updater=None,
+                 l1: Optional[float] = None, l2: Optional[float] = None,
+                 l1_bias: Optional[float] = None,
+                 l2_bias: Optional[float] = None, weight_noise=None,
+                 constraints=None):
+        if weight_noise is not None:
+            _not_ported("weight noise")
+        if constraints:
+            _not_ported("weight constraints")
         self.name = name
-        self.dropout = None if dropout is None else float(dropout)
+        # a float drop probability, or a conf/dropout.py scheme
+        self.dropout = _dropout_spec(dropout)
         self.activation = A.get(activation) if activation is not None \
             else None
         self.weight_init = weight_init
@@ -87,7 +152,7 @@ class Layer:
             if getattr(self, reg) is None:
                 setattr(self, reg, float(defaults.get(reg, 0.0)))
         if self.dropout is None:
-            self.dropout = float(defaults.get("dropout", 0.0))
+            self.dropout = _dropout_spec(defaults.get("dropout", 0.0))
         self.input_shape = tuple(input_shape)
         self._built = True
 
@@ -109,16 +174,23 @@ class Layer:
         return tuple(input_shape)
 
     def _maybe_dropout(self, x, train: bool, rng):
-        """Dropout on the layer input in training. Not ported: a
-        nonzero rate raises rather than training without it."""
-        if train and self.dropout:
-            raise NotImplementedError(
-                f"dropout {self.dropout} on {type(self).__name__}: dropout "
-                f"is not ported yet (ROADMAP.md queue A, item 11)")
-        return x
+        """Dropout or noise on the layer INPUT in training, with the
+        layer's key: a float is inverted Bernoulli dropout, a scheme
+        applies itself."""
+        d = self.dropout
+        if not train or d is None or rng is None:
+            return x
+        if isinstance(d, (int, float)):
+            if not d:
+                return x
+            d = D.Dropout(float(d))
+        return d.apply(x, rng, train)
 
     def param_shapes(self) -> Dict[str, Shape]:
         return {}
+
+    def n_params(self) -> int:
+        return sum(int(math.prod(s)) for s in self.param_shapes().values())
 
     def bias_param_names(self) -> set:
         """Params regularized with the *_bias coefficients: 'b', 'beta',
@@ -136,10 +208,20 @@ class Layer:
         return f"{type(self).__name__}(name={self.name})"
 
 
+def _dropout_spec(d):
+    """None, a float drop probability, or a scheme (from a scheme or
+    its ``to_json`` dict)."""
+    if d is None or isinstance(d, (int, float)):
+        return None if d is None else float(d)
+    return D.get(d)
+
+
 @register
 class DenseLayer(Layer):
     """Fully connected: z = x W + b over the last axis (per timestep
-    on [T, C] sequence input)."""
+    on [T, C] sequence input). Image input ([H, W, C] or deeper)
+    flattens in NHWC order first, as JAX's does, so carried dense
+    weights see the same pixels."""
 
     kind = "dense"
 
@@ -151,13 +233,11 @@ class DenseLayer(Layer):
         self.has_bias = bool(has_bias)
 
     def build(self, input_shape, defaults=None):
-        if len(input_shape) >= 3:
-            raise NotImplementedError(
-                "dense layers over image input are not ported yet "
-                "(ROADMAP.md queue A, item 11)")
         super().build(input_shape, defaults)
+        self._flatten_input = len(input_shape) >= 3
         if self.n_in is None:
-            self.n_in = int(input_shape[-1])
+            self.n_in = int(math.prod(input_shape)) if self._flatten_input \
+                else int(input_shape[-1])
 
     def param_shapes(self):
         sh = {"W": (self.n_in, self.n_out)}
@@ -175,6 +255,8 @@ class DenseLayer(Layer):
     def pre_output(self, params, x, train: bool = False, rng=None):
         """The pre-activation both ``apply`` and the output layers'
         ``compute_loss`` go through."""
+        if getattr(self, "_flatten_input", False) and x.ndim > 2:
+            x = x.reshape(x.shape[0], -1)
         x = self._maybe_dropout(x, train, rng)
         z = matmul(x, params["W"])
         if self.has_bias:
@@ -185,6 +267,8 @@ class DenseLayer(Layer):
         return self.activation(self.pre_output(params, x, train, rng)), state
 
     def output_shape(self, input_shape):
+        if len(input_shape) >= 3:
+            return (self.n_out,)
         return tuple(input_shape[:-1]) + (self.n_out,)
 
 
@@ -206,22 +290,305 @@ class OutputLayer(DenseLayer):
 
 
 @register
+class LossLayer(Layer):
+    """A loss on the raw input, no params."""
+
+    kind = "loss"
+
+    def __init__(self, loss="mcxent", **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        self.loss = L.get(loss)
+
+    def apply(self, params, x, state, train, rng):
+        return self.activation(x), state
+
+    def compute_loss(self, params, x, labels, mask=None, train: bool = False,
+                     rng=None):
+        x = self._maybe_dropout(x, train, rng)
+        return self.loss.score(labels, x, self.activation, mask)
+
+
+@register
+class ActivationLayer(Layer):
+    kind = "activation"
+
+    def apply(self, params, x, state, train, rng):
+        return self.activation(x), state
+
+
+@register
+class DropoutLayer(Layer):
+    """Dropout (or a noise scheme) on its input, no params."""
+
+    kind = "dropoutlayer"
+
+    def __init__(self, dropout=0.5, **kw):
+        super().__init__(dropout=dropout, **kw)
+
+    def build(self, input_shape, defaults=None):
+        d = dict(defaults or {})
+        d["activation"] = d.get("activation", "identity")
+        super().build(input_shape, d)
+
+    def apply(self, params, x, state, train, rng):
+        return self._maybe_dropout(x, train, rng), state
+
+
+def _promote(x, w):
+    """Both operands in their promoted dtype (``jnp`` promotes, PyTorch's
+    convolutions raise on mixed dtypes)."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        return x.to(dt), w.to(dt)
+    return x, w
+
+
+@register
+class ConvolutionLayer(Layer):
+    """2D convolution over NHWC input with HWIO weights: ``F.conv2d``
+    (cuDNN on the card) on the NCHW/OIHW views, after an explicit
+    ``F.pad`` (XLA's SAME rule, or ``((top, bottom), (left, right))``),
+    with stride, dilation and groups."""
+
+    kind = "conv2d"
+
+    def __init__(self, n_out: int = None, kernel=(3, 3), stride=(1, 1),
+                 padding="same", dilation=(1, 1), n_in: Optional[int] = None,
+                 has_bias: bool = True, groups: int = 1, **kw):
+        super().__init__(**kw)
+        self.n_out = int(n_out)
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.dilation = _pair(dilation)
+        self.padding = padding
+        self.n_in = n_in
+        self.has_bias = bool(has_bias)
+        self.groups = int(groups)
+
+    def build(self, input_shape, defaults=None):
+        super().build(input_shape, defaults)
+        if self.n_in is None:
+            self.n_in = int(input_shape[-1])
+
+    def param_shapes(self):
+        kh, kw_ = self.kernel
+        sh = {"W": (kh, kw_, self.n_in // self.groups, self.n_out)}
+        if self.has_bias:
+            sh["b"] = (self.n_out,)
+        return sh
+
+    def init_params(self, generator, dtype=torch.float32):
+        kh, kw_ = self.kernel
+        cin = self.n_in // self.groups
+        p = {"W": init_weights(generator, (kh, kw_, cin, self.n_out),
+                               kh * kw_ * cin, kh * kw_ * self.n_out,
+                               self.weight_init, dtype)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)
+        return p
+
+    def apply(self, params, x, state, train, rng):
+        x = self._maybe_dropout(x, train, rng)
+        pads = _spatial_pads(self.padding, x.shape[1:3], self.kernel,
+                             self.stride, self.dilation)
+        xc, w = _promote(_nchw(x), params["W"].permute(3, 2, 0, 1))
+        z = _nhwc(F.conv2d(_pad_nchw(xc, pads), w, None, self.stride, 0,
+                           self.dilation, self.groups))
+        if self.has_bias:
+            z = z + params["b"]   # after the convolution, as JAX adds it
+        return self.activation(z), state
+
+    def output_shape(self, input_shape):
+        h, w, _ = input_shape
+        kh, kw_ = self.kernel
+        sh, sw = self.stride
+        dh, dw = self.dilation
+        (pt, pb), (pl, pr) = _spatial_pads(self.padding, (h, w), self.kernel,
+                                           self.stride, self.dilation)
+        return ((h + pt + pb - (kh - 1) * dh - 1) // sh + 1,
+                (w + pl + pr - (kw_ - 1) * dw - 1) // sw + 1, self.n_out)
+
+
+@register
+class SubsamplingLayer(Layer):
+    """Max, average or p-norm pooling over NHWC input. Max pads with
+    -inf; average divides each window's sum by its count of real
+    (unpadded) elements, as JAX pools a tensor of ones; p-norm is
+    (sum |x|^p)^(1/p). Where a window's maxima tie (an all-zero window
+    after a ReLU) the gradient goes to the first in row-major order,
+    on the CPU and the card as in XLA's ``select_and_scatter``."""
+
+    kind = "subsampling"
+
+    def __init__(self, kernel=(2, 2), stride=(2, 2), padding="valid",
+                 pooling="max", pnorm: int = 2, **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        self.kernel = _pair(kernel)
+        self.stride = _pair(stride)
+        self.padding = padding
+        self.pooling = pooling
+        self.pnorm = int(pnorm)
+
+    def _window_sum(self, x, pads):
+        return F.avg_pool2d(_pad_nchw(x, pads), self.kernel, self.stride,
+                            divisor_override=1)
+
+    def apply(self, params, x, state, train, rng):
+        pads = _spatial_pads(self.padding, x.shape[1:3], self.kernel,
+                             self.stride)
+        xc = _nchw(x)
+        if self.pooling == "max":
+            z = F.max_pool2d(_pad_nchw(xc, pads, float("-inf")), self.kernel,
+                             self.stride)
+        elif self.pooling == "avg":
+            s = self._window_sum(xc, pads)
+            ones = torch.ones((1, 1) + tuple(xc.shape[2:]), dtype=xc.dtype,
+                              device=xc.device)
+            z = s / self._window_sum(ones, pads)
+        elif self.pooling == "pnorm":
+            p = float(self.pnorm)
+            z = self._window_sum(torch.abs(xc) ** p, pads) ** (1.0 / p)
+        else:
+            raise ValueError(f"unknown pooling {self.pooling!r}")
+        return _nhwc(z), state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        kh, kw_ = self.kernel
+        sh, sw = self.stride
+        (pt, pb), (pl, pr) = _spatial_pads(self.padding, (h, w), self.kernel,
+                                           self.stride)
+        return ((h + pt + pb - kh) // sh + 1, (w + pl + pr - kw_) // sw + 1,
+                c)
+
+
+@register
+class BatchNormalization(Layer):
+    """Batch norm over the last (channel or feature) axis of [B, C] or
+    [B, H, W, C] input, JAX's form: in training the batch mean and the
+    biased variance (``jnp.var``), taken in f32 even under the bf16
+    policy, normalize ``(x - mean) * rsqrt(var + eps)``, and the
+    running stats become ``decay * old + (1 - decay) * batch`` with the
+    same biased variance (``torch.nn.BatchNorm2d`` folds in the unbiased
+    one, and its ``momentum`` is ``1 - decay``); in inference the
+    running stats normalize. The output goes back to the input's dtype.
+    ``lock_gamma_beta`` drops gamma and beta."""
+
+    kind = "batchnorm"
+
+    def __init__(self, decay: float = 0.9, eps: float = 1e-5,
+                 gamma_init: float = 1.0, beta_init: float = 0.0,
+                 lock_gamma_beta: bool = False, **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        self.decay = float(decay)
+        self.eps = float(eps)
+        self.gamma_init = float(gamma_init)
+        self.beta_init = float(beta_init)
+        self.lock_gamma_beta = bool(lock_gamma_beta)
+        self.n_feat: Optional[int] = None
+
+    def build(self, input_shape, defaults=None):
+        super().build(input_shape, defaults)
+        self.n_feat = int(input_shape[-1])
+
+    def param_shapes(self):
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": (self.n_feat,), "beta": (self.n_feat,)}
+
+    def init_params(self, generator, dtype=torch.float32):
+        if self.lock_gamma_beta:
+            return {}
+        return {"gamma": torch.full((self.n_feat,), self.gamma_init,
+                                    dtype=dtype),
+                "beta": torch.full((self.n_feat,), self.beta_init,
+                                   dtype=dtype)}
+
+    def init_state(self):
+        return {"mean": torch.zeros((self.n_feat,), dtype=torch.float32),
+                "var": torch.ones((self.n_feat,), dtype=torch.float32)}
+
+    def apply(self, params, x, state, train, rng):
+        axes = tuple(range(x.ndim - 1))
+        xs = x.to(torch.promote_types(x.dtype, torch.float32))
+        if train:
+            var, mean = torch.var_mean(xs, dim=axes, correction=0)
+            d = self.decay
+            new_state = {
+                "mean": (d * state["mean"] + (1 - d) * mean.detach()
+                         ).to(state["mean"].dtype),
+                "var": (d * state["var"] + (1 - d) * var.detach()
+                        ).to(state["var"].dtype)}
+        else:
+            mean, var = state["mean"], state["var"]
+            new_state = state
+        xn = (xs - mean) * torch.rsqrt(var + self.eps)
+        if not self.lock_gamma_beta:
+            xn = xn * params["gamma"].to(xs.dtype) + \
+                params["beta"].to(xs.dtype)
+        return self.activation(xn).to(x.dtype), new_state
+
+
+@register
+class EmbeddingLayer(Layer):
+    """Index to vector lookup over [B] or [B, 1] integer input."""
+
+    kind = "embedding"
+
+    def __init__(self, n_in: int = None, n_out: int = None,
+                 has_bias: bool = False, **kw):
+        super().__init__(**kw)
+        self.n_in = int(n_in)
+        self.n_out = int(n_out)
+        self.has_bias = bool(has_bias)
+
+    def param_shapes(self):
+        sh = {"W": (self.n_in, self.n_out)}
+        if self.has_bias:
+            sh["b"] = (self.n_out,)
+        return sh
+
+    def init_params(self, generator, dtype=torch.float32):
+        p = {"W": init_weights(generator, (self.n_in, self.n_out), self.n_in,
+                               self.n_out, self.weight_init, dtype)}
+        if self.has_bias:
+            p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)
+        return p
+
+    def apply(self, params, x, state, train, rng):
+        idx = x.long()
+        if idx.ndim > 1 and idx.shape[-1] == 1:
+            idx = idx[..., 0]
+        z = params["W"][idx]
+        if self.has_bias:
+            z = z + params["b"]
+        return self.activation(z), state
+
+    def output_shape(self, input_shape):
+        if input_shape and input_shape[-1] == 1:
+            return tuple(input_shape[:-1]) + (self.n_out,)
+        return tuple(input_shape) + (self.n_out,)
+
+
+@register
 class GlobalPoolingLayer(Layer):
-    """Pool over time (average pooling is ported). With a [B, T] mask
-    padded timesteps are excluded, so the average divides by the true
-    length."""
+    """Max, average, sum or p-norm pooling over every axis but batch
+    and channel. With a [B, T] mask on sequence input the padded
+    timesteps are excluded: average divides by the true length, max
+    ignores them (a fully masked row pools to 0)."""
 
     kind = "globalpool"
     wants_mask = True
 
-    def __init__(self, pooling: str = "avg", keep_dims: bool = False, **kw):
-        if pooling != "avg":
-            raise NotImplementedError(
-                f"{pooling!r} pooling is not ported yet (ROADMAP.md queue A,"
-                f" item 11)")
+    def __init__(self, pooling: str = "avg", pnorm: int = 2,
+                 keep_dims: bool = False, **kw):
         kw.setdefault("activation", "identity")
         super().__init__(**kw)
         self.pooling = pooling
+        self.pnorm = int(pnorm)
         self.keep_dims = bool(keep_dims)
 
     def apply(self, params, x, state, train, rng):
@@ -230,13 +597,105 @@ class GlobalPoolingLayer(Layer):
     def apply_with_mask(self, params, x, state, train, rng, mask):
         axes = tuple(range(1, x.ndim - 1))  # all but batch and channel
         kd = self.keep_dims
+        p = float(self.pnorm)
         if mask is not None and x.ndim == 3:
             m = mask[:, :, None].to(x.dtype)
-            return (x * m).sum(axes, keepdim=kd) / torch.clamp_min(
-                m.sum(axes, keepdim=kd), 1.0), state
-        return x.mean(axes, keepdim=kd), state
+            if self.pooling == "max":
+                z = torch.where(m > 0, x, float("-inf")).amax(axes,
+                                                              keepdim=kd)
+                any_valid = m.sum(axes, keepdim=kd) > 0
+                z = torch.where(any_valid, z, torch.zeros_like(z))
+            elif self.pooling == "avg":
+                z = (x * m).sum(axes, keepdim=kd) / torch.clamp_min(
+                    m.sum(axes, keepdim=kd), 1.0)
+            elif self.pooling == "sum":
+                z = (x * m).sum(axes, keepdim=kd)
+            elif self.pooling == "pnorm":
+                z = (torch.abs(x * m) ** p).sum(axes, keepdim=kd) ** (1.0 / p)
+            else:
+                raise ValueError(self.pooling)
+            return z, state
+        if self.pooling == "max":
+            z = x.amax(axes, keepdim=kd)
+        elif self.pooling == "avg":
+            z = x.mean(axes, keepdim=kd)
+        elif self.pooling == "sum":
+            z = x.sum(axes, keepdim=kd)
+        elif self.pooling == "pnorm":
+            z = (torch.abs(x) ** p).sum(axes, keepdim=kd) ** (1.0 / p)
+        else:
+            raise ValueError(self.pooling)
+        return z, state
 
     def output_shape(self, input_shape):
         if self.keep_dims:
             return (1,) * (len(input_shape) - 1) + (input_shape[-1],)
         return (input_shape[-1],)
+
+
+@register
+class LocalResponseNormalization(Layer):
+    """x / (k + alpha * sum of squares over n neighbouring channels)^beta
+    (k=2, n=5, alpha=1e-4, beta=0.75)."""
+
+    kind = "lrn"
+
+    def __init__(self, k: float = 2.0, n: int = 5, alpha: float = 1e-4,
+                 beta: float = 0.75, **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        self.k = float(k)
+        self.n = int(n)
+        self.alpha = float(alpha)
+        self.beta = float(beta)
+
+    def apply(self, params, x, state, train, rng):
+        half = self.n // 2
+        padded = F.pad(x * x, (half, half))
+        c = x.shape[-1]
+        ssum = sum(padded[..., i:i + c] for i in range(self.n))
+        return x / torch.pow(self.k + self.alpha * ssum, self.beta), state
+
+
+@register
+class ZeroPaddingLayer(Layer):
+    """Zero padding of NHWC images, ((top, bottom), (left, right))."""
+
+    kind = "zeropad"
+
+    def __init__(self, padding=((1, 1), (1, 1)), **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        if isinstance(padding, int):
+            padding = ((padding, padding), (padding, padding))
+        self.padding = tuple(tuple(int(v) for v in p) for p in padding)
+
+    def apply(self, params, x, state, train, rng):
+        (pt, pb), (pl, pr) = self.padding
+        return F.pad(x, (0, 0, pl, pr, pt, pb)), state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        (pt, pb), (pl, pr) = self.padding
+        return (h + pt + pb, w + pl + pr, c)
+
+
+@register
+class Upsampling2D(Layer):
+    """Nearest-neighbour upsampling of NHWC images."""
+
+    kind = "upsampling2d"
+
+    def __init__(self, size=(2, 2), **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        self.size = _pair(size)
+
+    def apply(self, params, x, state, train, rng):
+        sh, sw = self.size
+        return x.repeat_interleave(sh, dim=1).repeat_interleave(sw, dim=2), \
+            state
+
+    def output_shape(self, input_shape):
+        h, w, c = input_shape
+        return (h * self.size[0], w * self.size[1], c)

@@ -29,6 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ... import random as R
 from ...kernels.decode_attention import decode_attention
 from ...kernels.flash_attention import flash_attention_autograd
 from ...kernels.kv_quant import QuantArray, is_quantized, kv_set, mm
@@ -410,7 +411,11 @@ class TransformerEncoderLayer(Layer):
         h = layer_norm(x, params["ln2_g"], params["ln2_b"])
         h = F.gelu(matmul(h, params["W1"]) + params["b1"],
                    approximate="tanh")
-        h = self._maybe_dropout(h, train, rng)
+        # the MLP's dropout key is folded from the attention's, as in
+        # JAX, so the two masks are independent
+        mlp_rng = R.fold_in(rng, 1) \
+            if rng is not None and self.dropout else None
+        h = self._maybe_dropout(h, train, mlp_rng)
         x = x + (matmul(h, params["W2"]) + params["b2"])
         if mask is not None:
             x = x * mask[..., None]

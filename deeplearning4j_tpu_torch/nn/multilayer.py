@@ -1,14 +1,23 @@
-"""MultiLayerNetwork: a sequential layer stack with ``fit``, ``output``
-and ``score`` (counterpart of ``deeplearning4j_tpu/nn/multilayer.py``).
+"""MultiLayerNetwork: a sequential layer stack with ``fit``, ``output``,
+``score`` and ``evaluate`` (counterpart of
+``deeplearning4j_tpu/nn/multilayer.py``).
 
 The JAX package compiles one pure train step (forward, loss, backward,
 regularization, clipping, updater). Here the step runs eagerly: the
 loss is differentiated by autograd (attention layers through the flash
 kernels' ``autograd.Function``), gradients are clipped per layer, each
 layer's updater computes its updates, and the params are updated in
-place under ``torch.no_grad``. Params, gradients and updater state
-live on the network's device: the GPU unless ``device="cpu"`` is
-asked for.
+place under ``torch.no_grad``. Params, gradients, updater state and
+the layers' state (batch norm's running stats, updated in place) live
+on the network's device: the GPU unless ``device="cpu"`` is asked for.
+
+Randomness follows JAX's key chain with ``random.py``'s threefry:
+``PRNGKey(seed)`` split ``len(layers) + 1`` ways at ``init`` (key 0
+kept), ``rng, sub = split(rng)`` every step, ``r_fwd, r_out =
+split(sub)`` in the loss, and ``split(r_fwd, n)`` one key a layer. So
+a network carried from JAX (same seed) draws JAX's dropout masks bit
+for bit. Listeners fire where JAX's do: ``iteration_done`` and
+``on_timing`` after each step, ``on_epoch_end`` after each pass.
 
 A configuration with a half dtype (``data_type("bfloat16")``) trains
 under the bf16 mixed-precision policy of ``precision.py``, as in JAX:
@@ -21,14 +30,18 @@ back through the casts, so gradients, the updater state and the
 updates stay f32. ``output()`` runs uncast, in f32.
 
 Not ported yet, and refused: TBPTT, remat, layerwise pretraining,
-stateful ``rnn_time_step``, the anomaly guard and listeners.
+stateful ``rnn_time_step`` and the anomaly guard.
 """
 from __future__ import annotations
 
+import copy
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from .. import random as R
 from ..device import resolve_device
 from .conf import MultiLayerConfiguration
 from .layers import Layer
@@ -95,15 +108,19 @@ class MultiLayerNetwork:
         self._updaters = None
         self._step = 0
         self._epoch = 0
+        self.listeners: List = []
         self._last_loss: Optional[torch.Tensor] = None
+        self._rng = R.PRNGKey(conf.seed)
+        self._input_kind = conf.input_type.kind if conf.input_type else "ff"
         self._input_shape = conf.input_type.shape if conf.input_type else None
 
     # -- init ----------------------------------------------------------
     def init(self, dtype=torch.float32) -> "MultiLayerNetwork":
-        """Build every layer's shapes and draw its params from the
+        """Build every layer's shapes, draw its params from the
         configuration's seed (a ``torch.Generator`` on the CPU; the
         draws differ from ``jax.random``, see
-        :func:`~..convert.network_params_from_jax`)."""
+        :func:`~..convert.network_params_from_jax`) and its state, and
+        start JAX's key chain."""
         if self._input_shape is None:
             raise ValueError("Configuration needs an input_type to init()")
         if dtype != torch.float32:
@@ -113,7 +130,9 @@ class MultiLayerNetwork:
                 "queue A, item 11)")
         shape = tuple(self._input_shape)
         gen = torch.Generator().manual_seed(self.conf.seed)
+        self._rng = R.key_at(R.split(self._rng, len(self.layers) + 1), 0)
         params: Params = {}
+        state: Params = {}
         self._layer_keys = []
         for i, layer in enumerate(self.layers):
             layer.build(shape, self.conf.defaults)
@@ -122,8 +141,9 @@ class MultiLayerNetwork:
             p = layer.init_params(gen, dtype)
             if p:
                 params[key] = p
-            if layer.init_state():
-                _not_ported(f"layer state ({type(layer).__name__})")
+            st = layer.init_state()
+            if st:
+                state[key] = st
             shape = layer.output_shape(shape)
         self._updaters = [l.updater if l.updater is not None
                           else self.conf.updater for l in self.layers]
@@ -134,41 +154,76 @@ class MultiLayerNetwork:
                 "bias_params": frozenset(l.bias_param_names())}
             for i, l in enumerate(self.layers)}
         self.set_params(params)
+        self.set_net_state(state)
         self._step = 0
         return self
 
     # -- forward -------------------------------------------------------
-    def _forward(self, params: Params, x, train: bool,
-                 upto: Optional[int] = None, fmask=None):
-        """Run layers [0, upto). ``fmask`` is the [B, T] feature mask,
-        applied while the activation is a sequence."""
+    def _reshape_input(self, x):
+        if self._input_kind == "cnnflat":
+            h, w, c = self._input_shape
+            return x.reshape(x.shape[0], h, w, c)
+        return x
+
+    def _forward_state(self, params: Params, net_state: Params, x,
+                       train: bool, rng=None, upto: Optional[int] = None,
+                       fmask=None):
+        """Run layers [0, upto) with layer ``i`` on key ``i`` of
+        ``split(rng, upto)``. Returns (activation, new state).
+        ``fmask`` is the [B, T] feature mask, applied while the
+        activation is a sequence."""
         upto = len(self.layers) if upto is None else upto
+        new_state = dict(net_state)
+        keys = R.split(rng, max(upto, 1)) if rng is not None else None
         act = x
         for i in range(upto):
-            layer = self.layers[i]
-            p = params.get(self._layer_keys[i], {})
-            m = fmask if act.ndim == 3 else None
-            if layer.is_rnn:
-                act, _, _ = layer.apply_seq(p, act, {}, train, None,
-                                            layer.init_carry(x.shape[0]), m)
-            elif layer.wants_mask:
-                act, _ = layer.apply_with_mask(p, act, {}, train, None, m)
-            else:
-                act, _ = layer.apply(p, act, {}, train, None)
-        return act
+            r = R.key_at(keys, i) if keys is not None else None
+            act, st2 = self._layer_step(i, params, net_state, act, train, r,
+                                        fmask)
+            if net_state.get(self._layer_keys[i]):
+                new_state[self._layer_keys[i]] = st2
+        return act, new_state
 
-    def _loss_fn(self, params: Params, x, y, mask, train: bool):
-        """Data loss plus the L1/L2 terms. ``mask`` is both the feature
-        and the label mask of a sequence model. Under the bf16 policy
-        the layers before the output layer compute in bf16 from cast
-        params and input; the output layer, the loss and the L1/L2
-        terms use the f32 masters."""
+    def _layer_step(self, i: int, params: Params, net_state: Params, act,
+                    train: bool, rng, fmask=None):
+        """Layer ``i`` on ``act``: (activation, the layer's new state).
+        ``fmask`` applies while the activation is a sequence."""
+        layer, key = self.layers[i], self._layer_keys[i]
+        p, st = params.get(key, {}), net_state.get(key, {})
+        m = fmask if act.ndim == 3 else None
+        if layer.is_rnn:
+            act, st2, _ = layer.apply_seq(p, act, st, train, rng,
+                                          layer.init_carry(act.shape[0]), m)
+            return act, st2
+        if layer.wants_mask:
+            return layer.apply_with_mask(p, act, st, train, rng, m)
+        return layer.apply(p, act, st, train, rng)
+
+    def _forward(self, params: Params, x, train: bool,
+                 upto: Optional[int] = None, fmask=None):
+        """The activation of layers [0, upto) on the network's layer
+        state, without dropout."""
+        return self._forward_state(params, self._net_state, x, train, None,
+                                   upto, fmask)[0]
+
+    def _loss_fn(self, params: Params, net_state: Params, x, y, mask,
+                 train: bool, rng=None):
+        """Data loss plus the L1/L2 terms, and the layers' new state.
+        ``mask`` is both the feature and the label mask of a sequence
+        model. Under the bf16 policy the layers before the output layer
+        compute in bf16 from cast params and input; the output layer,
+        the loss and the L1/L2 terms use the f32 masters."""
+        r_fwd = r_out = None
+        if rng is not None:
+            keys = R.split(rng)
+            r_fwd, r_out = R.key_at(keys, 0), R.key_at(keys, 1)
         cdt = compute_dtype(self.conf.dtype)
         params_c = cast_params_for_compute(params, {self._layer_keys[-1]},
                                            cdt)
         xc = cast_input_for_compute(x, cdt)
-        feats = self._forward(params_c, xc, train,
-                              upto=len(self.layers) - 1, fmask=mask)
+        feats, new_state = self._forward_state(
+            params_c, net_state, xc, train, r_fwd,
+            upto=len(self.layers) - 1, fmask=mask)
         feats = cast_feats_to_f32(feats)
         lmask = mask
         if mask is not None and feats.ndim == 2 and x.ndim == 3:
@@ -176,31 +231,45 @@ class MultiLayerNetwork:
             lmask = None
         out_key = self._layer_keys[-1]
         data_loss = self.layers[-1].compute_loss(
-            params.get(out_key, {}), feats, y, lmask, train=train)
-        return data_loss + _regularization_penalty(params,
-                                                   self._layers_meta)
+            params.get(out_key, {}), feats, y, lmask, train=train, rng=r_out)
+        return data_loss + _regularization_penalty(
+            params, self._layers_meta), new_state
 
     # -- the train step ------------------------------------------------
-    def loss_and_gradients(self, x, y, mask=None, train: bool = True
-                           ) -> Tuple[torch.Tensor, Params]:
+    def loss_and_gradients(self, x, y, mask=None, train: bool = True,
+                           rng=None) -> Tuple[torch.Tensor, Params]:
         """The loss (L1/L2 terms included) of one batch and its
-        gradient for every param, before clipping. Arrays go to the
-        network's device first."""
+        gradient for every param, before clipping, with dropout drawn
+        from ``rng`` (none without one). Arrays go to the network's
+        device first; the network's params and state do not change."""
         if self._params is None:
             self.init()
-        x, y, mask = self._to_device(x, y, mask)
+        return self._step_grads(*self._to_device(x, y, mask), train, rng)[:2]
+
+    def _step_grads(self, x, y, mask, train: bool, rng):
+        """Loss, gradients and the layers' new state of one batch
+        already on the device."""
         keys = [(k, n) for k, p in self._params.items() for n in p]
         with torch.enable_grad():
-            loss = self._loss_fn(self._params, x, y, mask, train)
+            loss, new_state = self._loss_fn(self._params, self._net_state,
+                                            x, y, mask, train, rng)
             leaves = torch.autograd.grad(
                 loss, [self._params[k][n] for k, n in keys])
         grads: Params = {k: {} for k in self._params}
         for (k, n), g in zip(keys, leaves):
             grads[k][n] = g
-        return loss.detach(), grads
+        return loss.detach(), grads, new_state
 
-    def _train_step(self, x, y, mask) -> torch.Tensor:
-        loss, grads = self.loss_and_gradients(x, y, mask)
+    def _train_step(self, x, y, mask, rng) -> torch.Tensor:
+        loss, grads, new_state = self._step_grads(
+            *self._to_device(x, y, mask), True, rng)
+        self.apply_gradients(grads, new_state)
+        return loss
+
+    def apply_gradients(self, grads: Params, new_state: Params = None):
+        """The step's second half: clip ``grads``, let each layer's
+        updater turn them into updates, subtract those from the params,
+        store the layers' new state and count the step."""
         grads = _clip_grads(grads, self.conf.max_grad_norm,
                             self.conf.grad_clip_value)
         with torch.no_grad():
@@ -211,15 +280,26 @@ class MultiLayerNetwork:
                     self._opt_state[key], grads[key], self._step)
                 for n, p in self._params[key].items():
                     p.sub_(upd[n])
+            # in place, so a captured graph keeps reading the live stats
+            for key, st in (new_state or {}).items():
+                for n, t in st.items():
+                    self._net_state[key][n].copy_(t)
         self._step += 1
-        return loss
 
     # -- public API ----------------------------------------------------
+    @staticmethod
+    def _unpack(item):
+        if isinstance(item, (tuple, list)):
+            return (item[0], item[1], item[2] if len(item) > 2 else None)
+        return (item.features, item.labels,
+                getattr(item, "labels_mask", None))
+
     def fit(self, data, labels=None, epochs: int = 1, mask=None):
         """Train on ``(data, labels[, mask])`` arrays, or on an iterator
         (a ``DataSetIterator``, list or generator of ``(x, y[, mask])``
-        batches), for ``epochs`` passes. Arrays may be numpy or tensors;
-        tensors already on the device are not copied."""
+        batches or ``DataSet``s), for ``epochs`` passes. Arrays may be
+        numpy or tensors; tensors already on the device are not
+        copied."""
         if self._params is None:
             self.init()
         if labels is not None:
@@ -232,10 +312,20 @@ class MultiLayerNetwork:
                 iterator = list(iterator)
         for _ in range(epochs):
             for item in iterator:
-                x, y, *rest = item
-                self._last_loss = self._train_step(
-                    x, y, rest[0] if rest else None)
+                x, y, m = self._unpack(item)
+                t0 = time.perf_counter()
+                keys = R.split(self._rng)
+                self._rng, sub = R.key_at(keys, 0), R.key_at(keys, 1)
+                self._last_loss = self._train_step(x, y, m, sub)
+                dur = time.perf_counter() - t0
+                for lst in self.listeners:
+                    lst.iteration_done(self, self._step, self._epoch)
+                    if hasattr(lst, "on_timing"):
+                        lst.on_timing(self, dur, len(x))
             self._epoch += 1
+            for lst in self.listeners:
+                if hasattr(lst, "on_epoch_end"):
+                    lst.on_epoch_end(self)
         return self
 
     def _to_device(self, x, y=None, mask=None):
@@ -246,16 +336,30 @@ class MultiLayerNetwork:
             if t.dtype == torch.float64:
                 t = t.float()
             return t.to(self.device)
-        return conv(x), conv(y), conv(mask)
+        return self._reshape_input(conv(x)), conv(y), conv(mask)
 
     def output(self, x, train: bool = False, mask=None):
         """Forward pass of the whole stack (``mask``: the [B, T]
-        feature mask), without gradients."""
+        feature mask), without gradients or dropout; ``train=True``
+        normalizes with batch statistics."""
         if self._params is None:
             self.init()
         x, _, mask = self._to_device(x, None, mask)
         with torch.no_grad():
             return self._forward(self._params, x, train, fmask=mask)
+
+    def feed_forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        """The input and every layer's activation, in order."""
+        if self._params is None:
+            self.init()
+        x, _, _ = self._to_device(x)
+        acts = [x]
+        with torch.no_grad():
+            for i in range(len(self.layers)):
+                acts.append(self._layer_step(i, self._params,
+                                             self._net_state, acts[-1],
+                                             train, None)[0])
+        return acts
 
     @property
     def score_(self) -> float:
@@ -269,8 +373,22 @@ class MultiLayerNetwork:
             return self.score_
         x, y, mask = self._to_device(x, y, mask)
         with torch.no_grad():
-            return float(self._loss_fn(self._params, x, y, mask, False))
+            return float(self._loss_fn(self._params, self._net_state, x, y,
+                                       mask, False)[0])
 
+    def evaluate(self, iterator):
+        """Classification evaluation over an iterator of ``(x, y[,
+        mask])`` batches or ``DataSet``s: an ``eval.Evaluation``."""
+        from ..eval import Evaluation
+        ev = Evaluation()
+        for item in iterator:
+            x, y, m = self._unpack(item)
+            out = self.output(x)
+            ev.eval(np.asarray(y), out.float().cpu().numpy(),
+                    None if m is None else np.asarray(m))
+        return ev
+
+    # -- introspection -------------------------------------------------
     def num_params(self) -> int:
         return sum(int(t.numel()) for p in self._params.values()
                    for t in p.values())
@@ -291,6 +409,17 @@ class MultiLayerNetwork:
             for i, key in enumerate(self._layer_keys)
             if key in self._params}
 
+    def get_net_state(self) -> Params:
+        """The layers' state (batch norm's running ``mean``/``var``)."""
+        return self._net_state
+
+    def set_net_state(self, state: Params):
+        """Take layer state in the layout of :meth:`get_net_state`
+        (tensors move to the device as f32 copies)."""
+        self._net_state = {
+            k: {n: t.detach().to(self.device, torch.float32).clone()
+                for n, t in st.items()} for k, st in state.items()}
+
     def get_updater_state(self):
         return self._opt_state
 
@@ -303,6 +432,46 @@ class MultiLayerNetwork:
             return x.detach().to(self.device, torch.float32).clone()
         self._opt_state = to(state)
 
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listeners(self, *listeners):
+        self.listeners.extend(listeners)
+        return self
+
+    def summary(self) -> str:
+        """The JAX package's table: each layer's output shape and param
+        count, then the total."""
+        if self._params is None:
+            self.init()
+        lines = ["=" * 70,
+                 f"{'idx':<4}{'layer':<22}{'out shape':<20}{'params':<10}",
+                 "-" * 70]
+        shape = tuple(self._input_shape)
+        for i, l in enumerate(self.layers):
+            out = l.output_shape(shape) if l._built else "?"
+            lines.append(f"{i:<4}{type(l).__name__:<22}{str(out):<20}"
+                         f"{l.n_params():<10}")
+            shape = out if isinstance(out, tuple) else shape
+        lines.append("-" * 70)
+        lines.append(f"Total params: {self.num_params()}")
+        lines.append("=" * 70)
+        return "\n".join(lines)
+
+    def clone(self, device=None) -> "MultiLayerNetwork":
+        """A copy on ``device`` (this network's by default) with a copy
+        of the configuration, the params and the layer state, and, as
+        in JAX, a fresh updater state and key chain."""
+        m = MultiLayerNetwork(copy.deepcopy(self.conf),
+                              device=self.device if device is None
+                              else device)
+        if self._params is not None:
+            m.init()
+            m.set_params(self._params)
+            m.set_net_state(self._net_state)
+        return m
+
     # -- not ported yet ------------------------------------------------
     def pretrain(self, *a, **kw):
         _not_ported("layerwise pretraining")
@@ -312,9 +481,3 @@ class MultiLayerNetwork:
 
     def rnn_time_step(self, *a, **kw):
         _not_ported("stateful rnn_time_step")
-
-    def set_listeners(self, *a, **kw):
-        _not_ported("training listeners")
-
-    def add_listeners(self, *a, **kw):
-        _not_ported("training listeners")

@@ -1,30 +1,118 @@
 """Weight initialization (counterpart of
-``deeplearning4j_tpu/weightinit/__init__.py``; only the ``xavier``
-scheme the attention layers use so far).
+``deeplearning4j_tpu/weightinit/__init__.py``): every scheme of the
+JAX package, with the same scale from fan-in and fan-out.
 
 Draws come from an explicit ``torch.Generator``, so an initialization
 is reproducible from its seed. The bits differ from ``jax.random``;
 parity tests carry JAX weights across with
-:func:`deeplearning4j_tpu_torch.convert.params_from_jax` instead.
+:func:`deeplearning4j_tpu_torch.convert.network_params_from_jax` and
+hold each scheme's draws to its distribution's moments.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
+
+SCHEMES = [
+    "zero", "ones", "constant", "normal", "lecun_normal", "uniform", "xavier",
+    "xavier_uniform", "xavier_fan_in", "xavier_legacy", "relu", "relu_uniform",
+    "sigmoid_uniform", "lecun_uniform", "identity", "distribution",
+    "var_scaling_normal_fan_in", "var_scaling_normal_fan_out",
+    "var_scaling_normal_fan_avg", "var_scaling_uniform_fan_in",
+    "var_scaling_uniform_fan_out", "var_scaling_uniform_fan_avg",
+]
+
+
+def _normal(g, shape, dtype):
+    return torch.randn(shape, generator=g, dtype=dtype)
+
+
+def _uniform(g, shape, dtype, lo, hi):
+    return lo + (hi - lo) * torch.rand(shape, generator=g, dtype=dtype)
+
+
+def _truncated_normal(g, shape, dtype):
+    """N(0, 1) truncated to [-2, 2] (``jax.random.truncated_normal``'s
+    bounds) by inverting the CDF over the kept interval."""
+    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
+    u = _uniform(g, shape, torch.float64, lo, 1.0 - lo)
+    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
+        -2.0, 2.0).to(dtype)
 
 
 def init_weights(generator: torch.Generator, shape: Sequence[int],
                  fan_in: float, fan_out: float, scheme: str = "xavier",
-                 dtype=torch.float32) -> torch.Tensor:
-    """A weight tensor drawn on the CPU per the named scheme:
-    ``xavier`` is N(0, 2 / (fan_in + fan_out))."""
+                 dtype=torch.float32,
+                 distribution: Optional[dict] = None) -> torch.Tensor:
+    """A weight tensor drawn on the CPU per the named scheme (names as
+    the reference's WeightInit enum, lowercased); ``distribution``
+    parametrizes the ``distribution`` scheme: {"type": "normal" |
+    "uniform" | "truncated_normal" | "constant", ...}."""
+    g = generator
+    shape = tuple(int(d) for d in shape)
     s = scheme.lower()
-    if s != "xavier":
-        raise NotImplementedError(
-            f"weight init {scheme!r} is not ported yet (ROADMAP.md queue "
-            f"A, item 11: weightinit)")
-    std = math.sqrt(2.0 / max(fan_in + fan_out, 1.0))
-    return std * torch.randn(tuple(int(d) for d in shape),
-                             generator=generator, dtype=dtype)
+    if s == "zero":
+        return torch.zeros(shape, dtype=dtype)
+    if s == "ones":
+        return torch.ones(shape, dtype=dtype)
+    if s == "constant":
+        return torch.full(shape, (distribution or {}).get("value", 0.0),
+                          dtype=dtype)
+    if s in ("normal", "lecun_normal"):
+        return _normal(g, shape, dtype) / math.sqrt(max(fan_in, 1.0))
+    if s == "uniform":
+        a = 1.0 / math.sqrt(max(fan_in, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s == "xavier":
+        return math.sqrt(2.0 / max(fan_in + fan_out, 1.0)) * \
+            _normal(g, shape, dtype)
+    if s == "xavier_uniform":
+        a = math.sqrt(6.0 / max(fan_in + fan_out, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s == "xavier_fan_in":
+        return math.sqrt(1.0 / max(fan_in, 1.0)) * _normal(g, shape, dtype)
+    if s == "xavier_legacy":
+        return math.sqrt(1.0 / max(fan_in + fan_out, 1.0)) * \
+            _normal(g, shape, dtype)
+    if s == "relu":
+        # He: N(0, 2 / fan_in)
+        return math.sqrt(2.0 / max(fan_in, 1.0)) * _normal(g, shape, dtype)
+    if s == "relu_uniform":
+        a = math.sqrt(6.0 / max(fan_in, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s == "sigmoid_uniform":
+        a = 4.0 * math.sqrt(6.0 / max(fan_in + fan_out, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s == "lecun_uniform":
+        a = math.sqrt(3.0 / max(fan_in, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s.startswith("var_scaling_") and s in SCHEMES:
+        fan = {"in": fan_in, "out": fan_out,
+               "avg": (fan_in + fan_out) / 2.0}[s.rsplit("_", 1)[-1]]
+        if "normal" in s:
+            return math.sqrt(1.0 / max(fan, 1.0)) * \
+                _truncated_normal(g, shape, dtype)
+        a = math.sqrt(3.0 / max(fan, 1.0))
+        return _uniform(g, shape, dtype, -a, a)
+    if s == "identity":
+        if len(shape) != 2 or shape[0] != shape[1]:
+            raise ValueError("identity init requires square 2d shape")
+        return torch.eye(shape[0], dtype=dtype)
+    if s == "distribution":
+        d = distribution or {}
+        t = d.get("type", "normal")
+        if t in ("normal", "gaussian"):
+            return d.get("mean", 0.0) + d.get("std", 1.0) * \
+                _normal(g, shape, dtype)
+        if t == "uniform":
+            return _uniform(g, shape, dtype, d.get("lower", -1.0),
+                            d.get("upper", 1.0))
+        if t == "truncated_normal":
+            return d.get("mean", 0.0) + d.get("std", 1.0) * \
+                _truncated_normal(g, shape, dtype)
+        if t == "constant":
+            return torch.full(shape, d.get("value", 0.0), dtype=dtype)
+        raise ValueError(f"Unknown distribution type {t!r}")
+    raise ValueError(f"Unknown weight init scheme: {scheme!r}")

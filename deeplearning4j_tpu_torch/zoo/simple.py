@@ -1,0 +1,170 @@
+"""Sequential zoo models (counterpart of
+``deeplearning4j_tpu/zoo/simple.py``): LeNet, SimpleCNN, AlexNet, VGG16
+and VGG19, NHWC, at the JAX package's widths. Darknet19, TinyYOLO,
+YOLO2 and TextGenerationLSTM come with the rest of the zoo and raise
+until then."""
+from __future__ import annotations
+
+from ..learning import Nesterovs
+from ..nn import NeuralNetConfiguration
+from ..nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
+                         DropoutLayer, LocalResponseNormalization,
+                         OutputLayer, SubsamplingLayer)
+from . import ZooModel
+
+
+class LeNet(ZooModel):
+    """28x28x1: conv5-20 / maxpool / conv5-50 / maxpool / dense500 /
+    softmax."""
+
+    name = "lenet"
+    input_shape = (28, 28, 1)
+
+    def __init__(self, num_classes: int = 10, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        conf = (NeuralNetConfiguration.builder().seed(self.seed)
+                .updater(self._updater()).weight_init("xavier")
+                .list()
+                .layer(ConvolutionLayer(n_out=20, kernel=(5, 5), stride=(1, 1),
+                                        padding="same", activation="identity"))
+                .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=50, kernel=(5, 5), stride=(1, 1),
+                                        padding="same", activation="identity"))
+                .layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+                .layer(DenseLayer(n_out=500, activation="relu"))
+                .layer(OutputLayer(n_out=self.num_classes, loss="mcxent"))
+                .input_type_convolutional(h, w, c).build())
+        return self._net(conf)
+
+
+class SimpleCNN(ZooModel):
+    """48x48x3: six 3x3 conv layers (relu) each followed by batch
+    norm, a 2x2 max pool after every second, dropout 0.5, dense256,
+    softmax."""
+
+    name = "simplecnn"
+    input_shape = (48, 48, 3)
+
+    def __init__(self, num_classes: int = 10, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(self._updater()).weight_init("relu")
+             .activation("relu")
+             .list())
+        for n_out, pool in ((16, False), (16, True), (32, False), (32, True),
+                            (64, False), (64, True)):
+            b.layer(ConvolutionLayer(n_out=n_out, kernel=(3, 3)))
+            b.layer(BatchNormalization())
+            if pool:
+                b.layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+        b.layer(DropoutLayer(dropout=0.5))
+        b.layer(DenseLayer(n_out=256, activation="relu"))
+        b.layer(OutputLayer(n_out=self.num_classes, loss="mcxent"))
+        return self._net(b.input_type_convolutional(h, w, c).build())
+
+
+class AlexNet(ZooModel):
+    """One-tower AlexNet with local response normalization, 224x224x3."""
+
+    name = "alexnet"
+    input_shape = (224, 224, 3)
+
+    def __init__(self, num_classes: int = 1000, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        lrn = dict(k=2, n=5, alpha=1e-4, beta=0.75)
+        conf = (NeuralNetConfiguration.builder().seed(self.seed)
+                .updater(self.updater or Nesterovs(1e-2, 0.9))
+                .weight_init("normal").activation("relu")
+                .list()
+                .layer(ConvolutionLayer(n_out=96, kernel=(11, 11),
+                                        stride=(4, 4), padding="valid"))
+                .layer(LocalResponseNormalization(**lrn))
+                .layer(SubsamplingLayer(kernel=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=256, kernel=(5, 5),
+                                        padding="same", bias_init=1.0))
+                .layer(LocalResponseNormalization(**lrn))
+                .layer(SubsamplingLayer(kernel=(3, 3), stride=(2, 2)))
+                .layer(ConvolutionLayer(n_out=384, kernel=(3, 3)))
+                .layer(ConvolutionLayer(n_out=384, kernel=(3, 3),
+                                        bias_init=1.0))
+                .layer(ConvolutionLayer(n_out=256, kernel=(3, 3),
+                                        bias_init=1.0))
+                .layer(SubsamplingLayer(kernel=(3, 3), stride=(2, 2)))
+                .layer(DenseLayer(n_out=4096, dropout=0.5, bias_init=1.0))
+                .layer(DenseLayer(n_out=4096, dropout=0.5, bias_init=1.0))
+                .layer(OutputLayer(n_out=self.num_classes, loss="mcxent"))
+                .input_type_convolutional(h, w, c).build())
+        return self._net(conf)
+
+
+class VGG16(ZooModel):
+    """VGG16, 224x224x3."""
+
+    name = "vgg16"
+    input_shape = (224, 224, 3)
+    _spec = ((2, 64), (2, 128), (3, 256), (3, 512), (3, 512))
+
+    def __init__(self, num_classes: int = 1000, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(self.updater or Nesterovs(1e-2, 0.9))
+             .weight_init("relu").list())
+        for n_convs, n_out in self._spec:
+            for _ in range(n_convs):
+                b.layer(ConvolutionLayer(n_out=n_out, kernel=(3, 3),
+                                         activation="relu"))
+            b.layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+        b.layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+        b.layer(DenseLayer(n_out=4096, activation="relu", dropout=0.5))
+        b.layer(OutputLayer(n_out=self.num_classes, loss="mcxent"))
+        return self._net(b.input_type_convolutional(h, w, c).build())
+
+
+class VGG19(VGG16):
+    name = "vgg19"
+    _spec = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
+
+
+class _NotPorted(ZooModel):
+    def init(self):
+        raise NotImplementedError(
+            f"{type(self).__name__} is not ported yet (ROADMAP.md queue A, "
+            f"item 13)")
+
+
+class Darknet19(_NotPorted):
+    name = "darknet19"
+    input_shape = (224, 224, 3)
+
+
+class TinyYOLO(_NotPorted):
+    """Needs ``Yolo2OutputLayer`` (``nn/layers/objdetect.py``)."""
+
+    name = "tinyyolo"
+    input_shape = (416, 416, 3)
+
+
+class YOLO2(_NotPorted):
+    """Needs ``ComputationGraph``, ``SpaceToDepthLayer`` and
+    ``Yolo2OutputLayer``."""
+
+    name = "yolo2"
+    input_shape = (608, 608, 3)
+
+
+class TextGenerationLSTM(_NotPorted):
+    """Needs the ``LSTM`` layer."""
+
+    name = "textgenlstm"

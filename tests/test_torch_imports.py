@@ -45,7 +45,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "nn.layers.attention", "zoo.transformer_lm",
                 "nn.multilayer", "nn.conf", "nn.layers.recurrent",
                 "nn.precision", "activations", "losses", "learning",
-                "datasets", "convert"):
+                "datasets", "convert",
+                # the CNN training core
+                "nn.layers", "nn.conf.dropout", "learning.schedules",
+                "weightinit", "random", "eval", "optimize", "zoo",
+                "zoo.simple"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

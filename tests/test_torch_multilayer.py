@@ -264,9 +264,10 @@ def test_transformer_stack_learns(np_rng, impl):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError, match="dropout"):
-        MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain", dropout=0.1),
-                          device="cpu").fit(*_batch()[:2])
+    # dropout is ported (tests/test_torch_dropout.py): a block with
+    # dropout trains
+    MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain", dropout=0.1),
+                      device="cpu").fit(*_batch()[:2])
     # a bf16 configuration builds and trains on the CPU (the bf16
     # policy); only pure-bf16 params stay unported
     bf16 = (NeuralNetConfiguration.builder().seed(0).data_type("bfloat16")
@@ -289,11 +290,11 @@ def test_unported_options_raise():
             MultiLayerNetwork(MultiLayerConfiguration(
                 [OutputLayer(n_out=2)], **kw), device="cpu")
     net = MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain"), device="cpu")
-    for fn in (net.pretrain, net.rnn_time_step, net.set_listeners):
+    for fn in (net.pretrain, net.pretrain_layer, net.rnn_time_step):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn(None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GlobalPoolingLayer(pooling="max")  # only avg is ported
+        DenseLayer(n_out=2, weight_noise={"@class": "dropconnect"})
 
 
 def test_network_runs_on_the_card_by_default():
