@@ -1804,6 +1804,7 @@ def train_conf(cfg):
         EmbeddingSequenceLayer, RnnOutputLayer)
     b = (NeuralNetConfiguration.builder().seed(cfg["seed"])
          .updater(Adam(cfg["lr"])).weight_init("xavier")
+         .remat(cfg.get("remat", False))
          .data_type(cfg.get("dtype", "float")).list()
          .layer(EmbeddingSequenceLayer(n_in=cfg["vocab_size"],
                                        n_out=cfg["d_model"])))
@@ -2402,6 +2403,411 @@ def cnn_training(card: str, device=None, epochs=LENET_EPOCHS,
           f"{launches}); the phase took {wall:.2f} s")
     return dict(lenet=lenet, simple_cnn=simple, wall_s=wall,
                 launches=launches)
+
+
+# -- phase 19: checkpoints, remat and the recurrent stack ---------------
+REMAT_LOSS_RTOL = 1e-5  # remat vs the same net without it (tests/test_remat.py)
+REMAT_PARAM_TOL = 1e-5  # of a leaf's max; bit for bit is the prediction
+RESUME_LAYERS = 2       # 19b's depth at phase 9's width: at 8 layers
+#                         writing took 35 s an archive (PERF.md, §6)
+RNN_BATCH = 32
+RNN_STEPS = 5           # timed steps of 19c(i), after one warmup step
+RNN_TBPTT = 50          # 19c(ii): chunks of 50 over 1,000 characters
+RNN_TBPTT_CHARS = 1000
+RNN_TBPTT_LR = 1e-4     # 19c(ii)'s Adam: JAX's TBPTT keeps the batch's step
+#                         for all 20 chunks, so Adam's bias correction
+#                         stays at step 0's and each chunk moves a param
+#                         by ~2 lr; at the zoo's 1e-3 the loss rises and
+#                         a 1e-7 perturbation grows to 4e-4 of the
+#                         params in one fit (on the CPU too, PERF.md)
+RNN_STREAM_STEPS = 200  # 19c(iii)
+RNN_LOSS_RTOL = 1e-5    # card vs CPU copy, losses of each step
+RNN_TOL = 1e-4          # card vs CPU copy, params and Adam state, of a
+#                         leaf's max (f32 GEMMs summed in another order
+#                         over 40-50 recurrent steps, a few Adam steps)
+RNN_STREAM_TOL = 1e-5   # rnn_time_step vs output() on the card
+
+
+def _leaves(tree, prefix=""):
+    """(path, tensor) of a nested dict of tensors."""
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            yield from _leaves(v, key)
+        else:
+            yield key, v
+
+
+def tree_diff(got, ref):
+    """(worst leaf, its error over its max |value|, leaves that differ
+    in any bit) of two trees of the same layout."""
+    import torch
+    ref_leaves = dict(_leaves(ref))
+    worst, worst_err, differ = None, 0.0, 0
+    for key, t in _leaves(got):
+        r = ref_leaves[key].to(t.device)
+        if not torch.equal(t, r):
+            differ += 1
+        err = _rel(t, r)
+        if worst is None or err > worst_err:
+            worst, worst_err = key, err
+    return worst, worst_err, differ
+
+
+def _train_run(net, x, y, steps, sync):
+    """1 + ``steps`` fits of one batch: losses, step ms (synchronized)
+    and the host's enqueue ms."""
+    import torch
+    losses, step_ms, enqueue_ms = [], [], []
+    for _ in range(1 + steps):
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        if sync:
+            torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_)
+    return losses, step_ms, enqueue_ms
+
+
+def remat_train(card: str, cfg=TRAIN_CFG, device=None, steps=TRAIN_STEPS):
+    """Phase 19a: phase 9's configuration with ``remat(True)`` against
+    the same configuration without it, built here from the same seed
+    and run on the same batch for 1 + ``steps`` steps. Losses, final
+    params and Adam state must agree (bit for bit is the prediction),
+    the forward kernel must launch twice a layer a step and the backward
+    kernels once, and the peak device memory of the remat run (from a
+    reset) must be below the other's."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    base = MultiLayerNetwork(train_conf(cfg), device=device).init()
+    rem = MultiLayerNetwork(train_conf(dict(cfg, remat=True)),
+                            device=device).init()
+    rem.set_params(base.params())
+    dev = base.device
+    on_card = dev.type == "cuda"
+    x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+    runs = {}
+    for tag, net in (("base", base), ("remat", rem)):
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        losses, step_ms, enqueue_ms = _train_run(net, x, y, steps, on_card)
+        runs[tag] = dict(
+            losses=losses, step_ms=step_ms,
+            step_p50_ms=float(np.median(step_ms[1:])),
+            enqueue_p50_ms=float(np.median(enqueue_ms[1:])),
+            peak_bytes=torch.cuda.max_memory_allocated() if on_card
+            else None,
+            launches={"flash_attention": fa.launches,
+                      "flash_attention_bwd_dq": fa.launches_dq,
+                      "flash_attention_bwd_dkv": fa.launches_dkv,
+                      "bf16": fa.launches_bf16 + fa.launches_dq_bf16
+                      + fa.launches_dkv_bf16})
+    b, r = runs["base"], runs["remat"]
+    loss_rel = max(abs(lr - lb) / abs(lb)
+                   for lr, lb in zip(r["losses"], b["losses"]))
+    pw, perr, pdiff = tree_diff(rem.params(), base.params())
+    aw, aerr, adiff = tree_diff(rem.get_updater_state(),
+                                base.get_updater_state())
+    want = {"flash_attention": 2 * cfg["n_layers"] * (1 + steps),
+            "flash_attention_bwd_dq": cfg["n_layers"] * (1 + steps),
+            "flash_attention_bwd_dkv": cfg["n_layers"] * (1 + steps),
+            "bf16": 0}
+    bad = []
+    if loss_rel > REMAT_LOSS_RTOL:
+        bad.append(f"losses {r['losses']} vs {b['losses']}")
+    if perr > REMAT_PARAM_TOL or aerr > REMAT_PARAM_TOL:
+        bad.append(f"params {pw} {perr:.3e}, Adam {aw} {aerr:.3e}")
+    if on_card and r["launches"] != want:
+        bad.append(f"launches {r['launches']} (want {want})")
+    if on_card and not r["peak_bytes"] < b["peak_bytes"]:
+        bad.append(f"peak {r['peak_bytes']} not below {b['peak_bytes']}")
+    if bad:
+        raise AssertionError(f"phase 19a failed: {bad}")
+    res = dict(base=b, remat=r, loss_rel_err=loss_rel,
+               bitwise_losses=r["losses"] == b["losses"],
+               param_worst=pw, param_err=perr, params_differing=pdiff,
+               adam_worst=aw, adam_err=aerr, adam_differing=adiff,
+               leaves=len(list(_leaves(base.params()))))
+    gib = (lambda v: "not measured" if v is None else f"{v / 2**30:.3f} GiB")
+    print(f"remat (phase 19a) [{card}]: {cfg['n_layers']} blocks, "
+          f"{1 + steps} steps: step p50 {r['step_p50_ms']:.2f} ms (enqueue "
+          f"{r['enqueue_p50_ms']:.2f}) against {b['step_p50_ms']:.2f} "
+          f"({b['enqueue_p50_ms']:.2f}) without remat; peak "
+          f"{gib(r['peak_bytes'])} against {gib(b['peak_bytes'])}; losses "
+          f"{'bit for bit' if res['bitwise_losses'] else f'within {loss_rel:.3e}'}"
+          f", params {pdiff} of {res['leaves']} leaves differ (worst "
+          f"{pw} {perr:.3e}), Adam state {adiff} differ ({aerr:.3e}); "
+          f"launches {r['launches']} (want {want})")
+    return res
+
+
+def resume_train(card: str, cfg=TRAIN_CFG, device=None, steps=6, every=3,
+                 n_layers=RESUME_LAYERS):
+    """Phase 19b: phase 9's net (at ``n_layers``) under
+    ``CheckpointListener(save_every_n_iterations=every, keep_last=1)``;
+    the archive written after step ``every`` is restored on the card as
+    a fresh network, which runs the remaining steps on the same batch.
+    Its losses, params and Adam state must be the uninterrupted run's
+    bit for bit; the last archive restores on the CPU, where output()
+    on one sequence matches the card's; keep_last leaves one file."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.optimize import CheckpointListener
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    cfg = dict(cfg, n_layers=n_layers)
+    d = tempfile.mkdtemp(prefix="dl4j_ckpt_")
+    try:
+        net = MultiLayerNetwork(train_conf(cfg), device=device).init()
+        dev = net.device
+        on_card = dev.type == "cuda"
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+        lst = CheckpointListener(d, save_every_n_iterations=every,
+                                 keep_last=1)
+        write_s = []
+
+        class Timed:
+            def iteration_done(self, model, iteration, epoch):
+                if iteration % every == 0:
+                    sync()
+                    t0 = time.perf_counter()
+                    lst.iteration_done(model, iteration, epoch)
+                    write_s.append(time.perf_counter() - t0)
+        net.set_listeners(Timed())
+        losses = []
+        for _ in range(every):
+            net.fit(x, y)
+            losses.append(net.score_)
+        path = lst.last_checkpoint()
+        nbytes = os.path.getsize(path)
+        sync()
+        t0 = time.perf_counter()
+        resumed = ModelSerializer.restore(path, device=device)
+        sync()
+        restore_s = time.perf_counter() - t0
+        resumed_losses = []
+        for _ in range(steps - every):
+            net.fit(x, y)
+            losses.append(net.score_)
+            resumed.fit(x, y)
+            resumed_losses.append(resumed.score_)
+        files = sorted(os.listdir(d))
+        want_files = [f"checkpoint_iter_{steps}.zip"]
+        pw, perr, pdiff = tree_diff(resumed.params(), net.params())
+        aw, aerr, adiff = tree_diff(resumed.get_updater_state(),
+                                    net.get_updater_state())
+        t0 = time.perf_counter()
+        cpu = ModelSerializer.restore(lst.last_checkpoint(), device="cpu")
+        cpu_restore_s = time.perf_counter() - t0
+        one = x[:1]
+        out_err = _rel(cpu.output(one.cpu()), net.output(one))
+        bad = []
+        if resumed_losses != losses[every:]:
+            bad.append(f"losses {resumed_losses} vs {losses[every:]}")
+        if pdiff or adiff:
+            bad.append(f"{pdiff} param and {adiff} Adam leaves differ "
+                       f"(worst {pw} {perr:.3e}, {aw} {aerr:.3e})")
+        if (resumed._step, resumed._rng) != (net._step, net._rng):
+            bad.append(f"step/key {resumed._step} {resumed._rng} vs "
+                       f"{net._step} {net._rng}")
+        if files != want_files:
+            bad.append(f"files {files} (want {want_files})")
+        if not out_err <= TRAIN_GRAD_TOL:
+            bad.append(f"CPU output {out_err:.3e}")
+        if bad:
+            raise AssertionError(f"phase 19b failed: {bad}")
+        res = dict(n_layers=n_layers, params=net.num_params(),
+                   losses=losses, resumed_losses=resumed_losses,
+                   write_s=write_s, restore_s=restore_s,
+                   cpu_restore_s=cpu_restore_s, archive_bytes=nbytes,
+                   files=files, cpu_output_err=out_err)
+        print(f"checkpoint resume (phase 19b) [{card}]: {n_layers} blocks "
+              f"({res['params']} params"
+              + ("" if n_layers == TRAIN_CFG["n_layers"] else
+                 f", cut from {TRAIN_CFG['n_layers']}: see PERF.md")
+              + f"), archive {nbytes} bytes, write "
+              f"{[round(v, 3) for v in write_s]} s, restore on the card "
+              f"{restore_s:.3f} s, on the CPU {cpu_restore_s:.3f} s; steps "
+              f"{every + 1}-{steps} after the restore bit for bit the "
+              f"uninterrupted run's (losses {resumed_losses}, every param "
+              f"and Adam leaf, step and key); CPU output() "
+              f"{out_err:.3e} of its max (tol {TRAIN_GRAD_TOL:g}); files "
+              f"left {files}")
+        return res
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def char_batch(classes, batch, T, seed, device):
+    """One-hot characters of c[i+1] = (a c[i] + b) mod classes from
+    seeded starts, [batch, T, classes], and the next character's one-hot
+    labels: the next character is a function of the current one, so the
+    loss can fall."""
+    import torch
+    rs = np.random.RandomState(seed)
+    seq = np.empty((batch, T + 1), np.int64)
+    seq[:, 0] = rs.randint(0, classes, batch)
+    for i in range(T):
+        seq[:, i + 1] = (31 * seq[:, i] + 7) % classes
+    eye = torch.eye(classes, device=device)
+    seq = torch.from_numpy(seq).to(device)
+    return eye[seq[:, :T]], eye[seq[:, 1:]]
+
+
+def rnn_training(card: str, device=None, batch=RNN_BATCH, steps=RNN_STEPS,
+                 tbptt_chars=RNN_TBPTT_CHARS, stream_steps=RNN_STREAM_STEPS):
+    """Phase 19c: the zoo's TextGenerationLSTM (77 classes, 2 x
+    LSTM(256), 40 timesteps) at batch 32: (i) fit against a CPU copy;
+    (ii) its layers with tbptt(50) over 1,000 characters, two fits, the
+    first against a CPU copy; (iii) rnn_time_step over single steps
+    against output() over the whole sequence. No TPU kernel is on this
+    path: every launch counter must stay 0."""
+    import json as _json
+
+    import torch
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
+                                             MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    t_phase = time.perf_counter()
+    reset_launches()
+    zoo = TextGenerationLSTM(device=device, seed=0)
+    net = zoo.init()
+    dev = net.device
+    on_card = dev.type == "cuda"
+    C, T = zoo.num_classes, zoo.timesteps
+    x, y = char_batch(C, batch, T, 19, dev)
+    # (i) fit at the zoo's 40 timesteps, against a CPU copy
+    cpu = net.clone(device="cpu")
+    losses, step_ms, enqueue_ms = _train_run(net, x, y, steps, on_card)
+    cpu_losses = []
+    for _ in range(1 + steps):
+        cpu.fit(x.cpu(), y.cpu())
+        cpu_losses.append(cpu.score_)
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    pw, perr, _ = tree_diff(net.params(), cpu.params())
+    aw, aerr, _ = tree_diff(net.get_updater_state(),
+                            cpu.get_updater_state())
+    bad = []
+    if loss_rel > RNN_LOSS_RTOL or perr > RNN_TOL or aerr > RNN_TOL:
+        bad.append(f"(i) card vs CPU: losses {loss_rel:.3e}, params {pw} "
+                   f"{perr:.3e}, Adam {aw} {aerr:.3e}")
+    fit = dict(params=net.num_params(), losses=losses,
+               cpu_losses=cpu_losses, loss_rel_err=loss_rel,
+               param_worst=pw, param_err=perr, adam_worst=aw, adam_err=aerr,
+               step_ms=step_ms, step_p50_ms=float(np.median(step_ms[1:])),
+               enqueue_p50_ms=float(np.median(enqueue_ms[1:])))
+    # (ii) the same layers with tbptt(50) over 1,000 characters
+    t_i = time.perf_counter() - t_phase
+    zoo_tb = TextGenerationLSTM(device=device, seed=0,
+                                updater=Adam(RNN_TBPTT_LR))
+    d = _json.loads(zoo_tb.init().conf.to_json())
+    d["tbptt_fwd_length"] = d["tbptt_bwd_length"] = RNN_TBPTT
+    conf = MultiLayerConfiguration.from_json(_json.dumps(d))
+    tnet = MultiLayerNetwork(conf, device=device).init()
+    tcpu = tnet.clone(device="cpu")
+    xl, yl = char_batch(C, batch, tbptt_chars, 20, dev)
+    before = tnet.score(xl, yl)
+    chunks = -(-tbptt_chars // RNN_TBPTT)
+    t_losses, t_ms, t_enqueue = [], [], []
+    for i in range(2):
+        t0 = time.perf_counter()
+        tnet.fit(xl, yl)
+        t_enqueue.append((time.perf_counter() - t0) * 1e3)
+        if on_card:
+            torch.cuda.synchronize()
+        t_ms.append((time.perf_counter() - t0) * 1e3)
+        t_losses.append(tnet.score_)
+        if i == 0:   # the first fit against the CPU copy's
+            tcpu.fit(xl.cpu(), yl.cpu())
+            t_loss_rel = abs(t_losses[0] - tcpu.score_) / abs(tcpu.score_)
+            tpw, tperr, _ = tree_diff(tnet.params(), tcpu.params())
+            taw, taerr, _ = tree_diff(tnet.get_updater_state(),
+                                      tcpu.get_updater_state())
+    after = tnet.score(xl, yl)
+    if not (after < before and t_loss_rel <= RNN_LOSS_RTOL
+            and tperr <= RNN_TOL and taerr <= RNN_TOL):
+        bad.append(f"(ii) TBPTT: score {before} -> {after}; first fit vs "
+                   f"CPU: loss {t_loss_rel:.3e}, params {tpw} {tperr:.3e}, "
+                   f"Adam {taw} {taerr:.3e}")
+    # one profiled fit of two chunks (the same work a chunk as the
+    # 1,000-character fits')
+    prof = profile_train_step(tnet, xl[:, :2 * RNN_TBPTT],
+                              yl[:, :2 * RNN_TBPTT]) if on_card else None
+    t_ii = time.perf_counter() - t_phase - t_i
+    tb = dict(chars=tbptt_chars, chunks=chunks, losses=t_losses,
+              cpu_loss=tcpu.score_, loss_rel_err=t_loss_rel,
+              score_before=before, score_after=after, param_worst=tpw,
+              param_err=tperr, adam_worst=taw, adam_err=taerr,
+              fit_ms=t_ms, enqueue_ms=t_enqueue,
+              chunk_ms=[v / chunks for v in t_ms],
+              profile=prof)
+    # (iii) rnn_time_step over single steps from a cleared state
+    xs, _ = char_batch(C, batch, stream_steps, 21, dev)
+    full = net.output(xs)
+    net.rnn_clear_previous_state()
+    outs, stream_ms = [], []
+    for t in range(stream_steps):
+        t0 = time.perf_counter()
+        outs.append(net.rnn_time_step(xs[:, t]))
+        stream_ms.append((time.perf_counter() - t0) * 1e3)
+    if on_card:
+        torch.cuda.synchronize()
+    stream_err = float((torch.stack(outs, 1) - full).abs().max())
+    net.rnn_clear_previous_state()
+    again = torch.equal(net.rnn_time_step(xs[:, 0]), outs[0])
+    if stream_err > RNN_STREAM_TOL or not again:
+        bad.append(f"(iii) rnn_time_step vs output {stream_err:.3e}, "
+                   f"first step after a clear equal: {again}")
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        bad.append(f"launched a TPU kernel: {launches}")
+    wall = time.perf_counter() - t_phase
+    res = dict(fit=fit, tbptt=tb, stream=dict(
+        steps=stream_steps, max_abs_err=stream_err,
+        step_p50_ms=float(np.median(stream_ms))), launches=launches,
+        wall_s=wall)
+    print(f"recurrent (phase 19c i) [{card}]: TextGenerationLSTM "
+          f"({fit['params']} params) at batch {batch} x {T}: step p50 "
+          f"{fit['step_p50_ms']:.3f} ms, queued in p50 "
+          f"{fit['enqueue_p50_ms']:.3f} ms, loss "
+          f"{[round(v, 4) for v in losses]}; card vs CPU copy: losses "
+          f"{loss_rel:.3e} (tol {RNN_LOSS_RTOL:g}), params {pw} "
+          f"{perr:.3e}, Adam {aw} {aerr:.3e} of the leaf's max (tol "
+          f"{RNN_TOL:g})")
+    print(f"recurrent (phase 19c ii) [{card}]: TBPTT({RNN_TBPTT}) over "
+          f"{tbptt_chars} characters, Adam({RNN_TBPTT_LR:g}), "
+          f"{chunks} chunk steps a fit: fits "
+          f"{[round(v, 1) for v in t_ms]} ms ({[round(v, 3) for v in tb['chunk_ms']]}"
+          f" ms a chunk; queued in {[round(v, 1) for v in t_enqueue]} ms), "
+          f"score {before:.4f} -> {after:.4f}; first fit vs CPU: loss "
+          f"{t_loss_rel:.3e}, params {tpw} {tperr:.3e}, Adam {taw} "
+          f"{taerr:.3e}")
+    if prof is not None:
+        print(f"recurrent (phase 19c ii) profile [{card}] (one TBPTT fit "
+              f"of 2 chunks): device busy {prof['busy_share']:.3f} of "
+              f"{prof['wall_ms']:.1f} ms, {prof['device_kernels']} device "
+              f"kernels ({prof['device_kernels'] / 2:.0f} a chunk); "
+              f"top (ms): "
+              + ", ".join(f"{n[:50]} {t:.3f}" for n, t in prof["top"][:5]))
+    print(f"recurrent (phase 19c iii) [{card}]: rnn_time_step over "
+          f"{stream_steps} single steps: max err {stream_err:.3e} against "
+          f"output() (tol {RNN_STREAM_TOL:g}), p50 "
+          f"{res['stream']['step_p50_ms']:.3f} ms a step; the first step "
+          f"after rnn_clear_previous_state equal: {again}; TPU kernel "
+          f"launches {launches}; the phase took {wall:.2f} s ((i) "
+          f"{t_i:.1f}, (ii) {t_ii:.1f} s)")
+    if bad:
+        raise AssertionError(f"phase 19c failed: {bad}")
+    return res
 
 
 def reset_launches():
@@ -5375,6 +5781,11 @@ def main() -> int:
     trained = train(card)
     trained_bf16 = train(card, cfg=dict(TRAIN_CFG, dtype="bfloat16"))
     cnn = cnn_training(card)   # phase 18
+    # phase 19: remat on phase 9's net, checkpoint and resume, the
+    # recurrent stack
+    remat = remat_train(card)
+    resume = resume_train(card)
+    rnn = rnn_training(card)
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -5441,6 +5852,7 @@ def main() -> int:
              offload_int8=offload8, serving_shell=shell, fleet=fleet,
              flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16, cnn=cnn,
+             remat=remat, resume=resume, rnn=rnn,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

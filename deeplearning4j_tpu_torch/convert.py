@@ -12,7 +12,9 @@ JAX nor the JAX package; the caller converts the leaves to numpy.
 
 ``network_params_from_jax`` does the same for a JAX
 ``MultiLayerNetwork``'s params (``{"layer_i": {name: leaf}}``; dense
-``[in, out]`` and convolution HWIO weights alike),
+``[in, out]`` and convolution HWIO weights, and the recurrent layers'
+``W``, ``U``, ``b``, a GRU's ``b_rec``, a GravesLSTM's peepholes ``p``
+and a Bidirectional's ``f_``/``b_``-prefixed pairs, alike),
 ``network_state_from_jax`` for its layer state (``_net_state``: batch
 norm's running ``mean``/``var``) and ``updater_state_from_jax`` for its
 updater state (Adam's ``{"layer_i": {"m": {...}, "v": {...}}}``, any

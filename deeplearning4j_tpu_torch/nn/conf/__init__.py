@@ -9,18 +9,23 @@ produce.
             .layer(RnnOutputLayer(n_out=32000, loss="mcxent"))
             .input_type_recurrent(1, timesteps=1024).build())
 
-Settings the port cannot train with yet (TBPTT, remat) are recorded
-here and refused by ``MultiLayerNetwork``; weight noise and weight
-constraints raise here. A half dtype
-(``data_type("bfloat16")``) trains under the bf16 mixed-precision
-policy (``nn/precision.py``).
+``tbptt(fwd)`` trains sequences in chunks of ``fwd`` steps,
+``remat(True)`` recomputes each layer's forward in the backward,
+``weight_noise`` and ``constrain_weights`` set the layers' defaults. A
+half dtype (``data_type("bfloat16")``) trains under the bf16
+mixed-precision policy (``nn/precision.py``). ``to_json`` gives the
+JAX package's JSON text for the same configuration, and
+``MultiLayerConfiguration.from_json`` reads either package's.
 """
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Tuple
 
 from ... import learning as U
-from ..layers import Layer
+from ..layers import Layer, from_json as layer_from_json
+from . import constraint as C
+from . import weightnoise as WN
 
 Shape = Tuple[int, ...]
 
@@ -52,6 +57,13 @@ class InputType:
                            channels: int) -> "InputType":
         return InputType("cnnflat", (height, width, channels))
 
+    def to_json(self):
+        return {"kind": self.kind, "shape": list(self.shape)}
+
+    @staticmethod
+    def from_json(d):
+        return InputType(d["kind"], tuple(d["shape"]))
+
 
 class MultiLayerConfiguration:
     """A layer stack with its seed, default updater and per-layer
@@ -60,7 +72,7 @@ class MultiLayerConfiguration:
     def __init__(self, layers: List[Layer], seed: int = 12345,
                  updater=None, defaults: Optional[dict] = None,
                  input_type: Optional[InputType] = None,
-                 tbptt_fwd_length: int = 0,
+                 tbptt_fwd_length: int = 0, tbptt_bwd_length: int = 0,
                  max_grad_norm: Optional[float] = None,
                  grad_clip_value: Optional[float] = None,
                  dtype: str = "float", remat: bool = False):
@@ -70,10 +82,63 @@ class MultiLayerConfiguration:
         self.defaults = defaults or {}
         self.input_type = input_type
         self.tbptt_fwd_length = tbptt_fwd_length
+        self.tbptt_bwd_length = tbptt_bwd_length
         self.max_grad_norm = max_grad_norm      # per-layer L2 clip
         self.grad_clip_value = grad_clip_value  # elementwise clip
         self.dtype = dtype
+        # recompute each layer's forward in the backward instead of
+        # keeping its activations
         self.remat = bool(remat)
+
+    @staticmethod
+    def _defaults_to_json(defaults: dict) -> dict:
+        out = {}
+        for k, v in defaults.items():
+            if isinstance(v, list):
+                out[k] = [x.to_json() if hasattr(x, "to_json") else x
+                          for x in v]
+            else:
+                out[k] = v.to_json() if hasattr(v, "to_json") else v
+        return out
+
+    def to_json(self) -> str:
+        """The JAX package's JSON text of this configuration."""
+        return json.dumps({
+            "seed": self.seed,
+            "updater": self.updater.to_json(),
+            "defaults": self._defaults_to_json(self.defaults),
+            "input_type": (self.input_type.to_json() if self.input_type
+                           else None),
+            "tbptt_fwd_length": self.tbptt_fwd_length,
+            "tbptt_bwd_length": self.tbptt_bwd_length,
+            "max_grad_norm": self.max_grad_norm,
+            "grad_clip_value": self.grad_clip_value,
+            "dtype": self.dtype,
+            "remat": self.remat,
+            "layers": [l.to_json() for l in self.layers],
+        }, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "MultiLayerConfiguration":
+        """A configuration from :meth:`to_json`'s text (or the JAX
+        package's)."""
+        d = json.loads(s)
+        defaults = d.get("defaults", {})
+        if isinstance(defaults.get("updater"), dict):
+            defaults["updater"] = U.get(defaults["updater"])
+        return MultiLayerConfiguration(
+            layers=[layer_from_json(ld) for ld in d["layers"]],
+            seed=d.get("seed", 12345),
+            updater=U.get(d["updater"]) if d.get("updater") else None,
+            defaults=defaults,
+            input_type=(InputType.from_json(d["input_type"])
+                        if d.get("input_type") else None),
+            tbptt_fwd_length=d.get("tbptt_fwd_length", 0),
+            tbptt_bwd_length=d.get("tbptt_bwd_length", 0),
+            max_grad_norm=d.get("max_grad_norm"),
+            grad_clip_value=d.get("grad_clip_value"),
+            dtype=d.get("dtype", "float"),
+            remat=d.get("remat", False))
 
 
 class ListBuilder:
@@ -83,6 +148,7 @@ class ListBuilder:
         self._base = base
         self._layers: List[Layer] = []
         self._input_type: Optional[InputType] = None
+        self._tbptt = (0, 0)
 
     def layer(self, layer: Layer) -> "ListBuilder":
         self._layers.append(layer)
@@ -104,13 +170,22 @@ class ListBuilder:
                                  c: int) -> "ListBuilder":
         return self.input_type(InputType.convolutional(h, w, c))
 
+    def tbptt(self, fwd: int, bwd: Optional[int] = None) -> "ListBuilder":
+        """Truncated BPTT over chunks of ``fwd`` timesteps (``bwd`` is
+        recorded; as in JAX, the backward spans the same chunk)."""
+        self._tbptt = (fwd, bwd if bwd is not None else fwd)
+        return self
+
     def build(self) -> MultiLayerConfiguration:
         b = self._base
         return MultiLayerConfiguration(
             layers=self._layers, seed=b._seed, updater=b._updater,
             defaults=b._defaults(), input_type=self._input_type,
+            tbptt_fwd_length=self._tbptt[0],
+            tbptt_bwd_length=self._tbptt[1],
             max_grad_norm=b._max_grad_norm,
-            grad_clip_value=b._grad_clip_value, dtype=b._dtype)
+            grad_clip_value=b._grad_clip_value, dtype=b._dtype,
+            remat=b._remat)
 
 
 class NeuralNetConfiguration:
@@ -124,9 +199,14 @@ class NeuralNetConfiguration:
         self._l1 = 0.0
         self._l2 = 0.0
         self._dropout = 0.0
+        self._weight_noise = None
+        self._constraints = []
         self._max_grad_norm = None
         self._grad_clip_value = None
-        self._dtype = "float"
+        self._remat = False
+        # the JAX builder's default (its flags' dtype), so both write
+        # the same JSON
+        self._dtype = "float32"
 
     @staticmethod
     def builder() -> "NeuralNetConfiguration":
@@ -163,12 +243,15 @@ class NeuralNetConfiguration:
         return self
 
     def weight_noise(self, wn):
-        raise NotImplementedError("weight noise is not ported yet "
-                                  "(ROADMAP.md queue A, item 11)")
+        """The layers' default weight noise (``DropConnect``,
+        ``WeightNoise`` or its dict)."""
+        self._weight_noise = WN.get(wn)
+        return self
 
     def constrain_weights(self, *constraints):
-        raise NotImplementedError("weight constraints are not ported yet "
-                                  "(ROADMAP.md queue A, item 11)")
+        """The layers' default constraints, applied after each update."""
+        self._constraints = [C.get(c) for c in constraints]
+        return self
 
     def gradient_normalization(self, max_norm: Optional[float] = None,
                                clip_value: Optional[float] = None):
@@ -179,9 +262,16 @@ class NeuralNetConfiguration:
         self._grad_clip_value = clip_value
         return self
 
+    def remat(self, on: bool = True):
+        """Recompute each layer's forward in the backward
+        (``torch.utils.checkpoint``) instead of keeping its activations:
+        less device memory for a second forward's work."""
+        self._remat = bool(on)
+        return self
+
     def data_type(self, dt: str):
-        """The configuration's dtype: ``"float"`` (the default) trains in
-        f32; ``"bfloat16"``, ``"bf16"``, ``"half"``, ``"float16"`` and
+        """The configuration's dtype: ``"float32"`` (the default) or
+        ``"float"`` trains in f32; ``"bfloat16"``, ``"bf16"``, ``"half"``, ``"float16"`` and
         ``"fp16"`` under the bf16 mixed-precision policy."""
         self._dtype = dt
         return self
@@ -200,7 +290,16 @@ class NeuralNetConfiguration:
             d["l2"] = self._l2
         if self._dropout:
             d["dropout"] = self._dropout
+        if self._weight_noise is not None:
+            d["weight_noise"] = self._weight_noise
+        if self._constraints:
+            d["constraints"] = list(self._constraints)
         return d
 
     def list(self) -> ListBuilder:
         return ListBuilder(self)
+
+    def graph_builder(self):
+        raise NotImplementedError(
+            "ComputationGraph is not ported yet (ROADMAP.md queue A, "
+            "item 13)")

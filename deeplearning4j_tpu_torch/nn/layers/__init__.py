@@ -30,12 +30,15 @@ JAX layers do: bf16 under the bf16 policy (``nn/precision.py``), f32
 where an f32 mask has promoted the input. Gradients come from autograd.
 Dropout (a float rate or a ``conf/dropout.py`` scheme) applies to the
 layer input in training, drawn from the layer's ``random.py`` key as
-JAX draws it.
+JAX draws it; weight noise (``conf/weightnoise.py``) to its weights,
+from keys folded from the same key. ``to_json`` gives JAX's dict for
+the same configuration, key for key, and :func:`from_json` rebuilds a
+layer from it (the port's or the JAX package's).
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +46,11 @@ import torch.nn.functional as F
 from ... import activations as A
 from ... import learning as U
 from ... import losses as L
+from ... import random as R
 from ...weightinit import init_weights
+from ..conf import constraint as C
 from ..conf import dropout as D
+from ..conf import weightnoise as WN
 from ..functional import matmul
 
 Shape = Tuple[int, ...]
@@ -90,10 +96,6 @@ def _pad_nchw(x, pads, value=0.0):
     return x
 
 
-def _not_ported(what: str, item: str = "11"):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                              f"A, item {item})")
-
 #: kind -> Layer subclass
 REGISTRY: Dict[str, type] = {}
 
@@ -120,13 +122,12 @@ class Layer:
                  l1_bias: Optional[float] = None,
                  l2_bias: Optional[float] = None, weight_noise=None,
                  constraints=None):
-        if weight_noise is not None:
-            _not_ported("weight noise")
-        if constraints:
-            _not_ported("weight constraints")
         self.name = name
         # a float drop probability, or a conf/dropout.py scheme
         self.dropout = _dropout_spec(dropout)
+        self.weight_noise = WN.get(weight_noise)
+        # projections applied after each update
+        self.constraints = [C.get(c) for c in (constraints or [])]
         self.activation = A.get(activation) if activation is not None \
             else None
         self.weight_init = weight_init
@@ -153,6 +154,11 @@ class Layer:
                 setattr(self, reg, float(defaults.get(reg, 0.0)))
         if self.dropout is None:
             self.dropout = _dropout_spec(defaults.get("dropout", 0.0))
+        if self.weight_noise is None and \
+                defaults.get("weight_noise") is not None:
+            self.weight_noise = WN.get(defaults["weight_noise"])
+        if not self.constraints and defaults.get("constraints"):
+            self.constraints = [C.get(c) for c in defaults["constraints"]]
         self.input_shape = tuple(input_shape)
         self._built = True
 
@@ -163,7 +169,7 @@ class Layer:
     def init_state(self) -> Dict[str, torch.Tensor]:
         return {}
 
-    def init_carry(self, batch: int, dtype=torch.float32):
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
         """Per-sequence recurrent state; attention layers carry none."""
         return ()
 
@@ -186,6 +192,26 @@ class Layer:
             d = D.Dropout(float(d))
         return d.apply(x, rng, train)
 
+    def _maybe_weight_noise(self, params, train: bool, rng):
+        """The layer's params with its weight noise for one training
+        forward pass: every param but the biases and norm gains, param
+        ``i`` of the sorted names under ``fold_in(fold_in(rng, 0x5EED),
+        i)``, as JAX draws them."""
+        wn = self.weight_noise
+        if wn is None or not train or rng is None or not params:
+            return params
+        bias = self.bias_param_names()
+        base = R.fold_in(rng, 0x5EED)
+        out = dict(params)
+        for i, n in enumerate(sorted(params)):
+            if n not in bias:
+                out[n] = wn.apply(params[n], R.fold_in(base, i), train)
+        return out
+
+    @property
+    def has_params(self) -> bool:
+        return bool(self.param_shapes())
+
     def param_shapes(self) -> Dict[str, Shape]:
         return {}
 
@@ -204,8 +230,56 @@ class Layer:
                 names.add(n)
         return names
 
+    # -- JSON ------------------------------------------------------------
+    _JSON_FIELDS = ("name", "dropout", "weight_init", "bias_init", "l1", "l2",
+                    "l1_bias", "l2_bias")
+
+    def to_json(self) -> dict:
+        """JAX's dict of this configuration: the kind as ``@class``, the
+        set common fields, then the layer's own (``_extra_json``)."""
+        d: Dict[str, Any] = {"@class": self.kind}
+        for f in self._JSON_FIELDS:
+            v = getattr(self, f, None)
+            if f == "dropout" and v is not None and \
+                    not isinstance(v, (int, float)):
+                v = v.to_json()
+            if v is not None:
+                d[f] = v
+        if self.activation is not None:
+            d["activation"] = self.activation.to_json()
+        if self.updater is not None:
+            d["updater"] = self.updater.to_json()
+        if self.weight_noise is not None:
+            d["weight_noise"] = self.weight_noise.to_json()
+        if self.constraints:
+            d["constraints"] = [c.to_json() for c in self.constraints]
+        d.update(self._extra_json())
+        return d
+
+    def _extra_json(self) -> dict:
+        return {}
+
     def __repr__(self):
         return f"{type(self).__name__}(name={self.name})"
+
+
+def from_json(d: dict) -> Layer:
+    """A layer from its ``to_json`` dict (a wrapper's inner layer too)."""
+    from . import attention, recurrent  # noqa: F401  (they register)
+    d = dict(d)
+    cls = REGISTRY[d.pop("@class")]
+    if isinstance(d.get("activation"), dict):
+        d["activation"] = A.get(d["activation"])
+    if isinstance(d.get("updater"), dict):
+        d["updater"] = U.get(d["updater"])
+    if isinstance(d.get("loss"), dict):
+        d["loss"] = L.get(d["loss"])
+    for k in ("kernel", "stride", "dilation", "size"):
+        if isinstance(d.get(k), list):
+            d[k] = tuple(d[k])
+    if isinstance(d.get("padding"), list):
+        d["padding"] = tuple(tuple(p) for p in d["padding"])
+    return cls(**d)
 
 
 def _dropout_spec(d):
@@ -271,6 +345,10 @@ class DenseLayer(Layer):
             return (self.n_out,)
         return tuple(input_shape[:-1]) + (self.n_out,)
 
+    def _extra_json(self):
+        return {"n_out": self.n_out, "n_in": self.n_in,
+                "has_bias": self.has_bias}
+
 
 @register
 class OutputLayer(DenseLayer):
@@ -287,6 +365,11 @@ class OutputLayer(DenseLayer):
                      rng=None):
         return self.loss.score(labels, self.pre_output(params, x, train, rng),
                                self.activation, mask)
+
+    def _extra_json(self):
+        d = super()._extra_json()
+        d["loss"] = self.loss.to_json()
+        return d
 
 
 @register
@@ -307,6 +390,9 @@ class LossLayer(Layer):
                      rng=None):
         x = self._maybe_dropout(x, train, rng)
         return self.loss.score(labels, x, self.activation, mask)
+
+    def _extra_json(self):
+        return {"loss": self.loss.to_json()}
 
 
 @register
@@ -409,6 +495,12 @@ class ConvolutionLayer(Layer):
         return ((h + pt + pb - (kh - 1) * dh - 1) // sh + 1,
                 (w + pl + pr - (kw_ - 1) * dw - 1) // sw + 1, self.n_out)
 
+    def _extra_json(self):
+        return {"n_out": self.n_out, "n_in": self.n_in,
+                "kernel": list(self.kernel), "stride": list(self.stride),
+                "padding": self.padding, "dilation": list(self.dilation),
+                "has_bias": self.has_bias, "groups": self.groups}
+
 
 @register
 class SubsamplingLayer(Layer):
@@ -462,6 +554,11 @@ class SubsamplingLayer(Layer):
                                            self.stride)
         return ((h + pt + pb - kh) // sh + 1, (w + pl + pr - kw_) // sw + 1,
                 c)
+
+    def _extra_json(self):
+        return {"kernel": list(self.kernel), "stride": list(self.stride),
+                "padding": self.padding, "pooling": self.pooling,
+                "pnorm": self.pnorm}
 
 
 @register
@@ -531,6 +628,11 @@ class BatchNormalization(Layer):
                 params["beta"].to(xs.dtype)
         return self.activation(xn).to(x.dtype), new_state
 
+    def _extra_json(self):
+        return {"decay": self.decay, "eps": self.eps,
+                "gamma_init": self.gamma_init, "beta_init": self.beta_init,
+                "lock_gamma_beta": self.lock_gamma_beta}
+
 
 @register
 class EmbeddingLayer(Layer):
@@ -571,6 +673,10 @@ class EmbeddingLayer(Layer):
         if input_shape and input_shape[-1] == 1:
             return tuple(input_shape[:-1]) + (self.n_out,)
         return tuple(input_shape) + (self.n_out,)
+
+    def _extra_json(self):
+        return {"n_in": self.n_in, "n_out": self.n_out,
+                "has_bias": self.has_bias}
 
 
 @register
@@ -632,6 +738,10 @@ class GlobalPoolingLayer(Layer):
             return (1,) * (len(input_shape) - 1) + (input_shape[-1],)
         return (input_shape[-1],)
 
+    def _extra_json(self):
+        return {"pooling": self.pooling, "pnorm": self.pnorm,
+                "keep_dims": self.keep_dims}
+
 
 @register
 class LocalResponseNormalization(Layer):
@@ -656,6 +766,10 @@ class LocalResponseNormalization(Layer):
         ssum = sum(padded[..., i:i + c] for i in range(self.n))
         return x / torch.pow(self.k + self.alpha * ssum, self.beta), state
 
+    def _extra_json(self):
+        return {"k": self.k, "n": self.n, "alpha": self.alpha,
+                "beta": self.beta}
+
 
 @register
 class ZeroPaddingLayer(Layer):
@@ -679,6 +793,9 @@ class ZeroPaddingLayer(Layer):
         (pt, pb), (pl, pr) = self.padding
         return (h + pt + pb, w + pl + pr, c)
 
+    def _extra_json(self):
+        return {"padding": [list(p) for p in self.padding]}
+
 
 @register
 class Upsampling2D(Layer):
@@ -699,3 +816,6 @@ class Upsampling2D(Layer):
     def output_shape(self, input_shape):
         h, w, c = input_shape
         return (h * self.size[0], w * self.size[1], c)
+
+    def _extra_json(self):
+        return {"size": list(self.size)}

@@ -202,6 +202,11 @@ class SelfAttentionLayer(Layer):
     def output_shape(self, input_shape):
         return (input_shape[0], self.n_out)
 
+    def _extra_json(self):
+        return {"n_heads": self.n_heads, "n_out": self.n_out,
+                "causal": self.causal,
+                "implementation": self.implementation}
+
     def cache_shape(self, max_seq_len: int):
         """Per-sequence K (== V) cache shape [n_heads, max_seq_len,
         head_dim]: T contiguous per head."""
@@ -420,6 +425,11 @@ class TransformerEncoderLayer(Layer):
         if mask is not None:
             x = x * mask[..., None]
         return x, state, carry
+
+    def _extra_json(self):
+        return {"n_heads": self.n_heads, "d_ff": self.d_ff,
+                "causal": self.causal,
+                "implementation": self.implementation}
 
     def cache_shape(self, max_seq_len: int):
         return self.attn.cache_shape(max_seq_len)

@@ -29,21 +29,35 @@ and the L1/L2 terms on the f32 masters. Autograd carries the gradients
 back through the casts, so gradients, the updater state and the
 updates stay f32. ``output()`` runs uncast, in f32.
 
-Not ported yet, and refused: TBPTT, remat, layerwise pretraining,
-stateful ``rnn_time_step`` and the anomaly guard.
+Recurrent layers thread a carry through the stack (``_forward_state``'s
+``carries``): truncated BPTT (``conf.tbptt_fwd_length``) trains a long
+[B, T, C] sequence in chunks with the carries detached at each
+boundary, and ``rnn_time_step`` keeps them between calls. With
+``conf.remat`` each layer's forward in training runs under
+``torch.utils.checkpoint`` (non-reentrant) and is recomputed in the
+backward: the layer's new state comes back as a returned value, and
+dropout and weight noise draw from the explicit key, so the recompute
+sees the same masks. Weight noise perturbs a layer's weights in the
+forward, constraints project its params after the update, and
+``_make_step_fn(guard=True)`` is the anomaly-guarded step, all where
+the JAX package puts them.
+
+Not ported yet, and refused: layerwise pretraining (ROADMAP.md queue A,
+item 13) and pure-bf16 params (item 11).
 """
 from __future__ import annotations
 
-import copy
 import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .. import random as R
 from ..device import resolve_device
 from .conf import MultiLayerConfiguration
+from .conf.constraint import apply_constraints
 from .layers import Layer
 from .precision import (cast_feats_to_f32, cast_input_for_compute,
                         cast_params_for_compute, compute_dtype)
@@ -51,9 +65,44 @@ from .precision import (cast_feats_to_f32, cast_input_for_compute,
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
-def _not_ported(what: str):
+def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                              f"A, item 11)")
+                              f"A, item {item})")
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of the same layout."""
+    if isinstance(trees[0], dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def _finite_ok(loss, grads) -> torch.Tensor:
+    """A 0-d bool on the device: the loss and every gradient leaf
+    finite (no host sync)."""
+    ok = torch.isfinite(loss).all()
+    for g in _tree_leaves(grads):
+        ok = ok & torch.isfinite(g).all()
+    return ok
+
+
+def _select_ok(ok, new, old):
+    """``where(ok, new, old)`` leaf by leaf: the new values bit for bit
+    when ``ok`` holds, the old ones otherwise."""
+    return _tree_map(lambda n, o: torch.where(ok, n, o), new, old)
+
+
+def _detach(carry):
+    """A carry (a tensor or a tuple of them) cut from the graph."""
+    if isinstance(carry, (tuple, list)):
+        return tuple(_detach(c) for c in carry)
+    return carry.detach()
 
 
 def _clip_grads(grads: Params, max_norm, clip_value) -> Params:
@@ -95,10 +144,6 @@ class MultiLayerNetwork:
     """Sequential network; the public surface mirrors the JAX class."""
 
     def __init__(self, conf: MultiLayerConfiguration, device=None):
-        if conf.tbptt_fwd_length:
-            _not_ported("truncated BPTT")
-        if conf.remat:
-            _not_ported("remat")
         self.conf = conf
         self.device = resolve_device(device)
         self.layers: List[Layer] = conf.layers
@@ -110,6 +155,7 @@ class MultiLayerNetwork:
         self._epoch = 0
         self.listeners: List = []
         self._last_loss: Optional[torch.Tensor] = None
+        self._stored_carries = None
         self._rng = R.PRNGKey(conf.seed)
         self._input_kind = conf.input_type.kind if conf.input_type else "ff"
         self._input_shape = conf.input_type.shape if conf.input_type else None
@@ -165,39 +211,72 @@ class MultiLayerNetwork:
             return x.reshape(x.shape[0], h, w, c)
         return x
 
+    def _init_carries(self, batch: int, dtype, device):
+        """Zero carries, one a layer (None for a layer without one), in
+        the input's dtype when it is floating (token input feeds an
+        embedding, whose output is f32)."""
+        if not dtype.is_floating_point:
+            dtype = torch.float32
+        return [l.init_carry(batch, dtype, device) if l.is_rnn else None
+                for l in self.layers]
+
     def _forward_state(self, params: Params, net_state: Params, x,
                        train: bool, rng=None, upto: Optional[int] = None,
-                       fmask=None):
+                       fmask=None, carries=None):
         """Run layers [0, upto) with layer ``i`` on key ``i`` of
-        ``split(rng, upto)``. Returns (activation, new state).
-        ``fmask`` is the [B, T] feature mask, applied while the
-        activation is a sequence."""
+        ``split(rng, upto)``, from ``carries`` (zeros without them).
+        Returns (activation, new state, new carries). ``fmask`` is the
+        [B, T] feature mask, applied while the activation is a
+        sequence."""
         upto = len(self.layers) if upto is None else upto
         new_state = dict(net_state)
+        new_carries = list(carries) if carries is not None else \
+            self._init_carries(x.shape[0], x.dtype, x.device)
         keys = R.split(rng, max(upto, 1)) if rng is not None else None
         act = x
         for i in range(upto):
             r = R.key_at(keys, i) if keys is not None else None
-            act, st2 = self._layer_step(i, params, net_state, act, train, r,
-                                        fmask)
+            act, st2, c2 = self._layer_step(i, params, net_state, act, train,
+                                            r, fmask, new_carries[i])
+            if self.layers[i].is_rnn:
+                new_carries[i] = c2
             if net_state.get(self._layer_keys[i]):
                 new_state[self._layer_keys[i]] = st2
-        return act, new_state
+        return act, new_state, new_carries
 
     def _layer_step(self, i: int, params: Params, net_state: Params, act,
-                    train: bool, rng, fmask=None):
-        """Layer ``i`` on ``act``: (activation, the layer's new state).
-        ``fmask`` applies while the activation is a sequence."""
+                    train: bool, rng, fmask=None, carry=None):
+        """Layer ``i`` on ``act``: (activation, the layer's new state, its
+        new carry). Weight noise first, as JAX applies it; under remat in
+        training the layer runs in a non-reentrant checkpoint (a
+        recurrent or attention layer always, any other layer when it has
+        params), and its state and carry come out as returned values."""
         layer, key = self.layers[i], self._layer_keys[i]
         p, st = params.get(key, {}), net_state.get(key, {})
+        if layer.weight_noise is not None:
+            p = layer._maybe_weight_noise(p, train, rng)
+        remat = self.conf.remat and train
         m = fmask if act.ndim == 3 else None
         if layer.is_rnn:
-            act, st2, _ = layer.apply_seq(p, act, st, train, rng,
-                                          layer.init_carry(act.shape[0]), m)
-            return act, st2
+            if carry is None:
+                carry = layer.init_carry(act.shape[0], act.dtype if
+                                         act.is_floating_point()
+                                         else torch.float32, act.device)
+
+            def seq(p_, a_, s_, c_, m_):
+                return layer.apply_seq(p_, a_, s_, train, rng, c_, m_)
+            if remat:
+                return checkpoint(seq, p, act, st, carry, m,
+                                  use_reentrant=False)
+            return seq(p, act, st, carry, m)
         if layer.wants_mask:
-            return layer.apply_with_mask(p, act, st, train, rng, m)
-        return layer.apply(p, act, st, train, rng)
+            return (*layer.apply_with_mask(p, act, st, train, rng, m), None)
+
+        def fwd(p_, a_, s_):
+            return layer.apply(p_, a_, s_, train, rng)
+        if remat and layer.has_params:
+            return (*checkpoint(fwd, p, act, st, use_reentrant=False), None)
+        return (*fwd(p, act, st), None)
 
     def _forward(self, params: Params, x, train: bool,
                  upto: Optional[int] = None, fmask=None):
@@ -208,11 +287,18 @@ class MultiLayerNetwork:
 
     def _loss_fn(self, params: Params, net_state: Params, x, y, mask,
                  train: bool, rng=None):
-        """Data loss plus the L1/L2 terms, and the layers' new state.
-        ``mask`` is both the feature and the label mask of a sequence
-        model. Under the bf16 policy the layers before the output layer
-        compute in bf16 from cast params and input; the output layer,
-        the loss and the L1/L2 terms use the f32 masters."""
+        """Data loss plus the L1/L2 terms, and the layers' new state."""
+        return self._loss_carries(params, net_state, x, y, mask, train,
+                                  rng)[:2]
+
+    def _loss_carries(self, params: Params, net_state: Params, x, y, mask,
+                      train: bool, rng=None, carries=None):
+        """Data loss plus the L1/L2 terms, the layers' new state and the
+        new carries. ``mask`` is both the feature and the label mask of
+        a sequence model. Under the bf16 policy the layers before the
+        output layer compute in bf16 from cast params and input; the
+        output layer, the loss and the L1/L2 terms use the f32
+        masters."""
         r_fwd = r_out = None
         if rng is not None:
             keys = R.split(rng)
@@ -221,9 +307,9 @@ class MultiLayerNetwork:
         params_c = cast_params_for_compute(params, {self._layer_keys[-1]},
                                            cdt)
         xc = cast_input_for_compute(x, cdt)
-        feats, new_state = self._forward_state(
+        feats, new_state, new_carries = self._forward_state(
             params_c, net_state, xc, train, r_fwd,
-            upto=len(self.layers) - 1, fmask=mask)
+            upto=len(self.layers) - 1, fmask=mask, carries=carries)
         feats = cast_feats_to_f32(feats)
         lmask = mask
         if mask is not None and feats.ndim == 2 and x.ndim == 3:
@@ -232,8 +318,8 @@ class MultiLayerNetwork:
         out_key = self._layer_keys[-1]
         data_loss = self.layers[-1].compute_loss(
             params.get(out_key, {}), feats, y, lmask, train=train, rng=r_out)
-        return data_loss + _regularization_penalty(
-            params, self._layers_meta), new_state
+        return (data_loss + _regularization_penalty(
+            params, self._layers_meta), new_state, new_carries)
 
     # -- the train step ------------------------------------------------
     def loss_and_gradients(self, x, y, mask=None, train: bool = True,
@@ -249,27 +335,36 @@ class MultiLayerNetwork:
     def _step_grads(self, x, y, mask, train: bool, rng):
         """Loss, gradients and the layers' new state of one batch
         already on the device."""
-        keys = [(k, n) for k, p in self._params.items() for n in p]
+        return self._grads(self._params, self._net_state, x, y, mask, train,
+                           rng)[:3]
+
+    def _grads(self, params: Params, net_state: Params, x, y, mask,
+               train: bool, rng, carries=None):
+        """Loss, gradients (leaves of ``params`` that require grad), the
+        layers' new state and the new carries of one batch."""
+        keys = [(k, n) for k, p in params.items() for n in p]
         with torch.enable_grad():
-            loss, new_state = self._loss_fn(self._params, self._net_state,
-                                            x, y, mask, train, rng)
-            leaves = torch.autograd.grad(
-                loss, [self._params[k][n] for k, n in keys])
-        grads: Params = {k: {} for k in self._params}
+            loss, new_state, new_carries = self._loss_carries(
+                params, net_state, x, y, mask, train, rng, carries)
+            leaves = torch.autograd.grad(loss,
+                                         [params[k][n] for k, n in keys])
+        grads: Params = {k: {} for k in params}
         for (k, n), g in zip(keys, leaves):
             grads[k][n] = g
-        return loss.detach(), grads, new_state
+        return loss.detach(), grads, new_state, new_carries
 
     def _train_step(self, x, y, mask, rng) -> torch.Tensor:
-        loss, grads, new_state = self._step_grads(
-            *self._to_device(x, y, mask), True, rng)
+        """One step on a batch already on the device."""
+        loss, grads, new_state = self._step_grads(x, y, mask, True, rng)
         self.apply_gradients(grads, new_state)
         return loss
 
-    def apply_gradients(self, grads: Params, new_state: Params = None):
+    def apply_gradients(self, grads: Params, new_state: Params = None,
+                        constrain: bool = True):
         """The step's second half: clip ``grads``, let each layer's
         updater turn them into updates, subtract those from the params,
-        store the layers' new state and count the step."""
+        project them by the layer's constraints (``constrain``), store
+        the layers' new state and count the step."""
         grads = _clip_grads(grads, self.conf.max_grad_norm,
                             self.conf.grad_clip_value)
         with torch.no_grad():
@@ -278,13 +373,102 @@ class MultiLayerNetwork:
                     continue
                 self._opt_state[key], upd = self._updaters[i].apply(
                     self._opt_state[key], grads[key], self._step)
-                for n, p in self._params[key].items():
-                    p.sub_(upd[n])
+                p = self._params[key]
+                for n, t in p.items():
+                    t.sub_(upd[n])
+                layer = self.layers[i]
+                if constrain and layer.constraints:
+                    for n, t in apply_constraints(
+                            layer.constraints, p,
+                            layer.bias_param_names()).items():
+                        if t is not p[n]:
+                            p[n].copy_(t)
             # in place, so a captured graph keeps reading the live stats
             for key, st in (new_state or {}).items():
                 for n, t in st.items():
                     self._net_state[key][n].copy_(t)
         self._step += 1
+
+    def _make_step_fn(self, guard: bool = False):
+        """The pure train step: ``step_fn(params, opt_state, net_state,
+        step, x, y, mask, rng) -> (params, opt_state, net_state, loss)``,
+        new tensors all, the inputs left as they were (JAX's
+        ``_make_step_fn``). With ``guard`` it also returns ``ok`` (a 0-d
+        bool on the device: the loss and every gradient finite) and,
+        where ``ok`` is False, selects the OLD params, updater state and
+        layer state with ``torch.where``: a NaN or Inf batch changes
+        nothing, the host never waits, and over clean data the guarded
+        step's results are the unguarded ones bit for bit."""
+        def step_fn(params, opt_state, net_state, step, x, y, mask, rng):
+            leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
+                               params)
+            loss, grads, new_net_state, _ = self._grads(
+                leaves, net_state, x, y, mask, True, rng)
+            if guard:
+                ok = _finite_ok(loss, grads)
+            grads = _clip_grads(grads, self.conf.max_grad_norm,
+                                self.conf.grad_clip_value)
+            new_opt, new_params = {}, {}
+            with torch.no_grad():
+                for i, key in enumerate(self._layer_keys):
+                    if key not in params:
+                        continue
+                    st, upd = self._updaters[i].apply(
+                        _tree_map(torch.clone, opt_state[key]), grads[key],
+                        step)
+                    new_opt[key] = st
+                    new_p = {n: t.detach() - upd[n]
+                             for n, t in params[key].items()}
+                    layer = self.layers[i]
+                    if layer.constraints:
+                        new_p = apply_constraints(layer.constraints, new_p,
+                                                  layer.bias_param_names())
+                    new_params[key] = new_p
+                new_net_state = {k: {n: t.detach() for n, t in st.items()}
+                                 for k, st in new_net_state.items()}
+                if guard:
+                    detached = _tree_map(torch.Tensor.detach, params)
+                    return (_select_ok(ok, new_params, detached),
+                            _select_ok(ok, new_opt, opt_state),
+                            _select_ok(ok, new_net_state, net_state),
+                            loss, ok)
+            return new_params, new_opt, new_net_state, loss
+
+        return step_fn
+
+    def _fit_tbptt(self, x, y, m, tbptt: int):
+        """Truncated BPTT over one [B, T, C] batch: chunks of ``tbptt``
+        steps, each one train step from the carries the last chunk left
+        (detached at the boundary), a ragged tail padded to the chunk
+        length with mask 0, a key split off the chain for every chunk,
+        every chunk's updater at the batch's step, and no constraints
+        (JAX's ``_fit_tbptt`` and its chunk step). Returns the last
+        chunk's loss."""
+        T = x.shape[1]
+        m = torch.ones(x.shape[:2], dtype=x.dtype, device=x.device) \
+            if m is None else m
+        carries = self._init_carries(x.shape[0], x.dtype, x.device)
+        loss = None
+        for t0 in range(0, T, tbptt):
+            xc = x[:, t0:t0 + tbptt]
+            yc = y[:, t0:t0 + tbptt] if y.ndim == 3 else y
+            mc = m[:, t0:t0 + tbptt]
+            pad = tbptt - xc.shape[1]
+            if pad:
+                xc = torch.nn.functional.pad(xc, (0, 0, 0, pad))
+                if yc.ndim == 3:
+                    yc = torch.nn.functional.pad(yc, (0, 0, 0, pad))
+                mc = torch.nn.functional.pad(mc, (0, pad))
+            keys = R.split(self._rng)
+            self._rng, sub = R.key_at(keys, 0), R.key_at(keys, 1)
+            carries = [None if c is None else _detach(c) for c in carries]
+            loss, grads, new_state, carries = self._grads(
+                self._params, self._net_state, xc, yc, mc, True, sub,
+                carries)
+            step = self._step
+            self.apply_gradients(grads, new_state, constrain=False)
+            self._step = step
+        return loss
 
     # -- public API ----------------------------------------------------
     @staticmethod
@@ -310,13 +494,20 @@ class MultiLayerNetwork:
                     not isinstance(iterator, (list, tuple)):
                 # a generator would yield nothing after the first epoch
                 iterator = list(iterator)
+        tbptt = self.conf.tbptt_fwd_length
         for _ in range(epochs):
             for item in iterator:
                 x, y, m = self._unpack(item)
                 t0 = time.perf_counter()
                 keys = R.split(self._rng)
                 self._rng, sub = R.key_at(keys, 0), R.key_at(keys, 1)
-                self._last_loss = self._train_step(x, y, m, sub)
+                xd, yd, md = self._to_device(x, y, m)
+                if tbptt and xd.ndim == 3 and xd.shape[1] > tbptt:
+                    # JAX's condition: only 3-D input longer than a chunk
+                    self._last_loss = self._fit_tbptt(xd, yd, md, tbptt)
+                    self._step += 1
+                else:
+                    self._last_loss = self._train_step(xd, yd, md, sub)
                 dur = time.perf_counter() - t0
                 for lst in self.listeners:
                     lst.iteration_done(self, self._step, self._epoch)
@@ -460,24 +651,49 @@ class MultiLayerNetwork:
         return "\n".join(lines)
 
     def clone(self, device=None) -> "MultiLayerNetwork":
-        """A copy on ``device`` (this network's by default) with a copy
-        of the configuration, the params and the layer state, and, as
-        in JAX, a fresh updater state and key chain."""
-        m = MultiLayerNetwork(copy.deepcopy(self.conf),
-                              device=self.device if device is None
-                              else device)
+        """A copy on ``device`` (this network's by default) built from
+        the configuration's JSON, with a copy of the params and the
+        layer state and, as in JAX, a fresh updater state and key
+        chain."""
+        m = MultiLayerNetwork(
+            MultiLayerConfiguration.from_json(self.conf.to_json()),
+            device=self.device if device is None else device)
         if self._params is not None:
             m.init()
             m.set_params(self._params)
             m.set_net_state(self._net_state)
         return m
 
+    # -- stateful recurrent inference -----------------------------------
+    def rnn_time_step(self, x):
+        """Run a [B, T, C] segment (a [B, C] float array is one step;
+        [B, T] integers are tokens for an embedding front-end) from the
+        carries the last call left, and keep the new ones. Returns the
+        output, [B, O] for a single step."""
+        if self._params is None:
+            self.init()
+        x, _, _ = self._to_device(x)
+        squeeze = x.ndim == 2 and x.is_floating_point()
+        if squeeze:
+            x = x[:, None, :]
+        if self._stored_carries is None:
+            self._stored_carries = self._init_carries(x.shape[0], x.dtype,
+                                                      x.device)
+        with torch.no_grad():
+            out, _, self._stored_carries = self._forward_state(
+                self._params, self._net_state, x, False,
+                carries=self._stored_carries)
+        return out[:, 0] if squeeze and out.ndim == 3 else out
+
+    def rnn_clear_previous_state(self):
+        """Forget the carries ``rnn_time_step`` keeps."""
+        self._stored_carries = None
+
     # -- not ported yet ------------------------------------------------
     def pretrain(self, *a, **kw):
-        _not_ported("layerwise pretraining")
+        _not_ported("layerwise pretraining (it needs the AutoEncoder or "
+                    "VAE layer)", "13")
 
     def pretrain_layer(self, *a, **kw):
-        _not_ported("layerwise pretraining")
-
-    def rnn_time_step(self, *a, **kw):
-        _not_ported("stateful rnn_time_step")
+        _not_ported("layerwise pretraining (it needs the AutoEncoder or "
+                    "VAE layer)", "13")

@@ -3,12 +3,14 @@
 ``MultiLayerNetwork.fit`` calls ``iteration_done`` and ``on_timing``
 after every step and ``on_epoch_end`` after every pass, as the JAX
 package does. A listener that reads ``model.score_`` synchronizes with
-the device at its own reporting frequency only.
+the device at its own reporting frequency only. ``CheckpointListener``
+writes the serializer's archives, which either package restores.
 """
 from __future__ import annotations
 
+import os
 import time
-from typing import Callable, Optional
+from typing import Callable, List, Optional
 
 
 class TrainingListener:
@@ -111,10 +113,40 @@ class EvaluativeListener(TrainingListener):
 
 
 class CheckpointListener(TrainingListener):
-    """Periodic checkpoints need the model serializer, which is not
-    ported yet."""
+    """Writes a checkpoint (``util/serializer.py``, updater state
+    included) every ``save_every_n_iterations`` iterations and/or every
+    ``save_every_n_epochs`` epochs into ``directory``, as
+    ``checkpoint_iter_<n>.zip`` or ``checkpoint_epoch_<n>.zip``, and
+    keeps only the last ``keep_last`` files it wrote."""
 
-    def __init__(self, *a, **kw):
-        raise NotImplementedError(
-            "CheckpointListener needs util/serializer.py, which is not "
-            "ported yet (ROADMAP.md queue A, item 11)")
+    def __init__(self, directory: str,
+                 save_every_n_iterations: Optional[int] = None,
+                 save_every_n_epochs: Optional[int] = None,
+                 keep_last: int = 3):
+        self.directory = directory
+        self.every_iter = save_every_n_iterations
+        self.every_epoch = save_every_n_epochs
+        self.keep_last = keep_last
+        self._saved: List[str] = []
+        os.makedirs(directory, exist_ok=True)
+
+    def _save(self, model, tag: str):
+        from ..util.serializer import ModelSerializer
+        path = os.path.join(self.directory, f"checkpoint_{tag}.zip")
+        ModelSerializer.write_model(model, path, save_updater=True)
+        self._saved.append(path)
+        while len(self._saved) > self.keep_last:
+            old = self._saved.pop(0)
+            if os.path.exists(old):
+                os.remove(old)
+
+    def iteration_done(self, model, iteration, epoch):
+        if self.every_iter and iteration % self.every_iter == 0:
+            self._save(model, f"iter_{iteration}")
+
+    def on_epoch_end(self, model):
+        if self.every_epoch and model._epoch % self.every_epoch == 0:
+            self._save(model, f"epoch_{model._epoch}")
+
+    def last_checkpoint(self) -> Optional[str]:
+        return self._saved[-1] if self._saved else None

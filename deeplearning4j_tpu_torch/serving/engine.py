@@ -27,6 +27,8 @@ under the bf16 policy serves in f32.
 """
 from __future__ import annotations
 
+import contextlib
+import gc
 import threading
 import time
 from collections import OrderedDict
@@ -87,9 +89,25 @@ class _Eager:
             return self._fn(self._engine._params(), x)
 
 
+@contextlib.contextmanager
+def _gc_paused():
+    """Python's cyclic garbage collector off for the block. A collection
+    inside a capture can free a dead engine's CUDA graph, and destroying
+    a graph is an operation a capture does not permit: the capture is
+    invalidated and the next library call in it fails."""
+    was = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was:
+            gc.enable()
+
+
 def capture_graph(run, what: str, pool=None):
     """Capture ``run()`` into a CUDA graph, in ``pool`` if given, in
-    thread-local mode so that other threads' launches go on meanwhile.
+    thread-local mode so that other threads' launches go on meanwhile,
+    with the cyclic garbage collector paused (:func:`_gc_paused`).
     One capture at a time in the process (they share
     ``torch.cuda.graph``'s capture stream). The capture launches
     nothing: this thread's wrapper launches are tallied, not counted,
@@ -97,7 +115,7 @@ def capture_graph(run, what: str, pool=None):
     :class:`ServingError`. Returns (graph, the output ``run`` returned
     while captured, the launches one replay makes)."""
     graph = torch.cuda.CUDAGraph()
-    with _CAPTURE_LOCK, tally_launches() as launches:
+    with _CAPTURE_LOCK, tally_launches() as launches, _gc_paused():
         try:
             with torch.cuda.graph(graph, pool=pool,
                                   capture_error_mode="thread_local"):

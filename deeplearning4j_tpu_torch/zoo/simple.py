@@ -1,8 +1,8 @@
 """Sequential zoo models (counterpart of
 ``deeplearning4j_tpu/zoo/simple.py``): LeNet, SimpleCNN, AlexNet, VGG16
-and VGG19, NHWC, at the JAX package's widths. Darknet19, TinyYOLO,
-YOLO2 and TextGenerationLSTM come with the rest of the zoo and raise
-until then."""
+and VGG19, NHWC, and the character-level TextGenerationLSTM, at the JAX
+package's widths. Darknet19, TinyYOLO and YOLO2 come with the rest of
+the zoo and raise until then."""
 from __future__ import annotations
 
 from ..learning import Nesterovs
@@ -10,6 +10,7 @@ from ..nn import NeuralNetConfiguration
 from ..nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
                          DropoutLayer, LocalResponseNormalization,
                          OutputLayer, SubsamplingLayer)
+from ..nn.layers.recurrent import LSTM, RnnOutputLayer
 from . import ZooModel
 
 
@@ -164,7 +165,26 @@ class YOLO2(_NotPorted):
     input_shape = (608, 608, 3)
 
 
-class TextGenerationLSTM(_NotPorted):
-    """Needs the ``LSTM`` layer."""
+class TextGenerationLSTM(ZooModel):
+    """Character-level 2 x LSTM(256) with a per-timestep softmax over
+    ``num_classes`` characters (77) and 40 timesteps, as DL4J's
+    character-modelling example builds it."""
 
     name = "textgenlstm"
+
+    def __init__(self, num_classes: int = 77, timesteps: int = 40,
+                 hidden: int = 256, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+        self.timesteps = int(timesteps)
+        self.hidden = int(hidden)
+
+    def init(self):
+        conf = (NeuralNetConfiguration.builder().seed(self.seed)
+                .updater(self._updater()).weight_init("xavier")
+                .list()
+                .layer(LSTM(n_out=self.hidden, activation="tanh"))
+                .layer(LSTM(n_out=self.hidden, activation="tanh"))
+                .layer(RnnOutputLayer(n_out=self.num_classes, loss="mcxent"))
+                .input_type_recurrent(self.num_classes, self.timesteps)
+                .build())
+        return self._net(conf)

@@ -321,7 +321,17 @@ def test_conv_input_types_and_builder():
         assert c.defaults["dropout"] == 0.25
     flat = InputType.convolutional_flat(4, 5, 2)
     assert (flat.kind, flat.shape) == ("cnnflat", (4, 5, 2))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        NeuralNetConfiguration.builder().weight_noise({"p": 0.1})
-    with pytest.raises(NotImplementedError, match="item 11"):
-        TL.DenseLayer(n_out=2, constraints=["maxnorm"])
+    # weight noise and constraints are ported
+    # (tests/test_torch_remat_tbptt.py): the builder and the layers take
+    # them in JAX's JSON form
+    wn = {"@class": "dropconnect", "keep_prob": 0.9}
+    con = {"@class": "max_norm", "max_norm": 2.0}
+    c = (NeuralNetConfiguration.builder().weight_noise(wn)
+         .constrain_weights(con).list().layer(TL.DenseLayer(n_out=2))
+         .input_type_feed_forward(3).build())
+    assert c.defaults["weight_noise"].to_json() == wn
+    assert [x.to_json() for x in c.defaults["constraints"]] == [
+        dict(con, apply_to_weights=True, apply_to_biases=False)]
+    layer = TL.DenseLayer(n_out=2, constraints=[con])
+    assert layer.to_json() == JL.DenseLayer(n_out=2,
+                                            constraints=[con]).to_json()

@@ -49,7 +49,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 # the CNN training core
                 "nn.layers", "nn.conf.dropout", "learning.schedules",
                 "weightinit", "random", "eval", "optimize", "zoo",
-                "zoo.simple"):
+                "zoo.simple",
+                # checkpoints, the recurrent stack and early stopping
+                "util", "util.serializer", "nn.conf.weightnoise",
+                "nn.conf.constraint", "earlystopping"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

@@ -59,6 +59,7 @@ from deeplearning4j_tpu_torch.learning import Adam
 from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
                                          MultiLayerNetwork,
                                          NeuralNetConfiguration)
+from deeplearning4j_tpu_torch.nn.conf import InputType
 from deeplearning4j_tpu_torch.nn.layers import (DenseLayer, GlobalPoolingLayer,
                                                 OutputLayer)
 from deeplearning4j_tpu_torch.nn.layers.attention import \
@@ -283,18 +284,28 @@ def test_unported_options_raise():
     assert net.score(xs, ys) < first
     assert all(t.dtype == torch.float32 for p in net.params().values()
                for t in p.values())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # pure-bf16 params stay unported (ROADMAP.md queue A, item 11)
+    with pytest.raises(NotImplementedError, match="item 11"):
         net.init(dtype=torch.bfloat16)
+    # TBPTT and remat are ported (tests/test_torch_remat_tbptt.py): a
+    # configuration with either builds and trains
     for kw in (dict(tbptt_fwd_length=8), dict(remat=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            MultiLayerNetwork(MultiLayerConfiguration(
-                [OutputLayer(n_out=2)], **kw), device="cpu")
+        c = MultiLayerConfiguration([OutputLayer(n_out=2)],
+                                    input_type=InputType.feed_forward(3),
+                                    **kw)
+        MultiLayerNetwork(c, device="cpu").fit(xs, ys)
+    # pretraining needs the AutoEncoder or VAE layer (item 13);
+    # rnn_time_step is ported and streams the LM's blocks (which carry
+    # no state) token by token
     net = MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain"), device="cpu")
-    for fn in (net.pretrain, net.pretrain_layer, net.rnn_time_step):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for fn in (net.pretrain, net.pretrain_layer):
+        with pytest.raises(NotImplementedError, match="item 13"):
             fn(None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DenseLayer(n_out=2, weight_noise={"@class": "dropconnect"})
+    x = _batch()[0]
+    assert tuple(net.rnn_time_step(x).shape) == tuple(net.output(x).shape)
+    # weight noise is ported: a DropConnect layer trains
+    noisy = DenseLayer(n_out=2, weight_noise={"@class": "dropconnect"})
+    assert noisy.weight_noise.keep_prob == 0.5
 
 
 def test_network_runs_on_the_card_by_default():

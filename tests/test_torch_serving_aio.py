@@ -443,6 +443,29 @@ def _metrics(base):
     return ctype, parse_prometheus(resp.read().decode())
 
 
+def settled(served, timeout_s: float = 30.0):
+    """Wait until the generator's engine has collected its trailing
+    decode step. The pipelined loop keeps one step in flight: a request
+    returns when step n is collected, and step n+1 records its counters
+    (``decode_step_ms`` and the rest) afterwards, so ``/stats`` and
+    ``/metrics`` read one after the other could straddle that record.
+    Settled means no step pending and ``decode_steps`` and
+    ``decode_step_ms``'s count unchanged over three polls."""
+    eng = served.engine
+    deadline = time.monotonic() + timeout_s
+    last, still = None, 0
+    while time.monotonic() < deadline:
+        snap = eng.metrics.snapshot()
+        cur = (snap["decode_steps"], snap["decode_step_ms"]["count"],
+               len(eng._pending))
+        still = still + 1 if cur == last and not cur[2] else 0
+        if still >= 3:
+            return
+        last = cur
+        time.sleep(0.01)
+    raise AssertionError(f"the engine did not settle: {last}")
+
+
 class TestPrometheusExposition:
     """``tests/test_observability.py::TestPrometheusExposition``."""
 
@@ -502,6 +525,7 @@ class TestPrometheusExposition:
             g.generate(prompt, max_tokens=3, timeout_ms=60_000)
             g.generate(prompt, max_tokens=3, timeout_ms=60_000,
                        session_id="s1")
+            settled(g)
             base = f"http://{srv.host}:{srv.port}"
             stats = get_json(base, "/stats")
             pc = stats["models"]["lm"]["paged"]["prefix_cache"]
@@ -526,6 +550,7 @@ class TestPrometheusExposition:
             for i in range(3):
                 g.generate([1 + i, 5, 2, 9], max_tokens=8, temperature=0.0,
                            seed=i, timeout_ms=60_000)
+            settled(g)
             base = f"http://{srv.host}:{srv.port}"
             stats = get_json(base, "/stats")
             sp = stats["models"]["lm"]["spec"]
@@ -563,6 +588,7 @@ class TestPrometheusExposition:
             for i in range(4):
                 g.generate(prompt(i) + outs[i] + [7, 11], max_tokens=4,
                            session_id=f"s{i}", timeout_ms=120_000)
+            settled(g)
             base = f"http://{srv.host}:{srv.port}"
             stats = get_json(base, "/stats")
             off = stats["models"]["lm"]["paged"]["offload"]

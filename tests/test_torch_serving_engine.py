@@ -404,6 +404,36 @@ class TestLaunchCounting:
         assert added == n_threads * n
 
 
+def test_capture_pauses_the_garbage_collector(monkeypatch):
+    """A cyclic collection inside a capture could destroy a dead
+    engine's CUDA graph, which the capture does not permit: the
+    collector is off while ``run`` is captured, and back on after a
+    capture that fails too. ``torch.cuda.graph`` is a stand-in here (no
+    card)."""
+    import contextlib
+    import gc
+
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", lambda: "graph")
+    monkeypatch.setattr(torch.cuda, "graph",
+                        lambda *a, **k: contextlib.nullcontext())
+    seen = []
+
+    def run():
+        seen.append(gc.isenabled())
+        return "out"
+
+    assert gc.isenabled()
+    assert port_engine.capture_graph(run, "a test")[:2] == ("graph", "out")
+    assert seen == [False] and gc.isenabled()
+
+    def failing():
+        seen.append(gc.isenabled())
+        raise RuntimeError("capture invalidated")
+    with pytest.raises(ServingError, match="a failing test"):
+        port_engine.capture_graph(failing, "a failing test")
+    assert seen == [False, False] and gc.isenabled()
+
+
 class TestModelRegistry:
     """``tests/test_serving_runtime.py::TestModelRegistry``, mirrored."""
 
