@@ -236,7 +236,34 @@ Phases, each of which fails the run when it fails:
    output() in eval mode. It prints accuracy, step p50, the host's
    enqueue p50, images/s, one profiled SimpleCNN step (device busy
    share, kernels), one dropout draw's kernels and the phase's wall
-   time.
+   time;
+19. checkpoints, remat and the recurrent stack: (a) phase 9's net with
+   remat(True) beside it without (bit for bit, B3 twice a block a
+   step, a lower peak); (b) phase 9's net at 2 blocks under a
+   CheckpointListener, resumed from its archive bit for bit; (c) the
+   zoo's TextGenerationLSTM through fit, TBPTT(50) and rnn_time_step
+   against a CPU copy;
+20. transfer learning, pure-bf16 params and resilient training: (a)
+   phase 9's net after 2 steps, TransferLearning with
+   set_feature_extractor(6) (the embedding and blocks 1-6 frozen) and a
+   new output layer, 1 + 3 fine-tune steps: every frozen leaf bit for
+   bit unchanged, losses, the trainable leaves and Adam state against a
+   CPU copy from the same params and batches, B3 once a block a step and
+   B6/B7 once a trainable block a step (the frozen prefix runs no
+   backward), step and enqueue p50 beside phase 9's; (b) phase 9's net
+   at init(dtype=bf16), 3 steps: the dtypes of every param and Adam
+   leaf after each step as JAX's rule gives them (bf16, then f32 params
+   beside bf16 moments, then all f32), each step's flash legs (bf16
+   then f32), and a 2-block B=1 copy against the CPU; (c)
+   FaultTolerantTrainer at phase 9's width cut to 2 blocks, anomaly
+   guard on: an uninterrupted run (A); a run with a transient step
+   fault, two NaN batches (skipped, then a rollback to the last host
+   snapshot's bits), a synchronous checkpoint and a preemption after
+   step 4, equal to A at step 4 bit for bit (B); and its resume on a
+   fresh card network fitted to the end, equal to A bit for bit (C). It
+   prints the step loop's stall at a checkpoint (sync and async), the
+   writer's seconds a write and the step p50 while a write runs beside
+   none. The phase prints the seconds it added.
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -2808,6 +2835,676 @@ def rnn_training(card: str, device=None, batch=RNN_BATCH, steps=RNN_STEPS,
     if bad:
         raise AssertionError(f"phase 19c failed: {bad}")
     return res
+
+
+# -- phase 20: transfer learning, pure-bf16 params, resilient training ---
+TL_FROZEN = 6           # 20a: set_feature_extractor(6), the embedding and
+#                         blocks 1-6 frozen, blocks 7-8 and a new head train
+TL_BASE_STEPS = 2       # 20a: steps of phase 9's net before the transfer
+TL_STEPS = 3            # 20a: timed fine-tune steps, after one warmup step
+TL_LOSS_RTOL = 1e-5     # 20a card vs CPU copy, the loss of each step (f32,
+#                         CNN_LOSS_RTOL's reason)
+TL_PARAM_TOL = 1.5e-3   # 20a card vs CPU copy, each trainable param leaf's
+#                         max error over its max |value| after 4 Adam steps;
+#                         measured 5.285e-4 on the H100 (PERF.md, PR 21)
+TL_GRAD_TOL = TRAIN_GRAD_TOL  # the first fine-tune batch's gradients, card
+#                         vs CPU on the same params: phase 9's tolerance
+#                         (measured 4.802e-4, layer_7/attn_Wk, whose
+#                         gradient cancels over the keys)
+TL_M_TOL = 3e-3         # each Adam m leaf after 4 steps: the sum of the
+#                         steps' gradients, so their gap (measured 1.012e-3
+#                         in layer_7/attn_Wk, 2.1x its first-step gradient
+#                         gap as the params part)
+TL_V_TOL = 2 * TL_M_TOL  # each Adam v leaf: v grows as g^2, so its gap is
+#                         twice m's (measured 2.008e-3, 1.98x m's)
+TL_WITNESS_REL = 1e-4   # 20a's witness: a second card copy whose first-step
+#                         gradients are scaled by 1 + 1e-4 * N(0, 1), the
+#                         size the 3xTF32 flash kernels leave (~1e-5 to
+#                         1e-4); its gaps from the card run (measured 1.1e-4
+#                         params, 8.6e-5 m, 1.3e-4 v) show that noise in the
+#                         first step alone does not make the Adam gaps above
+BF16_STEPS = 3          # 20b
+BF16_CPU_LAYERS = RESUME_LAYERS  # 20b's CPU comparison: bf16 GEMMs on the
+#                         host are slow, so a 2-block copy at B=1
+BF16_LOSS_RTOL = TRAIN_BF16_LOSS_RTOL  # 20b card vs CPU at bf16 (phase 10's)
+BF16_STEP_ATOL = 2.5e-3  # 20b card vs CPU params after steps 2 and 3, per
+#                         step: the entries that parted at step 1 (below)
+#                         move the gradients after them
+BF16_M_TOL1 = 4e-2      # 20b card vs CPU, each Adam m leaf's max error over
+#                         its max |value| after step 1, where m is 0.1 g: the
+#                         tolerance of bf16 gradients, as tests/
+#                         test_torch_bf16_params.py holds the port to JAX
+#                         (measured 2.13e-2 on the H100)
+BF16_V_TOL1 = 2 * BF16_M_TOL1  # v after step 1, 1e-3 g^2: twice m's gap
+#                         (measured 4.10e-2)
+BF16_M_TOL = 1e-1       # m after steps 2 and 3: taken at params that parted
+#                         at step 1 (below), in f32 (measured 4.99e-2,
+#                         4.29e-2)
+BF16_V_TOL = 1.5e-1     # v after steps 2 and 3 (measured 3.31e-2, 7.17e-2)
+BF16_FIRST_ATOL = 3e-2 * 1e-3  # 20b params after step 1: 3e-2 lr. Adam's
+#                         first step is lr * m / (sqrt(v) + eps) from bf16
+#                         m and v, ~lr * sign(g) whatever g's size;
+#                         gradients a few bf16 ulps apart move it by up to
+#                         ~2.4e-2 lr
+BF16_FIRST_EXCUSED = 2e-2  # entries beyond BF16_FIRST_ATOL allowed, as a
+#                         share of the params, each one whose gradients
+#                         differ in sign (2 lr apart) or so small that eps
+#                         weighs (measured 343,891 of 39,101,696, 8.8e-3,
+#                         most in the output layer's W; none unexcused)
+EPS_WEIGHS = 1e-8 / 3e-2  # sqrt(v) below Adam's eps over 3e-2: eps alone
+#                         then moves the first step by more than 3e-2 lr
+RES_BATCHES = 8         # 20c: clean batches of one epoch
+RES_NAN = (2, 3)        # 20c: positions of the NaN batches in the faulted
+#                         stream (labels NaN: the loss goes NaN)
+RES_ROLLBACK_AFTER = 2  # 20c: K consecutive anomalies roll back
+RES_RETRY_CALL = 2      # 20c: the train_step call that fails once
+RES_PREEMPT = 6         # 20c: the step boundary (seam call) that preempts:
+#                         after step 4 (items b0 b1 nan nan b2 b3)
+
+
+def _dtype_table(net) -> dict:
+    """{"params": sorted dtypes, "adam": sorted dtypes} of a network."""
+    return {"params": sorted({str(t.dtype).replace("torch.", "")
+                              for _, t in _leaves(net.params())}),
+            "adam": sorted({str(t.dtype).replace("torch.", "")
+                            for _, t in _leaves(net.get_updater_state())})}
+
+
+def _flash_counts() -> dict:
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    return {"flash_attention": fa.launches,
+            "flash_attention_bwd_dq": fa.launches_dq,
+            "flash_attention_bwd_dkv": fa.launches_dkv,
+            "flash_attention_bf16": fa.launches_bf16,
+            "flash_attention_bwd_dq_bf16": fa.launches_dq_bf16,
+            "flash_attention_bwd_dkv_bf16": fa.launches_dkv_bf16}
+
+
+def _snapshot_tree(tree):
+    return {k: (_snapshot_tree(v) if isinstance(v, dict)
+                else v.detach().clone()) for k, v in tree.items()}
+
+
+def _adam_diffs(got, ref) -> dict:
+    """{"m": (worst leaf, error), "v": ...} of two networks' Adam states,
+    each leaf's max error over its max |value| (``tree_diff``)."""
+    out = {}
+    for slot in ("m", "v"):
+        g = {k: st[slot] for k, st in got.get_updater_state().items()}
+        r = {k: st[slot] for k, st in ref.get_updater_state().items()}
+        out[slot] = tree_diff(g, r)[:2]
+    return out
+
+
+def _perturb_next_grads(net, rel: float, seed: int):
+    """Scale every gradient of ``net``'s next step by 1 + rel * N(0, 1),
+    drawn from a seeded generator on the network's device."""
+    import torch
+    gen = torch.Generator(device=net.device).manual_seed(seed)
+
+    def once(*args):
+        del net._step_grads
+        loss, grads, state = net._step_grads(*args)
+        for g in grads.values():
+            for leaf in g.values():
+                leaf.mul_(1 + rel * torch.randn(
+                    leaf.shape, generator=gen, device=leaf.device,
+                    dtype=leaf.dtype))
+        return loss, grads, state
+    net._step_grads = once
+
+
+def _first_step_outliers(net, ref, atol: float) -> dict:
+    """Params beyond ``atol`` between two networks after one Adam step:
+    ``beyond`` entries, ``unexcused`` of them, the largest unexcused
+    error and its leaf, and the leaves with most entries beyond. An
+    entry is excused when the two sides' gradients (the sign of m)
+    differ in sign or either side's sqrt(v) is small enough for eps to
+    move the step by more than ``atol`` / lr."""
+    import torch
+    out = dict(beyond=0, unexcused=0, worst=0.0, worst_leaf=None,
+               by_leaf={})
+    st, rst = net.get_updater_state(), ref.get_updater_state()
+    for key, p in net.params().items():
+        for n, t in p.items():
+            d = (t.detach().float()
+                 - ref.params()[key][n].to(t.device).float()).abs()
+            far = d > atol
+            m, rm = st[key]["m"][n], rst[key]["m"][n].to(t.device)
+            vmin = torch.minimum(st[key]["v"][n].float(),
+                                 rst[key]["v"][n].to(t.device).float())
+            excused = (torch.sign(m) != torch.sign(rm)) | \
+                (vmin.sqrt() < EPS_WEIGHS)
+            left = far & ~excused
+            nb, nu = int(far.sum()), int(left.sum())
+            out["beyond"] += nb
+            out["unexcused"] += nu
+            if nb:
+                out["by_leaf"][f"{key}/{n}"] = nb
+            if nu and float(d[left].max()) > out["worst"]:
+                out["worst"] = float(d[left].max())
+                out["worst_leaf"] = f"{key}/{n}"
+    out["by_leaf"] = dict(sorted(out["by_leaf"].items(),
+                                 key=lambda kv: -kv[1])[:4])
+    return out
+
+
+def transfer_train(card: str, cfg=TRAIN_CFG, device=None, phase9=None,
+                   base_steps=TL_BASE_STEPS, steps=TL_STEPS,
+                   frozen=TL_FROZEN):
+    """Phase 20a: phase 9's net trained ``base_steps`` steps, then
+    ``TransferLearning`` with ``set_feature_extractor(frozen)``, its
+    output layer replaced by a new RnnOutputLayer, fine-tuned 1 +
+    ``steps`` steps on new batches. Every frozen leaf must keep its
+    bits; the trainable leaves, Adam's m and v and the losses must
+    agree with a CPU copy that starts from the same params and takes the
+    same batches, and so must the first batch's gradients; B3 must
+    launch once a block a step and B6/B7 once a trainable block a step
+    (the frozen prefix runs no backward). A witness copy on the card,
+    its first gradients perturbed by TL_WITNESS_REL, shows how far such
+    noise carries."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
+                                             MultiLayerNetwork)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import RnnOutputLayer
+    from deeplearning4j_tpu_torch.nn.transferlearning import \
+        TransferLearning
+    t_phase = time.perf_counter()
+    base = MultiLayerNetwork(train_conf(cfg), device=device).init()
+    dev = base.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    for s in range(base_steps):
+        base.fit(*recurrence_batch(cfg, cfg["batch"], cfg["seed"] + s, dev))
+    sync()
+    t0 = time.perf_counter()
+    net = (TransferLearning.builder(base).set_feature_extractor(frozen)
+           .remove_output_layer()
+           .add_layer(RnnOutputLayer(n_out=cfg["vocab_size"], loss="mcxent",
+                                     activation="softmax"))
+           .build())
+    sync()
+    build_s = time.perf_counter() - t0
+    cpu = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        net.conf.to_json()), device="cpu").init()
+    cpu.set_params(net.params())
+    witness = MultiLayerNetwork(MultiLayerConfiguration.from_json(
+        net.conf.to_json()), device=device).init()
+    witness.set_params(net.params())
+    frozen_keys = net._layer_keys[:frozen + 1]
+    before = {k: _snapshot_tree(net.params()[k]) for k in frozen_keys}
+    batches = [recurrence_batch(cfg, cfg["batch"], cfg["seed"] + 100 + s,
+                                dev) for s in range(1 + steps)]
+    trained_keys = net._layer_keys[frozen + 1:]
+    x0, y0 = batches[0]
+    g_card = net.loss_and_gradients(x0, y0)[1]
+    g_cpu = cpu.loss_and_gradients(x0.cpu(), y0.cpu())[1]
+    grad_gap = tree_diff({k: g_card[k] for k in trained_keys},
+                         {k: g_cpu[k] for k in trained_keys})[:2]
+    del g_card, g_cpu
+    reset_launches()
+    losses, step_ms, enqueue_ms = [], [], []
+    for x, y in batches:
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        enqueue_ms.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_)
+    launches = _flash_counts()
+    _perturb_next_grads(witness, TL_WITNESS_REL, cfg["seed"])
+    for x, y in batches:
+        witness.fit(x, y)
+    t0 = time.perf_counter()
+    cpu_losses = []
+    for x, y in batches:
+        cpu.fit(x.cpu(), y.cpu())
+        cpu_losses.append(cpu.score_)
+    cpu_s = time.perf_counter() - t0
+    n = 1 + steps
+    # layer 0 is the embedding, layers 1..n_layers the blocks
+    blocks = cfg["n_layers"]
+    trainable_blocks = blocks - frozen
+    trainable = len(net.layers) - (frozen + 1)
+    want = {"flash_attention": blocks * n,
+            "flash_attention_bwd_dq": trainable_blocks * n,
+            "flash_attention_bwd_dkv": trainable_blocks * n,
+            "flash_attention_bf16": 0, "flash_attention_bwd_dq_bf16": 0,
+            "flash_attention_bwd_dkv_bf16": 0}
+    frozen_differ = sum(
+        not torch.equal(net.params()[k][name], t)
+        for k in frozen_keys for name, t in before[k].items())
+    pw, perr, _ = tree_diff({k: net.params()[k] for k in trained_keys},
+                            {k: cpu.params()[k] for k in trained_keys})
+    adam = _adam_diffs(net, cpu)
+    wit = dict(params=tree_diff(
+        {k: witness.params()[k] for k in trained_keys},
+        {k: net.params()[k] for k in trained_keys})[:2],
+        **_adam_diffs(witness, net))
+    del witness
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, cpu_losses))
+    bad = []
+    if frozen_differ:
+        bad.append(f"{frozen_differ} frozen leaves moved")
+    if on_card and launches != want:
+        bad.append(f"launches {launches} (want {want})")
+    if loss_rel > TL_LOSS_RTOL:
+        bad.append(f"losses {losses} vs CPU {cpu_losses}")
+    if perr > TL_PARAM_TOL or adam["m"][1] > TL_M_TOL or \
+            adam["v"][1] > TL_V_TOL:
+        bad.append(f"params {pw} {perr:.3e}, Adam {adam}")
+    if grad_gap[1] > TL_GRAD_TOL:
+        bad.append(f"first fine-tune gradients {grad_gap}")
+    if not losses[-1] < losses[0]:
+        bad.append(f"the fine-tune loss did not fall: {losses}")
+    if bad:
+        raise AssertionError(f"phase 20a failed: {bad}")
+    timed = step_ms[1:]
+    res = dict(frozen_layers=frozen + 1, trainable_blocks=trainable_blocks,
+               trainable_layers=trainable, params=net.num_params(),
+               build_s=build_s, losses=losses, cpu_losses=cpu_losses,
+               loss_rel_err=loss_rel, step_ms=step_ms,
+               step_p50_ms=float(np.median(timed)),
+               enqueue_p50_ms=float(np.median(enqueue_ms[1:])),
+               launches=launches, want=want, param_worst=pw,
+               param_err=perr, adam=adam, grad_gap=grad_gap, witness=wit,
+               frozen_leaves=sum(len(before[k]) for k in frozen_keys),
+               cpu_s=cpu_s, seconds=time.perf_counter() - t_phase)
+    beside = ("" if phase9 is None else
+              f" beside phase 9's {phase9['step_p50_ms']:.2f} "
+              f"({phase9['enqueue_p50_ms']:.2f})")
+    print(f"transfer (phase 20a) [{card}]: phase 9's net after "
+          f"{base_steps} steps, set_feature_extractor({frozen}) (the "
+          f"embedding and blocks 1-{frozen} frozen, "
+          f"{res['frozen_leaves']} leaves bit for bit unchanged), a new "
+          f"head; build "
+          f"{build_s:.3f} s; {1 + steps} fine-tune steps: step p50 "
+          f"{res['step_p50_ms']:.2f} ms (enqueue "
+          f"{res['enqueue_p50_ms']:.2f}){beside}; losses "
+          f"{[round(v, 4) for v in losses]}; card vs CPU copy: losses "
+          f"{loss_rel:.3e} (tol {TL_LOSS_RTOL:g}), of a leaf's max: "
+          f"trainable params worst {pw} {perr:.3e} (tol {TL_PARAM_TOL:g}), "
+          f"Adam m {adam['m'][0]} {adam['m'][1]:.3e} (tol {TL_M_TOL:g}), "
+          f"v {adam['v'][0]} {adam['v'][1]:.3e} (tol {TL_V_TOL:g}); "
+          f"the first fine-tune batch's gradients card vs CPU: worst "
+          f"{grad_gap[0]} {grad_gap[1]:.3e} (tol {TL_GRAD_TOL:g}); "
+          f"witness (first-step gradients x (1 + {TL_WITNESS_REL:g} "
+          f"N(0,1)) on the card): params {wit['params'][1]:.3e}, m "
+          f"{wit['m'][1]:.3e}, v {wit['v'][1]:.3e} (CPU copy "
+          f"{cpu_s:.1f} s); launches {launches} "
+          f"(want {want}); phase 20a took {res['seconds']:.1f} s")
+    return res
+
+
+def bf16_train(card: str, cfg=TRAIN_CFG, device=None, steps=BF16_STEPS,
+               cpu_layers=BF16_CPU_LAYERS):
+    """Phase 20b: phase 9's net with ``init(dtype=torch.bfloat16)`` for
+    ``steps`` steps. After each step the dtypes must be JAX's (all bf16
+    at init; f32 params beside bf16 Adam moments after step 1; all f32
+    after step 2), and each step's flash legs are counted (bf16 while
+    the activations are bf16, f32 after). A ``cpu_layers``-block copy at
+    B=1 on the card and on the CPU, from the same bf16 params, must
+    agree on losses and params within bf16 tolerances."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    t_phase = time.perf_counter()
+    net = MultiLayerNetwork(train_conf(cfg), device=device).init(
+        dtype=torch.bfloat16)
+    dev = net.device
+    on_card = dev.type == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+    tables, legs, losses, step_ms = [_dtype_table(net)], [], [], []
+    for _ in range(steps):
+        reset_launches()
+        t0 = time.perf_counter()
+        net.fit(x, y)
+        sync()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        legs.append({k: v for k, v in _flash_counts().items() if v})
+        losses.append(net.score_)
+        tables.append(_dtype_table(net))
+    want_tables = ([{"params": ["bfloat16"], "adam": ["bfloat16"]},
+                    {"params": ["float32"], "adam": ["bfloat16"]}]
+                   + [{"params": ["float32"], "adam": ["float32"]}]
+                   * (steps - 1))
+    L = cfg["n_layers"]
+    bf16_legs = {"flash_attention_bf16": L, "flash_attention_bwd_dq_bf16": L,
+                 "flash_attention_bwd_dkv_bf16": L}
+    f32_legs = {"flash_attention": L, "flash_attention_bwd_dq": L,
+                "flash_attention_bwd_dkv": L}
+    want_legs = [bf16_legs] + [f32_legs] * (steps - 1)
+    # the CPU comparison at cpu_layers blocks, B=1
+    small = dict(cfg, n_layers=cpu_layers)
+    card_s = MultiLayerNetwork(train_conf(small), device=device).init(
+        dtype=torch.bfloat16)
+    cpu = MultiLayerNetwork(train_conf(small), device="cpu").init(
+        dtype=torch.bfloat16)
+    cpu.set_params(card_s.params())
+    xs, ys = recurrence_batch(small, 1, cfg["seed"] + 1, dev)
+    n_small = card_s.num_params()
+    t0 = time.perf_counter()
+    worst, cmp_losses, adam = [], [], []
+    for s in range(steps):
+        card_s.fit(xs, ys)
+        cpu.fit(xs.cpu(), ys.cpu())
+        cmp_losses.append((card_s.score_, cpu.score_))
+        err = max(float((a.detach().float().cpu()
+                          - b.detach().float()).abs().max())
+                  for (_, a), (_, b) in zip(_leaves(card_s.params()),
+                                            _leaves(cpu.params())))
+        worst.append(err)
+        adam.append(_adam_diffs(card_s, cpu))
+        if s == 0:
+            first = _first_step_outliers(card_s, cpu, BF16_FIRST_ATOL)
+        if _dtype_table(card_s) != _dtype_table(cpu):
+            raise AssertionError(f"phase 20b: card {_dtype_table(card_s)} "
+                                 f"vs CPU {_dtype_table(cpu)}")
+    cpu_s = time.perf_counter() - t0
+    loss_rel = max(abs(a - b) / abs(b) for a, b in cmp_losses)
+    bad = []
+    if tables != want_tables:
+        bad.append(f"dtypes {tables} (want {want_tables})")
+    if on_card and legs != want_legs:
+        bad.append(f"flash legs {legs} (want {want_legs})")
+    if not all(np.isfinite(losses)):
+        bad.append(f"losses {losses}")
+    if loss_rel > BF16_LOSS_RTOL:
+        bad.append(f"card vs CPU losses {cmp_losses}")
+    for s, e in enumerate(worst[1:], 2):
+        if e > BF16_STEP_ATOL * s:
+            bad.append(f"card vs CPU params after step {s}: {e:.3e}")
+    if first["unexcused"] or \
+            first["beyond"] > BF16_FIRST_EXCUSED * n_small:
+        bad.append(f"card vs CPU params after step 1: {first}")
+    for s, a in enumerate(adam, 1):
+        m_tol, v_tol = (BF16_M_TOL1, BF16_V_TOL1) if s == 1 else \
+            (BF16_M_TOL, BF16_V_TOL)
+        if a["m"][1] > m_tol or a["v"][1] > v_tol:
+            bad.append(f"card vs CPU Adam after step {s}: {a}")
+    if bad:
+        raise AssertionError(f"phase 20b failed: {bad}")
+    res = dict(tables=tables, legs=legs, losses=losses, step_ms=step_ms,
+               cpu_layers=cpu_layers, cmp_losses=cmp_losses,
+               loss_rel_err=loss_rel, param_err_by_step=worst,
+               first_step=first, small_params=n_small,
+               adam_by_step=adam, cpu_s=cpu_s,
+               seconds=time.perf_counter() - t_phase)
+    print(f"pure bf16 (phase 20b) [{card}]: phase 9's net at init(bf16), "
+          f"{steps} steps: dtypes after init and each step {tables} "
+          f"(JAX's rule); flash legs a step {legs}; step ms "
+          f"{[round(v, 2) for v in step_ms]}; losses "
+          f"{[round(v, 4) for v in losses]}; a {cpu_layers}-block B=1 copy "
+          f"card vs CPU: losses {loss_rel:.3e} (tol {BF16_LOSS_RTOL:g}), "
+          f"params {[f'{e:.2e}' for e in worst]}, after step 1 "
+          f"{first['beyond']} of {n_small} entries beyond "
+          f"{BF16_FIRST_ATOL:g} {first['by_leaf']} "
+          f"(all sign flips or eps-weighted; at most "
+          f"{BF16_FIRST_EXCUSED:g} of them), later steps tol "
+          f"{BF16_STEP_ATOL:g} a step; Adam m "
+          f"{[round(a['m'][1], 5) for a in adam]}, v "
+          f"{[round(a['v'][1], 5) for a in adam]} of a leaf's max (tol "
+          f"{BF16_M_TOL1:g} and {BF16_V_TOL1:g} after step 1, "
+          f"{BF16_M_TOL:g} and {BF16_V_TOL:g} after); CPU {cpu_s:.1f} s); "
+          f"phase 20b took {res['seconds']:.1f} s")
+    return res
+
+
+def resilience_batches(cfg, dev, bad=()):
+    """20c's stream: RES_BATCHES recurrence batches, with a NaN-label
+    copy of the previous clean batch inserted at each position in
+    ``bad`` (the loss of such a batch is NaN)."""
+    out = []
+    clean = [recurrence_batch(cfg, cfg["batch"], cfg["seed"] + 200 + s, dev)
+             for s in range(RES_BATCHES)]
+    for b in clean:
+        while len(out) in bad:
+            x, y = out[-1] if out else b
+            out.append((x, y * float("nan")))
+        out.append(b)
+    return out
+
+
+class _StepClock:
+    """Listener: each iteration's wall time (from the previous
+    iteration's end), the supervisor's stall so far, whether the async
+    writer was mid-write, and per-step hooks."""
+
+    def __init__(self, trainer, hooks=None):
+        self.tr, self.hooks = trainer, hooks or {}
+        self.rows, self.t = [], None
+
+    def iteration_done(self, m, step, epoch):
+        now = time.perf_counter()
+        w = self.tr._writer
+        stall = self.tr.supervisor.checkpoint_stall_s
+        prev = self.rows[-1]["stall_s"] if self.rows else stall
+        # the item's own time: since the last item's end, less the
+        # checkpoint stall of that item's step boundary
+        self.rows.append(dict(
+            item=len(self.rows), step=step,
+            ms=None if self.t is None
+            else (now - self.t - (stall - prev)) * 1e3,
+            stall_s=stall,
+            writing=bool(w is not None and w.snapshot()["busy"])))
+        hook = self.hooks.get(len(self.rows) - 1)
+        if hook is not None:
+            hook(m)
+        self.t = time.perf_counter()
+
+
+def _trees_equal(net, flat_params, flat_opt) -> int:
+    """How many leaves of ``net`` differ in any bit from a host snapshot
+    (``snapshot_training_state``'s flattened params and updater)."""
+    from deeplearning4j_tpu_torch.convert import tensor_from_numpy
+    from deeplearning4j_tpu_torch.util.serializer import _flatten_tree
+    differ = 0
+    for tree, flat in ((net.params(), flat_params),
+                       (net.get_updater_state(), flat_opt)):
+        for key, arr in _flatten_tree(tree).items():
+            differ += not np.array_equal(arr, flat[key])
+    return differ
+
+
+def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
+                    n_layers=RESUME_LAYERS):
+    """Phase 20c: ``FaultTolerantTrainer`` at phase 9's width cut to
+    ``n_layers`` blocks (each archive is ~470 MB of state), anomaly
+    guard on, over one epoch of RES_BATCHES batches.
+
+    A: the clean stream, uninterrupted, async writes (the final epoch
+    checkpoint only): the reference, and the step times with no write
+    running. B: the stream with NaN batches at RES_NAN, a transient
+    ``train_step`` fault at call RES_RETRY_CALL, rollback after
+    RES_ROLLBACK_AFTER anomalies, a host snapshot every 2 steps, a
+    synchronous checkpoint every 4 steps and a ``preempt`` at boundary
+    RES_PREEMPT (after step 4): the retry replays, the skips leave
+    ``_step`` alone, the rollback restores the last snapshot's bits, and
+    at step 4 B's state is A's bit for bit. C: ``resume`` of B's
+    directory onto a fresh card network and ``fit`` to the end with
+    async writes every 5 steps: its losses from step 5 on, params and
+    Adam state are A's bit for bit. It prints the step loop's stall at
+    a checkpoint (B sync, C async), the writer's seconds a write, and
+    C's step p50 while its write runs beside A's with none running."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.faults import (FaultInjector,
+                                                 PreemptionFault)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel.elastic import         FaultTolerantTrainer
+    from deeplearning4j_tpu_torch.util.serializer import _flatten_tree
+    cfg = dict(cfg, n_layers=n_layers)
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="dl4j_elastic_")
+    try:
+        netA = MultiLayerNetwork(train_conf(cfg), device=device).init()
+        dev = netA.device
+        on_card = dev.type == "cuda"
+        init = _snapshot_tree(netA.params())
+        clean = resilience_batches(cfg, dev)
+        faulted = resilience_batches(cfg, dev, bad=RES_NAN)
+        at4 = {}
+
+        def keep(tag):
+            def hook(m):
+                at4[tag] = (_flatten_tree(m.params()),
+                            _flatten_tree(m.get_updater_state()),
+                            m._rng, m._step)
+            return hook
+
+        # A: the uninterrupted reference
+        trA = FaultTolerantTrainer(netA, os.path.join(root, "a"),
+                                   save_every_n_steps=100,
+                                   snapshot_every_n_steps=100,
+                                   anomaly_guard=True)
+        clockA = _StepClock(trA, {3: keep("A")})
+        lossesA = []
+
+        class Loss:
+            def __init__(self, out):
+                self.out = out
+
+            def iteration_done(self, m, step, epoch):
+                self.out.append((step, m.score_))
+        netA.set_listeners(clockA, Loss(lossesA))
+        reset_launches()
+        t0 = time.perf_counter()
+        trA.fit(clean, epochs=1)
+        a_s = time.perf_counter() - t0
+        launchesA = _flash_counts()
+        # B: retry, skips, rollback, a sync checkpoint, the preemption
+        netB = MultiLayerNetwork(train_conf(cfg), device=device).init()
+        netB.set_params(init)
+        inj = FaultInjector(plan={"train_step": [RES_RETRY_CALL],
+                                  "preempt": [RES_PREEMPT]})
+        dirB = os.path.join(root, "b")
+        trB = FaultTolerantTrainer(netB, dirB, save_every_n_steps=4,
+                                   snapshot_every_n_steps=2,
+                                   async_write=False, anomaly_guard=True,
+                                   rollback_after=RES_ROLLBACK_AFTER,
+                                   fault_injector=inj)
+        rolled = {}
+
+        def check_rollback(m):
+            snap = trB.supervisor.last_good
+            rolled.update(
+                rollbacks=trB.supervisor.rollbacks.value(), step=m._step,
+                differ=_trees_equal(m, snap["params"], snap["opt_state"]),
+                rng=m._rng == tuple(snap["meta"]["rng"]))
+        # item 3 is the second NaN batch: the rollback ran inside it
+        clockB = _StepClock(trB, {RES_NAN[1]: check_rollback,
+                                  RES_NAN[1] + 2: keep("B")})
+        netB.set_listeners(clockB)
+        t0 = time.perf_counter()
+        try:
+            trB.fit(faulted, epochs=1)
+            raise AssertionError("phase 20c: B was not preempted")
+        except PreemptionFault:
+            pass
+        b_s = time.perf_counter() - t0
+        supB = trB.supervisor.snapshot()
+        namesB = [os.path.basename(p) for p in
+                  FaultTolerantTrainer.list_checkpoints(dirB)]
+        # C: resume B's checkpoint on a fresh network, fit to the end
+        t0 = time.perf_counter()
+        netC = FaultTolerantTrainer.resume(dirB, device=device)
+        restore_s = time.perf_counter() - t0
+        stepC0 = netC._step
+        trC = FaultTolerantTrainer(netC, dirB, save_every_n_steps=5,
+                                   anomaly_guard=True)
+        clockC, lossesC = _StepClock(trC), []
+        netC.set_listeners(clockC, Loss(lossesC))
+        t0 = time.perf_counter()
+        trC.fit(faulted, epochs=1)
+        c_s = time.perf_counter() - t0
+        pw, perr, pdiff = tree_diff(netC.params(), netA.params())
+        aw, aerr, adiff = tree_diff(netC.get_updater_state(),
+                                    netA.get_updater_state())
+        pa, oa, rnga, stepa = at4["A"]
+        pb, ob, rngb, stepb = at4["B"]
+        diff4 = (sum(not np.array_equal(pa[k], pb[k]) for k in pa)
+                 + sum(not np.array_equal(oa[k], ob[k]) for k in oa))
+        tailA = [lv for s, lv in lossesA if s > stepC0]
+        tailC = [lv for s, lv in lossesC]
+        bad = []
+        if supB["retries"] != 1 or supB["anomalies_skipped"] != 2 or \
+                supB["rollbacks"] != 1 or supB["preemptions"] != 1:
+            bad.append(f"B's counters {supB}")
+        if rolled != {"rollbacks": 1, "step": 2, "differ": 0, "rng": True}:
+            bad.append(f"rollback {rolled}")
+        if (stepa, stepb) != (4, 4) or diff4 or rnga != rngb:
+            bad.append(f"B at step 4 vs A: {diff4} leaves differ, steps "
+                       f"{stepa} {stepb}, keys {rnga} {rngb}")
+        if stepC0 != 4 or netC._step != netA._step:
+            bad.append(f"steps: resumed at {stepC0}, ended "
+                       f"{netC._step} vs {netA._step}")
+        if tailC != tailA:
+            bad.append(f"losses after the resume {tailC} vs {tailA}")
+        if pdiff or adiff or netC._rng != netA._rng:
+            bad.append(f"{pdiff} param and {adiff} Adam leaves differ "
+                       f"(worst {pw} {perr:.3e}, {aw} {aerr:.3e})")
+        if on_card and not (launchesA["flash_attention"] ==
+                            launchesA["flash_attention_bwd_dq"] ==
+                            launchesA["flash_attention_bwd_dkv"] ==
+                            n_layers * RES_BATCHES):
+            bad.append(f"A's launches {launchesA}")
+        if bad:
+            raise AssertionError(f"phase 20c failed: {bad}")
+        stall = (lambda rows, i: rows[i + 1]["stall_s"]
+                 - rows[i]["stall_s"])
+        # the checkpoint steps: B's sync write after step 4 (item 5 of
+        # the faulted stream), C's async submit after step 5 (its item 0)
+        # (B is preempted at that boundary: its stall ends B's total)
+        sync_stall = trB.supervisor.checkpoint_stall_s \
+            - clockB.rows[RES_NAN[1] + 2]["stall_s"]
+        async_stall = stall(clockC.rows, 0)
+        none_ms = [r["ms"] for r in clockA.rows[2:]]
+        writing_ms = [r["ms"] for r in clockC.rows[1:] if r["writing"]]
+        wC = trC._writer.snapshot()
+        wA = trA._writer.snapshot()
+        res = dict(
+            n_layers=n_layers, params=netA.num_params(),
+            state_bytes=sum(a.nbytes for a in pa.values())
+            + sum(a.nbytes for a in oa.values()),
+            supervisor_b=supB, checkpoints_b=namesB, rollback=rolled,
+            restore_s=restore_s, a_s=a_s, b_s=b_s, c_s=c_s,
+            sync_stall_s=sync_stall, async_stall_s=async_stall,
+            sync_write_s=supB["checkpoint_write_s"],
+            async_write_s=wC["write_s_total"] / max(wC["writes"], 1),
+            writes_c=wC["writes"],
+            epoch_write_s=wA["write_s_total"] / max(wA["writes"], 1),
+            step_p50_none_ms=float(np.median(none_ms)),
+            step_p50_writing_ms=(float(np.median(writing_ms))
+                                 if writing_ms else None),
+            steps_writing=len(writing_ms), steps_none=len(none_ms),
+            launches_a=launchesA, losses_a=[lv for _, lv in lossesA],
+            seconds=time.perf_counter() - t_phase)
+        p50w = ("none ran during a write" if res["step_p50_writing_ms"]
+                is None else f"{res['step_p50_writing_ms']:.2f}")
+        print(f"resilient training (phase 20c) [{card}]: {n_layers} blocks "
+              f"({res['params']} params, {res['state_bytes']} bytes of "
+              f"params and Adam state; cut from {TRAIN_CFG['n_layers']}: see "
+              f"PERF.md), {RES_BATCHES} batches, anomaly guard on: B "
+              f"{supB['retries']} retry, {supB['anomalies_skipped']} skips "
+              f"(_step held), {supB['rollbacks']} rollback to step "
+              f"{rolled['step']}'s bits, preempted at step 4 with "
+              f"{namesB}; B at step 4 and C from the resume on are A's bit "
+              f"for bit (losses, every param and Adam leaf, key); restore "
+              f"{restore_s:.2f} s; step-loop stall at a checkpoint "
+              f"{sync_stall:.3f} s sync vs {async_stall:.3f} s async; "
+              f"writer {res['sync_write_s']:.2f} s (sync), "
+              f"{res['async_write_s']:.2f} s a write over {wC['writes']} "
+              f"(async, C), {res['epoch_write_s']:.2f} s (A's final, no "
+              f"steps beside it); step p50 {p50w} ms over "
+              f"{res['steps_writing']} steps while a write ran vs "
+              f"{res['step_p50_none_ms']:.2f} ms over {res['steps_none']} "
+              f"with none (A); A {a_s:.1f} s, B {b_s:.1f} s, C {c_s:.1f} s;"
+              f" phase 20c took {res['seconds']:.1f} s")
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def reset_launches():
@@ -5786,6 +6483,12 @@ def main() -> int:
     remat = remat_train(card)
     resume = resume_train(card)
     rnn = rnn_training(card)
+    # phase 20: transfer learning, pure-bf16 params, resilient training
+    t20 = time.perf_counter()
+    transfer = transfer_train(card, phase9=trained)
+    pure_bf16 = bf16_train(card)
+    resilient = resilient_train(card)
+    print(f"phase 20 added {time.perf_counter() - t20:.1f} s")
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -5852,7 +6555,8 @@ def main() -> int:
              offload_int8=offload8, serving_shell=shell, fleet=fleet,
              flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16, cnn=cnn,
-             remat=remat, resume=resume, rnn=rnn,
+             remat=remat, resume=resume, rnn=rnn, transfer=transfer,
+             pure_bf16=pure_bf16, resilient=resilient,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,8 @@ and a Bidirectional's ``f_``/``b_``-prefixed pairs, alike),
 norm's running ``mean``/``var``) and ``updater_state_from_jax`` for its
 updater state (Adam's ``{"layer_i": {"m": {...}, "v": {...}}}``, any
 updater's nested dicts), in the layouts ``MultiLayerNetwork.set_params``,
-``set_net_state`` and ``set_updater_state`` take.
+``set_net_state`` and ``set_updater_state`` take. bf16 leaves (a JAX
+network built with ``init(jnp.bfloat16)``) cross as bf16 tensors.
 """
 from __future__ import annotations
 
@@ -29,11 +30,42 @@ import torch
 from .kernels.kv_quant import QuantWeight
 
 
+def is_bf16_array(x: np.ndarray) -> bool:
+    """A numpy array of bf16 values: ``ml_dtypes.bfloat16`` (what
+    ``np.asarray`` of a JAX bf16 array gives) or the raw 2-byte void
+    (``|V2``) that ``np.savez`` writes for one and ``np.load`` reads
+    back. Decided by the dtype's name and item size, so ``ml_dtypes``
+    need not be installed."""
+    dt = x.dtype
+    return dt.itemsize == 2 and (dt.name == "bfloat16" or dt.kind == "V")
+
+
+def tensor_from_numpy(x: np.ndarray) -> torch.Tensor:
+    """A CPU tensor holding a copy of ``x``; bf16 arrays (see
+    :func:`is_bf16_array`) cross as their bits, through an int16 view."""
+    if is_bf16_array(x):
+        return torch.from_numpy(
+            np.ascontiguousarray(x).view(np.int16).copy()).view(
+                torch.bfloat16)
+    return torch.from_numpy(np.array(x, copy=True))
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A host numpy copy of ``t``. A bf16 tensor becomes a 2-byte void
+    (``|V2``) array of its bits: numpy has no bf16, and ``np.savez``
+    writes exactly these bytes for a JAX bf16 array."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.contiguous().view(torch.int16).numpy().copy().view(
+            np.dtype("V2"))
+    return t.numpy().copy()
+
+
 def _tensor(x, device, where: str) -> torch.Tensor:
     if not isinstance(x, np.ndarray):
         raise TypeError(f"{where}: expected a numpy array, got "
                         f"{type(x).__name__}")
-    return torch.from_numpy(np.array(x, copy=True)).to(device)
+    return tensor_from_numpy(x).to(device)
 
 
 def _leaf(x, device, where: str):

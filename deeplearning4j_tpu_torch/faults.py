@@ -34,9 +34,18 @@ Serving seams (fired by :class:`~.serving.generation.GenerationEngine`):
   so a failed tier copy never corrupts a lane. Combine with
   ``slow_ms`` to model a slow host or disk tier instead
 
-Training seams (``train_step``, ``data_batch``, ``checkpoint_io``,
-``preempt``) come along for the supervised training loop (item 12);
-nothing in the port fires them yet.
+Training seams (fired by
+:class:`~.parallel.elastic.FaultTolerantTrainer`'s supervised loop and
+its :class:`~.parallel.resilience.TrainingSupervisor`):
+
+- ``data_batch``    — before each batch reaches the step (retried)
+- ``train_step``    — immediately before each train step runs (retried;
+  the step's inputs are untouched, so the retry replays it bit for bit)
+- ``checkpoint_io`` — before each checkpoint write attempt (retried; a
+  v3 write fires it once a shard, worker-scoped, and once before the
+  manifest commit); combine with ``slow_ms`` to model a slow disk
+- ``preempt``       — at each step boundary: a fire flushes a
+  step-granular checkpoint and raises :class:`PreemptionFault`
 
 Fault types injected at the raising seams:
 

@@ -10,10 +10,17 @@ JAX package's layout. ``step`` counts from 0 and ``lr(step)`` is the
 JAX package returned new ones); the port keeps its own optimizers
 rather than ``torch.optim`` so that every formula and step counter
 matches the reference exactly.
+
+A half gradient or state leaf (a network built with
+``init(dtype=torch.bfloat16)``) follows JAX's dtype rules instead: the
+arithmetic runs in f32 on upcast operands, a new state leaf takes the
+promotion of its old dtype and its gradient's (bf16 while both are),
+and an update scaled by the f32 learning rate comes out f32. Such a
+leaf is replaced in the state dict, never updated in place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -29,10 +36,32 @@ def _f32(x) -> torch.Tensor:
     return torch.tensor(float(x), dtype=torch.float32)
 
 
+def _weak(c: float, t: torch.Tensor) -> float:
+    """A Python constant as JAX's weak typing applies it to ``t``:
+    rounded to ``t``'s dtype when that is a half dtype."""
+    if t.dtype == torch.float32:
+        return c
+    return float(torch.tensor(c, dtype=t.dtype))
+
+
+def _rounded(x: torch.Tensor, dtype) -> torch.Tensor:
+    """An f32 intermediate that JAX's step keeps in ``dtype``, rounded
+    to it (and back to f32 for the arithmetic after it)."""
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
 class Updater:
-    """Base updater config."""
+    """Base updater config. A subclass writes its f32 formula, in place,
+    as ``_apply``; ``slots`` names its state's layout (None: one leaf a
+    param, ``{param: leaf}``; a tuple: ``{slot: {param: leaf}}``),
+    ``lr_scaled`` whether its updates are products with the learning
+    rate, which makes them f32 in JAX whatever the gradient's dtype, and
+    ``state_lr_scaled`` the same of its new state."""
 
     name = "updater"
+    slots: Optional[Tuple[str, ...]] = None
+    lr_scaled = True
+    state_lr_scaled = False
 
     def __init__(self, learning_rate=1e-3):
         self.learning_rate = schedules.get(learning_rate) if isinstance(
@@ -42,8 +71,55 @@ class Updater:
         return {}
 
     def apply(self, state, grads: Dict[str, torch.Tensor], step: int):
-        """Returns (new_state, updates); updates are subtracted."""
+        """Returns (new_state, updates); updates are subtracted. Leaves
+        whose gradient and state are all f32 update in place; the others
+        follow JAX's dtype rules (``_apply_half``)."""
+        slots = self._slot_dicts(state)
+        half = {n: g for n, g in grads.items()
+                if g.dtype != torch.float32
+                or any(d[n].dtype != torch.float32 for d in slots)}
+        if not half:
+            return self._apply(state, grads, step)
+        full = {n: g for n, g in grads.items() if n not in half}
+        updates = self._apply(state, full, step)[1] if full else {}
+        updates.update(self._apply_half(state, half, step))
+        return state, updates
+
+    def _apply(self, state, grads, step: int):
         raise NotImplementedError
+
+    def _slot_dicts(self, state) -> list:
+        if self.slots is None:
+            return [state]
+        return [state[s] for s in self.slots]
+
+    def _apply_half(self, state, grads, step: int) -> dict:
+        """The f32 formula on f32 copies of the gradients and of their
+        state leaves; each new state leaf is stored in the promotion of
+        its old dtype and its gradient's (f32 when ``state_lr_scaled``),
+        each update f32 when ``lr_scaled`` and in the promotion of the
+        gradient's and the state's dtypes otherwise: the dtypes JAX's
+        arithmetic gives them. Adam overrides this with JAX's own order
+        of roundings; for the other updaters the values agree with
+        JAX's to a bf16 rounding of the update. Returns the updates."""
+        slots = self._slot_dicts(state)
+        sub = {n: g.float() for n, g in grads.items()}
+        copies = [{n: d[n].float() for n in grads} for d in slots]
+        sub_state = (copies[0] if self.slots is None
+                     else dict(zip(self.slots, copies)))
+        updates = self._apply(sub_state, sub, step)[1]
+        out = {}
+        for n, g in grads.items():
+            dt = g.dtype
+            for d, c in zip(slots, self._slot_dicts(sub_state)):
+                dt = torch.promote_types(dt, d[n].dtype)
+                new = torch.promote_types(d[n].dtype, g.dtype)
+                d[n] = c[n].to(torch.promote_types(new, torch.float32)
+                               if self.state_lr_scaled else new)
+            out[n] = updates[n].to(
+                torch.promote_types(dt, torch.float32) if self.lr_scaled
+                else dt)
+        return out
 
     def lr(self, step: int) -> float:
         """The learning rate at ``step`` (a float of its f32 value)."""
@@ -71,11 +147,12 @@ class Sgd(Updater):
     """update = lr * g."""
 
     name = "sgd"
+    slots = ()
 
     def __init__(self, learning_rate=0.1):
         super().__init__(learning_rate)
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         lr = self.lr(step)
         return state, {n: lr * g for n, g in grads.items()}
 
@@ -84,6 +161,8 @@ class NoOp(Updater):
     """The gradient itself is the update."""
 
     name = "noop"
+    slots = ()
+    lr_scaled = False
 
     def __init__(self):
         super().__init__(0.0)
@@ -91,7 +170,7 @@ class NoOp(Updater):
     def to_json(self):
         return {"@class": self.name}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         return state, {n: g.clone() for n, g in grads.items()}
 
 
@@ -99,6 +178,7 @@ class Nesterovs(Updater):
     """v' = mu v - lr g; update = mu v - (1 + mu) v'."""
 
     name = "nesterovs"
+    state_lr_scaled = True
 
     def __init__(self, learning_rate=0.1, momentum=0.9):
         super().__init__(learning_rate)
@@ -107,7 +187,7 @@ class Nesterovs(Updater):
     def init_state(self, params):
         return _zeros(params)
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         lr, mu = self.lr(step), self.momentum
         updates = {}
         for n, g in grads.items():
@@ -130,7 +210,7 @@ class AdaGrad(Updater):
     def init_state(self, params):
         return _zeros(params)
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         lr = self.lr(step)
         updates = {}
         for n, g in grads.items():
@@ -155,7 +235,7 @@ class RmsProp(Updater):
         return {n: torch.full_like(p, self.epsilon)
                 for n, p in params.items()}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         lr, d = self.lr(step), self.rms_decay
         updates = {}
         for n, g in grads.items():
@@ -170,6 +250,8 @@ class AdaDelta(Updater):
     updates."""
 
     name = "adadelta"
+    slots = ("msg", "msdx")
+    lr_scaled = False
 
     def __init__(self, rho=0.95, epsilon=1e-6):
         super().__init__(0.0)
@@ -182,7 +264,7 @@ class AdaDelta(Updater):
     def init_state(self, params):
         return {"msg": _zeros(params), "msdx": _zeros(params)}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         rho, eps = self.rho, self.epsilon
         updates = {}
         for n, g in grads.items():
@@ -217,11 +299,12 @@ class Adam(_AdamFamily):
     ``update = lr * bc * m / (sqrt(v) + eps)``."""
 
     name = "adam"
+    slots = ("m", "v")
 
     def init_state(self, params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         b1, b2 = self.beta1, self.beta2
         c1, c2 = _bias_terms(step, b1, b2)
         lr_bc = float(_f32(self.lr(step)) * (c2 / c1))
@@ -233,16 +316,41 @@ class Adam(_AdamFamily):
             updates[n] = (lr_bc * m) / (v.sqrt() + self.epsilon)
         return state, updates
 
+    def _apply_half(self, state, grads, step):
+        """JAX's formula with its dtypes, in the order its compiled CPU
+        step evaluates it: the constants that multiply a bf16 leaf are
+        rounded to bf16 (weak typing), the sums run in f32 and round once
+        where the new moment is stored, ``g * g`` of a bf16 gradient and
+        ``sqrt(v)`` of a bf16 ``v`` round to bf16, and the update is the
+        f32 product with ``lr * bc`` over ``sqrt(v) + eps`` in f32."""
+        b1, b2 = self.beta1, self.beta2
+        c1, c2 = _bias_terms(step, b1, b2)
+        lr_bc = float(_f32(self.lr(step)) * (c2 / c1))
+        updates = {}
+        for n, g in grads.items():
+            m, v = state["m"][n], state["v"][n]
+            g32 = g.float()
+            m_new = (_weak(b1, m) * m.float() + _weak(1 - b1, g) * g32).to(
+                torch.promote_types(m.dtype, g.dtype))
+            v_new = (_weak(b2, v) * v.float() + _weak(1 - b2, g)
+                     * _rounded(g32 * g32, g.dtype)).to(
+                torch.promote_types(v.dtype, g.dtype))
+            den = _rounded(v_new.float().sqrt(), v_new.dtype) + self.epsilon
+            updates[n] = lr_bc * m_new.float() / den
+            state["m"][n], state["v"][n] = m_new, v_new
+        return updates
+
 
 class AdaMax(_AdamFamily):
     """u = max(b2 u, |g|); update = lr / (1 - b1^t) * m / (u + eps)."""
 
     name = "adamax"
+    slots = ("m", "u")
 
     def init_state(self, params):
         return {"m": _zeros(params), "u": _zeros(params)}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         b1, b2 = self.beta1, self.beta2
         c1, _ = _bias_terms(step, b1, b2)
         lr_bc = float(_f32(self.lr(step)) * (1.0 / c1))
@@ -259,12 +367,13 @@ class AMSGrad(_AdamFamily):
     """Adam with the running maximum of v in the denominator."""
 
     name = "amsgrad"
+    slots = ("m", "v", "vhat")
 
     def init_state(self, params):
         return {"m": _zeros(params), "v": _zeros(params),
                 "vhat": _zeros(params)}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         b1, b2 = self.beta1, self.beta2
         c1, c2 = _bias_terms(step, b1, b2)
         lr_bc = float(_f32(self.lr(step)) * (c2 / c1))
@@ -283,11 +392,12 @@ class Nadam(_AdamFamily):
     (1 - b1^t); the denominator is sqrt of the raw v plus eps."""
 
     name = "nadam"
+    slots = ("m", "v")
 
     def init_state(self, params):
         return {"m": _zeros(params), "v": _zeros(params)}
 
-    def apply(self, state, grads, step):
+    def _apply(self, state, grads, step):
         b1, b2 = self.beta1, self.beta2
         c1 = float(_bias_terms(step, b1, b2)[0])
         lr = self.lr(step)

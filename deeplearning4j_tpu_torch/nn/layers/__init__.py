@@ -819,3 +819,87 @@ class Upsampling2D(Layer):
 
     def _extra_json(self):
         return {"size": list(self.size)}
+
+
+def _frozen(params):
+    """The params cut from autograd (JAX's ``stop_gradient``)."""
+    return {n: t.detach() for n, t in params.items()}
+
+
+@register
+class FrozenLayer(Layer):
+    """A wrapper whose inner layer's params get no gradient (JAX's
+    ``stop_gradient``; counterpart of
+    ``deeplearning4j_tpu/nn/layers/convolutional.py::FrozenLayer``).
+    The inner layer always runs in inference mode (no dropout, batch
+    norm on its running stats, its state unchanged), and its L1/L2
+    terms are zeroed at ``build`` so weight decay cannot move it.
+    Gradients still flow through its activations to the layers below;
+    where nothing below needs them (a frozen prefix over token ids),
+    autograd builds no backward there at all."""
+
+    kind = "frozen"
+
+    def __init__(self, layer=None, **kw):
+        kw.setdefault("activation", "identity")
+        super().__init__(**kw)
+        if isinstance(layer, dict):
+            layer = from_json(layer)
+        self.layer = layer
+
+    @property
+    def is_rnn(self):
+        return getattr(self.layer, "is_rnn", False)
+
+    def build(self, input_shape, defaults=None):
+        super().build(input_shape, defaults)
+        self.layer.build(input_shape, defaults)
+        # the network's L1/L2 terms read the wrapper's coefficients
+        self.l1 = self.l2 = self.l1_bias = self.l2_bias = 0.0
+
+    def param_shapes(self):
+        return self.layer.param_shapes()
+
+    def init_params(self, generator, dtype=torch.float32):
+        return self.layer.init_params(generator, dtype)
+
+    def init_state(self):
+        return self.layer.init_state()
+
+    def init_carry(self, batch: int, dtype=torch.float32, device=None):
+        return self.layer.init_carry(batch, dtype, device)
+
+    def _train(self, train: bool) -> bool:
+        return False
+
+    def apply(self, params, x, state, train, rng):
+        return self.layer.apply(_frozen(params), x, state,
+                                self._train(train), rng)
+
+    def apply_seq(self, params, x, state, train, rng, carry, mask):
+        return self.layer.apply_seq(_frozen(params), x, state,
+                                    self._train(train), rng, carry, mask)
+
+    def compute_loss(self, params, x, labels, mask=None, train: bool = False,
+                     rng=None):
+        # a frozen output layer still scores; its params do not move
+        return self.layer.compute_loss(_frozen(params), x, labels, mask,
+                                       train=self._train(train), rng=rng)
+
+    def output_shape(self, input_shape):
+        return self.layer.output_shape(input_shape)
+
+    def _extra_json(self):
+        return {"layer": self.layer.to_json()}
+
+
+@register
+class FrozenLayerWithBackprop(FrozenLayer):
+    """FrozenLayer that keeps the inner layer's training-mode forward
+    (dropout stays on); only the param update is blocked (counterpart
+    of ``deeplearning4j_tpu/nn/layers/misc.py::FrozenLayerWithBackprop``)."""
+
+    kind = "frozen_backprop"
+
+    def _train(self, train: bool) -> bool:
+        return train

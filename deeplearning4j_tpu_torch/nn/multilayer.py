@@ -42,8 +42,18 @@ forward, constraints project its params after the update, and
 ``_make_step_fn(guard=True)`` is the anomaly-guarded step, all where
 the JAX package puts them.
 
+Pure half params (``init(dtype=torch.bfloat16)``) follow JAX's dtype
+rules leaf by leaf: params and updater state start in bf16, and the
+update promotes as JAX's ``p - u`` does (the updates are f32, from the
+f32 learning rate), so after step 1 every param is f32 while Adam's
+moments are still bf16, and after step 2 the moments are f32 too. A
+leaf whose dtype changes is replaced by a new tensor; every f32 leaf is
+updated in place. A param that the loss does not reach (a frozen
+layer's, ``FrozenLayer``, ``FrozenLayerWithBackprop``) gets a zero
+gradient, which still goes through its updater, as in JAX.
+
 Not ported yet, and refused: layerwise pretraining (ROADMAP.md queue A,
-item 13) and pure-bf16 params (item 11).
+item 13).
 """
 from __future__ import annotations
 
@@ -98,6 +108,21 @@ def _select_ok(ok, new, old):
     return _tree_map(lambda n, o: torch.where(ok, n, o), new, old)
 
 
+def _clone_tree(tree):
+    """A copy of a nested dict with every tensor leaf cloned."""
+    return _tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
+                     else t, tree)
+
+
+def _subtract(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """``p - u`` as JAX computes it: in place when the result keeps
+    ``p``'s dtype (every f32 param), else a new leaf in the promoted
+    dtype (a bf16 param beside an f32 update)."""
+    if torch.promote_types(p.dtype, u.dtype) == p.dtype:
+        return p.sub_(u)
+    return (p.detach() - u).requires_grad_(True)
+
+
 def _detach(carry):
     """A carry (a tensor or a tuple of them) cut from the graph."""
     if isinstance(carry, (tuple, list)):
@@ -140,6 +165,14 @@ def _regularization_penalty(params: Params, layers_meta) -> torch.Tensor:
     return reg
 
 
+def _param_dtype(t) -> torch.dtype:
+    """The dtype a param or updater-state leaf is kept in: its own when
+    it is a half dtype (pure-half networks), f32 otherwise."""
+    if t.dtype in (torch.bfloat16, torch.float16):
+        return t.dtype
+    return torch.float32
+
+
 class MultiLayerNetwork:
     """Sequential network; the public surface mirrors the JAX class."""
 
@@ -162,18 +195,15 @@ class MultiLayerNetwork:
 
     # -- init ----------------------------------------------------------
     def init(self, dtype=torch.float32) -> "MultiLayerNetwork":
-        """Build every layer's shapes, draw its params from the
-        configuration's seed (a ``torch.Generator`` on the CPU; the
+        """Build every layer's shapes, draw its params in ``dtype`` from
+        the configuration's seed (a ``torch.Generator`` on the CPU; the
         draws differ from ``jax.random``, see
         :func:`~..convert.network_params_from_jax`) and its state, and
         start JAX's key chain."""
         if self._input_shape is None:
             raise ValueError("Configuration needs an input_type to init()")
-        if dtype != torch.float32:
-            raise NotImplementedError(
-                "only f32 master params are ported; a half data_type trains "
-                "them under the bf16 policy (pure-bf16 params: ROADMAP.md "
-                "queue A, item 11)")
+        if not dtype.is_floating_point:
+            raise ValueError(f"params need a floating dtype, got {dtype}")
         shape = tuple(self._input_shape)
         gen = torch.Generator().manual_seed(self.conf.seed)
         self._rng = R.key_at(R.split(self._rng, len(self.layers) + 1), 0)
@@ -341,16 +371,19 @@ class MultiLayerNetwork:
     def _grads(self, params: Params, net_state: Params, x, y, mask,
                train: bool, rng, carries=None):
         """Loss, gradients (leaves of ``params`` that require grad), the
-        layers' new state and the new carries of one batch."""
+        layers' new state and the new carries of one batch. A param the
+        loss does not reach (a frozen layer's, JAX's ``stop_gradient``)
+        gets zeros; autograd builds no backward for it."""
         keys = [(k, n) for k, p in params.items() for n in p]
         with torch.enable_grad():
             loss, new_state, new_carries = self._loss_carries(
                 params, net_state, x, y, mask, train, rng, carries)
-            leaves = torch.autograd.grad(loss,
-                                         [params[k][n] for k, n in keys])
+            leaves = torch.autograd.grad(
+                loss, [params[k][n] for k, n in keys], allow_unused=True) \
+                if keys and loss.requires_grad else [None] * len(keys)
         grads: Params = {k: {} for k in params}
         for (k, n), g in zip(keys, leaves):
-            grads[k][n] = g
+            grads[k][n] = torch.zeros_like(params[k][n]) if g is None else g
         return loss.detach(), grads, new_state, new_carries
 
     def _train_step(self, x, y, mask, rng) -> torch.Tensor:
@@ -375,7 +408,7 @@ class MultiLayerNetwork:
                     self._opt_state[key], grads[key], self._step)
                 p = self._params[key]
                 for n, t in p.items():
-                    t.sub_(upd[n])
+                    p[n] = _subtract(t, upd[n])
                 layer = self.layers[i]
                 if constrain and layer.constraints:
                     for n, t in apply_constraints(
@@ -414,8 +447,7 @@ class MultiLayerNetwork:
                     if key not in params:
                         continue
                     st, upd = self._updaters[i].apply(
-                        _tree_map(torch.clone, opt_state[key]), grads[key],
-                        step)
+                        _clone_tree(opt_state[key]), grads[key], step)
                     new_opt[key] = st
                     new_p = {n: t.detach() - upd[n]
                              for n, t in params[key].items()}
@@ -589,10 +621,11 @@ class MultiLayerNetwork:
 
     def set_params(self, params: Params):
         """Take a ``{layer_key: {name: tensor}}`` dict: the tensors move
-        to the device as f32 leaves that require grad. Updater state
-        starts fresh."""
+        to the device as leaves that require grad, f32 unless they are
+        half (bf16 or fp16) tensors, which keep their dtype. Updater
+        state starts fresh, in the params' dtypes."""
         self._params = {
-            k: {n: t.detach().to(self.device, torch.float32)
+            k: {n: t.detach().to(self.device, _param_dtype(t))
                 .clone().requires_grad_(True) for n, t in p.items()}
             for k, p in params.items()}
         self._opt_state = {
@@ -616,11 +649,12 @@ class MultiLayerNetwork:
 
     def set_updater_state(self, state):
         """Take updater state in the layout of
-        :meth:`get_updater_state` (tensors move to the device)."""
+        :meth:`get_updater_state` (tensors move to the device, f32 but
+        for half leaves, which keep their dtype)."""
         def to(x):
             if isinstance(x, dict):
                 return {k: to(v) for k, v in x.items()}
-            return x.detach().to(self.device, torch.float32).clone()
+            return x.detach().to(self.device, _param_dtype(x)).clone()
         self._opt_state = to(state)
 
     def set_listeners(self, *listeners):

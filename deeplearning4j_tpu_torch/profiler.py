@@ -1,8 +1,9 @@
 """Section timing and serving aggregates (counterpart of the
 framework-free parts of ``deeplearning4j_tpu/profiler/__init__.py``):
 ``OpProfiler.record``/``note`` sections, :class:`Reservoir`,
-:class:`RateMeter` and :class:`CountHistogram`. The NaN/Inf panic
-checks and the device trace come with the profiler slice."""
+:class:`RateMeter`, :class:`CountHistogram` and :class:`Counter`. The
+NaN/Inf panic checks and the device trace come with the profiler
+slice."""
 from __future__ import annotations
 
 import contextlib
@@ -76,6 +77,25 @@ class OpProfiler:
         with self._rec_lock:
             self._totals.clear()
             self._counts.clear()
+
+
+class Counter:
+    """Thread-safe monotonically increasing event counter: the
+    resilient-training supervisor bumps these from the step loop (and
+    the checkpoint writer's thread) while tests and listeners read them."""
+
+    def __init__(self):
+        self._v = 0
+        self._lock = threading.Lock()
+
+    def inc(self, n: int = 1) -> int:
+        with self._lock:
+            self._v += int(n)
+            return self._v
+
+    def value(self) -> int:
+        with self._lock:
+            return self._v
 
 
 #: the exact key set of :meth:`Reservoir.snapshot`

@@ -12,7 +12,8 @@ uint32 words, what ``np.asarray(key).tolist()`` gives in JAX) and the
 loop's ``cursor`` (when given). The npz entries are the flattened trees,
 keyed as JAX's ``tree_flatten_with_path`` spells them (``layer_0/W``,
 ``layer_0/m/W``: dict keys in sorted order joined by ``/``), with the
-trees' dtypes. A restored network resumes exactly: the same params,
+trees' dtypes; a bf16 leaf is the raw 2-byte void (``|V2``) member
+``np.savez`` writes for a JAX bf16 array, and reads back as bf16. A restored network resumes exactly: the same params,
 updater state, layer state, step counter and key chain.
 
 Writing is split into :func:`snapshot_training_state` (the copy of the
@@ -33,6 +34,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..convert import is_bf16_array, numpy_from_tensor, tensor_from_numpy
 
 #: zip (single-file) checkpoint versions this build reads; shard
 #: directories are exactly :data:`SHARDED_FORMAT_VERSION`.
@@ -71,7 +74,7 @@ def _is_node(tree) -> bool:
 
 def _host(leaf) -> np.ndarray:
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy().copy()
+        return numpy_from_tensor(leaf)
     return np.array(leaf, copy=True)
 
 
@@ -89,12 +92,17 @@ def _flatten_tree(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = ""):
-    """A tree of ``template``'s layout whose leaves come from ``flat``,
-    each cast to its template leaf's dtype and shape (as CPU tensors)."""
+    """A tree of ``template``'s layout whose leaves come from ``flat``
+    (as CPU tensors), each in its template leaf's shape and dtype, but a
+    half leaf (bf16, stored as ``|V2``, or fp16) keeps its own dtype: a
+    pure-bf16 network's leaves turn f32 one by one as it trains (see
+    ``nn/multilayer.py``), so the archive, not a fresh ``init``, says
+    which are still half."""
     def leaf(key, t):
-        arr = np.asarray(flat[key])
-        out = torch.from_numpy(np.array(arr, copy=True))
-        return out.to(t.dtype).reshape(t.shape)
+        out = tensor_from_numpy(np.asarray(flat[key]))
+        if out.dtype not in (torch.bfloat16, torch.float16):
+            out = out.to(t.dtype)
+        return out.reshape(t.shape)
     if isinstance(template, dict):
         return {k: (_unflatten_like(v, flat, f"{prefix}/{k}" if prefix
                                     else str(k))
@@ -107,9 +115,27 @@ def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix: str = ""):
         for i, v in enumerate(template))
 
 
-def _npz_bytes(arrs: Dict[str, np.ndarray]) -> bytes:
+def _npy_bytes(a: np.ndarray) -> bytes:
+    """One ``.npy`` member as ``np.savez`` writes it. For a bf16 leaf
+    (a ``|V2`` array here) that is the header JAX's ``ml_dtypes`` array
+    gets, ``'descr': '<V2'``, over the same bits."""
     buf = io.BytesIO()
-    np.savez(buf, **arrs)
+    np.lib.format.write_array(buf, np.asanyarray(a), allow_pickle=False)
+    data = buf.getvalue()
+    if is_bf16_array(np.asanyarray(a)):
+        data = data.replace(b"'descr': '|V2'", b"'descr': '<V2'", 1)
+    return data
+
+
+def _npz_bytes(arrs: Dict[str, np.ndarray]) -> bytes:
+    """What ``np.savez`` writes, byte for byte (stored members, zip64
+    headers), with the bf16 members' header as JAX writes it."""
+    buf = io.BytesIO()
+    with zipfile.ZipFile(buf, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as z:
+        for k, a in arrs.items():
+            with z.open(f"{k}.npy", "w", force_zip64=True) as f:
+                f.write(_npy_bytes(a))
     return buf.getvalue()
 
 

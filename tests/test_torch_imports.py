@@ -52,7 +52,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "zoo.simple",
                 # checkpoints, the recurrent stack and early stopping
                 "util", "util.serializer", "nn.conf.weightnoise",
-                "nn.conf.constraint", "earlystopping"):
+                "nn.conf.constraint", "earlystopping",
+                # transfer learning and resilient training
+                "nn.transferlearning", "parallel.resilience",
+                "parallel.elastic", "parallel.multihost",
+                "parallel.telemetry", "profiler"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

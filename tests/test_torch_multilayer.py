@@ -270,7 +270,7 @@ def test_unported_options_raise():
     MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain", dropout=0.1),
                       device="cpu").fit(*_batch()[:2])
     # a bf16 configuration builds and trains on the CPU (the bf16
-    # policy); only pure-bf16 params stay unported
+    # policy)
     bf16 = (NeuralNetConfiguration.builder().seed(0).data_type("bfloat16")
             .updater(Adam(1e-2)).list()
             .layer(DenseLayer(n_out=8, activation="tanh"))
@@ -284,9 +284,13 @@ def test_unported_options_raise():
     assert net.score(xs, ys) < first
     assert all(t.dtype == torch.float32 for p in net.params().values()
                for t in p.values())
-    # pure-bf16 params stay unported (ROADMAP.md queue A, item 11)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        net.init(dtype=torch.bfloat16)
+    # pure-bf16 params are ported (tests/test_torch_bf16_params.py):
+    # init(dtype=bf16) builds bf16 params; an integer dtype is refused
+    net.init(dtype=torch.bfloat16)
+    assert all(t.dtype == torch.bfloat16 for p in net.params().values()
+               for t in p.values())
+    with pytest.raises(ValueError, match="floating"):
+        net.init(dtype=torch.int32)
     # TBPTT and remat are ported (tests/test_torch_remat_tbptt.py): a
     # configuration with either builds and trains
     for kw in (dict(tbptt_fwd_length=8), dict(remat=True)):

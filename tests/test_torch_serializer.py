@@ -354,3 +354,40 @@ def test_clone_goes_through_json():
         tn.conf.layers[0]
     assert c.conf.to_json() == tn.conf.to_json()
     np.testing.assert_array_equal(_np(c.output(x)), _np(tn.output(x)))
+
+
+def test_bf16_leaves_cross_packages_and_archives(tmp_path):
+    """bf16 leaves: ``convert.py`` takes JAX's ``ml_dtypes.bfloat16``
+    arrays (bits through an int16 view, no ``ml_dtypes`` import), the
+    serializer writes each bf16 leaf as the npz member bytes JAX's
+    ``np.savez`` writes (a ``<V2`` header over the same bits), and a
+    ``|V2`` member reads back as bf16, bit for bit, also where the
+    template leaf is f32."""
+    import io
+
+    import jax.numpy as jnp
+    tree = {"layer_0": {"W": np.asarray(jnp.asarray(
+        np.random.RandomState(0).randn(3, 5), jnp.bfloat16)),
+        "b": np.asarray(jnp.zeros((5,), jnp.bfloat16))}}
+    t = network_params_from_jax(tree)
+    for n, v in tree["layer_0"].items():
+        assert t["layer_0"][n].dtype == torch.bfloat16
+        assert np.array_equal(t["layer_0"][n].view(torch.int16).numpy(),
+                              v.view(np.int16))
+    jbuf = io.BytesIO()
+    np.savez(jbuf, **{f"layer_0/{n}": v for n, v in tree["layer_0"].items()})
+    flat = TS._flatten_tree(t)
+    port = TS._npz_bytes(flat)
+    with zipfile.ZipFile(io.BytesIO(jbuf.getvalue())) as jz, \
+            zipfile.ZipFile(io.BytesIO(port)) as tz:
+        assert jz.namelist() == tz.namelist()
+        for n in jz.namelist():
+            assert jz.read(n) == tz.read(n), n
+    loaded = dict(np.load(io.BytesIO(port)))
+    assert all(v.dtype.kind == "V" for v in loaded.values())
+    template = {"layer_0": {"W": torch.zeros(3, 5),
+                            "b": torch.zeros(5, dtype=torch.bfloat16)}}
+    back = TS._unflatten_like(template, loaded)
+    for n in ("W", "b"):
+        assert back["layer_0"][n].dtype == torch.bfloat16
+        assert torch.equal(back["layer_0"][n], t["layer_0"][n])
