@@ -264,6 +264,31 @@ Phases, each of which fails the run when it fails:
    prints the step loop's stall at a checkpoint (sync and async), the
    writer's seconds a write and the step p50 while a write runs beside
    none. The phase prints the seconds it added.
+21. the DAG network (ComputationGraph), on no TPU kernel (every launch
+   counter must stay 0): (a) the zoo's ResNet50 (BASELINE config 2:
+   224x224x3, 1000 classes, f32, its Adam(1e-3)) fitted through
+   ComputationGraph.fit at batch 64 on a learnable synthetic batch, one
+   warmup and five timed steps: the loss must fall and every running
+   stat move; then one step at batch 8 against a CPU copy (same params,
+   layer state and Adam state): every node's pre-activation computed on
+   the CPU from the card's inputs to it, each ReLU that chose otherwise
+   a near-tie, the whole-graph loss, every gradient of the CPU run on
+   the card's pre-activations (within its tolerance or 3x the CPU's own
+   move when those pre-activations move by 1e-7), the new running
+   stats, and the params and Adam's m and v after both apply the step;
+   (b) the same under the bf16 policy, three steps, the loss falling,
+   masters and Adam state f32, the first step's loss against a CPU
+   copy; (c) (a)'s net behind InferenceEngine and the micro-batcher,
+   every power-of-two bucket up to 32 captured at warmup and none
+   after, 64 requests of 1-4 rows from 16 threads, each row against
+   eager output(), and one row's bits alone and inside buckets 8 and
+   32; (d) InceptionResNetV1 (160x160x3) and SqueezeNet (227x227x3),
+   every node of one forward against a CPU copy, and a SqueezeNet
+   archive with its Adam state restored into a fresh card graph, the
+   next step bit for bit (cuDNN deterministic). It prints step and
+   enqueue p50, images/s beside the bound, peak memory, one profiled
+   step, the CPU copy's gaps, rows/s and request p50/p99, and the
+   seconds the phase added.
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -1977,6 +2002,14 @@ def profile_train_step(net, x, y):
         kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
         n_kernels += e.count
     busy_ms = sum(kernels.values())
+    # layout copies: PyTorch's copy kernels and cuDNN's transposes (the
+    # convolutions' NHWC <-> NCHW views, among other copies)
+    layout = {n: ms for n, ms in kernels.items()
+              if re.search(r"copy|nchwToNhwc|nhwcToNchw|transpose", n)}
+    # convolutions: cuDNN's forward, data-gradient and weight-gradient
+    # kernels (implicit GEMMs and its own engines)
+    conv_ms = sum(ms for n, ms in kernels.items()
+                  if re.search(r"fprop|dgrad|wgrad|conv", n))
     # device time by kind: the flash kernels, bf16 and f32 GEMMs (cuBLAS
     # names a GEMM's types, except its nvjet kernels, which run only
     # half-precision tensor-core products here: TF32 is off), everything
@@ -1997,6 +2030,8 @@ def profile_train_step(net, x, y):
     return dict(wall_ms=wall * 1e3, busy_ms=busy_ms,
                 busy_share=busy_ms / (wall * 1e3), device_kernels=n_kernels,
                 by_kind=by_kind, gemms=gemms,
+                layout_ms=sum(layout.values()), conv_ms=conv_ms,
+                layout_top=sorted(layout.items(), key=lambda kv: -kv[1])[:4],
                 top=sorted(kernels.items(), key=lambda kv: -kv[1])[:10],
                 host_top=sorted(host, key=lambda h: -h[1])[:12])
 
@@ -3505,6 +3540,521 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
         return res
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# -- phase 21: ComputationGraph, the zoo's ResNet-50 ---------------------
+RESNET_SHAPE = (224, 224, 3)   # BASELINE config 2, the zoo's ResNet50
+RESNET_CLASSES = 1000
+RESNET_BATCH = 64
+RESNET_STEPS = 5        # 21a: timed steps, after one warmup step
+RESNET_COPY_BATCH = 8   # 21a: the step held against a CPU copy
+RESNET_BF16_STEPS = 3   # 21b
+GRAPH_NODE_TOL = 1e-4   # 21a: each node's pre-activation computed on the
+#                         CPU from the card's inputs to that node, against
+#                         the card's, over the node's max |value| (f32 on
+#                         both sides, TF32 off; sums of up to 4,608 terms in
+#                         another order: CNN_TOL's reason)
+GRAPH_LOSS_RTOL = 1e-4  # 21a: the whole-graph loss, the CPU copy on its own
+#                         values against the card (53 conv and batch-norm
+#                         layers, each adding its f32 rounding)
+GRAPH_GRAD_TOL = 1e-4   # 21a: each gradient leaf (the CPU copy on the
+#                         card's pre-activations) over its max |value|, or
+#                         3x the most that leaf moves on the CPU itself when
+#                         the card's pre-activations move by 1e-7 relative
+#                         (two draws), whichever is larger: a random-init
+#                         ResNet's batch-norm backward is ill-conditioned
+#                         (tests/test_torch_zoo_graph.py: JAX's own gradient
+#                         moves by up to 0.47 of a leaf's max at 32x32)
+GRAPH_WITNESS_REL = 1e-7
+GRAPH_PARAM_ATOL = CNN_PARAM_ATOL  # 21a: params after the step, absolute
+GRAPH_SERVE_TOL = 1e-4  # 21c: served rows against eager output(), over the
+#                         row's max |value| (f32; cuDNN may pick another
+#                         algorithm for another batch size)
+GRAPH_SERVE_BUCKETS = (1, 2, 4, 8, 16, 32)  # 21c: every power-of-two
+#                         bucket up to 32 (the engine's), captured at warmup
+GRAPH_BITS_BUCKETS = (1, 8, 32)  # 21c: one row's bits alone and inside these
+GRAPH_SERVE_REQUESTS = 64
+GRAPH_SERVE_CLIENTS = 16
+INCEPTION_SHAPE = (160, 160, 3)
+SQUEEZENET_SHAPE = (227, 227, 3)
+GRAPH_FWD_BATCH = 4     # 21d: the forward held against a CPU copy
+RESNET_FLOPS_PER_IMAGE = 4.11e9 * 2  # 21a/b's bound: the forward's
+#                         multiply-adds at 224x224 (He et al., Table 1),
+#                         twice in flops; a training step is 3 forwards
+
+
+def resnet_bound_ms(batch: int, rate: float) -> float:
+    """The least time a training step of ``batch`` images could take at
+    ``rate`` flops/s: three forwards' flops (forward, and the backward's
+    two products per layer)."""
+    return 3 * RESNET_FLOPS_PER_IMAGE * batch / rate * 1e3
+
+
+def graph_pre_nodes(g):
+    """The layer nodes whose activation the loss's forward runs (all but
+    the output layers), by name."""
+    return [n for n in g._order if g.conf.nodes[n].layer is not None
+            and n not in g.conf.graph_outputs]
+
+
+def traced_graph_step(g, x, y, subst=None, record=True):
+    """One step's loss, gradients (on the host) and new layer state
+    through the graph's own ``_loss_fn``, with each layer node's
+    pre-activation (the input of its activation). With ``subst`` (another
+    run's pre-activations, by node) each z becomes ``z + (subst - z)
+    .detach()``: the other run's values, so ReLUs and pools choose as it
+    did, with this run's own gradient; the recorded z is this run's own,
+    that is, the node computed here on the other run's inputs to it."""
+    import torch
+    xs, ys = g._as_inputs(x), g._as_labels(y)
+    pre = {}
+    layers = {n: g.conf.nodes[n].layer for n in graph_pre_nodes(g)}
+    acts = {n: layer.activation for n, layer in layers.items()}
+
+    def recording(n, act):
+        def f(z):
+            if record:
+                pre[n] = z.detach().float().cpu()
+            if subst is not None:
+                z = z + (subst[n].to(z.device, z.dtype) - z).detach()
+            return act(z)
+        return f
+    for n, layer in layers.items():
+        layer.activation = recording(n, acts[n])
+    try:
+        keys = [(k, n) for k, p in g._params.items() for n in p]
+        with torch.enable_grad():
+            loss, state = g._loss_fn(g._params, g._net_state, xs, ys, None,
+                                     True, None)
+            gs = torch.autograd.grad(loss, [g._params[k][n]
+                                            for k, n in keys])
+    finally:
+        for n, layer in layers.items():
+            layer.activation = acts[n]
+    grads = {k: {} for k in g._params}
+    for (k, n), t in zip(keys, gs):
+        grads[k][n] = t.detach().cpu()
+    return float(loss.detach()), grads, pre, {
+        k: {n: t.detach().cpu() for n, t in st.items()}
+        for k, st in state.items()}
+
+
+def resnet_vs_cpu(card, x, y):
+    """21a's hold: one step of the card's graph against a CPU copy with
+    the same params, layer state and Adam state. Node by node, each
+    pre-activation computed on the CPU from the card's inputs to it; the
+    ReLUs that chose otherwise there are counted and each must be a
+    near-tie; the whole-graph loss of the CPU on its own values; every
+    gradient of the CPU run on the card's pre-activations, within
+    GRAPH_GRAD_TOL; then both apply the step, and the params and Adam's
+    m and v must agree."""
+    import torch
+    cpu = card.clone(device="cpu")
+    cpu.set_updater_state(card.get_updater_state())
+    cpu._step = card._step
+    xh, yh = x.cpu(), y.cpu()
+    t0 = time.perf_counter()
+    lc, gc, pc, sc = traced_graph_step(card, x, y)
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, gh, ph, sh = traced_graph_step(cpu, xh, yh, subst=pc)
+    node_err, worst_node, ties, tie_worst = 0.0, None, 0, 0.0
+    for n, z in ph.items():
+        e = _rel(z, pc[n])
+        if e > node_err:
+            node_err, worst_node = e, n
+        if cpu.conf.nodes[n].layer.activation.name == "relu":
+            flip = (pc[n] > 0) != (z > 0)
+            ties += int(flip.sum())
+            if flip.any():
+                tie_worst = max(tie_worst, max(
+                    float(z[flip].abs().max()),
+                    float(pc[n][flip].abs().max())) / float(z.abs().max()))
+    del ph
+    # the CPU's own gradient under tiny moves of the card's values: the
+    # backward's own conditioning, leaf by leaf
+    moved = []
+    for seed in (1, 2):
+        gen = torch.Generator().manual_seed(seed)
+        jitter = {n: z * (1 + GRAPH_WITNESS_REL * torch.randn(
+            z.shape, generator=gen)) for n, z in pc.items()}
+        moved.append(traced_graph_step(cpu, xh, yh, subst=jitter,
+                                       record=False)[1])
+        del jitter
+    with torch.no_grad():
+        lh = float(cpu._loss_fn(cpu._params, cpu._net_state,
+                                cpu._as_inputs(xh), cpu._as_labels(yh),
+                                None, True, None)[0])
+    t_cpu = time.perf_counter() - t0
+    loss_rel = abs(lc - lh) / abs(lh)
+    grad_err, grad_worst, over = 0.0, None, []
+    floors = {}
+    for k, p in gh.items():
+        for n, t in p.items():
+            floor = max(_rel(m[k][n], t) for m in moved)
+            floors[f"{k}.{n}"] = floor
+            e = _rel(gc[k][n], t)
+            if e > grad_err:
+                grad_err, grad_worst = e, f"{k}.{n}"
+            if e > max(GRAPH_GRAD_TOL, 3 * floor):
+                over.append((f"{k}.{n}", e, floor))
+    _, state_err = _worst(sc, sh)
+    # both apply the step: the card its own (a fit on the same batch),
+    # the CPU copy its gradients from the card's pre-activations
+    card.fit(x, y)
+    cpu.apply_gradients(gh, sh)
+    perr = max(float((_host(t) - _host(cpu.params()[k][n])).abs().max())
+               for k, p in card.params().items() for n, t in p.items())
+    aw, aerr = _worst({f"{k}.{part}": st[part] for k, st in
+                       card.get_updater_state().items() for part in st},
+                      {f"{k}.{part}": st[part] for k, st in
+                       cpu.get_updater_state().items() for part in st})
+    res = dict(batch=int(x.shape[0]), loss=lc, cpu_loss=lh,
+               loss_rel_err=loss_rel, nodes=len(pc), node_rel_err=node_err,
+               worst_node=worst_node, near_ties=ties,
+               near_tie_worst=tie_worst, worst_grad=grad_worst,
+               worst_grad_rel_err=grad_err,
+               grad_floor_max=max(floors.values()),
+               grads_over_tol=over[:5], state_rel_err=state_err,
+               param_abs_err=perr, adam_worst=aw, adam_rel_err=aerr,
+               card_trace_s=t_card, cpu_s=t_cpu)
+    if not (loss_rel <= GRAPH_LOSS_RTOL and node_err <= GRAPH_NODE_TOL
+            and not over and state_err <= GRAPH_NODE_TOL
+            and tie_worst <= NEAR_TIE and perr <= GRAPH_PARAM_ATOL
+            and aerr <= max(GRAPH_GRAD_TOL, 3 * max(floors.values()))):
+        raise AssertionError(f"phase 21a card vs CPU failed: {res}")
+    return res
+
+
+def resnet_train(card: str, device=None, shape=RESNET_SHAPE,
+                 classes=RESNET_CLASSES, batch=RESNET_BATCH,
+                 steps=RESNET_STEPS, copy_batch=RESNET_COPY_BATCH):
+    """Phase 21a: the zoo's ResNet50 at full width through fit: one
+    warmup and ``steps`` timed Adam steps on a learnable synthetic batch,
+    the loss falling and every running stat moving, one profiled step,
+    then one step at ``copy_batch`` against a CPU copy."""
+    import torch
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    t_phase = time.perf_counter()
+    on_card = device is None or torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    net = ResNet50(num_classes=classes, input_shape=shape, seed=21,
+                   device=device).init()
+    init_s = time.perf_counter() - t0
+    dev = net.device
+    xs, ys = simple_cnn_batch(batch, 21, shape, classes)
+    x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
+    state0 = {k: {n: t.clone() for n, t in st.items()}
+              for k, st in net.get_net_state().items()}
+    clock = StepClock(sync=on_card)
+    net.set_listeners(clock)
+    losses = []
+    clock.start()
+    for _ in range(1 + steps):
+        net.fit(x, y)
+        losses.append(net.score_)
+    net.set_listeners()
+    moved = sum(int(not torch.equal(t, state0[k][n]))
+                for k, st in net.get_net_state().items()
+                for n, t in st.items())
+    n_stats = sum(len(st) for st in state0.values())
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and moved == n_stats):
+        raise AssertionError(f"phase 21a ResNet-50: losses {losses}, {moved} "
+                             f"of {n_stats} running stats moved")
+    peak = torch.cuda.max_memory_allocated() if on_card else None
+    prof = profile_train_step(net, x, y) if on_card else None
+    vs_cpu = resnet_vs_cpu(net, x[:copy_batch], y[:copy_batch])
+    timed = clock.step_ms[1:]
+    step_p50 = float(np.median(timed))
+    res = dict(input=list(shape), classes=classes, batch=batch, steps=steps,
+               params=net.num_params(), nodes=len(net._order),
+               init_s=init_s, losses=losses, step_ms=clock.step_ms,
+               step_p50_ms=step_p50,
+               enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
+               images_per_s=batch / (step_p50 / 1e3),
+               bound_ms=resnet_bound_ms(batch, H100_F32_FLOPS),
+               peak_bytes=peak, stats_moved=moved, profile=prof,
+               vs_cpu=vs_cpu, seconds=time.perf_counter() - t_phase)
+    return net, res
+
+
+def resnet_bf16(card: str, device=None, shape=RESNET_SHAPE,
+                classes=RESNET_CLASSES, batch=RESNET_BATCH,
+                steps=RESNET_BF16_STEPS):
+    """Phase 21b: the same ResNet50 under the bf16 policy
+    (``data_type("bfloat16")``): ``steps`` steps, the loss falling, the
+    masters and Adam state f32, and the first step's loss against a CPU
+    copy at bf16."""
+    import torch
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    t_phase = time.perf_counter()
+    net = ResNet50(num_classes=classes, input_shape=shape, seed=21,
+                   device=device).init()
+    net.conf.dtype = "bfloat16"   # what data_type("bfloat16") sets
+    on_card = net.device.type == "cuda"
+    cpu = net.clone(device="cpu")
+    xs, ys = simple_cnn_batch(batch, 21, shape, classes)
+    x, y = torch.from_numpy(xs).to(net.device), torch.from_numpy(ys).to(
+        net.device)
+    clock = StepClock(sync=on_card)
+    net.set_listeners(clock)
+    losses = []
+    clock.start()
+    for _ in range(steps):
+        net.fit(x, y)
+        losses.append(net.score_)
+    net.set_listeners()
+    first = losses[0]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu_loss = float(cpu._loss_fn(
+            cpu._params, cpu._net_state, cpu._as_inputs(torch.from_numpy(xs)),
+            cpu._as_labels(torch.from_numpy(ys)), None, True, None)[0])
+    cpu_s = time.perf_counter() - t0
+    loss_rel = abs(first - cpu_loss) / abs(cpu_loss)
+    dtypes = {str(t.dtype) for p in net.params().values() for t in p.values()}
+    dtypes |= {str(t.dtype) for st in net.get_updater_state().values()
+               for part in st.values() for t in part.values()}
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and loss_rel <= TRAIN_BF16_LOSS_RTOL
+            and dtypes == {"torch.float32"}):
+        raise AssertionError(f"phase 21b ResNet-50 bf16: losses {losses}, "
+                             f"first loss {first} vs CPU {cpu_loss} "
+                             f"({loss_rel:.3e}), dtypes {dtypes}")
+    timed = clock.step_ms[1:]
+    step_p50 = float(np.median(timed))
+    return dict(batch=batch, steps=steps, losses=losses,
+                step_ms=clock.step_ms, step_p50_ms=step_p50,
+                enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
+                images_per_s=batch / (step_p50 / 1e3),
+                bound_ms=resnet_bound_ms(batch, H100_BF16_FLOPS),
+                cpu_loss=cpu_loss, loss_rel_err=loss_rel, cpu_s=cpu_s,
+                seconds=time.perf_counter() - t_phase)
+
+
+def graph_serve(card: str, net, shape=RESNET_SHAPE,
+                buckets=GRAPH_SERVE_BUCKETS, n_requests=GRAPH_SERVE_REQUESTS,
+                clients=GRAPH_SERVE_CLIENTS):
+    """Phase 21c: the trained ResNet-50 behind InferenceEngine and the
+    micro-batcher. Buckets captured at warmup and nothing after; every
+    served row against eager ``output()`` on that row alone; one row's
+    bits alone and inside each bucket; rows/s and request p50/p99."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
+    t_phase = time.perf_counter()
+    eng = InferenceEngine(net, max_batch_size=max(buckets))
+    t0 = time.perf_counter()
+    eng.warmup(list(buckets))
+    warm_s = time.perf_counter() - t0
+    compiles, captures = eng.metrics.compiles, eng.captures
+    rs = np.random.RandomState(2121)
+    sizes = rs.randint(1, 5, n_requests)
+    xs = [rs.rand(int(k), *shape).astype(np.float32) for k in sizes]
+    # a row's bits alone and inside each bucket
+    row = xs[0][:1]
+    by_bucket = {}
+    for b in GRAPH_BITS_BUCKETS:
+        filler = rs.rand(b - 1, *shape).astype(np.float32)
+        by_bucket[b] = eng.predict(np.concatenate([row, filler]))[0]
+    bits_differ = {b: bool(not np.array_equal(by_bucket[b], by_bucket[1]))
+                   for b in by_bucket}
+    bucket_gap = max(float(np.abs(by_bucket[b] - by_bucket[1]).max())
+                     for b in by_bucket)
+    batcher = MicroBatcher(eng, max_batch_size=max(buckets),
+                           max_latency_ms=5.0)
+    outs, lat = [None] * n_requests, [None] * n_requests
+    lock = threading.Lock()
+    nxt = [0]
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= n_requests:
+                return
+            t = time.perf_counter()
+            outs[i] = batcher.submit(xs[i])
+            lat[i] = (time.perf_counter() - t) * 1e3
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    batcher.stop()
+    worst = 0.0
+    for xb, ob in zip(xs, outs):
+        ref = net.output(xb).float().cpu().numpy()
+        worst = max(worst, float(np.abs(ob - ref).max())
+                    / max(float(np.abs(ref).max()), 1e-30))
+    rows = int(sizes.sum())
+    res = dict(buckets=list(buckets), warmup_s=warm_s, compiles=compiles,
+               captures=captures, requests=n_requests, rows=rows,
+               rows_per_s=rows / wall,
+               request_p50_ms=float(np.percentile(lat, 50)),
+               request_p99_ms=float(np.percentile(lat, 99)),
+               max_rel_err=worst, row_bits_differ_by_bucket=bits_differ,
+               row_gap_across_buckets=bucket_gap,
+               seconds=time.perf_counter() - t_phase)
+    if not (eng.metrics.compiles == compiles == len(buckets)
+            and eng.captures == captures and worst <= GRAPH_SERVE_TOL):
+        raise AssertionError(f"phase 21c failed: {res}, compiles now "
+                             f"{eng.metrics.compiles}, captures now "
+                             f"{eng.captures}")
+    return res
+
+
+def graph_forward_vs_cpu(net, shape, batch=GRAPH_FWD_BATCH, seed=0):
+    """One inference forward of a card graph against a CPU copy: the
+    output and every node's activation, each over its max |value|."""
+    import torch
+    cpu = net.clone(device="cpu")
+    x = np.random.RandomState(seed).rand(batch, *shape).astype(np.float32)
+    card_acts = net.feed_forward(x)
+    cpu_acts = cpu.feed_forward(x)
+    errs = {n: _rel(card_acts[n], cpu_acts[n]) for n in net._order
+            if torch.is_tensor(cpu_acts[n])}
+    worst = max(errs, key=errs.get)
+    return dict(nodes=len(errs), worst_node=worst, node_rel_err=errs[worst],
+                output_rel_err=errs[net.conf.graph_outputs[0]])
+
+
+def squeezenet_resume(device=None, shape=SQUEEZENET_SHAPE, batch=8):
+    """21d's archive: SqueezeNet after one step, written with its Adam
+    state and restored into a fresh graph on the card; the next step of
+    each (dropout drawn from the restored key chain) bit for bit. cuDNN
+    may pick non-deterministic algorithms, so both run with
+    ``cudnn.deterministic`` set."""
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import SqueezeNet
+    prior = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        net = SqueezeNet(num_classes=RESNET_CLASSES, input_shape=shape,
+                         seed=21, device=device).init()
+        xs, ys = simple_cnn_batch(batch, 22, shape, RESNET_CLASSES)
+        net.fit(xs, ys)
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "squeezenet.zip")
+            t0 = time.perf_counter()
+            ModelSerializer.write_model(net, path)
+            write_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            back = ModelSerializer.restore(path, device=device)
+            restore_s = time.perf_counter() - t0
+        net.fit(xs, ys)
+        back.fit(xs, ys)
+        diff = sum(int(not torch.equal(t, back.params()[k][n]))
+                   for k, p in net.params().items() for n, t in p.items())
+        diff += sum(int(not torch.equal(t, back.get_updater_state()[k][s][n]))
+                    for k, st in net.get_updater_state().items()
+                    for s, part in st.items() for n, t in part.items())
+    finally:
+        torch.backends.cudnn.deterministic = prior
+    if diff or back._step != net._step or back._rng != net._rng:
+        raise AssertionError(f"phase 21d: the restored SqueezeNet's next "
+                             f"step differs in {diff} leaves")
+    return net, dict(params=net.num_params(), archive_bytes=size,
+                     write_s=write_s, restore_s=restore_s,
+                     leaves_differing=diff)
+
+
+def graph_phase(card: str, device=None, shape=RESNET_SHAPE,
+                batch=RESNET_BATCH, steps=RESNET_STEPS,
+                inception_shape=INCEPTION_SHAPE,
+                squeeze_shape=SQUEEZENET_SHAPE,
+                classes=RESNET_CLASSES):
+    """Phase 21: (a) ResNet-50 trained at full width, (b) under the bf16
+    policy, (c) served, (d) InceptionResNetV1 and SqueezeNet against CPU
+    copies and SqueezeNet's archive. No TPU kernel is on this path: the
+    launch counters must stay 0."""
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.zoo import InceptionResNetV1, SqueezeNet
+    t_phase = time.perf_counter()
+    reset_launches()
+    net, a = resnet_train(card, device, shape, classes, batch, steps)
+    b = resnet_bf16(card, device, shape, classes, batch)
+    c = graph_serve(card, net, shape)
+    del net
+    gc.collect()
+    inc = InceptionResNetV1(input_shape=inception_shape, seed=21,
+                            device=device).init()
+    d_inc = graph_forward_vs_cpu(inc, inception_shape)
+    del inc
+    sq, d_sq_resume = squeezenet_resume(device, squeeze_shape)
+    d_sq = graph_forward_vs_cpu(sq, squeeze_shape)
+    del sq
+    for label, d in (("InceptionResNetV1", d_inc), ("SqueezeNet", d_sq)):
+        if d["node_rel_err"] > GRAPH_NODE_TOL:
+            raise AssertionError(f"phase 21d {label} card vs CPU: {d}")
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 21 launched a TPU kernel: {launches}")
+    wall = time.perf_counter() - t_phase
+    v, p = a["vs_cpu"], a["profile"]
+    print(f"graph (phase 21a) [{card}]: ResNet-50 {tuple(shape)} x "
+          f"{classes} ({a['params']} params, {a['nodes']} nodes) at batch "
+          f"{batch}, f32: step p50 {a['step_p50_ms']:.3f} ms (bound "
+          f"{a['bound_ms']:.3f} ms at the f32 rate), queued in p50 "
+          f"{a['enqueue_p50_ms']:.3f} ms, {a['images_per_s']:.1f} images/s, "
+          f"peak {a['peak_bytes']} bytes, loss "
+          f"{[round(l, 4) for l in a['losses']]}, {a['stats_moved']} running "
+          f"stats moved, init {a['init_s']:.1f} s")
+    if p is not None:
+        print(f"graph (phase 21a) profile [{card}] (one step): device busy "
+              f"{p['busy_share']:.3f} of {p['wall_ms']:.1f} ms, "
+              f"{p['device_kernels']} device kernels, "
+              f"{p['conv_ms']:.1f} ms in cuDNN's convolutions, "
+              f"{p['layout_ms']:.1f} ms in layout copies; top (ms): "
+              + ", ".join(f"{n[:50]} {t:.3f}" for n, t in p["top"][:6]))
+    print(f"graph (phase 21a) vs CPU [{card}]: batch {v['batch']}: loss "
+          f"rel err {v['loss_rel_err']:.3e} (tol {GRAPH_LOSS_RTOL:g}), "
+          f"{v['nodes']} nodes on the card's inputs, worst "
+          f"{v['worst_node']} {v['node_rel_err']:.3e} (tol "
+          f"{GRAPH_NODE_TOL:g}), {v['near_ties']} ReLU near-ties (largest "
+          f"|z| {v['near_tie_worst']:.1e} of its layer's max), worst "
+          f"gradient {v['worst_grad']} {v['worst_grad_rel_err']:.3e} (the "
+          f"CPU's own floor up to {v['grad_floor_max']:.3e}), new running "
+          f"stats {v['state_rel_err']:.3e}, params after the step "
+          f"{v['param_abs_err']:.3e}, Adam {v['adam_worst']} "
+          f"{v['adam_rel_err']:.3e}; CPU {v['cpu_s']:.1f} s")
+    print(f"graph (phase 21b) [{card}]: ResNet-50 under the bf16 policy at "
+          f"batch {batch}: step p50 {b['step_p50_ms']:.3f} ms (bound "
+          f"{b['bound_ms']:.3f} ms at the bf16 rate), "
+          f"{b['images_per_s']:.1f} images/s beside f32's "
+          f"{a['images_per_s']:.1f}, loss "
+          f"{[round(l, 4) for l in b['losses']]}, first loss vs CPU "
+          f"{b['loss_rel_err']:.3e} (tol {TRAIN_BF16_LOSS_RTOL:g})")
+    print(f"graph (phase 21c) [{card}]: ResNet-50 behind InferenceEngine "
+          f"and the micro-batcher: buckets {c['buckets']} captured in "
+          f"{c['warmup_s']:.1f} s ({c['compiles']} compiles, "
+          f"{c['captures']} captures, none after), {c['rows']} rows in "
+          f"{c['requests']} requests from {GRAPH_SERVE_CLIENTS} threads at "
+          f"{c['rows_per_s']:.1f} rows/s, request p50/p99 "
+          f"{c['request_p50_ms']:.1f}/{c['request_p99_ms']:.1f} ms, rows vs "
+          f"output() {c['max_rel_err']:.3e} (tol {GRAPH_SERVE_TOL:g}); one "
+          f"row's bits differ by bucket: {c['row_bits_differ_by_bucket']} "
+          f"(largest gap {c['row_gap_across_buckets']:.3e})")
+    print(f"graph (phase 21d) [{card}]: InceptionResNetV1 "
+          f"{tuple(inception_shape)} vs CPU: {d_inc['nodes']} nodes, worst "
+          f"{d_inc['worst_node']} {d_inc['node_rel_err']:.3e}, output "
+          f"{d_inc['output_rel_err']:.3e}; SqueezeNet {tuple(squeeze_shape)}:"
+          f" worst {d_sq['worst_node']} {d_sq['node_rel_err']:.3e}; its "
+          f"archive ({d_sq_resume['archive_bytes']} bytes, written in "
+          f"{d_sq_resume['write_s']:.2f} s) resumed bit for bit; phase 21 "
+          f"launched no TPU kernel and added {wall:.1f} s")
+    return dict(resnet=a, resnet_bf16=b, serve=c, inception=d_inc,
+                squeezenet=d_sq, squeezenet_resume=d_sq_resume,
+                launches=launches, seconds=wall)
 
 
 def reset_launches():
@@ -6489,6 +7039,11 @@ def main() -> int:
     pure_bf16 = bf16_train(card)
     resilient = resilient_train(card)
     print(f"phase 20 added {time.perf_counter() - t20:.1f} s")
+    # phase 21: ComputationGraph, the zoo's ResNet-50 trained and served,
+    # the other graphs against CPU copies
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph = graph_phase(card)
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -6556,7 +7111,7 @@ def main() -> int:
              flash_bwd=bwd, flash_bf16=bf16,
              train=trained, train_bf16=trained_bf16, cnn=cnn,
              remat=remat, resume=resume, rnn=rnn, transfer=transfer,
-             pure_bf16=pure_bf16, resilient=resilient,
+             pure_bf16=pure_bf16, resilient=resilient, graph=graph,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -19,7 +19,11 @@ and a Bidirectional's ``f_``/``b_``-prefixed pairs, alike),
 norm's running ``mean``/``var``) and ``updater_state_from_jax`` for its
 updater state (Adam's ``{"layer_i": {"m": {...}, "v": {...}}}``, any
 updater's nested dicts), in the layouts ``MultiLayerNetwork.set_params``,
-``set_net_state`` and ``set_updater_state`` take. bf16 leaves (a JAX
+``set_net_state`` and ``set_updater_state`` take. A JAX
+``ComputationGraph`` keys the same nested dicts by node name, so
+``graph_params_from_jax``, ``graph_state_from_jax`` and
+``graph_updater_state_from_jax`` are the same copies, in the layouts of
+the port's ``ComputationGraph``. bf16 leaves (a JAX
 network built with ``init(jnp.bfloat16)``) cross as bf16 tensors.
 """
 from __future__ import annotations
@@ -120,3 +124,10 @@ def updater_state_from_jax(tree, device="cpu"):
         raise TypeError(f"{where}: unsupported updater state "
                         f"{type(x).__name__}")
     return {key: conv(st, key) for key, st in tree.items()}
+
+
+#: a JAX ``ComputationGraph``'s trees, keyed by node name, in the port's
+#: ``ComputationGraph`` layouts
+graph_params_from_jax = network_params_from_jax
+graph_state_from_jax = network_state_from_jax
+graph_updater_state_from_jax = updater_state_from_jax

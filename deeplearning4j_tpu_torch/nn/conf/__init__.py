@@ -300,6 +300,7 @@ class NeuralNetConfiguration:
         return ListBuilder(self)
 
     def graph_builder(self):
-        raise NotImplementedError(
-            "ComputationGraph is not ported yet (ROADMAP.md queue A, "
-            "item 13)")
+        """A :class:`~..graph.GraphBuilder` that builds a
+        ``ComputationGraphConfiguration`` with these settings."""
+        from ..graph import GraphBuilder
+        return GraphBuilder(self)

@@ -9,7 +9,9 @@ dict, as in the JAX package:
 
 - ``build(input_shape, defaults)`` resolves shapes and inherits the
   configuration's defaults (activation, weight init, updater, l1/l2);
-- ``init_params(generator, dtype)`` draws the params dict;
+- ``init_params(generator, dtype)`` draws the params dict from a
+  ``torch.Generator`` or a ``random.py`` key (JAX's draws, the key
+  split as the JAX layer splits it);
 - ``apply(params, x, state, train, rng) -> (out, state)``, and for
   sequence layers (``is_rnn``) ``apply_seq(params, x, state, train,
   rng, carry, mask) -> (out, state, carry)``;
@@ -47,7 +49,7 @@ from ... import activations as A
 from ... import learning as U
 from ... import losses as L
 from ... import random as R
-from ...weightinit import init_weights
+from ...weightinit import init_weights, subkeys
 from ..conf import constraint as C
 from ..conf import dropout as D
 from ..conf import weightnoise as WN
@@ -320,7 +322,8 @@ class DenseLayer(Layer):
         return sh
 
     def init_params(self, generator, dtype=torch.float32):
-        p = {"W": init_weights(generator, (self.n_in, self.n_out), self.n_in,
+        kW, = subkeys(generator, 1)
+        p = {"W": init_weights(kW, (self.n_in, self.n_out), self.n_in,
                                self.n_out, self.weight_init, dtype)}
         if self.has_bias:
             p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)

@@ -35,7 +35,7 @@ from ...kernels.flash_attention import flash_attention_autograd
 from ...kernels.kv_quant import QuantArray, is_quantized, kv_set, mm
 from ...kernels.paged_attention import paged_attention
 from ...parallel.longseq import dot_product_attention
-from ...weightinit import init_weights
+from ...weightinit import init_weights, subkeys
 from ..functional import layer_norm, matmul
 from . import Layer, register
 
@@ -161,9 +161,9 @@ class SelfAttentionLayer(Layer):
     def init_params(self, generator: torch.Generator,
                     dtype=torch.float32):
         d, o = self.n_in, self.n_out
-        p = {n: init_weights(generator, (din, o), din, o, self.weight_init,
-                             dtype)
-             for n, din in (("Wq", d), ("Wk", d), ("Wv", d), ("Wo", o))}
+        p = {n: init_weights(k, (din, o), din, o, self.weight_init, dtype)
+             for (n, din), k in zip((("Wq", d), ("Wk", d), ("Wv", d),
+                                     ("Wo", o)), subkeys(generator, 4))}
         p["b"] = torch.zeros((o,), dtype=dtype)
         return p
 
@@ -391,17 +391,18 @@ class TransformerEncoderLayer(Layer):
     def init_params(self, generator: torch.Generator,
                     dtype=torch.float32):
         d, f = self.d_model, self.d_ff
+        k1, k2, k3 = subkeys(generator, 3)
         p = {f"attn_{k}": v
-             for k, v in self.attn.init_params(generator, dtype).items()}
+             for k, v in self.attn.init_params(k1, dtype).items()}
         p.update({
             "ln1_g": torch.ones((d,), dtype=dtype),
             "ln1_b": torch.zeros((d,), dtype=dtype),
             "ln2_g": torch.ones((d,), dtype=dtype),
             "ln2_b": torch.zeros((d,), dtype=dtype),
-            "W1": init_weights(generator, (d, f), d, f, self.weight_init,
+            "W1": init_weights(k2, (d, f), d, f, self.weight_init,
                                dtype),
             "b1": torch.zeros((f,), dtype=dtype),
-            "W2": init_weights(generator, (f, d), f, d, self.weight_init,
+            "W2": init_weights(k3, (f, d), f, d, self.weight_init,
                                dtype),
             "b2": torch.zeros((d,), dtype=dtype)})
         return p

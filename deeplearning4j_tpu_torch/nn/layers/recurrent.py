@@ -31,7 +31,7 @@ import torch
 from ... import activations as A
 from ... import losses as L
 from ... import random as R
-from ...weightinit import init_weights
+from ...weightinit import init_weights, subkeys
 from ..functional import matmul
 from . import DenseLayer, Layer, LossLayer, register
 
@@ -121,11 +121,12 @@ class LSTM(BaseRecurrentLayer):
 
     def init_params(self, generator, dtype=torch.float32):
         H = self.n_out
+        kW, kU = subkeys(generator, 2)
         b = torch.zeros((4 * H,), dtype=dtype)
         b[H:2 * H] = self.forget_gate_bias_init
-        return {"W": init_weights(generator, (self.n_in, 4 * H), self.n_in,
+        return {"W": init_weights(kW, (self.n_in, 4 * H), self.n_in,
                                   4 * H, self.weight_init, dtype),
-                "U": init_weights(generator, (H, 4 * H), H, 4 * H,
+                "U": init_weights(kU, (H, 4 * H), H, 4 * H,
                                   self.weight_init, dtype),
                 "b": b}
 
@@ -221,9 +222,10 @@ class GRU(BaseRecurrentLayer):
 
     def init_params(self, generator, dtype=torch.float32):
         H = self.n_out
-        p = {"W": init_weights(generator, (self.n_in, 3 * H), self.n_in,
+        kW, kU = subkeys(generator, 2)
+        p = {"W": init_weights(kW, (self.n_in, 3 * H), self.n_in,
                                3 * H, self.weight_init, dtype),
-             "U": init_weights(generator, (H, 3 * H), H, 3 * H,
+             "U": init_weights(kU, (H, 3 * H), H, 3 * H,
                                self.weight_init, dtype),
              "b": torch.zeros((3 * H,), dtype=dtype)}
         if self.reset_after:
@@ -278,10 +280,11 @@ class SimpleRnn(BaseRecurrentLayer):
                 "b": (self.n_out,)}
 
     def init_params(self, generator, dtype=torch.float32):
-        return {"W": init_weights(generator, (self.n_in, self.n_out),
+        kW, kU = subkeys(generator, 2)
+        return {"W": init_weights(kW, (self.n_in, self.n_out),
                                   self.n_in, self.n_out, self.weight_init,
                                   dtype),
-                "U": init_weights(generator, (self.n_out, self.n_out),
+                "U": init_weights(kU, (self.n_out, self.n_out),
                                   self.n_out, self.n_out, self.weight_init,
                                   dtype),
                 "b": torch.full((self.n_out,), self.bias_init, dtype=dtype)}
@@ -366,8 +369,9 @@ class Bidirectional(_Wrapper):
                 **{f"b_{k}": v for k, v in fwd.items()}}
 
     def init_params(self, generator, dtype=torch.float32):
-        pf = self.layer.init_params(generator, dtype)
-        pb = self.layer_bwd.init_params(generator, dtype)
+        kf, kb = subkeys(generator, 2)
+        pf = self.layer.init_params(kf, dtype)
+        pb = self.layer_bwd.init_params(kb, dtype)
         return {**{f"f_{k}": v for k, v in pf.items()},
                 **{f"b_{k}": v for k, v in pb.items()}}
 

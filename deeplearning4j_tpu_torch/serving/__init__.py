@@ -60,9 +60,10 @@ request's timeline in the response. Requests may carry ``"priority":
 "interactive"`` (default) or ``"batch"``, as a field or the
 ``X-Priority`` header; under pressure batch-class work is shed first.
 
-``/predict`` serves the port's ``MultiLayerNetwork`` and any model
-with an ``output(x)`` method; ComputationGraph and SameDiff models are
-not ported yet (ROADMAP.md queue A, items 13 and 15).
+``/predict`` serves the port's ``MultiLayerNetwork`` and
+``ComputationGraph`` (named inputs and outputs) and any model with an
+``output(x)`` method; SameDiff models are not ported yet (ROADMAP.md
+queue A, item 15).
 
 Fleets (:mod:`.fleet`): :class:`~.fleet.ReplicaFleet` holds N
 ``InferenceServer`` replicas (health polls of ``/healthz`` and the

@@ -16,11 +16,13 @@ the server takes traffic.
 
 JAX passes the weights as executable arguments, read live at every
 call. A graph reads the addresses it captured instead: ``fit`` updates
-the params in place, so the graphs serve it; ``set_params`` replaces
-every leaf, which the next call notices (the leaves' identity) and
-answers by capturing that entry again over the new leaves, uncounted
-in ``compiles``, as JAX does not recompile for new weights of the same
-shapes. ``captures`` counts every capture, so the batcher keeps a call
+the params and the layer state in place, so the graphs serve it, and so
+do a ``ComputationGraph``'s ``set_params`` and ``set_net_state``, which
+write into the live tensors; a ``MultiLayerNetwork``'s ``set_params``
+or ``set_net_state`` replaces every leaf, which the next call notices
+(the leaves' identity) and answers by capturing that entry again over
+the new leaves, uncounted in ``compiles``, as JAX does not recompile
+for new weights of the same shapes. ``captures`` counts every capture, so the batcher keeps a call
 that paid one out of its device-time estimate. As in
 JAX, the served forward is the uncast one of ``output()``: a network
 under the bf16 policy serves in f32.
@@ -76,15 +78,35 @@ def _not_ported(what: str, item: int):
                               f"queue A, item {item})")
 
 
+def _pad_feed(feed, bucket: int):
+    """An array feed, or a dict of them by input name, padded to
+    ``bucket`` rows."""
+    if isinstance(feed, dict):
+        return {k: _pad_rows(v, bucket) for k, v in feed.items()}
+    return _pad_rows(feed, bucket)
+
+
+def _on_device(feed, device):
+    if isinstance(feed, dict):
+        return {k: torch.from_numpy(v).to(device) for k, v in feed.items()}
+    return torch.from_numpy(feed).to(device)
+
+
+def _to_host(out):
+    if isinstance(out, (list, tuple)):
+        return [o.to("cpu", copy=True) for o in out]
+    return out.to("cpu", copy=True)
+
+
 class _Eager:
     """A cache entry on the CPU: the forward, run eagerly per call."""
 
-    def __init__(self, engine: "InferenceEngine", fn, padded: np.ndarray):
+    def __init__(self, engine: "InferenceEngine", fn, padded):
         self._engine = engine
         self._fn = fn
 
-    def __call__(self, padded: np.ndarray):
-        x = torch.from_numpy(padded).to(self._engine.device)
+    def __call__(self, padded):
+        x = _on_device(padded, self._engine.device)
         with torch.no_grad():
             return self._fn(self._engine._params(), x)
 
@@ -146,11 +168,11 @@ class _Graph:
     static output to the host, under the entry's own lock, because the
     buffers are shared by every caller."""
 
-    def __init__(self, engine: "InferenceEngine", fn, padded: np.ndarray):
+    def __init__(self, engine: "InferenceEngine", fn, padded):
         self._engine = engine
         self._fn = fn
         self._lock = threading.Lock()
-        self.x = torch.from_numpy(padded).to(engine.device)
+        self.x = _on_device(padded, engine.device)
         self._capture()
 
     def _capture(self):
@@ -162,17 +184,21 @@ class _Graph:
             eng.captures += 1
         with torch.no_grad():
             self.graph, self.out, self.launches = _record(
-                lambda: fn(params, x), eng, x.device)
+                lambda: fn(params, x), eng, eng.device)
         self.leaves = eng._leaves()
 
-    def __call__(self, padded: np.ndarray):
+    def __call__(self, padded):
         with self._lock:
             if not self._engine._same_leaves(self.leaves):
-                self._capture()  # set_params: new leaves, not a compile
-            self.x.copy_(torch.from_numpy(padded))
+                self._capture()  # new leaves, not a compile
+            if isinstance(padded, dict):
+                for k, v in padded.items():
+                    self.x[k].copy_(torch.from_numpy(v))
+            else:
+                self.x.copy_(torch.from_numpy(padded))
             self.graph.replay()
             add_launches(self.launches)
-            return self.out.to("cpu", copy=True)
+            return _to_host(self.out)
 
 
 class InferenceEngine:
@@ -181,12 +207,16 @@ class InferenceEngine:
 
     Served natively: the port's
     :class:`~deeplearning4j_tpu_torch.nn.MultiLayerNetwork` (kind
-    ``"mln"``), on the device its params live on: one CUDA graph per
-    (signature, bucket) on the card, the eager forward on the CPU. The
+    ``"mln"``) and :class:`~deeplearning4j_tpu_torch.nn.ComputationGraph`
+    (kind ``"graph"``: named inputs, a dict by input name or one array
+    for a single-input graph, and named outputs, every output unless a
+    request or ``default_outputs`` names some), on the device their
+    params live on: one CUDA graph per (signature, bucket) on the card,
+    the eager forward on the CPU, batch norm on its running stats. The
     engine never moves the model. Anything else with an ``output(x)``
     method (kind ``"duck"``) is called per batch, still bucket-padded,
-    without the cache. A ComputationGraph or a SameDiff graph raises
-    :class:`NotImplementedError`: neither is ported yet.
+    without the cache. A SameDiff graph raises
+    :class:`NotImplementedError`: it is not ported yet.
     """
 
     def __init__(self, model, default_outputs: Optional[Sequence[str]] = None,
@@ -212,26 +242,38 @@ class InferenceEngine:
         # that paid one out of its device-time estimate
         self.captures = 0
         self._profiler = OpProfiler.get_instance()
-        self._kind, self._fn = self._adapt(model)
-        self.device = self._device() if self._kind == "mln" else None
+        self._kind, self._fn_for = self._adapt(model)
+        self.device = self._device() if self._kind != "duck" else None
 
     # -- model adapters ------------------------------------------------
     def _adapt(self, model):
-        """Returns (kind, f(params, x) or None). Weights flow through
-        ``params`` (:meth:`_params`, read from the model), never as
-        closure constants."""
+        """Returns (kind, fn_for(outputs) -> f(params, x), or None).
+        Weights flow through ``params`` (:meth:`_params`, read from the
+        model), never as closure constants."""
+        from ..nn.graph import ComputationGraph
         from ..nn.multilayer import MultiLayerNetwork
         if hasattr(model, "_build") and hasattr(model, "_vars"):
             _not_ported("a SameDiff graph", 15)
-        if hasattr(model, "conf") and hasattr(model.conf, "graph_inputs"):
-            _not_ported("a ComputationGraph", 13)
+        if isinstance(model, ComputationGraph):
+            if model._params is None:
+                model.init()
+
+            def fn_for(outputs):
+                names = list(outputs or model.conf.graph_outputs)
+
+                def f(params, inputs):
+                    acts, _ = model._forward(params, model._net_state,
+                                             inputs, False, None)
+                    return [acts[n] for n in names]
+                return f
+            return "graph", fn_for
         if isinstance(model, MultiLayerNetwork):
             if model._params is None:
                 model.init()
 
             def f(params, x):
                 return model._forward(params, x, False)
-            return "mln", f
+            return "mln", lambda outputs: f
         if not hasattr(model, "output"):
             raise ServingError(f"{type(model).__name__} has no output(...) "
                                "method — cannot serve it")
@@ -247,7 +289,11 @@ class InferenceEngine:
         return self.model._params
 
     def _leaves(self) -> list:
-        return [t for p in self.model._params.values() for t in p.values()]
+        """The tensors a captured forward reads: params and layer
+        state."""
+        return [t for tree in (self.model._params,
+                               self.model.get_net_state())
+                for p in tree.values() for t in p.values()]
 
     def _same_leaves(self, leaves: list) -> bool:
         now = self._leaves()
@@ -264,10 +310,13 @@ class InferenceEngine:
 
     # -- request normalization -----------------------------------------
     def normalize(self, inputs, outputs=None):
-        """Parse a request payload into (feed, n_rows, signature). Both
-        served kinds take one array and have one unnamed output. Raises
-        :class:`ClientError` on malformed payloads."""
+        """Parse a request payload into (feed, n_rows, signature): one
+        array for a network, a dict by input name (or one array, for a
+        single input) for a graph. Raises :class:`ClientError` on
+        malformed payloads."""
         outs = tuple(outputs or self.default_outputs)
+        if self._kind == "graph":
+            return self._normalize_graph(inputs, outs)
         if outs and list(outs) != list(self.default_outputs):
             # one unnamed output head; returning it under the client's
             # requested name would be a lie
@@ -282,6 +331,39 @@ class InferenceEngine:
         if x.ndim == 0:
             raise ClientError("inputs must be at least 1-D (a batch)")
         return x, x.shape[0], (self._kind, outs, x.shape[1:])
+
+    def _normalize_graph(self, inputs, outs):
+        conf = self.model.conf
+        unknown = [o for o in outs if o not in conf.graph_outputs]
+        if unknown:
+            raise ClientError(f"unknown outputs {unknown} (graph outputs: "
+                              f"{conf.graph_outputs})")
+        if not isinstance(inputs, dict):
+            if len(conf.graph_inputs) > 1:
+                raise ClientError(
+                    "multi-input graph needs {'inputs': {name: array}}")
+            inputs = {conf.graph_inputs[0]: inputs}
+        feed = {}
+        for k, v in inputs.items():
+            if k not in conf.graph_inputs:
+                raise ClientError(f"unknown input {k!r} (graph inputs: "
+                                  f"{conf.graph_inputs})")
+            try:
+                feed[k] = np.asarray(v, np.float32)
+            except (TypeError, ValueError) as e:
+                raise ClientError(f"input {k!r} is not a tensor: {e}")
+        if set(feed) != set(conf.graph_inputs):
+            raise ClientError(f"graph needs inputs {conf.graph_inputs}")
+        for k, a in feed.items():
+            if a.ndim == 0:
+                raise ClientError(
+                    f"input {k!r} must be at least 1-D (a batch)")
+        ns = {a.shape[0] for a in feed.values()}
+        if len(ns) != 1:
+            raise ClientError(f"inconsistent batch sizes: {sorted(ns)}")
+        sig = ("graph", outs, tuple(sorted((k, a.shape[1:])
+                                           for k, a in feed.items())))
+        return feed, ns.pop(), sig
 
     # -- the cache -----------------------------------------------------
     def _compiled(self, sig, bucket, feed):
@@ -305,7 +387,7 @@ class InferenceEngine:
         try:
             with self._profiler.record("serving.compile"):
                 entry = (_Graph if self.device.type == "cuda"
-                         else _Eager)(self, self._fn, feed)
+                         else _Eager)(self, self._fn_for(sig[1]), feed)
             with self._lock:
                 self.metrics.compiles += 1
                 self._cache[key] = entry
@@ -332,13 +414,17 @@ class InferenceEngine:
             if b < 1 or b > self.max_batch_size:
                 raise ValueError(f"bucket {b} outside [1, max_batch_size="
                                  f"{self.max_batch_size}]")
-            self._compiled(sig, b, _pad_rows(feed[:1], b))
+            self._compiled(sig, b, _pad_feed(_slice(feed, 0, 1), b))
             warmed.append(b)
         self.metrics.warmed_buckets = sorted(
             set(self.metrics.warmed_buckets) | set(warmed))
         return warmed
 
     def _infer_example(self):
+        if self._kind == "graph":
+            types = self.model.conf.input_types
+            return {k: np.zeros((1,) + tuple(t.shape), np.float32)
+                    for k, t in types.items()}
         shape = getattr(self.model, "_input_shape", None)
         if shape:
             return np.zeros((1,) + tuple(shape), np.float32)
@@ -378,7 +464,7 @@ class InferenceEngine:
             return _concat_results(parts)
         bucket = next_bucket(n, self.min_bucket, self.max_batch_size)
         self.metrics.bucket_hist.record(bucket)
-        padded = _pad_rows(feed, bucket)
+        padded = _pad_feed(feed, bucket)
         if self._faults is not None:
             # injection seam: fires BEFORE the device call, so a
             # transient fault leaves no partial state and the batcher

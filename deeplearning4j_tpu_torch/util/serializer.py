@@ -402,7 +402,11 @@ class ModelSerializer:
     def _model_from_conf(conf_json: str, model_type: Optional[str],
                          device=None):
         if model_type == "ComputationGraph":
-            ModelSerializer.restore_computation_graph(None)
+            from ..nn.graph import (ComputationGraph,
+                                    ComputationGraphConfiguration)
+            return ComputationGraph(
+                ComputationGraphConfiguration.from_json(conf_json),
+                device=device).init()
         from ..nn.conf import MultiLayerConfiguration
         from ..nn.multilayer import MultiLayerNetwork
         return MultiLayerNetwork(MultiLayerConfiguration.from_json(conf_json),
@@ -448,9 +452,12 @@ class ModelSerializer:
     @staticmethod
     def restore_computation_graph(path: str, load_updater: bool = True,
                                   device=None):
-        raise NotImplementedError(
-            "ComputationGraph is not ported yet (ROADMAP.md queue A, "
-            "item 13)")
+        """The ``ComputationGraph`` a v1/v2 zip holds, on ``device``."""
+        with zipfile.ZipFile(path) as z:
+            model = ModelSerializer._model_from_conf(
+                z.read("configuration.json").decode(), "ComputationGraph",
+                device)
+            return ModelSerializer._restore_common(model, z, load_updater)
 
     @staticmethod
     def restore_multi_layer_network(path: str, load_updater: bool = True,

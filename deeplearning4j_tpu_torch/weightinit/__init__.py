@@ -2,11 +2,15 @@
 ``deeplearning4j_tpu/weightinit/__init__.py``): every scheme of the
 JAX package, with the same scale from fan-in and fan-out.
 
-Draws come from an explicit ``torch.Generator``, so an initialization
-is reproducible from its seed. The bits differ from ``jax.random``;
-parity tests carry JAX weights across with
-:func:`deeplearning4j_tpu_torch.convert.network_params_from_jax` and
-hold each scheme's draws to its distribution's moments.
+Draws come from an explicit source, so an initialization is
+reproducible from its seed. The source is either a ``torch.Generator``,
+whose bits differ from ``jax.random`` (parity tests carry JAX weights
+across with :func:`deeplearning4j_tpu_torch.convert.network_params_from_jax`
+and hold each scheme's draws to its distribution's moments), or a
+``random.py`` key, whose draws are JAX's: ``uniform`` bit for bit,
+``normal`` and ``truncated_normal`` within a few f32 ulp. A layer splits
+a key into one key a weight with :func:`subkeys` exactly where the JAX
+layer splits its key; a generator is shared by all of them.
 """
 from __future__ import annotations
 
@@ -14,6 +18,8 @@ import math
 from typing import Optional, Sequence
 
 import torch
+
+from .. import random as R
 
 SCHEMES = [
     "zero", "ones", "constant", "normal", "lecun_normal", "uniform", "xavier",
@@ -25,24 +31,44 @@ SCHEMES = [
 ]
 
 
+def _is_key(g) -> bool:
+    return isinstance(g, tuple)
+
+
+def subkeys(source, n: int) -> list:
+    """``n`` draw sources from one: the rows of ``split(key, n)`` for a
+    ``random.py`` key (as a JAX layer splits its init key), the same
+    generator ``n`` times for a ``torch.Generator``."""
+    if _is_key(source):
+        keys = R.split(source, n)
+        return [R.key_at(keys, i) for i in range(n)]
+    return [source] * n
+
+
 def _normal(g, shape, dtype):
+    if _is_key(g):
+        return R.normal(g, shape, dtype)
     return torch.randn(shape, generator=g, dtype=dtype)
 
 
 def _uniform(g, shape, dtype, lo, hi):
+    if _is_key(g):
+        return R.uniform(g, shape, dtype, lo, hi)
     return lo + (hi - lo) * torch.rand(shape, generator=g, dtype=dtype)
 
 
 def _truncated_normal(g, shape, dtype):
     """N(0, 1) truncated to [-2, 2] (``jax.random.truncated_normal``'s
     bounds) by inverting the CDF over the kept interval."""
+    if _is_key(g):
+        return R.truncated_normal(g, -2.0, 2.0, shape, dtype)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = _uniform(g, shape, torch.float64, lo, 1.0 - lo)
     return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
         -2.0, 2.0).to(dtype)
 
 
-def init_weights(generator: torch.Generator, shape: Sequence[int],
+def init_weights(generator, shape: Sequence[int],
                  fan_in: float, fan_out: float, scheme: str = "xavier",
                  dtype=torch.float32,
                  distribution: Optional[dict] = None) -> torch.Tensor:

@@ -1,9 +1,13 @@
 """Model zoo of the port (counterpart of ``deeplearning4j_tpu/zoo``):
 the ``ZooModel`` base, the sequential CNNs of ``simple.py`` (LeNet,
-SimpleCNN, AlexNet, VGG16, VGG19) and the causal transformer LM of
+SimpleCNN, AlexNet, VGG16, VGG19), the graphs of ``resnet.py``
+(ResNet50), ``inception.py`` (InceptionResNetV1, FaceNetNN4Small2) and
+``advanced.py`` (SqueezeNet), and the causal transformer LM of
 ``transformer_lm.py``. Each ``init()`` returns an initialized
-``MultiLayerNetwork`` on the model's device (the GPU unless
-``device="cpu"``).
+``MultiLayerNetwork`` or ``ComputationGraph`` on the model's device
+(the GPU unless ``device="cpu"``). ``ALL_MODELS`` holds the JAX zoo's
+sixteen names; Darknet19, TinyYOLO, YOLO2, UNet, Xception and NASNet
+raise until their layers are ported.
 
 Pretrained weights load from a local ``.npz`` (the JAX package's
 layout: ``param/<layer>/<name>`` and ``state/<layer>/<name>``) whose
@@ -41,6 +45,10 @@ class ZooModel:
     def _net(self, conf):
         from ..nn import MultiLayerNetwork
         return MultiLayerNetwork(conf, device=self.device).init()
+
+    def _graph(self, conf):
+        from ..nn import ComputationGraph
+        return ComputationGraph(conf, device=self.device).init()
 
     def _updater(self):
         from ..learning import Adam
@@ -118,3 +126,10 @@ def _flatten(prefix, tree):
 
 from .simple import (AlexNet, Darknet19, LeNet, SimpleCNN,  # noqa: E402,F401
                      TextGenerationLSTM, TinyYOLO, VGG16, VGG19, YOLO2)
+from .resnet import ResNet50  # noqa: E402,F401
+from .inception import FaceNetNN4Small2, InceptionResNetV1  # noqa: E402,F401
+from .advanced import NASNet, SqueezeNet, UNet, Xception  # noqa: E402,F401
+
+ALL_MODELS = (AlexNet, Darknet19, FaceNetNN4Small2, InceptionResNetV1, LeNet,
+              NASNet, ResNet50, SimpleCNN, SqueezeNet, TextGenerationLSTM,
+              TinyYOLO, UNet, VGG16, VGG19, Xception, YOLO2)

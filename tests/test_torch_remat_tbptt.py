@@ -230,10 +230,41 @@ class TestRemat:
         _assert_equal(base.params(), rem.params())
 
     def test_graph_remat(self):
-        """The graph case needs ComputationGraph, not ported yet."""
-        with pytest.raises(NotImplementedError, match="item 13"):
-            NeuralNetConfiguration.builder().seed(3).remat(True) \
-                .graph_builder()
+        """``tests/test_remat.py``'s graph case: remat on a graph gives
+        the losses and params of the graph without it, bit for bit, and
+        JAX's remat graph's losses within LOSS_RTOL."""
+        from deeplearning4j_tpu.nn import ComputationGraph as JGraph
+        from deeplearning4j_tpu.nn.conf import InputType as JInputType
+        from deeplearning4j_tpu_torch.convert import graph_params_from_jax
+        from deeplearning4j_tpu_torch.nn import ComputationGraph
+        from deeplearning4j_tpu_torch.nn.conf import InputType
+
+        def conf(s, it, remat):
+            g = (s["Conf"].builder().seed(3).updater(s["Adam"](1e-2))
+                 .weight_init("xavier").remat(remat).graph_builder()
+                 .add_inputs("in").set_input_types(it.feed_forward(6)))
+            g.add_layer("d1", s["L"].DenseLayer(n_out=12, activation="relu"),
+                        "in")
+            g.add_layer("out", s["L"].OutputLayer(
+                n_out=3, loss="mcxent", activation="softmax"), "d1")
+            return g.set_outputs("out").build()
+        x, y = _mlp_data(seed=4)
+        base = ComputationGraph(conf(TSIDE, InputType, False),
+                                device="cpu").init()
+        rem = ComputationGraph(conf(TSIDE, InputType, True),
+                               device="cpu").init()
+        jrem = JGraph(conf(JSIDE, JInputType, True)).init()
+        rem.set_params(graph_params_from_jax(jax.tree.map(
+            np.asarray, jrem.params())))
+        base.set_params(rem.params())
+        for _ in range(4):
+            base.fit(x, y)
+            rem.fit(x, y)
+            jrem.fit(x, y)
+            assert float(base.score_) == float(rem.score_)
+            assert rem.score_ == pytest.approx(float(jrem.score_),
+                                               rel=LOSS_RTOL)
+        _assert_equal(base.params(), rem.params())
 
     def test_remat_json_round_trip(self):
         m = MultiLayerNetwork(_mlp(TSIDE, True), device="cpu").init()

@@ -325,8 +325,17 @@ def test_shard_functions_round_trip_bit_for_bit(tmp_path):
     np.testing.assert_array_equal(_np(r.output(x)), _np(tn.output(x)))
     with pytest.raises(CheckpointFormatError):
         TS.merge_shard_snapshots(TS.read_manifest(str(d)), [])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ModelSerializer.restore_computation_graph(str(d))
+    # the model type recorded picks the class: a graph's configuration
+    # rebuilds a ComputationGraph
+    from deeplearning4j_tpu_torch.nn import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    gconf = (NeuralNetConfiguration.builder().seed(1).graph_builder()
+             .add_inputs("in").set_input_types(InputType.feed_forward(4))
+             .add_layer("out", TL.OutputLayer(n_out=2), "in")
+             .set_outputs("out").build())
+    g = ModelSerializer._model_from_conf(gconf.to_json(), "ComputationGraph",
+                                         "cpu")
+    assert isinstance(g, ComputationGraph) and g.num_params() == 10
 
 
 def test_checkpoint_listener_saves_and_keeps_last(tmp_path):

@@ -18,10 +18,11 @@ mirrored at JAX's assertions, plus parity with the JAX engine.
   ``set_params`` is served through one uncounted recapture, each replay
   adds the launches its capture counted, and a failed capture raises
   ServingError and caches nothing.
-- The SameDiff and ComputationGraph cases (``:115``, ``:132``, and the
-  SameDiff head of ``:185``) become asserts that the port raises
-  NotImplementedError citing ROADMAP.md queue A items 15 and 13; the
-  batch-reducing head is held on a duck model instead.
+- The SameDiff cases (``:115`` and the SameDiff head of ``:185``)
+  become asserts that the port raises NotImplementedError citing
+  ROADMAP.md queue A item 15; the batch-reducing head is held on a duck
+  model instead. The ComputationGraph case (``:132``) serves the port's
+  graph with JAX's params and holds its rows to the JAX engine's.
 """
 import os
 import sys
@@ -201,8 +202,22 @@ class TestInferenceEngine:
                                               activation="softmax"), "d")
                 .set_outputs("out").build())
         g = ComputationGraph(conf).init()
-        with pytest.raises(NotImplementedError, match="item 13"):
-            InferenceEngine(g, max_batch_size=8)
+        from deeplearning4j_tpu.serving.engine import \
+            InferenceEngine as JInferenceEngine
+        from deeplearning4j_tpu_torch.convert import graph_params_from_jax
+        from deeplearning4j_tpu_torch.nn import ComputationGraph as TGraph
+        from deeplearning4j_tpu_torch.nn.graph import \
+            ComputationGraphConfiguration
+        tg = TGraph(ComputationGraphConfiguration.from_json(conf.to_json()),
+                    device="cpu").init()
+        tg.set_params(graph_params_from_jax(jax.tree.map(np.asarray,
+                                                         g.params())))
+        eng = InferenceEngine(tg, max_batch_size=8)
+        x = np.random.RandomState(0).randn(3, 4).astype(np.float32)
+        want = JInferenceEngine(g, max_batch_size=8).predict(x)
+        np.testing.assert_allclose(eng.predict(x), np.asarray(want),
+                                   atol=1e-6)
+        assert eng.metrics.compiles == 1
 
     def test_duck_model_fallback(self):
         eng = InferenceEngine(_Duck(), max_batch_size=8)
