@@ -590,6 +590,11 @@ class ComputationGraph:
         in ``dtype`` from its key of ``split(PRNGKey(seed), len(order) +
         1)`` (JAX's params from the same seed), its state, its updater
         and its L1/L2 coefficients."""
+        return self._init(dtype)
+
+    def _init(self, dtype, params: Optional[Params] = None):
+        """:meth:`init`, taking ``params`` in place of the draw when they
+        are given. The draws run on the graph's device."""
         if not dtype.is_floating_point:
             raise ValueError(f"params need a floating dtype, got {dtype}")
         conf = self.conf
@@ -600,33 +605,35 @@ class ComputationGraph:
             shapes[name] = tuple(conf.input_types[name].shape)
         key0 = self._rng
         self._rng = _split_row(key0, 0)
-        params: Params = {}
+        drawn: Params = {}
         state: Params = {}
         self._updaters, self._layers_meta = {}, {}
-        for i, name in enumerate(self._order):
-            node = conf.nodes[name]
-            in_shapes = [shapes[x] for x in node.inputs]
-            if node.layer is None:
-                shapes[name] = tuple(node.vertex.output_shape(in_shapes))
-                continue
-            layer = node.layer
-            layer.build(in_shapes[0], conf.defaults)
-            p = layer.init_params(_split_row(key0, i + 1), dtype)
-            if p:
-                params[name] = p
-            st = layer.init_state()
-            if st:
-                state[name] = st
-            shapes[name] = tuple(layer.output_shape(in_shapes[0]))
-            self._updaters[name] = (layer.updater if layer.updater is not None
-                                    else conf.updater)
-            self._layers_meta[name] = {
-                "l1": layer.l1, "l2": layer.l2, "l1_bias": layer.l1_bias,
-                "l2_bias": layer.l2_bias,
-                "bias_params": frozenset(layer.bias_param_names())}
+        with torch.device(self.device):
+            for i, name in enumerate(self._order):
+                node = conf.nodes[name]
+                in_shapes = [shapes[x] for x in node.inputs]
+                if node.layer is None:
+                    shapes[name] = tuple(node.vertex.output_shape(in_shapes))
+                    continue
+                layer = node.layer
+                layer.build(in_shapes[0], conf.defaults)
+                p = (layer.init_params(_split_row(key0, i + 1), dtype)
+                     if params is None else None)
+                if p:
+                    drawn[name] = p
+                st = layer.init_state()
+                if st:
+                    state[name] = st
+                shapes[name] = tuple(layer.output_shape(in_shapes[0]))
+                self._updaters[name] = (layer.updater
+                                        if layer.updater is not None
+                                        else conf.updater)
+                self._layers_meta[name] = {
+                    "l1": layer.l1, "l2": layer.l2, "l1_bias": layer.l1_bias,
+                    "l2_bias": layer.l2_bias,
+                    "bias_params": frozenset(layer.bias_param_names())}
         self._shapes = shapes
-        self._params = None
-        self.set_params(params)
+        self.set_params(drawn if params is None else params)
         self.set_net_state(state)
         self._opt_state = {name: self._updaters[name].init_state(p)
                            for name, p in self._params.items()}
@@ -1045,23 +1052,10 @@ class ComputationGraph:
         return self._params
 
     def set_params(self, params: Params):
-        """Take ``{node: {name: tensor}}``: written into the live leaves
-        in place when the layout, shapes and dtypes match (a captured
-        CUDA graph then serves the new values), else taken as new
-        leaves on the device that require grad (f32 unless half). The
-        updater state is kept, as in JAX."""
-        cur = self._params
-        if cur is not None and params.keys() == cur.keys() and all(
-                p.keys() == cur[k].keys() and all(
-                    tuple(t.shape) == tuple(cur[k][n].shape)
-                    and _param_dtype(t) == cur[k][n].dtype
-                    for n, t in p.items()) for k, p in params.items()):
-            with torch.no_grad():
-                for k, p in params.items():
-                    for n, t in p.items():
-                        if t is not cur[k][n]:
-                            cur[k][n].copy_(t)
-            return
+        """Take ``{node: {name: tensor}}``: the tensors move to the
+        device as new leaves that require grad, f32 unless they are half
+        (bf16 or fp16) tensors, which keep their dtype. The updater
+        state is kept, as in JAX."""
         self._params = {
             k: {n: t.detach().to(self.device, _param_dtype(t))
                 .clone().requires_grad_(True) for n, t in p.items()}
@@ -1072,20 +1066,8 @@ class ComputationGraph:
         return self._net_state
 
     def set_net_state(self, state: Params):
-        """Take layer state in the layout of :meth:`get_net_state`,
-        written into the live tensors in place when they match (f32
-        copies on the device otherwise)."""
-        cur = self._net_state
-        if cur and state.keys() == cur.keys() and all(
-                st.keys() == cur[k].keys() and all(
-                    tuple(t.shape) == tuple(cur[k][n].shape)
-                    for n, t in st.items()) for k, st in state.items()):
-            with torch.no_grad():
-                for k, st in state.items():
-                    for n, t in st.items():
-                        if t is not cur[k][n]:
-                            cur[k][n].copy_(t)
-            return
+        """Take layer state in the layout of :meth:`get_net_state`
+        (tensors move to the device as f32 copies)."""
         self._net_state = {
             k: {n: t.detach().to(self.device, torch.float32).clone()
                 for n, t in st.items()} for k, st in state.items()}
@@ -1138,9 +1120,7 @@ class ComputationGraph:
             ComputationGraphConfiguration.from_json(self.conf.to_json()),
             device=self.device if device is None else device)
         if self._params is not None:
-            g.init()
-            g.set_params({k: {n: t.detach().clone() for n, t in p.items()}
-                          for k, p in self._params.items()})
+            g._init(torch.float32, self._params)
             g.set_net_state(self._net_state)
         return g
 

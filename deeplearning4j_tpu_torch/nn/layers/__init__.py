@@ -9,9 +9,9 @@ dict, as in the JAX package:
 
 - ``build(input_shape, defaults)`` resolves shapes and inherits the
   configuration's defaults (activation, weight init, updater, l1/l2);
-- ``init_params(generator, dtype)`` draws the params dict from a
-  ``torch.Generator`` or a ``random.py`` key (JAX's draws, the key
-  split as the JAX layer splits it);
+- ``init_params(key, dtype)`` draws the params dict from a
+  ``random.py`` key: JAX's draws, the key split as the JAX layer
+  splits it;
 - ``apply(params, x, state, train, rng) -> (out, state)``, and for
   sequence layers (``is_rnn``) ``apply_seq(params, x, state, train,
   rng, carry, mask) -> (out, state, carry)``;
@@ -164,7 +164,7 @@ class Layer:
         self.input_shape = tuple(input_shape)
         self._built = True
 
-    def init_params(self, generator: torch.Generator,
+    def init_params(self, key,
                     dtype=torch.float32) -> Dict[str, torch.Tensor]:
         return {}
 
@@ -321,8 +321,8 @@ class DenseLayer(Layer):
             sh["b"] = (self.n_out,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
-        kW, = subkeys(generator, 1)
+    def init_params(self, key, dtype=torch.float32):
+        kW, = subkeys(key, 1)
         p = {"W": init_weights(kW, (self.n_in, self.n_out), self.n_in,
                                self.n_out, self.weight_init, dtype)}
         if self.has_bias:
@@ -467,10 +467,10 @@ class ConvolutionLayer(Layer):
             sh["b"] = (self.n_out,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         kh, kw_ = self.kernel
         cin = self.n_in // self.groups
-        p = {"W": init_weights(generator, (kh, kw_, cin, self.n_out),
+        p = {"W": init_weights(key, (kh, kw_, cin, self.n_out),
                                kh * kw_ * cin, kh * kw_ * self.n_out,
                                self.weight_init, dtype)}
         if self.has_bias:
@@ -599,7 +599,7 @@ class BatchNormalization(Layer):
             return {}
         return {"gamma": (self.n_feat,), "beta": (self.n_feat,)}
 
-    def init_params(self, generator, dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         if self.lock_gamma_beta:
             return {}
         return {"gamma": torch.full((self.n_feat,), self.gamma_init,
@@ -656,8 +656,8 @@ class EmbeddingLayer(Layer):
             sh["b"] = (self.n_out,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
-        p = {"W": init_weights(generator, (self.n_in, self.n_out), self.n_in,
+    def init_params(self, key, dtype=torch.float32):
+        p = {"W": init_weights(key, (self.n_in, self.n_out), self.n_in,
                                self.n_out, self.weight_init, dtype)}
         if self.has_bias:
             p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)
@@ -863,8 +863,8 @@ class FrozenLayer(Layer):
     def param_shapes(self):
         return self.layer.param_shapes()
 
-    def init_params(self, generator, dtype=torch.float32):
-        return self.layer.init_params(generator, dtype)
+    def init_params(self, key, dtype=torch.float32):
+        return self.layer.init_params(key, dtype)
 
     def init_state(self):
         return self.layer.init_state()

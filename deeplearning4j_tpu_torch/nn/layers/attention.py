@@ -158,12 +158,11 @@ class SelfAttentionLayer(Layer):
         return {"Wq": (d, o), "Wk": (d, o), "Wv": (d, o), "Wo": (o, o),
                 "b": (o,)}
 
-    def init_params(self, generator: torch.Generator,
-                    dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         d, o = self.n_in, self.n_out
         p = {n: init_weights(k, (din, o), din, o, self.weight_init, dtype)
              for (n, din), k in zip((("Wq", d), ("Wk", d), ("Wv", d),
-                                     ("Wo", o)), subkeys(generator, 4))}
+                                     ("Wo", o)), subkeys(key, 4))}
         p["b"] = torch.zeros((o,), dtype=dtype)
         return p
 
@@ -388,10 +387,9 @@ class TransformerEncoderLayer(Layer):
                    "W2": (f, d), "b2": (d,)})
         return sh
 
-    def init_params(self, generator: torch.Generator,
-                    dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         d, f = self.d_model, self.d_ff
-        k1, k2, k3 = subkeys(generator, 3)
+        k1, k2, k3 = subkeys(key, 3)
         p = {f"attn_{k}": v
              for k, v in self.attn.init_params(k1, dtype).items()}
         p.update({

@@ -119,9 +119,9 @@ class LSTM(BaseRecurrentLayer):
         H = self.n_out
         return {"W": (self.n_in, 4 * H), "U": (H, 4 * H), "b": (4 * H,)}
 
-    def init_params(self, generator, dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         H = self.n_out
-        kW, kU = subkeys(generator, 2)
+        kW, kU = subkeys(key, 2)
         b = torch.zeros((4 * H,), dtype=dtype)
         b[H:2 * H] = self.forget_gate_bias_init
         return {"W": init_weights(kW, (self.n_in, 4 * H), self.n_in,
@@ -173,8 +173,8 @@ class GravesLSTM(LSTM):
         sh["p"] = (3 * self.n_out,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
-        p = super().init_params(generator, dtype)
+    def init_params(self, key, dtype=torch.float32):
+        p = super().init_params(key, dtype)
         p["p"] = torch.zeros((3 * self.n_out,), dtype=dtype)
         return p
 
@@ -220,9 +220,9 @@ class GRU(BaseRecurrentLayer):
             sh["b_rec"] = (3 * H,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
+    def init_params(self, key, dtype=torch.float32):
         H = self.n_out
-        kW, kU = subkeys(generator, 2)
+        kW, kU = subkeys(key, 2)
         p = {"W": init_weights(kW, (self.n_in, 3 * H), self.n_in,
                                3 * H, self.weight_init, dtype),
              "U": init_weights(kU, (H, 3 * H), H, 3 * H,
@@ -279,8 +279,8 @@ class SimpleRnn(BaseRecurrentLayer):
         return {"W": (self.n_in, self.n_out), "U": (self.n_out, self.n_out),
                 "b": (self.n_out,)}
 
-    def init_params(self, generator, dtype=torch.float32):
-        kW, kU = subkeys(generator, 2)
+    def init_params(self, key, dtype=torch.float32):
+        kW, kU = subkeys(key, 2)
         return {"W": init_weights(kW, (self.n_in, self.n_out),
                                   self.n_in, self.n_out, self.weight_init,
                                   dtype),
@@ -320,8 +320,8 @@ class _Wrapper(Layer):
     def param_shapes(self):
         return self.layer.param_shapes()
 
-    def init_params(self, generator, dtype=torch.float32):
-        return self.layer.init_params(generator, dtype)
+    def init_params(self, key, dtype=torch.float32):
+        return self.layer.init_params(key, dtype)
 
     def init_carry(self, batch, dtype=torch.float32, device=None):
         return self.layer.init_carry(batch, dtype, device)
@@ -368,8 +368,8 @@ class Bidirectional(_Wrapper):
         return {**{f"f_{k}": v for k, v in fwd.items()},
                 **{f"b_{k}": v for k, v in fwd.items()}}
 
-    def init_params(self, generator, dtype=torch.float32):
-        kf, kb = subkeys(generator, 2)
+    def init_params(self, key, dtype=torch.float32):
+        kf, kb = subkeys(key, 2)
         pf = self.layer.init_params(kf, dtype)
         pb = self.layer_bwd.init_params(kb, dtype)
         return {**{f"f_{k}": v for k, v in pf.items()},
@@ -504,8 +504,8 @@ class EmbeddingSequenceLayer(Layer):
             sh["b"] = (self.n_out,)
         return sh
 
-    def init_params(self, generator, dtype=torch.float32):
-        p = {"W": init_weights(generator, (self.n_in, self.n_out), self.n_in,
+    def init_params(self, key, dtype=torch.float32):
+        p = {"W": init_weights(key, (self.n_in, self.n_out), self.n_in,
                                self.n_out, self.weight_init, dtype)}
         if self.has_bias:
             p["b"] = torch.full((self.n_out,), self.bias_init, dtype=dtype)

@@ -196,31 +196,36 @@ class MultiLayerNetwork:
     # -- init ----------------------------------------------------------
     def init(self, dtype=torch.float32) -> "MultiLayerNetwork":
         """Build every layer's shapes, draw its params in ``dtype`` from
-        the configuration's seed (a ``torch.Generator`` on the CPU; the
-        draws differ from ``jax.random``, see
-        :func:`~..convert.network_params_from_jax`) and its state, and
-        start JAX's key chain."""
+        its key of ``split(rng, len(layers) + 1)`` (JAX's params from the
+        same seed) and its state, and start JAX's key chain."""
+        return self._init(dtype)
+
+    def _init(self, dtype, params: Optional[Params] = None):
+        """:meth:`init`, taking ``params`` in place of the draw when they
+        are given. The draws run on the network's device."""
         if self._input_shape is None:
             raise ValueError("Configuration needs an input_type to init()")
         if not dtype.is_floating_point:
             raise ValueError(f"params need a floating dtype, got {dtype}")
         shape = tuple(self._input_shape)
-        gen = torch.Generator().manual_seed(self.conf.seed)
-        self._rng = R.key_at(R.split(self._rng, len(self.layers) + 1), 0)
-        params: Params = {}
+        keys = R.split(self._rng, len(self.layers) + 1)
+        self._rng = R.key_at(keys, 0)
+        drawn: Params = {}
         state: Params = {}
         self._layer_keys = []
-        for i, layer in enumerate(self.layers):
-            layer.build(shape, self.conf.defaults)
-            key = f"layer_{i}" + (f"_{layer.name}" if layer.name else "")
-            self._layer_keys.append(key)
-            p = layer.init_params(gen, dtype)
-            if p:
-                params[key] = p
-            st = layer.init_state()
-            if st:
-                state[key] = st
-            shape = layer.output_shape(shape)
+        with torch.device(self.device):
+            for i, layer in enumerate(self.layers):
+                layer.build(shape, self.conf.defaults)
+                key = f"layer_{i}" + (f"_{layer.name}" if layer.name else "")
+                self._layer_keys.append(key)
+                p = (layer.init_params(R.key_at(keys, i + 1), dtype)
+                     if params is None else None)
+                if p:
+                    drawn[key] = p
+                st = layer.init_state()
+                if st:
+                    state[key] = st
+                shape = layer.output_shape(shape)
         self._updaters = [l.updater if l.updater is not None
                           else self.conf.updater for l in self.layers]
         self._layers_meta = {
@@ -229,7 +234,7 @@ class MultiLayerNetwork:
                 "l2_bias": l.l2_bias,
                 "bias_params": frozenset(l.bias_param_names())}
             for i, l in enumerate(self.layers)}
-        self.set_params(params)
+        self.set_params(drawn if params is None else params)
         self.set_net_state(state)
         self._step = 0
         return self
@@ -693,8 +698,7 @@ class MultiLayerNetwork:
             MultiLayerConfiguration.from_json(self.conf.to_json()),
             device=self.device if device is None else device)
         if self._params is not None:
-            m.init()
-            m.set_params(self._params)
+            m._init(torch.float32, self._params)
             m.set_net_state(self._net_state)
         return m
 

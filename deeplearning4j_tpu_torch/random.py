@@ -48,34 +48,25 @@ def threefry2x32(k1, k2, x1, x2) -> Key:
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
-    if isinstance(x1, torch.Tensor) or isinstance(x2, torch.Tensor):
-        return _threefry_rounds(ks, x1, x2)
+    if torch.is_tensor(x1) or torch.is_tensor(x2):
+        # two fresh buffers of one shape: the rounds below then run in
+        # place on tensors (on ints the same statements rebind)
+        dev = (x1 if torch.is_tensor(x1) else x2).device
+        x1, x2 = (t.clone() for t in torch.broadcast_tensors(
+            torch.as_tensor(x1, device=dev), torch.as_tensor(x2, device=dev)))
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x1 = (x1 + x2) & _M32
-            x2 = (((x2 << r) | (x2 >> (32 - r))) & _M32) ^ x1
-        x1 = (x1 + ks[(i + 1) % 3]) & _M32
-        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
-    return x1, x2
-
-
-def _threefry_rounds(ks, x1, x2) -> Key:
-    """The 20 rounds on tensors, in place on two fresh buffers of the
-    broadcast shape (one scratch tensor; no new tensor an operation)."""
-    dev = (x1 if isinstance(x1, torch.Tensor) else x2).device
-    x1 = torch.as_tensor(x1, dtype=torch.int64, device=dev)
-    x2 = torch.as_tensor(x2, dtype=torch.int64, device=dev)
-    shape = torch.broadcast_shapes(x1.shape, x2.shape)
-    x1, x2 = x1.expand(shape).clone(), x2.expand(shape).clone()
-    tmp = torch.empty_like(x2)
-    for i in range(5):
-        for r in _ROTATIONS[i % 2]:
-            x1.add_(x2).bitwise_and_(_M32)
-            torch.bitwise_right_shift(x2, 32 - r, out=tmp)
-            x2.bitwise_left_shift_(r).bitwise_or_(tmp).bitwise_and_(
-                _M32).bitwise_xor_(x1)
-        x1.add_(ks[(i + 1) % 3]).bitwise_and_(_M32)
-        x2.add_(ks[(i + 2) % 3] + (i + 1)).bitwise_and_(_M32)
+            x1 += x2
+            x1 &= _M32
+            low = x2 >> (32 - r)
+            x2 <<= r
+            x2 |= low
+            x2 &= _M32
+            x2 ^= x1
+        x1 += ks[(i + 1) % 3]
+        x1 &= _M32
+        x2 += ks[(i + 2) % 3] + (i + 1)
+        x2 &= _M32
     return x1, x2
 
 
@@ -116,37 +107,14 @@ def _counters(n: int, device):
     return idx >> 32, idx & _M32
 
 
-#: elements drawn at a time: a large draw (a weight initialisation)
-#: runs in chunks of the flat counter whose buffers stay in the caches
-_DRAW_CHUNK = 1 << 20
-
-
-def _by_chunks(n: int, fn) -> torch.Tensor:
-    """``fn(start, stop)`` over the flat counter ``[0, n)``, one call
-    when it fits a chunk, else chunk by chunk, concatenated: a draw's
-    element is a function of its index alone, so the bits are the
-    same."""
-    if n <= _DRAW_CHUNK:
-        return fn(0, n)
-    return torch.cat([fn(s, min(n, s + _DRAW_CHUNK))
-                      for s in range(0, n, _DRAW_CHUNK)])
-
-
-def _bits_range(key: Key, start: int, stop: int, device) -> torch.Tensor:
-    """The flat draw's bits ``[start, stop)``: ``x1 ^ x2`` of threefry
-    over JAX's (hi, lo) counter words."""
-    idx = torch.arange(start, stop, dtype=torch.int64, device=device)
-    b1, b2 = threefry2x32(key[0], key[1], idx >> 32, idx & _M32)
-    return b1.bitwise_xor_(b2)
-
-
 def random_bits(key: Key, shape: Sequence[int], device=None
                 ) -> torch.Tensor:
     """``jax.random.bits(key, shape, uint32)`` as int64 values on
     ``device``: ``x1 ^ x2`` of threefry over the flat counter."""
     shape = tuple(int(d) for d in shape)
-    return _by_chunks(math.prod(shape), lambda a, b: _bits_range(
-        key, a, b, device)).reshape(shape)
+    hi, lo = _counters(math.prod(shape), device)
+    b1, b2 = threefry2x32(key[0], key[1], hi, lo)
+    return (b1 ^ b2).reshape(shape)
 
 
 def _float_layout(dtype):
@@ -170,17 +138,9 @@ def uniform(key: Key, shape: Optional[Sequence[int]] = None,
         bits = ((b1 ^ b2) >> 9) | 0x3F800000
         return (bits.to(torch.int32).view(torch.float32) - 1.0
                 ).clamp_min(0.0)
-    shape = tuple(int(d) for d in shape)
-    return _by_chunks(math.prod(shape), lambda a, b: _uniform_range(
-        key, a, b, dtype, minval, maxval, device)).reshape(shape)
-
-
-def _uniform_range(key: Key, start: int, stop: int, dtype, minval, maxval,
-                   device) -> torch.Tensor:
-    """Elements ``[start, stop)`` of :func:`uniform`'s flat draw."""
     nbits, nmant, itype = _float_layout(dtype)
     rng_bits = 8 if nmant < 8 else nbits
-    bits = _bits_range(key, start, stop, device)
+    bits = random_bits(key, shape, device)
     if rng_bits != 32:
         bits = bits & ((1 << rng_bits) - 1)
     one = int(torch.ones(1, dtype=dtype).view(itype)[0])
@@ -245,13 +205,9 @@ def normal(key: Key, shape: Sequence[int], dtype=torch.float32,
     uniform is JAX's bit for bit; the result is within a few f32 ulp of
     JAX's (:func:`erfinv_f32`)."""
     lo = -(1.0 - torch.finfo(dtype).eps / 2)   # nextafter(-1, 0)
-    sqrt2 = float(torch.tensor(math.sqrt(2.0), dtype=dtype))
-    shape = tuple(int(d) for d in shape)
-
-    def part(a, b):
-        u = _uniform_range(key, a, b, dtype, lo, 1.0, device)
-        return erfinv_f32(u.float()).to(dtype) * sqrt2
-    return _by_chunks(math.prod(shape), part).reshape(shape)
+    u = uniform(key, shape, dtype, lo, 1.0, device)
+    e = erfinv_f32(u.float()).to(dtype)
+    return e * float(torch.tensor(math.sqrt(2.0), dtype=dtype))
 
 
 def truncated_normal(key: Key, lower: float, upper: float,

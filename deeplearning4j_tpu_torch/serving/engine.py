@@ -16,16 +16,15 @@ the server takes traffic.
 
 JAX passes the weights as executable arguments, read live at every
 call. A graph reads the addresses it captured instead: ``fit`` updates
-the params and the layer state in place, so the graphs serve it, and so
-do a ``ComputationGraph``'s ``set_params`` and ``set_net_state``, which
-write into the live tensors; a ``MultiLayerNetwork``'s ``set_params``
-or ``set_net_state`` replaces every leaf, which the next call notices
-(the leaves' identity) and answers by capturing that entry again over
-the new leaves, uncounted in ``compiles``, as JAX does not recompile
-for new weights of the same shapes. ``captures`` counts every capture, so the batcher keeps a call
-that paid one out of its device-time estimate. As in
-JAX, the served forward is the uncast one of ``output()``: a network
-under the bf16 policy serves in f32.
+the params and the layer state in place, so the graphs serve it; a
+network's ``set_params`` or ``set_net_state`` replaces every leaf,
+which the next call notices (the leaves' identity) and answers by
+capturing that entry again over the new leaves, uncounted in
+``compiles``, as JAX does not recompile for new weights of the same
+shapes. ``captures`` counts every capture, so the batcher keeps a call
+that paid one out of its device-time estimate. As in JAX, the served
+forward is the uncast one of ``output()``: a network under the bf16
+policy serves in f32.
 """
 from __future__ import annotations
 

@@ -2,15 +2,11 @@
 ``deeplearning4j_tpu/weightinit/__init__.py``): every scheme of the
 JAX package, with the same scale from fan-in and fan-out.
 
-Draws come from an explicit source, so an initialization is
-reproducible from its seed. The source is either a ``torch.Generator``,
-whose bits differ from ``jax.random`` (parity tests carry JAX weights
-across with :func:`deeplearning4j_tpu_torch.convert.network_params_from_jax`
-and hold each scheme's draws to its distribution's moments), or a
-``random.py`` key, whose draws are JAX's: ``uniform`` bit for bit,
+Draws come from a ``random.py`` key, so an initialization is
+reproducible from its seed and is JAX's: ``uniform`` bit for bit,
 ``normal`` and ``truncated_normal`` within a few f32 ulp. A layer splits
-a key into one key a weight with :func:`subkeys` exactly where the JAX
-layer splits its key; a generator is shared by all of them.
+its key into one key a weight with :func:`subkeys` exactly where the
+JAX layer splits its key.
 """
 from __future__ import annotations
 
@@ -31,52 +27,21 @@ SCHEMES = [
 ]
 
 
-def _is_key(g) -> bool:
-    return isinstance(g, tuple)
+def subkeys(key, n: int) -> list:
+    """The ``n`` rows of ``split(key, n)``, as a JAX layer splits its
+    init key."""
+    keys = R.split(key, n)
+    return [R.key_at(keys, i) for i in range(n)]
 
 
-def subkeys(source, n: int) -> list:
-    """``n`` draw sources from one: the rows of ``split(key, n)`` for a
-    ``random.py`` key (as a JAX layer splits its init key), the same
-    generator ``n`` times for a ``torch.Generator``."""
-    if _is_key(source):
-        keys = R.split(source, n)
-        return [R.key_at(keys, i) for i in range(n)]
-    return [source] * n
-
-
-def _normal(g, shape, dtype):
-    if _is_key(g):
-        return R.normal(g, shape, dtype)
-    return torch.randn(shape, generator=g, dtype=dtype)
-
-
-def _uniform(g, shape, dtype, lo, hi):
-    if _is_key(g):
-        return R.uniform(g, shape, dtype, lo, hi)
-    return lo + (hi - lo) * torch.rand(shape, generator=g, dtype=dtype)
-
-
-def _truncated_normal(g, shape, dtype):
-    """N(0, 1) truncated to [-2, 2] (``jax.random.truncated_normal``'s
-    bounds) by inverting the CDF over the kept interval."""
-    if _is_key(g):
-        return R.truncated_normal(g, -2.0, 2.0, shape, dtype)
-    lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
-    u = _uniform(g, shape, torch.float64, lo, 1.0 - lo)
-    return (math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)).clamp(
-        -2.0, 2.0).to(dtype)
-
-
-def init_weights(generator, shape: Sequence[int],
+def init_weights(key, shape: Sequence[int],
                  fan_in: float, fan_out: float, scheme: str = "xavier",
                  dtype=torch.float32,
                  distribution: Optional[dict] = None) -> torch.Tensor:
-    """A weight tensor drawn on the CPU per the named scheme (names as
+    """A weight tensor drawn from ``key`` per the named scheme (names as
     the reference's WeightInit enum, lowercased); ``distribution``
     parametrizes the ``distribution`` scheme: {"type": "normal" |
     "uniform" | "truncated_normal" | "constant", ...}."""
-    g = generator
     shape = tuple(int(d) for d in shape)
     s = scheme.lower()
     if s == "zero":
@@ -87,41 +52,43 @@ def init_weights(generator, shape: Sequence[int],
         return torch.full(shape, (distribution or {}).get("value", 0.0),
                           dtype=dtype)
     if s in ("normal", "lecun_normal"):
-        return _normal(g, shape, dtype) / math.sqrt(max(fan_in, 1.0))
+        return R.normal(key, shape, dtype) / math.sqrt(max(fan_in, 1.0))
     if s == "uniform":
         a = 1.0 / math.sqrt(max(fan_in, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s == "xavier":
         return math.sqrt(2.0 / max(fan_in + fan_out, 1.0)) * \
-            _normal(g, shape, dtype)
+            R.normal(key, shape, dtype)
     if s == "xavier_uniform":
         a = math.sqrt(6.0 / max(fan_in + fan_out, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s == "xavier_fan_in":
-        return math.sqrt(1.0 / max(fan_in, 1.0)) * _normal(g, shape, dtype)
+        return math.sqrt(1.0 / max(fan_in, 1.0)) * \
+            R.normal(key, shape, dtype)
     if s == "xavier_legacy":
         return math.sqrt(1.0 / max(fan_in + fan_out, 1.0)) * \
-            _normal(g, shape, dtype)
+            R.normal(key, shape, dtype)
     if s == "relu":
         # He: N(0, 2 / fan_in)
-        return math.sqrt(2.0 / max(fan_in, 1.0)) * _normal(g, shape, dtype)
+        return math.sqrt(2.0 / max(fan_in, 1.0)) * \
+            R.normal(key, shape, dtype)
     if s == "relu_uniform":
         a = math.sqrt(6.0 / max(fan_in, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s == "sigmoid_uniform":
         a = 4.0 * math.sqrt(6.0 / max(fan_in + fan_out, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s == "lecun_uniform":
         a = math.sqrt(3.0 / max(fan_in, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s.startswith("var_scaling_") and s in SCHEMES:
         fan = {"in": fan_in, "out": fan_out,
                "avg": (fan_in + fan_out) / 2.0}[s.rsplit("_", 1)[-1]]
         if "normal" in s:
             return math.sqrt(1.0 / max(fan, 1.0)) * \
-                _truncated_normal(g, shape, dtype)
+                R.truncated_normal(key, -2.0, 2.0, shape, dtype)
         a = math.sqrt(3.0 / max(fan, 1.0))
-        return _uniform(g, shape, dtype, -a, a)
+        return R.uniform(key, shape, dtype, -a, a)
     if s == "identity":
         if len(shape) != 2 or shape[0] != shape[1]:
             raise ValueError("identity init requires square 2d shape")
@@ -131,13 +98,13 @@ def init_weights(generator, shape: Sequence[int],
         t = d.get("type", "normal")
         if t in ("normal", "gaussian"):
             return d.get("mean", 0.0) + d.get("std", 1.0) * \
-                _normal(g, shape, dtype)
+                R.normal(key, shape, dtype)
         if t == "uniform":
-            return _uniform(g, shape, dtype, d.get("lower", -1.0),
-                            d.get("upper", 1.0))
+            return R.uniform(key, shape, dtype, d.get("lower", -1.0),
+                             d.get("upper", 1.0))
         if t == "truncated_normal":
             return d.get("mean", 0.0) + d.get("std", 1.0) * \
-                _truncated_normal(g, shape, dtype)
+                R.truncated_normal(key, -2.0, 2.0, shape, dtype)
         if t == "constant":
             return torch.full(shape, d.get("value", 0.0), dtype=dtype)
         raise ValueError(f"Unknown distribution type {t!r}")

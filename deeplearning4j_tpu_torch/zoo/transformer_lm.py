@@ -17,9 +17,11 @@ from typing import List, Optional, Tuple
 import torch
 from torch import nn
 
+from .. import random as R
 from ..device import resolve_device
 from ..nn.functional import layer_norm
 from ..nn.layers.attention import TransformerEncoderLayer
+from ..weightinit import subkeys
 
 
 class CausalTransformerLM(nn.Module):
@@ -50,18 +52,20 @@ class CausalTransformerLM(nn.Module):
 
     # -- lifecycle -----------------------------------------------------
     def init(self) -> "CausalTransformerLM":
-        """Random weights from ``seed`` (drawn on the CPU with a
-        ``torch.Generator``, then moved to the model's device)."""
-        g = torch.Generator().manual_seed(self.seed)
+        """Random weights from ``seed``, drawn on the model's device from
+        JAX's keys (the JAX model's weights from the same seed)."""
+        k_tok, k_pos, k_head, k_blocks = subkeys(R.PRNGKey(self.seed), 4)
         V, D = self.vocab_size, self.d_model
-        params = {
-            "tok": torch.randn((V, D), generator=g) * 0.02,
-            "pos": torch.randn((self.max_seq_len, D), generator=g) * 0.02,
-            "lnf_g": torch.ones((D,)), "lnf_b": torch.zeros((D,)),
-            "head": torch.randn((D, V), generator=g) * 0.02,
-            "blocks": [blk.init_params(g) for blk in self.blocks],
-        }
-        self._params = _to_device(params, self.device)
+        with torch.device(self.device):
+            params = {
+                "tok": R.normal(k_tok, (V, D)) * 0.02,
+                "pos": R.normal(k_pos, (self.max_seq_len, D)) * 0.02,
+                "lnf_g": torch.ones((D,)), "lnf_b": torch.zeros((D,)),
+                "head": R.normal(k_head, (D, V)) * 0.02,
+                "blocks": [blk.init_params(k) for blk, k in zip(
+                    self.blocks, subkeys(k_blocks, self.n_layers))],
+            }
+        self._params = params
         return self
 
     def load_params(self, tree) -> "CausalTransformerLM":
@@ -254,11 +258,3 @@ def make_draft_lm(target: CausalTransformerLM, d_model: int = 32,
         device=target.device)
     return draft.init()
 
-
-def _to_device(params, device):
-    """Move a params tree (tensors and QuantWeight leaves) to
-    ``device``."""
-    out = {k: v.to(device) for k, v in params.items() if k != "blocks"}
-    out["blocks"] = [{k: v.to(device) for k, v in bp.items()}
-                     for bp in params["blocks"]]
-    return out

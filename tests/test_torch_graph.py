@@ -765,11 +765,45 @@ def test_served_rows_follow_set_params_and_batch_norm_runs_on_stats():
     tg.set_params(new)
     tg.set_net_state({k: {n: t + 0.25 for n, t in st.items()}
                       for k, st in tg.get_net_state().items()})
-    assert eng._same_leaves(leaves)   # written in place
+    assert not eng._same_leaves(leaves)   # every leaf replaced
     rows = eng.predict(x)
     assert np.array_equal(rows, _np(tg.output(x)))
     assert not np.allclose(rows, _np(tg.output(x, train=True)))
     assert eng.metrics.compiles == 2
+
+
+def test_captured_rows_follow_set_params_and_set_net_state(monkeypatch):
+    """The card's entry, a capture replayed over the leaves it saw (run
+    here by the stand-in of ``_torch_serving_util.recording_graphs``):
+    after ``set_params`` and ``set_net_state`` the bucket served captures
+    once more over the new leaves, uncounted in ``compiles``, and serves
+    the new ``output()``; a replay over the old leaves would serve the
+    old rows."""
+    from _torch_serving_util import recording_graphs
+    captures = recording_graphs(monkeypatch)
+    tg = T.G.ComputationGraph(bf16_cnn(T), device="cpu").init()
+    eng = InferenceEngine(tg, max_batch_size=8)
+    eng.warmup([1, 4])
+    assert len(captures) == eng.captures == 2
+    x = np.random.RandomState(7).randn(3, 8, 8, 2).astype(np.float32)
+    old = eng.predict(x)
+    assert np.array_equal(old, _np(tg.output(x)))
+    tg.set_params({k: {n: t.detach() * 0.5 for n, t in p.items()}
+                   for k, p in tg.params().items()})
+    tg.set_net_state({k: {n: t + 0.25 for n, t in st.items()}
+                      for k, st in tg.get_net_state().items()})
+    rows = eng.predict(x)
+    assert np.array_equal(rows, _np(tg.output(x)))
+    assert np.abs(rows - old).max() > 1e-3
+    assert len(captures) == eng.captures == 3
+    assert np.array_equal(eng.predict(x), rows) and len(captures) == 3
+    # the layer state alone is served too
+    tg.set_net_state({k: {n: t + 0.5 for n, t in st.items()}
+                      for k, st in tg.get_net_state().items()})
+    again = eng.predict(x)
+    assert np.array_equal(again, _np(tg.output(x)))
+    assert np.abs(again - rows).max() > 1e-3
+    assert len(captures) == 4 and eng.metrics.compiles == 2
 
 
 def test_inference_engine_takes_a_single_input_graph_bare():

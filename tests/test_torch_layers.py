@@ -11,6 +11,7 @@ from deeplearning4j_tpu.nn.functional import layer_norm as jax_layer_norm
 from deeplearning4j_tpu.nn.layers.attention import (
     SelfAttentionLayer as JaxSelfAttention,
     TransformerEncoderLayer as JaxEncoder)
+from deeplearning4j_tpu_torch import random as R
 from deeplearning4j_tpu_torch.nn.functional import layer_norm
 from deeplearning4j_tpu_torch.nn.layers.attention import (
     SelfAttentionLayer, TransformerEncoderLayer)
@@ -65,7 +66,7 @@ def test_layer_norm_matches():
 def test_param_shapes_match(kind):
     jl, tl, jp, _ = _pair(kind)
     assert tl.param_shapes() == jl.param_shapes()
-    tp = tl.init_params(torch.Generator().manual_seed(0))
+    tp = tl.init_params(R.PRNGKey(0))
     assert {k: tuple(v.shape) for k, v in tp.items()} == \
         {k: tuple(v.shape) for k, v in jp.items()}
 
@@ -132,7 +133,7 @@ def test_flash_matches_plain_attention_on_cpu():
 def test_acausal_prefill_rejected_and_cache_shape():
     lay = SelfAttentionLayer(n_heads=2, causal=False)
     lay.build((4, 8))
-    p = lay.init_params(torch.Generator().manual_seed(0))
+    p = lay.init_params(R.PRNGKey(0))
     with pytest.raises(ValueError, match="causal"):
         lay.apply_prefill(p, torch.zeros((1, 4, 8)))
     assert lay.cache_shape(16) == (2, 16, 4)

@@ -137,6 +137,22 @@ def _jax_loss_and_grads(jn, x, y, m):
     return jax.value_and_grad(loss)(jn.params())
 
 
+def test_init_from_the_seed_is_jax_init():
+    """``init`` draws layer i's params from key i + 1 of
+    ``split(PRNGKey(seed), n_layers + 1)``, as JAX does: JAX's params
+    (``normal`` within 8 f32 ulp of each weight, the rest exact)."""
+    jn = JNet(_lm_conf(JAX_SIDE, "plain")).init()
+    tn = MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain"), device="cpu").init()
+    jp = jax.tree.map(np.asarray, jn.params())
+    assert jp.keys() == tn.params().keys()
+    for k, p in jp.items():
+        assert p.keys() == tn.params()[k].keys()
+        for n, v in p.items():
+            got = tn.params()[k][n].detach().numpy()
+            assert np.all(np.abs(got - v) <= 8 * np.spacing(np.abs(v))), \
+                (k, n)
+
+
 @pytest.mark.parametrize("masked", [False, True])
 @pytest.mark.parametrize("impl", ["plain", "flash"])
 def test_loss_and_every_gradient_match_jax(impl, masked):

@@ -26,6 +26,7 @@ from deeplearning4j_tpu.nn import MultiLayerNetwork as JNet
 from deeplearning4j_tpu.nn import NeuralNetConfiguration as JConf
 from deeplearning4j_tpu.nn import layers as JL
 from deeplearning4j_tpu.nn.layers import recurrent as JR
+from deeplearning4j_tpu_torch import random as R
 from deeplearning4j_tpu_torch.convert import network_params_from_jax
 from deeplearning4j_tpu_torch.learning import Adam, Sgd
 from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
@@ -293,7 +294,7 @@ def test_maskzero_derives_mask():
 def test_embedding_sequence_and_repeat():
     emb = TR.EmbeddingSequenceLayer(n_in=10, n_out=4)
     emb.build((5,), {"weight_init": "xavier"})
-    p = emb.init_params(torch.Generator().manual_seed(0))
+    p = emb.init_params(R.PRNGKey(0))
     out, _ = emb.apply(p, torch.tensor([[1, 2, 3, 4, 5]]), {}, False, None)
     assert tuple(out.shape) == (1, 5, 4)
     np.testing.assert_array_equal(_np(out)[0], _np(p["W"])[1:6])
@@ -386,7 +387,7 @@ class TestGRU:
         tl = TR.GRU(n_out=3, reset_after=True)
         tl.build((4, 2), {"weight_init": "xavier"})
         p = {k: v.double() for k, v in
-             tl.init_params(torch.Generator().manual_seed(1)).items()}
+             tl.init_params(R.PRNGKey(1)).items()}
         p["b"] = torch.linspace(-0.3, 0.3, 9, dtype=torch.float64)
         p["b_rec"] = torch.linspace(0.2, -0.2, 9, dtype=torch.float64)
         x = torch.from_numpy(np.random.RandomState(2).rand(3, 4, 2))

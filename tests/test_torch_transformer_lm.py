@@ -26,6 +26,25 @@ def pair():
     return jlm, tlm
 
 
+def test_init_from_the_seed_is_jax_init():
+    """``init`` draws from JAX's keys: the JAX model's weights from the
+    same seed (within 8 f32 ulp of each weight, the ones and zeros
+    exact)."""
+    jlm = JaxLM(**CFG, seed=3, implementation="plain").init()
+    tlm = CausalTransformerLM(**CFG, seed=3, device="cpu").init()
+    jp = jax.tree.map(np.asarray, jlm._params)
+    pairs = [(jp[k], tlm._params[k]) for k in ("tok", "pos", "lnf_g",
+                                                "lnf_b", "head")]
+    assert len(jp["blocks"]) == len(tlm._params["blocks"]) == 2
+    for jb, tb in zip(jp["blocks"], tlm._params["blocks"]):
+        assert jb.keys() == tb.keys()
+        pairs += [(jb[k], tb[k]) for k in jb]
+    for want, got in pairs:
+        got = got.numpy()
+        assert got.shape == want.shape
+        assert np.all(np.abs(got - want) <= 8 * np.spacing(np.abs(want)))
+
+
 def _close(a, b):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=0,
                                atol=TOL)
