@@ -293,6 +293,25 @@ Phases, each of which fails the run when it fails:
    enqueue p50, images/s beside the bound, peak memory, one profiled
    step, the CPU copy's gaps, rows/s and request p50/p99, and the
    seconds the phase added.
+22. the conv family (``nn/layers/convolutional.py``), on no TPU kernel
+   either: (a) the zoo's Xception at the JAX zoo's defaults (299x299x3,
+   1000 classes, Adam(1e-3)) at batch 32, f32, one warmup and five
+   timed steps, the loss falling and every running stat moving, one
+   profiled step, then one step at batch 2 against a CPU copy as 21a
+   holds ResNet-50; (b) a fresh Xception under the bf16 policy, three
+   steps, its training loss on the first four images against a CPU
+   copy's; (c) (a)'s logits served as 21c serves ResNet-50's; (d) UNet
+   at 512x512x3 (1 class, sigmoid, xent, a learnable mask, Adam(1e-4))
+   at batch 4, one warmup and three timed steps, then its step's
+   gradients at batch 1 against a CPU copy (it draws dropout in
+   training, so the fit that follows is not compared); (e) NASNet (224x224x3, four cells
+   a stack, penultimate 1,056) at batch 32, three timed steps and the
+   CPU copy at batch 2; (f) Darknet19 (224x224x3) at batch 32, one
+   timed step, the CPU copy at batch 4; (g) every layer class of the
+   module and FrozenLayer, forward and gradients on the card against
+   the CPU at a small size (Deconvolution2D at k=3, s=2 "same", a
+   Convolution3D among them). Each training bound counts the
+   products of the network's own layer shapes (``train_bound_ms``).
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -365,6 +384,11 @@ busy share and host ops.
 
 runs phase 21 alone (it builds no kernel) and prints its numbers on a
 "GRAPH" line as JSON.
+
+    python3 chip_smoke.py --conv
+
+runs phase 22 alone (it builds no kernel either) and prints its numbers
+on a "CONV" line as JSON.
 """
 from __future__ import annotations
 
@@ -2157,7 +2181,9 @@ def traced_step(net, x, y, rng=None, subst=None):
     (the input of its activation) and the dropout masks drawn. With
     ``subst`` (pre-activations of another run), each pre-activation z
     becomes ``z + (subst - z).detach()``: the other run's values, so
-    ReLUs and pools choose as it did, and this run's own gradient."""
+    ReLUs and pools choose as it did, and this run's own gradient; the
+    recorded z is this run's own, the layer computed here on the other
+    run's inputs to it."""
     import torch
     from deeplearning4j_tpu_torch import random as R
     x, y, _ = net._to_device(x, y)
@@ -2165,9 +2191,9 @@ def traced_step(net, x, y, rng=None, subst=None):
 
     def recording(i, act):
         def f(z):
+            pre[i] = _host(z)
             if subst is not None:
                 z = z + (subst[i].to(z.device, z.dtype) - z).detach()
-            pre[i] = _host(z)
             return act(z)
         return f
     hidden = net.layers[:-1]
@@ -3604,16 +3630,6 @@ GRAPH_SERVE_CLIENTS = 16
 INCEPTION_SHAPE = (160, 160, 3)
 SQUEEZENET_SHAPE = (227, 227, 3)
 GRAPH_FWD_BATCH = 4     # 21d: the forward held against a CPU copy
-RESNET_FLOPS_PER_IMAGE = 4.11e9 * 2  # 21a/b's bound: the forward's
-#                         multiply-adds at 224x224 (He et al., Table 1),
-#                         twice in flops; a training step is 3 forwards
-
-
-def resnet_bound_ms(batch: int, rate: float) -> float:
-    """The least time a training step of ``batch`` images could take at
-    ``rate`` flops/s: three forwards' flops (forward, and the backward's
-    two products per layer)."""
-    return 3 * RESNET_FLOPS_PER_IMAGE * batch / rate * 1e3
 
 
 def graph_pre_nodes(g):
@@ -3665,31 +3681,52 @@ def traced_graph_step(g, x, y, subst=None, record=True):
         for k, st in state.items()}
 
 
-def resnet_vs_cpu(card, x, y):
-    """21a's hold: one step of the card's graph against a CPU copy with
-    the same params, layer state and Adam state. Node by node, each
-    pre-activation computed on the CPU from the card's inputs to it; the
-    ReLUs that chose otherwise there are counted and each must be a
-    near-tie; the whole-graph loss of the CPU on its own values; every
-    gradient of the CPU run on the card's pre-activations, within
-    GRAPH_GRAD_TOL; then both apply the step, and the params and Adam's
-    m and v must agree."""
+def graph_layer(net, n):
+    """The layer of node ``n`` of a graph, or of layer ``n`` of a
+    sequential network."""
+    return net.conf.nodes[n].layer if hasattr(net.conf, "nodes") \
+        else net.layers[n]
+
+
+def traced_net_step(net, x, y, subst=None, record=True):
+    """:func:`traced_graph_step` for a graph, :func:`traced_step` (no
+    dropout key) for a sequential network: (loss, grads, pre, state)."""
+    if hasattr(net.conf, "nodes"):
+        return traced_graph_step(net, x, y, subst, record)
+    return traced_step(net, x, y, None, subst)[:4]
+
+
+def graph_vs_cpu(card, x, y, label: str, apply_step: bool = True,
+                 witnesses: int = 2):
+    """One step of a card network (a graph or a sequential one) against
+    a CPU copy with the same params, layer state and Adam state. Node by
+    node, each pre-activation computed on the CPU from the card's inputs
+    to it; the ReLUs that chose otherwise there are counted and each
+    must be a near-tie; the whole loss of the CPU on its own values;
+    every gradient of the CPU run on the card's pre-activations, within
+    GRAPH_GRAD_TOL or 3x the most that leaf moves on the CPU itself
+    under a 1e-7 relative move of the card's values in ``witnesses``
+    draws (batch norm's backward at random init is ill-conditioned; a
+    net without batch norm needs none); then, with
+    ``apply_step``, both apply the step (the card by a fit on the same
+    batch, so a network that draws dropout in training sets it False)
+    and the params and Adam's m and v must agree."""
     import torch
     cpu = card.clone(device="cpu")
     cpu.set_updater_state(card.get_updater_state())
     cpu._step = card._step
     xh, yh = x.cpu(), y.cpu()
     t0 = time.perf_counter()
-    lc, gc, pc, sc = traced_graph_step(card, x, y)
+    lc, gc, pc, sc = traced_net_step(card, x, y)
     t_card = time.perf_counter() - t0
     t0 = time.perf_counter()
-    _, gh, ph, sh = traced_graph_step(cpu, xh, yh, subst=pc)
+    _, gh, ph, sh = traced_net_step(cpu, xh, yh, subst=pc)
     node_err, worst_node, ties, tie_worst = 0.0, None, 0, 0.0
     for n, z in ph.items():
         e = _rel(z, pc[n])
         if e > node_err:
             node_err, worst_node = e, n
-        if cpu.conf.nodes[n].layer.activation.name == "relu":
+        if graph_layer(cpu, n).activation.name == "relu":
             flip = (pc[n] > 0) != (z > 0)
             ties += int(flip.sum())
             if flip.any():
@@ -3700,24 +3737,24 @@ def resnet_vs_cpu(card, x, y):
     # the CPU's own gradient under tiny moves of the card's values: the
     # backward's own conditioning, leaf by leaf
     moved = []
-    for seed in (1, 2):
+    for seed in range(1, 1 + witnesses):
         gen = torch.Generator().manual_seed(seed)
         jitter = {n: z * (1 + GRAPH_WITNESS_REL * torch.randn(
-            z.shape, generator=gen)) for n, z in pc.items()}
-        moved.append(traced_graph_step(cpu, xh, yh, subst=jitter,
-                                       record=False)[1])
+            z.shape, generator=gen, dtype=z.dtype)) for n, z in pc.items()}
+        moved.append(traced_net_step(cpu, xh, yh, subst=jitter,
+                                     record=False)[1])
         del jitter
     with torch.no_grad():
         lh = float(cpu._loss_fn(cpu._params, cpu._net_state,
-                                cpu._as_inputs(xh), cpu._as_labels(yh),
-                                None, True, None)[0])
+                                *cpu_feeds(cpu, xh, yh), None, True,
+                                None)[0])
     t_cpu = time.perf_counter() - t0
     loss_rel = abs(lc - lh) / abs(lh)
     grad_err, grad_worst, over = 0.0, None, []
     floors = {}
     for k, p in gh.items():
         for n, t in p.items():
-            floor = max(_rel(m[k][n], t) for m in moved)
+            floor = max((_rel(m[k][n], t) for m in moved), default=0.0)
             floors[f"{k}.{n}"] = floor
             e = _rel(gc[k][n], t)
             if e > grad_err:
@@ -3725,52 +3762,116 @@ def resnet_vs_cpu(card, x, y):
             if e > max(GRAPH_GRAD_TOL, 3 * floor):
                 over.append((f"{k}.{n}", e, floor))
     _, state_err = _worst(sc, sh)
-    # both apply the step: the card its own (a fit on the same batch),
-    # the CPU copy its gradients from the card's pre-activations
-    card.fit(x, y)
-    cpu.apply_gradients(gh, sh)
-    perr = max(float((_host(t) - _host(cpu.params()[k][n])).abs().max())
-               for k, p in card.params().items() for n, t in p.items())
-    aw, aerr = _worst({f"{k}.{part}": st[part] for k, st in
-                       card.get_updater_state().items() for part in st},
-                      {f"{k}.{part}": st[part] for k, st in
-                       cpu.get_updater_state().items() for part in st})
+    perr, aw, aerr = None, None, 0.0
+    if apply_step:
+        # both apply the step: the card its own (a fit on the same
+        # batch), the CPU copy its gradients from the card's
+        # pre-activations
+        card.fit(x, y)
+        cpu.apply_gradients(gh, sh)
+        perr = max(float((_host(t) - _host(cpu.params()[k][n])).abs().max())
+                   for k, p in card.params().items() for n, t in p.items())
+        aw, aerr = _worst({f"{k}.{part}": st[part] for k, st in
+                           card.get_updater_state().items() for part in st},
+                          {f"{k}.{part}": st[part] for k, st in
+                           cpu.get_updater_state().items() for part in st})
     res = dict(batch=int(x.shape[0]), loss=lc, cpu_loss=lh,
                loss_rel_err=loss_rel, nodes=len(pc), node_rel_err=node_err,
                worst_node=worst_node, near_ties=ties,
                near_tie_worst=tie_worst, worst_grad=grad_worst,
                worst_grad_rel_err=grad_err,
-               grad_floor_max=max(floors.values()),
+               grad_floor_max=max(floors.values(), default=0.0),
                grads_over_tol=over[:5], state_rel_err=state_err,
                param_abs_err=perr, adam_worst=aw, adam_rel_err=aerr,
                card_trace_s=t_card, cpu_s=t_cpu)
     if not (loss_rel <= GRAPH_LOSS_RTOL and node_err <= GRAPH_NODE_TOL
             and not over and state_err <= GRAPH_NODE_TOL
-            and tie_worst <= NEAR_TIE and perr <= GRAPH_PARAM_ATOL
-            and aerr <= max(GRAPH_GRAD_TOL, 3 * max(floors.values()))):
-        raise AssertionError(f"phase 21a card vs CPU failed: {res}")
+            and tie_worst <= NEAR_TIE
+            and (not apply_step or perr <= GRAPH_PARAM_ATOL)
+            and aerr <= max(GRAPH_GRAD_TOL,
+                            3 * max(floors.values(), default=0.0))):
+        raise AssertionError(f"phase {label} card vs CPU failed: {res}")
     return res
 
 
-def resnet_train(card: str, device=None, shape=RESNET_SHAPE,
-                 classes=RESNET_CLASSES, batch=RESNET_BATCH,
-                 steps=RESNET_STEPS, copy_batch=RESNET_COPY_BATCH):
-    """Phase 21a: the zoo's ResNet50 at full width through fit: one
-    warmup and ``steps`` timed Adam steps on a learnable synthetic batch,
-    the loss falling and every running stat moving, one profiled step,
-    then one step at ``copy_batch`` against a CPU copy."""
+def cpu_feeds(net, x, y):
+    """The (inputs, labels) ``_loss_fn`` takes: by name for a graph, as
+    tensors for a sequential network."""
+    if hasattr(net.conf, "nodes"):
+        return net._as_inputs(x), net._as_labels(y)
+    return net._to_device(x, y)[:2]
+
+
+def layer_macs(layer) -> int:
+    """Multiply-adds of one example through a layer's products (the
+    convolutions and dense layers), from its built shapes; 0 for the
+    layers without any."""
+    from deeplearning4j_tpu_torch.nn.layers import (ConvolutionLayer,
+                                                    DenseLayer)
+    from deeplearning4j_tpu_torch.nn.layers.convolutional import (
+        Deconvolution2D, DepthwiseConvolution2D, SeparableConvolution2D)
+    shape = layer.input_shape
+    if isinstance(layer, DenseLayer):
+        return layer.n_in * layer.n_out
+    if not isinstance(layer, (ConvolutionLayer, Deconvolution2D,
+                              DepthwiseConvolution2D,
+                              SeparableConvolution2D)):
+        return 0
+    kh, kw = layer.kernel
+    if isinstance(layer, Deconvolution2D):   # every input pixel scatters
+        return shape[0] * shape[1] * kh * kw * layer.n_in * layer.n_out
+    oh, ow, n_out = layer.output_shape(shape)
+    if isinstance(layer, SeparableConvolution2D):
+        mid = layer.n_in * layer.depth_multiplier
+        return oh * ow * (kh * kw * mid + mid * n_out)
+    if isinstance(layer, DepthwiseConvolution2D):
+        return oh * ow * kh * kw * n_out
+    return oh * ow * kh * kw * (layer.n_in // layer.groups) * n_out
+
+
+def net_layers(net):
+    if hasattr(net.conf, "nodes"):
+        return [nd.layer for nd in net.conf.nodes.values()
+                if nd.layer is not None]
+    return list(net.layers)
+
+
+def train_bound_ms(net, batch: int, rate: float) -> float:
+    """The least time a training step of ``batch`` examples could take
+    at ``rate`` flops/s: three forwards' products (the forward, and the
+    backward's two a layer), from the network's own layer shapes."""
+    macs = sum(layer_macs(layer) for layer in net_layers(net))
+    return 3 * 2 * macs * batch / rate * 1e3
+
+
+def mask_batch(n, seed, shape):
+    """Images and a learnable one-channel mask: each pixel is on where
+    its channels' mean exceeds 0.5."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, *shape).astype(np.float32)
+    return x, (x.mean(-1, keepdims=True) > 0.5).astype(np.float32)
+
+
+def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
+              copy_batch: int, classes: int, profile: bool = False,
+              device=None, apply_step: bool = True, seed: int = 22,
+              witnesses: int = 2):
+    """One zoo model at full width through fit: one warmup and ``steps``
+    timed Adam steps on a learnable synthetic batch, the loss falling
+    and every running stat moving, peak memory, optionally one profiled
+    step, then one step at ``copy_batch`` against a CPU copy
+    (:func:`graph_vs_cpu`)."""
     import torch
-    from deeplearning4j_tpu_torch.zoo import ResNet50
     t_phase = time.perf_counter()
     on_card = device is None or torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    net = ResNet50(num_classes=classes, input_shape=shape, seed=21,
-                   device=device).init()
+    net = make(device)
     init_s = time.perf_counter() - t0
     dev = net.device
-    xs, ys = simple_cnn_batch(batch, 21, shape, classes)
+    xs, ys = mask_batch(batch, seed, shape) if classes == 1 else \
+        simple_cnn_batch(batch, seed, shape, classes)
     x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
     state0 = {k: {n: t.clone() for n, t in st.items()}
               for k, st in net.get_net_state().items()}
@@ -3788,43 +3889,49 @@ def resnet_train(card: str, device=None, shape=RESNET_SHAPE,
     n_stats = sum(len(st) for st in state0.values())
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and moved == n_stats):
-        raise AssertionError(f"phase 21a ResNet-50: losses {losses}, {moved} "
-                             f"of {n_stats} running stats moved")
+        raise AssertionError(f"phase {label}: losses {losses}, {moved} of "
+                             f"{n_stats} running stats moved")
     peak = torch.cuda.max_memory_allocated() if on_card else None
-    prof = profile_train_step(net, x, y) if on_card else None
-    vs_cpu = resnet_vs_cpu(net, x[:copy_batch], y[:copy_batch])
-    timed = clock.step_ms[1:]
-    step_p50 = float(np.median(timed))
-    res = dict(input=list(shape), classes=classes, batch=batch, steps=steps,
-               params=net.num_params(), nodes=len(net._order),
-               init_s=init_s, losses=losses, step_ms=clock.step_ms,
-               step_p50_ms=step_p50,
-               enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
-               images_per_s=batch / (step_p50 / 1e3),
-               bound_ms=resnet_bound_ms(batch, H100_F32_FLOPS),
-               peak_bytes=peak, stats_moved=moved, profile=prof,
-               vs_cpu=vs_cpu, seconds=time.perf_counter() - t_phase)
-    return net, res
+    prof = profile_train_step(net, x, y) if on_card and profile else None
+    vs_cpu = graph_vs_cpu(net, x[:copy_batch], y[:copy_batch], label,
+                          apply_step, witnesses)
+    step_p50 = float(np.median(clock.step_ms[1:]))
+    return net, dict(
+        input=list(shape), classes=classes, batch=batch, steps=steps,
+        params=net.num_params(), layers=len(net_layers(net)), init_s=init_s,
+        losses=losses, step_ms=clock.step_ms, step_p50_ms=step_p50,
+        enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
+        images_per_s=batch / (step_p50 / 1e3),
+        bound_ms=train_bound_ms(net, batch, H100_F32_FLOPS),
+        peak_bytes=peak, stats_moved=moved, profile=prof, vs_cpu=vs_cpu,
+        seconds=time.perf_counter() - t_phase)
 
 
-def resnet_bf16(card: str, device=None, shape=RESNET_SHAPE,
-                classes=RESNET_CLASSES, batch=RESNET_BATCH,
-                steps=RESNET_BF16_STEPS):
-    """Phase 21b: the same ResNet50 under the bf16 policy
-    (``data_type("bfloat16")``): ``steps`` steps, the loss falling, the
-    masters and Adam state f32, and the first step's loss against a CPU
-    copy at bf16."""
+def zoo_bf16(card: str, make, label: str, shape, batch: int, steps: int,
+             rows: int, classes: int, device=None, seed: int = 22):
+    """A fresh zoo model under the bf16 policy: ``steps`` steps,
+    the loss falling, the masters and Adam state f32; before them, the
+    training loss of the first ``rows`` images on the card against a CPU
+    copy's at bf16."""
     import torch
-    from deeplearning4j_tpu_torch.zoo import ResNet50
     t_phase = time.perf_counter()
-    net = ResNet50(num_classes=classes, input_shape=shape, seed=21,
-                   device=device).init()
+    net = make(device)
     net.conf.dtype = "bfloat16"   # what data_type("bfloat16") sets
     on_card = net.device.type == "cuda"
     cpu = net.clone(device="cpu")
-    xs, ys = simple_cnn_batch(batch, 21, shape, classes)
+    xs, ys = simple_cnn_batch(batch, seed, shape, classes)
     x, y = torch.from_numpy(xs).to(net.device), torch.from_numpy(ys).to(
         net.device)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        first = float(net._loss_fn(net._params, net._net_state,
+                                   *cpu_feeds(net, x[:rows], y[:rows]),
+                                   None, True, None)[0])
+        cpu_loss = float(cpu._loss_fn(
+            cpu._params, cpu._net_state,
+            *cpu_feeds(cpu, torch.from_numpy(xs[:rows]),
+                       torch.from_numpy(ys[:rows])), None, True, None)[0])
+    cpu_s = time.perf_counter() - t0
     clock = StepClock(sync=on_card)
     net.set_listeners(clock)
     losses = []
@@ -3833,13 +3940,6 @@ def resnet_bf16(card: str, device=None, shape=RESNET_SHAPE,
         net.fit(x, y)
         losses.append(net.score_)
     net.set_listeners()
-    first = losses[0]
-    t0 = time.perf_counter()
-    with torch.no_grad():
-        cpu_loss = float(cpu._loss_fn(
-            cpu._params, cpu._net_state, cpu._as_inputs(torch.from_numpy(xs)),
-            cpu._as_labels(torch.from_numpy(ys)), None, True, None)[0])
-    cpu_s = time.perf_counter() - t0
     loss_rel = abs(first - cpu_loss) / abs(cpu_loss)
     dtypes = {str(t.dtype) for p in net.params().values() for t in p.values()}
     dtypes |= {str(t.dtype) for st in net.get_updater_state().values()
@@ -3847,18 +3947,28 @@ def resnet_bf16(card: str, device=None, shape=RESNET_SHAPE,
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
             and loss_rel <= TRAIN_BF16_LOSS_RTOL
             and dtypes == {"torch.float32"}):
-        raise AssertionError(f"phase 21b ResNet-50 bf16: losses {losses}, "
-                             f"first loss {first} vs CPU {cpu_loss} "
+        raise AssertionError(f"phase {label} bf16: losses {losses}, first "
+                             f"{rows} rows' loss {first} vs CPU {cpu_loss} "
                              f"({loss_rel:.3e}), dtypes {dtypes}")
-    timed = clock.step_ms[1:]
-    step_p50 = float(np.median(timed))
+    step_p50 = float(np.median(clock.step_ms[1:]))
     return dict(batch=batch, steps=steps, losses=losses,
                 step_ms=clock.step_ms, step_p50_ms=step_p50,
                 enqueue_p50_ms=float(np.median(clock.enqueue_ms[1:])),
                 images_per_s=batch / (step_p50 / 1e3),
-                bound_ms=resnet_bound_ms(batch, H100_BF16_FLOPS),
-                cpu_loss=cpu_loss, loss_rel_err=loss_rel, cpu_s=cpu_s,
+                bound_ms=train_bound_ms(net, batch, H100_BF16_FLOPS),
+                rows=rows, first_loss=first, cpu_loss=cpu_loss,
+                loss_rel_err=loss_rel, cpu_s=cpu_s,
                 seconds=time.perf_counter() - t_phase)
+
+
+def zoo_make(name, shape, classes, seed=22, **kw):
+    """A constructor of the zoo's ``name`` at ``shape`` on a device."""
+    from deeplearning4j_tpu_torch import zoo
+
+    def make(device):
+        return getattr(zoo, name)(num_classes=classes, input_shape=shape,
+                                  seed=seed, device=device, **kw).init()
+    return make
 
 
 def logits_graph(net):
@@ -3884,8 +3994,9 @@ def row_rel_err(got, want) -> float:
 
 def graph_serve(card: str, net, shape=RESNET_SHAPE,
                 buckets=GRAPH_SERVE_BUCKETS, n_requests=GRAPH_SERVE_REQUESTS,
-                clients=GRAPH_SERVE_CLIENTS):
-    """Phase 21c: the trained ResNet-50, its logits (:func:`logits_graph`),
+                clients=GRAPH_SERVE_CLIENTS, label="21c"):
+    """Phase 21c (22c for Xception): the trained ResNet-50, its logits
+    (:func:`logits_graph`),
     behind InferenceEngine and the micro-batcher. Buckets captured at
     warmup and nothing after; every served row against eager
     ``output()`` on that row alone; one row's bits alone and inside each
@@ -3978,7 +4089,7 @@ def graph_serve(card: str, net, shape=RESNET_SHAPE,
             and swap_moved > 100 * GRAPH_SERVE_TOL
             and swap_captures == caps and swap_repeat
             and eng.metrics.compiles == compiles):
-        raise AssertionError(f"phase 21c failed: {res}, compiles now "
+        raise AssertionError(f"phase {label} failed: {res}, compiles now "
                              f"{eng.metrics.compiles}, captures now "
                              f"{eng.captures}")
     return res
@@ -4055,8 +4166,12 @@ def graph_phase(card: str, device=None, shape=RESNET_SHAPE,
     from deeplearning4j_tpu_torch.zoo import InceptionResNetV1, SqueezeNet
     t_phase = time.perf_counter()
     reset_launches()
-    net, a = resnet_train(card, device, shape, classes, batch, steps)
-    b = resnet_bf16(card, device, shape, classes, batch)
+    resnet = zoo_make("ResNet50", shape, classes, seed=21)
+    net, a = zoo_train(card, resnet, "21a", shape, batch, steps,
+                       RESNET_COPY_BATCH, classes, profile=True,
+                       device=device, seed=21)
+    b = zoo_bf16(card, resnet, "21b", shape, batch, RESNET_BF16_STEPS,
+                 batch, classes, device, seed=21)
     c = graph_serve(card, net, shape)
     del net
     gc.collect()
@@ -4076,7 +4191,7 @@ def graph_phase(card: str, device=None, shape=RESNET_SHAPE,
     wall = time.perf_counter() - t_phase
     v, p = a["vs_cpu"], a["profile"]
     print(f"graph (phase 21a) [{card}]: ResNet-50 {tuple(shape)} x "
-          f"{classes} ({a['params']} params, {a['nodes']} nodes) at batch "
+          f"{classes} ({a['params']} params, {a['layers']} layers) at batch "
           f"{batch}, f32: step p50 {a['step_p50_ms']:.3f} ms (bound "
           f"{a['bound_ms']:.3f} ms at the f32 rate), queued in p50 "
           f"{a['enqueue_p50_ms']:.3f} ms, {a['images_per_s']:.1f} images/s, "
@@ -4134,6 +4249,237 @@ def graph_phase(card: str, device=None, shape=RESNET_SHAPE,
     return dict(resnet=a, resnet_bf16=b, serve=c, inception=d_inc,
                 squeezenet=d_sq, squeezenet_resume=d_sq_resume,
                 launches=launches, seconds=wall)
+
+
+# -- phase 22: the conv family, the zoo's Xception, UNet, NASNet, Darknet19
+XCEPTION_SHAPE = (299, 299, 3)   # the JAX zoo's defaults
+XCEPTION_BATCH = 32
+XCEPTION_STEPS = 5       # 22a: timed steps, after one warmup step
+XCEPTION_COPY_BATCH = 2  # 22a: the step held against a CPU copy
+XCEPTION_BF16_STEPS = 3  # 22b
+XCEPTION_BF16_ROWS = 4   # 22b: the first loss held to the CPU's on these
+UNET_SHAPE = (512, 512, 3)
+UNET_BATCH = 4
+UNET_STEPS = 3           # 22d: timed steps, after one warmup step
+UNET_COPY_BATCH = 1
+NASNET_SHAPE = (224, 224, 3)
+NASNET_BATCH = 32
+NASNET_STEPS = 3         # 22e
+NASNET_COPY_BATCH = 2
+DARKNET_SHAPE = (224, 224, 3)
+DARKNET_BATCH = 32       # 22f: one warmup and one timed step
+DARKNET_COPY_BATCH = 4   # 22f: the step held against a CPU copy
+CONV_CLASSES = 1000
+CONV_LAYER_TOL = 1e-4    # 22g: each layer's output and gradients, card vs
+#                          CPU, over the tensor's max |value| (f32 on both,
+#                          TF32 off; sums of up to 162 products in another
+#                          order)
+
+
+def conv_layer_cases():
+    """22g: every layer of ``nn/layers/convolutional.py`` (and
+    ``FrozenLayer``, re-exported there) with a small feature shape."""
+    from deeplearning4j_tpu_torch.nn.layers import convolutional as C
+    return [
+        ("Convolution1D", C.Convolution1D(n_out=8, kernel=3, stride=2),
+         (33, 6)),
+        ("Convolution3D", C.Convolution3D(n_out=8, kernel=(3, 3, 3),
+                                          stride=(2, 1, 2)), (9, 10, 11, 6)),
+        ("Deconvolution2D", C.Deconvolution2D(
+            n_out=8, kernel=(3, 3), stride=(2, 2), padding="same"),
+         (9, 10, 6)),
+        ("DepthwiseConvolution2D", C.DepthwiseConvolution2D(
+            depth_multiplier=2, kernel=(3, 3), stride=(2, 2)), (13, 12, 6)),
+        ("SeparableConvolution2D", C.SeparableConvolution2D(
+            n_out=8, kernel=(5, 5), depth_multiplier=2), (12, 13, 6)),
+        ("Subsampling1DLayer", C.Subsampling1DLayer(
+            kernel=3, stride=2, padding="same", pooling="avg"), (33, 6)),
+        ("Subsampling3DLayer", C.Subsampling3DLayer(
+            kernel=(2, 3, 2), stride=(2, 2, 1), padding="same"),
+         (9, 10, 11, 6)),
+        ("Upsampling1D", C.Upsampling1D(size=3), (11, 6)),
+        ("Upsampling3D", C.Upsampling3D(size=(2, 1, 3)), (5, 6, 4, 6)),
+        ("Cropping1D", C.Cropping1D(cropping=(2, 3)), (17, 6)),
+        ("Cropping2D", C.Cropping2D(cropping=((1, 2), (3, 0))), (12, 11, 6)),
+        ("Cropping3D", C.Cropping3D(cropping=1), (6, 7, 8, 6)),
+        ("ZeroPadding1DLayer", C.ZeroPadding1DLayer(padding=(2, 1)), (11, 6)),
+        ("ZeroPadding3DLayer", C.ZeroPadding3DLayer(
+            padding=((1, 0), (0, 2), (1, 1))), (5, 6, 4, 6)),
+        ("SpaceToDepthLayer", C.SpaceToDepthLayer(block_size=2), (12, 10, 6)),
+        ("DepthToSpaceLayer", C.DepthToSpaceLayer(block_size=2), (6, 5, 24)),
+        ("SpaceToBatchLayer", C.SpaceToBatchLayer(
+            blocks=(2, 2), padding=((1, 1), (0, 2))), (10, 10, 6)),
+        ("PReLULayer", C.PReLULayer(shared_axes=[1, 2]), (12, 11, 6)),
+        ("ElementWiseMultiplicationLayer", C.ElementWiseMultiplicationLayer(
+            activation="tanh"), (12, 11, 6)),
+        ("LocallyConnected2D", C.LocallyConnected2D(
+            n_out=8, kernel=(3, 2), stride=(2, 2)), (13, 12, 6)),
+        ("LocallyConnected1D", C.LocallyConnected1D(
+            n_out=8, kernel=3, stride=2), (33, 6)),
+        ("FrozenLayer", C.FrozenLayer(C.Deconvolution2D(
+            n_out=8, kernel=(2, 2), stride=(2, 2))), (9, 10, 6)),
+    ]
+
+
+def conv_layers_vs_cpu(device=None, batch=4):
+    """Phase 22g: each layer's forward and the gradients of sum(out * c)
+    for its input and params on the card, against the same on the
+    CPU."""
+    import torch
+    from deeplearning4j_tpu_torch import random as R
+    from deeplearning4j_tpu_torch.device import resolve_device
+    dev = resolve_device(device)
+    rows = {}
+    for name, layer, shape in conv_layer_cases():
+        layer.build(shape, {})
+        params = layer.init_params(R.PRNGKey(len(rows)))
+        gen = torch.Generator().manual_seed(len(rows))
+        x = torch.randn((batch,) + shape, generator=gen)
+        outs = {}
+        for where in (dev, torch.device("cpu")):
+            p = {n: t.to(where).requires_grad_(True)
+                 for n, t in params.items()}
+            xi = x.to(where).requires_grad_(True)
+            out, _ = layer.apply(p, xi, {}, True, None)
+            ct = torch.randn(out.shape, generator=torch.Generator()
+                             .manual_seed(99)).to(where)
+            grads = torch.autograd.grad((out * ct).sum(),
+                                        [xi] + list(p.values()),
+                                        allow_unused=True)
+            outs[where.type] = [out] + [g for g in grads if g is not None]
+        card, cpu = outs[dev.type], outs["cpu"]
+        if len(card) != len(cpu):
+            raise AssertionError(f"phase 22g {name}: gradients differ in "
+                                 f"number")
+        rows[name] = max(_rel(a, b) for a, b in zip(card, cpu))
+        if rows[name] > CONV_LAYER_TOL:
+            raise AssertionError(f"phase 22g {name} card vs CPU: "
+                                 f"{rows[name]:.3e}")
+    return rows
+
+
+def conv_phase(card: str, device=None, xception_shape=XCEPTION_SHAPE,
+               xception_batch=XCEPTION_BATCH, unet_shape=UNET_SHAPE,
+               unet_batch=UNET_BATCH, nasnet_shape=NASNET_SHAPE,
+               nasnet_batch=NASNET_BATCH, nasnet_kw=None,
+               darknet_shape=DARKNET_SHAPE, darknet_batch=DARKNET_BATCH,
+               classes=CONV_CLASSES, steps=XCEPTION_STEPS):
+    """Phase 22: (a) Xception trained at full width, (b) under the bf16
+    policy, (c) served; (d) UNet and (e) NASNet trained, (f) a Darknet19
+    step, each held against a CPU copy; (g) every conv-family layer on
+    the card against the CPU. No TPU kernel is on this path: the launch
+    counters must stay 0."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.learning import Adam
+    t_phase = time.perf_counter()
+    reset_launches()
+    xception = zoo_make("Xception", xception_shape, classes)
+    net, a = zoo_train(card, xception, "22a", xception_shape,
+                       xception_batch, steps, XCEPTION_COPY_BATCH, classes,
+                       profile=True, device=device)
+    b = zoo_bf16(card, xception, "22b", xception_shape, xception_batch,
+                 XCEPTION_BF16_STEPS, XCEPTION_BF16_ROWS, classes, device)
+    c = graph_serve(card, net, xception_shape, label="22c")
+    del net
+    gc.collect()
+    # UNet draws dropout in training, so its CPU copy holds the step's
+    # gradients and not the fit that follows; without batch norm its
+    # gradient needs no witness draws (2.3e-5 of a leaf's max on an
+    # H100, the gate 1e-4). At the zoo's Adam(1e-3) a fresh UNet's summed
+    # pixel loss jumps from step to step (2842.7, 2859.3, 2839.0 at
+    # 64x64 on the CPU); at 1e-4 it falls every step
+    net, d = zoo_train(card, zoo_make("UNet", unet_shape, 1,
+                                      updater=Adam(1e-4)), "22d",
+                       unet_shape, unet_batch, UNET_STEPS, UNET_COPY_BATCH,
+                       1, device=device, apply_step=False, witnesses=0)
+    del net
+    gc.collect()
+    net, e = zoo_train(card, zoo_make("NASNet", nasnet_shape, classes,
+                                      **(nasnet_kw or {})), "22e",
+                       nasnet_shape, nasnet_batch, NASNET_STEPS,
+                       NASNET_COPY_BATCH, classes, device=device)
+    del net
+    gc.collect()
+    net, f = zoo_train(card, zoo_make("Darknet19", darknet_shape, classes),
+                       "22f", darknet_shape, darknet_batch, 1,
+                       DARKNET_COPY_BATCH, classes, device=device)
+    del net
+    gc.collect()
+    g = conv_layers_vs_cpu(device)
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 22 launched a TPU kernel: {launches}")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+
+    def held(v):
+        return (f"{v['nodes']} nodes on the card's inputs, worst "
+                f"{v['worst_node']} {v['node_rel_err']:.3e} (tol "
+                f"{GRAPH_NODE_TOL:g}), loss {v['loss_rel_err']:.3e}, "
+                f"{v['near_ties']} ReLU near-ties, worst gradient "
+                f"{v['worst_grad']} {v['worst_grad_rel_err']:.3e} (the "
+                f"CPU's own floor up to {v['grad_floor_max']:.3e}), new "
+                f"running stats {v['state_rel_err']:.3e}"
+                + ("" if v["param_abs_err"] is None else
+                   f", params after the step {v['param_abs_err']:.3e}, "
+                   f"Adam {v['adam_worst']} {v['adam_rel_err']:.3e}")
+                + f"; CPU {v['cpu_s']:.1f} s")
+
+    def trained(r, what):
+        return (f"{what} {tuple(r['input'])} x {r['classes']} "
+                f"({r['params']} params, {r['layers']} layers) at batch "
+                f"{r['batch']}, f32: step p50 {r['step_p50_ms']:.3f} ms "
+                f"(bound {r['bound_ms']:.3f} ms at the f32 rate), queued "
+                f"in p50 {r['enqueue_p50_ms']:.3f} ms, "
+                f"{r['images_per_s']:.1f} images/s, peak {r['peak_bytes']} "
+                f"bytes, loss {[round(l, 4) for l in r['losses']]}, "
+                f"{r['stats_moved']} running stats moved, init "
+                f"{r['init_s']:.1f} s")
+    p = a["profile"]
+    print(f"conv (phase 22a) [{card}]: " + trained(a, "Xception"))
+    if p is not None:
+        print(f"conv (phase 22a) profile [{card}] (one step): device busy "
+              f"{p['busy_share']:.3f} of {p['wall_ms']:.1f} ms, "
+              f"{p['device_kernels']} device kernels, "
+              f"{p['conv_ms']:.1f} ms in cuDNN's convolutions, "
+              f"{p['layout_ms']:.1f} ms in layout copies; top (ms): "
+              + ", ".join(f"{n[:50]} {t:.3f}" for n, t in p["top"][:6]))
+    print(f"conv (phase 22a) vs CPU [{card}]: batch "
+          f"{a['vs_cpu']['batch']}: " + held(a["vs_cpu"]))
+    print(f"conv (phase 22b) [{card}]: Xception under the bf16 policy at "
+          f"batch {b['batch']}: step p50 {b['step_p50_ms']:.3f} ms (bound "
+          f"{b['bound_ms']:.3f} ms at the bf16 rate), "
+          f"{b['images_per_s']:.1f} images/s beside f32's "
+          f"{a['images_per_s']:.1f}, loss "
+          f"{[round(l, 4) for l in b['losses']]}, the first {b['rows']} "
+          f"rows' loss vs CPU {b['loss_rel_err']:.3e} (tol "
+          f"{TRAIN_BF16_LOSS_RTOL:g})")
+    print(f"conv (phase 22c) [{card}]: Xception's logits behind "
+          f"InferenceEngine and the micro-batcher: buckets {c['buckets']} "
+          f"captured in {c['warmup_s']:.1f} s ({c['compiles']} compiles, "
+          f"{c['captures']} captures, none after), {c['rows']} rows in "
+          f"{c['requests']} requests at {c['rows_per_s']:.1f} rows/s, "
+          f"request p50/p99 {c['request_p50_ms']:.1f}/"
+          f"{c['request_p99_ms']:.1f} ms, rows vs output() "
+          f"{c['max_rel_err']:.3e} of the row's max |logit| (tol "
+          f"{GRAPH_SERVE_TOL:g}); after set_params and set_net_state: "
+          f"{c['swap_captures']} captures again, rows vs the new output() "
+          f"{c['swap_rel_err']:.3e}")
+    print(f"conv (phase 22d) [{card}]: " + trained(d, "UNet") + "; vs CPU "
+          f"at batch {d['vs_cpu']['batch']}: " + held(d["vs_cpu"]))
+    print(f"conv (phase 22e) [{card}]: " + trained(e, "NASNet") + "; vs "
+          f"CPU at batch {e['vs_cpu']['batch']}: " + held(e["vs_cpu"]))
+    print(f"conv (phase 22f) [{card}]: " + trained(f, "Darknet19")
+          + f"; vs CPU at batch {f['vs_cpu']['batch']}: " + held(f["vs_cpu"]))
+    print(f"conv (phase 22g) [{card}]: {len(g)} layers, forward and "
+          f"gradients vs CPU, worst "
+          f"{max(g, key=g.get)} {max(g.values()):.3e} (tol "
+          f"{CONV_LAYER_TOL:g}); phase 22 launched no TPU kernel and added "
+          f"{wall:.1f} s")
+    return dict(xception=a, xception_bf16=b, serve=c, unet=d, nasnet=e,
+                darknet19=f, layers=g, launches=launches, seconds=wall)
 
 
 def reset_launches():
@@ -6976,6 +7322,11 @@ def main() -> int:
         res = graph_phase(card_line())
         print("GRAPH " + json.dumps(res, default=str))
         return 0
+    if sys.argv[1:2] == ["--conv"]:
+        # phase 22 alone: it builds no kernel
+        res = conv_phase(card_line())
+        print("CONV " + json.dumps(res, default=str))
+        return 0
     from deeplearning4j_tpu_torch.kernels import _build
     dev = torch.device("cuda")
     card = card_line()
@@ -7128,6 +7479,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     graph = graph_phase(card)
+    # phase 22: the conv family, the zoo's Xception (trained, bf16,
+    # served), UNet, NASNet and Darknet19
+    gc.collect()
+    torch.cuda.empty_cache()
+    conv = conv_phase(card)
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -7196,6 +7552,7 @@ def main() -> int:
              train=trained, train_bf16=trained_bf16, cnn=cnn,
              remat=remat, resume=resume, rnn=rnn, transfer=transfer,
              pure_bf16=pure_bf16, resilient=resilient, graph=graph,
+             conv=conv,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

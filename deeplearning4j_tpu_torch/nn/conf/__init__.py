@@ -32,8 +32,9 @@ Shape = Tuple[int, ...]
 
 class InputType:
     """Feed-forward ``(size,)``, recurrent ``(timesteps, size)``
-    (timesteps -1 when unknown) or image ``(height, width, channels)``
-    input, NHWC as in JAX. ``convolutional_flat`` images arrive
+    (timesteps -1 when unknown), image ``(height, width, channels)`` or
+    volume ``(depth, height, width, channels)`` input, NHWC and NDHWC as
+    in JAX. ``convolutional_flat`` images arrive
     flattened to [B, h*w*c] and the network reshapes them."""
 
     def __init__(self, kind: str, shape: Shape):
@@ -56,6 +57,12 @@ class InputType:
     def convolutional_flat(height: int, width: int,
                            channels: int) -> "InputType":
         return InputType("cnnflat", (height, width, channels))
+
+    @staticmethod
+    def convolutional3d(depth: int, height: int, width: int,
+                        channels: int) -> "InputType":
+        """NDHWC volumes, as in JAX."""
+        return InputType("cnn3d", (depth, height, width, channels))
 
     def to_json(self):
         return {"kind": self.kind, "shape": list(self.shape)}

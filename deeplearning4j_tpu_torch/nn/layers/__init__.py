@@ -70,32 +70,57 @@ def _same_pads(size: int, k: int, s: int, d: int = 1) -> Tuple[int, int]:
     return total // 2, total - total // 2
 
 
-def _spatial_pads(padding, hw, kernel, stride, dilation=(1, 1)):
-    """((top, bottom), (left, right)) of "same", "valid" or explicit
-    padding over an [H, W] input."""
+def _spatial_pads(padding, hw, kernel, stride, dilation=None):
+    """Per spatial axis (low, high) of "same", "valid" or explicit
+    padding: ((top, bottom), (left, right)) over an [H, W] input, one
+    pair an axis at any rank."""
+    if dilation is None:
+        dilation = (1,) * len(hw)
     if isinstance(padding, str):
         if padding.lower() == "same":
             return tuple(_same_pads(n, k, s, d) for n, k, s, d in
                          zip(hw, kernel, stride, dilation))
         if padding.lower() == "valid":
-            return ((0, 0), (0, 0))
+            return ((0, 0),) * len(hw)
         raise ValueError(f"unknown padding {padding!r}")
     return tuple(tuple(int(v) for v in p) for p in padding)
 
 
 def _nchw(x):
-    return x.permute(0, 3, 1, 2)
+    """The channels-first view of channels-last input (NHWC to NCHW,
+    NWC to NCW, NDHWC to NCDHW)."""
+    return x.movedim(-1, 1)
 
 
 def _nhwc(x):
-    return x.permute(0, 2, 3, 1)
+    """The channels-last view of channels-first output."""
+    return x.movedim(1, -1)
 
 
 def _pad_nchw(x, pads, value=0.0):
-    (pt, pb), (pl, pr) = pads
-    if pt or pb or pl or pr:
-        return F.pad(x, (pl, pr, pt, pb), value=value)
+    """Channels-first input padded by one (low, high) pair a spatial
+    axis."""
+    if any(v for p in pads for v in p):
+        return F.pad(x, [v for p in reversed(pads) for v in p], value=value)
     return x
+
+
+_CONV = {1: F.conv1d, 2: F.conv2d, 3: F.conv3d}
+
+
+def _conv(x, w, stride, padding, dilation, groups=1):
+    """XLA's convolution of channels-last input [B, *spatial, C] with a
+    spatial-major weight [*kernel, C/groups, O] (``lax``'s NWC/WIO,
+    NHWC/HWIO, NDHWC/DHWIO) through ``F.conv{1,2,3}d`` (cuDNN on the
+    card) on the channels-first views, after an explicit ``F.pad`` of
+    XLA's SAME rule or the given (low, high) pairs; the output is
+    channels-last, in the promoted dtype of ``x`` and ``w``."""
+    nd = x.ndim - 2
+    pads = _spatial_pads(padding, x.shape[1:-1], w.shape[:nd], stride,
+                         dilation)
+    xc, wc = _promote(_nchw(x), w.permute(nd + 1, nd, *range(nd)))
+    return _nhwc(_CONV[nd](_pad_nchw(xc, pads), wc, None, tuple(stride), 0,
+                           tuple(dilation), groups))
 
 
 #: kind -> Layer subclass
@@ -267,7 +292,7 @@ class Layer:
 
 def from_json(d: dict) -> Layer:
     """A layer from its ``to_json`` dict (a wrapper's inner layer too)."""
-    from . import attention, recurrent  # noqa: F401  (they register)
+    from . import attention, convolutional, recurrent  # noqa: F401
     d = dict(d)
     cls = REGISTRY[d.pop("@class")]
     if isinstance(d.get("activation"), dict):
@@ -280,7 +305,9 @@ def from_json(d: dict) -> Layer:
         if isinstance(d.get(k), list):
             d[k] = tuple(d[k])
     if isinstance(d.get("padding"), list):
-        d["padding"] = tuple(tuple(p) for p in d["padding"])
+        # (low, high) pairs an axis, or one flat pair (the 1D layers)
+        d["padding"] = tuple(tuple(p) if isinstance(p, list) else p
+                             for p in d["padding"])
     return cls(**d)
 
 
@@ -479,11 +506,8 @@ class ConvolutionLayer(Layer):
 
     def apply(self, params, x, state, train, rng):
         x = self._maybe_dropout(x, train, rng)
-        pads = _spatial_pads(self.padding, x.shape[1:3], self.kernel,
-                             self.stride, self.dilation)
-        xc, w = _promote(_nchw(x), params["W"].permute(3, 2, 0, 1))
-        z = _nhwc(F.conv2d(_pad_nchw(xc, pads), w, None, self.stride, 0,
-                           self.dilation, self.groups))
+        z = _conv(x, params["W"], self.stride, self.padding, self.dilation,
+                  self.groups)
         if self.has_bias:
             z = z + params["b"]   # after the convolution, as JAX adds it
         return self.activation(z), state

@@ -1,13 +1,13 @@
 """Model zoo of the port (counterpart of ``deeplearning4j_tpu/zoo``):
 the ``ZooModel`` base, the sequential CNNs of ``simple.py`` (LeNet,
-SimpleCNN, AlexNet, VGG16, VGG19), the graphs of ``resnet.py``
-(ResNet50), ``inception.py`` (InceptionResNetV1, FaceNetNN4Small2) and
-``advanced.py`` (SqueezeNet), and the causal transformer LM of
-``transformer_lm.py``. Each ``init()`` returns an initialized
-``MultiLayerNetwork`` or ``ComputationGraph`` on the model's device
-(the GPU unless ``device="cpu"``). ``ALL_MODELS`` holds the JAX zoo's
-sixteen names; Darknet19, TinyYOLO, YOLO2, UNet, Xception and NASNet
-raise until their layers are ported.
+SimpleCNN, AlexNet, VGG16, VGG19, Darknet19), the graphs of
+``resnet.py`` (ResNet50), ``inception.py`` (InceptionResNetV1,
+FaceNetNN4Small2) and ``advanced.py`` (SqueezeNet, UNet, Xception,
+NASNet), and the causal transformer LM of ``transformer_lm.py``. Each
+``init()`` returns an initialized ``MultiLayerNetwork`` or
+``ComputationGraph`` on the model's device (the GPU unless
+``device="cpu"``). ``ALL_MODELS`` holds the JAX zoo's sixteen names;
+TinyYOLO and YOLO2 raise until ``Yolo2OutputLayer`` is ported.
 
 Pretrained weights load from a local ``.npz`` (the JAX package's
 layout: ``param/<layer>/<name>`` and ``state/<layer>/<name>``) whose

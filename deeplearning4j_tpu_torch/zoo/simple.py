@@ -1,15 +1,16 @@
 """Sequential zoo models (counterpart of
-``deeplearning4j_tpu/zoo/simple.py``): LeNet, SimpleCNN, AlexNet, VGG16
-and VGG19, NHWC, and the character-level TextGenerationLSTM, at the JAX
-package's widths. Darknet19, TinyYOLO and YOLO2 come with the rest of
-the zoo and raise until then."""
+``deeplearning4j_tpu/zoo/simple.py``): LeNet, SimpleCNN, AlexNet, VGG16,
+VGG19 and Darknet19, NHWC, and the character-level TextGenerationLSTM,
+at the JAX package's widths. TinyYOLO and YOLO2 need
+``Yolo2OutputLayer`` and raise until it is ported."""
 from __future__ import annotations
 
 from ..learning import Nesterovs
 from ..nn import NeuralNetConfiguration
 from ..nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
-                         DropoutLayer, LocalResponseNormalization,
-                         OutputLayer, SubsamplingLayer)
+                         DropoutLayer, GlobalPoolingLayer,
+                         LocalResponseNormalization, LossLayer, OutputLayer,
+                         SubsamplingLayer)
 from ..nn.layers.recurrent import LSTM, RnnOutputLayer
 from . import ZooModel
 
@@ -145,9 +146,39 @@ class _NotPorted(ZooModel):
             f"item 13)")
 
 
-class Darknet19(_NotPorted):
+def _dark_conv(b, n_out, kernel=(3, 3)):
+    b.layer(ConvolutionLayer(n_out=n_out, kernel=kernel, padding="same",
+                             has_bias=False, activation="identity"))
+    b.layer(BatchNormalization(activation="leakyrelu"))
+
+
+class Darknet19(ZooModel):
+    """Darknet-19: 3x3 and 1x1 convolutions (32 to 1024 channels), each
+    without bias and followed by batch norm and a leaky ReLU, five 2x2
+    max pools, then a 1x1 class conv, global average pooling and a
+    softmax loss; 224x224x3 in by default."""
+
     name = "darknet19"
     input_shape = (224, 224, 3)
+
+    def __init__(self, num_classes: int = 1000, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(self._updater()).weight_init("relu").list())
+        for stage in ((32,), (64,), (128, 64, 128), (256, 128, 256),
+                      (512, 256, 512, 256, 512), (1024, 512, 1024, 512, 1024)):
+            if stage[0] > 32:
+                b.layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+            for i, n_out in enumerate(stage):
+                _dark_conv(b, n_out, (3, 3) if i % 2 == 0 else (1, 1))
+        b.layer(ConvolutionLayer(n_out=self.num_classes, kernel=(1, 1),
+                                 activation="identity"))
+        b.layer(GlobalPoolingLayer(pooling="avg"))
+        b.layer(LossLayer(loss="mcxent", activation="softmax"))
+        return self._net(b.input_type_convolutional(h, w, c).build())
 
 
 class TinyYOLO(_NotPorted):
@@ -158,8 +189,7 @@ class TinyYOLO(_NotPorted):
 
 
 class YOLO2(_NotPorted):
-    """Needs ``ComputationGraph``, ``SpaceToDepthLayer`` and
-    ``Yolo2OutputLayer``."""
+    """Needs ``Yolo2OutputLayer`` (``nn/layers/objdetect.py``)."""
 
     name = "yolo2"
     input_shape = (608, 608, 3)

@@ -71,7 +71,7 @@ def test_unported_names_raise(tmp_path):
     raises ValueError, as in JAX, and what is still refused raises
     NotImplementedError citing its ROADMAP item."""
     from deeplearning4j_tpu_torch.optimize import CheckpointListener
-    from deeplearning4j_tpu_torch.zoo import Darknet19
+    from deeplearning4j_tpu_torch.zoo import TinyYOLO
     for mod, jmod in ((A, JA), (L, JL), (U, JU)):
         assert mod.names() == jmod.names()
         for m in (mod, jmod):
@@ -81,7 +81,7 @@ def test_unported_names_raise(tmp_path):
     lst = CheckpointListener(str(tmp_path), save_every_n_iterations=1)
     assert lst.last_checkpoint() is None
     with pytest.raises(NotImplementedError, match="item 13"):
-        Darknet19(device="cpu").init()
+        TinyYOLO(device="cpu").init()
     # the bf16 policy is ported: the half names map to bf16
     assert compute_dtype("bfloat16") == torch.bfloat16
     assert compute_dtype("float") is None
