@@ -312,6 +312,33 @@ Phases, each of which fails the run when it fails:
    the CPU at a small size (Deconvolution2D at k=3, s=2 "same", a
    Convolution3D among them). Each training bound counts the
    products of the network's own layer shapes (``train_bound_ms``).
+23. layerwise pretraining, the specialized heads and the detectors, on
+   no TPU kernel either: (a) the zoo's YOLO2 at the JAX zoo's defaults
+   (608x608x3, 80 classes, 5 anchors: a 19x19x425 map) at batch 16,
+   f32, trained on labels drawn from a seed (1-6 objects an image, each
+   in one cell and anchor) with Adam(1e-5), one warmup and five timed
+   steps, the loss falling and every running stat moving, one profiled
+   step, then one step at batch 1 against a CPU copy as 21a holds
+   ResNet-50; (b) a fresh YOLO2 under the bf16 policy, three steps, its
+   training loss on the first image against a CPU copy's; (c) (a)'s net
+   behind InferenceEngine and the micro-batcher, buckets 1-16 captured
+   at warmup and none after, 32 requests of 1-4 images from 8 threads,
+   each request's maps against eager output(), and host NMS of each
+   bucket's served maps equal to NMS of the eager maps; (d) TinyYOLO
+   (416x416x3, 20 classes) at batch 32, three timed steps, the CPU copy
+   at batch 2; (e) on the vendored real digits' 8x8 scans, an
+   AutoEncoder -> VAE (VaeMNISTAnomaly's widths: 256-256, latent 32,
+   bernoulli) -> softmax network pretrained layer by layer and fitted,
+   and a graph's VAE node pretrained and fitted, each against a CPU copy:
+   every batch's pretraining loss, the params after each layer's first
+   epoch, then from the card's pretrained state the first fit epoch's
+   losses and params (the later epochs' gaps are printed: the VAE's
+   training is chaotic); and the VAE's reconstruction error higher on
+   uniform noise than on the test digits; (f) every
+   layer class of misc.py, variational.py, specialized_outputs.py and
+   objdetect.py (CnnLossLayer and Cnn3DLossLayer with each mask form) and
+   a MaskingLayer -> LSTM -> MaskLayer network, forward (or loss) and
+   gradients on the card against the CPU.
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -389,6 +416,11 @@ runs phase 21 alone (it builds no kernel) and prints its numbers on a
 
 runs phase 22 alone (it builds no kernel either) and prints its numbers
 on a "CONV" line as JSON.
+
+    python3 chip_smoke.py --detect
+
+runs phase 23 alone (no kernel build) and prints its numbers on a
+"DETECT" line as JSON.
 """
 from __future__ import annotations
 
@@ -3390,23 +3422,38 @@ def _trees_equal(net, flat_params, flat_opt) -> int:
     return differ
 
 
+def skip_epoch_archive(trainer):
+    """Drop ``trainer``'s epoch-end archive (``checkpoint_epochN.zip``),
+    keeping its step archives: 20c reads no epoch-end archive (A is the
+    reference in memory, C is compared in memory after its fit), and at
+    phase 9's width each is ~470 MB through host zlib (~25 s)."""
+    write = trainer._checkpoint
+
+    def checkpoint(path, snap=None):
+        if "_step" in os.path.basename(path):
+            write(path, snap)
+    trainer._checkpoint = checkpoint
+    return trainer
+
+
 def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
                     n_layers=RESUME_LAYERS):
     """Phase 20c: ``FaultTolerantTrainer`` at phase 9's width cut to
     ``n_layers`` blocks (each archive is ~470 MB of state), anomaly
     guard on, over one epoch of RES_BATCHES batches.
 
-    A: the clean stream, uninterrupted, async writes (the final epoch
-    checkpoint only): the reference, and the step times with no write
-    running. B: the stream with NaN batches at RES_NAN, a transient
-    ``train_step`` fault at call RES_RETRY_CALL, rollback after
+    A: the clean stream, uninterrupted, no archive: the reference, and
+    the step times with no write running. B: the stream with NaN
+    batches at RES_NAN, a transient ``train_step`` fault at call
+    RES_RETRY_CALL, rollback after
     RES_ROLLBACK_AFTER anomalies, a host snapshot every 2 steps, a
     synchronous checkpoint every 4 steps and a ``preempt`` at boundary
     RES_PREEMPT (after step 4): the retry replays, the skips leave
     ``_step`` alone, the rollback restores the last snapshot's bits, and
     at step 4 B's state is A's bit for bit. C: ``resume`` of B's
-    directory onto a fresh card network and ``fit`` to the end with
-    async writes every 5 steps: its losses from step 5 on, params and
+    directory onto a fresh card network and ``fit`` to the end with an
+    async write at step 5 (none at the epoch's end: see
+    :func:`skip_epoch_archive`): its losses from step 5 on, params and
     Adam state are A's bit for bit. It prints the step loop's stall at
     a checkpoint (B sync, C async), the writer's seconds a write, and
     C's step p50 while its write runs beside A's with none running."""
@@ -3439,10 +3486,9 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
             return hook
 
         # A: the uninterrupted reference
-        trA = FaultTolerantTrainer(netA, os.path.join(root, "a"),
-                                   save_every_n_steps=100,
-                                   snapshot_every_n_steps=100,
-                                   anomaly_guard=True)
+        trA = skip_epoch_archive(FaultTolerantTrainer(
+            netA, os.path.join(root, "a"), save_every_n_steps=100,
+            snapshot_every_n_steps=100, anomaly_guard=True))
         clockA = _StepClock(trA, {3: keep("A")})
         lossesA = []
 
@@ -3496,8 +3542,8 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
         netC = FaultTolerantTrainer.resume(dirB, device=device)
         restore_s = time.perf_counter() - t0
         stepC0 = netC._step
-        trC = FaultTolerantTrainer(netC, dirB, save_every_n_steps=5,
-                                   anomaly_guard=True)
+        trC = skip_epoch_archive(FaultTolerantTrainer(
+            netC, dirB, save_every_n_steps=5, anomaly_guard=True))
         clockC, lossesC = _StepClock(trC), []
         netC.set_listeners(clockC, Loss(lossesC))
         t0 = time.perf_counter()
@@ -3547,7 +3593,6 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
         none_ms = [r["ms"] for r in clockA.rows[2:]]
         writing_ms = [r["ms"] for r in clockC.rows[1:] if r["writing"]]
         wC = trC._writer.snapshot()
-        wA = trA._writer.snapshot()
         res = dict(
             n_layers=n_layers, params=netA.num_params(),
             state_bytes=sum(a.nbytes for a in pa.values())
@@ -3558,7 +3603,6 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
             sync_write_s=supB["checkpoint_write_s"],
             async_write_s=wC["write_s_total"] / max(wC["writes"], 1),
             writes_c=wC["writes"],
-            epoch_write_s=wA["write_s_total"] / max(wA["writes"], 1),
             step_p50_none_ms=float(np.median(none_ms)),
             step_p50_writing_ms=(float(np.median(writing_ms))
                                  if writing_ms else None),
@@ -3580,8 +3624,8 @@ def resilient_train(card: str, cfg=TRAIN_CFG, device=None,
               f"{sync_stall:.3f} s sync vs {async_stall:.3f} s async; "
               f"writer {res['sync_write_s']:.2f} s (sync), "
               f"{res['async_write_s']:.2f} s a write over {wC['writes']} "
-              f"(async, C), {res['epoch_write_s']:.2f} s (A's final, no "
-              f"steps beside it); step p50 {p50w} ms over "
+              f"(async, C; no epoch-end archive in A or C); step p50 "
+              f"{p50w} ms over "
               f"{res['steps_writing']} steps while a write ran vs "
               f"{res['step_p50_none_ms']:.2f} ms over {res['steps_none']} "
               f"with none (A); A {a_s:.1f} s, B {b_s:.1f} s, C {c_s:.1f} s;"
@@ -3697,14 +3741,14 @@ def traced_net_step(net, x, y, subst=None, record=True):
 
 
 def graph_vs_cpu(card, x, y, label: str, apply_step: bool = True,
-                 witnesses: int = 2):
+                 witnesses: int = 2, grad_tol: float = GRAPH_GRAD_TOL):
     """One step of a card network (a graph or a sequential one) against
     a CPU copy with the same params, layer state and Adam state. Node by
     node, each pre-activation computed on the CPU from the card's inputs
     to it; the ReLUs that chose otherwise there are counted and each
     must be a near-tie; the whole loss of the CPU on its own values;
     every gradient of the CPU run on the card's pre-activations, within
-    GRAPH_GRAD_TOL or 3x the most that leaf moves on the CPU itself
+    ``grad_tol`` or 3x the most that leaf moves on the CPU itself
     under a 1e-7 relative move of the card's values in ``witnesses``
     draws (batch norm's backward at random init is ill-conditioned; a
     net without batch norm needs none); then, with
@@ -3759,7 +3803,7 @@ def graph_vs_cpu(card, x, y, label: str, apply_step: bool = True,
             e = _rel(gc[k][n], t)
             if e > grad_err:
                 grad_err, grad_worst = e, f"{k}.{n}"
-            if e > max(GRAPH_GRAD_TOL, 3 * floor):
+            if e > max(grad_tol, 3 * floor):
                 over.append((f"{k}.{n}", e, floor))
     _, state_err = _worst(sc, sh)
     perr, aw, aerr = None, None, 0.0
@@ -3788,7 +3832,7 @@ def graph_vs_cpu(card, x, y, label: str, apply_step: bool = True,
             and not over and state_err <= GRAPH_NODE_TOL
             and tie_worst <= NEAR_TIE
             and (not apply_step or perr <= GRAPH_PARAM_ATOL)
-            and aerr <= max(GRAPH_GRAD_TOL,
+            and aerr <= max(grad_tol,
                             3 * max(floors.values(), default=0.0))):
         raise AssertionError(f"phase {label} card vs CPU failed: {res}")
     return res
@@ -3852,15 +3896,23 @@ def mask_batch(n, seed, shape):
     return x, (x.mean(-1, keepdims=True) > 0.5).astype(np.float32)
 
 
+def zoo_batch(n, seed, shape, classes):
+    """Images and labels for a zoo model: a learnable one-channel mask
+    for one class (UNet), else one-hot labels of a learnable rule."""
+    return mask_batch(n, seed, shape) if classes == 1 else \
+        simple_cnn_batch(n, seed, shape, classes)
+
+
 def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
               copy_batch: int, classes: int, profile: bool = False,
               device=None, apply_step: bool = True, seed: int = 22,
-              witnesses: int = 2):
+              witnesses: int = 2, batch_fn=zoo_batch,
+              grad_tol: float = GRAPH_GRAD_TOL):
     """One zoo model at full width through fit: one warmup and ``steps``
-    timed Adam steps on a learnable synthetic batch, the loss falling
-    and every running stat moving, peak memory, optionally one profiled
-    step, then one step at ``copy_batch`` against a CPU copy
-    (:func:`graph_vs_cpu`)."""
+    timed Adam steps on a learnable synthetic batch (``batch_fn(n, seed,
+    shape, classes)``), the loss falling and every running stat moving,
+    peak memory, optionally one profiled step, then one step at
+    ``copy_batch`` against a CPU copy (:func:`graph_vs_cpu`)."""
     import torch
     t_phase = time.perf_counter()
     on_card = device is None or torch.device(device).type == "cuda"
@@ -3870,8 +3922,7 @@ def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
     net = make(device)
     init_s = time.perf_counter() - t0
     dev = net.device
-    xs, ys = mask_batch(batch, seed, shape) if classes == 1 else \
-        simple_cnn_batch(batch, seed, shape, classes)
+    xs, ys = batch_fn(batch, seed, shape, classes)
     x, y = torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev)
     state0 = {k: {n: t.clone() for n, t in st.items()}
               for k, st in net.get_net_state().items()}
@@ -3879,9 +3930,11 @@ def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
     net.set_listeners(clock)
     losses = []
     clock.start()
+    t0 = time.perf_counter()
     for _ in range(1 + steps):
         net.fit(x, y)
         losses.append(net.score_)
+    train_s = time.perf_counter() - t0
     net.set_listeners()
     moved = sum(int(not torch.equal(t, state0[k][n]))
                 for k, st in net.get_net_state().items()
@@ -3892,9 +3945,13 @@ def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
         raise AssertionError(f"phase {label}: losses {losses}, {moved} of "
                              f"{n_stats} running stats moved")
     peak = torch.cuda.max_memory_allocated() if on_card else None
+    t0 = time.perf_counter()
     prof = profile_train_step(net, x, y) if on_card and profile else None
+    profile_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     vs_cpu = graph_vs_cpu(net, x[:copy_batch], y[:copy_batch], label,
-                          apply_step, witnesses)
+                          apply_step, witnesses, grad_tol)
+    copy_s = time.perf_counter() - t0
     step_p50 = float(np.median(clock.step_ms[1:]))
     return net, dict(
         input=list(shape), classes=classes, batch=batch, steps=steps,
@@ -3904,11 +3961,13 @@ def zoo_train(card: str, make, label: str, shape, batch: int, steps: int,
         images_per_s=batch / (step_p50 / 1e3),
         bound_ms=train_bound_ms(net, batch, H100_F32_FLOPS),
         peak_bytes=peak, stats_moved=moved, profile=prof, vs_cpu=vs_cpu,
+        train_s=train_s, profile_s=profile_s, copy_s=copy_s,
         seconds=time.perf_counter() - t_phase)
 
 
 def zoo_bf16(card: str, make, label: str, shape, batch: int, steps: int,
-             rows: int, classes: int, device=None, seed: int = 22):
+             rows: int, classes: int, device=None, seed: int = 22,
+             batch_fn=zoo_batch):
     """A fresh zoo model under the bf16 policy: ``steps`` steps,
     the loss falling, the masters and Adam state f32; before them, the
     training loss of the first ``rows`` images on the card against a CPU
@@ -3919,7 +3978,7 @@ def zoo_bf16(card: str, make, label: str, shape, batch: int, steps: int,
     net.conf.dtype = "bfloat16"   # what data_type("bfloat16") sets
     on_card = net.device.type == "cuda"
     cpu = net.clone(device="cpu")
-    xs, ys = simple_cnn_batch(batch, seed, shape, classes)
+    xs, ys = batch_fn(batch, seed, shape, classes)
     x, y = torch.from_numpy(xs).to(net.device), torch.from_numpy(ys).to(
         net.device)
     t0 = time.perf_counter()
@@ -4480,6 +4539,714 @@ def conv_phase(card: str, device=None, xception_shape=XCEPTION_SHAPE,
           f"{wall:.1f} s")
     return dict(xception=a, xception_bf16=b, serve=c, unet=d, nasnet=e,
                 darknet19=f, layers=g, launches=launches, seconds=wall)
+
+
+# -- phase 23: layerwise pretraining, the specialized heads, the detectors
+YOLO2_SHAPE = (608, 608, 3)      # the JAX zoo's defaults: COCO's 80 classes,
+YOLO2_CLASSES = 80               # 5 anchors, a 19x19x425 map
+YOLO2_BATCH = 16
+YOLO2_STEPS = 5          # 23a: timed steps, after one warmup step
+YOLO2_COPY_BATCH = 1     # 23a: the step held against a CPU copy
+DETECT_GRAD_TOL = 1e-3   # 23a, 23d: each gradient leaf and Adam's m, card vs
+#                          CPU copy, over its max |value| (GRAPH_GRAD_TOL's
+#                          rule otherwise). The first convolution's weight
+#                          gradient sums 608^2 = 369,664 (YOLO2) or 416^2 =
+#                          173,056 (TinyYOLO) positions an element against
+#                          ResNet-50's stem's 112^2 = 12,544 (21a: 3.4e-5),
+#                          behind batch norm, whose backward zeroes each
+#                          channel's sum, so the terms cancel; cuDNN's
+#                          weight-gradient kernels sum in a run-dependent
+#                          order. Read on an H100: YOLO2 1.1e-4 to 3.2e-4
+#                          over four runs, TinyYOLO 8.9e-5 to 1.08e-4 over
+#                          three (1.08e-4 failed GRAPH_GRAD_TOL); the CPU's
+#                          own floor 6e-6 to 9e-6
+YOLO2_BF16_STEPS = 3     # 23b
+YOLO2_BF16_ROWS = 1      # 23b: the first loss held to the CPU's on these
+TINYYOLO_SHAPE = (416, 416, 3)   # the JAX zoo's defaults: VOC's 20 classes,
+TINYYOLO_CLASSES = 20            # a 13x13x125 map
+TINYYOLO_BATCH = 32
+TINYYOLO_STEPS = 3       # 23d: timed steps, after one warmup step
+TINYYOLO_COPY_BATCH = 2
+YOLO_OBJECTS = (1, 6)    # objects an image in the seeded labels
+YOLO_LR = 1e-5           # 23a/b/d's Adam: at the zoo's Adam(1e-3) a fresh
+#                          detector's first step throws its loss up (YOLO2
+#                          at 128x128 on the CPU: 130.3, 2582.5, 74.6, 70.0,
+#                          65.1, 62.5; exp(wh) of the object cells); at 1e-5
+#                          it falls every step (130.3, 34.1, 27.1, 26.7,
+#                          23.6, 22.6; TinyYOLO 304.0 to 23.7)
+DETECT_BUCKETS = (1, 2, 4, 8, 16)   # 23c: every power-of-two bucket up to
+#                                     the training batch, captured at warmup
+DETECT_REQUESTS = 32
+DETECT_CLIENTS = 8
+DETECT_SERVE_TOL = 1e-4  # 23c: served maps against eager output() of the
+#                          request alone, each image over its max |value|
+#                          (f32). cuDNN picks its algorithm per batch size,
+#                          and the served request ran inside a padded bucket:
+#                          on an H100 the same image's eager maps move by
+#                          2.2e-5 from one batch size to another (printed as
+#                          eager_batch_gap), where 21c read 1.1e-6 on ResNet-
+#                          50's logits. A bucket served and the same batch
+#                          eager must agree bit for bit
+DETECT_NMS_IOU = 0.45    # 23c: the NMS of objdetect.non_max_suppression's
+DETECT_NMS_TOP = 0.05    # default, over each image's top 5% of boxes by
+#                          objectness (a fresh head scores no class at 0.5)
+DIGITS_BATCH = 128       # 23e: the 1,437 train scans in 12 batches
+PRETRAIN_EPOCHS = 10     # 23e: pretraining passes a pretrainable layer
+FIT_EPOCHS = 10          # 23e: supervised passes after it
+VAE_LATENT = 32          # 23e: DL4J's VaeMNISTAnomaly example's widths
+VAE_WIDTHS = (256, 256)
+PRETRAIN_LOSS_RTOL = 1e-4  # 23e: every batch's pretraining loss and the
+#                            first fit epoch's, card vs CPU copy (f32 GEMMs
+#                            over 64-256 terms in another order, the VAE's
+#                            noise the same bits)
+PRETRAIN_PARAM_TOL = 1e-4  # 23e: every param after a pretrainable layer's
+#                            first epoch and after the first fit epoch, card
+#                            vs CPU copy, over the leaf's max |value|. Later
+#                            epochs are printed, not held: the graph's VAE on
+#                            raw pixels is chaotic. On the CPU alone a 1e-7
+#                            relative move of its initial params grows to
+#                            8.2e-2 of e1_b's max after 120 pretraining steps,
+#                            as card vs CPU did (8.0e-2; 1.2e-5 after 24
+#                            steps), while its losses stay within 3.4e-5
+NEW_LAYER_TOL = 1e-4     # 23f: each layer's output (or loss) and gradients,
+#                          card vs CPU, over the tensor's max |value| (22g's)
+
+
+def yolo_batch(n, seed, shape, classes, anchors=5, stride=32,
+               objects=YOLO_OBJECTS):
+    """Images and YOLO labels from a seed: 1-6 objects an image, each in
+    one cell and one anchor of the stride-32 grid, xy in (0, 1), wh > 0
+    (grid cells), a one-hot class and confidence 1. Detection accuracy
+    needs real images (VOC, COCO); these train the path, not a
+    detector."""
+    rs = np.random.RandomState(seed)
+    x = rs.rand(n, *shape).astype(np.float32)
+    gh, gw = shape[0] // stride, shape[1] // stride
+    y = np.zeros((n, gh, gw, anchors * (5 + classes)), np.float32)
+    for b in range(n):
+        for _ in range(rs.randint(objects[0], objects[1] + 1)):
+            i, j, a = rs.randint(gh), rs.randint(gw), rs.randint(anchors)
+            s = a * (5 + classes)
+            y[b, i, j, s:s + 2] = rs.uniform(0.05, 0.95, 2)
+            y[b, i, j, s + 2:s + 4] = rs.uniform(0.5, 6.0, 2)
+            y[b, i, j, s + 4] = 1.0
+            y[b, i, j, s + 5 + rs.randint(classes)] = 1.0
+    return x, y
+
+
+def decode_detections(maps, n_anchors: int):
+    """Host decode of activated YOLO maps [B, H, W, A * (5 + C)]: per
+    image the [H*W*A, 4] (x, y, w, h) boxes in image units and each
+    box's objectness."""
+    B, H, W, F = maps.shape
+    z = np.asarray(maps, np.float64).reshape(B, H, W, n_anchors,
+                                             F // n_anchors)
+    gx = np.arange(W)[None, None, :, None]
+    gy = np.arange(H)[None, :, None, None]
+    boxes = np.stack([(gx + z[..., 0]) / W, (gy + z[..., 1]) / H,
+                      z[..., 2] / W, z[..., 3] / H], -1)
+    return boxes.reshape(B, -1, 4), z[..., 4].reshape(B, -1)
+
+
+def detections(maps, n_anchors: int, thresholds=None):
+    """NMS (``objdetect.non_max_suppression``, IoU DETECT_NMS_IOU) of each
+    image's boxes scoring at least its threshold (by default the top
+    DETECT_NMS_TOP of that image's objectness). Returns the kept (boxes,
+    scores) an image and the thresholds."""
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import \
+        non_max_suppression
+    boxes, scores = decode_detections(maps, n_anchors)
+    if thresholds is None:
+        thresholds = [float(np.quantile(s, 1.0 - DETECT_NMS_TOP))
+                      for s in scores]
+    return [non_max_suppression(b, s, DETECT_NMS_IOU, t)
+            for b, s, t in zip(boxes, scores, thresholds)], thresholds
+
+
+def detect_serve(card: str, net, shape, buckets=DETECT_BUCKETS,
+                 n_requests=DETECT_REQUESTS, clients=DETECT_CLIENTS):
+    """Phase 23c: the trained YOLO2 behind InferenceEngine and the
+    micro-batcher: every bucket captured at warmup and none after; each
+    request's detection maps against eager ``output()`` of that request
+    alone; then each bucket's served maps against eager ``output()`` of
+    the same batch (bit for bit), and host NMS of both at the eager
+    maps' thresholds."""
+    from deeplearning4j_tpu_torch.serving import InferenceEngine
+    from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
+    t_phase = time.perf_counter()
+    A = net.conf.nodes[net.conf.graph_outputs[0]].layer.n_anchors
+    eng = InferenceEngine(net, max_batch_size=max(buckets))
+    t0 = time.perf_counter()
+    eng.warmup(list(buckets))
+    warm_s = time.perf_counter() - t0
+    compiles, captures = eng.metrics.compiles, eng.captures
+    rs = np.random.RandomState(2323)
+    sizes = rs.randint(1, 5, n_requests)
+    xs = [rs.rand(int(k), *shape).astype(np.float32) for k in sizes]
+    batcher = MicroBatcher(eng, max_batch_size=max(buckets),
+                           max_latency_ms=5.0)
+    outs, lat = [None] * n_requests, [None] * n_requests
+    lock = threading.Lock()
+    nxt = [0]
+
+    def client():
+        while True:
+            with lock:
+                i = nxt[0]
+                nxt[0] += 1
+            if i >= n_requests:
+                return
+            t = time.perf_counter()
+            outs[i] = batcher.submit(xs[i])
+            lat[i] = (time.perf_counter() - t) * 1e3
+    threads = [threading.Thread(target=client) for _ in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    batcher.stop()
+
+    def image_err(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        den = np.maximum(np.abs(want).reshape(len(want), -1).max(-1), 1e-30)
+        return float((np.abs(got - want).reshape(len(want), -1).max(-1)
+                      / den).max())
+    worst = max(image_err(ob, net.output(xb).float().cpu().numpy())
+                for xb, ob in zip(xs, outs))
+    after_traffic = (eng.metrics.compiles, eng.captures)
+    # NMS of the served maps against NMS of the eager maps, each bucket's
+    # batch at the eager maps' thresholds; and the eager maps of one image
+    # by the batch it is in
+    big = np.concatenate(xs)
+    alone = net.output(big[:1]).float().cpu().numpy()
+    nms, batch_gap = {}, 0.0
+    for b in buckets:
+        served = eng.predict(big[:b])
+        eager = net.output(big[:b]).float().cpu().numpy()
+        want, thr = detections(eager, A)
+        got, _ = detections(served, A, thr)
+        same = all(np.array_equal(g[0], w[0]) and np.array_equal(g[1], w[1])
+                   for g, w in zip(got, want))
+        nms[b] = dict(kept=[len(w[1]) for w in want], equal=same,
+                      bits_equal=bool(np.array_equal(served, eager)),
+                      err=image_err(served, eager))
+        batch_gap = max(batch_gap, image_err(eager[:1], alone))
+    rows = int(sizes.sum())
+    res = dict(buckets=list(buckets), warmup_s=warm_s, compiles=compiles,
+               captures=captures, requests=n_requests, rows=rows,
+               rows_per_s=rows / wall,
+               request_p50_ms=float(np.percentile(lat, 50)),
+               request_p99_ms=float(np.percentile(lat, 99)),
+               max_rel_err=worst, eager_batch_gap=batch_gap, nms=nms,
+               seconds=time.perf_counter() - t_phase)
+    caps = len(buckets) if eng.device.type == "cuda" else 0
+    if not (after_traffic == (compiles, captures) == (len(buckets), caps)
+            and worst <= DETECT_SERVE_TOL
+            and all(v["equal"] and v["bits_equal"] for v in nms.values())
+            and eng.metrics.compiles == compiles and eng.captures == caps):
+        raise AssertionError(f"phase 23c failed: {res}, compiles now "
+                             f"{eng.metrics.compiles}, captures now "
+                             f"{eng.captures}")
+    return res
+
+
+def digits_8x8(train: bool):
+    """The vendored real digits (checksums verified) as their 8x8 scans:
+    [n, 64] features in [0, 1] and one-hot labels."""
+    from deeplearning4j_tpu_torch.datasets import _load_real_digits
+    imgs, labels = _load_real_digits(train)
+    x = imgs[:, 2:26:3, 2:26:3].reshape(len(imgs), 64).astype(np.float32)
+    return x / 255.0, np.eye(10, dtype=np.float32)[labels]
+
+
+def stacked_pretrain_conf(seed=23):
+    """23e's stack: a denoising AutoEncoder (sparsity on) over the 64
+    pixels, a VAE of VaeMNISTAnomaly's widths over its code, a softmax
+    head."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.layers import (AutoEncoder,
+                                                    OutputLayer,
+                                                    VariationalAutoencoder)
+    return (NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3))
+            .weight_init("xavier").list()
+            .layer(AutoEncoder(n_out=48, corruption_level=0.2, sparsity=0.05,
+                               sparsity_target=0.1))
+            .layer(VariationalAutoencoder(
+                n_out=VAE_LATENT, encoder_layer_sizes=VAE_WIDTHS,
+                decoder_layer_sizes=VAE_WIDTHS, activation="leakyrelu",
+                reconstruction_distribution="bernoulli"))
+            .layer(OutputLayer(n_out=10, loss="mcxent"))
+            .input_type_feed_forward(64).build())
+
+
+def vae_graph_conf(seed=24):
+    """23e's graph: VaeMNISTAnomaly's VAE on the 64 pixels, a softmax head
+    over its latent mean."""
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (OutputLayer,
+                                                    VariationalAutoencoder)
+    return (NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3))
+            .weight_init("xavier").graph_builder()
+            .add_inputs("in")
+            .set_input_types(InputType.feed_forward(64))
+            .add_layer("vae", VariationalAutoencoder(
+                n_out=VAE_LATENT, encoder_layer_sizes=VAE_WIDTHS,
+                decoder_layer_sizes=VAE_WIDTHS, activation="leakyrelu",
+                reconstruction_distribution="bernoulli"), "in")
+            .add_layer("out", OutputLayer(n_out=10, loss="mcxent"), "vae")
+            .set_outputs("out").build())
+
+
+def _recording_losses(net, epoch: int):
+    """Wrap each pretrainable layer's ``pretrain_loss`` of ``net`` to
+    record every batch's loss (on the host) and the layer's params after
+    its first ``epoch`` batches; returns one dict a pretrainable layer,
+    in the network's order."""
+    out = []
+    layers = (net.layers if hasattr(net, "layers") else
+              [net.conf.nodes[n].layer for n in net._order
+               if net.conf.nodes[n].layer is not None])
+    for layer in layers:
+        if layer.is_pretrain_layer:
+            mine = dict(losses=[], epoch=None)
+
+            def rec(p, x, rng, _f=layer.pretrain_loss, _out=mine):
+                if len(_out["losses"]) == epoch:
+                    _out["epoch"] = {n: _host(t) for n, t in p.items()}
+                loss = _f(p, x, rng)
+                _out["losses"].append(float(loss.detach()))
+                return loss
+            layer.pretrain_loss = rec
+            out.append(mine)
+    return out
+
+
+def _fit_losses(net, data, epochs):
+    """``fit`` over ``data`` batch by batch for ``epochs`` passes; each
+    batch's loss."""
+    out = []
+    for _ in range(epochs):
+        for x, y in data:
+            net.fit(x, y)
+            out.append(net.score_)
+    return out
+
+
+def _host_tree(tree):
+    return {k: {n: _host(v) for n, v in p.items()} for k, p in tree.items()}
+
+
+def pretrain_vs_cpu(card, make_net, label, data, pretrain):
+    """A fresh network on the card and its CPU copy (same params, fresh
+    updater state and key chain), pretrained by ``pretrain(net)``: every
+    batch's pretraining loss, and every param after the first epoch of
+    each pretrainable layer, card against CPU. The CPU copy then takes
+    the card's params, layer state, Adam state and key, and both fit
+    FIT_EPOCHS passes over ``data``: the first epoch's losses and the
+    params after it, card against CPU. The later gaps are printed, not
+    held: the training is chaotic (PRETRAIN_PARAM_TOL)."""
+    t0 = time.perf_counter()
+    net = make_net()
+    cpu = net.clone(device="cpu")
+    sides = {}
+    for where, m in (("card", net), ("cpu", cpu)):
+        losses = _recording_losses(m, len(data))
+        t = time.perf_counter()
+        pretrain(m)
+        sides[where] = dict(losses=losses, pre_s=time.perf_counter() - t,
+                            pretrained=_host_tree(m.params()))
+    # the fit from the card's pretrained state on both sides
+    cpu.set_params(net.params())
+    cpu.set_net_state(net.get_net_state())
+    cpu.set_updater_state(net.get_updater_state())
+    cpu._rng = net._rng
+    for where, m in (("card", net), ("cpu", cpu)):
+        t = time.perf_counter()
+        sides[where]["fit"] = _fit_losses(m, data, 1)
+        sides[where]["epoch1"] = _host_tree(m.params())
+        sides[where]["fit"] += _fit_losses(m, data, FIT_EPOCHS - 1)
+        sides[where]["fit_s"] = time.perf_counter() - t
+    c, h = sides["card"], sides["cpu"]
+
+    def gap(a, b):
+        return max((abs(x - y) / max(abs(y), 1e-30) for x, y in zip(a, b)),
+                   default=0.0)
+    pre_losses = [v for lst in c["losses"] for v in lst["losses"]]
+    cpu_pre_losses = [v for lst in h["losses"] for v in lst["losses"]]
+    n = len(data)
+    res = dict(
+        pretrain_batches=[len(lst["losses"]) for lst in c["losses"]],
+        fit_batches=len(c["fit"]),
+        pretrain_losses=[[lst["losses"][0], lst["losses"][-1]]
+                         for lst in c["losses"]],
+        fit_losses=[c["fit"][0], c["fit"][-1]],
+        pretrain_loss_rel_err=gap(pre_losses, cpu_pre_losses),
+        pretrain_epoch_param=_worst(
+            {i: a["epoch"] for i, a in enumerate(c["losses"])},
+            {i: b["epoch"] for i, b in enumerate(h["losses"])}),
+        pretrained_param=_worst(c["pretrained"], h["pretrained"]),
+        fit_epoch_loss_rel_err=gap(c["fit"][:n], h["fit"][:n]),
+        fit_epoch_param=_worst(c["epoch1"], h["epoch1"]),
+        fit_loss_rel_err=gap(c["fit"], h["fit"]),
+        fitted_param=_worst(_host_tree(net.params()),
+                            _host_tree(cpu.params())),
+        card_pretrain_s=c["pre_s"], cpu_pretrain_s=h["pre_s"],
+        card_fit_s=c["fit_s"], seconds=time.perf_counter() - t0)
+    if not (len(pre_losses) == len(cpu_pre_losses) > 0
+            and all(lst["losses"][-1] < lst["losses"][0]
+                    for lst in c["losses"])
+            and c["fit"][-1] < c["fit"][0]
+            and res["pretrain_loss_rel_err"] <= PRETRAIN_LOSS_RTOL
+            and res["pretrain_epoch_param"][1] <= PRETRAIN_PARAM_TOL
+            and res["fit_epoch_loss_rel_err"] <= PRETRAIN_LOSS_RTOL
+            and res["fit_epoch_param"][1] <= PRETRAIN_PARAM_TOL):
+        raise AssertionError(f"phase {label} card vs CPU failed: {res}")
+    return net, res
+
+
+def digits_pretraining(card, device=None):
+    """Phase 23e: the stacked AutoEncoder -> VAE -> softmax network
+    pretrained layer by layer and fitted on the real digits, a VAE node
+    of a ComputationGraph pretrained the same way, each against a CPU
+    copy batch by batch; then the graph's VAE scores uniform noise as
+    less likely than the test digits (reconstruction error)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import (ComputationGraph,
+                                             MultiLayerNetwork)
+    xtr, ytr = digits_8x8(True)
+    xte, yte = digits_8x8(False)
+    data = [(xtr[i:i + DIGITS_BATCH], ytr[i:i + DIGITS_BATCH])
+            for i in range(0, len(xtr), DIGITS_BATCH)]
+    stack, s = pretrain_vs_cpu(
+        card, lambda: MultiLayerNetwork(stacked_pretrain_conf(),
+                                        device=device).init(),
+        "23e stack", data, lambda m: m.pretrain(data, PRETRAIN_EPOCHS))
+    acc = float((stack.output(xte).argmax(-1).cpu().numpy()
+                 == yte.argmax(-1)).mean())
+    graph, g = pretrain_vs_cpu(
+        card, lambda: ComputationGraph(vae_graph_conf(),
+                                       device=device).init(),
+        "23e graph", data,
+        lambda m: m.pretrain_node("vae", data, PRETRAIN_EPOCHS))
+    vae = graph.conf.nodes["vae"].layer
+    p = graph.params()["vae"]
+    noise = np.random.RandomState(2324).rand(len(xte), 64).astype(np.float32)
+
+    def recon_error(x):
+        with torch.no_grad():
+            t = torch.from_numpy(x).to(graph.device)
+            return float(((vae.reconstruct(p, t) - t) ** 2).mean())
+    e_digits, e_noise = recon_error(xte), recon_error(noise)
+    res = dict(stack=s, stack_test_accuracy=acc, graph=g,
+               recon_error_digits=e_digits, recon_error_noise=e_noise)
+    if not e_noise > e_digits:
+        raise AssertionError(f"phase 23e: noise reconstructs as well as "
+                             f"digits: {res}")
+    return res
+
+
+def new_layer_cases():
+    """23f: every layer class of ``misc.py``, ``variational.py``,
+    ``specialized_outputs.py`` and ``objdetect.py`` at a small size:
+    (name, layer, feature shape, mode, mask), mode "apply", "loss" or
+    "pretrain"; the mask forms are CnnLossLayer's."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        CenterLossOutputLayer, OCNNOutputLayer, VariationalAutoencoder)
+    from deeplearning4j_tpu_torch.nn.layers import misc as M
+    from deeplearning4j_tpu_torch.nn.layers.objdetect import \
+        Yolo2OutputLayer
+    cases = [
+        ("AutoEncoder", M.AutoEncoder(n_out=24, sparsity=0.1), (40,),
+         "pretrain", None),
+        ("AutoEncoder.apply", M.AutoEncoder(n_out=24), (40,), "apply", None),
+        ("VariationalAutoencoder", VariationalAutoencoder(
+            n_out=8, encoder_layer_sizes=(32, 16), decoder_layer_sizes=(16,),
+            reconstruction_distribution="bernoulli", num_samples=2,
+            activation="leakyrelu"), (40,), "pretrain", None),
+        ("VariationalAutoencoder.gaussian", VariationalAutoencoder(
+            n_out=8, encoder_layer_sizes=(32,), decoder_layer_sizes=(16,)),
+         (40,), "pretrain", None),
+        ("ReshapeLayer", M.ReshapeLayer(target_shape=(-1, 6)), (8, 9),
+         "apply", None),
+        ("CenterLossOutputLayer", CenterLossOutputLayer(
+            n_out=5, alpha=0.5, lambda_=0.1), (24,), "loss", None),
+        ("OCNNOutputLayer", OCNNOutputLayer(hidden_size=16, nu=0.1),
+         (24,), "loss", None),
+        ("OCNNOutputLayer.apply", OCNNOutputLayer(hidden_size=16), (24,),
+         "apply", None),
+        ("Yolo2OutputLayer", Yolo2OutputLayer(
+            anchors=((1.0, 1.5), (2.5, 0.7))), (5, 6, 2 * (5 + 4)), "loss",
+         None),
+    ]
+    for mask in (None, "bhw", "bhw1", "b11"):
+        cases.append((f"CnnLossLayer.{mask}", M.CnnLossLayer(
+            loss="mcxent", activation="softmax"), (6, 7, 5), "loss", mask))
+        cases.append((f"Cnn3DLossLayer.{mask}", M.Cnn3DLossLayer(loss="mse"),
+                      (3, 4, 5, 5), "loss", mask))
+    return cases
+
+
+def _case_inputs(name, layer, shape, mode, mask, batch, gen):
+    """Labels (and a mask) of a loss case, from ``gen``."""
+    import torch
+    x = torch.randn((batch,) + shape, generator=gen)
+    y = m = None
+    if mode == "loss":
+        if name.startswith("CnnLoss"):
+            y = torch.eye(shape[-1])[torch.randint(
+                0, shape[-1], (batch,) + shape[:-1], generator=gen)]
+        elif name.startswith("Yolo2"):
+            y = torch.from_numpy(yolo_batch(batch, 5, (160, 192, 3), 4,
+                                            anchors=2)[1])
+        elif name.startswith("CenterLoss"):
+            y = torch.eye(layer.n_out)[torch.randint(0, layer.n_out, (batch,),
+                                                     generator=gen)]
+        else:
+            y = torch.rand((batch,) + shape, generator=gen)
+        if mask is not None:
+            spatial = (batch,) + shape[:-1]
+            full = {"bhw": spatial, "bhw1": spatial + (1,),
+                    "b11": (batch,) + (1,) * (len(shape) - 1)}[mask]
+            m = (torch.rand(full, generator=gen) > 0.3).float()
+    elif mode == "pretrain":
+        x = torch.rand((batch,) + shape, generator=gen)
+    return x, y, m
+
+
+def new_layers_vs_cpu(device=None, batch=4):
+    """Phase 23f: each new layer's output (``apply``), loss
+    (``compute_loss``, with each mask form) or pretraining loss (from
+    one key) and the gradients for its input and params on the card,
+    against the same on the CPU; then a MaskingLayer -> LSTM -> MaskLayer
+    network's output and one step's gradients, card against CPU."""
+    import torch
+    from deeplearning4j_tpu_torch import random as R
+    from deeplearning4j_tpu_torch.device import resolve_device
+    dev = resolve_device(device)
+    rows = {}
+    for i, (name, layer, shape, mode, mask) in enumerate(new_layer_cases()):
+        layer.build(shape, {"weight_init": "xavier"})
+        params = layer.init_params(R.PRNGKey(i))
+        gen = torch.Generator().manual_seed(i)
+        x, y, m = _case_inputs(name, layer, shape, mode, mask, batch, gen)
+        ct = None
+        outs = {}
+        for where in (dev, torch.device("cpu")):
+            p = {n: t.to(where).requires_grad_(True)
+                 for n, t in params.items()}
+            xi = x.to(where).requires_grad_(True)
+            if mode == "apply":
+                out, _ = layer.apply(p, xi, {}, False, None)
+                if ct is None:
+                    ct = torch.randn(out.shape, generator=gen)
+                scalar = (out * ct.to(where)).sum()
+            elif mode == "loss":
+                out = layer.compute_loss(
+                    p, xi, y.to(where), None if m is None else m.to(where))
+                scalar = out
+            else:
+                out = layer.pretrain_loss(p, xi, R.PRNGKey(100 + i))
+                scalar = out
+            grads = torch.autograd.grad(scalar, [xi] + list(p.values()),
+                                        allow_unused=True)
+            outs[where.type] = [out] + [g for g in grads if g is not None]
+        card, cpu = outs[dev.type], outs["cpu"]
+        if len(card) != len(cpu):
+            raise AssertionError(f"phase 23f {name}: gradients differ in "
+                                 f"number")
+        rows[name] = max(_rel(a, b) for a, b in zip(card, cpu))
+    rows["Masking+MaskLayer network"] = masked_net_vs_cpu(device)
+    bad = {k: v for k, v in rows.items() if not v <= NEW_LAYER_TOL}
+    if bad:
+        raise AssertionError(f"phase 23f card vs CPU: {bad}")
+    return rows
+
+
+def masked_net_vs_cpu(device=None):
+    """MaskingLayer (a mask from padded steps) -> LSTM -> dense ->
+    MaskLayer -> masked average pooling -> softmax: the output and one
+    step's loss and gradients on the card against a CPU copy."""
+    import torch
+    from deeplearning4j_tpu_torch.learning import Adam
+    from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
+                                             NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (DenseLayer,
+                                                    GlobalPoolingLayer,
+                                                    MaskingLayer, MaskLayer,
+                                                    OutputLayer)
+    from deeplearning4j_tpu_torch.nn.layers.recurrent import LSTM
+    conf = (NeuralNetConfiguration.builder().seed(23).updater(Adam(1e-2))
+            .weight_init("xavier").list()
+            .layer(MaskingLayer(mask_value=0.0))
+            .layer(LSTM(n_out=32))
+            .layer(DenseLayer(n_out=16, activation="tanh"))
+            .layer(MaskLayer())
+            .layer(GlobalPoolingLayer(pooling="avg"))
+            .layer(OutputLayer(n_out=4, loss="mcxent"))
+            .input_type_recurrent(8, 20).build())
+    net = MultiLayerNetwork(conf, device=device).init()
+    cpu = net.clone(device="cpu")
+    rs = np.random.RandomState(23)
+    x = rs.randn(8, 20, 8).astype(np.float32)
+    for b in range(8):
+        x[b, 20 - 2 * b:] = 0.0          # 0 to 14 padded steps
+    y = np.eye(4, dtype=np.float32)[rs.randint(0, 4, 8)]
+    errs = [_rel(net.output(x), cpu.output(x))]
+    lc, gc = net.loss_and_gradients(x, y)
+    lh, gh = cpu.loss_and_gradients(x, y)
+    errs.append(abs(float(lc) - float(lh)) / abs(float(lh)))
+    errs += [_rel(gc[k][n], gh[k][n]) for k in gh for n in gh[k]]
+    return max(errs)
+
+
+def detect_phase(card: str, device=None, yolo2_shape=YOLO2_SHAPE,
+                 yolo2_batch=YOLO2_BATCH, yolo2_classes=YOLO2_CLASSES,
+                 tiny_shape=TINYYOLO_SHAPE, tiny_batch=TINYYOLO_BATCH,
+                 tiny_classes=TINYYOLO_CLASSES, steps=YOLO2_STEPS,
+                 buckets=DETECT_BUCKETS):
+    """Phase 23: (a) the zoo's YOLO2 trained at full width on seeded
+    labels, (b) under the bf16 policy, (c) served, with host NMS; (d)
+    TinyYOLO trained; each held against a CPU copy; (e) layerwise
+    pretraining on the real digits (a stacked network and a graph's VAE
+    node) against CPU copies, and the VAE's anomaly check; (f) every new
+    layer class on the card against the CPU. Each part prints as it
+    ends. No TPU kernel is on this path: the launch counters must stay
+    0."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels
+    from deeplearning4j_tpu_torch.learning import Adam
+    t_phase = time.perf_counter()
+    reset_launches()
+
+    def yolo_labels(n, seed, shape, classes):
+        return yolo_batch(n, seed, shape, classes)
+
+    def held(v):
+        return (f"{v['nodes']} nodes on the card's inputs, worst "
+                f"{v['worst_node']} {v['node_rel_err']:.3e} (tol "
+                f"{GRAPH_NODE_TOL:g}), loss {v['loss_rel_err']:.3e}, worst "
+                f"gradient {v['worst_grad']} {v['worst_grad_rel_err']:.3e} "
+                f"(the CPU's own floor up to {v['grad_floor_max']:.3e}), new "
+                f"running stats {v['state_rel_err']:.3e}, params after the "
+                f"step {v['param_abs_err']:.3e}, Adam {v['adam_worst']} "
+                f"{v['adam_rel_err']:.3e}; CPU {v['cpu_s']:.1f} s")
+
+    def trained(r, what):
+        return (f"{what} {tuple(r['input'])} x {r['classes']} classes "
+                f"({r['params']} params, {r['layers']} layers) at batch "
+                f"{r['batch']}, f32: step p50 {r['step_p50_ms']:.3f} ms "
+                f"(bound {r['bound_ms']:.3f} ms at the f32 rate, share "
+                f"{r['bound_ms'] / r['step_p50_ms']:.3f}), queued in p50 "
+                f"{r['enqueue_p50_ms']:.3f} ms, {r['images_per_s']:.1f} "
+                f"images/s, peak {r['peak_bytes']} bytes, loss "
+                f"{[round(l, 4) for l in r['losses']]}, {r['stats_moved']} "
+                f"running stats moved; init {r['init_s']:.1f} s, steps "
+                f"{r['train_s']:.1f} s, profile {r['profile_s']:.1f} s, CPU "
+                f"copy {r['copy_s']:.1f} s, {r['seconds']:.1f} s in all")
+    yolo2 = zoo_make("YOLO2", yolo2_shape, yolo2_classes, seed=23,
+                     updater=Adam(YOLO_LR))
+    net, a = zoo_train(card, yolo2, "23a", yolo2_shape, yolo2_batch, steps,
+                       YOLO2_COPY_BATCH, yolo2_classes, profile=True,
+                       device=device, seed=23, batch_fn=yolo_labels,
+                       grad_tol=DETECT_GRAD_TOL)
+    p = a["profile"]
+    print(f"detect (phase 23a) [{card}]: " + trained(a, "YOLO2"), flush=True)
+    if p is not None:
+        print(f"detect (phase 23a) profile [{card}] (one step): device busy "
+              f"{p['busy_share']:.3f} of {p['wall_ms']:.1f} ms, "
+              f"{p['device_kernels']} device kernels, "
+              f"{p['conv_ms']:.1f} ms in cuDNN's convolutions, "
+              f"{p['layout_ms']:.1f} ms in layout copies; top (ms): "
+              + ", ".join(f"{n[:50]} {t:.3f}" for n, t in p["top"][:6]))
+    print(f"detect (phase 23a) vs CPU [{card}]: batch "
+          f"{a['vs_cpu']['batch']}: " + held(a["vs_cpu"])
+          + f" (gradient tol {DETECT_GRAD_TOL:g})", flush=True)
+    b = zoo_bf16(card, yolo2, "23b", yolo2_shape, yolo2_batch,
+                 YOLO2_BF16_STEPS, YOLO2_BF16_ROWS, yolo2_classes, device,
+                 seed=23, batch_fn=yolo_labels)
+    print(f"detect (phase 23b) [{card}]: YOLO2 under the bf16 policy at "
+          f"batch {b['batch']}: step p50 {b['step_p50_ms']:.3f} ms (bound "
+          f"{b['bound_ms']:.3f} ms at the bf16 rate), "
+          f"{b['images_per_s']:.1f} images/s beside f32's "
+          f"{a['images_per_s']:.1f}, loss "
+          f"{[round(l, 4) for l in b['losses']]}, the first {b['rows']} "
+          f"image's loss vs CPU {b['loss_rel_err']:.3e} (tol "
+          f"{TRAIN_BF16_LOSS_RTOL:g}; CPU {b['cpu_s']:.1f} s); "
+          f"{b['seconds']:.1f} s", flush=True)
+    c = detect_serve(card, net, yolo2_shape, buckets)
+    print(f"detect (phase 23c) [{card}]: YOLO2 behind InferenceEngine and "
+          f"the micro-batcher: buckets {c['buckets']} captured in "
+          f"{c['warmup_s']:.1f} s ({c['compiles']} compiles, "
+          f"{c['captures']} captures, none after), {c['rows']} images in "
+          f"{c['requests']} requests from {DETECT_CLIENTS} threads at "
+          f"{c['rows_per_s']:.1f} images/s, request p50/p99 "
+          f"{c['request_p50_ms']:.1f}/{c['request_p99_ms']:.1f} ms, maps vs "
+          f"output() of the request alone {c['max_rel_err']:.3e} of the "
+          f"image's max (tol {DETECT_SERVE_TOL:g}; one image's eager maps "
+          f"move by {c['eager_batch_gap']:.3e} from batch 1 to the buckets); "
+          f"each bucket served and the same batch eager bit for bit, and "
+          f"their host NMS equal (boxes kept by image: "
+          f"{ {k: v['kept'][:4] for k, v in c['nms'].items()} }); "
+          f"{c['seconds']:.1f} s", flush=True)
+    del net
+    gc.collect()
+    net, d = zoo_train(card, zoo_make("TinyYOLO", tiny_shape, tiny_classes,
+                                      seed=23, updater=Adam(YOLO_LR)),
+                       "23d", tiny_shape, tiny_batch, TINYYOLO_STEPS,
+                       TINYYOLO_COPY_BATCH, tiny_classes, device=device,
+                       seed=23, batch_fn=yolo_labels,
+                       grad_tol=DETECT_GRAD_TOL)
+    del net
+    gc.collect()
+    print(f"detect (phase 23d) [{card}]: " + trained(d, "TinyYOLO")
+          + f"; vs CPU at batch {d['vs_cpu']['batch']}: " + held(d["vs_cpu"])
+          + f" (gradient tol {DETECT_GRAD_TOL:g})", flush=True)
+    t0 = time.perf_counter()
+    e = digits_pretraining(card, device)
+    for tag in ("stack", "graph"):
+        r = e[tag]
+        print(f"pretraining (phase 23e {tag}) [{card}]: "
+              f"{r['pretrain_batches']} pretraining batches a pretrainable "
+              f"layer (loss first -> last "
+              f"{[[round(v, 4) for v in l] for l in r['pretrain_losses']]})"
+              f", then {r['fit_batches']} fit batches (loss "
+              f"{r['fit_losses'][0]:.4f} -> {r['fit_losses'][1]:.4f}); card "
+              f"vs CPU copy: every pretraining loss "
+              f"{r['pretrain_loss_rel_err']:.3e}, params after each layer's "
+              f"first epoch {r['pretrain_epoch_param'][0]} "
+              f"{r['pretrain_epoch_param'][1]:.3e}, the first fit epoch's "
+              f"losses {r['fit_epoch_loss_rel_err']:.3e} and params "
+              f"{r['fit_epoch_param'][0]} {r['fit_epoch_param'][1]:.3e} "
+              f"(tols {PRETRAIN_LOSS_RTOL:g}, {PRETRAIN_PARAM_TOL:g}); not "
+              f"held: params after pretraining {r['pretrained_param'][0]} "
+              f"{r['pretrained_param'][1]:.3e}, every fit loss "
+              f"{r['fit_loss_rel_err']:.3e}, params after the fit "
+              f"{r['fitted_param'][0]} {r['fitted_param'][1]:.3e}; "
+              f"pretraining {r['card_pretrain_s']:.2f} s on the card, "
+              f"{r['cpu_pretrain_s']:.2f} s on the CPU")
+    print(f"pretraining (phase 23e) [{card}]: the stack's test accuracy "
+          f"{e['stack_test_accuracy']:.4f} on the 360 test digits; the "
+          f"graph's VAE reconstruction error {e['recon_error_digits']:.4f} "
+          f"on the test digits vs {e['recon_error_noise']:.4f} on uniform "
+          f"noise; {time.perf_counter() - t0:.1f} s", flush=True)
+    f = new_layers_vs_cpu(device)
+    launches = kernels.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"phase 23 launched a TPU kernel: {launches}")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    print(f"new layers (phase 23f) [{card}]: {len(f)} cases, forward (or "
+          f"loss) and gradients vs CPU, worst {max(f, key=f.get)} "
+          f"{max(f.values()):.3e} (tol {NEW_LAYER_TOL:g}); phase 23 launched "
+          f"no TPU kernel (every counter 0) and took {wall:.1f} s")
+    return dict(yolo2=a, yolo2_bf16=b, serve=c, tinyyolo=d, pretraining=e,
+                layers=f, launches=launches, seconds=wall)
 
 
 def reset_launches():
@@ -7327,6 +8094,11 @@ def main() -> int:
         res = conv_phase(card_line())
         print("CONV " + json.dumps(res, default=str))
         return 0
+    if sys.argv[1:2] == ["--detect"]:
+        # phase 23 alone: it builds no kernel
+        res = detect_phase(card_line())
+        print("DETECT " + json.dumps(res, default=str))
+        return 0
     from deeplearning4j_tpu_torch.kernels import _build
     dev = torch.device("cuda")
     card = card_line()
@@ -7484,6 +8256,14 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     conv = conv_phase(card)
+    # phase 23: layerwise pretraining, the specialized heads, the zoo's
+    # YOLO2 (trained, bf16, served) and TinyYOLO
+    gc.collect()
+    torch.cuda.empty_cache()
+    detect = detect_phase(card)
+    print(f"phase 20c took {resilient['seconds']:.1f} s without its two "
+          f"epoch-end archive writes; phase 23 took "
+          f"{detect['seconds']:.1f} s")
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -7552,7 +8332,7 @@ def main() -> int:
              train=trained, train_bf16=trained_bf16, cnn=cnn,
              remat=remat, resume=resume, rnn=rnn, transfer=transfer,
              pure_bf16=pure_bf16, resilient=resilient, graph=graph,
-             conv=conv,
+             conv=conv, detect=detect,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -46,9 +46,13 @@ in training. A half dtype (``data_type("bfloat16")``) trains under the
 bf16 policy of ``precision.py``: every node but the outputs computes in
 bf16, the output layers, the loss and the masters stay f32.
 
+``pretrain`` and ``pretrain_node`` train each pretrainable node (an
+AutoEncoder or VAE) on its own loss over its input node's
+inference-mode activation, as JAX's graph does.
+
 Not ported yet, and refused: ``SameDiffLambdaVertex``'s forward
 (``autodiff/samediff``, ROADMAP.md queue A, item 15; its JSON still
-round-trips) and pretraining (item 13).
+round-trips).
 """
 from __future__ import annotations
 
@@ -68,7 +72,7 @@ from ..conf import InputType, MultiLayerConfiguration
 from ..conf.constraint import apply_constraints
 from ..layers import Layer, from_json as layer_from_json
 from ..multilayer import (_clip_grads, _detach, _not_ported, _param_dtype,
-                          _regularization_penalty, _subtract)
+                          _regularization_penalty, _subtract, pretrain_steps)
 from ..precision import (cast_feats_to_f32, cast_input_for_compute,
                          cast_params_for_compute, compute_dtype)
 
@@ -1124,9 +1128,41 @@ class ComputationGraph:
             g.set_net_state(self._net_state)
         return g
 
-    # -- not ported yet ------------------------------------------------
-    def pretrain(self, *a, **kw):
-        _not_ported("graph pretraining (it needs the VAE layer)", "13")
+    # -- layerwise pretraining -----------------------------------------
+    def pretrain(self, iterator, epochs: int = 1):
+        """Pretrain every pretrainable node in the topological order on
+        the inference-mode activation of its input node. A generator is
+        read once into a list."""
+        if self._params is None:
+            self.init()
+        if not hasattr(iterator, "reset") and \
+                not isinstance(iterator, (list, tuple)):
+            iterator = list(iterator)
+        for name in self._order:
+            layer = self.conf.nodes[name].layer
+            if layer is not None and layer.is_pretrain_layer:
+                self.pretrain_node(name, iterator, epochs=epochs)
+        return self
 
-    def pretrain_node(self, *a, **kw):
-        _not_ported("graph pretraining (it needs the VAE layer)", "13")
+    def pretrain_node(self, name: str, iterator, epochs: int = 1):
+        """Pretrain node ``name`` on its unsupervised loss over its
+        input node's activation (the graph evaluated up to that node in
+        inference mode); only its params and updater state move
+        (:func:`..multilayer.pretrain_steps`)."""
+        if self._params is None:
+            self.init()
+        node = self.conf.nodes[name]
+        layer = node.layer
+        if layer is None or not layer.is_pretrain_layer:
+            raise ValueError(f"node {name!r} is not pretrainable")
+        in_node = node.inputs[0]
+
+        def features(x):
+            inputs = self._as_inputs(x)
+            if in_node in inputs:      # nothing to evaluate before it
+                return inputs[in_node]
+            return self._forward(self._params, self._net_state, inputs,
+                                 False, None, stop_at=in_node)[0][in_node]
+        pretrain_steps(self, name, layer, self._updaters[name], iterator,
+                       epochs, features)
+        return self

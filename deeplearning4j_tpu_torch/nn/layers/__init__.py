@@ -2,7 +2,11 @@
 ``deeplearning4j_tpu/nn/layers/__init__.py``: dense and output layers,
 the CNN layers, batch norm, the parameter-free layers and global
 pooling; the sequence and attention layers live in ``recurrent.py`` and
-``attention.py``).
+``attention.py``, the rest of the conv family in ``convolutional.py``,
+the AutoEncoder, reshape, mask and per-pixel loss layers in
+``misc.py``, the VAE in ``variational.py``, the center-loss and OCNN
+heads in ``specialized_outputs.py`` and the YOLOv2 head in
+``objdetect.py``; only the SameDiff layers are not ported).
 
 A layer is configuration plus pure functions of an explicit params
 dict, as in the JAX package:
@@ -141,6 +145,8 @@ class Layer:
     kind = "layer"
     is_rnn = False
     wants_mask = False
+    derives_mask = False        # MaskingLayer: a mask from the data
+    is_pretrain_layer = False   # AutoEncoder, VAE: has ``pretrain_loss``
 
     def __init__(self, name: Optional[str] = None, dropout=None,
                  activation=None, weight_init: Optional[str] = None,
@@ -291,10 +297,16 @@ class Layer:
 
 
 def from_json(d: dict) -> Layer:
-    """A layer from its ``to_json`` dict (a wrapper's inner layer too)."""
+    """A layer from its ``to_json`` dict (a wrapper's inner layer too).
+    A SameDiff kind raises: those layers need ``autodiff/samediff``."""
     from . import attention, convolutional, recurrent  # noqa: F401
     d = dict(d)
-    cls = REGISTRY[d.pop("@class")]
+    kind = d.pop("@class")
+    if kind.startswith("samediff"):
+        raise NotImplementedError(
+            f"layer kind {kind!r} (a SameDiff layer) is not ported yet "
+            f"(ROADMAP.md queue A, item 15: it needs autodiff/samediff)")
+    cls = REGISTRY[kind]
     if isinstance(d.get("activation"), dict):
         d["activation"] = A.get(d["activation"])
     if isinstance(d.get("updater"), dict):
@@ -930,3 +942,13 @@ class FrozenLayerWithBackprop(FrozenLayer):
 
     def _train(self, train: bool) -> bool:
         return train
+
+
+# the layers of the submodules the JAX package exports from here (their
+# import registers their kinds for from_json)
+from .variational import VariationalAutoencoder  # noqa: E402,F401
+from .specialized_outputs import (CenterLossOutputLayer,  # noqa: E402,F401
+                                  OCNNOutputLayer)
+from .misc import (AutoEncoder, Cnn3DLossLayer,  # noqa: E402,F401
+                   CnnLossLayer, MaskLayer, MaskingLayer, ReshapeLayer)
+from .objdetect import Yolo2OutputLayer  # noqa: E402,F401

@@ -52,8 +52,10 @@ updated in place. A param that the loss does not reach (a frozen
 layer's, ``FrozenLayer``, ``FrozenLayerWithBackprop``) gets a zero
 gradient, which still goes through its updater, as in JAX.
 
-Not ported yet, and refused: layerwise pretraining (ROADMAP.md queue A,
-item 13).
+Layerwise pretraining (``pretrain``, ``pretrain_layer``) trains each
+pretrainable layer (``AutoEncoder``, ``VariationalAutoencoder``) on its
+own ``pretrain_loss`` over the inference-mode activations of the layers
+below it, as JAX's does (:func:`pretrain_steps`).
 """
 from __future__ import annotations
 
@@ -78,6 +80,47 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
                               f"A, item {item})")
+
+
+def pretrain_steps(net, key: str, layer, updater, iterator, epochs: int,
+                   features):
+    """JAX's layerwise pretraining loop, for a network and a graph
+    alike: for each batch of ``iterator`` (read into a list unless it is
+    one; ``epochs`` passes), ``features``
+    of its input (the frozen inference-mode forward below the layer),
+    one split of the network's key, the gradient of the layer's
+    ``pretrain_loss`` and its updater's step at a local counter from 0
+    (not the network's ``_step``), on the same updater state ``fit``
+    continues; the update is ``p - u``, with no clipping,
+    regularisation, weight noise or constraint. Only the layer's params
+    (``net._params[key]``, in place) and updater state move; the last
+    batch's loss becomes the network's score."""
+    data = iterator if isinstance(iterator, (list, tuple)) \
+        else list(iterator)
+    p = net._params[key]
+    names = list(p)
+    loss = None
+    step = 0
+    for _ in range(epochs):
+        for item in data:
+            with torch.no_grad():
+                feats = features(net._unpack(item)[0])
+            keys = R.split(net._rng)
+            net._rng, sub = R.key_at(keys, 0), R.key_at(keys, 1)
+            with torch.enable_grad():
+                loss = layer.pretrain_loss(p, feats, sub)
+                leaves = torch.autograd.grad(loss, [p[n] for n in names],
+                                             allow_unused=True)
+            grads = {n: torch.zeros_like(p[n]) if g is None else g
+                     for n, g in zip(names, leaves)}
+            with torch.no_grad():
+                net._opt_state[key], upd = updater.apply(
+                    net._opt_state[key], grads, step)
+                for n in names:
+                    p[n] = _subtract(p[n], upd[n])
+            loss = loss.detach()
+            step += 1
+    net._last_loss = loss
 
 
 def _tree_map(fn, *trees):
@@ -271,6 +314,11 @@ class MultiLayerNetwork:
         act = x
         for i in range(upto):
             r = R.key_at(keys, i) if keys is not None else None
+            if self.layers[i].derives_mask:
+                # MaskingLayer: its mask from the data joins the chain
+                derived = self.layers[i].derive_mask(act)
+                if derived is not None:
+                    fmask = derived if fmask is None else fmask * derived
             act, st2, c2 = self._layer_step(i, params, net_state, act, train,
                                             r, fmask, new_carries[i])
             if self.layers[i].is_rnn:
@@ -727,11 +775,35 @@ class MultiLayerNetwork:
         """Forget the carries ``rnn_time_step`` keeps."""
         self._stored_carries = None
 
-    # -- not ported yet ------------------------------------------------
-    def pretrain(self, *a, **kw):
-        _not_ported("layerwise pretraining (it needs the AutoEncoder or "
-                    "VAE layer)", "13")
+    # -- layerwise pretraining -----------------------------------------
+    def pretrain(self, iterator, epochs: int = 1):
+        """Pretrain every pretrainable layer in stack order on the
+        activations of the layers below it. A generator is read once
+        into a list, so the second layer still sees its batches."""
+        if self._params is None:
+            self.init()
+        if not hasattr(iterator, "reset") and \
+                not isinstance(iterator, (list, tuple)):
+            iterator = list(iterator)
+        for i, layer in enumerate(self.layers):
+            if layer.is_pretrain_layer:
+                self.pretrain_layer(i, iterator, epochs=epochs)
+        return self
 
-    def pretrain_layer(self, *a, **kw):
-        _not_ported("layerwise pretraining (it needs the AutoEncoder or "
-                    "VAE layer)", "13")
+    def pretrain_layer(self, i: int, iterator, epochs: int = 1):
+        """Pretrain layer ``i`` on its unsupervised loss over the
+        inference-mode activations of layers [0, i); only its params
+        and updater state move (:func:`pretrain_steps`)."""
+        if self._params is None:
+            self.init()
+        layer = self.layers[i]
+        if not layer.is_pretrain_layer:
+            raise ValueError(f"layer {i} ({type(layer).__name__}) is not "
+                             "pretrainable")
+
+        def features(x):
+            return self._forward(self._params, self._to_device(x)[0], False,
+                                 upto=i)
+        pretrain_steps(self, self._layer_keys[i], layer, self._updaters[i],
+                       iterator, epochs, features)
+        return self

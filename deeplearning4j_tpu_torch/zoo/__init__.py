@@ -6,8 +6,8 @@ FaceNetNN4Small2) and ``advanced.py`` (SqueezeNet, UNet, Xception,
 NASNet), and the causal transformer LM of ``transformer_lm.py``. Each
 ``init()`` returns an initialized ``MultiLayerNetwork`` or
 ``ComputationGraph`` on the model's device (the GPU unless
-``device="cpu"``). ``ALL_MODELS`` holds the JAX zoo's sixteen names;
-TinyYOLO and YOLO2 raise until ``Yolo2OutputLayer`` is ported.
+``device="cpu"``). ``ALL_MODELS`` holds the JAX zoo's sixteen names,
+each of which builds (``simple.py`` also holds TinyYOLO and YOLO2).
 
 Pretrained weights load from a local ``.npz`` (the JAX package's
 layout: ``param/<layer>/<name>`` and ``state/<layer>/<name>``) whose

@@ -1,8 +1,8 @@
 """Sequential zoo models (counterpart of
 ``deeplearning4j_tpu/zoo/simple.py``): LeNet, SimpleCNN, AlexNet, VGG16,
-VGG19 and Darknet19, NHWC, and the character-level TextGenerationLSTM,
-at the JAX package's widths. TinyYOLO and YOLO2 need
-``Yolo2OutputLayer`` and raise until it is ported."""
+VGG19, Darknet19 and TinyYOLO, NHWC, the character-level
+TextGenerationLSTM, and YOLO2 (a ComputationGraph for its passthrough),
+at the JAX package's widths."""
 from __future__ import annotations
 
 from ..learning import Nesterovs
@@ -11,6 +11,10 @@ from ..nn.layers import (BatchNormalization, ConvolutionLayer, DenseLayer,
                          DropoutLayer, GlobalPoolingLayer,
                          LocalResponseNormalization, LossLayer, OutputLayer,
                          SubsamplingLayer)
+from ..nn.conf import InputType
+from ..nn.graph import MergeVertex
+from ..nn.layers.convolutional import SpaceToDepthLayer
+from ..nn.layers.objdetect import Yolo2OutputLayer
 from ..nn.layers.recurrent import LSTM, RnnOutputLayer
 from . import ZooModel
 
@@ -139,13 +143,6 @@ class VGG19(VGG16):
     _spec = ((2, 64), (2, 128), (4, 256), (4, 512), (4, 512))
 
 
-class _NotPorted(ZooModel):
-    def init(self):
-        raise NotImplementedError(
-            f"{type(self).__name__} is not ported yet (ROADMAP.md queue A, "
-            f"item 13)")
-
-
 def _dark_conv(b, n_out, kernel=(3, 3)):
     b.layer(ConvolutionLayer(n_out=n_out, kernel=kernel, padding="same",
                              has_bias=False, activation="identity"))
@@ -181,18 +178,105 @@ class Darknet19(ZooModel):
         return self._net(b.input_type_convolutional(h, w, c).build())
 
 
-class TinyYOLO(_NotPorted):
-    """Needs ``Yolo2OutputLayer`` (``nn/layers/objdetect.py``)."""
+class TinyYOLO(ZooModel):
+    """The tiny Darknet backbone (six 3x3 convolutions without bias,
+    each with batch norm and a leaky ReLU, 2x2 max pools, a stride-1
+    "same" pool after the 512 conv) and a YOLOv2 head over 5 anchors:
+    416x416x3 in, a 13x13 grid out."""
 
     name = "tinyyolo"
     input_shape = (416, 416, 3)
+    anchors = ((1.08, 1.19), (3.42, 4.41), (6.63, 11.38), (9.42, 5.11),
+               (16.62, 10.52))
+
+    def __init__(self, num_classes: int = 20, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        b = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(self._updater()).weight_init("relu").list())
+        for n_out in (16, 32, 64, 128, 256):
+            _dark_conv(b, n_out)
+            b.layer(SubsamplingLayer(kernel=(2, 2), stride=(2, 2)))
+        _dark_conv(b, 512)
+        b.layer(SubsamplingLayer(kernel=(2, 2), stride=(1, 1),
+                                 padding="same"))
+        _dark_conv(b, 1024)
+        _dark_conv(b, 1024)
+        A = len(self.anchors)
+        b.layer(ConvolutionLayer(n_out=A * (5 + self.num_classes),
+                                 kernel=(1, 1), activation="identity"))
+        b.layer(Yolo2OutputLayer(anchors=self.anchors))
+        return self._net(b.input_type_convolutional(h, w, c).build())
 
 
-class YOLO2(_NotPorted):
-    """Needs ``Yolo2OutputLayer`` (``nn/layers/objdetect.py``)."""
+class YOLO2(ZooModel):
+    """YOLOv2: the Darknet19 backbone as a ComputationGraph, its 26x26
+    route (``c5e``) through ``SpaceToDepthLayer(2)`` merged with the
+    13x13 ``c7b``, a 3x3 conv and the YOLOv2 head over 5 anchors:
+    608x608x3 in, a 19x19 grid out."""
 
     name = "yolo2"
     input_shape = (608, 608, 3)
+    anchors = ((0.57273, 0.677385), (1.87446, 2.06253), (3.33843, 5.47434),
+               (7.88282, 3.52778), (9.77052, 9.16828))
+
+    def __init__(self, num_classes: int = 80, **kw):
+        super().__init__(num_classes=num_classes, **kw)
+
+    def init(self):
+        h, w, c = self.input_shape
+        g = (NeuralNetConfiguration.builder().seed(self.seed)
+             .updater(self._updater()).weight_init("relu")
+             .graph_builder()
+             .add_inputs("in")
+             .set_input_types(InputType.convolutional(h, w, c)))
+
+        def conv_bn(name, inp, n_out, kernel=(3, 3)):
+            g.add_layer(f"{name}_c", ConvolutionLayer(
+                n_out=n_out, kernel=kernel, padding="same", has_bias=False,
+                activation="identity"), inp)
+            g.add_layer(name, BatchNormalization(activation="leakyrelu"),
+                        f"{name}_c")
+            return name
+
+        def pool(name, inp):
+            g.add_layer(name, SubsamplingLayer(kernel=(2, 2), stride=(2, 2)),
+                        inp)
+            return name
+
+        x = pool("p1", conv_bn("c1", "in", 32))
+        x = pool("p2", conv_bn("c2", x, 64))
+        x = conv_bn("c3a", x, 128)
+        x = conv_bn("c3b", x, 64, (1, 1))
+        x = pool("p3", conv_bn("c3c", x, 128))
+        x = conv_bn("c4a", x, 256)
+        x = conv_bn("c4b", x, 128, (1, 1))
+        x = pool("p4", conv_bn("c4c", x, 256))
+        x = conv_bn("c5a", x, 512)
+        x = conv_bn("c5b", x, 256, (1, 1))
+        x = conv_bn("c5c", x, 512)
+        x = conv_bn("c5d", x, 256, (1, 1))
+        passthrough = conv_bn("c5e", x, 512)      # the route's source
+        x = pool("p5", passthrough)
+        x = conv_bn("c6a", x, 1024)
+        x = conv_bn("c6b", x, 512, (1, 1))
+        x = conv_bn("c6c", x, 1024)
+        x = conv_bn("c6d", x, 512, (1, 1))
+        x = conv_bn("c6e", x, 1024)
+        x = conv_bn("c7a", x, 1024)
+        x = conv_bn("c7b", x, 1024)
+        g.add_layer("reorg", SpaceToDepthLayer(block_size=2), passthrough)
+        g.add_vertex("route", MergeVertex(), "reorg", x)
+        x = conv_bn("c8", "route", 1024)
+        A = len(self.anchors)
+        g.add_layer("pred", ConvolutionLayer(
+            n_out=A * (5 + self.num_classes), kernel=(1, 1),
+            activation="identity"), x)
+        g.add_layer("yolo", Yolo2OutputLayer(anchors=self.anchors), "pred")
+        g.set_outputs("yolo")
+        return self._graph(g.build())
 
 
 class TextGenerationLSTM(ZooModel):

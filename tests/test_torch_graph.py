@@ -835,8 +835,16 @@ def test_feed_forward_score_evaluate_clone():
 
 
 def test_pretraining_is_refused():
+    """Pretraining is ported (tests/test_torch_pretrain_layers.py); a
+    node that is not pretrainable is refused as JAX refuses it, and a
+    graph without one pretrains nothing."""
     tg = T.G.ComputationGraph(residual_mlp(T), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tg.pretrain([])
-    with pytest.raises(NotImplementedError, match="item 13"):
-        tg.pretrain_node("d1", [])
+    jg = J.G.ComputationGraph(residual_mlp(J)).init()
+    before = {k: {n: t.detach().clone() for n, t in p.items()}
+              for k, p in tg.params().items()}
+    assert tg.pretrain([]) is tg
+    for g in (tg, jg):
+        with pytest.raises(ValueError, match="not pretrainable"):
+            g.pretrain_node("d1", [])
+    assert all(torch.equal(t, before[k][n]) for k, p in tg.params().items()
+               for n, t in p.items())

@@ -314,13 +314,14 @@ def test_unported_options_raise():
                                     input_type=InputType.feed_forward(3),
                                     **kw)
         MultiLayerNetwork(c, device="cpu").fit(xs, ys)
-    # pretraining needs the AutoEncoder or VAE layer (item 13);
+    # pretraining is ported (tests/test_torch_pretrain_layers.py): a
+    # layer that is not pretrainable is refused as JAX refuses it;
     # rnn_time_step is ported and streams the LM's blocks (which carry
     # no state) token by token
     net = MultiLayerNetwork(_lm_conf(PORT_SIDE, "plain"), device="cpu")
-    for fn in (net.pretrain, net.pretrain_layer):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            fn(None)
+    with pytest.raises(ValueError, match="not pretrainable"):
+        net.pretrain_layer(0, [])
+    assert net.pretrain([]) is net
     x = _batch()[0]
     assert tuple(net.rnn_time_step(x).shape) == tuple(net.output(x).shape)
     # weight noise is ported: a DropConnect layer trains

@@ -101,10 +101,31 @@ def test_all_sixteen_names():
             getattr(j, "input_shape", ()))
 
 
+class _ConfJson:
+    """Stands in for a network class: ``init()`` returns the built
+    configuration's JSON (no params are drawn)."""
+
+    def __init__(self, conf, device=None):
+        self.conf = conf
+
+    def init(self):
+        return self.conf.to_json()
+
+
 @pytest.mark.parametrize("name", ["TinyYOLO", "YOLO2"])
-def test_models_whose_layers_wait_raise(name):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        getattr(TZ, name)(device="cpu").init()
+def test_models_whose_layers_wait_raise(name, monkeypatch):
+    """The detectors' layers are ported: their configurations build and
+    equal JAX's (their params and steps: tests/test_torch_zoo_yolo.py)."""
+    import deeplearning4j_tpu.nn.graph as jgraph
+    import deeplearning4j_tpu.zoo.simple as jsimple
+    monkeypatch.setattr(jsimple, "MultiLayerNetwork", _ConfJson)
+    monkeypatch.setattr(jgraph, "ComputationGraph", _ConfJson)
+    tm = getattr(TZ, name)(device="cpu", input_shape=(32, 32, 3))
+    monkeypatch.setattr(tm, "_net", lambda conf: conf.to_json())
+    monkeypatch.setattr(tm, "_graph", lambda conf: conf.to_json())
+    text = tm.init()
+    assert text == getattr(JZ, name)(input_shape=(32, 32, 3)).init()
+    assert '"yolo2output"' in text
 
 
 def _same_init(jm, tm):
