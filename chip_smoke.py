@@ -339,6 +339,24 @@ Phases, each of which fails the run when it fails:
    objdetect.py (CnnLossLayer and Cnn3DLossLayer with each mask form) and
    a MaskingLayer -> LSTM -> MaskLayer network, forward (or loss) and
    gradients on the card against the CPU.
+24. data-parallel training of phase 9's net (58.0 M params, Adam(1e-3),
+   the global batch 4 x 1024 tokens, 1 + 5 steps): (a) ParallelWrapper
+   at one worker, whose dense run must equal a clone's plain fit bit
+   for bit with phase 9's launches, and its update and gradient modes
+   with their compression telemetry; (b) two rank processes on the one
+   card over gloo (the kernels built before they start), 2 x 1024
+   tokens a rank, dense, update and gradient modes with the guard on
+   and a NaN-label item in rank 1's rows: the params bit for bit across
+   the ranks after every item, every item against a one-process
+   reference on rank 0 (both workers' rows in turn, the plain encode,
+   the mean), the NaN item skipped on both ranks with the residual
+   kept, the loss falling, the dense gradient against (a)'s, step and
+   collective p50, peak a rank; (c) FaultTolerantTrainer over an
+   update-mode wrapper at two ranks on phase 19b's cut, v3 shards: a
+   preemption resumed at two ranks bit for bit, and the same archive
+   resumed at one worker re-meshed within 0.05 of the two-rank run;
+   (d) ParallelInference's gathered rows against output(). A rank that
+   fails fails the phase; the ranks are killed after 300 s.
 
 Phases 4 to 7 and 12 to 17 serve with the engine's defaults on the card:
 the pipelined decode loop, and every executable of the JAX engine's
@@ -421,6 +439,12 @@ on a "CONV" line as JSON.
 
 runs phase 23 alone (no kernel build) and prints its numbers on a
 "DETECT" line as JSON.
+
+    python3 chip_smoke.py --parallel
+
+runs phase 24 alone (after building the kernels, which its rank
+processes then load) and prints its numbers on a "PARALLEL" line as
+JSON.
 """
 from __future__ import annotations
 
@@ -2677,12 +2701,14 @@ def remat_train(card: str, cfg=TRAIN_CFG, device=None, steps=TRAIN_STEPS):
 def resume_train(card: str, cfg=TRAIN_CFG, device=None, steps=6, every=3,
                  n_layers=RESUME_LAYERS):
     """Phase 19b: phase 9's net (at ``n_layers``) under
-    ``CheckpointListener(save_every_n_iterations=every, keep_last=1)``;
-    the archive written after step ``every`` is restored on the card as
-    a fresh network, which runs the remaining steps on the same batch.
-    Its losses, params and Adam state must be the uninterrupted run's
-    bit for bit; the last archive restores on the CPU, where output()
-    on one sequence matches the card's; keep_last leaves one file."""
+    ``CheckpointListener(save_every_n_iterations=every, keep_last=1)``,
+    called after step ``every`` only (one archive: a second write would
+    only show keep_last's pruning, which tests/test_torch_serializer.py
+    holds on the CPU); the archive is restored
+    on the card as a fresh network, which runs the remaining steps on
+    the same batch. Its losses, params and Adam state must be the
+    uninterrupted run's bit for bit; the archive restores on the CPU,
+    where output() on one sequence matches the card's restore."""
     import shutil
     import tempfile
 
@@ -2704,7 +2730,7 @@ def resume_train(card: str, cfg=TRAIN_CFG, device=None, steps=6, every=3,
 
         class Timed:
             def iteration_done(self, model, iteration, epoch):
-                if iteration % every == 0:
+                if iteration == every:
                     sync()
                     t0 = time.perf_counter()
                     lst.iteration_done(model, iteration, epoch)
@@ -2721,6 +2747,11 @@ def resume_train(card: str, cfg=TRAIN_CFG, device=None, steps=6, every=3,
         resumed = ModelSerializer.restore(path, device=device)
         sync()
         restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = ModelSerializer.restore(path, device="cpu")
+        cpu_restore_s = time.perf_counter() - t0
+        one = x[:1]
+        out_err = _rel(cpu.output(one.cpu()), resumed.output(one))
         resumed_losses = []
         for _ in range(steps - every):
             net.fit(x, y)
@@ -2728,15 +2759,10 @@ def resume_train(card: str, cfg=TRAIN_CFG, device=None, steps=6, every=3,
             resumed.fit(x, y)
             resumed_losses.append(resumed.score_)
         files = sorted(os.listdir(d))
-        want_files = [f"checkpoint_iter_{steps}.zip"]
+        want_files = [f"checkpoint_iter_{every}.zip"]
         pw, perr, pdiff = tree_diff(resumed.params(), net.params())
         aw, aerr, adiff = tree_diff(resumed.get_updater_state(),
                                     net.get_updater_state())
-        t0 = time.perf_counter()
-        cpu = ModelSerializer.restore(lst.last_checkpoint(), device="cpu")
-        cpu_restore_s = time.perf_counter() - t0
-        one = x[:1]
-        out_err = _rel(cpu.output(one.cpu()), net.output(one))
         bad = []
         if resumed_losses != losses[every:]:
             bad.append(f"losses {resumed_losses} vs {losses[every:]}")
@@ -5247,6 +5273,817 @@ def detect_phase(card: str, device=None, yolo2_shape=YOLO2_SHAPE,
           f"no TPU kernel (every counter 0) and took {wall:.1f} s")
     return dict(yolo2=a, yolo2_bf16=b, serve=c, tinyyolo=d, pretraining=e,
                 layers=f, launches=launches, seconds=wall)
+
+
+# -- phase 24: data-parallel training ---------------------------------
+DP_WORLD = 2             # 24b-24d: rank processes on the one card (gloo)
+DP_NAN_ITEM = 3          # 24b: the item (a NaN-label copy of the batch
+#                          in rank 1's rows) the guarded runs must skip
+DP_TOL = 2e-4            # 24b: the dense gradient at W = 2 (the ranks'
+#                          sum) against 24a's at W = 1 from the same
+#                          params and global batch, of a leaf's max. Each
+#                          rank runs the batch of 2, where the flash
+#                          forward picks another key-group split
+#                          (key_groups_for, by grid) and cuBLAS other
+#                          GEMMs: 8.8e-5 measured on attn_Wk, the
+#                          backward kernels' own distance to their plain
+#                          versions (up to 8e-5); 0 on the CPU. The
+#                          ranks' step is the one-process reference's
+#                          bit for bit. After 1 + 5 Adam steps the params
+#                          differ by up to ~lr where a last-bit
+#                          difference flips a near-zero gradient's sign:
+#                          reported, not held.
+DP_REF_TOL = 1e-6        # 24b: each step against the one-process
+#                          reference where a leaf is not bit for bit
+DP_INFER_TOL = 1e-4      # 24d: ParallelInference rows against output()
+#                          of the whole batch, of the max: a rank's rows
+#                          run at batch 2, output() at 4, and cuBLAS picks
+#                          its GEMMs by shape (1.8e-5 measured);
+#                          against output() of the rank's own rows: bit
+#                          for bit
+DP_RES_BATCHES = 6       # 24c: clean batches of one epoch
+DP_PREEMPT = 3           # 24c: the step boundary that preempts B
+DP_REMESH_TOL = 0.05     # 24c: relative L2 of the W = 1 resume against
+#                          the fixed-shape run (docs/distributed.md)
+DP_RANK_TIMEOUT_S = 300  # each rank spawn, killed after
+
+
+def _bits_hash(tree):
+    """One int64 a leaf over the leaf's bits (sorted keys): equal hashes
+    across ranks say the leaves agree bit for bit."""
+    import torch
+    out = []
+    for _, t in sorted(_leaves(tree)):
+        b = t.detach().contiguous().view(torch.int32).reshape(-1) \
+            .to(torch.int64)
+        w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) \
+            * 2654435761 + 97
+        out.append(torch.sum(b * w))
+    return torch.stack(out).cpu()
+
+
+def _ranks_agree(pw, tree) -> bool:
+    """Whether every rank of the wrapper holds ``tree`` bit for bit."""
+    h = _bits_hash(tree)
+    tr = pw.mesh.whole()
+    if tr is None:
+        return True
+    rows = tr.all_gather([h])[0]
+    return bool((rows == rows[0]).all())
+
+
+def _uncounted(fn):
+    """Run ``fn`` without its kernel launches counting (a comparison, not
+    the path)."""
+    from deeplearning4j_tpu_torch import kernels
+    before = kernels.launch_counts()
+    try:
+        return fn()
+    finally:
+        after = kernels.launch_counts()
+        kernels.add_launches({k: before.get(k, 0) - n
+                              for k, n in after.items()})
+
+
+def _clone_nested(tree):
+    return {k: (_clone_nested(v) if isinstance(v, dict)
+                else v.detach().clone()) for k, v in tree.items()}
+
+
+class DPReference:
+    """24b's one-process reference of a W-worker step: each worker's
+    rows of the global batch in turn through the network's own loss and
+    gradients (the dense step under its global-batch view), clipping,
+    the worker's updater (update mode) and the port's plain Strom
+    encode, the decoded sum over workers times the f32 ``1 / W``, and
+    the update, as the wrapper's steps must compute it on W ranks."""
+
+    def __init__(self, net, pw, world):
+        self.net, self.world = net, world
+        self.mode = None if pw.accumulator is None else pw.accumulator.mode
+        self.params = _clone_nested(net._params)
+        self.net_state = _clone_nested(net._net_state)
+        self.opt = _clone_nested(net._opt_state)
+        acc = pw.accumulator
+        if acc is not None:
+            self.res = [_clone_nested(acc.residuals)
+                        for _ in range(world)]
+            self.thr = acc.threshold.clone()
+            if self.mode == "update":
+                self.opt = [_clone_nested(acc.opt_state)
+                            for _ in range(world)]
+            self.acc = acc
+
+    def _grads(self, w, x, y, rng):
+        from deeplearning4j_tpu_torch.nn import global_batch as G
+        from deeplearning4j_tpu_torch.nn.multilayer import _tree_map
+        b = x.shape[0] // self.world
+        rows = slice(w * b, (w + 1) * b)
+        leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
+                           self.params)
+        view = G.over(w, self.world, _no_reduce) if self.mode is None \
+            else contextlib.nullcontext()
+        with view:
+            loss, grads, _, _ = self.net._grads(
+                leaves, self.net_state, x[rows], y[rows], None, True, rng)
+        return loss, grads
+
+    def grad_sum(self, x, y):
+        """The dense step's gradient at these params: the workers' sum
+        (no dropout here), as {leaf: host array}."""
+        total = None
+        for w in range(self.world):
+            _, grads = self._grads(w, x, y, None)
+            total = grads if total is None else {
+                k: {n: total[k][n] + g for n, g in p.items()}
+                for k, p in grads.items()}
+        return {k: t.detach().float().cpu().numpy()
+                for k, t in _leaves(total)}
+
+    def step(self, x, y, rng, step):
+        import torch
+        from deeplearning4j_tpu_torch.nn.multilayer import (_clip_grads,
+                                                            _finite_ok)
+        from deeplearning4j_tpu_torch.parallel import _reciprocal
+        from deeplearning4j_tpu_torch.parallel.compression import (
+            adapt_threshold, strom_encode_decode, strom_value_encode_decode)
+        net, conf = self.net, self.net.conf
+        keys = [(k, n) for k in self.params for n in self.params[k]]
+        inv = _reciprocal(self.world)
+        sums, losses, oks, sparsity, new_res, new_opt = None, [], [], [], \
+            [], []
+        for w in range(self.world):
+            loss, grads = self._grads(w, x, y, rng)
+            oks.append(bool(_finite_ok(loss, grads)))
+            losses.append(loss)
+            if self.mode is None:
+                parts = [grads[k][n] for k, n in keys]
+            else:
+                grads = _clip_grads(grads, conf.max_grad_norm,
+                                    conf.grad_clip_value)
+                with torch.no_grad():
+                    if self.mode == "update":
+                        upd, opt_w = {}, {}
+                        for i, key in enumerate(net._layer_keys):
+                            if key in self.params:
+                                opt_w[key], upd[key] = \
+                                    net._updaters[i].apply(
+                                        _clone_nested(self.opt[w][key]),
+                                        grads[key], step)
+                        new_opt.append(opt_w)
+                        vals, enc_fn = upd, strom_encode_decode
+                    else:
+                        vals, enc_fn = grads, strom_value_encode_decode
+                    enc = [enc_fn(vals[k][n], self.res[w][k][n], self.thr)
+                           for k, n in keys]
+                parts = [d for d, _ in enc]
+                fired = sum(torch.sum(torch.abs(d) > 0) for d in parts)
+                total = sum(d.numel() for d in parts)
+                sparsity.append(fired.to(torch.float32)
+                                * _reciprocal(total))
+                r = {k: {} for k in self.params}
+                for (k, n), (_, rr) in zip(keys, enc):
+                    r[k][n] = rr
+                new_res.append(r)
+            sums = parts if sums is None else \
+                [a + p for a, p in zip(sums, parts)]
+        ok = all(oks)
+        loss = sum(losses[1:], losses[0])
+        with torch.no_grad():
+            if self.mode is None:
+                g = {k: {} for k in self.params}
+                for (k, n), s in zip(keys, sums):
+                    g[k][n] = s
+                g = _clip_grads(g, conf.max_grad_norm, conf.grad_clip_value)
+            else:
+                loss = loss * inv
+                shared = {k: {} for k in self.params}
+                for (k, n), s in zip(keys, sums):
+                    shared[k][n] = s * inv
+                sp = sum(sparsity[1:], sparsity[0]) * inv
+            if not ok:
+                return loss, False      # a skip: nothing moves
+            if self.mode == "update":
+                for k, n in keys:
+                    self.params[k][n] = self.params[k][n] - shared[k][n]
+                self.opt, self.res = new_opt, new_res
+            else:
+                src = g if self.mode is None else shared
+                for i, key in enumerate(net._layer_keys):
+                    if key not in self.params:
+                        continue
+                    self.opt[key], u = net._updaters[i].apply(
+                        _clone_nested(self.opt[key]), src[key], step)
+                    for n in self.params[key]:
+                        self.params[key][n] = self.params[key][n] - u[n]
+                if self.mode == "gradient":
+                    self.res = new_res
+            if self.mode is not None and self.acc.adaptive:
+                a = self.acc
+                self.thr = adapt_threshold(self.thr, sp, a.min_sparsity,
+                                           a.max_sparsity, a.adapt_factor)
+        return loss, True
+
+
+def _no_reduce(t):
+    raise AssertionError("phase 24's reference network has no batch "
+                         "statistic to reduce")
+
+
+def _leaf_gaps(got, ref) -> dict:
+    """{"differ": leaves not bit for bit, "worst": the leaf with the
+    largest error over its max |value|, "worst_err": that error} of two
+    trees of the same layout, computed on their device."""
+    ref_leaves = dict(_leaves(ref))
+    worst, worst_err, differ = None, 0.0, 0
+    for key, t in _leaves(got):
+        r = ref_leaves[key].to(t.device)
+        if t.equal(r):
+            continue
+        differ += 1
+        err = float((t.double() - r.double()).abs().max()) / max(
+            float(r.abs().max()), 1e-30)
+        if worst is None or err > worst_err:
+            worst, worst_err = key, err
+    return {"differ": differ, "worst": worst, "worst_err": worst_err}
+
+
+def dp_guarded_run(pw, net, x, y, steps, reference=None):
+    """24b's guarded run of ``pw``'s step over ``1 + steps`` clean items
+    with a NaN-label copy (rank 1's rows) before clean item DP_NAN_ITEM,
+    committing as the resilient trainer's supervisor does (a skip keeps
+    the step counter and the key chain). Checks every rank's params
+    agree bit for bit after every item; with ``reference`` (rank 0),
+    each item against it. Returns the run's numbers."""
+    import torch
+    from deeplearning4j_tpu_torch import random as R
+    from deeplearning4j_tpu_torch.nn.multilayer import _as_leaves
+    step = pw.ensure_step(guard=True)
+    acc = pw.accumulator
+    on_card = net.device.type == "cuda"
+    bad_y = y.clone()
+    half = y.shape[0] // DP_WORLD
+    bad_y[half:] = float("nan")
+    items = [y] * (1 + steps)
+    items.insert(DP_NAN_ITEM, bad_y)
+    losses, oks, ms, agree, ref_gaps, skip = [], [], [], [], [], {}
+    # the step's own collectives (the barriers and checks use the same
+    # process group): ms a timed item, and calls and bytes over all
+    coll_ms, coll_calls, coll_bytes = [], 0, 0
+    for i, yb in enumerate(items):
+        rng_before = net._rng
+        keys = R.split(net._rng)
+        net._rng, sub = R.key_at(keys, 0), R.key_at(keys, 1)
+        res_before = None if acc is None else _bits_hash(acc.residuals)
+        params_before = _bits_hash(net._params)
+        if on_card:
+            torch.cuda.synchronize()
+        # the ranks start each item together (rank 0's reference ran
+        # outside the window)
+        pw.agree_any([False])
+        c0 = pw.collective_stats()
+        t0 = time.perf_counter()
+        params, opt, nst, loss, ok = step(net._params, net._opt_state,
+                                          net._net_state, net._step, x, yb,
+                                          None, sub)
+        net._params = _as_leaves(params)
+        net._opt_state, net._net_state = opt, nst
+        ok = bool(ok)
+        if on_card:
+            torch.cuda.synchronize()
+        c1 = pw.collective_stats()
+        coll_calls += c1["calls"] - c0["calls"]
+        coll_bytes += c1["bytes"] - c0["bytes"]
+        if yb is not bad_y and i > 0:
+            ms.append((time.perf_counter() - t0) * 1e3)
+            coll_ms.append((c1["seconds"] - c0["seconds"]) * 1e3)
+        ref_step = net._step
+        if ok:
+            net._step += 1
+        else:
+            net._rng = rng_before
+            skip = dict(
+                ok=ok,
+                params_kept=bool(torch.equal(params_before,
+                                             _bits_hash(net._params))),
+                residual_kept=None if acc is None else bool(torch.equal(
+                    res_before, _bits_hash(acc.residuals))))
+        oks.append(ok)
+        losses.append(float(loss))
+        agree.append(_ranks_agree(pw, net._params))
+        if reference is not None:
+            rl, rok = _uncounted(lambda: reference.step(x, yb, sub,
+                                                        ref_step))
+            gap = _leaf_gaps(net._params, reference.params)
+            if acc is not None:
+                r = reference.res[pw.worker_index]
+                gap["residual"] = _leaf_gaps(acc.residuals, r)
+                gap["threshold_equal"] = bool(torch.equal(
+                    acc.threshold, reference.thr))
+            gap.update(ok=rok, loss=float(rl), loss_equal=(
+                rok and float(rl) == float(loss)) or not rok)
+            ref_gaps.append(gap)
+    return dict(losses=losses, oks=oks, step_ms=ms,
+                step_p50_ms=float(np.median(ms)), agree=agree, skip=skip,
+                reference=ref_gaps, collective_step_ms=coll_ms,
+                collective_p50_ms=float(np.median(coll_ms)),
+                collective_calls=coll_calls,
+                collective_bytes=coll_bytes // max(coll_calls, 1))
+
+
+def dp_rank_24b(job, rank):
+    """A rank of 24b (dense, update and gradient modes at W = 2, guard
+    on, each against the one-process reference on rank 0) and 24d
+    (ParallelInference)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        GradientSharingAccumulator, ParallelInference, ParallelWrapper)
+    cfg, steps, device = job["cfg"], job["steps"], job["device"]
+    out = {}
+    local = dict(cfg, batch=cfg["batch"] // DP_WORLD)
+    for mode in ("dense", "update", "gradient"):
+        net = MultiLayerNetwork(train_conf(cfg), device=device).init()
+        dev = net.device
+        on_card = dev.type == "cuda"
+        x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+        acc = None if mode == "dense" else GradientSharingAccumulator(
+            mode=mode)
+        pw = ParallelWrapper(net, accumulator=acc)
+        pw.ensure_step(guard=True)   # builds: the broadcast, the carries
+        ref = DPReference(net, pw, DP_WORLD) if rank == 0 else None
+        if mode == "dense" and rank == 0:
+            np.savez(os.path.join(job["out"], "dense_grads.npz"),
+                     **_uncounted(lambda: ref.grad_sum(x, y)))
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        run = dp_guarded_run(pw, net, x, y, steps, reference=ref)
+        run["launches"] = _flash_counts()
+        run["peak_bytes"] = torch.cuda.max_memory_allocated() \
+            if on_card else None
+        run["telemetry"] = pw.telemetry_snapshot()
+        if mode == "dense" and rank == 0:
+            np.savez(os.path.join(job["out"], "dense_params.npz"),
+                     **{k: t.detach().float().cpu().numpy() for k, t in
+                        _leaves(net.params())})
+        if mode == "gradient":
+            # 24d: the rows split over the ranks and gathered
+            t0 = time.perf_counter()
+            got = ParallelInference(net).output(x)
+            infer_s = time.perf_counter() - t0
+            want = net.output(x)
+            b = local["batch"]
+            own = torch.cat([net.output(x[w * b:(w + 1) * b])
+                             for w in range(DP_WORLD)])
+            out["inference"] = dict(
+                max_abs_err=float((got - want).abs().max()),
+                max_abs=float(want.abs().max()),
+                bit_equal=bool(torch.equal(got, want)),
+                own_rows_bit_equal=bool(torch.equal(got, own)),
+                rows=int(got.shape[0]), seconds=infer_s, local_rows=b)
+        out[mode] = run
+        del net, pw, ref, x, y
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+    return out
+
+
+def dp_rank_24c(job, rank):
+    """A rank of 24c: FaultTolerantTrainer over a W = 2 update-mode
+    wrapper on phase 19b's cut, v3 shards. A runs the epoch; B is
+    preempted at boundary DP_PREEMPT (its flush is the one archive); C
+    resumes B's archive at W = 2 and must end as A bit for bit."""
+    import torch
+    from deeplearning4j_tpu_torch.faults import (FaultInjector,
+                                                 PreemptionFault)
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        GradientSharingAccumulator, ParallelWrapper)
+    from deeplearning4j_tpu_torch.parallel.elastic import \
+        FaultTolerantTrainer as FT
+    cfg, device, root = job["cfg"], job["device"], job["out"]
+
+    def wrapped(net):
+        return ParallelWrapper(net, accumulator=GradientSharingAccumulator(
+            mode="update"))
+
+    def trainer(net, d, **kw):
+        return FT(net, os.path.join(root, d), save_every_n_steps=100,
+                  snapshot_every_n_steps=100, wrapper=wrapped(net),
+                  sharded_checkpoints=True, **kw)
+
+    netA = MultiLayerNetwork(train_conf(cfg), device=device).init()
+    dev = netA.device
+    batches = [recurrence_batch(cfg, cfg["batch"], cfg["seed"] + 200 + s,
+                                dev) for s in range(DP_RES_BATCHES)]
+    lossesA = []
+
+    class Loss:
+        def iteration_done(self, m, step, epoch):
+            lossesA.append(m.score_)
+    netA.set_listeners(Loss())
+    t0 = time.perf_counter()
+    trA = skip_epoch_archive(trainer(netA, "a"))
+    trA.fit(batches, epochs=1)
+    a_s = time.perf_counter() - t0
+    if rank == 0:
+        np.savez(os.path.join(root, "a_params.npz"),
+                 **{k: t.detach().float().cpu().numpy()
+                    for k, t in _leaves(netA.params())})
+    netB = MultiLayerNetwork(train_conf(cfg), device=device).init()
+    t0 = time.perf_counter()
+    trB = trainer(netB, "b", async_write=False,
+                  fault_injector=FaultInjector(plan={"preempt":
+                                                     [DP_PREEMPT]}))
+    try:
+        trB.fit(batches, epochs=1)
+        raise AssertionError("phase 24c: B was not preempted")
+    except PreemptionFault:
+        pass
+    b_s = time.perf_counter() - t0
+    names = [os.path.basename(p) for p in
+             FT.list_checkpoints(os.path.join(root, "b"))]
+    t0 = time.perf_counter()
+    netC = FT.resume(os.path.join(root, "b"), device=device)
+    restore_s = time.perf_counter() - t0
+    stepC0 = netC._step
+    trC = skip_epoch_archive(trainer(netC, "c"))
+    trC.fit(batches, epochs=1)
+    pwA, pwC = trA.wrapper, trC.wrapper
+    return dict(
+        names=names, resumed_step=stepC0, steps=[netA._step, netC._step],
+        remesh=pwC.last_remesh, losses_a=lossesA,
+        params=_leaf_gaps(netC.params(), netA.params()),
+        adam=_leaf_gaps(netC.get_updater_state(),
+                        netA.get_updater_state()),
+        residual=_leaf_gaps(pwC.accumulator.residuals,
+                            pwA.accumulator.residuals),
+        threshold_equal=bool(torch.equal(pwC.accumulator.threshold,
+                                         pwA.accumulator.threshold)),
+        rng_equal=netC._rng == netA._rng, a_s=a_s, b_s=b_s,
+        restore_s=restore_s,
+        write_s=trB.supervisor.checkpoint_write_s,
+        archive_bytes=FT._ckpt_bytes(FT.list_checkpoints(
+            os.path.join(root, "b"))[-1]) if rank == 0 else None)
+
+
+def dp_rank_main() -> int:
+    """Entry of a phase-24 rank process: ``python -c "import chip_smoke;
+    chip_smoke.dp_rank_main()" JOB RANK``."""
+    job_path, rank = sys.argv[1], int(sys.argv[2])
+    with open(job_path) as f:
+        job = json.load(f)
+    import torch
+    from deeplearning4j_tpu_torch.parallel.elastic import initialize_cluster
+    if job["device"] == "cpu":
+        torch.set_num_threads(1)
+    initialize_cluster(job["addr"], job["world"], rank)
+    import torch.distributed as dist
+    res = {"24b": dp_rank_24b, "24c": dp_rank_24c}[job["part"]](job, rank)
+    res["backend"] = str(dist.get_backend())
+    res["jax_imported"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m.split(".")[0] == "deeplearning4j_tpu")
+    with open(os.path.join(job["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f, default=str)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_dp_ranks(part: str, job: dict, timeout_s=DP_RANK_TIMEOUT_S):
+    """Spawn DP_WORLD rank processes for ``part`` ("24b" or "24c"), wait
+    for all (killing every rank at the deadline or when one fails) and
+    return their results by rank. Kernels are built before: the ranks
+    only load the build directory."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    job = dict(job, part=part, addr=f"127.0.0.1:{port}", world=DP_WORLD)
+    path = os.path.join(job["out"], f"job_{part}.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    logs = [os.path.join(job["out"], f"{part}_rank{r}.log")
+            for r in range(DP_WORLD)]
+    procs = []
+    for r in range(DP_WORLD):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c",
+                 "import sys, chip_smoke; sys.exit(chip_smoke."
+                 "dp_rank_main())", path, str(r)],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=here))
+    deadline = time.monotonic() + timeout_s
+    failed = None
+    try:
+        while True:
+            codes = [p.poll() for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            if any(c not in (None, 0) for c in codes):
+                failed = f"a rank exited with {codes}"
+                break
+            if time.monotonic() > deadline:
+                failed = f"the ranks outlasted {timeout_s} s"
+                break
+            time.sleep(0.1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    if failed is not None:
+        tails = []
+        for r, log in enumerate(logs):
+            with open(log) as f:
+                tails.append(f"--- rank {r} ---\n{f.read()[-3000:]}")
+        raise AssertionError(f"phase {part}: {failed}\n" + "\n".join(tails))
+    out = []
+    for r in range(DP_WORLD):
+        with open(os.path.join(job["out"], f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def dp_one_worker(card, cfg, device, steps):
+    """24a: ParallelWrapper(net) at one worker, dense (against a clone's
+    plain fit, bit for bit) and both compressed modes."""
+    import torch
+    from deeplearning4j_tpu_torch.nn import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        GradientSharingAccumulator, ParallelWrapper)
+    net = MultiLayerNetwork(train_conf(cfg), device=device).init()
+    dev = net.device
+    on_card = dev.type == "cuda"
+    plain = net.clone()
+    x, y = recurrence_batch(cfg, cfg["batch"], cfg["seed"], dev)
+    _, grads, _, _ = plain._grads(plain._params, plain._net_state, x, y,
+                                  None, True, None)
+    grads1 = {k: t.detach().float().cpu().numpy() for k, t in
+              _leaves(grads)}
+    del grads
+    for _ in range(1 + steps):
+        plain.fit(x, y)
+    pw = ParallelWrapper(net)
+    reset_launches()
+    ms, losses = [], []
+    for _ in range(1 + steps):
+        t0 = time.perf_counter()
+        pw.fit([(x, y)])
+        if on_card:
+            torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(net.score_)
+    launches = _flash_counts()
+    res = dict(dense=dict(
+        losses=losses, step_ms=ms, step_p50_ms=float(np.median(ms[1:])),
+        launches=launches, workers=pw.num_workers,
+        params=_leaf_gaps(net.params(), plain.params()),
+        adam=_leaf_gaps(net.get_updater_state(),
+                        plain.get_updater_state())))
+    dense_params = {k: t.detach().float().cpu().numpy()
+                    for k, t in _leaves(net.params())}
+    del net, plain, pw
+    for mode in ("update", "gradient"):
+        m = MultiLayerNetwork(train_conf(cfg), device=device).init()
+        pw = ParallelWrapper(m, accumulator=GradientSharingAccumulator(
+            mode=mode))
+        ms, losses = [], []
+        for _ in range(1 + steps):
+            t0 = time.perf_counter()
+            pw.fit([(x, y)])
+            if on_card:
+                torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m.score_)
+        res[mode] = dict(losses=losses, step_ms=ms,
+                         step_p50_ms=float(np.median(ms[1:])),
+                         telemetry=pw.telemetry_snapshot(),
+                         residual_leaves=len(list(_leaves(
+                             pw.accumulator.residuals))))
+        del m, pw
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return res, dense_params, grads1
+
+
+def dp_remesh_one_worker(cfg, device, root):
+    """24c's W = 1 resume of B's W = 2 archive in this process, to the
+    epoch's end: its re-mesh and its distance to A's run."""
+    from deeplearning4j_tpu_torch.parallel import (
+        GradientSharingAccumulator, ParallelWrapper)
+    from deeplearning4j_tpu_torch.parallel.elastic import \
+        FaultTolerantTrainer as FT
+    net = FT.resume(os.path.join(root, "b"), device=device)
+    step0 = net._step
+    pw = ParallelWrapper(net, accumulator=GradientSharingAccumulator(
+        mode="update"))
+    dev = net.device
+    batches = [recurrence_batch(cfg, cfg["batch"], cfg["seed"] + 200 + s,
+                                dev) for s in range(DP_RES_BATCHES)]
+    skip_epoch_archive(FT(net, os.path.join(root, "w1"),
+                          save_every_n_steps=100, snapshot_every_n_steps=100,
+                          wrapper=pw, sharded_checkpoints=True)).fit(
+        batches, epochs=1)
+    with np.load(os.path.join(root, "a_params.npz")) as z:
+        ref = np.concatenate([z[k].ravel() for k in sorted(z.files)])
+    got = np.concatenate([t.detach().float().cpu().numpy().ravel() for _, t in
+                          sorted(_leaves(net.params()))])
+    rel = float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
+    return dict(resumed_step=step0, step=net._step, remesh=pw.last_remesh,
+                rel_l2=rel, finite=bool(np.isfinite(got).all()))
+
+
+def parallel_phase(card: str, cfg=TRAIN_CFG, device=None,
+                   steps=TRAIN_STEPS, resume_layers=RESUME_LAYERS):
+    """Phase 24: data-parallel training of phase 9's net (see the module
+    doc). 24a in this process; 24b/24d and 24c in DP_WORLD rank
+    processes each on the one card over gloo (CUDA tensors staged
+    through pinned host memory), then 24c's W = 1 resume here."""
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    bad = []
+    one, dense1, grads1 = dp_one_worker(card, cfg, device, steps)
+    d = one["dense"]
+    want = cfg["n_layers"] * (1 + steps)
+    if d["params"]["differ"] or d["adam"]["differ"]:
+        bad.append(f"24a dense vs plain fit: {d['params']} {d['adam']}")
+    on_card = (device or "cuda") != "cpu"
+    if on_card and any(d["launches"][k] != want for k in (
+            "flash_attention", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv")):
+        bad.append(f"24a launches {d['launches']} (want {want} each)")
+    for mode in ("update", "gradient"):
+        c = one[mode]
+        if "compression" not in c["telemetry"] or \
+                not all(np.isfinite(c["losses"])):
+            bad.append(f"24a {mode}: {c['telemetry']} {c['losses']}")
+    root = tempfile.mkdtemp(prefix="dl4j_dp_")
+    try:
+        job = dict(cfg=cfg, steps=steps, device=device or "cuda",
+                   out=os.path.join(root, "b"))
+        os.makedirs(job["out"])
+        t0 = time.perf_counter()
+        r24b = run_dp_ranks("24b", job)
+        b_s = time.perf_counter() - t0
+        def gaps(name, ref):
+            with np.load(os.path.join(job["out"], name)) as z:
+                got = {k: z[k] for k in z.files}
+            g = {k: float(np.abs(got[k].astype(np.float64) - v).max()
+                          / max(float(np.abs(v).max()), 1e-30))
+                 for k, v in ref.items()}
+            worst = max(g, key=g.get)
+            return dict(worst=worst, worst_err=g[worst], leaves=len(g),
+                        over=sum(e > DP_TOL for e in g.values()))
+        grad_vs_24a = gaps("dense_grads.npz", grads1)
+        dense_vs_24a = gaps("dense_params.npz", dense1)
+        if grad_vs_24a["worst_err"] > DP_TOL:
+            bad.append(f"24b's dense gradient vs 24a's: {grad_vs_24a}")
+        for r, res in enumerate(r24b):
+            if res["jax_imported"]:
+                bad.append(f"rank {r} imported {res['jax_imported']}")
+            for mode in ("dense", "update", "gradient"):
+                run = res[mode]
+                tag = f"24b {mode} rank {r}"
+                oks = [True] * (1 + steps + 1)
+                oks[DP_NAN_ITEM] = False
+                if run["oks"] != oks or not all(run["agree"]):
+                    bad.append(f"{tag}: oks {run['oks']} agree "
+                               f"{run['agree']}")
+                sk = run["skip"]
+                if not sk.get("params_kept") or (
+                        mode != "dense" and not sk.get("residual_kept")):
+                    bad.append(f"{tag}: the skip moved state {sk}")
+                clean = [lv for lv, ok in zip(run["losses"], run["oks"])
+                         if ok]
+                if not clean[-1] < clean[0]:
+                    bad.append(f"{tag}: the loss did not fall {clean}")
+                # every item runs forward and backward, the skipped one
+                # too; the reference's launches are not counted
+                if on_card and any(run["launches"][k] != cfg["n_layers"]
+                                   * (2 + steps) for k in (
+                                       "flash_attention",
+                                       "flash_attention_bwd_dq",
+                                       "flash_attention_bwd_dkv")):
+                    bad.append(f"{tag}: launches {run['launches']}")
+                for i, gap in enumerate(run["reference"]):
+                    exact = gap["differ"] == 0 and (
+                        "residual" not in gap
+                        or gap["residual"]["differ"] == 0)
+                    close = gap["worst_err"] <= DP_REF_TOL and (
+                        "residual" not in gap
+                        or gap["residual"]["worst_err"] <= DP_REF_TOL)
+                    if not close or gap.get("threshold_equal") is False \
+                            or gap["ok"] != run["oks"][i]:
+                        bad.append(f"{tag} item {i} vs the reference: "
+                                   f"{gap}")
+                    gap["exact"] = exact
+        inf = r24b[0]["inference"]
+        if inf["max_abs_err"] > DP_INFER_TOL * inf["max_abs"] or not \
+                all(r["inference"]["own_rows_bit_equal"] for r in r24b):
+            bad.append(f"24d: {inf}")
+        # 24c: the resilient trainer over the wrapper, phase 19b's cut
+        cfg_c = dict(cfg, n_layers=resume_layers)
+        job_c = dict(cfg=cfg_c, steps=steps, device=device or "cuda",
+                     out=os.path.join(root, "c"))
+        os.makedirs(job_c["out"])
+        t0 = time.perf_counter()
+        r24c = run_dp_ranks("24c", job_c)
+        c_s = time.perf_counter() - t0
+        for r, res in enumerate(r24c):
+            if (res["resumed_step"] != DP_PREEMPT or res["remesh"]
+                    is not None or res["steps"] != [DP_RES_BATCHES] * 2
+                    or res["params"]["differ"] or res["adam"]["differ"]
+                    or res["residual"]["differ"]
+                    or not res["threshold_equal"] or not res["rng_equal"]
+                    or len(res["names"]) != 1):
+                bad.append(f"24c rank {r}: {res}")
+        gc.collect()
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        remesh = dp_remesh_one_worker(cfg_c, device, job_c["out"])
+        remesh["seconds"] = time.perf_counter() - t0
+        if (tuple(remesh["remesh"] or ()) != (DP_WORLD, 1)
+                or remesh["rel_l2"] > DP_REMESH_TOL
+                or not remesh["finite"] or remesh["resumed_step"]
+                != DP_PREEMPT):
+            bad.append(f"24c W = 1 resume: {remesh}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    res = dict(one=one, ranks_24b=r24b, grad_vs_24a=grad_vs_24a,
+               dense_vs_24a=dense_vs_24a, ranks_24c=r24c, remesh=remesh,
+               spawn_24b_s=b_s, spawn_24c_s=c_s,
+               seconds=time.perf_counter() - t_phase)
+    r0 = r24b[0]
+    print(f"data parallel (phase 24a) [{card}]: ParallelWrapper(net) at "
+          f"W = 1, {1 + steps} steps: params and Adam state equal a "
+          f"clone's plain fit bit for bit, step p50 {d['step_p50_ms']:.2f}"
+          f" ms, launches {d['launches']}; update mode step p50 "
+          f"{one['update']['step_p50_ms']:.2f} ms "
+          f"({one['update']['telemetry']['compression']}), gradient mode "
+          f"{one['gradient']['step_p50_ms']:.2f} ms")
+    for mode in ("dense", "update", "gradient"):
+        runs = [rr[mode] for rr in r24b]
+        tel = runs[0]["telemetry"].get("compression")
+        ref_gaps = runs[0]["reference"]
+        exact = all(g["exact"] for g in ref_gaps)
+        print(f"data parallel (phase 24b, {mode}) [{card}]: W = "
+              f"{DP_WORLD} ranks on one card over {r0['backend']}, "
+              f"{cfg['batch'] // DP_WORLD} x {cfg['seq_len']} tokens a "
+              f"rank, guard on: step p50 "
+              f"{[round(rr['step_p50_ms'], 2) for rr in runs]} ms (by "
+              f"rank), the step's collective p50 "
+              f"{runs[0]['collective_p50_ms']:.2f} ms ("
+              f"{runs[0]['collective_calls']} calls over the items, "
+              f"{runs[0]['collective_bytes']} bytes each), params equal "
+              f"across the ranks after every item, the NaN item skipped on "
+              f"both ({runs[0]['skip']}), losses "
+              f"{[round(v, 4) for v in runs[0]['losses']]}, against the "
+              f"one-process reference "
+              + ("bit for bit" if exact else
+                 f"within {max(g['worst_err'] for g in ref_gaps):.3e} "
+                 f"(not bit for bit)")
+              + f"; peak {[rr['peak_bytes'] for rr in runs]} bytes a rank"
+              + (f"; compression {tel}" if tel else ""))
+    print(f"data parallel (phase 24b) [{card}]: the dense gradient at W "
+          f"= {DP_WORLD} against 24a's from the same params: worst leaf "
+          f"{grad_vs_24a['worst']} at {grad_vs_24a['worst_err']:.3e} of "
+          f"its max (tol {DP_TOL:g}); the params after {1 + steps} Adam "
+          f"steps: worst {dense_vs_24a['worst']} at "
+          f"{dense_vs_24a['worst_err']:.3e}, {dense_vs_24a['over']} of "
+          f"{dense_vs_24a['leaves']} leaves beyond {DP_TOL:g} (not held)")
+    c0 = r24c[0]
+    print(f"data parallel (phase 24c) [{card}]: FaultTolerantTrainer over "
+          f"an update-mode wrapper at W = {DP_WORLD}, {resume_layers} "
+          f"blocks, v3 shards: preempted at step {DP_PREEMPT} "
+          f"({c0['names']}, {c0['archive_bytes']} bytes, written in "
+          f"{c0['write_s']:.2f} s), resumed at W = {DP_WORLD} bit for bit "
+          f"(params, Adam, residuals, threshold, key), restore "
+          f"{c0['restore_s']:.2f} s; at W = 1: last_remesh "
+          f"{remesh['remesh']}, rel L2 {remesh['rel_l2']:.4e} to the W = "
+          f"{DP_WORLD} run (tol {DP_REMESH_TOL:g})")
+    print(f"data parallel (phase 24d) [{card}]: ParallelInference at W = "
+          f"{DP_WORLD}: {inf['rows']} rows gathered, max abs err "
+          f"{inf['max_abs_err']:.3e} against output() of the whole batch "
+          f"(tol {DP_INFER_TOL:g} of {inf['max_abs']:.3e}; bit for bit: "
+          f"{inf['bit_equal']}), each rank's rows bit for bit output() "
+          f"of those rows: {inf['own_rows_bit_equal']}; phase 24 took "
+          f"{res['seconds']:.1f} s (24b's ranks {b_s:.1f} s, 24c's "
+          f"{c_s:.1f} s)")
+    if bad:
+        raise AssertionError(f"phase 24 failed: {bad}")
+    return res
 
 
 def reset_launches():
@@ -8099,6 +8936,13 @@ def main() -> int:
         res = detect_phase(card_line())
         print("DETECT " + json.dumps(res, default=str))
         return 0
+    if sys.argv[1:2] == ["--parallel"]:
+        # phase 24 alone: the kernels are built here, before the ranks
+        from deeplearning4j_tpu_torch.kernels import _build
+        _build.build()
+        res = parallel_phase(card_line())
+        print("PARALLEL " + json.dumps(res, default=str))
+        return 0
     from deeplearning4j_tpu_torch.kernels import _build
     dev = torch.device("cuda")
     card = card_line()
@@ -8261,9 +9105,21 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     detect = detect_phase(card)
+    # phase 24: data-parallel training, ParallelWrapper at one worker
+    # here and two rank processes on the card
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = parallel_phase(card)
     print(f"phase 20c took {resilient['seconds']:.1f} s without its two "
           f"epoch-end archive writes; phase 23 took "
-          f"{detect['seconds']:.1f} s")
+          f"{detect['seconds']:.1f} s; phase 24 took "
+          f"{parallel['seconds']:.1f} s")
+    dp_launches = {k: parallel["one"]["dense"]["launches"][k]
+                   + sum(r[mode]["launches"][k]
+                         for r in parallel["ranks_24b"]
+                         for mode in ("dense", "update", "gradient"))
+                   for k in ("flash_attention", "flash_attention_bwd_dq",
+                             "flash_attention_bwd_dkv")}
 
     def row(name, src, replaces, launches, res):
         return dict(name=name, route="cuda",
@@ -8317,6 +9173,17 @@ def main() -> int:
         row("flash_attention_draft_d16", "flash_attention.cu",
             "flash_attention.py:65", spec_paged["b3_launches"],
             flash_draft),
+        # phase 24's launches of the f32 legs (24a's dense run and every
+        # rank's 24b runs, the references not counted), beside the same
+        # kernels' timings above
+        row("flash_attention_dp", "flash_attention.cu",
+            "flash_attention.py:65", dp_launches["flash_attention"], flash),
+        row("flash_attention_bwd_dq_dp", "flash_attention.cu",
+            "flash_attention.py:169", dp_launches["flash_attention_bwd_dq"],
+            bwd["dq"]),
+        row("flash_attention_bwd_dkv_dp", "flash_attention.cu",
+            "flash_attention.py:214",
+            dp_launches["flash_attention_bwd_dkv"], bwd["dkv"]),
     ]
     print("details: " + json.dumps(
         dict(card=card, decode=decode, decode_dims=decode_dims,
@@ -8332,7 +9199,7 @@ def main() -> int:
              train=trained, train_bf16=trained_bf16, cnn=cnn,
              remat=remat, resume=resume, rnn=rnn, transfer=transfer,
              pure_bf16=pure_bf16, resilient=resilient, graph=graph,
-             conv=conv, detect=detect,
+             conv=conv, detect=detect, parallel=parallel,
              build={n: l["seconds"] for n, l in logs.items()}, sass=sass),
         default=str))
     print(json.dumps({"kernels": kernels}))

@@ -6,7 +6,9 @@ Each loss takes (labels, preout, activation, mask) as the reference's
 the softmax and sigmoid cross-entropies run in fused, stable forms.
 ``score_array`` gives one score per example (the sum over outputs),
 ``score`` their mean over the minibatch, or over the live rows when a
-mask is given. Per-output ``weights`` multiply the unreduced loss.
+mask is given. Per-output ``weights`` multiply the unreduced loss. In a
+data-parallel step the divisor (and the F-measure's batch sums) are the
+global batch's (``nn/global_batch.py``).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Optional
 import torch
 
 from ..activations import Activation, Identity, Sigmoid, Softmax
+from ..nn import global_batch as G
 
 _EPS = 1e-7
 
@@ -62,8 +65,9 @@ class LossFunction:
         whose mask is nonzero anywhere (at least 1)."""
         s = self.score_array(labels, preout, activation, mask).sum()
         if average:
-            n = labels.shape[0] if mask is None else torch.clamp_min(
-                _row_mask(mask).sum(), 1)
+            # the global batch's count in a data-parallel step
+            n = G.rows(labels.shape[0]) if mask is None else \
+                torch.clamp_min(G.count(_row_mask(mask).sum()), 1)
             s = s / n
         return s
 
@@ -242,9 +246,9 @@ class LossFMeasure(LossFunction):
         out = activation(preout)
         col = 1 if labels.shape[-1] == 2 else 0
         y, p = labels[..., col], out[..., col]
-        tp = torch.sum(y * p)
-        fp = torch.sum((1 - y) * p)
-        fn = torch.sum(y * (1 - p))
+        tp = G.sum_(torch.sum(y * p))
+        fp = G.sum_(torch.sum((1 - y) * p))
+        fn = G.sum_(torch.sum(y * (1 - p)))
         b2 = self.beta ** 2
         num = (1 + b2) * tp
         den = (1 + b2) * tp + b2 * fn + fp
@@ -257,7 +261,7 @@ class LossFMeasure(LossFunction):
 
     def score(self, labels, preout, activation=Identity(), mask=None,
               average=True):
-        return self._batch_score(labels, preout, activation)
+        return G.share(self._batch_score(labels, preout, activation))
 
 
 class LossMultiLabel(LossFunction):

@@ -9,6 +9,10 @@ bit for bit, on the CPU and on the card alike. The Gaussian schemes
 draw JAX's uniforms too; their normals are within a few f32 ulp of
 JAX's (``random.normal``).
 
+In a data-parallel step each rank takes its rows of the draw for the
+global batch (``nn/global_batch.py``), as JAX draws one mask for the
+whole sharded batch.
+
 As in the JAX package, ``p`` is the DROP probability and a float
 ``dropout=p`` on a layer is shorthand for ``Dropout(p)``.
 """
@@ -20,6 +24,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ... import random as R
+from .. import global_batch as G
 
 
 def _zero(x):
@@ -62,7 +67,7 @@ class Dropout(IDropout):
         if not train or not self.p or rng is None:
             return x
         keep = 1.0 - self.p
-        mask = R.bernoulli(rng, keep, x.shape, x.device)
+        mask = G.draw(lambda s: R.bernoulli(rng, keep, s, x.device), x.shape)
         return torch.where(mask, x / keep, _zero(x))
 
     def _extra_json(self):
@@ -81,7 +86,8 @@ class GaussianDropout(IDropout):
         if not train or not self.rate or rng is None:
             return x
         stddev = math.sqrt(self.rate / (1.0 - self.rate))
-        noise = 1.0 + stddev * R.normal(rng, x.shape, x.dtype, x.device)
+        noise = 1.0 + stddev * G.draw(
+            lambda s: R.normal(rng, s, x.dtype, x.device), x.shape)
         return x * noise
 
     def _extra_json(self):
@@ -99,7 +105,8 @@ class GaussianNoise(IDropout):
     def apply(self, x, rng, train):
         if not train or not self.stddev or rng is None:
             return x
-        return x + self.stddev * R.normal(rng, x.shape, x.dtype, x.device)
+        return x + self.stddev * G.draw(
+            lambda s: R.normal(rng, s, x.dtype, x.device), x.shape)
 
     def _extra_json(self):
         return {"stddev": self.stddev}
@@ -125,7 +132,7 @@ class AlphaDropout(IDropout):
         alpha_prime = -self.LAMBDA * self.ALPHA
         a = (keep + alpha_prime ** 2 * keep * (1 - keep)) ** -0.5
         b = -a * alpha_prime * (1 - keep)
-        mask = R.bernoulli(rng, keep, x.shape, x.device)
+        mask = G.draw(lambda s: R.bernoulli(rng, keep, s, x.device), x.shape)
         return a * torch.where(mask, x, torch.full((), alpha_prime,
                                                    dtype=x.dtype,
                                                    device=x.device)) + b
@@ -152,7 +159,7 @@ class SpatialDropout(IDropout):
             shape = tuple(x.shape)
         else:
             shape = (x.shape[0],) + (1,) * (x.ndim - 2) + (x.shape[-1],)
-        mask = R.bernoulli(rng, keep, shape, x.device)
+        mask = G.draw(lambda s: R.bernoulli(rng, keep, s, x.device), shape)
         return torch.where(mask, x / keep, _zero(x))
 
     def _extra_json(self):

@@ -57,6 +57,7 @@ from ...weightinit import init_weights, subkeys
 from ..conf import constraint as C
 from ..conf import dropout as D
 from ..conf import weightnoise as WN
+from .. import global_batch as G
 from ..functional import matmul
 
 Shape = Tuple[int, ...]
@@ -609,8 +610,9 @@ class BatchNormalization(Layer):
     running stats become ``decay * old + (1 - decay) * batch`` with the
     same biased variance (``torch.nn.BatchNorm2d`` folds in the unbiased
     one, and its ``momentum`` is ``1 - decay``); in inference the
-    running stats normalize. The output goes back to the input's dtype.
-    ``lock_gamma_beta`` drops gamma and beta."""
+    running stats normalize. In a data-parallel step the statistics are
+    the global batch's (``nn/global_batch.py``). The output goes back to
+    the input's dtype. ``lock_gamma_beta`` drops gamma and beta."""
 
     kind = "batchnorm"
 
@@ -650,8 +652,14 @@ class BatchNormalization(Layer):
     def apply(self, params, x, state, train, rng):
         axes = tuple(range(x.ndim - 1))
         xs = x.to(torch.promote_types(x.dtype, torch.float32))
-        if train:
+        if train and G.active():
+            # a data-parallel step: the global batch's statistics
+            n = G.rows(xs.numel() // xs.shape[-1])
+            mean = G.sum_(xs.sum(dim=axes)) / n
+            var = G.sum_(torch.square(xs - mean).sum(dim=axes)) / n
+        elif train:
             var, mean = torch.var_mean(xs, dim=axes, correction=0)
+        if train:
             d = self.decay
             new_state = {
                 "mean": (d * state["mean"] + (1 - d) * mean.detach()

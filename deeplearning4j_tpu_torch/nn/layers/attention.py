@@ -138,7 +138,7 @@ class SelfAttentionLayer(Layer):
         if implementation == "blockwise":
             raise NotImplementedError(
                 "blockwise attention is not ported yet (ROADMAP.md queue "
-                "A, item 14)")
+                "A, item 14b)")
         if implementation not in ("auto", "plain", "flash"):
             raise ValueError(f"unknown implementation {implementation!r}")
         self.implementation = implementation

@@ -18,6 +18,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from .. import global_batch as G
 from . import Layer, register
 
 
@@ -88,7 +89,8 @@ class Yolo2OutputLayer(Layer):
         loss_noobj = torch.sum(noobj * torch.square(p_conf))
         loss_cls = torch.sum(obj * torch.square(p_cls - lab_cls))
         return (self.lambda_coord * (loss_xy + loss_wh) + loss_obj
-                + self.lambda_noobj * loss_noobj + loss_cls) / x.shape[0]
+                + self.lambda_noobj * loss_noobj
+                + loss_cls) / G.rows(x.shape[0])
 
     def _extra_json(self):
         return {"anchors": [list(a) for a in self.anchors],

@@ -21,6 +21,7 @@ import torch
 
 from ... import random as R
 from ...weightinit import init_weights
+from .. import global_batch as G
 from ..functional import matmul
 from . import Layer, OutputLayer, register
 
@@ -63,9 +64,9 @@ class CenterLossOutputLayer(OutputLayer):
         d2 = torch.sum(torch.square(x - assigned), dim=-1)
         if mask is not None and mask.ndim == 1:
             d2 = d2 * mask
-            denom = torch.clamp_min(torch.sum(mask), 1.0)
+            denom = torch.clamp_min(G.count(torch.sum(mask)), 1.0)
         else:
-            denom = d2.shape[0]
+            denom = G.rows(d2.shape[0])
         return ce + 0.5 * self.lambda_ * torch.sum(d2) / denom
 
     def _extra_json(self):
@@ -141,12 +142,16 @@ class OCNNOutputLayer(Layer):
         hinge = torch.maximum(torch.zeros_like(d), d)
         if mask is not None and mask.ndim == 1:
             mean_h = torch.sum(hinge * mask) / torch.clamp_min(
-                torch.sum(mask), 1.0)
+                G.count(torch.sum(mask)), 1.0)
+        elif G.active():
+            mean_h = torch.sum(hinge) / G.rows(hinge.shape[0])
         else:
             mean_h = torch.mean(hinge)
         reg = 0.5 * torch.sum(torch.square(params["V"])) \
             + 0.5 * torch.sum(torch.square(params["w"]))
-        return reg + mean_h / self.nu - r
+        # in a data-parallel step each rank carries its share of the
+        # batch-independent terms (nn/global_batch.py)
+        return G.share(reg) + mean_h / self.nu - G.share(r)
 
     def _extra_json(self):
         return {"hidden_size": self.hidden_size, "nu": self.nu,

@@ -70,6 +70,8 @@ from .. import random as R
 from ..device import resolve_device
 from .conf import MultiLayerConfiguration
 from .conf.constraint import apply_constraints
+from .global_batch import LocalShard
+from . import global_batch as G
 from .layers import Layer
 from .precision import (cast_feats_to_f32, cast_input_for_compute,
                         cast_params_for_compute, compute_dtype)
@@ -157,6 +159,13 @@ def _clone_tree(tree):
                      else t, tree)
 
 
+def _as_leaves(params: Params) -> Params:
+    """A step's new params as the network's leaves (they require
+    grad)."""
+    return {k: {n: t.requires_grad_(True) for n, t in p.items()}
+            for k, p in params.items()}
+
+
 def _subtract(p: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """``p - u`` as JAX computes it: in place when the result keeps
     ``p``'s dtype (every f32 param), else a new leaf in the promoted
@@ -232,6 +241,8 @@ class MultiLayerNetwork:
         self.listeners: List = []
         self._last_loss: Optional[torch.Tensor] = None
         self._stored_carries = None
+        #: a ParallelWrapper's step while its fit runs (else None)
+        self._jit_step = None
         self._rng = R.PRNGKey(conf.seed)
         self._input_kind = conf.input_type.kind if conf.input_type else "ff"
         self._input_shape = conf.input_type.shape if conf.input_type else None
@@ -401,8 +412,10 @@ class MultiLayerNetwork:
         out_key = self._layer_keys[-1]
         data_loss = self.layers[-1].compute_loss(
             params.get(out_key, {}), feats, y, lmask, train=train, rng=r_out)
-        return (data_loss + _regularization_penalty(
-            params, self._layers_meta), new_state, new_carries)
+        # a rank of a data-parallel step carries its share of the
+        # penalty (nn/global_batch.py)
+        return (data_loss + G.share(_regularization_penalty(
+            params, self._layers_meta)), new_state, new_carries)
 
     # -- the train step ------------------------------------------------
     def loss_and_gradients(self, x, y, mask=None, train: bool = True,
@@ -475,7 +488,7 @@ class MultiLayerNetwork:
                     self._net_state[key][n].copy_(t)
         self._step += 1
 
-    def _make_step_fn(self, guard: bool = False):
+    def _make_step_fn(self, guard: bool = False, grads_fn=None):
         """The pure train step: ``step_fn(params, opt_state, net_state,
         step, x, y, mask, rng) -> (params, opt_state, net_state, loss)``,
         new tensors all, the inputs left as they were (JAX's
@@ -484,12 +497,23 @@ class MultiLayerNetwork:
         where ``ok`` is False, selects the OLD params, updater state and
         layer state with ``torch.where``: a NaN or Inf batch changes
         nothing, the host never waits, and over clean data the guarded
-        step's results are the unguarded ones bit for bit."""
+        step's results are the unguarded ones bit for bit.
+
+        ``grads_fn(leaves, net_state, x, y, mask, rng) -> (loss, grads,
+        new_net_state)`` replaces the step's first half (the network's
+        own loss and gradients by default): the data-parallel dense step
+        (``parallel.jit_sharded_step``) passes its own, which sums the
+        ranks' gradients before the update half runs."""
+        if grads_fn is None:
+            def grads_fn(leaves, net_state, x, y, mask, rng):
+                return self._grads(leaves, net_state, x, y, mask, True,
+                                   rng)[:3]
+
         def step_fn(params, opt_state, net_state, step, x, y, mask, rng):
             leaves = _tree_map(lambda t: t.detach().requires_grad_(True),
                                params)
-            loss, grads, new_net_state, _ = self._grads(
-                leaves, net_state, x, y, mask, True, rng)
+            loss, grads, new_net_state = grads_fn(leaves, net_state, x, y,
+                                                  mask, rng)
             if guard:
                 ok = _finite_ok(loss, grads)
             grads = _clip_grads(grads, self.conf.max_grad_norm,
@@ -591,6 +615,16 @@ class MultiLayerNetwork:
                     # JAX's condition: only 3-D input longer than a chunk
                     self._last_loss = self._fit_tbptt(xd, yd, md, tbptt)
                     self._step += 1
+                elif self._jit_step is not None:
+                    # a ParallelWrapper's step installed for its fit
+                    # (JAX's seam): the pure step's signature
+                    params, self._opt_state, self._net_state, loss = \
+                        self._jit_step(self._params, self._opt_state,
+                                       self._net_state, self._step, xd,
+                                       yd, md, sub)
+                    self._params = _as_leaves(params)
+                    self._step += 1
+                    self._last_loss = loss
                 else:
                     self._last_loss = self._train_step(xd, yd, md, sub)
                 dur = time.perf_counter() - t0
@@ -605,14 +639,22 @@ class MultiLayerNetwork:
         return self
 
     def _to_device(self, x, y=None, mask=None):
+        """The arrays as tensors on the network's device (a
+        ``LocalShard``, a rank's rows of a global array, keeps its
+        wrapper around its moved rows)."""
         def conv(a):
             if a is None:
                 return None
+            if isinstance(a, LocalShard):
+                return a.map(conv)
             t = torch.as_tensor(a)
             if t.dtype == torch.float64:
                 t = t.float()
             return t.to(self.device)
-        return self._reshape_input(conv(x)), conv(y), conv(mask)
+        x = conv(x)
+        x = x.map(self._reshape_input) if isinstance(x, LocalShard) \
+            else self._reshape_input(x)
+        return x, conv(y), conv(mask)
 
     def output(self, x, train: bool = False, mask=None):
         """Forward pass of the whole stack (``mask``: the [B, T]

@@ -21,9 +21,22 @@ by :class:`PreemptionHandler`, or another worker's notice through a
 :class:`~.multihost.PreemptionCoordinator` flushes a checkpoint at the
 next step boundary and raises :class:`~..faults.PreemptionFault`.
 
-The ``wrapper=`` mode (a ``ParallelWrapper``'s sharded step, its
-gradient-sharing state in the checkpoints) and the multi-process form
-of :func:`initialize_cluster` wait for ROADMAP.md queue A, item 14.
+With ``wrapper=`` (a ``ParallelWrapper``) the loop runs the wrapper's
+data-parallel step, dense or compressed, and the gradient-sharing
+state (every worker's residual and updater moments, the threshold)
+rides in every checkpoint: gathered from the ranks into JAX's stacked
+``gradient_sharing/...`` members, so each package restores the other's
+archives. Sharded (v3) checkpoints then hold one shard a worker. A
+resume at the same worker count is bit for bit; at another count the
+resuming wrapper re-buckets the per-worker arrays
+(``parallel.rebucket_worker_array``) and records ``last_remesh``. With
+several ranks, every rank runs the same trainer on the same data: the
+snapshots are collectives, only the mesh's first rank writes, and the
+step-boundary preemption decisions are agreed over the ranks, so all
+stop at the same step.
+
+:func:`initialize_cluster` joins this process to a
+``torch.distributed`` world.
 """
 from __future__ import annotations
 
@@ -50,11 +63,6 @@ from ..util.serializer import (MANIFEST_NAME, CheckpointFormatError,  # noqa: F4
 from .multihost import PreemptionCoordinator, split_data_cursor  # noqa: F401
 from .resilience import (AsyncCheckpointWriter, TrainingAnomalyError,  # noqa: F401
                          TrainingSupervisor)
-
-
-def _not_ported(what: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md queue "
-                              "A, item 14)")
 
 
 def _pid_alive(pid: int) -> bool:
@@ -103,8 +111,11 @@ class FaultTolerantTrainer:
             pass            # restart: resume() + fit() continues
                             # bit-exactly mid-epoch
 
-    ``wrapper=`` (a ``ParallelWrapper``'s sharded step) raises until
-    ParallelWrapper is ported (ROADMAP.md queue A, item 14)."""
+    Pass ``wrapper=ParallelWrapper(model, ...)`` to run the supervised
+    loop over the wrapper's data-parallel (optionally compressed) step;
+    the gradient-sharing accumulator's residuals, threshold and
+    per-worker updater moments ride inside every checkpoint and restore
+    on resume."""
 
     def __init__(self, model, checkpoint_dir: str,
                  save_every_n_epochs: int = 1, keep_last: int = 3,
@@ -134,9 +145,13 @@ class FaultTolerantTrainer:
         self.sharded_checkpoints = bool(sharded_checkpoints)
         self.coordinator = coordinator
         self.worker_id = (None if worker_id is None else int(worker_id))
-        if wrapper is not None:
-            _not_ported("FaultTolerantTrainer(wrapper=...), the "
-                        "ParallelWrapper step,")
+        self.wrapper = wrapper
+        if wrapper is not None and wrapper.model is not model:
+            raise ValueError("wrapper.model must be the trainer's model")
+        # with several ranks only the mesh's first writes the archives;
+        # the others take part in each snapshot's gathers
+        self._writes = wrapper is None or wrapper.writes_checkpoints
+        self._ranks = 1 if wrapper is None else wrapper.mesh.size
         self._step_mode = bool(self.save_every_n_steps
                                or fault_injector is not None
                                or anomaly_guard)
@@ -161,6 +176,7 @@ class FaultTolerantTrainer:
         self._obs = None
         self._trace = None
         self._root_span = None
+        self._remesh_reported = False
         self._phases = {"data_wait_s": 0.0, "device_step_s": 0.0}
         # rollback-snapshot cadence: default to the disk cadence (the
         # same host copy feeds both); a guarded run with no disk
@@ -198,6 +214,12 @@ class FaultTolerantTrainer:
     def _step_ckpt_path(self, epoch: int, step: int) -> str:
         return os.path.join(
             self.dir, f"checkpoint_epoch{epoch}_step{step}.{self._ext}")
+
+    def _num_shards(self) -> int:
+        """v3 shard count: the wrapper's worker count (the per-worker
+        state's leading axis), 1 for a plain single-worker trainer."""
+        return (self.wrapper.num_workers if self.wrapper is not None
+                else 1)
 
     @staticmethod
     def list_checkpoints(directory: str) -> List[str]:
@@ -241,7 +263,10 @@ class FaultTolerantTrainer:
         failed write attempt never touches the live checkpoint, the
         temp machinery guarantees that; a failed SHARDED attempt is
         restarted whole, its temp dir discarded). Runs on the async
-        writer thread in step mode, inline otherwise."""
+        writer thread in step mode, inline otherwise; a no-op on a rank
+        that does not write."""
+        if not self._writes:
+            return
         t0 = time.perf_counter()
         sup = self.supervisor
         attempt = 0
@@ -346,9 +371,8 @@ class FaultTolerantTrainer:
         the previous checkpoint or nothing: a ``*.tmp.<pid>`` dir is
         never listed, and a directory without a manifest is rejected
         even if it somehow lands at the live name."""
-        # one shard: a single-worker trainer (a wrapper's W shards come
-        # with ParallelWrapper, item 14)
-        shards, manifest = shard_training_snapshot(snap, 1)
+        shards, manifest = shard_training_snapshot(snap,
+                                                   self._num_shards())
         pid = os.getpid()
         tmp_dir = f"{path}.tmp.{pid}"
         try:
@@ -491,10 +515,18 @@ class FaultTolerantTrainer:
         # PreemptionHandler._handle)
         self._saving = True
         try:
-            snap = snapshot_training_state(self.model, cursor=cursor)
+            snap = snapshot_training_state(self.model, cursor=cursor,
+                                           extra=self._extra_state())
             self._write_atomic(snap, self._ckpt_path(epoch))
         finally:
             self._saving = False
+
+    def _extra_state(self):
+        """The wrapper's gathered gradient-sharing state (a collective
+        on every rank), or None."""
+        if self.wrapper is not None:
+            return self.wrapper.extra_checkpoint_state()
+        return None
 
     # -- training ------------------------------------------------------
     def fit(self, iterator, epochs: int):
@@ -508,16 +540,35 @@ class FaultTolerantTrainer:
             return self._fit_supervised(iterator, epochs)
         start = self.model._epoch
         for e in range(start, epochs):
-            self.model.fit(iterator, epochs=1)  # fit() advances _epoch
+            if self.wrapper is not None:
+                self.wrapper.fit(iterator, epochs=1)
+            else:
+                self.model.fit(iterator, epochs=1)  # fit() advances _epoch
             if (e + 1) % self.save_every == 0 or e + 1 == epochs:
                 self._save(e + 1)
+        self._ranks_meet()
         return self.model
+
+    def _ranks_meet(self):
+        """With several ranks, every rank waits here for the others (the
+        writer's archives are committed by then), so a rank that resumes
+        right after its fit finds them."""
+        if self._ranks > 1:
+            self.wrapper.agree_any([False])
 
     # -- the supervised step loop --------------------------------------
     def _ensure_step(self) -> Callable:
-        """The model's pure step (``_make_step_fn``), guarded when the
-        anomaly guard is on; built once and cached."""
+        """The step for this trainer's config: the model's pure step
+        (``_make_step_fn``) or the wrapper's data-parallel one, guarded
+        when the anomaly guard is on; built once and cached."""
         guard = self.supervisor.anomaly_guard
+        if self.wrapper is not None:
+            step = self.wrapper.ensure_step(guard=guard)
+            self.supervisor.extra_state_fn = \
+                self.wrapper.extra_checkpoint_state
+            self.supervisor.load_extra_fn = \
+                self.wrapper.load_extra_checkpoint_state
+            return step
         key = "guard" if guard else "plain"
         if key not in self._step_fns:
             self._step_fns[key] = self.model._make_step_fn(guard=guard)
@@ -536,25 +587,39 @@ class FaultTolerantTrainer:
         ``self._obs`` — None when no trace is live, so a disabled run's
         loop carries only a dead None-check — and
         :meth:`_finish_observed` rebuilds real spans from the ring at
-        fit exit. A resume is recorded up front; events go to the
-        timeline even when no tracer is attached."""
+        fit exit. A resume and a re-mesh are recorded up front; events
+        go to the timeline even when no tracer is attached."""
         self._phases = {"data_wait_s": 0.0, "device_step_s": 0.0}
         self.model._phase_breakdown = self._phases
-        if self.events is not None and cursor is not None:
-            self.events.record(
-                "resume", worker=self.worker_id,
-                epoch=int(cursor.get("epoch") or 0),
-                step=int(self.model._step))
+        rm = (getattr(self.wrapper, "last_remesh", None)
+              if self.wrapper is not None else None)
+        if rm is not None and self._remesh_reported:
+            rm = None
+        if self.events is not None:
+            if cursor is not None:
+                self.events.record(
+                    "resume", worker=self.worker_id,
+                    epoch=int(cursor.get("epoch") or 0),
+                    step=int(self.model._step))
+            if rm is not None:
+                self.events.record("re_mesh", worker=self.worker_id,
+                                   from_workers=rm[0], to_workers=rm[1])
         trc = self.tracer
         self._trace = None
         self._obs = None
         self.supervisor.obs = None
-        if trc is None or not trc.enabled:
-            return                  # disabled: stay zero-cost
+        if trc is None:
+            return
+        if not trc.enabled:         # disabled: stay zero-cost — don't
+            if rm is not None:      # even mint a request id
+                self._remesh_reported = True
+            return
         wid = (self.worker_id if self.worker_id is not None
                else os.getpid())
         t = trc.begin(request_id=f"train-w{wid}-{new_request_id()}")
         if t is None:
+            if rm is not None:
+                self._remesh_reported = True
             return
         self._trace = t
         self._obs = deque(maxlen=4096)
@@ -569,6 +634,11 @@ class FaultTolerantTrainer:
                    epoch=int(cursor.get("epoch") or 0),
                    batches_into_epoch=int(
                        cursor.get("batches_into_epoch") or 0))
+        if rm is not None:
+            t.span("re_mesh", parent=self._root_span,
+                   t_start=t_fit0, t_end=now,
+                   from_workers=rm[0], to_workers=rm[1])
+            self._remesh_reported = True
 
     def _finish_observed(self, error: bool = False):
         """Rebuild spans from the retro-ring and close the trace. Runs
@@ -647,6 +717,11 @@ class FaultTolerantTrainer:
                     self._writer.wait()
             finally:
                 self._loop_active = False
+                requested = self._preempt_requested.is_set()
+                if self._ranks > 1:
+                    # the ranks meet here (the writer's archives are
+                    # committed by now) and agree on a late notice
+                    requested, = self.wrapper.agree_any([requested])
                 # a SIGTERM that landed after the last step boundary
                 # (final epoch checkpoint, writer wait) would otherwise
                 # be swallowed: no boundary remains to observe the
@@ -657,7 +732,7 @@ class FaultTolerantTrainer:
                 # raised by wait() above cannot skip it. (A signal
                 # landing after this check takes the handler's inline
                 # path — safe, the writer is idle or dead by now.)
-                if self._preempt_requested.is_set():
+                if requested:
                     self._preempt_requested.clear()
                     sup.preemptions.inc()
                     self._signal_fleet()
@@ -811,24 +886,41 @@ class FaultTolerantTrainer:
         # and the fleet coordination channel (ANOTHER worker's notice).
         # A locally-originated preemption broadcasts BEFORE flushing,
         # so the rest of the fleet overlaps its flushes with ours
+        injected = None
         if self.injector is not None:
             try:
                 if self.worker_id is not None:
                     self.injector.fire("preempt", worker=self.worker_id)
                 else:
                     self.injector.fire("preempt")
-            except PreemptionFault:
-                sup.preemptions.inc()
-                t_d = time.perf_counter()
-                self._signal_fleet()
-                self._flush_step_checkpoint()
-                if obs is not None:
-                    obs.append(("preemption_drain", t_d,
-                                time.perf_counter(),
-                                {"step": int(m._step),
-                                 "origin": "injected"}))
-                raise
-        if self._preempt_requested.is_set():
+            except PreemptionFault as e:
+                injected = e
+        requested = self._preempt_requested.is_set()
+        local_request = requested
+        noticed = (self.coordinator is not None
+                   and self._coord_gen0 is not None
+                   and self.coordinator.generation() > self._coord_gen0)
+        if self._ranks > 1:
+            # the ranks of one wrapper stop at the same boundary or none
+            # does: a drain's snapshot is a collective over all of them
+            any_injected, requested, noticed = self.wrapper.agree_any(
+                [injected is not None, requested, noticed])
+            if any_injected and injected is None:
+                injected = PreemptionFault(
+                    f"preempted at step {m._step} with another rank of "
+                    "the wrapper; step-granular checkpoint flushed")
+        if injected is not None:
+            sup.preemptions.inc()
+            t_d = time.perf_counter()
+            self._signal_fleet()
+            self._flush_step_checkpoint()
+            if obs is not None:
+                obs.append(("preemption_drain", t_d,
+                            time.perf_counter(),
+                            {"step": int(m._step),
+                             "origin": "injected"}))
+            raise injected
+        if requested:
             self._preempt_requested.clear()
             sup.preemptions.inc()
             t_d = time.perf_counter()
@@ -838,7 +930,7 @@ class FaultTolerantTrainer:
                 obs.append(("preemption_drain", t_d, time.perf_counter(),
                             {"step": int(m._step), "origin": "sigterm"}))
             handler, self._preempt_handler = self._preempt_handler, None
-            if handler is not None:
+            if handler is not None and local_request:
                 # on_preempt + chaining run HERE, on the loop's thread,
                 # with the checkpoint already durable — never inside
                 # the signal handler (same flip-the-flag treatment as
@@ -847,20 +939,19 @@ class FaultTolerantTrainer:
             raise PreemptionFault(
                 f"preempted at step {m._step}; step-granular "
                 "checkpoint flushed")
-        if (self.coordinator is not None
-                and self._coord_gen0 is not None
-                and self.coordinator.generation() > self._coord_gen0):
+        if noticed:
             # fleet-wide drain: some OTHER worker is being preempted —
             # flush our own step-granular checkpoint at this boundary
             # and exit the same way, so the whole fleet stops at a
             # consistent, resumable step
             sup.preemptions.inc()
             sup.preempts_received.inc()
+            source = (self.coordinator.last_source
+                      if self.coordinator is not None else None)
             if self.events is not None:
                 self.events.record(
                     "preempt_received", worker=self.worker_id,
-                    step=int(m._step),
-                    source=self.coordinator.last_source)
+                    step=int(m._step), source=source)
             if self.fleet is not None:
                 self.fleet.inc(
                     self.worker_id if self.worker_id is not None
@@ -872,8 +963,7 @@ class FaultTolerantTrainer:
                             {"step": int(m._step), "origin": "fleet"}))
             raise PreemptionFault(
                 f"coordinated preemption at step {m._step} (fleet "
-                f"notice from worker "
-                f"{self.coordinator.last_source!r}); step-granular "
+                f"notice from worker {source!r}); step-granular "
                 "checkpoint flushed")
 
     def _checkpoint(self, path: str, snap: Optional[dict] = None):
@@ -883,7 +973,8 @@ class FaultTolerantTrainer:
         sup = self.supervisor
         if snap is None:
             snap = snapshot_training_state(
-                self.model, cursor=self._current_cursor())
+                self.model, cursor=self._current_cursor(),
+                extra=self._extra_state())
         if self._writer is not None:
             self._writer.submit(snap, path)
             sup.async_checkpoints.inc()
@@ -928,10 +1019,16 @@ class FaultTolerantTrainer:
                 # disk is truly gone, the write below raises itself)
                 pass
         path = self._step_ckpt_path(self.model._epoch, self.model._step)
-        if not os.path.exists(path):
+        exists = self._writes and os.path.exists(path)
+        if self._ranks > 1:
+            # the writer's view decides for every rank: the snapshot
+            # below gathers over all of them
+            exists, = self.wrapper.agree_any([exists])
+        if not exists:
             self._write_atomic(
                 snapshot_training_state(self.model,
-                                        cursor=self._current_cursor()),
+                                        cursor=self._current_cursor(),
+                                        extra=self._extra_state()),
                 path)
             self.supervisor.sync_checkpoints.inc()
 
@@ -949,7 +1046,9 @@ class FaultTolerantTrainer:
     def telemetry_snapshot(self) -> dict:
         """The one dict a training metrics plane renders: supervisor
         counters, the step-phase breakdown, the async writer's queue and
-        stall state, and the fleet and event rollups."""
+        stall state, wrapper telemetry (worker count, re-mesh,
+        compression effectiveness: a collective with several ranks) and
+        the fleet and event rollups."""
         sup = self.supervisor
         ph = self._phases
         data_wait = ph.get("data_wait_s", 0.0)
@@ -974,6 +1073,8 @@ class FaultTolerantTrainer:
             d["fleet_workers"] = self.fleet.snapshot()
         if self.events is not None:
             d["events"] = self.events.counts()
+        if self.wrapper is not None:
+            d["wrapper"] = self.wrapper.telemetry_snapshot()
         return d
 
     @staticmethod
@@ -984,8 +1085,11 @@ class FaultTolerantTrainer:
         validated up front, so an unknown one fails with an actionable
         :class:`~..util.serializer.CheckpointFormatError` (path, found
         and expected versions). Format-v2+ checkpoints restore the key
-        chain and leave the loop cursor on the model for the next
-        ``fit()``: resume is then bit-exact, mid-epoch included."""
+        chain and leave the loop cursor and the extra runtime state on
+        the model for the next ``fit()`` or ``ParallelWrapper``: resume
+        is then bit-exact, mid-epoch included; a v3 checkpoint restored
+        by a DIFFERENT worker count is re-bucketed by the resuming
+        wrapper (elastic re-meshing, a documented-tolerance contract)."""
         ckpts = FaultTolerantTrainer.list_checkpoints(checkpoint_dir)
         if not ckpts:
             raise FileNotFoundError(
@@ -1120,11 +1224,37 @@ class PreemptionHandler:
 def initialize_cluster(coordinator_address: Optional[str] = None,
                        num_processes: Optional[int] = None,
                        process_id: Optional[int] = None):
-    """Multi-process initialization (JAX's wraps
-    ``jax.distributed.initialize``). ``num_processes=1`` is the explicit
-    single-process no-op and returns False; every other form needs
-    ``torch.distributed`` behind ParallelWrapper and raises until item
-    14 of ROADMAP.md queue A is ported."""
+    """Join this process to a multi-process ``torch.distributed`` world
+    (JAX's wraps ``jax.distributed.initialize``): ``init_process_group``
+    at ``tcp://<coordinator_address>`` with ``num_processes`` ranks, this
+    one ``process_id``. With no arguments the ``torch.distributed``
+    environment (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``) gives them. ``num_processes=1`` is the explicit
+    single-process no-op and returns False; otherwise returns True.
+
+    The backend is NCCL for CUDA tensors (gloo for host ones) when every
+    rank has a card of its own, and gloo otherwise, several ranks on one
+    card included. Where the machine has cards,
+    rank ``r`` takes ``cuda:{r % device_count}`` as its current device,
+    so a model built on the card by default lands on its own."""
+    import torch
+    import torch.distributed as dist
     if num_processes == 1:
         return False
-    _not_ported("multi-process initialize_cluster")
+    if coordinator_address is None and num_processes is None \
+            and process_id is None:
+        init, n, rank = "env://", int(os.environ["WORLD_SIZE"]), \
+            int(os.environ["RANK"])
+    else:
+        if None in (coordinator_address, num_processes, process_id):
+            raise ValueError("initialize_cluster needs coordinator_address,"
+                             " num_processes and process_id together")
+        init, n, rank = (f"tcp://{coordinator_address}",
+                         int(num_processes), int(process_id))
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    backend = "cpu:gloo,cuda:nccl" if cards >= n else "gloo"
+    if cards:
+        torch.cuda.set_device(rank % cards)
+    dist.init_process_group(backend, init_method=init, world_size=n,
+                            rank=rank)
+    return True

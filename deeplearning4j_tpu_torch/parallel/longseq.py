@@ -1,6 +1,6 @@
 """Plain attention (counterpart of the ``dot_product_attention`` of
 ``deeplearning4j_tpu/parallel/longseq.py``). Blockwise and ring
-attention come with the parallel slice (ROADMAP.md queue A)."""
+attention are ROADMAP.md queue A, item 14b."""
 from __future__ import annotations
 
 import math

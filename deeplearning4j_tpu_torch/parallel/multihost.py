@@ -1,6 +1,19 @@
-"""The elastic-training control plane of multi-process training
-(counterpart of the framework-free part of
-``deeplearning4j_tpu/parallel/multihost.py``, lifted line for line):
+"""Multi-process training helpers (counterpart of
+``deeplearning4j_tpu/parallel/multihost.py``).
+
+After ``elastic.initialize_cluster(...)`` every process is a rank of one
+``torch.distributed`` world. :func:`global_mesh` is a mesh over all the
+ranks; a rank holds its own rows of a global batch as a
+:class:`~..nn.global_batch.LocalShard` (:func:`host_local_array`: the
+multi-process input pipeline, each process loading only its rows), and
+a replicated value is simply every rank's own copy
+(:func:`replicated_array`). :func:`build_multihost_step` is the dense
+data-parallel step over such a mesh and :class:`MultiHostIterator`
+turns a per-process iterator into one of local shards;
+``ParallelWrapper.fit`` applies it when there are several processes.
+
+The elastic-training control plane, lifted line for line from the JAX
+module (it needs no framework):
 
 - :class:`PreemptionCoordinator`: a small coordination channel that
   turns ONE worker's preemption notice (SIGTERM or an injected
@@ -13,11 +26,6 @@
   service.
 - :func:`split_data_cursor`: per-worker views of a checkpoint's global
   data cursor for resuming fleets.
-
-The global-array helpers (``global_mesh``, ``host_local_array``,
-``replicated_array``, ``MultiHostIterator``, ``build_multihost_step``)
-need a cross-process device set and come with ``ParallelWrapper``
-(ROADMAP.md queue A, item 14).
 """
 from __future__ import annotations
 
@@ -25,7 +33,96 @@ import json
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..datasets import DataSetIterator as _DataSetIterator
+from ..nn.global_batch import LocalShard
+from . import Mesh, PartitionSpec as P
+from .transport import world_size
+
+
+def global_mesh(axis: str = "data") -> Mesh:
+    """A 1-D mesh over every rank (call after ``initialize_cluster``;
+    every process builds it the same way: it creates process groups)."""
+    return Mesh(np.arange(world_size()), (axis,))
+
+
+def host_local_array(mesh: Mesh, spec: Sequence, local,
+                     global_shape: Optional[Tuple[int, ...]] = None
+                     ) -> LocalShard:
+    """This rank's rows of a global array sharded over ``spec``'s one
+    axis (which must be the first): ``local`` plus the global shape, the
+    first axis scaled by the mesh's size along the spec's mesh axis
+    unless ``global_shape`` is given."""
+    sharded = [i for i, a in enumerate(spec) if a is not None]
+    if sharded != [0]:
+        raise ValueError(
+            f"spec {tuple(spec)}: a rank's shard is its rows, so exactly "
+            "the first axis is sharded")
+    local = torch.as_tensor(np.asarray(local)) \
+        if not isinstance(local, torch.Tensor) else local
+    if global_shape is None:
+        global_shape = (local.shape[0] * mesh.shape[spec[0]],) + \
+            tuple(local.shape[1:])
+    return LocalShard(local, global_shape)
+
+
+def replicated_array(mesh: Mesh, value):
+    """A value (a tensor, an array or a tree of them: params, updater
+    state) replicated over the mesh: every rank holds its own whole
+    copy, so this is the value itself, arrays as tensors."""
+    if isinstance(value, dict):
+        return {k: replicated_array(mesh, v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return type(value)(replicated_array(mesh, v) for v in value)
+    if isinstance(value, np.ndarray):
+        return torch.as_tensor(value)
+    return value
+
+
+class MultiHostIterator(_DataSetIterator):
+    """A per-process ``DataSetIterator`` for multi-process training:
+    each process's iterator yields ITS rows of every global batch (every
+    process loads different rows) and this wrapper marks them as local
+    shards of the global arrays the step consumes. All processes step
+    their iterators in lockstep (the same number of batches an epoch).
+    ``ParallelWrapper.fit`` applies it when there are several
+    processes."""
+
+    def __init__(self, base, mesh: Mesh, axis: str = "data"):
+        self.base = base
+        self.mesh = mesh
+        self.axis = axis
+
+    def _to_global(self, arr):
+        return host_local_array(self.mesh, P(self.axis), arr)
+
+    def has_next(self):
+        return self.base.has_next()
+
+    def next(self):
+        b = self.base.next()
+        if not isinstance(b, (tuple, list)):
+            b = (b.features, b.labels, getattr(b, "labels_mask", None))
+        return tuple(self._to_global(v) if v is not None else None
+                     for v in b)
+
+    def reset(self):
+        self.base.reset()
+
+    def batch_size(self):
+        return self.base.batch_size() * self.mesh.shape[self.axis]
+
+    def state_dict(self):
+        return self.base.state_dict() if hasattr(self.base,
+                                                 "state_dict") else None
+
+    def load_state_dict(self, state):
+        if hasattr(self.base, "load_state_dict"):
+            self.base.load_state_dict(state)
 
 
 class PreemptionCoordinator:
@@ -163,3 +260,13 @@ def split_data_cursor(cursor: Optional[dict], num_workers: int
     if cursor is None:
         return [None] * w
     return [dict(cursor, worker=i, num_workers=w) for i in range(w)]
+
+
+def build_multihost_step(model, mesh: Mesh, axis: str = "data"):
+    """The model's dense data-parallel step over a multi-process mesh
+    (the multi-process ``ParallelWrapper`` step): every rank calls it
+    with its shard of the batch (:func:`host_local_array`) or the whole
+    global batch, and the same replicated state. The contract is
+    ``parallel.jit_sharded_step``'s."""
+    from . import jit_sharded_step
+    return jit_sharded_step(model, mesh, axis)

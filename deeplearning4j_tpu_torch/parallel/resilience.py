@@ -87,6 +87,10 @@ class TrainingSupervisor:
         self._consecutive = 0
         self._rollbacks_since_good = 0
         self._last_good: Optional[dict] = None
+        # out-of-model state capture and restore (a ParallelWrapper's
+        # gradient-sharing accumulator), registered by the trainer
+        self.extra_state_fn: Optional[Callable[[], Optional[Dict]]] = None
+        self.load_extra_fn: Optional[Callable[[Dict], None]] = None
         # observability hooks, attached by the trainer when telemetry
         # was requested; all default None so an unobserved run pays
         # nothing on the cold (retry/anomaly/rollback) branches and
@@ -182,10 +186,13 @@ class TrainingSupervisor:
     def capture_good(self, model, cursor: Optional[dict] = None) -> dict:
         """Device→host copy of the full resumable state (the ONLY
         blocking part of an async checkpoint; also the rollback
-        source). A ParallelWrapper's out-of-model state joins it with
-        item 14 of ROADMAP.md queue A."""
+        source). Includes the registered extra state (a
+        ParallelWrapper's gathered residuals and per-worker updater
+        moments: a collective on every rank)."""
+        extra = self.extra_state_fn() if self.extra_state_fn else None
         with OpProfiler.get_instance().record("resilient.snapshot"):
-            snap = snapshot_training_state(model, cursor=cursor)
+            snap = snapshot_training_state(model, cursor=cursor,
+                                           extra=extra)
         self._last_good = snap
         return snap
 
@@ -195,8 +202,9 @@ class TrainingSupervisor:
 
     def rollback(self, model):
         """Restore the last good in-memory snapshot: params, updater
-        state, net state, PRNG key and step counter — coherently, so
-        optimizer moments match the params they were captured with. The data
+        state, net state, PRNG key, step counter and registered extra
+        state — coherently, so optimizer moments and gradient-sharing
+        residuals match the params they were captured with. The data
         stream keeps moving forward (rolling the iterator back would
         replay the same poisoned region)."""
         snap = self._last_good
@@ -215,6 +223,8 @@ class TrainingSupervisor:
         model._step = meta["step"]
         if meta.get("rng") is not None:
             model._rng = (int(meta["rng"][0]), int(meta["rng"][1]))
+        if snap.get("extra") and self.load_extra_fn is not None:
+            self.load_extra_fn(snap["extra"])
         self.rollbacks.inc()
         self._rollbacks_since_good += 1
         if self.obs is not None:

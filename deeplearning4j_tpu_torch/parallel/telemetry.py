@@ -9,11 +9,14 @@ line for line):
   rollback and anomaly counters, and a straggler summary (the slowest
   worker's EWMA over the fleet median).
 
-``compression_stats`` reads a ``ParallelWrapper``'s gradient-sharing
-state and comes with it (ROADMAP.md queue A, item 14).
+- :func:`compression_stats`: a ``ParallelWrapper``'s gradient-sharing
+  effectiveness (achieved sparsity, threshold, the residual norm over
+  every worker, wire bytes against dense), with JAX's keys and
+  rounding.
 """
 from __future__ import annotations
 
+import math
 import statistics
 import threading
 import time
@@ -141,7 +144,46 @@ class FleetTelemetry:
         return {"workers": workers, "straggler": self.straggler()}
 
 
-def compression_stats(wrapper):
-    raise NotImplementedError(
-        "compression_stats reads a ParallelWrapper, which is not ported "
-        "yet (ROADMAP.md queue A, item 14)")
+def compression_stats(wrapper) -> Optional[Dict[str, Any]]:
+    """Gradient-compression effectiveness of a ParallelWrapper.
+
+    ``None`` until the compressed step has been built (the accumulator
+    carries no state before that). The residual norm is over every
+    worker's residual: each rank holds its own, so this is a collective
+    that every rank of the wrapper's mesh calls, and it reads device
+    values: call it at snapshot cadence, never per step."""
+    acc = getattr(wrapper, "accumulator", None)
+    if acc is None or getattr(acc, "residuals", None) is None:
+        return None
+    import torch
+
+    leaves = _leaves(acc.residuals)
+    # one worker's residual has the params' shapes
+    n_params = int(sum(l.numel() for l in leaves))
+    per_leaf = wrapper.sum_over_workers(torch.stack(
+        [torch.sum(l.double() * l.double()) for l in leaves]))
+    sq = 0.0
+    for v in per_leaf.tolist():
+        sq += v
+    residual_norm = math.sqrt(sq)
+    sparsity = float(acc.last_sparsity) \
+        if getattr(acc, "last_sparsity", None) is not None else 0.0
+    threshold = float(acc.threshold) \
+        if getattr(acc, "threshold", None) is not None else 0.0
+    dense_bytes = n_params * 4  # float32 gradients on the wire
+    # sparse encoding ships (int32 index, float32 value) pairs
+    wire_bytes = int(round(sparsity * n_params)) * 8
+    ratio = dense_bytes / wire_bytes if wire_bytes > 0 else 0.0
+    return {"sparsity": round(sparsity, 6),
+            "threshold": round(threshold, 8),
+            "residual_norm": round(residual_norm, 6),
+            "params": n_params,
+            "dense_bytes": dense_bytes,
+            "wire_bytes": wire_bytes,
+            "compression_ratio": round(ratio, 3)}
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]

@@ -10,9 +10,13 @@ carried with ``convert.py``) under the same plans; checkpoint names,
 manifests and counters must be equal, and the port's resumes bit for
 bit. The fleet cases never race the clock: a worker that must still be
 running when another's notice lands waits for the coordinator's token
-to move (a gate) instead of sleeping. The sharded layout is the plain
-trainer's (one shard); the wrapper's W-shard layout waits for
-ROADMAP.md queue A, item 14.
+to move (a gate) instead of sleeping. ``TestShardedCheckpointLayout``
+is the plain trainer's layout (one shard); ``TestWrapperMode`` holds the
+wrapper's W-shard archives, with two gloo ranks on the CPU spawned once
+for the class (``tests/_torch_dp_scenarios.py::elastic_cases``): a JAX
+W = 2 archive restores in the port at W = 2 bit for bit and at W = 1 by
+``rebucket_worker_array``'s rule, the port's W = 2 archive restores in
+JAX, and kill-and-resume at W = 2 is bit for bit in every mode.
 """
 import json
 import os
@@ -542,8 +546,11 @@ class TestShardedCheckpointLayout:
                                       np.asarray(v)), (key, n)
 
     def test_wrapper_mode_waits_for_parallel_wrapper(self, tmp_path):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            FaultTolerantTrainer(_mlp(), str(tmp_path), wrapper=object())
+        """The wrapper mode takes a wrapper of the trainer's own model."""
+        from deeplearning4j_tpu_torch.parallel import ParallelWrapper
+        with pytest.raises(ValueError, match="trainer's model"):
+            FaultTolerantTrainer(_mlp(), str(tmp_path),
+                                 wrapper=ParallelWrapper(_mlp()))
 
 
 class TestFormatValidation:
@@ -685,5 +692,213 @@ def test_single_process_initialize_cluster_is_noop():
         initialize_cluster as jinit
     assert initialize_cluster(num_processes=1) is False
     assert jinit(num_processes=1) is False
-    with pytest.raises(NotImplementedError, match="item 14"):
-        initialize_cluster("localhost:1234", num_processes=2, process_id=0)
+    # the multi-process form needs every coordinate (two gloo ranks join
+    # in tests/test_torch_multihost.py)
+    with pytest.raises(ValueError, match="together"):
+        initialize_cluster("localhost:1234", num_processes=2)
+
+
+# -- the wrapper mode ----------------------------------------------------
+import _torch_dp_scenarios as S  # noqa: E402
+from _torch_dp_util import run_ranks  # noqa: E402
+from deeplearning4j_tpu.faults import \
+    PreemptionFault as JPreemptionFault  # noqa: E402
+from deeplearning4j_tpu.parallel import (  # noqa: E402
+    GradientSharingAccumulator as JGSA, ParallelWrapper as JPW)
+from deeplearning4j_tpu.util.serializer import \
+    _flatten_tree as jflat  # noqa: E402
+from deeplearning4j_tpu_torch.parallel import (  # noqa: E402
+    rebucket_worker_array)
+
+WORLD = 2
+#: the documented re-mesh tolerance (docs/distributed.md): relative L2
+#: parameter distance of a re-meshed resume to the fixed-shape run
+REMESH_REL_TOL = 0.05
+#: the port's W = 2 run against JAX's from the same archive: f32 sums in
+#: another order over 5 Adam steps at lr 1e-2 (tests/test_torch_parallel
+#: .py's state tolerance: of a leaf's max)
+STATE_TOL = 5e-6
+RESIDUAL_TOL = 1e-4
+
+
+def _jwrapped(m, mode, workers=WORLD):
+    acc = None if mode == "plain" else JGSA(mode=mode)
+    return JPW(m, workers=workers, accumulator=acc)
+
+
+def _jax_archive(d):
+    """JAX's W = 2 update-mode run, preempted at step 7 (v3 shards)."""
+    X, Y = _arrays()
+    jm = _jmlp()
+    tr = JTrainer(jm, str(d), save_every_n_steps=3,
+                  wrapper=_jwrapped(jm, "update"), sharded_checkpoints=True,
+                  fault_injector=JInjector(plan={"preempt": [S.PREEMPT_AT]}))
+    with pytest.raises(JPreemptionFault):
+        tr.fit(_jit(X, Y), epochs=3)
+
+
+def _port_extra(path):
+    """The archive's params and gradient_sharing members, read by the
+    port's serializer."""
+    m = ModelSerializer.restore(path, device="cpu")
+    flat = {f"params/{k}": v for k, v in S.flat_tree(m.params()).items()}
+    flat.update({f"extra/{k}": np.asarray(v)
+                 for k, v in (m._resume_extra or {}).items()})
+    return flat
+
+
+def _jax_state(jm, pw):
+    out = {f"params/{k}": v for k, v in
+           jflat(jax.tree.map(np.asarray, jm._params)).items()}
+    out.update({f"extra/{k}": np.asarray(v) for k, v in
+                (pw.extra_checkpoint_state() or {}).items()})
+    return out
+
+
+def _flat_params(arrays, pre):
+    keys = sorted(k for k in arrays if k.startswith(pre + "params/"))
+    return np.concatenate([arrays[k].ravel() for k in keys])
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / np.linalg.norm(a))
+
+
+@pytest.fixture(scope="module")
+def wrapper_ranks(tmp_path_factory):
+    out = str(tmp_path_factory.mktemp("torch_elastic_wrapper"))
+    init = jflat(_jmlp().params())
+    np.savez(os.path.join(out, "inputs.npz"),
+             **{f"init_elastic/{k}": v for k, v in init.items()})
+    _jax_archive(os.path.join(out, "jax_update"))
+    run_ranks("elastic_cases", WORLD, out)
+
+    def load(case, rank=0):
+        with np.load(os.path.join(out, f"rank{rank}_{case}.npz")) as z:
+            return {k: z[k] for k in z.files}
+    load.dir = out
+    return load
+
+
+class TestWrapperMode:
+    @pytest.mark.parametrize("mode", S.ELASTIC_MODES)
+    def test_same_shape_resume_is_bit_exact(self, wrapper_ranks, mode):
+        for r in range(WORLD):
+            got = wrapper_ranks(f"elastic_{mode}", r)
+            meta = json.loads(str(got["telemetry"]))
+            assert meta["resumed_step"] == S.PREEMPT_AT
+            assert meta["steps"] == [12, 12]
+            assert meta["remesh"] is None      # same shape: no re-mesh
+            assert meta["writes"] is (r == 0)
+            assert meta["telemetry"]["workers"] == WORLD
+            assert ("compression" in meta["telemetry"]) is (mode != "plain")
+            for k in got:
+                if k.startswith("a/"):
+                    assert np.array_equal(got[k], got["c/" + k[2:]]), \
+                        (mode, r, k)
+        a0, a1 = (wrapper_ranks(f"elastic_{mode}", r) for r in (0, 1))
+        for k in a0:
+            if k.startswith(("a/params/", "a/net/")):
+                assert np.array_equal(a0[k], a1[k]), (mode, k)
+
+    def test_wrapper_archive_holds_one_shard_a_worker(self, wrapper_ranks):
+        d = os.path.join(wrapper_ranks.dir, "port_update_b")
+        last = FaultTolerantTrainer.list_checkpoints(d)[-1]
+        assert sorted(os.listdir(last)) == ["manifest.json"] + [
+            f"shard_{i:05d}.zip" for i in range(WORLD)]
+        man = json.load(open(os.path.join(last, "manifest.json")))
+        assert man["num_workers"] == WORLD
+        assert man["meta"]["step"] == S.PREEMPT_AT
+        assert any(k.startswith("gradient_sharing/residuals/")
+                   for k in man["worker_sliced"])
+        assert any(k.startswith("gradient_sharing/opt_state/")
+                   for k in man["worker_sliced"])
+
+    def test_jax_archive_restores_at_the_same_worker_count(
+            self, wrapper_ranks):
+        jdir = os.path.join(wrapper_ranks.dir, "jax_update")
+        want = _port_extra(FaultTolerantTrainer.list_checkpoints(jdir)[-1])
+        assert any(k.startswith("extra/gradient_sharing/residuals/")
+                   for k in want)
+        for r in range(WORLD):
+            got = wrapper_ranks("jax_resumed", r)
+            meta = json.loads(str(got["telemetry"]))
+            assert meta["remesh"] is None and meta["step"] == 12
+            for k, w in want.items():
+                assert np.array_equal(got["restored/" + k], w), (r, k)
+        # the rest of the schedule against JAX's from the same archive
+        m = JTrainer.resume(jdir)
+        pw = _jwrapped(m, "update")
+        X, Y = _arrays()
+        JTrainer(m, jdir + "_jax", save_every_n_steps=3, wrapper=pw,
+                 sharded_checkpoints=True).fit(_jit(X, Y), epochs=3)
+        got = wrapper_ranks("jax_resumed", 0)
+        for k, w in _jax_state(m, pw).items():
+            tol = RESIDUAL_TOL if "/residuals/" in k else STATE_TOL
+            err = np.abs(got["final/" + k].astype(np.float64) - w).max()
+            assert err <= tol * max(np.abs(w).max(), 1e-30), (k, err)
+
+    def test_jax_archive_restores_at_one_worker(self, wrapper_ranks):
+        from deeplearning4j_tpu_torch.parallel import (
+            GradientSharingAccumulator, ParallelWrapper)
+        jdir = os.path.join(wrapper_ranks.dir, "jax_update")
+        archive = _port_extra(FaultTolerantTrainer.list_checkpoints(jdir)[-1])
+        m = _resume(jdir)
+        pw = ParallelWrapper(m, accumulator=GradientSharingAccumulator())
+        pw.ensure_step()
+        assert pw.last_remesh == (WORLD, 1)
+        got = pw.extra_checkpoint_state()
+        for k, v in got.items():
+            w = archive["extra/" + k]
+            if k.startswith(("gradient_sharing/residuals/",
+                             "gradient_sharing/opt_state/")):
+                w = rebucket_worker_array(w, 1)
+            assert np.array_equal(v, w), k
+
+    def test_port_archive_restores_in_jax(self, wrapper_ranks):
+        pdir = os.path.join(wrapper_ranks.dir, "port_update_b")
+        want = _port_extra(FaultTolerantTrainer.list_checkpoints(pdir)[-1])
+        m = JTrainer.resume(pdir)
+        assert m._step == S.PREEMPT_AT
+        pw = _jwrapped(m, "update")
+        pw.ensure_step()
+        assert pw.last_remesh is None
+        got = _jax_state(m, pw)
+        assert sorted(got) == sorted(want)
+        for k, w in want.items():
+            assert np.array_equal(got[k], w), k
+        # and JAX finishes the schedule where the port's resumed run did
+        X, Y = _arrays()
+        JTrainer(m, pdir + "_jax", save_every_n_steps=3, wrapper=pw,
+                 sharded_checkpoints=True).fit(_jit(X, Y), epochs=3)
+        ported = wrapper_ranks("elastic_update", 0)
+        for k, w in _jax_state(m, pw).items():
+            tol = RESIDUAL_TOL if "/residuals/" in k else STATE_TOL
+            err = np.abs(ported["c/" + k].astype(np.float64) - w).max()
+            assert err <= tol * max(np.abs(w).max(), 1e-30), (k, err)
+
+    @pytest.mark.parametrize("mode", S.ELASTIC_MODES)
+    def test_remeshed_resume_within_tolerance(self, wrapper_ranks, mode):
+        """The W = 2 archive resumed on one worker finishes the schedule
+        within the documented tolerance of the fixed-shape (W = 2) run
+        (the dense wrapper within 1e-2, as JAX's own test holds it)."""
+        from deeplearning4j_tpu_torch.parallel import (
+            GradientSharingAccumulator, ParallelWrapper)
+        d = os.path.join(wrapper_ranks.dir, f"port_{mode}_b")
+        m = _resume(d)
+        assert m._step == S.PREEMPT_AT
+        acc = None if mode == "plain" else GradientSharingAccumulator(
+            mode=mode)
+        pw = ParallelWrapper(m, accumulator=acc)
+        X, Y = _arrays()
+        FaultTolerantTrainer(m, d + "_w1", save_every_n_steps=3,
+                             wrapper=pw, sharded_checkpoints=True).fit(
+            _it(X, Y), epochs=3)
+        assert m._step == 12
+        assert pw.last_remesh == (None if mode == "plain" else (WORLD, 1))
+        ref = _flat_params(wrapper_ranks(f"elastic_{mode}", 0), "a/")
+        got = np.concatenate([v.ravel() for _, v in
+                              sorted(S.flat_tree(m.params()).items())])
+        assert np.isfinite(got).all()
+        assert _rel(ref, got) <= (1e-2 if mode == "plain"
+                                  else REMESH_REL_TOL), mode

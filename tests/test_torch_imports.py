@@ -59,7 +59,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "parallel.telemetry", "profiler",
                 # the rest of nn/layers but SameDiff
                 "nn.layers.misc", "nn.layers.variational",
-                "nn.layers.specialized_outputs", "nn.layers.objdetect"):
+                "nn.layers.specialized_outputs", "nn.layers.objdetect",
+                # data-parallel training
+                "parallel", "parallel.transport", "parallel.compression",
+                "nn.global_batch"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 

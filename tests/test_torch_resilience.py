@@ -1,8 +1,8 @@
 """The port's resilient-training runtime against the JAX package's
 (CPU): ``TrainingSupervisor``, ``AsyncCheckpointWriter`` and the
 supervised step loop of ``FaultTolerantTrainer``, mirroring
-``tests/test_resilient_training.py`` (all but its ParallelWrapper
-class, which waits for ROADMAP.md queue A, item 14).
+``tests/test_resilient_training.py`` (its ParallelWrapper class has
+its counterpart in ``tests/test_torch_elastic.py::TestWrapperMode``).
 
 Both packages train the same MLP from the same weights (JAX's, carried
 with ``convert.py``) on the same numpy-seeded batches under the same

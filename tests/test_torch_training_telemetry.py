@@ -145,8 +145,31 @@ class TestFleetTelemetry:
             ft.inc(1, "nonsense")
 
     def test_compression_stats_waits_for_parallel_wrapper(self):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            TT.compression_stats(object())
+        """None until a wrapper's compressed step is built; then JAX's
+        keys and, for the same one-worker run, JAX's rounded values."""
+        from deeplearning4j_tpu.parallel import (
+            GradientSharingAccumulator as JGSA, ParallelWrapper as JPW,
+            make_mesh as jmake_mesh)
+        from deeplearning4j_tpu_torch.parallel import (
+            GradientSharingAccumulator, ParallelWrapper)
+        assert TT.compression_stats(object()) is None
+        assert JT.compression_stats(object()) is None
+        jm, m = _pair()
+        jpw = JPW(jm, mesh=jmake_mesh(jax.devices()[:1]), prefetch_buffer=0,
+                  accumulator=JGSA(threshold=1e-2))
+        pw = ParallelWrapper(m, prefetch_buffer=0,
+                             accumulator=GradientSharingAccumulator(
+                                 threshold=1e-2))
+        assert TT.compression_stats(pw) is None
+        assert JT.compression_stats(jpw) is None
+        X, Y = _arrays()
+        data = [(X[i:i + 16], Y[i:i + 16]) for i in range(0, 64, 16)]
+        jpw.fit(data, epochs=1)
+        pw.fit(data, epochs=1)
+        got, want = TT.compression_stats(pw), JT.compression_stats(jpw)
+        assert sorted(got) == sorted(want)
+        for k, v in want.items():
+            assert got[k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
 
 
 class TestTracedFit:
