@@ -1,8 +1,9 @@
 """Datasets and iterators (counterpart of
 ``deeplearning4j_tpu/datasets``, plain numpy, kept as the port's own
 copy): ``DataSet``, ``DataSetIterator``, ``ArrayDataSetIterator``,
-``AsyncDataSetIterator``, ``MnistDataSetIterator`` and
-``IrisDataSetIterator``.
+``AsyncDataSetIterator``, ``MnistDataSetIterator``,
+``IrisDataSetIterator``, ``Cifar10DataSetIterator`` and
+``TinyImageNetDataSetIterator``.
 
 Iterating yields ``(features, labels[, labels_mask])`` tuples of numpy
 arrays; ``MultiLayerNetwork.fit`` moves each batch to its device.
@@ -18,6 +19,15 @@ domain, in IDX form), each file checked against its sha256 in
 ``manifest.json`` before it is parsed, and re-gridded to 28x28 by 3x
 pixel replication and a 2-pixel zero border. Only a missing fixture
 falls back to a labelled synthetic set; a corrupt one raises.
+
+``Cifar10DataSetIterator`` reads CIFAR-10's binary batches from
+``data_dir``, ``$CIFAR10_DATA_DIR`` or ``$DL4J_TPU_DATA_DIR/cifar10``,
+and ``TinyImageNetDataSetIterator`` the ``tiny-imagenet-200`` layout
+from ``data_dir`` or ``$DL4J_TPU_DATA_DIR/tiny-imagenet-200`` (decoded
+through PIL). Without them each builds the JAX package's seeded
+synthetic set (``.synthetic``). As for MNIST, the JAX package's fixed
+absolute paths are not searched. The directories come from the port's
+``flags`` registry, a copy of the JAX package's.
 """
 from __future__ import annotations
 
@@ -219,13 +229,10 @@ class AsyncDataSetIterator(DataSetIterator):
 
 # -- MNIST and the vendored real digits ---------------------------------
 def _mnist_dirs():
-    """Where MNIST's IDX files are looked for, in order (the JAX
-    package's flags ``mnist_dir`` and ``data_dir``, read here from the
-    same environment variables)."""
-    data_dir = os.environ.get("DL4J_TPU_DATA_DIR") or \
-        os.path.expanduser("~/.deeplearning4j_tpu")
-    return [os.environ.get("MNIST_DATA_DIR", ""),
-            os.path.join(data_dir, "mnist"),
+    """Where MNIST's IDX files are looked for, in order (the flags
+    ``mnist_dir`` and ``data_dir``)."""
+    from ..flags import flags
+    return [flags.mnist_dir, os.path.join(flags.data_dir, "mnist"),
             os.path.expanduser("~/.cache/mnist")]
 
 
@@ -408,3 +415,151 @@ class IrisDataSetIterator(ArrayDataSetIterator):
         onehot = np.eye(3, dtype=np.float32)[_IRIS[:, 4].astype(int)]
         super().__init__(feats, onehot, batch=batch, shuffle=shuffle,
                          seed=seed)
+
+
+# -- CIFAR-10 and TinyImageNet (JAX ``datasets/__init__.py:433-585``) ----
+def _find_cifar10() -> Optional[str]:
+    from ..flags import flags
+    for d in (flags.cifar10_dir, os.path.join(flags.data_dir, "cifar10")):
+        if d and os.path.exists(os.path.join(d, "data_batch_1.bin")):
+            return d
+    return None
+
+
+class Cifar10DataSetIterator(ArrayDataSetIterator):
+    """Ref: `Cifar10DataSetIterator.java`. Reads the standard CIFAR-10
+    BINARY format (data_batch_*.bin / test_batch.bin: per record 1 label
+    byte + 3072 CHW pixel bytes) from a local directory; falls back to a
+    deterministic synthetic set when absent (no egress — the reference
+    downloads)."""
+
+    def __init__(self, batch: int, train: bool = True, shuffle: bool = True,
+                 seed: int = 6, num_examples: Optional[int] = None,
+                 data_dir: Optional[str] = None):
+        d = data_dir or _find_cifar10()
+        self.synthetic = d is None
+        if d is not None:
+            files = ([os.path.join(d, f"data_batch_{i}.bin")
+                      for i in range(1, 6)] if train
+                     else [os.path.join(d, "test_batch.bin")])
+            imgs, labels = [], []
+            for f in files:
+                raw = np.fromfile(f, np.uint8).reshape(-1, 3073)
+                labels.append(raw[:, 0])
+                # CHW bytes -> NHWC float
+                imgs.append(raw[:, 1:].reshape(-1, 3, 32, 32)
+                            .transpose(0, 2, 3, 1))
+            imgs = np.concatenate(imgs)
+            labels = np.concatenate(labels)
+        else:
+            n = num_examples or (4096 if train else 1024)
+            rng = np.random.RandomState(11 if train else 22)
+            labels = rng.randint(0, 10, n).astype(np.uint8)
+            base = rng.rand(10, 32, 32, 3).astype(np.float32)
+            imgs = ((base[labels] * 0.7 + rng.rand(n, 32, 32, 3) * 0.3)
+                    * 255).astype(np.uint8)
+        if num_examples:
+            imgs, labels = imgs[:num_examples], labels[:num_examples]
+        feats = imgs.astype(np.float32) / 255.0
+        onehot = np.eye(10, dtype=np.float32)[labels]
+        super().__init__(feats, onehot, batch=batch, shuffle=shuffle,
+                         seed=seed)
+
+
+def _find_tiny_imagenet() -> Optional[str]:
+    from ..flags import flags
+    d = os.path.join(flags.data_dir, "tiny-imagenet-200")
+    return d if os.path.isdir(os.path.join(d, "train")) else None
+
+
+class TinyImageNetDataSetIterator(ArrayDataSetIterator):
+    """Ref: `TinyImageNetDataSetIterator.java` (fetcher at
+    `deeplearning4j-data/deeplearning4j-datasets/.../fetchers/
+    TinyImageNetFetcher.java` — downloads + reads the tiny-imagenet-200
+    layout: train/<wnid>/images/*.JPEG, val/images + val_annotations.txt).
+
+    Reads the standard on-disk layout when present (decoding via PIL;
+    if the dataset is on disk but PIL is not importable, a warning is
+    emitted before falling back). With no dataset and no egress, falls
+    back to a LABELED deterministic synthetic set (`.synthetic`) of
+    64x64x3 images over `num_classes` prototype textures — the same
+    hermetic contract as the MNIST/CIFAR iterators."""
+
+    IMG = 64
+
+    def __init__(self, batch: int, train: bool = True, shuffle: bool = True,
+                 seed: int = 6, num_examples: Optional[int] = None,
+                 num_classes: int = 200, data_dir: Optional[str] = None):
+        d = data_dir or _find_tiny_imagenet()
+        imgs = labels = None
+        if d is not None:
+            # per-class cap BEFORE decoding (class-sorted data: a flat
+            # prefix would hold only the first wnids, and decoding all
+            # 100k JPEGs to keep 100 would waste minutes)
+            per_class = None
+            if num_examples:
+                per_class = -(-num_examples // num_classes)  # ceil
+            imgs, labels = self._read_disk(d, train, num_classes,
+                                           per_class)
+        self.synthetic = imgs is None
+        if imgs is not None and num_examples:
+            rng = np.random.RandomState(seed)
+            idx = rng.permutation(len(imgs))[:num_examples]
+            imgs, labels = imgs[idx], labels[idx]
+        if imgs is None:
+            n = num_examples or (8192 if train else 2048)
+            rng = np.random.RandomState(33 if train else 44)
+            labels = rng.randint(0, num_classes, n)
+            protos = np.random.RandomState(777).rand(
+                num_classes, self.IMG, self.IMG, 3).astype(np.float32)
+            imgs = ((protos[labels] * 0.7
+                     + rng.rand(n, self.IMG, self.IMG, 3) * 0.3)
+                    * 255).astype(np.uint8)
+        feats = imgs.astype(np.float32) / 255.0
+        onehot = np.eye(num_classes, dtype=np.float32)[labels]
+        super().__init__(feats, onehot, batch=batch, shuffle=shuffle,
+                         seed=seed)
+
+    def _read_disk(self, d: str, train: bool, num_classes: int,
+                   per_class: Optional[int] = None):
+        try:
+            from PIL import Image  # optional; not baked in every image
+        except ImportError:
+            import warnings
+            warnings.warn(
+                f"tiny-imagenet-200 found at {d} but PIL is not "
+                "installed — falling back to SYNTHETIC data "
+                "(.synthetic=True)", RuntimeWarning)
+            return None, None
+        wnids = sorted(os.listdir(os.path.join(d, "train")))[:num_classes]
+        cls = {w: i for i, w in enumerate(wnids)}
+        imgs, labels = [], []
+        if train:
+            for w in wnids:
+                img_dir = os.path.join(d, "train", w, "images")
+                files = sorted(os.listdir(img_dir))
+                if per_class is not None:
+                    files = files[:per_class]
+                for f in files:
+                    with Image.open(os.path.join(img_dir, f)) as im:
+                        imgs.append(np.asarray(im.convert("RGB"), np.uint8))
+                    labels.append(cls[w])
+        else:
+            # cap decodes here too (val order is not class-sorted, so a
+            # simple count bound keeps the sample representative)
+            limit = per_class * num_classes if per_class else None
+            ann = os.path.join(d, "val", "val_annotations.txt")
+            with open(ann) as fh:
+                for line in fh:
+                    if limit is not None and len(imgs) >= limit:
+                        break
+                    parts = line.split("\t")
+                    if len(parts) < 2 or parts[1] not in cls:
+                        continue
+                    with Image.open(os.path.join(
+                            d, "val", "images", parts[0])) as im:
+                        imgs.append(np.asarray(im.convert("RGB"), np.uint8))
+                    labels.append(cls[parts[1]])
+        if not imgs:
+            return None, None
+        return np.stack(imgs), np.asarray(labels)

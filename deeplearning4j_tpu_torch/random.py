@@ -14,7 +14,7 @@ hashes the counter ``(i >> 32, i & 0xFFFFFFFF)`` under the key, so a
 draw is a pure elementwise function of the flat index: the same bits
 on the card and on the CPU. On the card the hash is plain PyTorch
 integer arithmetic, about 130 elementwise launches a draw (20 rounds
-of add, rotate and xor on int64 tensors, masked to 32 bits).
+of add, rotate and xor on int32 tensors whose adds wrap).
 
 A key is a pair of uint32 values: Python ints for one key, or int64
 tensors for keys vectorized over any shape. The training chain (one
@@ -43,31 +43,100 @@ def _u32(x):
 def threefry2x32(k1, k2, x1, x2) -> Key:
     """Threefry-2x32 with 20 rounds: the hash behind ``jax.random``.
     Ints in, ints out; any tensor among the inputs makes it elementwise
-    on tensors."""
+    on tensors (int64 values in [0, 2**32), of the inputs' broadcast
+    shape)."""
     k1, k2, x1, x2 = _u32(k1), _u32(k2), _u32(x1), _u32(x2)
+    if any(torch.is_tensor(v) for v in (k1, k2, x1, x2)):
+        return _threefry_tensors(k1, k2, x1, x2)
     ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
     x1 = (x1 + ks[0]) & _M32
     x2 = (x2 + ks[1]) & _M32
-    if torch.is_tensor(x1) or torch.is_tensor(x2):
-        # two fresh buffers of one shape: the rounds below then run in
-        # place on tensors (on ints the same statements rebind)
-        dev = (x1 if torch.is_tensor(x1) else x2).device
-        x1, x2 = (t.clone() for t in torch.broadcast_tensors(
-            torch.as_tensor(x1, device=dev), torch.as_tensor(x2, device=dev)))
     for i in range(5):
         for r in _ROTATIONS[i % 2]:
-            x1 += x2
-            x1 &= _M32
-            low = x2 >> (32 - r)
-            x2 <<= r
-            x2 |= low
-            x2 &= _M32
-            x2 ^= x1
-        x1 += ks[(i + 1) % 3]
-        x1 &= _M32
-        x2 += ks[(i + 2) % 3] + (i + 1)
-        x2 &= _M32
+            x1 = (x1 + x2) & _M32
+            x2 = (((x2 << r) | (x2 >> (32 - r))) & _M32) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + (i + 1)) & _M32
     return x1, x2
+
+
+#: elements one CPU thread hashes at a time: its two int32 words and
+#: the shift temporary (768 KiB) stay in its cache through the 20 rounds
+_CPU_CHUNK = 1 << 16
+
+
+def _i32(v):
+    """A uint32 value (int or int64 tensor) as the int32 with its bits."""
+    if torch.is_tensor(v):
+        return v.to(torch.int32)   # keeps the low 32 bits
+    return v - (1 << 32) if v >= 1 << 31 else v
+
+
+def _threefry_tensors(k1, k2, x1, x2) -> Key:
+    """The rounds on int32 tensors (adds wrap, the right shift of a
+    rotation masked to a logical one): half the bytes of int64 words
+    and no mask a step. On a CPU running one intra-op thread the
+    elements go in chunks of ``_CPU_CHUNK``, so each round works in
+    cache; with a thread pool, and on the card, in one pass, which
+    keeps the op count (the pool's barriers, the card's launches) at
+    ~130 a draw."""
+    dev = next(v.device for v in (x1, x2, k1, k2) if torch.is_tensor(v))
+    shape = torch.broadcast_shapes(*(v.shape for v in (k1, k2, x1, x2)
+                                     if torch.is_tensor(v)))
+    words = [torch.as_tensor(v, device=dev).broadcast_to(shape).reshape(-1)
+             if torch.is_tensor(v) else v for v in (k1, k2, x1, x2)]
+    n = math.prod(shape)
+    out1 = torch.empty(n, dtype=torch.int64, device=dev)
+    out2 = torch.empty(n, dtype=torch.int64, device=dev)
+    step = _CPU_CHUNK if dev.type == "cpu" and \
+        torch.get_num_threads() == 1 else n
+    for a in range(0, n, max(step, 1)):
+        b = min(n, a + step)
+        k1c, k2c, x1c, x2c = (v[a:b] if torch.is_tensor(v) else v
+                              for v in words)
+        y1, y2 = _rounds(k1c, k2c, x1c, x2c, b - a, dev)
+        for y, out in ((y1, out1[a:b]), (y2, out2[a:b])):
+            out.copy_(y)   # sign-extends; the mask keeps the 32 bits
+            out &= _M32
+    return out1.reshape(shape), out2.reshape(shape)
+
+
+def _rounds(k1, k2, x1, x2, n: int, dev):
+    """The 20 rounds over ``n`` elements; int32 results."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+
+    def word(x, k):
+        """x + k as int32 words of n elements."""
+        if not torch.is_tensor(x) and not torch.is_tensor(k):
+            return torch.full((n,), _i32((x + k) & _M32), dtype=torch.int32,
+                              device=dev)
+        y = torch.empty(n, dtype=torch.int32, device=dev)
+        y.copy_(torch.as_tensor(_i32(x), dtype=torch.int32, device=dev)
+                .expand(n))
+        y += _i32(k)
+        return y
+
+    def inject(y, k, extra=0):
+        if torch.is_tensor(k):
+            y += _i32(k)
+            if extra:
+                y += extra
+        else:
+            y += _i32((k + extra) & _M32)
+
+    y1, y2 = word(x1, ks[0]), word(x2, ks[1])
+    tmp = torch.empty_like(y2)
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            y1 += y2
+            torch.bitwise_left_shift(y2, r, out=tmp)
+            y2 >>= 32 - r
+            y2 &= (1 << r) - 1
+            y2 |= tmp
+            y2 ^= y1
+        inject(y1, ks[(i + 1) % 3])
+        inject(y2, ks[(i + 2) % 3], i + 1)
+    return y1, y2
 
 
 def PRNGKey(seed) -> Key:

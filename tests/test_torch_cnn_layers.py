@@ -27,6 +27,7 @@ from deeplearning4j_tpu.nn import layers as JL
 from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.nn.conf import InputType
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL = 1e-5
 

@@ -44,6 +44,7 @@ from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
                                          NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.optimize import TrainingListener
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 STEP_ATOL = 1e-4
 STATE_ATOL = 1e-5

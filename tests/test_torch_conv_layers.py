@@ -36,6 +36,7 @@ from deeplearning4j_tpu_torch import random as R
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.nn.conf import InputType
 from deeplearning4j_tpu_torch.nn.layers import convolutional as TC
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL = 1e-5
 BF16_TOL = 2 ** -6

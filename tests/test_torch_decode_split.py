@@ -32,6 +32,7 @@ import torch
 from deeplearning4j_tpu.kernels.decode_attention import (
     decode_attention_pallas, decode_attention_xla)
 from deeplearning4j_tpu_torch.kernels import decode_attention as da
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL_F32 = 1e-5
 TOL_BF16 = 5e-3

@@ -33,6 +33,7 @@ from deeplearning4j_tpu_torch.nn import (MultiLayerNetwork,
                                          NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.nn.conf import dropout as TD
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 SHAPES = [(7,), (4, 9), (3, 5, 6, 4)]
 SEEDS = [0, 3, 2 ** 31 + 5]

@@ -32,6 +32,7 @@ import torch
 from deeplearning4j_tpu.kernels import flash_attention as jax_flash
 from deeplearning4j_tpu.kernels.flash_attention import _flash_fwd
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 ULP = 2.0 ** -7
 ATOL = 1e-6

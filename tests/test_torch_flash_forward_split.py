@@ -32,6 +32,7 @@ import torch
 from deeplearning4j_tpu.kernels import flash_attention as jax_flash
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
 from test_torch_tf32_split import tf32_rna
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL_F32 = 1e-4
 NEG_INF = -1e30

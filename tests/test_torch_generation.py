@@ -24,6 +24,7 @@ from deeplearning4j_tpu_torch.serving import (ClientError,
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
 
 from _torch_fault_rig import Rig, RigLM, gated_streams, jax_engine
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 VOCAB = 64
 CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=4,

@@ -25,12 +25,16 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m.startswith("jaxlib.") or m == "deeplearning4j_tpu"
-             or m.startswith("deeplearning4j_tpu."))
+             or m.startswith("deeplearning4j_tpu.") or m == "h5py"
+             or m.startswith("h5py."))
 print(json.dumps({"imported": names, "bad": bad}))
 """
 
 
 def test_port_imports_no_jax_in_a_fresh_process():
+    """Every module of the port imports in a fresh process without
+    loading JAX, the JAX package or ``h5py`` (the card's machine has no
+    ``h5py``: Keras files go through ``modelimport/_h5.py``)."""
     # pytest's own process already holds jax, so ask a fresh one
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
@@ -62,7 +66,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
                 "nn.layers.specialized_outputs", "nn.layers.objdetect",
                 # data-parallel training
                 "parallel", "parallel.transport", "parallel.compression",
-                "nn.global_batch"):
+                "nn.global_batch",
+                # Keras import over the port's own HDF5 reader
+                "modelimport", "modelimport._h5", "modelimport.keras",
+                "flags"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["imported"], mod
     assert res["bad"] == []
 
@@ -78,8 +85,8 @@ def test_fleet_tier_is_the_ports_own():
 
 
 def test_no_jax_import_in_port_sources():
-    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|deeplearning4j_tpu)"
-                     r"(\.|\s|$)", re.M)
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|deeplearning4j_tpu|"
+                     r"h5py)(\.|\s|$)", re.M)
     files = sorted((REPO / "deeplearning4j_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 10

@@ -26,6 +26,7 @@ from deeplearning4j_tpu_torch.kernels import kv_quant as tkv
 from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 from deeplearning4j_tpu_torch.nn.layers import attention as tatt
 from deeplearning4j_tpu_torch.serving import BlockTable
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 # int8 against the xla path: the same bf16-operand math with exact
 # products, summed in another order (0.0 measured at these shapes); a

@@ -31,6 +31,7 @@ from deeplearning4j_tpu_torch.kernels import paged_attention as pa
 from deeplearning4j_tpu_torch.serving import GenerationEngine
 from deeplearning4j_tpu_torch.zoo.transformer_lm import (CausalTransformerLM,
                                                          quantize_mlp_weights)
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 VOCAB = 64
 NAN_TRIGGER = VOCAB - 3  # prompt token: NaN K/V written into the cache

@@ -56,6 +56,7 @@ from deeplearning4j_tpu_torch.tracing import Tracer
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
 
 from _torch_fault_rig import Gate
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 VOCAB = 64
 # n_heads=2 -> head_dim 16, where int8 (1 byte a value + a 4-byte scale

@@ -66,6 +66,7 @@ from deeplearning4j_tpu_torch.nn.layers.attention import \
     TransformerEncoderLayer
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     EmbeddingSequenceLayer, RnnOutputLayer)
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 RTOL, ATOL = 1e-4, 1e-5
 STEP_ATOL = 1e-4

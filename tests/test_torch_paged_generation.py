@@ -29,6 +29,7 @@ from deeplearning4j_tpu_torch.serving.paging import blocks_for, pow2_bucket
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
 
 from _torch_fault_rig import Rig, RigLM, gated_streams, jax_engine
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 # f32 on both sides: the same math, summed in another order
 TOL = 1e-5

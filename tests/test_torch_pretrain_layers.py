@@ -50,6 +50,7 @@ import deeplearning4j_tpu_torch.nn.layers.recurrent as TR
 from deeplearning4j_tpu_torch import random as R
 from deeplearning4j_tpu_torch.convert import (network_params_from_jax,
                                               updater_state_from_jax)
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL = 1e-5
 INIT_ULP = 8

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import random as trandom
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 SEEDS = [0, 1, 2, 7, 42, 12345, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1]
 STEPS = [0, 1, 2, 3, 31, 64, 1000, 2 ** 20]
@@ -105,7 +106,9 @@ def _key_pair(seed):
 
 
 @pytest.mark.parametrize("lo,hi", [(0.0, 1.0), (-2.5, 3.0), (0.125, 0.25)])
-@pytest.mark.parametrize("shape", SHAPES)
+# (3, 65537): four of the hash's chunks on one CPU thread, the last one
+# partial (random.py::_CPU_CHUNK)
+@pytest.mark.parametrize("shape", SHAPES + [(3, 65537)])
 @pytest.mark.parametrize("seed", [0, 42, 2 ** 32 - 1])
 def test_shaped_uniform_bit_identical(seed, shape, lo, hi):
     jk, tk = _key_pair(seed)

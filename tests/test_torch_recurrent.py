@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch.nn import (MultiLayerConfiguration,
                                          NeuralNetConfiguration)
 from deeplearning4j_tpu_torch.nn import layers as TL
 from deeplearning4j_tpu_torch.nn.layers import recurrent as TR
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 FWD_ATOL = 1e-5
 GRAD_TOL = 1e-4

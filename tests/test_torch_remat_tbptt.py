@@ -44,6 +44,7 @@ from deeplearning4j_tpu_torch.nn.conf import constraint as TC
 from deeplearning4j_tpu_torch.nn.conf import weightnoise as TWN
 from deeplearning4j_tpu_torch.nn.layers import attention as TA
 from deeplearning4j_tpu_torch.nn.layers import recurrent as TR
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 LOSS_RTOL = 1e-5
 PARAM_ATOL = 1e-4

@@ -51,6 +51,7 @@ from deeplearning4j_tpu_torch.serving.paging import BlockTable
 from deeplearning4j_tpu_torch.tracing import Tracer
 from deeplearning4j_tpu_torch.zoo.transformer_lm import (CausalTransformerLM,
                                                          make_draft_lm)
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VOCAB = 64

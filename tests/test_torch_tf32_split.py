@@ -24,6 +24,7 @@ import torch
 
 from deeplearning4j_tpu.kernels import flash_attention as jax_flash
 from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 TOL_F32 = 1e-4
 T = 257

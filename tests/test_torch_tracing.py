@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.tracing import Tracer, new_request_id
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
 
 from _torch_fault_rig import Gate, Rig, RigLM, jax_engine
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 VOCAB = 64
 CFG = dict(vocab_size=VOCAB, d_model=32, n_layers=2, n_heads=2,

@@ -34,6 +34,7 @@ from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
 from deeplearning4j_tpu_torch.nn import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
 from deeplearning4j_tpu_torch.nn.precision import compute_dtype
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 ATOL = RTOL = 1e-6
 

@@ -63,6 +63,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     EmbeddingSequenceLayer, RnnOutputLayer)
 from deeplearning4j_tpu_torch.nn.transferlearning import (
     FineTuneConfiguration, TransferLearning)
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 PARAM_ATOL = 1e-5
 MOMENT_RTOL, MOMENT_ATOL = 1e-3, 1e-7

@@ -11,6 +11,7 @@ from deeplearning4j_tpu.zoo.transformer_lm import (
     CausalTransformerLM as JaxLM, quantize_mlp_weights)
 from deeplearning4j_tpu_torch.convert import params_from_jax
 from deeplearning4j_tpu_torch.zoo.transformer_lm import CausalTransformerLM
+from _torch_threads import one_torch_thread  # noqa: F401,E402
 
 # f32 on both sides: the same math, summed in another order
 TOL = 1e-5
